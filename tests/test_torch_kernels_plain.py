@@ -1,0 +1,228 @@
+"""Port parity, the plain versions of the Hopper kernels against the JAX
+kernels they replace (run in Pallas interpret mode, as the JAX package's own
+tests run them on the CPU), plus the wrappers' device rule and the build's
+source hash. The CUDA kernels themselves are checked against these plain
+versions on the card by chip_smoke.py."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rag_docvqa_tpu.models import t5 as j_t5
+from rag_docvqa_tpu.ops import decode_attention as j_dec
+from rag_docvqa_tpu.ops import flash_attention as j_fa
+from rag_docvqa_tpu.ops import fused_encoder as j_fe
+from rag_docvqa_tpu_torch import kernels
+from rag_docvqa_tpu_torch import params as p_params
+from rag_docvqa_tpu_torch.ops import decode_attention as p_dec
+from rag_docvqa_tpu_torch.ops import flash_attention as p_fa
+from rag_docvqa_tpu_torch.ops import fused_encoder as p_fe
+
+torch.set_num_threads(2)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+# --------------------------------------------------------------------------- #
+# K2: flash attention forward
+# --------------------------------------------------------------------------- #
+FLASH_CASES = {
+    "pad_shared_bias": dict(bias="shared"),
+    "per_batch_bias_bf16": dict(bias="batched", bias_bf16=True, scale=0.5),
+    "causal": dict(causal=True, bias="shared"),
+    "gqa_rep2": dict(hkv=2, bias="shared"),
+    "fully_masked_row": dict(dead_row=True, bias="shared"),
+}
+
+
+def _flash_inputs(case, B=3, T=32, H=4, dh=8):
+    rng = np.random.RandomState(0)
+    hkv = case.get("hkv", H)
+    q = rng.randn(B, T, H, dh).astype(np.float32)
+    k = rng.randn(B, T, hkv, dh).astype(np.float32)
+    v = rng.randn(B, T, hkv, dh).astype(np.float32)
+    mask = np.arange(T)[None, :] < np.array([T, 21, 9])[:, None]
+    if case.get("dead_row"):
+        mask[2] = False
+    bias = None
+    if case.get("bias"):
+        bias = rng.randn(B if case["bias"] == "batched" else 1, H, T, T).astype(np.float32)
+        if case.get("bias_bf16"):
+            bias = np.asarray(jnp.asarray(bias, jnp.bfloat16).astype(jnp.float32))
+    return q, k, v, mask, bias
+
+
+@pytest.mark.parametrize("name", sorted(FLASH_CASES))
+def test_flash_plain_matches_jax(name):
+    case = FLASH_CASES[name]
+    q, k, v, mask, bias = _flash_inputs(case)
+    scale, causal = case.get("scale", 1.0), case.get("causal", False)
+    B, T, H, dh = q.shape
+    jb = None if bias is None else (jnp.asarray(bias, jnp.bfloat16) if case.get("bias_bf16") else jnp.asarray(bias))
+    pb = None if bias is None else (_t(bias).bfloat16() if case.get("bias_bf16") else _t(bias))
+    out, lse = p_fa.flash_attention_reference(_t(q), _t(k), _t(v), _t(mask), pb, scale, causal)
+    want_ref = j_fa.attention_reference(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(mask), jb,
+                                        scale, causal)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want_ref), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(p_fa.attention_reference(_t(q), _t(k), _t(v), _t(mask), pb, scale, causal).numpy(),
+                               np.asarray(want_ref), rtol=1e-5, atol=1e-5)
+    # the Pallas kernel in interpret mode: one key block and two key blocks
+    hkv = k.shape[2]
+    rep = H // hkv
+    qT = jnp.transpose(jnp.asarray(q), (0, 2, 1, 3)).reshape(B, hkv, rep, T, dh)
+    kT = jnp.transpose(jnp.asarray(k), (0, 2, 1, 3))
+    vT = jnp.transpose(jnp.asarray(v), (0, 2, 1, 3))
+    b5 = None if jb is None else jb.reshape(jb.shape[0], hkv, rep, T, T)
+    alive = mask.any(axis=1)
+    for blk in (T, T // 2):
+        jout = j_fa.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(mask), jb,
+                                    scale=scale, causal=causal, block_q=blk, block_k=blk, interpret=True)
+        np.testing.assert_allclose(out.numpy(), np.asarray(jout), rtol=1e-5, atol=1e-5)
+        _, jlse = j_fa._fwd_call_impl(qT, kT, vT, jnp.asarray(mask)[:, None, :], b5, scale=scale, causal=causal,
+                                      bq=blk, bk=blk, rep=rep, interpret=True)
+        jlse = np.asarray(jlse).reshape(B, H, T)
+        np.testing.assert_allclose(lse.numpy()[alive], jlse[alive], rtol=1e-5, atol=1e-5)
+        # a row with no valid key: zeros, and an lse below NEG_INF/2 in both
+        assert (out.numpy()[~alive] == 0).all()
+        assert (lse.numpy()[~alive] < p_fa.NEG_INF / 2).all() and (jlse[~alive] <= p_fa.NEG_INF / 2).all()
+
+
+def test_flash_t5_mask_value_gives_uniform_rows():
+    """mask_value -1e9 (K1's and _attend's) gives a uniform softmax on a row
+    with no valid key, where the flash default gives zeros."""
+    q, k, v, mask, bias = _flash_inputs({"dead_row": True, "bias": "shared"})
+    out, _ = p_fa.flash_attention_reference(_t(q), _t(k), _t(v), _t(mask), _t(bias), mask_value=-1e9)
+    np.testing.assert_allclose(out.numpy()[2], np.broadcast_to(v[2].mean(axis=0), out.shape[1:]),
+                               rtol=1e-5, atol=1e-5)
+
+
+# --------------------------------------------------------------------------- #
+# K1: the T5 encoder layer
+# --------------------------------------------------------------------------- #
+def _layer_setup(gated):
+    cfg = j_t5.T5Config(vocab_size=32, d_model=32, d_kv=8, num_heads=4, d_ff=64, num_encoder_layers=1,
+                        num_decoder_layers=1, dropout_rate=0.0, gated_ffn=gated)
+    tree = jax.tree.map(np.asarray, j_t5.init_t5_params(jax.random.PRNGKey(1), cfg))
+    rng = np.random.RandomState(2)
+    for name in ("ln0", "ln1"):  # non-trivial norm weights
+        tree["encoder"][name] = (rng.rand(*tree["encoder"][name].shape) + 0.5).astype(np.float32)
+    enc = tree["encoder"]
+    stacked = {"ln0": enc["ln0"], "ln1": enc["ln1"], "attn": enc["attn"], "ffn": enc["ffn"]}
+    jl = jax.tree.map(lambda a: jnp.asarray(a)[0], j_fe.fuse_t5_blocks(jax.tree.map(jnp.asarray, stacked), gated))
+    port = p_params.from_jax(tree)
+    pl = p_fe.fuse_t5_blocks(port.encoder.layers, gated)[0]
+    return cfg, jl, pl, port
+
+
+@pytest.mark.parametrize("gated,with_bias,dead_row", [
+    (False, True, False), (True, True, False), (False, False, False), (False, True, True)])
+def test_t5_layer_plain_matches_jax(gated, with_bias, dead_row):
+    cfg, jl, pl, port = _layer_setup(gated)
+    rng = np.random.RandomState(3)
+    B, T = 3, 16
+    x = rng.randn(B, T, cfg.d_model).astype(np.float32)
+    mask = np.arange(T)[None, :] < np.array([16, 11, 5])[:, None]
+    if dead_row:
+        mask[1] = False
+    bias = jnp.asarray(rng.randn(cfg.num_heads, T, T), jnp.bfloat16) if with_bias else None
+    want = j_fe.fused_t5_layer_parts(jnp.asarray(x), jnp.asarray(mask), bias, jl, num_heads=cfg.num_heads,
+                                     eps=cfg.layer_norm_eps, gated=gated, interpret=True)
+    pbias = None if bias is None else _t(np.asarray(bias.astype(jnp.float32))).bfloat16()
+    got = p_fe.fused_t5_layer_parts(_t(x), _t(mask), pbias, pl, num_heads=cfg.num_heads,
+                                    eps=cfg.layer_norm_eps, gated=gated)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
+    ref = p_fe.t5_layer_reference(_t(x), _t(mask), pbias, pl, num_heads=cfg.num_heads,
+                                  eps=cfg.layer_norm_eps, gated=gated)
+    assert torch.equal(got, ref)  # on the CPU the wrappers run exactly the plain versions
+    one = p_fe.fused_t5_layer(_t(x), _t(mask), pbias, port.encoder.layers[0], num_heads=cfg.num_heads,
+                              eps=cfg.layer_norm_eps, gated=gated)
+    assert torch.equal(one, got)
+
+
+def test_gemm_epilogues_cast_before_residual():
+    rng = np.random.RandomState(4)
+    a = _t(rng.randn(5, 16).astype(np.float32)).bfloat16()
+    w = _t(rng.randn(7, 16).astype(np.float32)).bfloat16()
+    aux = _t(rng.randn(5, 7).astype(np.float32)).bfloat16()
+    acc = a.float() @ w.float().t()
+    assert torch.equal(p_fe.gemm(a, w), acc.bfloat16())
+    assert torch.equal(p_fe.gemm(a, w, "relu"), acc.clamp(min=0).bfloat16())
+    assert torch.equal(p_fe.gemm(a, w, "residual", aux), acc.bfloat16() + aux)
+    g = acc.bfloat16()
+    assert torch.equal(p_fe.gemm(a, w, "gelu_mul", aux),
+                       torch.nn.functional.gelu(g.float(), approximate="tanh").bfloat16() * aux)
+    with pytest.raises(ValueError):
+        p_fe.gemm(a, w, "residual")
+
+
+# --------------------------------------------------------------------------- #
+# K3: decode cross-attention
+# --------------------------------------------------------------------------- #
+def test_decode_attention_plain_matches_jax():
+    rng = np.random.RandomState(0)
+    B, H, Te, dk = 3, 4, 24, 8
+    q = rng.randn(B, H, dk).astype(np.float32)
+    k = rng.randn(B, H, Te, dk).astype(np.float32)
+    v = rng.randn(B, H, Te, dk).astype(np.float32)
+    mask = np.arange(Te)[None, :] < np.array([24, 11, 5])[:, None]
+    k2j, v2j = j_dec.pack_decode_kv(jnp.asarray(k), jnp.asarray(v))
+    k2p, v2p = p_dec.pack_decode_kv(_t(k), _t(v))
+    np.testing.assert_array_equal(k2p.numpy(), np.asarray(k2j))
+    np.testing.assert_array_equal(v2p.numpy(), np.asarray(v2j))
+    got = p_dec.fused_cross_attention(_t(q), k2p, v2p, _t(mask))
+    want = j_dec.fused_cross_attention(jnp.asarray(q), k2j, v2j, jnp.asarray(mask), interpret=True, exact=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5, atol=2e-5)
+    want_b = j_dec.fused_cross_attention(jnp.asarray(q), k2j, v2j, jnp.asarray(mask), interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want_b), rtol=2e-2, atol=2e-2)
+
+    ks = rng.rand(B, H, dk).astype(np.float32) + 0.5
+    vs = rng.rand(B, H, dk).astype(np.float32) + 0.5
+    ki = np.clip(np.round(k / ks[:, :, None, :]), -127, 127).astype(np.int8)
+    vi = np.clip(np.round(v / vs[:, :, None, :]), -127, 127).astype(np.int8)
+    ki2j, vi2j = j_dec.pack_decode_kv(jnp.asarray(ki), jnp.asarray(vi))
+    ki2p, vi2p = p_dec.pack_decode_kv(_t(ki), _t(vi))
+    got8 = p_dec.fused_cross_attention(_t(q), ki2p, vi2p, _t(mask), k_scale=_t(ks), v_scale=_t(vs))
+    want8 = j_dec.fused_cross_attention(jnp.asarray(q), ki2j, vi2j, jnp.asarray(mask), k_scale=jnp.asarray(ks),
+                                        v_scale=jnp.asarray(vs), interpret=True, exact=True)
+    np.testing.assert_allclose(got8.numpy(), np.asarray(want8), rtol=2e-4, atol=2e-4)
+
+
+# --------------------------------------------------------------------------- #
+# the wrappers' device rule and the build
+# --------------------------------------------------------------------------- #
+def test_wrappers_refuse_tensors_off_cpu_and_cuda():
+    """CPU tensors run the plain version; a tensor on neither the CPU nor a
+    CUDA device, or a mix of devices, raises -- nothing falls back."""
+    a = torch.zeros(4, 8, device="meta")
+    w = torch.zeros(3, 8, device="meta")
+    with pytest.raises(ValueError):
+        p_fe.gemm(a, w)
+    with pytest.raises(ValueError):
+        p_fe.gemm(torch.zeros(4, 8), w)
+    with pytest.raises(ValueError):
+        p_fe.rms_norm_rows(a, torch.zeros(8, device="meta"), 1e-6)
+    q = torch.zeros(1, 4, 2, 8, device="meta")
+    with pytest.raises(ValueError):
+        p_fa.flash_attention(q, q, q)
+    with pytest.raises(ValueError):
+        p_dec.fused_cross_attention(torch.zeros(1, 2, 8, device="meta"), torch.zeros(1, 16, 4, device="meta"),
+                                    torch.zeros(1, 4, 16, device="meta"), torch.ones(1, 4, dtype=torch.bool))
+    assert kernels.LAUNCHES == dict.fromkeys(kernels.LAUNCHES, 0)
+
+
+def test_build_hash_follows_sources(tmp_path, monkeypatch):
+    for p in kernels.CSRC.iterdir():
+        (tmp_path / p.name).write_bytes(p.read_bytes())
+    monkeypatch.setattr(kernels, "CSRC", tmp_path)
+    h0 = kernels._source_hash()
+    assert {p.name for p in kernels._sources()} >= {"flash_fwd.cu", "t5_layer.cu", "decode_attention.cu"}
+    (tmp_path / "t5_layer.cu").write_text((tmp_path / "t5_layer.cu").read_text() + "\n// edit\n")
+    assert kernels._source_hash() != h0
+    monkeypatch.setattr(kernels.shutil, "which", lambda name: None)
+    monkeypatch.setattr(kernels.os.path, "exists", lambda path: False)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        kernels._nvcc()

@@ -1,0 +1,138 @@
+"""Port parity, the T5 stack: encode (through K1) against the JAX encode
+on each of its paths (whole-layer kernel, plain blocks, flash), decode steps,
+and greedy decoding with f32 and int8 cross caches, K3 on and off."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rag_docvqa_tpu.models import t5 as j_t5
+from rag_docvqa_tpu.ops.decode import greedy_decode as j_greedy
+from rag_docvqa_tpu_torch import params as p_params
+from rag_docvqa_tpu_torch.models import t5 as p_t5
+from rag_docvqa_tpu_torch.ops.decode import greedy_decode as p_greedy
+
+torch.set_num_threads(2)
+
+J_CFG = j_t5.T5Config(vocab_size=128, d_model=32, d_kv=8, num_heads=4, d_ff=64, num_encoder_layers=2,
+                      num_decoder_layers=2, dropout_rate=0.0)
+
+
+def port_cfg(jcfg):
+    return p_t5.T5Config(**{f.name: getattr(jcfg, f.name) for f in dataclasses.fields(jcfg)})
+
+
+def _setup(jcfg=J_CFG, seed=0):
+    tree = jax.tree.map(np.asarray, j_t5.init_t5_params(jax.random.PRNGKey(seed), jcfg))
+    return jax.tree.map(jnp.asarray, tree), p_params.from_jax(tree)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _enc_inputs(B=3, T=20, d=32, seed=1):
+    rng = np.random.RandomState(seed)
+    x = rng.randn(B, T, d).astype(np.float32)
+    mask = np.arange(T)[None, :] < np.array([T, min(13, T - 2), 6][:B])[:, None]
+    return x, mask
+
+
+def test_config_fields_match():
+    assert [f.name for f in dataclasses.fields(p_t5.T5Config)] == [f.name for f in dataclasses.fields(j_t5.T5Config)]
+
+
+@pytest.mark.parametrize("path", ["fused", "blocks", "flash"])
+def test_encode_matches_jax_per_path(path):
+    """The port's one encoder path (K1, bias in bf16 even for f32 x) against
+    each JAX path: the whole-layer kernel and flash (bias in bf16 too) and
+    the plain blocks (bias in f32, so the table is made bf16-exact there)."""
+    jcfg = dataclasses.replace(J_CFG, flash_encoder=path == "flash")
+    tree = jax.tree.map(np.asarray, j_t5.init_t5_params(jax.random.PRNGKey(0), jcfg))
+    if path == "blocks":
+        rb = tree["encoder"]["rel_bias"]
+        tree["encoder"]["rel_bias"] = np.asarray(torch.from_numpy(np.array(rb)).bfloat16().float())
+    jp, pp = jax.tree.map(jnp.asarray, tree), p_params.from_jax(tree)
+    x, mask = _enc_inputs()
+    want = j_t5.encode(jp, jcfg, jnp.asarray(x), jnp.asarray(mask), fused=path == "fused")
+    got = p_t5.encode(pp, port_cfg(jcfg), _t(x), _t(mask))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
+
+
+def test_decode_steps_match_jax():
+    jp, pp = _setup()
+    x, mask = _enc_inputs(B=2, T=9)
+    enc_j = j_t5.encode(jp, J_CFG, jnp.asarray(x), jnp.asarray(mask))
+    enc_p = _t(np.asarray(enc_j))
+    ids = np.random.RandomState(2).randint(3, 128, size=(2, 5))
+    cj = j_t5.init_decode_cache(jp, J_CFG, enc_j, 5)
+    cp = p_t5.init_decode_cache(pp, port_cfg(J_CFG), enc_p, 5)
+    for t in range(5):
+        lj, cj = j_t5.decode_step(jp, J_CFG, cj, jnp.asarray(ids[:, t]), jnp.int32(t), jnp.asarray(mask))
+        lp, cp = p_t5.decode_step(pp, port_cfg(J_CFG), cp, _t(ids[:, t]).long(), t, _t(mask))
+        np.testing.assert_allclose(lp.numpy(), np.asarray(lj), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(cp.self_k.numpy(), np.asarray(cj.self_k), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("cache_dtype", ["f32", "int8", "bf16"])
+def test_greedy_decode_ids_match_jax_k3_on_and_off(cache_dtype):
+    """H*dk = 128 and Te = 128 pass the JAX package's alignment gate, so its
+    packed-cache kernel path runs too; the decoded ids of all four runs are
+    identical. The bf16 cache comes with bf16 weights and a bf16 encoder
+    output (JAX takes no mix of the two); its logits are bf16, so its
+    confidences agree to bf16 precision, 2e-2, where the f32 ones agree to
+    1e-4."""
+    int8 = cache_dtype == "int8"
+    conf_rtol = 2e-2 if cache_dtype == "bf16" else 1e-4
+    jcfg = j_t5.T5Config(vocab_size=128, d_model=32, d_kv=32, num_heads=4, d_ff=64, num_encoder_layers=2,
+                         num_decoder_layers=2, dropout_rate=0.0, decode_kv_int8=int8)
+    jp, pp = _setup(jcfg)
+    rng = np.random.RandomState(0)
+    enc = rng.randn(2, 128, 32).astype(np.float32)
+    emask = np.arange(128)[None, :] < np.array([128, 77])[:, None]
+    j_enc, p_enc = jnp.asarray(enc), _t(enc)
+    if cache_dtype == "bf16":
+        j_enc, p_enc = j_enc.astype(jnp.bfloat16), p_enc.bfloat16()
+        jp, pp = jax.tree.map(lambda a: a.astype(jnp.bfloat16), jp), pp.to(torch.bfloat16)
+    t_ref, c_ref = j_greedy(jp, jcfg, j_enc, jnp.asarray(emask), max_new_tokens=6)
+    j_fused = dataclasses.replace(jcfg, fused_decode_attn=True)
+    t_jf, _ = j_greedy(jp, j_fused, j_enc, jnp.asarray(emask), max_new_tokens=6)
+    np.testing.assert_array_equal(np.asarray(t_jf), np.asarray(t_ref))
+    want_dtype = {"f32": torch.float32, "int8": torch.int8, "bf16": torch.bfloat16}[cache_dtype]
+    for fused in (False, True):
+        pcfg = port_cfg(dataclasses.replace(jcfg, fused_decode_attn=fused))
+        cache = p_t5.init_decode_cache(pp, pcfg, p_enc, 6)
+        assert cache.cross_k.dim() == (4 if fused else 5)
+        assert cache.cross_k.dtype == want_dtype
+        toks, conf = p_greedy(pp, pcfg, p_enc, _t(emask), max_new_tokens=6)
+        np.testing.assert_array_equal(toks.numpy(), np.asarray(t_ref))
+        np.testing.assert_allclose(conf.numpy(), np.asarray(c_ref), rtol=conf_rtol, atol=1e-6)
+
+
+def test_greedy_decode_pads_after_eos():
+    """Emitted ids after a sequence's EOS are pad, the confidence product
+    skips finished steps and the last step, as in JAX."""
+    jp, pp = _setup(seed=3)
+    # reweight the tied table so that one row emits EOS (id 1) at once and
+    # the others keep going
+    shared = np.asarray(jp["shared"]).copy()
+    shared[0] *= 0.1
+    shared[1] *= 4.0
+    jp = dict(jp, shared=jnp.asarray(shared))
+    pp.shared.data = _t(shared)
+    x, mask = _enc_inputs(B=3, T=7, seed=4)
+    enc = j_t5.encode(jp, J_CFG, jnp.asarray(x), jnp.asarray(mask))
+    tj, cj = j_greedy(jp, J_CFG, enc, jnp.asarray(mask), max_new_tokens=5)
+    tp, cp = p_greedy(pp, port_cfg(J_CFG), _t(np.asarray(enc)), _t(mask), max_new_tokens=5)
+    np.testing.assert_array_equal(tp.numpy(), np.asarray(tj))
+    np.testing.assert_allclose(cp.numpy(), np.asarray(cj), rtol=1e-4, atol=1e-6)
+    toks = tp.numpy()
+    assert (toks == J_CFG.eos_id).any() and not (toks == J_CFG.eos_id).any(axis=1).all()
+    for row in toks:
+        hits = np.where(row == J_CFG.eos_id)[0]
+        if len(hits):
+            assert (row[hits[0] + 1:] == J_CFG.pad_id).all()
