@@ -1,0 +1,130 @@
+"""Layered YAML configs -> the port's config dataclasses.
+
+Counterpart of the VT5 part of `rag_docvqa_tpu/config.py`: `load_config`
+merges the dataset config, the model config, its `training_parameters` and
+the CLI overrides in that order, as there, and the `build_*` helpers map
+the flat dict onto `RAGConfig`, `VT5Config`, `ChunkSpec` and `Caps`.
+PyYAML is imported only by `load_yaml`, so the rest of the port runs where
+it is not installed.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+from rag_docvqa_tpu.ops.chunking import ChunkSpec
+from rag_docvqa_tpu_torch.data.contract import Caps
+from rag_docvqa_tpu_torch.data.tokenizer import BaseTokenizer, HashTokenizer
+from rag_docvqa_tpu_torch.engine.rag_vt5 import STRATEGIES, RAGConfig
+from rag_docvqa_tpu_torch.models import t5 as t5m
+from rag_docvqa_tpu_torch.models import vt5 as vt5m
+from rag_docvqa_tpu_torch.models.embeddings import SpatialConfig
+
+HIERARCHICAL_MODELS = ("hi-vt5", "hivt5", "hi-lt5", "hi-layoutlmv3")
+_CHUNKED = tuple(s for s in STRATEGIES if s not in ("oracle", "none"))
+
+
+def load_yaml(path: str) -> Dict[str, Any]:
+    import yaml
+
+    with open(path) as f:
+        return yaml.safe_load(f) or {}
+
+
+def load_config(model: Optional[str] = None, dataset: Optional[str] = None,
+                overrides: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+    """dataset < model < model's training_parameters < overrides. A dataset
+    that is not a .yml path names configs/<name>.yml."""
+    model_cfg = dict(load_yaml(model)) if model else {}
+    dataset_cfg: Dict[str, Any] = {}
+    if dataset:
+        dataset_cfg = load_yaml(dataset if dataset.endswith((".yml", ".yaml")) else f"configs/{dataset}.yml")
+    training_cfg = model_cfg.pop("training_parameters", {}) or {}
+    config = {**dataset_cfg, **model_cfg, **training_cfg}
+    config.update({k: v for k, v in (overrides or {}).items() if v is not None})
+    config.setdefault("seed", 42)
+    config.setdefault("page_retrieval", "concat")
+    check_config(config)
+    return config
+
+
+def check_config(config: Dict[str, Any]) -> None:
+    """The validity rules of the JAX `check_config`."""
+    model_name = str(config.get("model_name", "vt5")).lower()
+    pr = str(config.get("page_retrieval", "none")).lower()
+    if model_name not in HIERARCHICAL_MODELS and pr == "custom":
+        raise ValueError(f'"custom" retrieval is not allowed for {model_name}')
+    if model_name in HIERARCHICAL_MODELS and pr in _CHUNKED:
+        raise ValueError(f'Hierarchical model {model_name} cannot run "{pr}" retrieval; only "oracle" and '
+                         '"custom" are allowed.')
+
+
+def _scalar(v):
+    if isinstance(v, (list, tuple)):
+        return v[0] if v else 0
+    return v
+
+
+def build_rag_config(c: Dict[str, Any]) -> RAGConfig:
+    return RAGConfig(
+        page_retrieval=str(c.get("page_retrieval", "concat")).lower(),
+        chunk_num=c.get("chunk_num", 10),
+        include_surroundings=_scalar(c.get("include_surroundings", 0)),
+        sep_token_id=c.get("sep_token_id", 0) if c.get("add_sep_token", False) else 0,
+        max_source_length=c.get("max_source_length", 512),
+        max_new_tokens=c.get("max_new_tokens", 100),
+    )
+
+
+def build_vt5_config(c: Dict[str, Any], vocab_size: int) -> vt5m.VT5Config:
+    if c.get("use_visual", False):
+        raise NotImplementedError("the visual branch waits for ROADMAP Queue 1 item 13")
+    d = c.get("d_model", 768)
+    return vt5m.VT5Config(
+        t5=t5m.T5Config(
+            vocab_size=vocab_size,
+            d_model=d,
+            d_kv=c.get("d_kv", 64),
+            num_heads=c.get("num_heads", 12),
+            d_ff=c.get("d_ff", d * 4),
+            num_encoder_layers=c.get("num_layers", 12),
+            num_decoder_layers=c.get("num_decoder_layers", c.get("num_layers", 12)),
+            dropout_rate=c.get("dropout_rate", 0.1),
+            decode_kv_int8=bool(c.get("decode_kv_int8", False)),
+        ),
+        spatial=SpatialConfig(max_2d_positions=c.get("max_2d_position_embeddings", 1024), hidden_size=d,
+                              dropout_rate=c.get("dropout_rate", 0.1)),
+        use_layout_labels=c.get("use_layout_labels", "Default"),
+    )
+
+
+def build_chunk_spec(c: Dict[str, Any]) -> ChunkSpec:
+    return ChunkSpec(
+        chunk_size=c.get("chunk_size", 60),
+        chunk_size_tol=c.get("chunk_size_tol", 0.2),
+        overlap=c.get("overlap", 10),
+        mode="oracle" if str(c.get("page_retrieval", "")).lower() == "oracle" else "fixed",
+        cluster_layouts=c.get("cluster_layouts", False),
+    )
+
+
+def build_caps(c: Dict[str, Any]) -> Caps:
+    return Caps(
+        max_pages=c.get("max_pages", 20) or 20,
+        max_chunks=c.get("max_chunks", 128),
+        max_slots=c.get("max_slots", 2048),
+        tokens_per_word=c.get("tokens_per_word", 8),
+        embed_tokens=c.get("embed_tokens", 96),
+        question_tokens=c.get("question_tokens", 48),
+        prompt_tokens=c.get("prompt_tokens", 64),
+    )
+
+
+def load_tokenizer(spec: Optional[str] = None) -> BaseTokenizer:
+    """None or "hash" -> HashTokenizer(); "hash:N" sets its vocabulary size."""
+    if spec is None or spec == "hash":
+        return HashTokenizer()
+    if spec.startswith("hash:"):
+        return HashTokenizer(vocab_size=int(spec.split(":", 1)[1]))
+    raise NotImplementedError(f"tokenizer {spec!r}: the port has the hash tokenizer only "
+                              "(ROADMAP Queue 1 item 18)")

@@ -1,6 +1,7 @@
 """Host ingestion: ragged OCR documents -> fixed-shape ChunkedBatch arrays.
 
-A jax-free copy of `DocVQAIngestor` (`ingest`, `plan_caps`) from
+A jax-free copy of `DocVQAIngestor` (`ingest`, `plan_caps`,
+`answer_labels`) from
 `rag_docvqa_tpu/data/ingest.py`, building this package's numpy
 `ChunkedBatch`. It imports no jax: of the JAX package it uses only the
 plain-Python chunker `rag_docvqa_tpu.ops.chunking`, whose package imports
@@ -91,6 +92,20 @@ class DocVQAIngestor:
                 idx.append(j)
         ia = np.asarray(idx, np.intp)
         return self._wtok[ia], self._wntok[ia], ia, bool(self._wok[ia].all())
+
+    # ------------------------------------------------------------------ #
+    def answer_labels(self, answers: List[List[str]], max_len: int = 32, seed: int = 0) -> np.ndarray:
+        """One gold answer per sample, picked with a seeded RandomState and
+        tokenized with EOS into (B, max_len) int32 labels, -100 as padding."""
+        rng = np.random.RandomState(seed)
+        out = np.full((len(answers), max_len), -100, np.int32)
+        for b, ans in enumerate(answers):
+            if not ans:
+                continue
+            text = ans[rng.randint(len(ans))]
+            ids = self.tokenizer.encode(text)[: max_len - 1] + [self.tokenizer.eos_id]
+            out[b, : len(ids)] = ids
+        return out
 
     # ------------------------------------------------------------------ #
     def plan_caps(self, docs: List[RawDocument]) -> Caps:

@@ -1,11 +1,12 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
-Every source in `csrc/` is compiled by `nvcc` for `sm_90a` into one shared
-library with a plain C interface under `build/torch_kernels/` at the repo
-root, at first use and again whenever the sources change (the library's
-name carries their hash). It is loaded with `ctypes`; every pointer and the
-stream pass as `c_void_p`. Each C entry point returns `cudaGetLastError()`
-after its launch and `check` raises on anything but 0.
+Every source in `csrc/` is compiled by `nvcc` for `sm_90a`, one process per
+source, all started together, and linked into one shared library with a
+plain C interface under `build/torch_kernels/` at the repo root, at first
+use and again whenever the sources change (the library's name carries
+their hash). It is loaded with `ctypes`; every pointer and the stream pass
+as `c_void_p`. Each C entry point returns `cudaGetLastError()` after its
+launch and `check` raises on anything but 0.
 
 `LAUNCHES` counts, per kernel, the launches made through the wrappers in
 `ops/`: each wrapper adds one where it launches, and nowhere else. It and
@@ -26,8 +27,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC"]
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17", "-Xcompiler", "-fPIC"]
 
 # kept in step with csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -37,6 +37,9 @@ LAUNCHES: Dict[str, int] = {
     "t5_gemm": 0,          # K1 (b), csrc/t5_layer.cu
     "flash_fwd": 0,        # K2, csrc/flash_fwd.cu (also K1 (c))
     "decode_cross_attention": 0,  # K3, csrc/decode_attention.cu
+    "flash_bwd": 0,        # K6, csrc/flash_bwd.cu (also the attention of K8)
+    "t5_gemm_bwd": 0,      # K7/K8 products, csrc/t5_layer_bwd.cu
+    "t5_rms_bwd": 0,       # K7/K8 norm backward, csrc/t5_layer_bwd.cu
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -50,6 +53,9 @@ _SIGNATURES = {
     "t5_rms_norm": [_P] * 3 + [_I, _I, _F, _I, _I, _P],
     "t5_gemm": [_P] * 4 + [_I] * 5 + [_P],
     "decode_cross_attention": [_P] * 5 + [_I] * 5 + [_P],
+    "flash_bwd": [_P] * 14 + [_I] * 6 + [_LL] * 12 + [_I] * 3 + [_F, _I, _F, _P],
+    "t5_gemm_bwd": [_P] * 7 + [_I] * 6 + [_P],
+    "t5_rms_bwd": [_P] * 7 + [_I, _I, _F, _I, _I, _P],
 }
 
 
@@ -87,12 +93,26 @@ def build() -> Path:
     if lib_path.exists():
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp)] + [str(p) for p in _sources() if p.suffix == ".cu"]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, lib_path)
+    nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
+    objs, procs = [], []
+    for src in (p for p in _sources() if p.suffix == ".cu"):
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    outputs = [p.communicate()[0] for p in procs]
+    failed = [f"{p.args[-1]} ({p.returncode}):\n{out}" for p, out in zip(procs, outputs) if p.returncode != 0]
+    tmp = lib_path.with_name(f"{lib_path.name}.{tag}")
+    try:
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)], capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stdout}\n{link.stderr}")
+        os.replace(tmp, lib_path)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     return lib_path
 
 

@@ -1,11 +1,18 @@
-"""T5 encoder-decoder for inference: encode, cached greedy-decode steps.
+"""T5 encoder-decoder: encode, teacher-forced decoding, cached greedy steps.
 
 Counterpart of `rag_docvqa_tpu/models/t5.py`: `T5Config` (the same fields),
-`init_t5_params`, `relative_bias`, `encode`, `init_decode_cache` (with the
-int8 quantizer), `decode_step` and `lm_logits`. Parameters are `nn.Module`s
-holding per-layer tensors; dense weights are (out, in). Attention has no
-1/sqrt(d_k) scale, as in T5. Teacher-forced decoding waits for the training
-slice.
+`init_t5_params`, `relative_bias`, `encode`, `decode_train`,
+`shift_tokens_right`, `init_decode_cache` (with the int8 quantizer),
+`decode_step` and `lm_logits`. Parameters are `nn.Module`s holding
+per-layer tensors; dense weights are (out, in). They are created frozen
+(no gradient); a trainer turns `requires_grad` on where it trains. Attention
+has no 1/sqrt(d_k) scale, as in T5.
+
+`encode(..., train=True)` runs every layer through `T5LayerTrain`, the
+layer-level autograd Function whose backward is K7 then K8 (the JAX
+`encode(fused="train")`); gradients reach every encoder weight, the input
+embeddings and, through the bf16 cast and the bucket gather, the rel-pos
+table. `decode_train` is plain torch, as the JAX package leaves it to XLA.
 
 The encoder has one path: every layer through K1 (ops/fused_encoder.py,
 whose attention is K2's kernel), with the rel-pos bias cast to bf16 even
@@ -27,9 +34,9 @@ from torch import nn
 
 from rag_docvqa_tpu_torch.models.layers import dense, frozen, normal_init, rms_norm
 from rag_docvqa_tpu_torch.ops.decode_attention import fused_cross_attention, pack_decode_kv
-from rag_docvqa_tpu_torch.ops.fused_encoder import fuse_t5_blocks, fused_t5_layer_parts
+from rag_docvqa_tpu_torch.ops.fused_encoder import fuse_t5_blocks, fused_t5_layer_parts, t5_layer_train
 
-MASKED = -1e9  # masked attention score of `_attend_one`, as in JAX `_attend`
+MASKED = -1e9  # masked attention score of `_attend` and `_attend_one`, as in JAX
 
 
 @dataclass(frozen=True)
@@ -201,6 +208,24 @@ def relative_bias(table: torch.Tensor, q_pos: torch.Tensor, k_pos: torch.Tensor,
 # --------------------------------------------------------------------------- #
 # attention / ffn primitives
 # --------------------------------------------------------------------------- #
+def _split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
+    return x.view(x.shape[0], x.shape[1], n_heads, -1)
+
+
+def _attend(q, k, v, bias, mask):
+    """q (B, Tq, H, dk), k/v (B, Tk, H, dk), bias (1|B, H, Tq, Tk), mask
+    broadcastable to (B, H, Tq, Tk) -> (B, Tq, H*dk) in q's dtype: f32
+    scores, masked at -1e9, probabilities cast to q's dtype."""
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    if bias is not None:
+        scores = scores + bias.float()
+    if mask is not None:
+        scores = torch.where(mask, scores, MASKED)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs.float(), v.float()).to(q.dtype)
+    return out.reshape(out.shape[0], out.shape[1], -1)
+
+
 def _ffn(p: T5FFN, cfg: T5Config, x: torch.Tensor) -> torch.Tensor:
     if cfg.gated_ffn:
         h = torch.nn.functional.gelu(dense(x, p.wi_0), approximate="tanh") * dense(x, p.wi_1)
@@ -213,17 +238,58 @@ def _ffn(p: T5FFN, cfg: T5Config, x: torch.Tensor) -> torch.Tensor:
 # encoder
 # --------------------------------------------------------------------------- #
 def encode(params: T5Params, cfg: T5Config, inputs_embeds: torch.Tensor,
-           attention_mask: torch.Tensor) -> torch.Tensor:
-    """(B, T, D) embeds, (B, T) bool mask -> (B, T, D) hidden states."""
+           attention_mask: torch.Tensor, train: bool = False) -> torch.Tensor:
+    """(B, T, D) embeds, (B, T) bool mask -> (B, T, D) hidden states. With
+    train, differentiable through the hand-written layer backward."""
     enc = params.encoder
     T = inputs_embeds.shape[1]
     pos = torch.arange(T)
     bias = relative_bias(enc.rel_bias, pos, pos, bidirectional=True, cfg=cfg)[0].to(torch.bfloat16).contiguous()
+    layer_fn = t5_layer_train if train else fused_t5_layer_parts
     x = inputs_embeds
     for l in fuse_t5_blocks(enc.layers, cfg.gated_ffn):
-        x = fused_t5_layer_parts(x, attention_mask, bias, l, num_heads=cfg.num_heads,
-                                 eps=cfg.layer_norm_eps, gated=cfg.gated_ffn)
+        x = layer_fn(x, attention_mask, bias, l, num_heads=cfg.num_heads, eps=cfg.layer_norm_eps,
+                     gated=cfg.gated_ffn)
     return rms_norm(x, enc.final_ln, cfg.layer_norm_eps)
+
+
+# --------------------------------------------------------------------------- #
+# decoder, teacher-forced
+# --------------------------------------------------------------------------- #
+def decode_train(params: T5Params, cfg: T5Config, decoder_input_ids: torch.Tensor,
+                 encoder_hidden: torch.Tensor, encoder_mask: torch.Tensor) -> torch.Tensor:
+    """Full-sequence decoder forward: causal self-attention with the
+    decoder's rel-pos bias, masked cross-attention over the encoder output,
+    the FFN; returns (B, Td, V) logits."""
+    dec = params.decoder
+    H = cfg.num_heads
+    Td = decoder_input_ids.shape[1]
+    x = params.shared[decoder_input_ids]
+    pos = torch.arange(Td)
+    bias = relative_bias(dec.rel_bias, pos, pos, bidirectional=False, cfg=cfg)
+    causal = (pos[None, :] <= pos[:, None]).to(x.device)[None, None]
+    cross_mask = encoder_mask[:, None, None, :]
+    for layer in dec.layers:
+        sa, ca = layer.self_attn, layer.cross_attn
+        h = rms_norm(x, layer.ln0, cfg.layer_norm_eps)
+        q, k, v = (_split_heads(dense(h, w), H) for w in (sa.q, sa.k, sa.v))
+        x = x + dense(_attend(q, k, v, bias, causal), sa.o)
+        h = rms_norm(x, layer.ln1, cfg.layer_norm_eps)
+        q = _split_heads(dense(h, ca.q), H)
+        k, v = (_split_heads(dense(encoder_hidden, w), H) for w in (ca.k, ca.v))
+        x = x + dense(_attend(q, k, v, None, cross_mask), ca.o)
+        h = rms_norm(x, layer.ln2, cfg.layer_norm_eps)
+        x = x + _ffn(layer.ffn, cfg, h)
+    x = rms_norm(x, dec.final_ln, cfg.layer_norm_eps)
+    return lm_logits(params, cfg, x)
+
+
+def shift_tokens_right(labels: torch.Tensor, pad_id: int, decoder_start_token_id: int) -> torch.Tensor:
+    """Teacher-forcing shift: the start token, then labels[:, :-1]; -100
+    (ignored positions) becomes pad."""
+    shifted = torch.full_like(labels, decoder_start_token_id)
+    shifted[:, 1:] = labels[:, :-1]
+    return torch.where(shifted == -100, pad_id, shifted)
 
 
 def lm_logits(params: T5Params, cfg: T5Config, hidden: torch.Tensor) -> torch.Tensor:

@@ -1,13 +1,16 @@
 """VT5: T5 + spatial (+ layout label) token embeddings.
 
 Counterpart of `rag_docvqa_tpu/models/vt5.py` (`VT5Config`,
-`init_vt5_params`, `input_embeds`):
+`init_vt5_params`, `input_embeds`, `forward_train`):
 
   input_embeds = shared[ids] + spatial(boxes) [+ layout_emb[labels] * scale]
 
-The visual branch (DiT tokens) waits for the visual-tower slice; the
-LayoutT5 classifier head and its config fields are used only in training
-and wait for that slice.
+`forward_train` is the teacher-forced loss: the encoder through the
+hand-written layer backward, the decoder in plain torch, and the mean
+cross-entropy over the labels that are not -100. The visual branch (DiT
+tokens) waits for the visual-tower slice (ROADMAP Queue 1 item 13); the
+LayoutT5 classifier head, which the JAX package trains whenever layout
+labels are on, waits in Queue 1 item 11.
 """
 
 from __future__ import annotations
@@ -66,3 +69,22 @@ def input_embeds(params: VT5Params, cfg: VT5Config,
     if cfg.use_layout_labels == "Embed":
         x = x + params.layout_emb[gen.input_labels] * params.layout_scale
     return x, gen.attention_mask
+
+
+def forward_train(params: VT5Params, cfg: VT5Config, gen: GeneratorInputs,
+                  labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """labels (B, Td) with -100 where ignored -> (scalar mean CE over the
+    other positions, (B, Td, V) logits). Dropout is off, as in the JAX step,
+    which passes no rng."""
+    if cfg.use_layout_labels != "Default":
+        raise NotImplementedError(
+            "training with layout labels needs the LayoutT5 head, which waits in ROADMAP Queue 1 item 11")
+    embeds, mask = input_embeds(params, cfg, gen)
+    enc = t5m.encode(params.t5, cfg.t5, embeds, mask, train=True)
+    dec_in = t5m.shift_tokens_right(labels, cfg.t5.pad_id, cfg.t5.decoder_start_token_id)
+    logits = t5m.decode_train(params.t5, cfg.t5, dec_in, enc, mask)
+    valid = labels != -100
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, torch.where(valid, labels, 0)[..., None])[..., 0]
+    loss = (nll * valid).sum() / valid.sum().clamp(min=1)
+    return loss, logits

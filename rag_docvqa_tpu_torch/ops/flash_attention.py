@@ -12,9 +12,16 @@ takes `mask_value`: the score given to a masked key. With the flash default,
 (ops/fused_encoder.py) passes -1e9, with which such a row gives the uniform
 softmax of the TPU whole-layer kernel and of `models/t5.py::_attend`.
 
-On a CUDA tensor the wrapper launches csrc/flash_fwd.cu; on CPU tensors it
-runs `flash_attention_reference`, the kernel's plain version. The backward
-(K6) waits for the training slice.
+`flash_attention_bwd` (K6) is the recompute-based backward: from q, k, v,
+the forward's output and lse and the output cotangent it gives dq, dk, dv
+and the bias gradient in f32, summed over the batch for a (1, H, Tq, Tk)
+bias and per batch for a (B, H, Tq, Tk) one. `FlashAttention` is the
+`torch.autograd.Function` whose forward is K2 and whose backward is K6, the
+counterpart of the JAX `_flash_core` custom VJP.
+
+On CUDA tensors the wrappers launch csrc/flash_fwd.cu and csrc/flash_bwd.cu;
+on CPU tensors they run `flash_attention_reference` and
+`flash_attention_bwd_reference`, the kernels' plain versions.
 """
 
 from __future__ import annotations
@@ -90,7 +97,9 @@ def _check_heads_contiguous(name, t, dh):
                     f"{name}: heads and dh must be contiguous, strides {t.stride()}")
 
 
-def _launch(q, k, v, key_mask, bias, scale, causal, mask_value):
+def _check_inputs(q, k, v, key_mask, bias):
+    """The checks both kernels make on their shared inputs; returns
+    (dtype code, bias_batched, bias dtype code)."""
     B, Tq, H, dh = q.shape
     Tk, Hkv = k.shape[1], k.shape[2]
     kernels.require(dh <= MAX_HEAD_DIM, f"head dim {dh} > {MAX_HEAD_DIM}")
@@ -104,12 +113,17 @@ def _launch(q, k, v, key_mask, bias, scale, causal, mask_value):
     if key_mask is not None:
         kernels.require(key_mask.dtype == torch.bool and key_mask.shape == (B, Tk)
                         and key_mask.is_contiguous(), "key_mask must be contiguous bool (B, Tk)")
-    bias_batched, bias_dtype = 0, dtype
-    if bias is not None:
-        kernels.require(bias.dim() == 4 and bias.shape[0] in (1, B) and bias.shape[1:] == (H, Tq, Tk)
-                        and bias.is_contiguous(), f"bias must be contiguous (1|B, H, Tq, Tk), got {tuple(bias.shape)}")
-        bias_batched = int(bias.shape[0] == B and B > 1)
-        bias_dtype = kernels.dtype_code(bias, (torch.float32, torch.bfloat16))
+    if bias is None:
+        return dtype, 0, dtype
+    kernels.require(bias.dim() == 4 and bias.shape[0] in (1, B) and bias.shape[1:] == (H, Tq, Tk)
+                    and bias.is_contiguous(), f"bias must be contiguous (1|B, H, Tq, Tk), got {tuple(bias.shape)}")
+    return dtype, int(bias.shape[0] == B), kernels.dtype_code(bias, (torch.float32, torch.bfloat16))
+
+
+def _launch(q, k, v, key_mask, bias, scale, causal, mask_value):
+    B, Tq, H, dh = q.shape
+    Tk, Hkv = k.shape[1], k.shape[2]
+    dtype, bias_batched, bias_dtype = _check_inputs(q, k, v, key_mask, bias)
     out = torch.empty((B, Tq, H, dh), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
     lib = kernels.library()
@@ -142,6 +156,116 @@ def flash_attention_fwd(
     return flash_attention_reference(q, k, v, key_mask, bias, scale, causal, mask_value)
 
 
-def flash_attention(q, k, v, key_mask=None, bias=None, scale: float = 1.0, causal: bool = False):
-    """(B, Tq, H, dh) in q's dtype; semantics of `attention_reference`."""
-    return flash_attention_fwd(q, k, v, key_mask, bias, scale, causal)[0]
+def flash_attention(q, k, v, key_mask=None, bias=None, scale: float = 1.0, causal: bool = False,
+                    mask_value: float = NEG_INF):
+    """(B, Tq, H, dh) in q's dtype; semantics of `attention_reference` (with
+    the default mask_value). Differentiable in q, k, v and bias through K6."""
+    return FlashAttention.apply(q, k, v, key_mask, bias, scale, causal, mask_value)
+
+
+# --------------------------------------------------------------------------- #
+# K6: the backward
+# --------------------------------------------------------------------------- #
+def flash_attention_bwd_reference(q, k, v, out, lse, do, key_mask=None, bias=None, scale=1.0,
+                                  causal=False, mask_value=NEG_INF, grads=None):
+    """Plain version of the K6 kernels, same numerics: p = exp(s - lse) on
+    alive rows (s at `mask_value` on masked keys; 1/Tk on a row with no
+    valid key under mask_value -1e9), gs = p * (dp - D) on valid pairs, p
+    and gs rounded to the value dtype before their products, f32 sums. Returns (dq, dk, dv in their inputs' dtypes, dbias f32 shaped
+    like bias, or None); dq, dk, dv are copied into `grads` when given."""
+    B, Tq, H, dh = q.shape
+    Hkv = k.shape[2]
+    kr, vr = _repeat_kv(q, k, v)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr.float()) * scale
+    if bias is not None:
+        s = s + bias.float()
+    valid = _valid_mask(key_mask, B, Tq, k.shape[1], causal, q.device)
+    s = torch.where(valid, s, mask_value)
+    lse4 = lse[..., None]
+    # a row whose every key carries mask_value (> NEG_INF/2) is uniform; its
+    # lse = mask_value + log(Tk) rounds to mask_value in f32, so 1/Tk is explicit
+    p = torch.where(lse4 < mask_value / 2, 1.0 / k.shape[1], torch.exp(s - lse4))
+    p = torch.where(lse4 > NEG_INF / 2, p, 0.0)
+    D = (do.float() * out.float()).sum(-1).transpose(1, 2)[..., None]  # (B, H, Tq, 1)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), vr.float())
+    gs = torch.where(valid, p * (dp - D), 0.0)
+    gs_r = gs.to(q.dtype).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", gs_r, kr.float()) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", gs_r, q.float())
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(v.dtype).float(), do.float())
+    if Hkv != H:  # GQA: a kv head's gradient sums over its group's query heads
+        dk = dk.reshape(B, -1, Hkv, H // Hkv, dh).sum(3)
+        dv = dv.reshape(B, -1, Hkv, H // Hkv, dh).sum(3)
+    dbias = None
+    if bias is not None:
+        dbias = gs.sum(0, keepdim=True) if bias.shape[0] != B else gs
+    dq, dk, dv = dq.to(q.dtype), (dk * scale).to(k.dtype), dv.to(v.dtype)
+    if grads is not None:
+        for dst, src in zip(grads, (dq, dk, dv)):
+            dst.copy_(src)
+        dq, dk, dv = grads
+    return dq, dk, dv, dbias
+
+
+def _launch_bwd(q, k, v, out, lse, do, key_mask, bias, scale, causal, mask_value, grads):
+    B, Tq, H, dh = q.shape
+    Tk, Hkv = k.shape[1], k.shape[2]
+    dtype, bias_batched, bias_dtype = _check_inputs(q, k, v, key_mask, bias)
+    kernels.require(out.dtype == do.dtype == q.dtype and out.shape == do.shape == q.shape
+                    and out.is_contiguous() and do.is_contiguous(), "out and do must be contiguous and like q")
+    kernels.require(lse.shape == (B, H, Tq) and lse.dtype == torch.float32 and lse.is_contiguous(),
+                    "lse must be contiguous f32 (B, H, Tq)")
+    dq, dk, dv = grads if grads is not None else (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v))
+    for name, t, like in (("dq", dq, q), ("dk", dk, k), ("dv", dv, v)):
+        _check_heads_contiguous(name, t, dh)
+        kernels.require(t.shape == like.shape and t.dtype == like.dtype, f"{name} does not fit its input")
+    dbias = scratch = None
+    if bias is not None:
+        dbias = torch.empty(bias.shape, dtype=torch.float32, device=q.device)
+        if not bias_batched:  # per-batch rows first, then a batch sum in order
+            scratch = torch.empty((B, H, Tq, Tk), dtype=torch.float32, device=q.device)
+    dd = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
+    ptr = lambda t: t.data_ptr() if t is not None else None
+    err = kernels.library().flash_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        ptr(key_mask), ptr(bias), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), ptr(dbias), ptr(scratch),
+        dd.data_ptr(), B, H, Hkv, Tq, Tk, dh,
+        q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+        dq.stride(0), dq.stride(1), dk.stride(0), dk.stride(1), dv.stride(0), dv.stride(1),
+        bias_batched, dtype, bias_dtype, float(scale), int(causal), float(mask_value), kernels.stream_ptr(q))
+    kernels.check("flash_bwd", err)
+    kernels.LAUNCHES["flash_bwd"] += 1
+    return dq, dk, dv, dbias
+
+
+def flash_attention_bwd(q, k, v, out, lse, do, key_mask=None, bias=None, scale: float = 1.0,
+                        causal: bool = False, mask_value: float = NEG_INF, grads=None):
+    """K6: (dq, dk, dv, dbias) for `flash_attention_fwd`'s (out, lse) and
+    the output cotangent `do`. dbias is f32, (1, H, Tq, Tk) summed over the
+    batch for a shared bias, (B, H, Tq, Tk) for a per-batch one, None
+    without a bias. `grads`, when given, is a (dq, dk, dv) triple of tensors
+    to write and return, shaped like q, k and v (on CUDA: heads and dh
+    contiguous, any batch and token strides)."""
+    if kernels.on_cuda(q, k, v, out, lse, do, key_mask, bias):
+        return _launch_bwd(q, k, v, out.contiguous(), lse, do.contiguous(), key_mask, bias, scale, causal, mask_value,
+                           grads)
+    return flash_attention_bwd_reference(q, k, v, out, lse, do, key_mask, bias, scale, causal, mask_value, grads)
+
+
+class FlashAttention(torch.autograd.Function):
+    """K2 forward, K6 backward (the JAX `_flash_core` custom VJP). Saves
+    only q, k, v, the output and lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_mask, bias, scale, causal, mask_value):
+        out, lse = flash_attention_fwd(q, k, v, key_mask, bias, scale, causal, mask_value)
+        ctx.save_for_backward(q, k, v, out, lse, key_mask, bias)
+        ctx.args = (scale, causal, mask_value)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse, key_mask, bias = ctx.saved_tensors
+        dq, dk, dv, dbias = flash_attention_bwd(q, k, v, out, lse, dout, key_mask, bias, *ctx.args)
+        dbias = dbias.to(bias.dtype) if ctx.needs_input_grad[4] else None
+        return dq, dk, dv, None, dbias, None, None, None

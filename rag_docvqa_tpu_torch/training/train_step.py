@@ -1,0 +1,96 @@
+"""The VT5 train step: retrieve -> assemble -> teacher-forced loss ->
+backward -> update.
+
+Counterpart of `rag_docvqa_tpu/training/train_step.py` (`TrainState`,
+`make_train_step`) on one device. Retrieval and assembly run without
+gradient, as the JAX step stops the gradient at the retrieval table; the
+encoder's backward is the hand-written K7/K8 pair (`models/t5.py::encode`
+with train=True). The NAC term, remat and the Hi-VT5 step are not ported
+yet and raise.
+
+bf16_compute is the JAX mixed precision: f32 master weights, and inside
+the loss a bf16 copy of every floating parameter made by a differentiable
+cast, so the gradients come back to the f32 masters.
+"""
+
+from __future__ import annotations
+
+import copy
+from dataclasses import dataclass
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from rag_docvqa_tpu_torch.data.contract import ChunkedBatch, to_device
+from rag_docvqa_tpu_torch.engine.rag_vt5 import RAGConfig, retrieve
+from rag_docvqa_tpu_torch.models import vt5 as vt5m
+from rag_docvqa_tpu_torch.ops.gather import assemble_concat
+from rag_docvqa_tpu_torch.training.optimizer import Optimizer, global_norm
+
+
+@dataclass
+class TrainState:
+    params: vt5m.VT5Params  # f32 masters, updated in place
+    opt_state: dict
+    step: int = 0
+
+    @staticmethod
+    def create(params: vt5m.VT5Params, opt: Optimizer) -> "TrainState":
+        return TrainState(params=params, opt_state=opt.init(params), step=0)
+
+
+def cast_params(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """A copy of the module tree whose floating parameters are `p.to(dtype)`:
+    differentiable casts that share no storage with the masters."""
+    out = copy.copy(module)
+    out._parameters = {n: p if p is None or not p.is_floating_point() else p.to(dtype)
+                       for n, p in module._parameters.items()}
+    out._modules = {n: None if m is None else cast_params(m, dtype) for n, m in module._modules.items()}
+    return out
+
+
+def make_train_step(vt5_cfg: vt5m.VT5Config, rag_cfg: RAGConfig, opt: Optimizer, bf16_compute: bool = False,
+                    use_nac: bool = False, remat=False) -> Callable[..., Tuple[TrainState, Dict[str, torch.Tensor]]]:
+    """Returns step(state, batch, labels, mark=None) -> (state, metrics).
+
+    batch is a `ChunkedBatch` (numpy, or tensors on the parameters'
+    device); labels (B, Td) int with -100 padding. metrics: "loss",
+    "grad_norm" (all trainable gradients) and "grad_norm/<root>" for each
+    trainable root, 0-d tensors. `mark(name)`, when given, is called after
+    "forward", "backward" and "update", for timing."""
+    if use_nac:
+        raise NotImplementedError("the NAC loss term waits for ROADMAP Queue 1 item 8")
+    if remat:
+        raise NotImplementedError("remat waits in ROADMAP Queue 1 item 11")
+    acfg = rag_cfg.assemble()
+    oracle = rag_cfg.page_retrieval == "oracle"
+
+    def step(state: TrainState, batch: ChunkedBatch, labels, mark: Optional[Callable[[str], None]] = None):
+        mark = mark or (lambda name: None)
+        params = state.params
+        dev = params.t5.shared.device
+        if not isinstance(batch.chunk_mask, torch.Tensor):
+            batch = to_device(batch, dev)
+        labels = torch.as_tensor(labels, device=dev).long()
+        trainable = opt.trainable(params)
+        p = cast_params(params, torch.bfloat16) if bf16_compute else params
+        with torch.no_grad():
+            ret = retrieve(p.t5.shared, batch, k=rag_cfg.chunk_num, oracle=oracle)
+            gen, _ = assemble_concat(batch, ret.top_k_idx, ret.top_k_valid, acfg)
+        loss, _ = vt5m.forward_train(p, vt5_cfg, gen, labels)
+        mark("forward")
+        grads = dict(zip(trainable, torch.autograd.grad(loss, list(trainable.values()))))
+        mark("backward")
+        metrics = {"loss": loss.detach(), "grad_norm": global_norm(list(grads.values()))}
+        for root in dict.fromkeys(n.split(".")[0] for n in grads):
+            metrics[f"grad_norm/{root}"] = global_norm([g for n, g in grads.items() if n.split(".")[0] == root])
+        opt.update(trainable, grads, state.opt_state)
+        mark("update")
+        return TrainState(params, state.opt_state, state.step + 1), metrics
+
+    return step
+
+
+def make_hivt5_train_step(*args, **kwargs):
+    raise NotImplementedError("the Hi-VT5 train step waits for ROADMAP Queue 1 item 12")

@@ -1,0 +1,170 @@
+"""The VT5 training loop.
+
+Counterpart of `rag_docvqa_tpu/training/trainer.py` (`TrainLoopConfig`,
+`Trainer.fit`) on one device: per epoch a seeded shuffle, fixed-size batches
+(the ragged tail batch is dropped), ingest and the copy to the device on a
+background thread, the train step (loss, clip, AdamW, linear schedule),
+logging every `log_every` steps, then evaluation and the best-checkpoint
+bookkeeping. bf16 compute defaults to on for a CUDA device and off for
+the CPU, as the JAX default does for a TPU and the CPU. NAC, remat and
+Hi-VT5 training are not ported yet and raise (ROADMAP Queue 1 items 8, 11
+and 12).
+"""
+
+from __future__ import annotations
+
+import random
+import time
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from rag_docvqa_tpu.metrics import Evaluator
+from rag_docvqa_tpu_torch.data.contract import RawDocument, to_device
+from rag_docvqa_tpu_torch.data.ingest import DocVQAIngestor
+from rag_docvqa_tpu_torch.data.prefetch import map_prefetch
+from rag_docvqa_tpu_torch.engine.evaluate import evaluate
+from rag_docvqa_tpu_torch.engine.rag_vt5 import RAGConfig, RAGVT5Engine
+from rag_docvqa_tpu_torch.models import vt5 as vt5m
+from rag_docvqa_tpu_torch.training.checkpoint import CheckpointManager
+from rag_docvqa_tpu_torch.training.optimizer import build_optimizer, trainable_mask
+from rag_docvqa_tpu_torch.training.train_step import TrainState, make_train_step
+
+
+@dataclass
+class TrainLoopConfig:
+    epochs: int = 10
+    batch_size: int = 8
+    lr: float = 2e-4
+    warmup_steps: int = 1000
+    clip_norm: float = 3.0
+    weight_decay: float = 0.01
+    answer_max_len: int = 32
+    trainable: Sequence[str] = ("t5", "spatial")  # the reference trains the generator only
+    save_dir: Optional[str] = None
+    eval_start: bool = True
+    eval_batch_size: int = 8
+    seed: int = 42
+    log_every: int = 10
+    train_metrics_every: int = 0  # train-batch accuracy/ANLS every N batches (0 = off)
+    use_nac: bool = False  # not ported: raises
+    remat: Any = False  # not ported: raises
+    bf16_compute: Optional[bool] = None  # None: on for CUDA, off for the CPU
+    prefetch_depth: int = 2
+
+
+class Trainer:
+    def __init__(self, vt5_cfg: vt5m.VT5Config, rag_cfg: RAGConfig, params: vt5m.VT5Params, tokenizer,
+                 ingestor: DocVQAIngestor, loop_cfg: Optional[TrainLoopConfig] = None, logger=None,
+                 hivt5_cfg=None):
+        if hivt5_cfg is not None:
+            raise NotImplementedError("Hi-VT5 training waits for ROADMAP Queue 1 item 12")
+        self.vt5_cfg = vt5_cfg
+        self.rag_cfg = rag_cfg
+        self.tokenizer = tokenizer
+        self.ingestor = ingestor
+        self.cfg = loop_cfg or TrainLoopConfig()
+        self.logger = logger
+        self.evaluator = Evaluator()
+        self.params = params
+        self.device = params.t5.shared.device
+        self.opt = None
+        self.state = None
+        self.step_fn = None
+        self.ckpt = CheckpointManager(self.cfg.save_dir) if self.cfg.save_dir else None
+
+    def _ensure_optimizer(self, total_steps: int) -> None:
+        """Built once the schedule's horizon is known: the linear decay runs
+        to the true number of steps."""
+        if self.opt is not None:
+            return
+        c = self.cfg
+        self.opt = build_optimizer(lr=c.lr, warmup_steps=c.warmup_steps,
+                                   total_steps=max(total_steps, c.warmup_steps + 1), clip_norm=c.clip_norm,
+                                   weight_decay=c.weight_decay, mask=trainable_mask(self.params, tuple(c.trainable)))
+        self.state = TrainState.create(self.params, self.opt)
+        bf16 = c.bf16_compute if c.bf16_compute is not None else self.device.type == "cuda"
+        self.step_fn = make_train_step(self.vt5_cfg, self.rag_cfg, self.opt, bf16_compute=bf16,
+                                       use_nac=c.use_nac, remat=c.remat)
+
+    def engine(self) -> RAGVT5Engine:
+        return RAGVT5Engine(self.rag_cfg, self.vt5_cfg, self.params, self.tokenizer)
+
+    def _evaluate(self, docs: Sequence[RawDocument]) -> Dict[str, Any]:
+        return evaluate(self.engine(), docs, self.ingestor, self.evaluator, batch_size=self.cfg.eval_batch_size,
+                        prefetch_depth=self.cfg.prefetch_depth)
+
+    def fit(self, train_docs: Sequence[RawDocument], val_docs: Sequence[RawDocument]) -> Dict[str, Any]:
+        cfg = self.cfg
+        rng = random.Random(cfg.seed)
+        history: List[Dict[str, Any]] = []
+        best = {"accuracy": -1.0, "epoch": -1}
+        steps_per_epoch = max(len(train_docs) // cfg.batch_size, 1)
+        self._ensure_optimizer(steps_per_epoch * cfg.epochs)
+
+        if cfg.eval_start and len(val_docs):
+            m = self._evaluate(val_docs)
+            self._log({"epoch": -1, **{k: m[k] for k in ("accuracy", "anls", "retrieval_precision")}})
+            best = {"accuracy": m["accuracy"], "epoch": -1}
+
+        order = list(range(len(train_docs)))
+        for epoch in range(cfg.epochs):
+            rng.shuffle(order)
+            t0 = time.time()
+            losses = []
+
+            def _ingest_one(start):
+                idx = order[start : start + cfg.batch_size]
+                if len(idx) < cfg.batch_size:
+                    return None  # fixed shapes: drop the ragged tail batch
+                docs = [train_docs[i] for i in idx]
+                batch, aux = self.ingestor.ingest(docs)
+                labels = self.ingestor.answer_labels(aux["answers"], max_len=cfg.answer_max_len,
+                                                     seed=rng.randrange(1 << 30))
+                return docs, to_device(batch, self.device), torch.from_numpy(labels).to(self.device), aux
+
+            for item in map_prefetch(_ingest_one, range(0, len(order), cfg.batch_size), depth=cfg.prefetch_depth):
+                if item is None:
+                    continue
+                docs, batch, labels, aux = item
+                self.state, metrics = self.step_fn(self.state, batch, labels)
+                losses.append(float(metrics["loss"]))
+                if len(losses) % cfg.log_every == 0:
+                    self._log({"epoch": epoch, "step": self.state.step, "loss": losses[-1],
+                               "grad_norm": float(metrics["grad_norm"])})
+                if cfg.train_metrics_every and len(losses) % cfg.train_metrics_every == 0:
+                    out = self.engine().inference(batch, aux)
+                    m = self.evaluator.get_metrics(aux["answers"], out["pred_answers"], aux.get("answer_types"))
+                    self._log({
+                        "epoch": epoch, "step": self.state.step,
+                        "train_batch_accuracy": float(np.mean(m["accuracy"])),
+                        "train_batch_anls": float(np.mean(m["anls"])),
+                        "train_batch_ret_prec": float(np.mean(self.evaluator.get_retrieval_metric(
+                            [d.answer_page_idx for d in docs], out["pred_answer_pages"]))),
+                    })
+
+            epoch_metrics: Dict[str, Any] = {
+                "epoch": epoch,
+                "train_loss": float(np.mean(losses)) if losses else 0.0,
+                "epoch_time": time.time() - t0,
+            }
+            if len(val_docs):
+                m = self._evaluate(val_docs)
+                epoch_metrics.update({k: m[k] for k in ("accuracy", "anls", "retrieval_precision", "chunk_score")})
+                if self.evaluator.update_global_metrics(m["accuracy"], m["anls"], epoch):
+                    best = {"accuracy": m["accuracy"], "epoch": epoch}
+                if self.ckpt:
+                    self.ckpt.save(self.state.step, self.state, metrics={"accuracy": m["accuracy"], "anls": m["anls"]})
+            elif self.ckpt:
+                self.ckpt.save(self.state.step, self.state)
+            self._log(epoch_metrics)
+            history.append(epoch_metrics)
+        return {"best": best, "history": history}
+
+    def _log(self, metrics: Dict[str, Any]) -> None:
+        if self.logger is not None:
+            self.logger.log(metrics)
+        else:
+            print(" ".join(f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}" for k, v in metrics.items()))

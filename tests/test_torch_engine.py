@@ -1,7 +1,7 @@
 """Port parity, the whole slice: `RAGVT5Engine.inference` with the concat
 and oracle strategies on the VT5_tiny.yml dims against the JAX engine on
-the same ingested batch and weights; the port running with jax and flax
-unimportable; and chip_smoke.py refusing to run without a GPU."""
+the same ingested batch and weights; the port running with jax, flax, optax
+and orbax unimportable; and chip_smoke.py refusing to run without a GPU."""
 
 import json
 import os
@@ -90,10 +90,41 @@ def test_engine_refuses_unported_strategies(weights):
         RAGVT5Engine(RAGConfig(page_retrieval="maxconf"), pcfg, port, HashTokenizer(4096))
 
 
+def test_evaluate_matches_jax(weights, tmp_path):
+    """The port's `evaluate` against the JAX one: 5 documents in batches of
+    2 (a ragged last batch), the same summary, per-sample scores and saved
+    file."""
+    from rag_docvqa_tpu.engine.evaluate import evaluate as j_evaluate
+    from rag_docvqa_tpu_torch.engine.evaluate import evaluate
+
+    jcfg, tree, pcfg, port = weights
+    jtok, ptok = JHashTokenizer(4096), HashTokenizer(4096)
+    jeng = JEngine(JRAGConfig(**RAG_KW), jcfg, jax.tree.map(jax.numpy.asarray, tree), jtok)
+    peng = RAGVT5Engine(RAGConfig(**RAG_KW), pcfg, port, ptok)
+    want = j_evaluate(jeng, j_make_corpus(5, n_pages=2, words_per_page=30, seed=7),
+                      JIngestor(jtok, SPEC, JCaps(**CAPS)), batch_size=2, save_path=str(tmp_path / "jax.json"))
+    got = evaluate(peng, make_corpus(5, n_pages=2, words_per_page=30, seed=7),
+                   DocVQAIngestor(ptok, SPEC, Caps(**CAPS)), batch_size=2, save_path=str(tmp_path / "port.json"))
+    assert got["n_samples"] == want["n_samples"] == 5
+    for k in ("accuracy", "anls", "retrieval_precision", "chunk_score"):
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-6, err_msg=k)
+    assert got["pred_answers"] == want["pred_answers"]
+    assert got["scores_by_samples"].keys() == want["scores_by_samples"].keys()
+    for qid, w in want["scores_by_samples"].items():
+        g = got["scores_by_samples"][qid]
+        assert g.keys() == w.keys()
+        for k in ("pred_answer", "pred_answer_pages", "gt_answer_page", "accuracy", "anls", "retrieval_precision",
+                  "chunk_score"):
+            assert g[k] == w[k], (qid, k)
+        np.testing.assert_allclose(g["pred_answer_conf"], w["pred_answer_conf"], rtol=1e-4)
+    saved, jsaved = (json.loads((tmp_path / f"{n}.json").read_text()) for n in ("port", "jax"))
+    assert saved.keys() == jsaved.keys() and saved["scores_by_samples"].keys() == jsaved["scores_by_samples"].keys()
+
+
 JAX_FREE = textwrap.dedent("""
     import json, sys
-    sys.modules["jax"] = None      # any import of jax or flax now fails
-    sys.modules["flax"] = None
+    for name in ("jax", "flax", "optax", "orbax"):
+        sys.modules[name] = None   # any import of them now fails
     import torch
     torch.set_num_threads(2)
     from rag_docvqa_tpu.ops.chunking import ChunkSpec
@@ -105,6 +136,10 @@ JAX_FREE = textwrap.dedent("""
     from rag_docvqa_tpu_torch.engine.rag_vt5 import RAGConfig, RAGVT5Engine
     from rag_docvqa_tpu_torch.models import t5, vt5
     from rag_docvqa_tpu_torch.models.embeddings import SpatialConfig
+    # every module of the port imports without them
+    import rag_docvqa_tpu_torch.config, rag_docvqa_tpu_torch.train, rag_docvqa_tpu_torch.engine.evaluate
+    import rag_docvqa_tpu_torch.training.trainer, rag_docvqa_tpu_torch.training.checkpoint
+    import rag_docvqa_tpu_torch.training.logger, rag_docvqa_tpu_torch.data.prefetch
     tok = HashTokenizer(4096)
     docs = make_corpus(2, n_pages=2, words_per_page=30, seed=1)
     batch, aux = DocVQAIngestor(tok, ChunkSpec(chunk_size=12, overlap=2), Caps(max_pages=4, max_chunks=16,
@@ -117,8 +152,8 @@ JAX_FREE = textwrap.dedent("""
     out = RAGVT5Engine(RAGConfig(chunk_num=3, max_source_length=160, max_new_tokens=4), cfg, params,
                        tok).inference(batch, aux)
     score = sum(anls(a[0], p) for a, p in zip(aux["answers"], out["pred_answers"]))
-    # nothing of jax or flax was imported
-    assert not any(m.split(".")[0] in ("jax", "flax", "jaxlib")
+    # nothing of jax, flax, optax or orbax was imported
+    assert not any(m.split(".")[0] in ("jax", "flax", "jaxlib", "optax", "orbax")
                    for m in sys.modules if sys.modules[m] is not None)
     print(json.dumps({"n": len(out["pred_answers"]), "conf": out["confidences"], "anls": score}))
 """)
