@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's RAG-VT5 serving and training paths once on one
-CUDA card.
+"""Drive the PyTorch port's RAG-VT5 serving and training paths and its
+corpus index once on one CUDA card.
 
     python3 chip_smoke.py
 
-Six phases; any failure raises and the script exits non-zero:
+Seven phases; any failure raises and the script exits non-zero:
 
   1. a CUDA device is required; prints the card's name and power limit and
      turns TF32 off, so f32 products are full f32;
@@ -46,19 +46,51 @@ Six phases; any failure raises and the script exits non-zero:
         loss and grad norm finite, the loss falls, every kernel of the
         training path launched; prints ms per step split into forward,
         backward and update. Cut: warmup 2 steps instead of 1000, so the
-        learning rate is not zero.
+        learning rate is not zero;
+  7. the corpus index, TF32 still off:
+     a. the top-k kernels K4 (fused scoring + running top-k), K5 (segment
+        maxima), K11 (int8) and K12 (int4) against their plain versions on
+        a small ragged case (N 1536 with 1100 valid rows, D 64, B 3 and 20,
+        k 5, duplicated rows that tie) and at the path's shape, N 524,288 x
+        D 768, B 256 and B 8, k 10, f32 and bf16 index. Float kernels:
+        values and maxima within 1e-4, and every returned index is checked
+        by gathering its score from the plain score matrix (on the card
+        the kernels and the flat product sum in another order, so ranks
+        closer than f32 rounding may swap: index-for-index equality is not
+        demanded). Integer kernels: maxima equal bit for bit, and the
+        two-phase functions' indices and values equal the flat ones
+        exactly. Times by CUDA events, beside torch.matmul + torch.topk on
+        the same index (whose tie order is not the contract);
+     b. ShardedIndex.build and query at that size in f32, bf16, int8, int4
+        and int4 with the host rescore (k' 48, f32 host rows), as 1 and as
+        4 row ranges: both give identical results; top-10 agreement with
+        the plain f32 query is printed (int8 >= 0.9, refined int4 >= 0.95),
+        resident bytes and queries per second at B 256 per precision;
+        `refined_query_batches` over four batches equals the serial refined
+        query, and both are timed;
+     c. the entry point: `precompute index` on the synthetic corpus at
+        t5-base width (configs/RAGVT5.yml, 256 documents of 8 pages) into a
+        temporary file, then `precompute query` in every precision, with
+        and without --refine; every rank line parses and the f32 ranks are
+        those of single_device_query. Every kernel of the index path was
+        launched in b and c.
 
 The line before the last is a JSON object with every kernel's launches in
-its path's run (phase 5 for serving, 6d for training), its worst error
-over its own checks, and its times against the plain version at its
-path's shape (every timed case under "cases"); the whole K1 layer's error
+its path's run (phase 5 for serving, 6d for training, 7b-c for the index),
+its worst error over its own checks, and, at its path's shape, its time,
+the plain version's, the time of one PyTorch call that computes the same
+function where there is one ("library_ms", else null; timed here, used
+nowhere in the port) and the least time the card could take ("bound_ms":
+the larger of the bytes moved once over 3.35 TB/s and the operations over
+the peak rate of their type, "bound_by" saying which; every timed case
+under "cases"); the whole K1 layer's error
 and times under "t5_layer", K7's and K8's under "t5_ffn_bwd" and
 "t5_attn_bwd", and the train steps under "train_step". The last line is
 {"ok": true, "device": {...}}. Weights are random, made from a seed.
 
-Nothing here imports jax or flax. Of the JAX package only its plain-Python
-host modules are shared with the port, the chunker (ops/chunking.py) and
-the metrics (metrics/), neither of which imports jax.
+Nothing here imports jax or flax, nor any module of the JAX package: the
+port keeps its own copies of the plain-Python chunker (ops/chunking.py) and
+metrics (metrics/).
 """
 
 from __future__ import annotations
@@ -76,6 +108,10 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 F32_TOL = 1e-4
 BF16_REL_TOL = 2e-2
+
+# NVIDIA's H100 SXM data sheet, dense rates: what `bound_ms` divides by
+PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
+PEAK_BYTES_PER_S = 3.35e12
 
 # kernel -> (source, TPU kernel it replaces, the path it runs in, the timed
 # case whose times the report's "ms"/"plain_ms" give: the shape and dtype
@@ -95,10 +131,19 @@ KERNELS = {
                     "train", "tn dWi 3072x768 over 4096 rows bf16"),
     "t5_rms_bwd": ("rag_docvqa_tpu_torch/csrc/t5_layer_bwd.cu", "rag_docvqa_tpu/ops/fused_encoder_bwd.py:243",
                    "train", "4096x768 bf16"),
+    "topk_fused": ("rag_docvqa_tpu_torch/csrc/topk_fused.cu", "rag_docvqa_tpu/ops/topk.py:110",
+                   "index", "N524288 D768 B8 k10 bf16"),
+    "topk_segmax": ("rag_docvqa_tpu_torch/csrc/topk_segmax.cu", "rag_docvqa_tpu/ops/topk.py:200",
+                    "index", "N524288 D768 B256 g8 sg16 bf16"),
+    "topk_segmax_int8": ("rag_docvqa_tpu_torch/csrc/topk_segmax.cu", "rag_docvqa_tpu/ops/quant.py:68",
+                         "index", "N524288 D768 B256 g16"),
+    "topk_segmax_int4": ("rag_docvqa_tpu_torch/csrc/topk_segmax.cu", "rag_docvqa_tpu/ops/quant.py:246",
+                         "index", "N524288 D768 B256 g16"),
 }
 # the kernels each path launches
 SERVE_KERNELS = ("t5_rms_norm", "t5_gemm", "flash_fwd", "decode_cross_attention")
 TRAIN_KERNELS = ("t5_rms_norm", "t5_gemm", "flash_fwd", "flash_bwd", "t5_gemm_bwd", "t5_rms_bwd")
+INDEX_KERNELS = ("topk_fused", "topk_segmax", "topk_segmax_int8", "topk_segmax_int4")
 
 
 def log(msg: str) -> None:
@@ -116,6 +161,22 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def nbytes(*tensors) -> int:
+    """Bytes of the given tensors, each counted once (None skipped)."""
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def bound(io_bytes: float, ops: float, op_type: str):
+    """(bound_ms, bound_by): the larger of the bytes over the card's memory
+    rate and the operations over its peak rate for their type."""
+    by_bytes, by_ops = io_bytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S[op_type] * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def op_type(dtype: torch.dtype) -> str:
+    return {torch.bfloat16: "bf16", torch.float32: "f32", torch.int8: "int8"}[dtype]
 
 
 def tol(dtype: torch.dtype, want: torch.Tensor) -> float:
@@ -144,7 +205,7 @@ class Checks:
 
     def __init__(self):
         self.err = {}
-        self.times = {}  # unit -> {case label: (ms, plain_ms)}
+        self.times = {}  # unit -> {case label: {"ms", "plain_ms", "library_ms", "bound_ms", "bound_by"}}
 
     def compare(self, unit: str, label: str, got: torch.Tensor, want: torch.Tensor, limit: float) -> float:
         torch.cuda.synchronize()
@@ -158,16 +219,30 @@ class Checks:
         self.err[unit] = max(self.err.get(unit, 0.0), err)
         return err
 
-    def timed(self, unit: str, label: str, fn, plain, iters: int = 10) -> None:
-        ms, plain_ms = time_ms(fn, iters), time_ms(plain, iters)
-        self.times.setdefault(unit, {})[label] = (ms, plain_ms)
-        log(f"  {unit:24s} {label:44s} kernel {ms:.4f} ms   plain {plain_ms:.4f} ms")
+    def timed(self, unit: str, label: str, fn, plain, iters: int = 10, library=None, io_bytes=None, ops=0.0,
+              ops_in: str = "f32") -> None:
+        """Times `fn` against `plain` and, when given, against `library`
+        (one PyTorch call for the same function); `io_bytes` (every input
+        read once, every output written once) and `ops` of type `ops_in`
+        give the bound."""
+        row = {"ms": time_ms(fn, iters), "plain_ms": time_ms(plain, iters),
+               "library_ms": None if library is None else time_ms(library, iters)}
+        text = f"kernel {row['ms']:.4f} ms   plain {row['plain_ms']:.4f} ms"
+        if library is not None:
+            text += f"   library {row['library_ms']:.4f} ms"
+        if io_bytes is not None:
+            row["bound_ms"], row["bound_by"] = bound(io_bytes, ops, ops_in)
+            text += f"   bound {row['bound_ms']:.4f} ms ({row['bound_by']})"
+        self.times.setdefault(unit, {})[label] = row
+        log(f"  {unit:24s} {label:44s} {text}")
 
 
 # --------------------------------------------------------------------------- #
 # phase 3: each kernel against its plain version
 # --------------------------------------------------------------------------- #
 def check_kernels(checks: Checks, g: torch.Generator) -> None:
+    import torch.nn.functional as F
+
     from rag_docvqa_tpu_torch.models.layers import rms_norm
     from rag_docvqa_tpu_torch.models import t5 as t5m
     from rag_docvqa_tpu_torch.ops import decode_attention as da
@@ -192,8 +267,16 @@ def check_kernels(checks: Checks, g: torch.Generator) -> None:
         # lse is f32 in both; its bf16 limit scales with the bf16 inputs' scores
         checks.compare("flash_fwd", f"{label} lse", glse[alive], wlse[alive], tol(dtype, wlse[alive]))
         if timed:
+            # the one library call: SDPA with the bias and the key mask summed
+            # into one additive (B, H, T, T) mask beforehand (the kernel
+            # streams the shared bias instead); it returns no lse
+            add = (bias.float() + torch.where(mask, 0.0, mask_value)[:, None, None, :]).to(dtype)
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             checks.timed("flash_fwd", label, lambda: fa.flash_attention_fwd(q, k, v, mask, bias, scale, causal, mask_value),
-                         lambda: fa.flash_attention_reference(q, k, v, mask, bias, scale, causal, mask_value))
+                         lambda: fa.flash_attention_reference(q, k, v, mask, bias, scale, causal, mask_value),
+                         library=lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=add, scale=scale),
+                         io_bytes=nbytes(q, k, v, mask, bias, got, glse), ops=4.0 * B * H * T * T * dh,
+                         ops_in=op_type(dtype))
 
     for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         flash_case(3, 77, 4, 2, 40, dtype, "batched", True, 0.5, fa.NEG_INF, [77, 50, 0], f"ragged gqa causal {tag}")
@@ -212,7 +295,8 @@ def check_kernels(checks: Checks, g: torch.Generator) -> None:
             checks.compare("t5_rms_norm", f"{label} d768 {tag}", got, want, tol(dtype, want))
             if M > 77 and dtype == torch.bfloat16:
                 checks.timed("t5_rms_norm", f"{label} d768 {tag}", lambda: fe.rms_norm_rows(x, w, 1e-6),
-                             lambda: rms_norm(x, w, 1e-6))
+                             lambda: rms_norm(x, w, 1e-6), library=lambda: F.rms_norm(x, (d,), w, 1e-6),
+                             io_bytes=nbytes(x, w, got), ops=4.0 * M * d)
         for (M, N, K, epi), label in (((77, 100, 72, "relu"), "ragged 77x100x72 relu"),
                                       ((77, 96, 64, "gelu_mul"), "ragged 77x96x64 gelu_mul"),
                                       ((16384, 3 * inner, d, "none"), "qkv 16384x2304x768"),
@@ -224,8 +308,11 @@ def check_kernels(checks: Checks, g: torch.Generator) -> None:
             got, want = fe.gemm(a, w, epi, aux), fe.gemm_reference(a, w, epi, aux)
             checks.compare("t5_gemm", f"{label} {tag}", got, want, tol(dtype, want))
             if M == 16384 and dtype == torch.bfloat16:
+                library = {"none": lambda: torch.matmul(a, w.t()),
+                           "residual": lambda: torch.addmm(aux, a, w.t())}.get(epi)  # relu: no single call
                 checks.timed("t5_gemm", f"{label} {tag}", lambda: fe.gemm(a, w, epi, aux),
-                             lambda: fe.gemm_reference(a, w, epi, aux))
+                             lambda: fe.gemm_reference(a, w, epi, aux), library=library,
+                             io_bytes=nbytes(a, w, aux, got), ops=2.0 * M * N * K, ops_in=op_type(dtype))
 
     params = t5m.init_t5_params(g, t5m.T5Config(num_encoder_layers=1, num_decoder_layers=1))
     layer = fe.fuse_t5_blocks(params.encoder.layers, False)[0]
@@ -270,7 +357,8 @@ def check_kernels(checks: Checks, g: torch.Generator) -> None:
             if B == 32 and kv_dtype != torch.float32:
                 checks.timed("decode_cross_attention", f"{label} {tag} cache",
                              lambda: da.fused_cross_attention(q, k2, v2, m, ks, vs),
-                             lambda: da.cross_attention_reference(qs, k2, v2, m))
+                             lambda: da.cross_attention_reference(qs, k2, v2, m),
+                             io_bytes=nbytes(q, k2, v2, m, ks, vs, got), ops=4.0 * B * H * Te * dk)
 
 
 # --------------------------------------------------------------------------- #
@@ -332,10 +420,10 @@ def serve(g: torch.Generator):
     from rag_docvqa_tpu_torch.data.synthetic import make_corpus
     from rag_docvqa_tpu_torch.data.tokenizer import HashTokenizer
     from rag_docvqa_tpu_torch.engine.rag_vt5 import RAGConfig, RAGVT5Engine
-    from rag_docvqa_tpu.metrics.anls import anls
+    from rag_docvqa_tpu_torch.metrics.anls import anls
     from rag_docvqa_tpu_torch.models import t5 as t5m
     from rag_docvqa_tpu_torch.models import vt5 as vt5m
-    from rag_docvqa_tpu.ops.chunking import ChunkSpec
+    from rag_docvqa_tpu_torch.ops.chunking import ChunkSpec
 
     # configs/RAGVT5.yml: t5-base widths, chunk_num 10, chunk_size 60,
     # overlap 10, max_source_length 512; 16 new tokens here
@@ -450,9 +538,11 @@ def check_flash_bwd(checks: Checks, g: torch.Generator) -> None:
         for name, a, b in zip(("dq", "dk", "dv", "dbias"), got, want):
             if b is not None:
                 checks.compare("flash_bwd", f"{label} {name}", a, b, rel_tol(dtype, b))
-        if timed:
+        if timed:  # five products of 2*T*T*dh each per head
             checks.timed("flash_bwd", label, lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, *args),
-                         lambda: fa.flash_attention_bwd_reference(q, k, v, out, lse, do, *args))
+                         lambda: fa.flash_attention_bwd_reference(q, k, v, out, lse, do, *args),
+                         io_bytes=nbytes(q, k, v, out, lse, do, mask, bias, *got), ops=10.0 * B * H * T * T * dh,
+                         ops_in=op_type(dtype))
 
     t5m = fe.T5_MASK_VALUE
     for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
@@ -494,6 +584,7 @@ def check_layer_bwd(checks: Checks, g: torch.Generator) -> None:
             aux = [randn(M, N).to(dtype) for _ in range(n_aux)]
             acc0 = randn(M, N) if epi == "acc_f32" else None  # both add into a copy of one f32 start
             got = fe.gemm_bwd(a, b, layout, epi, *aux, acc=None if acc0 is None else acc0.clone())
+            outs = got if isinstance(got, tuple) else (got,)
             want = fe.gemm_bwd_reference(a, b, layout, epi, *aux, acc=None if acc0 is None else acc0.clone())
             if epi == "relu_bwd":
                 # dpre follows the kernel's own sign decision (see kernel_relu_masks)
@@ -503,8 +594,12 @@ def check_layer_bwd(checks: Checks, g: torch.Generator) -> None:
             for i, (x, y) in enumerate(zip(got, want) if isinstance(got, tuple) else [(got, want)]):
                 checks.compare("t5_gemm_bwd", f"{label} {tag} out{i}", x, y, tol(dtype, y))
             if not label.startswith("ragged") and dtype == torch.bfloat16:
+                # the bare products have a library call (its output is bf16, the kernel's f32)
+                library = {("nn", "store_f32"): lambda: torch.matmul(a, b),
+                           ("tn", "store_f32"): lambda: torch.matmul(a.t(), b)}.get((layout, epi))
                 checks.timed("t5_gemm_bwd", f"{label} {tag}", lambda: fe.gemm_bwd(a, b, layout, epi, *aux),
-                             lambda: fe.gemm_bwd_reference(a, b, layout, epi, *aux))
+                             lambda: fe.gemm_bwd_reference(a, b, layout, epi, *aux), library=library,
+                             io_bytes=nbytes(a, b, *aux, *outs), ops=2.0 * M * N * K, ops_in=op_type(dtype))
         for rows, label in ((77, "77x768"), (R, f"{R}x768")):
             x, resid, dh = randn(rows, d).to(dtype), randn(rows, d).to(dtype), randn(rows, d)
             w = (torch.rand(d, generator=g, device=dev) + 0.5).to(dtype)
@@ -513,7 +608,8 @@ def check_layer_bwd(checks: Checks, g: torch.Generator) -> None:
             checks.compare("t5_rms_bwd", f"{label} {tag} dw", got[1], want[1], rel_tol(dtype, want[1]))
             if rows == R and dtype == torch.bfloat16:
                 checks.timed("t5_rms_bwd", f"{label} {tag}", lambda: fe.rms_norm_bwd(x, dh, w, resid, eps),
-                             lambda: fe.rms_norm_bwd_reference(x, dh, w, resid, eps))
+                             lambda: fe.rms_norm_bwd_reference(x, dh, w, resid, eps),
+                             io_bytes=nbytes(x, dh, w, resid, *got), ops=10.0 * rows * d)
 
     params = t5m.init_t5_params(g, t5m.T5Config(num_encoder_layers=1, num_decoder_layers=1))
     layer = fe.fuse_t5_blocks(params.encoder.layers, False)[0]
@@ -629,7 +725,7 @@ def train(g: torch.Generator, steps: int = 8):
     from rag_docvqa_tpu_torch.models import vt5 as vt5m
     from rag_docvqa_tpu_torch.training.optimizer import build_optimizer, trainable_mask
     from rag_docvqa_tpu_torch.training.train_step import TrainState, make_train_step
-    from rag_docvqa_tpu.ops.chunking import ChunkSpec
+    from rag_docvqa_tpu_torch.ops.chunking import ChunkSpec
 
     dev = g.device
     # configs/RAGVT5.yml: t5-base widths, chunk_num 10, chunk_size 60,
@@ -681,6 +777,285 @@ def train(g: torch.Generator, steps: int = 8):
         f"backward {summary['backward_ms']:.1f}, update {summary['update_ms']:.1f})")
     return launches, summary
 
+# --------------------------------------------------------------------------- #
+# phase 7: the corpus index
+# --------------------------------------------------------------------------- #
+INDEX_N, INDEX_D, INDEX_B, INDEX_K = 524288, 768, 256, 10  # the path's shape
+
+
+def check_index_kernels(checks: Checks, g: torch.Generator) -> dict:
+    """7a: K4, K5, K11 and K12 against their plain versions; returns the
+    whole-function times on both sides of the batch crossover."""
+    from rag_docvqa_tpu_torch.ops import quant, topk
+
+    dev = g.device
+    whole = {}
+
+    def case(N, n_valid, D, B, k, label, dups=(), timed=False, int_kernels=True, dtypes=("f32", "bf16")):
+        x = torch.randn((N, D), generator=g, device=dev)
+        for src, dst in dups:
+            x[dst] = x[src]
+        x = topk.l2_normalize(x)
+        x[n_valid:] = 0.0
+        q = torch.randn((B, D), generator=g, device=dev)
+        if dups:
+            q[0] = x[dups[0][0]]
+        q = topk.l2_normalize(q)
+        valid_rows = torch.arange(N, device=dev)[None, :] < n_valid
+        flops = 2.0 * N * D * B
+
+        for tag in dtypes:
+            index = x if tag == "f32" else x.bfloat16()
+            name = f"{label} {tag}"
+            scores = torch.where(valid_rows, q @ index.float().t(), topk.NEG_INF)  # the plain (B, N) matrix
+            # ---- K4
+            vals, idx = topk.fused_topk(index, q, n_valid, k)
+            want_v, want_i = topk.fused_topk_reference(index, q, n_valid, k)
+            checks.compare("topk_fused", f"{name} values", vals, want_v, F32_TOL)
+            live = want_v > topk.NEG_INF / 2
+            if not bool(((idx >= 0) & (idx < max(n_valid, 1)))[live].all()):
+                raise AssertionError(f"topk_fused {name}: an index outside the valid rows")
+            srt = torch.sort(torch.where(live, idx, -1 - torch.arange(k, device=dev)[None, :].expand_as(idx)), dim=1)[0]
+            if bool((srt[:, 1:] == srt[:, :-1]).any()):
+                raise AssertionError(f"topk_fused {name}: a row returned twice")
+            checks.compare("topk_fused", f"{name} scores at returned rows",
+                           torch.where(live, scores.gather(1, idx.long()), vals), vals, F32_TOL)
+            same = (idx == want_i)[live].float().mean().item() if bool(live.any()) else 1.0
+            log(f"  {'topk_fused':24s} {name:44s} indices equal to the plain version's: {same:.6f}")
+            # ---- K5
+            for group, sgroups in ((8, 16), (16, 1)):
+                seg, sup = topk.segment_max(index, q, n_valid, group, sgroups)
+                want_seg, want_sup = topk.segment_max_reference(index, q, n_valid, group, sgroups)
+                checks.compare("topk_segmax", f"{name} g{group} sg{sgroups} maxima", seg, want_seg, F32_TOL)
+                if sgroups > 1:
+                    checks.compare("topk_segmax", f"{name} g{group} sg{sgroups} supermaxima", sup, want_sup, F32_TOL)
+            # the whole two-phase function: its values are exact scores of the rows it returns
+            tv, ti, tok = topk.cosine_topk_twophase(index, q, n_valid, k, tile_n=512 if N % 2048 else 2048)
+            checks.compare("topk_segmax", f"{name} two-phase values", tv, want_v, F32_TOL)
+            checks.compare("topk_segmax", f"{name} two-phase scores at returned rows",
+                           torch.where(tok, scores.gather(1, ti.long()), tv), tv, F32_TOL)
+            if timed:
+                elt = index.element_size()
+                qd = q.to(index.dtype)
+                library = lambda: torch.matmul(qd, index.t()).topk(k)  # its tie order is not the contract
+                checks.timed("topk_fused", f"N{N} D{D} B{B} k{k} {tag}", lambda: topk.fused_topk(index, q, n_valid, k),
+                             lambda: topk.fused_topk_reference(index, q, n_valid, k), library=library,
+                             io_bytes=n_valid * D * elt + nbytes(q, vals, idx), ops=2.0 * n_valid * D * B)
+                seg, sup = topk.segment_max(index, q, n_valid, 8, 16)
+                checks.timed("topk_segmax", f"N{N} D{D} B{B} g8 sg16 {tag}",
+                             lambda: topk.segment_max(index, q, n_valid, 8, 16),
+                             lambda: topk.segment_max_reference(index, q, n_valid, 8, 16), library=library,
+                             io_bytes=nbytes(index, q, seg, sup), ops=flops)
+                whole[f"B{B} {tag}"] = {
+                    "fused_ms": time_ms(lambda: topk.cosine_topk_fused(index, q, n_valid, k)),
+                    "twophase_ms": time_ms(lambda: topk.cosine_topk_twophase(index, q, n_valid, k)),
+                    "matmul_topk_ms": checks.times["topk_fused"][f"N{N} D{D} B{B} k{k} {tag}"]["library_ms"]}
+                log(f"  whole functions at {name}: {whole[f'B{B} {tag}']}")
+            del scores, index
+        if not int_kernels:
+            return
+        # ---- K11, K12: exact
+        q8, _ = quant.quantize_rows(q)
+        for unit, build, segmax, segmax_ref, two, flat in (
+                ("topk_segmax_int8", quant.quantize_rows, quant.segment_max_int8, quant.segment_max_int8_reference,
+                 quant.cosine_topk_int8_twophase, quant.cosine_topk_int8),
+                ("topk_segmax_int4", quant.quantize_rows_int4, quant.segment_max_int4,
+                 quant.segment_max_int4_reference, quant.cosine_topk_int4_twophase, quant.cosine_topk_int4)):
+            rows, scale = build(x)
+            got = segmax(rows, scale, q8, n_valid, 16)
+            checks.compare(unit, f"{label} g16 maxima (exact)", got, segmax_ref(rows, scale, q8, n_valid, 16), 0.0)
+            gv, gi, gok = two(rows, scale, q, n_valid, k, tile_n=512 if N % 2048 else 2048)
+            wv, wi, wok = flat(rows, scale, q, n_valid, k)
+            checks.compare(unit, f"{label} two-phase values against flat (exact)", gv, wv, 0.0)
+            if not (torch.equal(gi[wok], wi[wok]) and torch.equal(gok, wok)):
+                raise AssertionError(f"{unit} {label}: two-phase indices differ from the flat function's")
+            if timed:
+                extra = {}
+                if unit == "topk_segmax_int8" and B > 16:  # the library's int8 product alone, for scale
+                    extra["int_mm_ms"] = time_ms(lambda: torch._int_mm(q8, rows.t()))
+                    log(f"  {unit:24s} torch._int_mm of the same operands alone: {extra['int_mm_ms']:.4f} ms")
+                checks.timed(unit, f"N{N} D{D} B{B} g16", lambda: segmax(rows, scale, q8, n_valid, 16),
+                             lambda: segmax_ref(rows, scale, q8, n_valid, 16),
+                             io_bytes=nbytes(rows, scale, q8, got), ops=flops, ops_in="int8")
+                checks.times[unit][f"N{N} D{D} B{B} g16"].update(extra)
+                whole.setdefault(f"B{B} {unit[12:]}", {})["twophase_ms"] = time_ms(
+                    lambda: two(rows, scale, q, n_valid, k))
+            del rows, scale
+
+    dups = ((3, 7), (3, 130), (3, 1029))
+    for B in (3, 20):
+        case(1536, 1100, 64, B, 5, f"ragged N1536 valid1100 D64 B{B} k5", dups)
+    case(1536, 0, 64, 20, 5, "ragged N1536 valid0 D64 B20 k5")
+    case(1024, 1024, 32, 40, 48, "N1024 D32 B40 k48", dups[:2], int_kernels=False)
+    N, D, k = INDEX_N, INDEX_D, INDEX_K
+    case(N, N, D, INDEX_B, k, f"N{N} D{D} B{INDEX_B} k{k}", timed=True)
+    torch.cuda.empty_cache()
+    case(N, N, D, 8, k, f"N{N} D{D} B8 k{k}", timed=True)
+    torch.cuda.empty_cache()
+    return whole
+
+
+def agreement(idx, want) -> float:
+    """Mean share of each query's top-k rows that the reference also holds."""
+    idx, want = torch.as_tensor(idx).cpu().long(), want.cpu().long()
+    return (idx[:, :, None] == want[:, None, :]).any(dim=2).float().mean().item()
+
+
+def refined_pipeline(index, batches) -> dict:
+    """`refined_query_batches` over a few B 256 batches against the serial
+    `cosine_topk_int4_refined` on each: equal results, and ms per batch of
+    both on the host's clock (the pipelined one rescores batch i on the host
+    while the device shortlists batch i+1)."""
+    import numpy as np
+
+    from rag_docvqa_tpu_torch.ops import quant
+
+    k, kprime = INDEX_K, index.refine_kprime
+    pairs = [(b, b.cpu().numpy()) for b in batches]
+    common = dict(host_rows=index.host_rows, kprime=kprime, rows_normalized=True)
+
+    def serial():
+        return [quant.cosine_topk_int4_refined(index.embeddings, index.scales, b, index.n_valid, k, **common)
+                for b, _ in pairs]
+
+    def piped():
+        return list(quant.refined_query_batches(index.embeddings, index.scales, pairs, index.n_valid, k, **common))
+
+    want, got = serial(), piped()
+    if len(got) != len(want):
+        raise AssertionError(f"refined_query_batches gave {len(got)} results for {len(want)} batches")
+    for i, (w, p) in enumerate(zip(want, got)):
+        if not all(np.array_equal(a, b) for a, b in zip(w, p)):
+            raise AssertionError(f"refined_query_batches: batch {i} differs from the serial refined query")
+    times = {}
+    for name, fn in (("serial", serial), ("pipelined", piped), ("pipelined", piped), ("serial", serial)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.setdefault(name, []).append((time.perf_counter() - t0) / len(pairs) * 1e3)
+    res = {"refined_serial_ms_per_batch": min(times["serial"]), "refined_pipelined_ms_per_batch": min(times["pipelined"])}
+    log(f"  refined_query_batches over {len(pairs)} batches of {len(batches[0])}: equal to the serial refined query; "
+        f"ms per batch serial {times['serial']}, pipelined {times['pipelined']}")
+    return res
+
+
+def index_path(g: torch.Generator) -> dict:
+    """7b: build and query the resident index in every precision, as 1 and
+    as 4 row ranges."""
+    from rag_docvqa_tpu_torch.ops import topk
+    from rag_docvqa_tpu_torch.parallel import ShardedIndex, single_device_query
+
+    dev = g.device
+    N, D, B, k = INDEX_N, INDEX_D, INDEX_B, INDEX_K
+    emb = torch.randn((N, D), generator=g, device=dev)  # raw rows, as ShardedIndex.build takes them
+    queries = torch.randn((B, D), generator=g, device=dev)
+    want_v, want_i, _ = single_device_query(emb, queries, k)  # the plain f32 query
+    scores = topk.l2_normalize(queries) @ topk.l2_normalize(emb).t()
+    out = {}
+    for dtype, refine in (("f32", False), ("bf16", False), ("int8", False), ("int4", False), ("int4", True)):
+        name = dtype + ("_refine" if refine else "")
+        results = {}
+        for n_shards in (1, 4):
+            t0 = time.perf_counter()
+            index = ShardedIndex.build(emb, n_shards=n_shards, dtype=dtype, refine=refine, kernel="auto")
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            results[n_shards] = tuple(torch.as_tensor(a).to(dev) for a in index.query(queries, k))
+        for a, b in zip(results[1], results[4]):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{name}: 1 and 4 row ranges give different results")
+        vals, idx, valid = results[1]
+        if not (bool(valid.all()) and bool(torch.isfinite(vals).all()) and vals.shape == (B, k)):
+            raise AssertionError(f"{name}: bad values or validity")
+        agree = agreement(idx, want_i)
+        if dtype == "f32":
+            err_v = (vals - want_v).abs().max().item()
+            err_s = (scores.gather(1, idx.long()) - vals).abs().max().item()
+            if not (err_v <= F32_TOL and err_s <= F32_TOL):
+                raise AssertionError(f"f32 index: values off the plain query by {err_v}, from their rows' scores by {err_s}")
+            log(f"  f32 index against the plain query: values max_abs_err {err_v:.3e}, returned rows' scores {err_s:.3e}")
+        # queries per second at B 256, the host rescore included where there is one
+        index.query(queries, k)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            index.query(queries, k)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / 5 * 1e3
+        small = None
+        if dtype in ("f32", "bf16"):  # at B 8 the dispatch takes the running-merge kernel
+            sv = index.query(queries[:8], k)[0]
+            if not (sv - vals[:8]).abs().max().item() <= F32_TOL:
+                raise AssertionError(f"{name}: B 8 and B 256 disagree on the same queries")
+            small = time_ms(lambda: index.query(queries[:8], k))
+        out[name] = {"top10_agreement_with_f32": agree, "resident_bytes": index.resident_bytes, "build_s": build_s,
+                     "query_ms_b256": ms, "queries_per_s_b256": B / ms * 1e3, "query_ms_b8": small}
+        log(f"  {name:12s} resident {index.resident_bytes / 1e6:8.1f} MB, build {build_s:.2f} s, top-{k} agreement "
+            f"with f32 {agree:.4f}, B{B} query {ms:.3f} ms = {B / ms * 1e3:.0f} queries/s"
+            + ("" if small is None else f", B8 query {small:.3f} ms") + "; 1 and 4 row ranges identical")
+        if refine:
+            out[name].update(refined_pipeline(index, [torch.randn((B, D), generator=g, device=dev) for _ in range(4)]))
+        del index
+    if not out["f32"]["top10_agreement_with_f32"] >= 0.999:
+        raise AssertionError("the f32 index disagrees with the plain f32 query")
+    if not (out["int8"]["top10_agreement_with_f32"] >= 0.9 and out["int4_refine"]["top10_agreement_with_f32"] >= 0.95):
+        raise AssertionError(f"agreement below the limits (int8 0.9, refined int4 0.95): {out}")
+    return out
+
+
+def index_cli() -> dict:
+    """7c: `precompute index` then `precompute query`, the entry points."""
+    import argparse
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+
+    from rag_docvqa_tpu_torch import precompute
+    from rag_docvqa_tpu_torch.parallel import single_device_query
+
+    model, dataset = os.path.join(REPO, "configs", "RAGVT5.yml"), os.path.join(REPO, "configs", "Synthetic.yml")
+    question, k = "what is the invoice total?", 5
+
+    def run(argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            precompute.main(argv)
+        return buf.getvalue().strip().splitlines()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "corpus_index.npz")
+        info = json.loads(run(["index", "-m", model, "-d", dataset, "--out", path, "n_val_docs=256", "n_pages=8",
+                               "words_per_page=120"])[-1])
+        log(f"  precompute index: {info}")
+        data = np.load(path, allow_pickle=True)
+        emb, meta = data["embeddings"], json.loads(str(data["meta"]))
+        if not (emb.shape == (info["n_chunks"], 768) and len(meta) == len(emb) > 2048 and np.isfinite(emb).all()):
+            raise AssertionError(f"bad index file: embeddings {emb.shape}, {len(meta)} meta rows")
+        ranks = {}
+        for dtype, refine in (("f32", False), ("bf16", False), ("int8", False), ("int4", False), ("int8", True),
+                              ("int4", True)):
+            rows = [json.loads(l) for l in run(["query", "--index", path, "-m", model, "-q", question, "--k", str(k),
+                                                "--index-dtype", dtype] + (["--refine"] if refine else []))]
+            name = dtype + ("_refine" if refine else "")
+            if [r["rank"] for r in rows] != list(range(k)) or not all(
+                    math.isfinite(r["score"]) and {"question_id", "doc_idx", "page", "text"} <= set(r) for r in rows):
+                raise AssertionError(f"precompute query {name}: bad rank lines {rows}")
+            ranks[name] = [{f: r[f] for f in ("question_id", "doc_idx", "page", "text")} for r in rows]
+        # the f32 ranks are those of the plain unsharded query with the same weights
+        device, _, tokenizer, _, params = precompute._setup(argparse.Namespace(device="cuda", model=model, overrides=[]))
+        with torch.inference_mode():
+            q = precompute.embed_question(params.t5.shared, tokenizer, question, device)
+            _, idx, _ = single_device_query(torch.from_numpy(emb).to(device), q, k)
+        if ranks["f32"] != [meta[int(i)] for i in idx[0]]:
+            raise AssertionError("precompute query f32: ranks differ from single_device_query")
+        same = {name: sum(a == b for a, b in zip(r, ranks["f32"])) for name, r in ranks.items()}
+        log(f"  precompute query, {len(emb)} chunks: every rank line parses; f32 ranks are single_device_query's; "
+            f"ranks of {k} equal to f32's: {same}")
+    return {"n_chunks": info["n_chunks"], "chunks_per_sec": info["chunks_per_sec"], "ranks_equal_to_f32_of_5": same}
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -693,8 +1068,8 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     log(f"phase 1: card {torch.cuda.get_device_name(0)}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else f"nvidia-smi failed: {smi.stderr.strip()}",
-          flush=True)
+    card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else f"nvidia-smi failed: {smi.stderr.strip()}"
+    print(card, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -725,25 +1100,47 @@ def main() -> int:
     log("phase 6d: t5-base VT5 train steps, bf16 compute, f32 masters")
     train_launches, train_summary = train(g)
     launches.update({k: train_launches[k] for k in KERNELS if KERNELS[k][2] == "train"})
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
+        log("phase 7a: the top-k kernels (K4, K5, K11, K12) against their plain versions")
+        crossover = check_index_kernels(checks, g)
+        torch.cuda.empty_cache()
+        log(f"phase 7b: the resident index, N {INDEX_N} x D {INDEX_D}, B {INDEX_B}, k {INDEX_K}; "
+            f"card and power limit: {card}")
+        kernels.reset_launch_counts()
+        index_summary = index_path(g)
+        torch.cuda.empty_cache()
+    log("phase 7c: precompute index | query on the synthetic corpus, t5-base width")
+    index_summary["cli"] = index_cli()
+    index_launches = dict(kernels.LAUNCHES)
+    log(f"  launches in the index path (7b and 7c): {index_launches}")
+    check_launched(index_launches, INDEX_KERNELS, "index")
+    launches.update({k: index_launches[k] for k in INDEX_KERNELS})
+    index_summary["whole_function_ms"] = crossover
 
     def times(unit: str, case: str) -> dict:
-        ms, plain_ms = checks.times[unit][case]
-        return {"ms": ms, "plain_ms": plain_ms}
+        row = checks.times[unit][case]
+        return {k: row.get(k) for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+
+    def pair(unit: str, case: str) -> dict:
+        return {k: checks.times[unit][case][k] for k in ("ms", "plain_ms")}
 
     report = {
         "kernels": [
             {"name": name, "route": "cuda", "source": src, "replaces": rep, "launches": launches[name],
              "max_abs_err": checks.err[name], **times(name, case), "case": case,
-             "cases": {c: times(name, c) for c in checks.times[name]}}
+             "cases": checks.times[name]}
             for name, (src, rep, _, case) in KERNELS.items()],
         # the whole layer K1 composes from rms_norm, gemm and flash_fwd
-        "t5_layer": {"max_abs_err": checks.err["t5_layer"], **times("t5_layer", "B32 T512 t5-base bf16")},
+        "t5_layer": {"max_abs_err": checks.err["t5_layer"], **pair("t5_layer", "B32 T512 t5-base bf16")},
         # K7 and K8 compose from gemm_bwd, rms_bwd and (K8) the K1 parts and K6
-        "t5_ffn_bwd": {"max_abs_err": checks.err["t5_ffn_bwd"], **times("t5_ffn_bwd", "B8 T512 t5-base bf16")},
-        "t5_attn_bwd": {"max_abs_err": checks.err["t5_attn_bwd"], **times("t5_attn_bwd", "B8 T512 t5-base bf16")},
+        "t5_ffn_bwd": {"max_abs_err": checks.err["t5_ffn_bwd"], **pair("t5_ffn_bwd", "B8 T512 t5-base bf16")},
+        "t5_attn_bwd": {"max_abs_err": checks.err["t5_attn_bwd"], **pair("t5_attn_bwd", "B8 T512 t5-base bf16")},
         "t5_layer_train": {"max_abs_err": checks.err["t5_layer_train"]},
         "encoder_grad_max_rel_err": encoder_grad,
         "train_step": train_summary,
+        "index": index_summary,
+        "card": card,
     }
     print(json.dumps(report), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

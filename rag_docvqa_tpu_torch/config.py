@@ -12,7 +12,7 @@ from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
-from rag_docvqa_tpu.ops.chunking import ChunkSpec
+from rag_docvqa_tpu_torch.ops.chunking import ChunkSpec
 from rag_docvqa_tpu_torch.data.contract import Caps
 from rag_docvqa_tpu_torch.data.tokenizer import BaseTokenizer, HashTokenizer
 from rag_docvqa_tpu_torch.engine.rag_vt5 import STRATEGIES, RAGConfig

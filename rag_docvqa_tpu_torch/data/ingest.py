@@ -3,9 +3,9 @@
 A jax-free copy of `DocVQAIngestor` (`ingest`, `plan_caps`,
 `answer_labels`) from
 `rag_docvqa_tpu/data/ingest.py`, building this package's numpy
-`ChunkedBatch`. It imports no jax: of the JAX package it uses only the
-plain-Python chunker `rag_docvqa_tpu.ops.chunking`, whose package imports
-nothing. One change from the original: when the doc-level
+`ChunkedBatch`. It imports no jax and nothing of the JAX package: the
+chunker is this package's own copy (`ops/chunking.py`). One change from the
+original: when the doc-level
 vectorized path does not apply, the per-page fallback reuses the page chunks
 that path already computed instead of chunking every page a second time.
 
@@ -21,7 +21,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from rag_docvqa_tpu.ops.chunking import ChunkSpec, chunk_page
+from rag_docvqa_tpu_torch.ops.chunking import ChunkSpec, chunk_page
 from rag_docvqa_tpu_torch.data.contract import Caps, ChunkedBatch, RawDocument
 from rag_docvqa_tpu_torch.data.tokenizer import BaseTokenizer
 

@@ -4,8 +4,8 @@ precision and chunk score over a document set.
 The single-device path of `rag_docvqa_tpu/engine/evaluate.py::evaluate`,
 without jax: batches are ingested and copied to the engine's device on a
 background thread (`data/prefetch.py`) while the engine answers the
-previous one, and scored with the shared `rag_docvqa_tpu.metrics.Evaluator`
-(plain Python). MMLongBench-typed scoring runs when the documents carry an
+previous one, and scored with this package's own copy of the `Evaluator`
+(`metrics/`, plain Python). MMLongBench-typed scoring runs when the documents carry an
 answer format, as there. The mesh (data-parallel) path and the ingest
 statistics wait for ROADMAP Queue 1 items 17 and 8.
 """
@@ -19,7 +19,7 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
-from rag_docvqa_tpu.metrics import Evaluator
+from rag_docvqa_tpu_torch.metrics import Evaluator
 from rag_docvqa_tpu_torch.data.contract import RawDocument, to_device
 from rag_docvqa_tpu_torch.data.ingest import DocVQAIngestor
 from rag_docvqa_tpu_torch.data.prefetch import map_prefetch
@@ -73,7 +73,7 @@ def evaluate(
         all_answers.extend(out["pred_answers"])
 
         if mmlb:
-            from rag_docvqa_tpu.metrics.mmlongbench import eval_score, extract_answer
+            from rag_docvqa_tpu_torch.metrics.mmlongbench import eval_score, extract_answer
 
             for i, d in enumerate(chunk):
                 fmt = d.extra.get("answer_format", "Str")
@@ -112,7 +112,7 @@ def evaluate(
     result["scores_by_samples"] = scores_by_samples
     result["pred_answers"] = all_answers
     if mmlb:
-        from rag_docvqa_tpu.metrics.mmlongbench import eval_acc_and_f1, show_results
+        from rag_docvqa_tpu_torch.metrics.mmlongbench import eval_acc_and_f1, show_results
 
         acc, f1 = eval_acc_and_f1(mmlb_samples)
         result["mmlongbench"] = {"accuracy": acc, "f1": f1, "n_samples": len(mmlb_samples)}

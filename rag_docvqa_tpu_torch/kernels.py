@@ -40,6 +40,10 @@ LAUNCHES: Dict[str, int] = {
     "flash_bwd": 0,        # K6, csrc/flash_bwd.cu (also the attention of K8)
     "t5_gemm_bwd": 0,      # K7/K8 products, csrc/t5_layer_bwd.cu
     "t5_rms_bwd": 0,       # K7/K8 norm backward, csrc/t5_layer_bwd.cu
+    "topk_fused": 0,       # K4, csrc/topk_fused.cu
+    "topk_segmax": 0,      # K5, csrc/topk_segmax.cu
+    "topk_segmax_int8": 0,  # K11, csrc/topk_segmax.cu
+    "topk_segmax_int4": 0,  # K12, csrc/topk_segmax.cu
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -56,6 +60,10 @@ _SIGNATURES = {
     "flash_bwd": [_P] * 14 + [_I] * 6 + [_LL] * 12 + [_I] * 3 + [_F, _I, _F, _P],
     "t5_gemm_bwd": [_P] * 7 + [_I] * 6 + [_P],
     "t5_rms_bwd": [_P] * 7 + [_I, _I, _F, _I, _I, _P],
+    "topk_fused": [_P] * 6 + [_I] * 7 + [_P],
+    "topk_segmax": [_P] * 4 + [_I] * 7 + [_P],
+    "topk_segmax_int8": [_P] * 4 + [_I] * 5 + [_P],
+    "topk_segmax_int4": [_P] * 4 + [_I] * 5 + [_P],
 }
 
 

@@ -7,11 +7,12 @@ axis, here they are one module per layer; the rel-pos tables are
 `np.asarray` reads) as `init_vt5_params` or `init_t5_params` build it;
 `to_jax` gives back the part of that tree the port holds (not the visual
 tower nor the LayoutT5 head, which wait for their slices).
+`index_from_numpy` carries a JAX `ShardedIndex`'s arrays into the port's.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Union
+from typing import Any, Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -26,6 +27,7 @@ from rag_docvqa_tpu_torch.models.t5 import (
     T5Stack,
 )
 from rag_docvqa_tpu_torch.models.vt5 import VT5Params
+from rag_docvqa_tpu_torch.parallel.index import ShardedIndex
 
 Tree = Dict[str, Any]
 
@@ -153,3 +155,33 @@ def to_jax(p: Union[VT5Params, T5Params]) -> Tree:
     if p.layout_scale is not None:
         tree["layout_scale"] = _np(p.layout_scale)
     return tree
+
+
+# --------------------------------------------------------------------------- #
+# the corpus index
+# --------------------------------------------------------------------------- #
+def index_from_numpy(embeddings, scales=None, *, n_valid: int, dtype: str = "f32", n_shards: int = 1,
+                     tile_n: int = 512, packed: Optional[bool] = None, host_rows=None, refine_kprime: int = 48,
+                     use_kernel: bool = True, kernel: str = "merge", device="cpu") -> ShardedIndex:
+    """The arrays of a built JAX `ShardedIndex`, as numpy, -> the port's.
+
+    `embeddings` is its padded (N_pad, D) matrix (already normalized; int8
+    values or packed nibbles in the quantized modes, where `scales` is its
+    (N_pad, 1) f32 array), `host_rows` its normalized host copy when it was
+    built with `refine=True`. bf16 rows may come as f32 numpy (numpy has no
+    bf16): `dtype="bf16"` casts them back, which is exact. Nothing is
+    quantized again, so both packages query one and the same index."""
+    if dtype not in ("f32", "bf16", "int8", "int4"):
+        raise ValueError(f"unknown index dtype {dtype!r}")
+    emb = torch.from_numpy(np.ascontiguousarray(embeddings)).to(device)
+    if dtype in ("int8", "int4"):
+        if scales is None or emb.dtype != torch.int8:
+            raise ValueError(f"a {dtype} index needs int8 rows and their scales")
+        sc = torch.from_numpy(np.ascontiguousarray(scales, dtype=np.float32)).to(device)
+        return ShardedIndex(embeddings=emb, scales=sc, n_valid=int(n_valid), n_shards=n_shards, tile_n=tile_n,
+                            use_kernel=False, packed=dtype == "int4" if packed is None else packed,
+                            host_rows=None if host_rows is None else np.asarray(host_rows),
+                            refine_kprime=refine_kprime)
+    emb = emb.to(torch.bfloat16 if dtype == "bf16" else torch.float32)
+    return ShardedIndex(embeddings=emb, n_valid=int(n_valid), n_shards=n_shards, tile_n=tile_n,
+                        use_kernel=use_kernel, kernel=kernel)

@@ -7,7 +7,8 @@ The CLI of the root `train.py` for VT5: layered YAML configs and key=value
 overrides, random weights from the config's seed (or the latest step of a
 checkpoint directory this trainer wrote), the synthetic planted-fact corpus,
 then `Trainer.fit` with per-epoch evaluation. `--device` takes the place of
-`--platform`; the default is cuda when a card is present. Hi-VT5, the
+`--platform`; the default is cuda, and without a CUDA device the CLI raises
+unless `--device cpu` is given. Hi-VT5, the
 dataset loaders, converted HF weights and synthetic page images are not
 ported yet and raise.
 """
@@ -50,6 +51,17 @@ def build_docs(config, split):
                        seed=0 if split == "train" else 1)
 
 
+def resolve_device(name: str):
+    """The device a CLI runs on: `cuda` needs a CUDA device and raises without
+    one, naming the flag; the CPU is used only when asked for."""
+    import torch
+
+    if name == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device found: this command runs on the GPU by default; "
+                           "pass --device cpu to run it on the CPU")
+    return torch.device(name)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description="rag_docvqa_tpu_torch training")
     parser.add_argument("-m", "--model", required=True, help="model config yml")
@@ -57,7 +69,7 @@ def main(argv=None):
     parser.add_argument("--ckpt", default=None, help="checkpoint directory of this trainer to start from")
     parser.add_argument("--hf-weights", default=None, help="not ported yet")
     parser.add_argument("--no-eval-start", action="store_false", dest="eval_start", default=True)
-    parser.add_argument("--device", choices=("cuda", "cpu"), default=None)
+    parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     parser.add_argument("overrides", nargs="*", help="key=value config overrides")
     args = parser.parse_args(argv)
 
@@ -74,7 +86,7 @@ def main(argv=None):
     if args.hf_weights:
         raise NotImplementedError("converted HF weights wait for the port of models/loader.py "
                                   "(ROADMAP Queue 1 item 18)")
-    device = torch.device(args.device or ("cuda" if torch.cuda.is_available() else "cpu"))
+    device = resolve_device(args.device)
     config = load_config(model=args.model, dataset=args.dataset, overrides=parse_overrides(args.overrides))
     if str(config.get("model_name", "VT5")).lower() in ("hi-vt5", "hivt5"):
         raise NotImplementedError("Hi-VT5 training waits for ROADMAP Queue 1 item 12")

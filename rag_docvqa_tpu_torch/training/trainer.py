@@ -21,7 +21,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from rag_docvqa_tpu.metrics import Evaluator
+from rag_docvqa_tpu_torch.metrics import Evaluator
 from rag_docvqa_tpu_torch.data.contract import RawDocument, to_device
 from rag_docvqa_tpu_torch.data.ingest import DocVQAIngestor
 from rag_docvqa_tpu_torch.data.prefetch import map_prefetch

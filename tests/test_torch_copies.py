@@ -1,0 +1,112 @@
+"""The port's own copies of the plain-Python host modules, held against the
+originals in the JAX package so they cannot drift unnoticed: the chunker
+(`ops/chunking.py`) on seeded pages, the metrics (`metrics/`) on a few
+strings. Everything here is integer or string work on the host: equal
+exactly."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+from rag_docvqa_tpu import metrics as j_metrics
+from rag_docvqa_tpu.metrics import mmlongbench as j_mmlb
+from rag_docvqa_tpu.ops import chunking as j_chunking
+from rag_docvqa_tpu_torch import metrics as p_metrics
+from rag_docvqa_tpu_torch.metrics import mmlongbench as p_mmlb
+from rag_docvqa_tpu_torch.ops import chunking as p_chunking
+
+
+def _page(n_words, seed):
+    rng = np.random.RandomState(seed)
+    words = [f"w{rng.randint(1000)}" for _ in range(n_words)]
+    xy = rng.rand(n_words, 2) * 0.8
+    boxes = np.concatenate([xy, xy + rng.rand(n_words, 2) * 0.1 + 0.01], axis=1).tolist()
+    return words, boxes
+
+
+CHUNK_CASES = {
+    # name: (n_words, spec kwargs, layout regions)
+    "fixed": (137, dict(chunk_size=12, overlap=2), 0),
+    "fixed_tail_merge": (61, dict(chunk_size=60, overlap=10), 0),
+    "empty_page": (0, dict(chunk_size=12, overlap=2), 0),
+    "oracle": (40, dict(chunk_size=12, overlap=2, mode="oracle"), 0),
+    "layout": (90, dict(chunk_size=10, overlap=2), 4),
+    "layout_clustered": (90, dict(chunk_size=10, overlap=2, cluster_layouts=True), 4),
+}
+
+
+@pytest.mark.parametrize("case", CHUNK_CASES)
+def test_chunk_page_copy_matches_original(case):
+    n_words, kw, n_regions = CHUNK_CASES[case]
+    words, boxes = _page(n_words, seed=len(case))
+    layout = {}
+    if n_regions:
+        layout = dict(layout_boxes=[[0.0, 0.0, 0.5, 0.5], [0.5, 0.0, 1.0, 0.5], [0.0, 0.5, 0.5, 1.0],
+                                    [0.5, 0.5, 1.0, 1.0]][:n_regions],
+                      layout_labels=[1, 2, 3, 1][:n_regions], layout_clusters=[0, 0, 1, 2][:n_regions])
+    want = j_chunking.chunk_page(words, boxes, j_chunking.ChunkSpec(**kw), **layout)
+    got = p_chunking.chunk_page(words, boxes, p_chunking.ChunkSpec(**kw), **layout)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert dataclasses.asdict(p_chunking.ChunkSpec(**kw)) == dataclasses.asdict(j_chunking.ChunkSpec(**kw))
+
+
+def test_chunking_helpers_copy_matches_original():
+    for n, size, overlap, tol in ((0, 5, 1, 0.2), (23, 5, 1, 0.2), (61, 60, 10, 0.2), (100, 7, 3, 0.0)):
+        assert (p_chunking.make_chunk_indices(range(n), size, overlap, tol)
+                == j_chunking.make_chunk_indices(range(n), size, overlap, tol))
+    small, large = [0.1, 0.1, 0.4, 0.3], [0.2, 0.0, 1.0, 1.0]
+    assert p_chunking.containment_ratio(small, large) == j_chunking.containment_ratio(small, large)
+    _, boxes = _page(9, seed=3)
+    assert p_chunking.compact_chunk_box(boxes, [1, 4, 7]) == j_chunking.compact_chunk_box(boxes, [1, 4, 7])
+    assert set(n for n in dir(j_chunking) if not n.startswith("_")) == \
+        set(n for n in dir(p_chunking) if not n.startswith("_"))
+
+
+STRING_PAIRS = [("total amount", "total amount"), ("Total Amount", "total amout"), ("42", "forty two"),
+                ("", "x"), ("invoice 2021-03", "invoice 2021-08"), ("naïve café", "naive cafe")]
+
+
+@pytest.mark.parametrize("gt,pred", STRING_PAIRS)
+def test_anls_copy_matches_original(gt, pred):
+    assert p_metrics.levenshtein(gt, pred) == j_metrics.levenshtein(gt, pred)
+    assert p_metrics.anls(gt, pred) == j_metrics.anls(gt, pred)
+    assert p_metrics.similarity_score(f"the {gt} of the page", pred) == \
+        j_metrics.similarity_score(f"the {gt} of the page", pred)
+    assert p_metrics.anls_compute(gt, pred) == j_metrics.anls_compute(gt, pred)
+
+
+def test_evaluator_copy_matches_original():
+    answers = [["total amount", "the total"], ["42"], ["paris"], ["1,200.50"]]
+    preds = ["total amout", "42", ["london", "Paris "], "1200.5"]
+    types = ["string", "number", "string", "number"]
+    chunks = [["the total amount is due", "other text"], ["page 42 of 50"], [], ["sum 1,200.50 eur"]]
+    for kw in ({}, {"case_sensitive": True}):
+        want_ev, got_ev = j_metrics.Evaluator(**kw), p_metrics.Evaluator(**kw)
+        assert got_ev.get_metrics(answers, preds, types) == want_ev.get_metrics(answers, preds, types)
+        assert got_ev.get_metrics(answers, None) == want_ev.get_metrics(answers, None)
+        assert got_ev.get_retrieval_metric([1, 0, 2, 3], [1, 1, 2, 0]) == \
+            want_ev.get_retrieval_metric([1, 0, 2, 3], [1, 1, 2, 0])
+        assert got_ev.get_retrieval_metric([1, 0], [[1, 2], [3]]) == want_ev.get_retrieval_metric([1, 0], [[1, 2], [3]])
+        assert got_ev.eval_retrieval(answers, chunks) == want_ev.eval_retrieval(answers, chunks)
+        assert got_ev.update_global_metrics(0.5, 0.6, 1) == want_ev.update_global_metrics(0.5, 0.6, 1)
+        assert (got_ev.best_accuracy, got_ev.best_epoch) == (want_ev.best_accuracy, want_ev.best_epoch)
+
+
+MMLB_CASES = [("12", "12.0", "Int"), ("3.14", "3.1", "Float"), ("Paris", "paris", "Str"),
+              ("['a', 'b']", "['b', 'a']", "List"), ("Not answerable", "Not answerable", "None"),
+              ("https://x.org/a", "x.org/a", "Str")]
+
+
+@pytest.mark.parametrize("gt,pred,fmt", MMLB_CASES)
+def test_mmlongbench_copy_matches_original(gt, pred, fmt):
+    assert p_mmlb.eval_score(gt, pred, fmt) == j_mmlb.eval_score(gt, pred, fmt)
+    assert p_mmlb.get_clean_string(pred) == j_mmlb.get_clean_string(pred)
+    assert p_mmlb.is_exact_match(gt) == j_mmlb.is_exact_match(gt)
+
+
+def test_mmlongbench_summary_copy_matches_original():
+    samples = [{"answer": g, "pred": p, "score": j_mmlb.eval_score(g, p, f)} for g, p, f in MMLB_CASES]
+    assert p_mmlb.eval_acc_and_f1(samples) == j_mmlb.eval_acc_and_f1(samples)
+    assert p_mmlb.eval_acc_and_f1([]) == j_mmlb.eval_acc_and_f1([])
+    assert p_metrics.__all__ == j_metrics.__all__

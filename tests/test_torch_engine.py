@@ -127,8 +127,8 @@ JAX_FREE = textwrap.dedent("""
         sys.modules[name] = None   # any import of them now fails
     import torch
     torch.set_num_threads(2)
-    from rag_docvqa_tpu.ops.chunking import ChunkSpec
-    from rag_docvqa_tpu.metrics.anls import anls
+    from rag_docvqa_tpu_torch.ops.chunking import ChunkSpec
+    from rag_docvqa_tpu_torch.metrics.anls import anls
     from rag_docvqa_tpu_torch.data.contract import Caps
     from rag_docvqa_tpu_torch.data.ingest import DocVQAIngestor
     from rag_docvqa_tpu_torch.data.synthetic import make_corpus
@@ -140,6 +140,9 @@ JAX_FREE = textwrap.dedent("""
     import rag_docvqa_tpu_torch.config, rag_docvqa_tpu_torch.train, rag_docvqa_tpu_torch.engine.evaluate
     import rag_docvqa_tpu_torch.training.trainer, rag_docvqa_tpu_torch.training.checkpoint
     import rag_docvqa_tpu_torch.training.logger, rag_docvqa_tpu_torch.data.prefetch
+    import rag_docvqa_tpu_torch.precompute, rag_docvqa_tpu_torch.params, rag_docvqa_tpu_torch.native
+    import rag_docvqa_tpu_torch.parallel.index, rag_docvqa_tpu_torch.ops.quant, rag_docvqa_tpu_torch.ops.topk
+    import rag_docvqa_tpu_torch.metrics.evaluator, rag_docvqa_tpu_torch.metrics.mmlongbench
     tok = HashTokenizer(4096)
     docs = make_corpus(2, n_pages=2, words_per_page=30, seed=1)
     batch, aux = DocVQAIngestor(tok, ChunkSpec(chunk_size=12, overlap=2), Caps(max_pages=4, max_chunks=16,
@@ -155,7 +158,22 @@ JAX_FREE = textwrap.dedent("""
     # nothing of jax, flax, optax or orbax was imported
     assert not any(m.split(".")[0] in ("jax", "flax", "jaxlib", "optax", "orbax")
                    for m in sys.modules if sys.modules[m] is not None)
-    print(json.dumps({"n": len(out["pred_answers"]), "conf": out["confidences"], "anls": score}))
+    # nor any module of the JAX package, not even one that imports no jax
+    assert not [m for m in sys.modules if m == "rag_docvqa_tpu" or m.startswith("rag_docvqa_tpu.")]
+    # the index path, end to end on the CPU: build, query in every precision
+    import numpy as np
+    from rag_docvqa_tpu_torch.parallel import ShardedIndex, single_device_query
+    rng = np.random.RandomState(0)
+    emb, q = rng.randn(600, 32).astype(np.float32), rng.randn(3, 32).astype(np.float32)
+    want = single_device_query(torch.from_numpy(emb), torch.from_numpy(q), 5)[1]
+    agree = {}
+    for dtype, refine in (("f32", False), ("bf16", False), ("int8", False), ("int4", False), ("int4", True)):
+        idx = ShardedIndex.build(emb, n_shards=2, tile_n=128, dtype=dtype, refine=refine).query(q, 5)[1]
+        idx = torch.as_tensor(idx)
+        agree[dtype + ("_refine" if refine else "")] = float(np.mean(
+            [len(set(idx[b].tolist()) & set(want[b].tolist())) / 5 for b in range(3)]))
+    assert not [m for m in sys.modules if m == "rag_docvqa_tpu" or m.startswith("rag_docvqa_tpu.")]
+    print(json.dumps({"n": len(out["pred_answers"]), "conf": out["confidences"], "anls": score, "agree": agree}))
 """)
 
 
@@ -164,6 +182,7 @@ def test_port_runs_without_jax_or_flax():
     assert proc.returncode == 0, proc.stderr[-3000:]
     res = json.loads(proc.stdout.strip().splitlines()[-1])
     assert res["n"] == 2 and all(np.isfinite(res["conf"]))
+    assert res["agree"]["f32"] == 1.0 and res["agree"]["int4_refine"] >= 0.9 and res["agree"]["int8"] >= 0.8
 
 
 def test_chip_smoke_refuses_without_gpu(tmp_path):

@@ -200,8 +200,8 @@ for name in ("jax", "flax", "optax", "orbax", "jaxlib"):
 sys.argv = ["train", "-m", "configs/VT5_tiny.yml", "-d", "configs/Synthetic.yml", "train_epochs=1",
             "n_train_docs=8", "n_val_docs=4", "--no-eval-start", "--device", "cpu"]
 runpy.run_module("rag_docvqa_tpu_torch.train", run_name="__main__")
-loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "optax", "orbax", "jaxlib")
-                and sys.modules[m] is not None)
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "optax", "orbax", "jaxlib",
+                                                             "rag_docvqa_tpu") and sys.modules[m] is not None)
 print("JAX_MODULES", loaded)
 """
 
