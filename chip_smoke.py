@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's RAG-VT5 serving and training paths and its
-corpus index once on one CUDA card.
+"""Drive the PyTorch port's RAG-VT5 serving and training paths, its corpus
+index and its BERT family once on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # every phase, the report and the result line
+    python3 chip_smoke.py 8          # phases 1-2 and the named ones (3-8) alone, for work on them: no report
 
-Seven phases; any failure raises and the script exits non-zero:
+Eight phases; any failure raises and the script exits non-zero:
 
   1. a CUDA device is required; prints the card's name and power limit and
      turns TF32 off, so f32 products are full f32;
@@ -73,10 +74,49 @@ Seven phases; any failure raises and the script exits non-zero:
         temporary file, then `precompute query` in every precision, with
         and without --refine; every rank line parses and the f32 ranks are
         those of single_device_query. Every kernel of the index path was
-        launched in b and c.
+        launched in b and c;
+  8. the BERT family (post-LN layer K9, its backward K10), TF32 still off:
+     a. K9's parts (the GEMM's bias, bias + erf-GELU and bias + residual-in-
+        f32 epilogues, the row LayerNorm at eps 1e-12 with a constant row, K2
+        at dh 32 and 64 with no bias and mask value -1e30) and the whole
+        layer against their plain versions: a small ragged case (B 7, T 24,
+        d 64, one sequence with no valid key: finite) and both path shapes,
+        bge-small B 1024 T 64 and XLM-R-base width B 320 T 192, f32 <= 1e-4
+        and bf16 <= 2e-2 of max(1, max|ref|), with and without save_x1;
+     b. the full-width f32 12-layer bge-small `bert_encode` at B 64 against
+        the plain stack (<= 1e-4);
+     c. path 1, embed -> index: 16,384 synthetic chunks of T 64 (some padded
+        slots with no valid token) through `embed_batch("BGE")` in bf16 in
+        batches of 1,024, a bf16 ShardedIndex of the embeddings, 64 embedded
+        questions, k 10; embeddings finite and of unit norm, every returned
+        score equal to its row's in the plain product, every K9 kernel
+        launched; chunks per second;
+     d. path 2, reranked serving: two batches of 32 documents through
+        RAGVT5Engine.inference as in phase 5 with the cross-encoder reranker
+        at XLM-R-base width (12 layers, d 768, RoBERTa positions, one label;
+        320 pairs of T 192 per batch; threshold 0.4, at most 5 and at least 1
+        rank); 1 to 5 valid ranks per document with scores sorted descending,
+        finite confidences, every kernel of K1-K3 and K9 launched; ms per
+        batch and the reranker call alone between two synchronizes;
+     e. K10's parts (the backward GEMM's three BERT epilogues, the weight-
+        gradient product cut into row ranges, the LayerNorm backward, the
+        column sums), `bert_ffn_bwd` and `bert_attn_bwd` at bge-small B 256
+        T 64 in f32 and bf16, a sequence with no valid key (finite, equal to
+        the plain version), BertLayerTrain's whole-layer gradient and the
+        full-width f32 12-layer encoder gradient (B 16) against autograd of
+        the plain stack, within 1e-4 of each gradient's largest value;
+     f. path 3: eight contrastive steps (MultipleNegativesRankingLoss at
+        scale 20, optax.adamw's constants, lr 2e-5) of the bge-small
+        bi-encoder at B 256 pairs, T 64, bf16 compute on f32 masters, one
+        repeated batch: loss finite and falling, every K9/K10 kernel
+        launched, ms per step split into forward, backward and update by
+        CUDA events; the eight losses of a second run from the same seed are
+        compared digit for digit and the result printed.
 
 The line before the last is a JSON object with every kernel's launches in
-its path's run (phase 5 for serving, 6d for training, 7b-c for the index),
+its path's run (phase 5 for serving, 6d for training, 7b-c for the index,
+8c for the BERT forward kernels, 8f for the backward ones; every path's
+counts of every kernel under "launches_by_path"),
 its worst error over its own checks, and, at its path's shape, its time,
 the plain version's, the time of one PyTorch call that computes the same
 function where there is one ("library_ms", else null; timed here, used
@@ -85,7 +125,10 @@ the larger of the bytes moved once over 3.35 TB/s and the operations over
 the peak rate of their type, "bound_by" saying which; every timed case
 under "cases"); the whole K1 layer's error
 and times under "t5_layer", K7's and K8's under "t5_ffn_bwd" and
-"t5_attn_bwd", and the train steps under "train_step". The last line is
+"t5_attn_bwd", the train steps under "train_step", the whole K9 layer
+under "bert_layer", K10's halves under "bert_ffn_bwd" and "bert_attn_bwd",
+and paths 1-3 under "embed_index", "rerank_serve" and "contrastive_step".
+The last line is
 {"ok": true, "device": {...}}. Weights are random, made from a seed.
 
 Nothing here imports jax or flax, nor any module of the JAX package: the
@@ -139,11 +182,23 @@ KERNELS = {
                          "index", "N524288 D768 B256 g16"),
     "topk_segmax_int4": ("rag_docvqa_tpu_torch/csrc/topk_segmax.cu", "rag_docvqa_tpu/ops/quant.py:246",
                          "index", "N524288 D768 B256 g16"),
+    "bert_gemm": ("rag_docvqa_tpu_torch/csrc/bert_layer.cu", "rag_docvqa_tpu/ops/fused_encoder.py:67",
+                  "embed", "fc1 65536x1536x384 bias_gelu bf16"),
+    "bert_layer_norm": ("rag_docvqa_tpu_torch/csrc/bert_layer.cu", "rag_docvqa_tpu/ops/fused_encoder.py:67",
+                        "embed", "65536x384 bf16"),
+    "bert_gemm_bwd": ("rag_docvqa_tpu_torch/csrc/bert_layer_bwd.cu", "rag_docvqa_tpu/ops/fused_encoder_bwd.py:679",
+                      "contrastive", "nn mul_f32 16384x1536x384 bf16"),
+    "bert_ln_bwd": ("rag_docvqa_tpu_torch/csrc/bert_layer_bwd.cu", "rag_docvqa_tpu/ops/fused_encoder_bwd.py:679",
+                    "contrastive", "16384x384 bf16"),
+    "bert_col_sum": ("rag_docvqa_tpu_torch/csrc/bert_layer_bwd.cu", "rag_docvqa_tpu/ops/fused_encoder_bwd.py:800",
+                     "contrastive", "16384x1536 f32"),
 }
 # the kernels each path launches
 SERVE_KERNELS = ("t5_rms_norm", "t5_gemm", "flash_fwd", "decode_cross_attention")
 TRAIN_KERNELS = ("t5_rms_norm", "t5_gemm", "flash_fwd", "flash_bwd", "t5_gemm_bwd", "t5_rms_bwd")
 INDEX_KERNELS = ("topk_fused", "topk_segmax", "topk_segmax_int8", "topk_segmax_int4")
+EMBED_KERNELS = ("bert_gemm", "bert_layer_norm", "flash_fwd")  # K9
+CONTRASTIVE_KERNELS = EMBED_KERNELS + ("flash_bwd", "t5_gemm_bwd", "bert_gemm_bwd", "bert_ln_bwd", "bert_col_sum")  # + K10
 
 
 def log(msg: str) -> None:
@@ -1057,6 +1112,487 @@ def index_cli() -> dict:
     return {"n_chunks": info["n_chunks"], "chunks_per_sec": info["chunks_per_sec"], "ranks_equal_to_f32_of_5": same}
 
 
+# --------------------------------------------------------------------------- #
+# phase 8: the BERT family
+# --------------------------------------------------------------------------- #
+BGE = dict(vocab_size=30522, hidden_size=384, num_layers=12, num_heads=12, intermediate_size=1536)  # bge-small
+# the XLM-R-base cross-encoder width; the vocabulary is the engine tokenizer's
+XLMR = dict(hidden_size=768, num_layers=12, num_heads=12, intermediate_size=3072, max_position_embeddings=514,
+            type_vocab_size=1, position_offset=2, pad_id=1, num_labels=1)
+# (tag, B, T, d, heads, d_ff): the shapes paths 1 and 2 give the layer
+BERT_SHAPES = (("bge-small B1024 T64", 1024, 64, 384, 12, 1536), ("xlmr-base B320 T192", 320, 192, 768, 12, 3072))
+EMBED_N, EMBED_B, BERT_T = 16384, 1024, 64  # path 1: chunks, chunks per batch, tokens per chunk
+CONTRASTIVE_B = 256  # path 3: pairs per step
+
+
+def random_bert_layer(g: torch.Generator, d: int, dff: int) -> dict:
+    """One layer in the kernels' form with weights of unit-variance outputs,
+    random biases and LayerNorm pairs (f32)."""
+    dev = g.device
+    randn = lambda *s: torch.randn(s, generator=g, device=dev)
+    ln = lambda: torch.stack([torch.rand(d, generator=g, device=dev) + 0.5, randn(d) * 0.1])
+    return {"wqkv": randn(3 * d, d) * d**-0.5, "bqkv": randn(3 * d) * 0.1, "wo": randn(d, d) * d**-0.5,
+            "bo": randn(d) * 0.1, "ln1": ln(), "w1": randn(dff, d) * d**-0.5, "b1": randn(dff) * 0.1,
+            "w2": randn(d, dff) * dff**-0.5, "b2": randn(d) * 0.1, "ln2": ln()}
+
+
+def ragged_mask(B: int, T: int, dev) -> torch.Tensor:
+    """Lengths from T down to 1 over the batch."""
+    lens = torch.tensor([max(1, T - (i * 7) % T) for i in range(B)], device=dev)
+    return torch.arange(T, device=dev)[None, :] < lens[:, None]
+
+
+def check_bert_kernels(checks: Checks, g: torch.Generator) -> None:
+    """8a: K9's parts and the whole layer against their plain versions."""
+    import torch.nn.functional as F
+
+    from rag_docvqa_tpu_torch.ops import flash_attention as fa
+    from rag_docvqa_tpu_torch.ops import fused_encoder as fe
+
+    dev = g.device
+    randn = lambda *s: torch.randn(s, generator=g, device=dev)
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        timed = dtype == torch.bfloat16
+        gemm_cases = [((77, 100, 72, "bias"), "ragged 77x100x72 bias"),
+                      ((77, 96, 64, "bias_gelu"), "ragged 77x96x64 bias_gelu"),
+                      ((77, 96, 64, "bias_residual_f32"), "ragged 77x96x64 bias_residual_f32")]
+        for _, B, T, d, _, dff in BERT_SHAPES:
+            R = B * T
+            gemm_cases += [((R, 3 * d, d, "bias"), f"qkv {R}x{3 * d}x{d} bias"),
+                           ((R, dff, d, "bias_gelu"), f"fc1 {R}x{dff}x{d} bias_gelu"),
+                           ((R, d, dff, "bias_residual_f32"), f"fc2 {R}x{d}x{dff} bias_residual_f32")]
+        for (M, N, K, epi), label in gemm_cases:
+            a, w, bias = randn(M, K).to(dtype), (randn(N, K) * K**-0.5).to(dtype), (randn(N) * 0.5).to(dtype)
+            aux = randn(M, N).to(dtype) if epi == "bias_residual_f32" else None
+            got, want = fe.gemm(a, w, epi, aux, bias), fe.gemm_reference(a, w, epi, aux, bias)
+            checks.compare("bert_gemm", f"{label} {tag}", got, want, tol(dtype, want))
+            if timed and M > 77:
+                library = (lambda: torch.addmm(bias, a, w.t())) if epi == "bias" else None  # the others: no single call
+                checks.timed("bert_gemm", f"{label} {tag}", lambda: fe.gemm(a, w, epi, aux, bias),
+                             lambda: fe.gemm_reference(a, w, epi, aux, bias), library=library,
+                             io_bytes=nbytes(a, w, bias, aux, got), ops=2.0 * M * N * K, ops_in=op_type(dtype))
+            del a, w, aux, got, want
+        for R, d in [(77, 64)] + [(B * T, d) for _, B, T, d, _, _ in BERT_SHAPES]:
+            y, ln = randn(R, d) * 3.0 + 0.5, torch.stack([torch.rand(d, generator=g, device=dev) + 0.5, randn(d)]).to(dtype)
+            y[0] = 2.0  # a constant row: variance 0 under eps 1e-12
+            got, want = fe.layer_norm_rows(y, ln, 1e-12, dtype), fe.layer_norm_reference(y, ln, 1e-12, dtype)
+            checks.compare("bert_layer_norm", f"{R}x{d} {tag}", got, want, tol(dtype, want))
+            if timed and R > 77:
+                w32, b32 = ln[0].float(), ln[1].float()
+                checks.timed("bert_layer_norm", f"{R}x{d} {tag}", lambda: fe.layer_norm_rows(y, ln, 1e-12, dtype),
+                             lambda: fe.layer_norm_reference(y, ln, 1e-12, dtype),
+                             library=lambda: F.layer_norm(y, (d,), w32, b32, 1e-12).to(dtype),
+                             io_bytes=nbytes(y, ln, got), ops=8.0 * R * d)
+        # K2 at the BERT shapes: no bias, scale dh^-0.5, mask value -1e30
+        for label, B, T, d, H, _ in BERT_SHAPES:
+            dh = d // H
+            qkv = randn(B, T, 3, H, dh).to(dtype)
+            q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+            mask = ragged_mask(B, T, dev)
+            args = (mask, None, dh**-0.5, False, fe.BERT_MASK_VALUE)
+            (got, glse), (want, wlse) = fa.flash_attention_fwd(q, k, v, *args), fa.flash_attention_reference(q, k, v, *args)
+            checks.compare("flash_fwd", f"{label} dh{dh} no bias {tag} out", got, want, tol(dtype, want))
+            checks.compare("flash_fwd", f"{label} dh{dh} no bias {tag} lse", glse, wlse, tol(dtype, wlse))
+            if timed:
+                qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+                pad = mask[:, None, None, :]
+                checks.timed("flash_fwd", f"{label} dh{dh} no bias {tag}", lambda: fa.flash_attention_fwd(q, k, v, *args),
+                             lambda: fa.flash_attention_reference(q, k, v, *args),
+                             library=lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=pad, scale=dh**-0.5),
+                             io_bytes=nbytes(qkv, mask, got, glse), ops=4.0 * B * H * T * T * dh, ops_in=op_type(dtype))
+            del qkv, got, want
+
+    # the whole layer: the small ragged case with one sequence of no valid key, then both path shapes
+    small = random_bert_layer(g, 64, 128)
+    lens = torch.tensor([24, 17, 9, 3, 1, 24, 0], device=dev)
+    mask = torch.arange(24, device=dev)[None, :] < lens[:, None]
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        l = {k: v.to(dtype) for k, v in small.items()}
+        x = randn(7, 24, 64).to(dtype)
+        got = fe.fused_bert_layer_parts(x, mask, l, num_heads=4, eps=1e-12, save_x1=True)
+        want = fe.bert_layer_reference(x, mask, l, num_heads=4, eps=1e-12, save_x1=True)
+        for name, a, b in zip(("out", "x1"), got, want):  # compare also fails on a non-finite value
+            checks.compare("bert_layer", f"ragged B7 T24 d64, one row without keys {tag} {name}", a, b, tol(dtype, b))
+        for label, B, T, d, H, dff in BERT_SHAPES:
+            l = {k: v.to(dtype) for k, v in random_bert_layer(g, d, dff).items()}
+            x, m = randn(B, T, d).to(dtype), ragged_mask(B, T, dev)
+            kw = dict(num_heads=H, eps=1e-12)
+            out = fe.fused_bert_layer_parts(x, m, l, **kw)
+            got = fe.fused_bert_layer_parts(x, m, l, **kw, save_x1=True)
+            want = fe.bert_layer_reference(x, m, l, **kw, save_x1=True)
+            if not torch.equal(out, got[0]):
+                raise AssertionError(f"bert_layer {label} {tag}: save_x1 changes the output")
+            for name, a, b in zip(("out", "x1"), got, want):
+                checks.compare("bert_layer", f"{label} {tag} {name}", a, b, tol(dtype, b))
+            if dtype == torch.bfloat16:
+                checks.timed("bert_layer", f"{label} {tag}", lambda: fe.fused_bert_layer_parts(x, m, l, **kw),
+                             lambda: fe.bert_layer_reference(x, m, l, **kw), iters=5)
+            del l, x, out, got, want
+    torch.cuda.empty_cache()
+
+
+def plain_bert_stack(params, cfg, ids, mask):
+    """`bert_encode` from the plain layer only."""
+    from rag_docvqa_tpu_torch.models import bert
+    from rag_docvqa_tpu_torch.ops import fused_encoder as fe
+
+    x = bert.bert_embed(params, cfg, ids, mask)
+    for l in fe.fuse_bert_blocks(params.layers):
+        x = fe.bert_layer_reference(x, mask, l, num_heads=cfg.num_heads, eps=cfg.layer_norm_eps)
+    return x
+
+
+def bert_tokens(g: torch.Generator, n: int, T: int, vocab: int, empty_every: int = 0):
+    """Synthetic chunks: random ids, lengths 8..T, and every `empty_every`-th
+    row a padded slot with no valid token."""
+    dev = g.device
+    ids = torch.randint(0, vocab, (n, T), generator=g, device=dev)
+    lens = torch.randint(8, T + 1, (n,), generator=g, device=dev)
+    if empty_every:
+        lens[empty_every - 1::empty_every] = 0
+    return ids, torch.arange(T, device=dev)[None, :] < lens[:, None]
+
+
+def check_bert_stack(g: torch.Generator) -> None:
+    """8b: the full-width f32 bge-small encoder against the plain stack."""
+    from rag_docvqa_tpu_torch.models import bert
+
+    cfg = bert.BertConfig(**BGE)
+    params = bert.init_bert_params(g, cfg)
+    ids, mask = bert_tokens(g, 64, 64, cfg.vocab_size)
+    t0 = time.perf_counter()
+    got = bert.bert_encode(params, cfg, ids, mask)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    want = plain_bert_stack(params, cfg, ids, mask)
+    err = (got - want).abs().max().item()
+    log(f"  bert_encode f32 bge-small B64 T64 (12 layers) kernels vs plain stack: max_abs_err {err:.3e} "
+        f"(limit {F32_TOL:.0e}), max|ref| {want.abs().max().item():.3g}, {ms:.1f} ms")
+    if not (math.isfinite(err) and err <= F32_TOL):
+        raise AssertionError(f"full-width bert_encode differs from the plain stack by {err}")
+
+
+def embed_index_path(g: torch.Generator):
+    """8c, path 1: embed synthetic chunks with the bge-small bi-encoder in
+    bf16, build the bf16 index, query it."""
+    from rag_docvqa_tpu_torch import kernels
+    from rag_docvqa_tpu_torch.models import bert
+    from rag_docvqa_tpu_torch.models.embedder import embed_batch
+    from rag_docvqa_tpu_torch.ops import topk
+    from rag_docvqa_tpu_torch.parallel import ShardedIndex
+
+    N, B, T, NQ, k = EMBED_N, EMBED_B, BERT_T, 64, 10
+    cfg = bert.BertConfig(**BGE)
+    params = bert.init_bert_params(g, cfg).to(torch.bfloat16)
+    ids, mask = bert_tokens(g, N, T, cfg.vocab_size, empty_every=97)  # padded slots among the chunks
+    q_ids, q_mask = bert_tokens(g, NQ, T, cfg.vocab_size)
+    embed_batch(params, "BGE", ids[:B], mask[:B], cfg)  # warmup, not counted
+    torch.cuda.synchronize()
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    emb = torch.cat([embed_batch(params, "BGE", ids[i:i + B], mask[i:i + B], cfg) for i in range(0, N, B)])
+    torch.cuda.synchronize()
+    embed_s = time.perf_counter() - t0
+    index = ShardedIndex.build(emb.float(), dtype="bf16", kernel="auto")
+    queries = embed_batch(params, "BGE", q_ids, q_mask, cfg).float()
+    vals, idx, valid = (torch.as_tensor(a).to(g.device) for a in index.query(queries, k))
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+
+    norms = torch.linalg.vector_norm(emb.float(), dim=-1)
+    if not (emb.shape == (N, cfg.hidden_size) and bool(torch.isfinite(emb.float()).all())
+            and (norms - 1.0).abs().max().item() <= 2e-2):
+        raise AssertionError(f"bad embeddings: shape {tuple(emb.shape)}, norms {norms.min().item()}..{norms.max().item()}")
+    # every returned value is the score of its row in the plain product over the resident rows
+    scores = topk.l2_normalize(queries) @ index.embeddings.float()[:N].t()
+    err = (scores.gather(1, idx.long()) - vals).abs().max().item()
+    best = (scores.max(dim=1).values - vals[:, 0]).abs().max().item()
+    if not (bool(valid.all()) and vals.shape == (NQ, k) and err <= 1e-3 and best <= 1e-3):
+        raise AssertionError(f"index query over the embeddings: returned rows' scores off by {err}, best score by {best}")
+    log(f"  embedded {N} chunks (T {T}, bf16, batches of {B}, {int((~mask.any(dim=1)).sum())} padded slots: finite) "
+        f"in {embed_s * 1e3:.1f} ms = {N / embed_s:.0f} chunks/s; bf16 index built; {NQ} queries k {k}: returned rows' "
+        f"scores within {err:.2e}, best score within {best:.2e} of the plain product")
+    log(f"  launches in the embed -> index path: {launches}")
+    check_launched(launches, EMBED_KERNELS, "embed -> index")
+    if launches["topk_fused"] + launches["topk_segmax"] <= 0:
+        raise AssertionError("the index query launched no top-k kernel")
+    return launches, {"chunks": N, "batch": B, "T": T, "embed_ms": embed_s * 1e3, "chunks_per_s": N / embed_s,
+                      "ms_per_batch": embed_s * 1e3 / (N // B)}
+
+
+def serve_reranked(g: torch.Generator):
+    """8d, path 2: RAGVT5Engine.inference with the cross-encoder reranker."""
+    from rag_docvqa_tpu_torch import kernels
+    from rag_docvqa_tpu_torch.data.contract import Caps
+    from rag_docvqa_tpu_torch.data.ingest import DocVQAIngestor
+    from rag_docvqa_tpu_torch.data.synthetic import make_corpus
+    from rag_docvqa_tpu_torch.data.tokenizer import HashTokenizer
+    from rag_docvqa_tpu_torch.engine.rag_vt5 import RAGConfig, RAGVT5Engine
+    from rag_docvqa_tpu_torch.engine.reranker import Reranker, RerankerConfig
+    from rag_docvqa_tpu_torch.models import bert
+    from rag_docvqa_tpu_torch.models import t5 as t5m
+    from rag_docvqa_tpu_torch.models import vt5 as vt5m
+    from rag_docvqa_tpu_torch.ops.chunking import ChunkSpec
+
+    tok = HashTokenizer(32128)
+    ingestor = DocVQAIngestor(tok, ChunkSpec(chunk_size=60, overlap=10), Caps())
+    docs = make_corpus(96, n_pages=8, words_per_page=120, seed=SEED + 1)
+    ingestor.caps = ingestor.plan_caps(docs)
+    batches = [ingestor.ingest(docs[i:i + 32]) for i in range(0, 96, 32)]
+    vt5_cfg = vt5m.VT5Config(t5=t5m.T5Config(decode_kv_int8=True, fused_decode_attn=True))
+    params = vt5m.init_vt5_params(g, vt5_cfg).to(torch.bfloat16)
+    bert_cfg = bert.BertConfig(vocab_size=tok.vocab_size, **XLMR)
+    rcfg = RerankerConfig()  # thresh 0.4, at most 5, at least 1, pair_len 192
+    reranker = Reranker(rcfg, bert_cfg, bert.init_bert_params(g, bert_cfg).to(torch.bfloat16))
+    engine = RAGVT5Engine(RAGConfig(page_retrieval="concat", chunk_num=10, include_surroundings=0,
+                                    max_source_length=512, max_new_tokens=16), vt5_cfg, params, tok, reranker=reranker)
+    engine.inference(*batches[0])  # warmup, not counted
+    torch.cuda.synchronize()
+
+    kernels.reset_launch_counts()
+    results = []
+    for batch, aux in batches[1:]:
+        t0 = time.perf_counter()
+        out = engine.inference(batch, aux)
+        results.append((out, (time.perf_counter() - t0) * 1e3))
+    launches = dict(kernels.LAUNCHES)
+
+    rows = []
+    for i, (out, wall) in enumerate(results):
+        conf, sims = out["confidences"], torch.as_tensor(out["retrieval"]["similarities"])
+        if len(out["pred_answers"]) != 32 or not all(math.isfinite(c) and 0.0 < c <= 1.0 + 1e-6 for c in conf):
+            raise AssertionError(f"reranked batch {i}: bad answers or confidences {conf}")
+        for b, pages in enumerate(out["pred_answer_pages"]):
+            n, s = len(pages), sims[b]
+            if not (rcfg.min_chunk_num <= n <= rcfg.max_chunk_num and bool(torch.isfinite(s[:n]).all())
+                    and bool((s[:n - 1] >= s[1:n]).all()) and bool((s[:n] >= 0).all()) and bool((s[:n] <= 1).all())):
+                raise AssertionError(f"reranked batch {i} doc {b}: {n} valid ranks with scores {s.tolist()}")
+        t = out["timings"]
+        rerank_ms = out["retrieval"]["rerank_time"] * 1e3
+        rows.append({"wall_ms": wall, "rerank_ms": rerank_ms})
+        kept = [len(p) for p in out["pred_answer_pages"]]
+        log(f"  batch {i}: {wall:.1f} ms wall; retrieve+rerank+assemble {t['retrieve_assemble_s'] * 1e3:.2f} ms of which "
+            f"the reranker (320 pairs x T192, 12 layers) {rerank_ms:.2f} ms, encode {t['encode_s'] * 1e3:.2f} ms, "
+            f"decode {t['decode_s'] * 1e3:.2f} ms; ranks kept per document {min(kept)}..{max(kept)}, scores sorted")
+    log(f"  launches in the two reranked batches: {launches}")
+    check_launched(launches, SERVE_KERNELS + EMBED_KERNELS, "reranked serving")
+    return launches, {"ms_per_batch": sum(r["wall_ms"] for r in rows) / len(rows),
+                      "rerank_ms_per_batch": sum(r["rerank_ms"] for r in rows) / len(rows), "batches": rows}
+
+
+def check_bert_bwd(checks: Checks, g: torch.Generator) -> float:
+    """8e: K10's parts and halves against their plain versions, the whole
+    layer and the full-width encoder gradient against autograd of the plain
+    stack; returns the encoder gradient's worst relative error."""
+    from rag_docvqa_tpu_torch.models import bert
+    from rag_docvqa_tpu_torch.ops import fused_encoder as fe
+
+    dev = g.device
+    randn = lambda *s: torch.randn(s, generator=g, device=dev)
+    # bge-small at the contrastive step's shape
+    B, T, d, H, dff, eps = CONTRASTIVE_B, BERT_T, BGE["hidden_size"], BGE["num_heads"], BGE["intermediate_size"], 1e-12
+    R = B * T
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        timed = dtype == torch.bfloat16
+        for (layout, epi, M, N, K), label in (
+                (("nt", "bias_gelu_grad", 77, 96, 64), "ragged nt bias_gelu_grad 77x96x64"),
+                (("nn", "mul_f32", 77, 96, 64), "ragged nn mul_f32 77x96x64"),
+                (("nn", "add_f32_store", 77, 96, 64), "ragged nn add_f32_store 77x96x64"),
+                (("nt", "bias_gelu_grad", R, dff, d), f"nt bias_gelu_grad {R}x{dff}x{d}"),
+                (("nn", "mul_f32", R, dff, d), f"nn mul_f32 {R}x{dff}x{d}"),
+                (("nn", "add_f32_store", R, d, dff), f"nn add_f32_store {R}x{d}x{dff}")):
+            a = randn(M, K).to(dtype)
+            b = ((randn(N, K) if layout == "nt" else randn(K, N)) * K**-0.5).to(dtype)
+            aux = (randn(N) * 0.5).to(dtype) if epi == "bias_gelu_grad" else randn(M, N)
+            got, want = fe.gemm_bwd(a, b, layout, epi, aux), fe.gemm_bwd_reference(a, b, layout, epi, aux)
+            outs = got if isinstance(got, tuple) else (got,)
+            for i, (x, y) in enumerate(zip(outs, want if isinstance(want, tuple) else (want,))):
+                checks.compare("bert_gemm_bwd", f"{label} {tag} out{i}", x, y, tol(dtype, y))
+            if timed and M > 77:
+                checks.timed("bert_gemm_bwd", f"{label} {tag}", lambda: fe.gemm_bwd(a, b, layout, epi, aux),
+                             lambda: fe.gemm_bwd_reference(a, b, layout, epi, aux),
+                             io_bytes=nbytes(a, b, aux, *outs), ops=2.0 * M * N * K, ops_in=op_type(dtype))
+            del a, b, aux, got, want, outs
+        # the weight-gradient products at this shape: few output tiles, so the rows are cut into ranges
+        for M, N, label in ((dff, d, "dW1"), (d, d, "dWo")):
+            a, b = randn(R, M).to(dtype), randn(R, N).to(dtype)
+            got, want = fe.gemm_bwd(a, b, "tn", "store_f32"), fe.gemm_bwd_reference(a, b, "tn", "store_f32")
+            label = f"tn {label} {M}x{N} over {R} rows in {fe.tn_splits(M, N, R, timed)} ranges {tag}"
+            checks.compare("t5_gemm_bwd", label, got, want, rel_tol(dtype, want))
+            if timed:
+                checks.timed("t5_gemm_bwd", label, lambda: fe.gemm_bwd(a, b, "tn", "store_f32"),
+                             lambda: fe.gemm_bwd_reference(a, b, "tn", "store_f32"),
+                             library=lambda: torch.matmul(a.t(), b),  # its output is bf16, the kernel's f32
+                             io_bytes=nbytes(a, b, got), ops=2.0 * M * N * R, ops_in=op_type(dtype))
+            del a, b, got, want
+        for rows in (77, R):
+            y, gg = randn(rows, d) * 3.0 + 0.5, randn(rows, d).to(dtype)
+            ln = torch.stack([torch.rand(d, generator=g, device=dev) + 0.5, randn(d)]).to(dtype)
+            got, want = fe.layer_norm_bwd(y, gg, ln, eps), fe.layer_norm_bwd_reference(y, gg, ln, eps)
+            for name, x, w in zip(("dy", "dy cast", "dln", "dsum"), got, want):
+                limit = tol(dtype, w) if name.startswith("dy") else rel_tol(dtype, w)
+                checks.compare("bert_ln_bwd", f"{rows}x{d} {tag} {name}", x, w, limit)
+            if timed and rows == R:
+                w32, b32 = ln[0].float(), ln[1].float()
+
+                def library():  # autograd of the one library LayerNorm call
+                    yy = y.detach().requires_grad_()
+                    return torch.autograd.grad(torch.nn.functional.layer_norm(yy, (d,), w32, b32, eps), yy, gg.float())
+
+                checks.timed("bert_ln_bwd", f"{rows}x{d} {tag}", lambda: fe.layer_norm_bwd(y, gg, ln, eps),
+                             lambda: fe.layer_norm_bwd_reference(y, gg, ln, eps), library=library,
+                             io_bytes=nbytes(y, gg, ln, *got), ops=16.0 * rows * d)
+        for rows, n, in_dtype in ((77, 100, dtype), (R, dff, torch.float32), (R, 3 * d, dtype)):
+            x = randn(rows, n).to(in_dtype)
+            got, want = fe.col_sum(x), fe.col_sum_reference(x)
+            label = f"{rows}x{n} {op_type(in_dtype)}"
+            checks.compare("bert_col_sum", label, got, want, rel_tol(in_dtype, want))
+            if timed and rows == R:
+                checks.timed("bert_col_sum", label, lambda: fe.col_sum(x), lambda: fe.col_sum_reference(x),
+                             library=lambda: x.sum(dim=0, dtype=torch.float32), io_bytes=nbytes(x, got), ops=1.0 * rows * n)
+
+        # the two halves at the step's shape
+        l = {k: v.to(dtype) for k, v in random_bert_layer(g, d, dff).items()}
+        x, x1, dy = randn(B, T, d).to(dtype), randn(B, T, d).to(dtype), randn(B, T, d).to(dtype)
+        mask = ragged_mask(B, T, dev)
+        ffn = (x1, dy, l["ln2"], l["w1"], l["b1"], l["w2"], l["b2"])
+        got, want = fe.bert_ffn_bwd(*ffn, eps=eps), fe.bert_ffn_bwd_reference(*ffn, eps=eps)
+        for name, a, b in zip(("dx1", "dln2", "dw1", "db1", "dw2", "db2"), got, want):
+            checks.compare("bert_ffn_bwd", f"bge-small B{B} T{T} {tag} {name}", a, b, rel_tol(dtype, b))
+        att = (x, dy, mask, l["wqkv"], l["bqkv"], l["wo"], l["bo"], l["ln1"])
+        got, want = fe.bert_attn_bwd(*att, num_heads=H, eps=eps), fe.bert_attn_bwd_reference(*att, num_heads=H, eps=eps)
+        for name, a, b in zip(("dx", "dln1", "dwqkv", "dbqkv", "dwo", "dbo"), got, want):
+            checks.compare("bert_attn_bwd", f"bge-small B{B} T{T} {tag} {name}", a, b, rel_tol(dtype, b))
+        if timed:
+            checks.timed("bert_ffn_bwd", f"bge-small B{B} T{T} {tag}", lambda: fe.bert_ffn_bwd(*ffn, eps=eps),
+                         lambda: fe.bert_ffn_bwd_reference(*ffn, eps=eps), iters=5)
+            checks.timed("bert_attn_bwd", f"bge-small B{B} T{T} {tag}", lambda: fe.bert_attn_bwd(*att, num_heads=H, eps=eps),
+                         lambda: fe.bert_attn_bwd_reference(*att, num_heads=H, eps=eps), iters=5)
+        del l, x, x1, dy, got, want
+    torch.cuda.empty_cache()
+
+    # a sequence with no valid key: a finite output cotangent gives finite gradients, zero through its attention
+    l = random_bert_layer(g, 64, 128)
+    lens = torch.tensor([24, 17, 0, 3], device=dev)
+    m = torch.arange(24, device=dev)[None, :] < lens[:, None]
+    att = (randn(4, 24, 64), randn(4, 24, 64), m, l["wqkv"], l["bqkv"], l["wo"], l["bo"], l["ln1"])
+    got, want = fe.bert_attn_bwd(*att, num_heads=4, eps=eps), fe.bert_attn_bwd_reference(*att, num_heads=4, eps=eps)
+    for name, a, b in zip(("dx", "dln1", "dwqkv", "dbqkv", "dwo", "dbo"), got, want):  # fails on a non-finite value
+        checks.compare("bert_attn_bwd", f"ragged B4 T24 d64, one row without keys f32 {name}", a, b,
+                       rel_tol(torch.float32, b))
+
+    # the whole layer, f32: BertLayerTrain against autograd through the plain layer
+    l = {k: v.requires_grad_() for k, v in random_bert_layer(g, d, dff).items()}
+    x, cot, mask = randn(B, T, d).requires_grad_(), randn(B, T, d), ragged_mask(B, T, dev)
+    ins = [x] + [l[k] for k in fe.BERT_KEYS]
+    got = torch.autograd.grad(fe.bert_layer_train(x, mask, l, num_heads=H, eps=eps), ins, cot)
+    want = torch.autograd.grad(fe.bert_layer_reference(x, mask, l, num_heads=H, eps=eps), ins, cot)
+    for name, a, b in zip(["x", *fe.BERT_KEYS], got, want):
+        checks.compare("bert_layer_train", f"bge-small B{B} T{T} f32 d{name}", a, b, rel_tol(torch.float32, b))
+    del l, x, got, want
+    torch.cuda.empty_cache()
+
+    # the full-width f32 12-layer bge-small encoder gradient, B 16
+    cfg = bert.BertConfig(**BGE)
+    params = bert.init_bert_params(g, cfg)
+    params.requires_grad_(True)
+    ids, mask = bert_tokens(g, 16, T, cfg.vocab_size)
+    cot = randn(16, T, d)
+    names, ins = zip(*params.named_parameters())
+    t0 = time.perf_counter()
+    got = torch.autograd.grad(bert.bert_encode(params, cfg, ids, mask), ins, cot)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    want = torch.autograd.grad(plain_bert_stack(params, cfg, ids, mask), ins, cot)
+    worst, worst_name = 0.0, ""
+    for name, a, b in zip(names, got, want):
+        if name.endswith(".k_b"):
+            # a shift of every key moves each query's scores by one constant: the key bias has a zero
+            # gradient in exact arithmetic and both sides hold rounding residue, held to an absolute limit
+            if not (a - b).abs().max().item() <= F32_TOL:
+                raise AssertionError(f"BERT encoder gradient {name}: residue {(a - b).abs().max().item():.3e}")
+            continue
+        rel = ((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+        if not (math.isfinite(rel) and rel <= F32_TOL):
+            raise AssertionError(f"BERT encoder gradient {name}: {rel:.3e} of its largest value, above {F32_TOL}")
+        if rel > worst:
+            worst, worst_name = rel, name
+    log(f"  encoder gradient f32 bge-small B16 T{T} (12 layers) kernels vs autograd of the plain stack: worst "
+        f"{worst:.3e} of the largest value ({worst_name}; limit {F32_TOL:.0e}), {ms:.1f} ms forward+backward")
+    return worst
+
+
+def contrastive_path(g: torch.Generator, steps: int = 8):
+    """8f, path 3: contrastive steps of the bge-small bi-encoder on one
+    repeated batch of pairs, bf16 compute on f32 masters."""
+    from rag_docvqa_tpu_torch import kernels
+    from rag_docvqa_tpu_torch.models import bert
+    from rag_docvqa_tpu_torch.training.contrastive import (ContrastiveConfig, contrastive_optimizer,
+                                                           make_contrastive_step)
+
+    B, T = CONTRASTIVE_B, BERT_T
+    cfg = bert.BertConfig(**BGE)
+    ccfg = ContrastiveConfig(batch_size=B, max_tokens=T, bf16_compute=True)  # MNRL at scale 20, lr 2e-5
+    embed = lambda p, ids, mask: bert.bert_sentence_embed(p, cfg, ids, mask)
+    seed = int(torch.randint(0, 2**31 - 1, (1,), generator=g, device=g.device).item())
+
+    def run():
+        gg = torch.Generator(device=g.device).manual_seed(seed)
+        params = bert.init_bert_params(gg, cfg)  # f32 masters
+        a_ids, a_mask = bert_tokens(gg, B, T, cfg.vocab_size)
+        p_ids, p_mask = bert_tokens(gg, B, T, cfg.vocab_size)
+        opt = contrastive_optimizer(ccfg.lr)
+        state = opt.init(params)
+        step = make_contrastive_step(embed, opt, ccfg)
+        rows = []
+        for _ in range(steps):
+            ev = {n: torch.cuda.Event(enable_timing=True) for n in ("start", "forward", "backward", "update")}
+            t0 = time.perf_counter()
+            ev["start"].record()
+            loss = step(params, state, a_ids, a_mask, p_ids, p_mask, mark=lambda n: ev[n].record())
+            torch.cuda.synchronize()
+            rows.append({"loss": loss.item(), "wall_ms": (time.perf_counter() - t0) * 1e3,
+                         "forward_ms": ev["start"].elapsed_time(ev["forward"]),
+                         "backward_ms": ev["forward"].elapsed_time(ev["backward"]),
+                         "update_ms": ev["backward"].elapsed_time(ev["update"])})
+        return rows, (a_ids, p_ids)
+
+    run()  # warmup, not counted; also the first of the two runs whose losses must repeat
+    kernels.reset_launch_counts()
+    rows, (a_ids, p_ids) = run()
+    launches = dict(kernels.LAUNCHES)
+    again, _ = run()
+    for i, r in enumerate(rows):
+        log(f"  step {i + 1}: loss {r['loss']:.6f}, {r['wall_ms']:.1f} ms (forward {r['forward_ms']:.1f}, "
+            f"backward {r['backward_ms']:.1f}, update {r['update_ms']:.1f})")
+    losses = [r["loss"] for r in rows]
+    repeat = losses == [r["loss"] for r in again]
+    log(f"  launches in the {steps} contrastive steps: {launches}")
+    log(f"  the {steps} losses repeat digit for digit in a second run from the same seed: {repeat}")
+    check_launched(launches, CONTRASTIVE_KERNELS, "contrastive")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite contrastive loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the contrastive loss did not fall on the repeated batch: {losses}")
+    # the word-embedding gradient is a scatter of 2 x B x T rows into the table: its time alone
+    table = torch.zeros((cfg.vocab_size, cfg.hidden_size), device=g.device)
+    idx = torch.cat([a_ids, p_ids]).reshape(-1)
+    src = torch.randn((idx.numel(), cfg.hidden_size), generator=g, device=g.device)
+    scatter_ms = time_ms(lambda: table.index_put_((idx,), src, accumulate=True))
+    log(f"  the word-embedding gradient's scatter alone ({idx.numel()} rows of {cfg.hidden_size} f32 into "
+        f"{cfg.vocab_size}, index_put_ accumulate): {scatter_ms:.3f} ms")
+    steady = rows[1:]
+    mean = lambda key: sum(r[key] for r in steady) / len(steady)
+    summary = {"ms": mean("wall_ms"), "forward_ms": mean("forward_ms"), "backward_ms": mean("backward_ms"),
+               "update_ms": mean("update_ms"), "losses": losses, "losses_repeat": repeat,
+               "word_emb_scatter_ms": scatter_ms,
+               "case": f"bge-small B{B} pairs T{T} MNRL bf16 compute, mean of steps 2-{steps}"}
+    log(f"  mean of steps 2-{steps}: {summary['ms']:.1f} ms per step (forward {summary['forward_ms']:.1f}, "
+        f"backward {summary['backward_ms']:.1f}, update {summary['update_ms']:.1f})")
+    return launches, summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -1080,43 +1616,84 @@ def main() -> int:
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
     checks = Checks()
-    with torch.inference_mode():
-        log("phase 3: kernels against their plain versions")
-        check_kernels(checks, g)
-        log("phase 4: full-width f32 t5-base stack")
-        check_stack(g)
+    only = set(sys.argv[1:])  # e.g. `chip_smoke.py 8`: that phase alone, for work on it; no report
+    if only - {"3", "4", "5", "6", "7", "8"}:
+        raise SystemExit(f"usage: chip_smoke.py [phase ...], phases 3-8; got {sorted(only)}")
+    want = lambda phase: not only or phase in only
+    launches, path_launches = {}, {}
+    if want("3") or want("4") or want("5"):
+        with torch.inference_mode():
+            if want("3"):
+                log("phase 3: kernels against their plain versions")
+                check_kernels(checks, g)
+            if want("4"):
+                log("phase 4: full-width f32 t5-base stack")
+                check_stack(g)
+                torch.cuda.empty_cache()
+            if want("5"):
+                log("phase 5: RAGVT5Engine.inference, concat, bf16 weights, int8 cross cache, decode kernel on")
+                launches = serve(g)
+                path_launches["serve"] = dict(launches)
+    torch.cuda.empty_cache()
+    if want("6"):
+        log("phase 6a: the flash backward (K6) against its plain version")
+        check_flash_bwd(checks, g)
+        log("phase 6b: the T5 layer backward (K7, K8) against their plain versions")
+        check_layer_bwd(checks, g)
         torch.cuda.empty_cache()
-        log("phase 5: RAGVT5Engine.inference, concat, bf16 weights, int8 cross cache, decode kernel on")
-        launches = serve(g)
-    torch.cuda.empty_cache()
-    log("phase 6a: the flash backward (K6) against its plain version")
-    check_flash_bwd(checks, g)
-    log("phase 6b: the T5 layer backward (K7, K8) against their plain versions")
-    check_layer_bwd(checks, g)
-    torch.cuda.empty_cache()
-    log("phase 6c: full-width f32 t5-base encoder gradient")
-    encoder_grad = check_encoder_grad(g)
-    torch.cuda.empty_cache()
-    log("phase 6d: t5-base VT5 train steps, bf16 compute, f32 masters")
-    train_launches, train_summary = train(g)
-    launches.update({k: train_launches[k] for k in KERNELS if KERNELS[k][2] == "train"})
-    torch.cuda.empty_cache()
-    with torch.inference_mode():
-        log("phase 7a: the top-k kernels (K4, K5, K11, K12) against their plain versions")
-        crossover = check_index_kernels(checks, g)
+        log("phase 6c: full-width f32 t5-base encoder gradient")
+        encoder_grad = check_encoder_grad(g)
         torch.cuda.empty_cache()
-        log(f"phase 7b: the resident index, N {INDEX_N} x D {INDEX_D}, B {INDEX_B}, k {INDEX_K}; "
-            f"card and power limit: {card}")
-        kernels.reset_launch_counts()
-        index_summary = index_path(g)
+        log("phase 6d: t5-base VT5 train steps, bf16 compute, f32 masters")
+        train_launches, train_summary = train(g)
+        path_launches["train"] = train_launches
+        launches.update({k: train_launches[k] for k in KERNELS if KERNELS[k][2] == "train"})
         torch.cuda.empty_cache()
-    log("phase 7c: precompute index | query on the synthetic corpus, t5-base width")
-    index_summary["cli"] = index_cli()
-    index_launches = dict(kernels.LAUNCHES)
-    log(f"  launches in the index path (7b and 7c): {index_launches}")
-    check_launched(index_launches, INDEX_KERNELS, "index")
-    launches.update({k: index_launches[k] for k in INDEX_KERNELS})
-    index_summary["whole_function_ms"] = crossover
+    if want("7"):
+        with torch.inference_mode():
+            log("phase 7a: the top-k kernels (K4, K5, K11, K12) against their plain versions")
+            crossover = check_index_kernels(checks, g)
+            torch.cuda.empty_cache()
+            log(f"phase 7b: the resident index, N {INDEX_N} x D {INDEX_D}, B {INDEX_B}, k {INDEX_K}; "
+                f"card and power limit: {card}")
+            kernels.reset_launch_counts()
+            index_summary = index_path(g)
+            torch.cuda.empty_cache()
+        log("phase 7c: precompute index | query on the synthetic corpus, t5-base width")
+        index_summary["cli"] = index_cli()
+        index_launches = dict(kernels.LAUNCHES)
+        log(f"  launches in the index path (7b and 7c): {index_launches}")
+        check_launched(index_launches, INDEX_KERNELS, "index")
+        path_launches["index"] = index_launches
+        launches.update({k: index_launches[k] for k in INDEX_KERNELS})
+        index_summary["whole_function_ms"] = crossover
+        torch.cuda.empty_cache()
+    if want("8"):
+        with torch.inference_mode():
+            log("phase 8a: the BERT layer (K9) and its parts against their plain versions")
+            check_bert_kernels(checks, g)
+            log("phase 8b: full-width f32 bge-small stack")
+            check_bert_stack(g)
+            torch.cuda.empty_cache()
+            log(f"phase 8c: embed -> index, bge-small bf16; card and power limit: {card}")
+            embed_launches, embed_summary = embed_index_path(g)
+            torch.cuda.empty_cache()
+            log("phase 8d: RAGVT5Engine.inference with the XLM-R-base-width cross-encoder reranker, bf16")
+            rerank_launches, rerank_summary = serve_reranked(g)
+            torch.cuda.empty_cache()
+        log("phase 8e: the BERT layer backward (K10) against its plain versions")
+        bert_encoder_grad = check_bert_bwd(checks, g)
+        torch.cuda.empty_cache()
+        log("phase 8f: contrastive steps, bge-small, B 256 pairs, bf16 compute, f32 masters")
+        contrastive_launches, contrastive_summary = contrastive_path(g)
+        path_launches.update(embed_index=embed_launches, rerank_serve=rerank_launches,
+                             contrastive=contrastive_launches)
+        launches.update({k: embed_launches[k] for k in KERNELS if KERNELS[k][2] == "embed"})
+        launches.update({k: contrastive_launches[k] for k in KERNELS if KERNELS[k][2] == "contrastive"})
+        torch.cuda.empty_cache()
+    if only:
+        print(json.dumps({"ok": True, "phases": sorted(only), "card": card}), flush=True)
+        return 0
 
     def times(unit: str, case: str) -> dict:
         row = checks.times[unit][case]
@@ -1140,6 +1717,19 @@ def main() -> int:
         "encoder_grad_max_rel_err": encoder_grad,
         "train_step": train_summary,
         "index": index_summary,
+        # the whole layer K9 composes from bert_gemm, bert_layer_norm and flash_fwd, at both path shapes
+        "bert_layer": {"max_abs_err": checks.err["bert_layer"], **pair("bert_layer", "bge-small B1024 T64 bf16"),
+                       "cases": checks.times["bert_layer"]},
+        # K10's halves compose from bert_gemm_bwd, bert_ln_bwd, bert_col_sum, t5_gemm_bwd, the K9 parts and K6
+        "bert_ffn_bwd": {"max_abs_err": checks.err["bert_ffn_bwd"], **pair("bert_ffn_bwd", "bge-small B256 T64 bf16")},
+        "bert_attn_bwd": {"max_abs_err": checks.err["bert_attn_bwd"], **pair("bert_attn_bwd", "bge-small B256 T64 bf16")},
+        "bert_layer_train": {"max_abs_err": checks.err["bert_layer_train"]},
+        "bert_encoder_grad_max_rel_err": bert_encoder_grad,
+        "embed_index": embed_summary,
+        "rerank_serve": rerank_summary,
+        "contrastive_step": contrastive_summary,
+        # every kernel's launches in each path's run, counts set to 0 just before it
+        "launches_by_path": path_launches,
         "card": card,
     }
     print(json.dumps(report), flush=True)

@@ -3,7 +3,9 @@
 Counterpart of the VT5 part of `rag_docvqa_tpu/config.py`: `load_config`
 merges the dataset config, the model config, its `training_parameters` and
 the CLI overrides in that order, as there, and the `build_*` helpers map
-the flat dict onto `RAGConfig`, `VT5Config`, `ChunkSpec` and `Caps`.
+the flat dict onto `RAGConfig`, `VT5Config`, `ChunkSpec` and `Caps`;
+`build_reranker` is the BERT branch of the JAX one, and `build_engine` the
+VT5 branch of the JAX model registry with its `rerank` key.
 PyYAML is imported only by `load_yaml`, so the rest of the port runs where
 it is not installed.
 """
@@ -118,6 +120,65 @@ def build_caps(c: Dict[str, Any]) -> Caps:
         question_tokens=c.get("question_tokens", 48),
         prompt_tokens=c.get("prompt_tokens", 64),
     )
+
+
+def build_reranker(c: Dict[str, Any], tokenizer, seed: int = 0, device="cpu"):
+    """The cross-encoder reranker of a config: the `rerank_*` keys and the
+    `reranker_*` widths (the JAX defaults), vocabulary the tokenizer's, random
+    weights from `seed` on `device`. A weight name with "gemma" selects the
+    LLM pair reranker, which is not ported; converted weight directories wait
+    for the port of models/loader.py."""
+    import torch
+
+    from rag_docvqa_tpu_torch.engine.reranker import Reranker, RerankerConfig
+    from rag_docvqa_tpu_torch.models.bert import BertConfig, init_bert_params
+
+    rcfg = RerankerConfig(
+        filter_thresh=float(c.get("rerank_filter_tresh", 0.4)),
+        max_chunk_num=c.get("rerank_max_chunk_num", 5),
+        min_chunk_num=c.get("rerank_min_chunk_num", 1),
+        pair_len=c.get("rerank_pair_len", 192),
+        rerank_on_surroundings=bool(c.get("rerank_on_surroundings", False)),
+        include_surroundings=_scalar(c.get("include_surroundings", 0)),
+    )
+    weights = str(c.get("reranker_weights", "") or "")
+    if "gemma" in weights.lower():
+        raise NotImplementedError("the LLM pair reranker (FlagLLMReranker) waits for the causal-LM slice "
+                                  "(ROADMAP Queue 1 item 15)")
+    import os
+
+    if weights and os.path.isdir(weights):
+        raise NotImplementedError("converted reranker weights wait for the port of models/loader.py "
+                                  "(ROADMAP Queue 1 item 18)")
+    bert_cfg = BertConfig(
+        vocab_size=tokenizer.vocab_size,
+        hidden_size=c.get("reranker_d_model", 64),
+        num_layers=c.get("reranker_num_layers", 2),
+        num_heads=c.get("reranker_num_heads", 4),
+        intermediate_size=c.get("reranker_d_ff", 128),
+        num_labels=1,
+    )
+    params = init_bert_params(torch.Generator(device=device).manual_seed(seed), bert_cfg)
+    return Reranker(rcfg, bert_cfg, params)
+
+
+def build_engine(c: Dict[str, Any], params, tokenizer):
+    """The RAG-VT5 engine of a config, with the rerank stage when `rerank`
+    is set (its weights on the parameters' device, in their dtype)."""
+    from rag_docvqa_tpu_torch.engine.rag_vt5 import RAGVT5Engine
+
+    name = str(c.get("model_name", "VT5")).lower()
+    if name not in ("vt5", "ragvt5", "rag-vt5"):
+        raise NotImplementedError(f"engine {name!r}: the port has RAG-VT5 only (ROADMAP Queue 1 items 12-15)")
+    if c.get("use_not_answerable_classifier", False):
+        raise NotImplementedError("the not-answerable classifier waits for ROADMAP Queue 1 item 8")
+    reranker = None
+    if c.get("rerank", False):
+        shared = params.t5.shared
+        reranker = build_reranker(c, tokenizer, seed=c.get("seed", 0), device=shared.device)
+        reranker.params.to(shared.dtype)
+    return RAGVT5Engine(build_rag_config(c), build_vt5_config(c, tokenizer.vocab_size), params, tokenizer,
+                        reranker=reranker)
 
 
 def load_tokenizer(spec: Optional[str] = None) -> BaseTokenizer:

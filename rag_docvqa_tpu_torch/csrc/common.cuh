@@ -25,6 +25,29 @@ template <typename T> __device__ __forceinline__ float round_to(float x) {
   return to_f(from_f<T>(x));
 }
 
+// float32 erf in Eigen's rational form, the polynomial XLA lowers erf to and
+// the TPU BERT kernels spell out (rag_docvqa_tpu/ops/fused_encoder.py::_erf32;
+// ops/fused_encoder.py::_erf32 is the plain version): x clipped to +-4, then
+// x * P(x^2) / Q(x^2). CUDA's erff differs from it in the last bits.
+__device__ __forceinline__ float erf32(float x) {
+  x = fminf(fmaxf(x, -4.f), 4.f);
+  const float x2 = x * x;
+  float p = -2.72614225801306e-10f;
+  p = p * x2 + 2.77068142495902e-08f;
+  p = p * x2 + -2.10102402082508e-06f;
+  p = p * x2 + -5.69250639462346e-05f;
+  p = p * x2 + -7.34990630326855e-04f;
+  p = p * x2 + -2.95459980854025e-03f;
+  p = p * x2 + -1.60960333262415e-02f;
+  p = p * x;
+  float q = -1.45660718464996e-05f;
+  q = q * x2 + -2.13374055278905e-04f;
+  q = q * x2 + -1.68282697438203e-03f;
+  q = q * x2 + -7.37332916720468e-03f;
+  q = q * x2 + -1.42647390514189e-02f;
+  return p / q;
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;

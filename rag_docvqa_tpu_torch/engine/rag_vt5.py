@@ -2,15 +2,19 @@
 
 Counterpart of `rag_docvqa_tpu/engine/rag_vt5.py` for the `concat` and
 `oracle` strategies: `RAGConfig`, `retrieve` (the JAX `retrieve_device`)
-and `RAGVT5Engine.inference` with `_decode` and `_result`. The other
-strategies raise `NotImplementedError` naming the ROADMAP slice that ports
-them; the reranker, NAC, chunk reordering (ROADMAP Queue 1 item 8) and the
-visual branch (item 13) are not in the port yet, nor their config fields.
+and `RAGVT5Engine.inference` with `_decode` and `_result`, with the optional
+cross-encoder rerank stage after retrieval (engine/reranker.py; never for
+`oracle`). The other strategies raise `NotImplementedError` naming the
+ROADMAP slice that ports them; NAC, chunk reordering (ROADMAP Queue 1
+item 8) and the visual branch (item 13) are not in the port yet, nor their
+config fields.
 
 Everything from retrieval to the decoded ids runs on the parameters'
 device; the host tokenizes at ingest and detokenizes the answers. The
 result carries the stage split of the wall time under "timings", each stage
-ended by a device synchronize.
+ended by a device synchronize; with a reranker, "rerank_time" under
+"retrieval" is the reranker call alone between two synchronizes (it is part
+of "retrieve_assemble_s").
 """
 
 from __future__ import annotations
@@ -92,7 +96,8 @@ def _sync(device: torch.device) -> None:
 class RAGVT5Engine:
     """Host-facing engine: owns the parameters and the tokenizer."""
 
-    def __init__(self, rag_cfg: RAGConfig, vt5_cfg: vt5m.VT5Config, params: vt5m.VT5Params, tokenizer):
+    def __init__(self, rag_cfg: RAGConfig, vt5_cfg: vt5m.VT5Config, params: vt5m.VT5Params, tokenizer,
+                 reranker=None):
         if rag_cfg.page_retrieval not in PORTED:
             raise NotImplementedError(
                 f"strategy {rag_cfg.page_retrieval!r} waits for the slice of the other RAG-VT5 "
@@ -101,6 +106,7 @@ class RAGVT5Engine:
         self.vt5_cfg = vt5_cfg
         self.params = params
         self.tokenizer = tokenizer
+        self.reranker = reranker  # engine.reranker.Reranker, or None
         self.device = params.t5.shared.device
 
     @torch.inference_mode()
@@ -114,6 +120,13 @@ class RAGVT5Engine:
         oracle = cfg.page_retrieval == "oracle"
         t0 = time.perf_counter()
         ret = retrieve(self.params.t5.shared, batch, k=cfg.chunk_num, oracle=oracle)
+        rerank_s = 0.0
+        if self.reranker is not None and not oracle:
+            _sync(dev)
+            tr = time.perf_counter()
+            ret = self.reranker(batch, ret)
+            _sync(dev)
+            rerank_s = time.perf_counter() - tr
         gen, owner = assemble_concat(batch, ret.top_k_idx, ret.top_k_valid, cfg.assemble())
         _sync(dev)
         t1 = time.perf_counter()
@@ -136,6 +149,8 @@ class RAGVT5Engine:
         result = self._result(answers, confs, pages, ret, batch, aux, owner)
         result["retrieval"]["retrieval_time"] = t1 - t0
         result["retrieval"]["generation_time"] = t3 - t1
+        if self.reranker is not None:
+            result["retrieval"]["rerank_time"] = rerank_s
         result["timings"] = {"retrieve_assemble_s": t1 - t0, "encode_s": t2 - t1, "decode_s": t3 - t2}
         return result
 

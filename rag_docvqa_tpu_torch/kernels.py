@@ -44,6 +44,11 @@ LAUNCHES: Dict[str, int] = {
     "topk_segmax": 0,      # K5, csrc/topk_segmax.cu
     "topk_segmax_int8": 0,  # K11, csrc/topk_segmax.cu
     "topk_segmax_int4": 0,  # K12, csrc/topk_segmax.cu
+    "bert_gemm": 0,        # K9 products with a bias, csrc/bert_layer.cu
+    "bert_layer_norm": 0,  # K9 LayerNorm, csrc/bert_layer.cu
+    "bert_gemm_bwd": 0,    # K10 products, csrc/bert_layer_bwd.cu
+    "bert_ln_bwd": 0,      # K10 LayerNorm backward, csrc/bert_layer_bwd.cu
+    "bert_col_sum": 0,     # K10 bias gradients, csrc/bert_layer_bwd.cu
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -58,12 +63,17 @@ _SIGNATURES = {
     "t5_gemm": [_P] * 4 + [_I] * 5 + [_P],
     "decode_cross_attention": [_P] * 5 + [_I] * 5 + [_P],
     "flash_bwd": [_P] * 14 + [_I] * 6 + [_LL] * 12 + [_I] * 3 + [_F, _I, _F, _P],
-    "t5_gemm_bwd": [_P] * 7 + [_I] * 6 + [_P],
+    "t5_gemm_bwd": [_P] * 7 + [_I] * 6 + [_P, _I, _P],
     "t5_rms_bwd": [_P] * 7 + [_I, _I, _F, _I, _I, _P],
     "topk_fused": [_P] * 6 + [_I] * 7 + [_P],
     "topk_segmax": [_P] * 4 + [_I] * 7 + [_P],
     "topk_segmax_int8": [_P] * 4 + [_I] * 5 + [_P],
     "topk_segmax_int4": [_P] * 4 + [_I] * 5 + [_P],
+    "bert_gemm": [_P] * 5 + [_I] * 5 + [_P],
+    "bert_layer_norm": [_P] * 3 + [_I, _I, _F, _I, _P],
+    "bert_gemm_bwd": [_P] * 5 + [_I] * 6 + [_P],
+    "bert_ln_bwd": [_P] * 7 + [_I, _I, _F, _I, _P],
+    "bert_col_sum": [_P] * 3 + [_I] * 3 + [_P],
 }
 
 

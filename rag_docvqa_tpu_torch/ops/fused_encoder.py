@@ -1,4 +1,5 @@
-"""The T5 encoder layer through hand-written kernels (K1).
+"""The T5 (K1, K7, K8) and BERT (K9, K10) encoder layers through hand-written
+kernels. The T5 layer first; the BERT layer at the end of this docstring.
 
 Counterpart of the T5 part of `rag_docvqa_tpu/ops/fused_encoder.py`
 (`fuse_t5_blocks`, `fused_t5_layer_parts`, `fused_t5_layer`). The TPU
@@ -34,9 +35,34 @@ Weight gradients are f32 in the port's (out, in) layout.
 Each wrapper launches its kernel on CUDA tensors and runs its plain version
 on CPU tensors. `t5_layer_reference`, `t5_ffn_bwd_reference` and
 `t5_attn_bwd_reference` are built only from the plain versions, for checks
-on the card. The BERT (K9, K10) and ViT (K14) layers and the query-tiled
-form (K13) wait for later slices; `ffn_chunk`, `attn_stream` and the row
-picker are VMEM artifacts with no counterpart.
+on the card. The ViT layer (K14) and the query-tiled form (K13) wait for
+later slices; `ffn_chunk`, `attn_stream` and the row pickers are VMEM
+artifacts with no counterpart.
+
+The post-LN BERT layer (K9; the BERT part of the JAX `ops/fused_encoder.py`:
+`_erf32`, `fuse_bert_blocks`, `fused_bert_layer_parts`, `fused_bert_layer`)
+is the same GEMM with three more epilogues (csrc/bert_layer.cu says how),
+
+  "bias"               cast(a.W^T + b)                       (QKV)
+  "bias_gelu"          cast(gelu_erf(a.W^T + b)), GELU in f32 (fc1)
+  "bias_residual_f32"  aux + (a.W^T + b), kept in f32        (O and fc2),
+
+`layer_norm_rows`, a row LayerNorm that reads that f32 sum and writes the
+compute dtype, and K2 with mask_value -1e30 and scale dh^-0.5. erf is the
+rational polynomial the TPU kernel spells out (`_erf32`). Its backward (K10;
+the JAX `ops/fused_encoder_bwd.py`: `bert_ffn_bwd`, `bert_attn_bwd`,
+`make_fused_bert_layer_train`) splits at x1, the post-LN1 activation
+(csrc/bert_layer_bwd.cu says how), from `gemm_bwd` with three more
+epilogues, `layer_norm_bwd` and `col_sum` (the bias gradients, summed over
+rows in a fixed order) and K6. `BertLayerTrain` is the layer-level
+`torch.autograd.Function`: it saves x and x1 only.
+
+Two places where K9/K10 keep the port's K2/K6 cast points and not the TPU
+BERT kernels': the probabilities are rounded to the compute dtype before
+normalisation (the TPU kernel rounds p / sum), and the score gradient is
+rounded before the scale (the TPU kernel rounds p * (dp - srow) * scale). In
+f32 the two agree to rounding; a sequence with no valid key gives a zero
+attention output and a zero gradient here, a uniform softmax on the TPU.
 """
 
 from __future__ import annotations
@@ -56,7 +82,40 @@ from rag_docvqa_tpu_torch.ops.flash_attention import (
 
 T5_MASK_VALUE = -1e9  # the TPU layer kernel's and _attend's masked score
 
-EPILOGUES = {"none": 0, "relu": 1, "residual": 2, "gelu_mul": 3}
+BERT_MASK_VALUE = -1e30  # the TPU BERT kernel's masked score
+
+# the codes of csrc/gemm_fwd.cuh; 4 and above take a bias and launch `bert_gemm`
+EPILOGUES = {"none": 0, "relu": 1, "residual": 2, "gelu_mul": 3, "bias": 4, "bias_gelu": 5, "bias_residual_f32": 6}
+_AUX_EPILOGUES = ("residual", "gelu_mul", "bias_residual_f32")
+
+_ERF_ALPHA = (-2.72614225801306e-10, 2.77068142495902e-08, -2.10102402082508e-06, -5.69250639462346e-05,
+              -7.34990630326855e-04, -2.95459980854025e-03, -1.60960333262415e-02)
+_ERF_BETA = (-1.45660718464996e-05, -2.13374055278905e-04, -1.68282697438203e-03, -7.37332916720468e-03,
+             -1.42647390514189e-02)
+
+
+def _erf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 erf in Eigen's rational form: the polynomial XLA lowers
+    `jax.lax.erf` to and the TPU BERT kernels spell out; csrc/common.cuh has
+    the same one. `torch.erf` differs from it in the last bits."""
+    x = x.clamp(-4.0, 4.0)
+    x2 = x * x
+    p = torch.full_like(x, _ERF_ALPHA[0])
+    for a in _ERF_ALPHA[1:]:
+        p = p * x2 + a
+    p = p * x
+    q = torch.full_like(x, _ERF_BETA[0])
+    for b in _ERF_BETA[1:]:
+        q = q * x2 + b
+    return p / q
+
+
+def _gelu_erf_and_grad(h: torch.Tensor):
+    """Exact-erf GELU and its derivative, f32: cdf from `_erf32`, pdf from
+    exp (`fused_encoder_bwd.py::_gelu_erf_and_grad`)."""
+    cdf = 0.5 * (1.0 + _erf32(h * 2.0 ** -0.5))
+    pdf = torch.exp(-0.5 * h * h) * (2.0 * torch.pi) ** -0.5
+    return h * cdf, cdf + h * pdf
 
 
 # --------------------------------------------------------------------------- #
@@ -84,11 +143,20 @@ def rms_norm_rows(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Te
 # (b) GEMM with epilogue
 # --------------------------------------------------------------------------- #
 def gemm_reference(a: torch.Tensor, w: torch.Tensor, epilogue: str = "none",
-                   aux: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   aux: Optional[torch.Tensor] = None, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain version of the GEMM kernel: f32 product of a (M, K) and
-    w (N, K), then the epilogue with the kernel's casts, in a's dtype."""
+    w (N, K), then the epilogue with the kernel's casts, in a's dtype (f32
+    for "bias_residual_f32")."""
     cdt = a.dtype
     acc = torch.matmul(a.float(), w.float().t())
+    if bias is not None:
+        acc = acc + bias.float()
+    if epilogue == "bias":
+        return acc.to(cdt)
+    if epilogue == "bias_gelu":
+        return (0.5 * acc * (1.0 + _erf32(acc * 2.0 ** -0.5))).to(cdt)
+    if epilogue == "bias_residual_f32":
+        return aux.float() + acc
     if epilogue == "none":
         return acc.to(cdt)
     if epilogue == "relu":
@@ -103,15 +171,18 @@ def gemm_reference(a: torch.Tensor, w: torch.Tensor, epilogue: str = "none",
 
 
 def gemm(a: torch.Tensor, w: torch.Tensor, epilogue: str = "none",
-         aux: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """epilogue(a (M, K) @ w (N, K)^T) -> (M, N) in a's dtype; aux (M, N)
-    is the residual ("residual") or the up-projection u ("gelu_mul")."""
+         aux: Optional[torch.Tensor] = None, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """epilogue(a (M, K) @ w (N, K)^T) -> (M, N) in a's dtype (f32 for
+    "bias_residual_f32"); aux (M, N) is the residual or the up-projection u
+    ("gelu_mul"), bias (N,) the dense bias of the "bias*" epilogues."""
     if epilogue not in EPILOGUES:
         raise ValueError(f"unknown epilogue {epilogue!r}")
-    if (aux is None) != (epilogue in ("none", "relu")):
+    if (aux is None) != (epilogue not in _AUX_EPILOGUES):
         raise ValueError(f"epilogue {epilogue!r} {'needs' if aux is None else 'takes no'} aux")
-    if not kernels.on_cuda(a, w, aux):
-        return gemm_reference(a, w, epilogue, aux)
+    if (bias is None) != (not epilogue.startswith("bias")):
+        raise ValueError(f"epilogue {epilogue!r} {'needs' if bias is None else 'takes no'} bias")
+    if not kernels.on_cuda(a, w, aux, bias):
+        return gemm_reference(a, w, epilogue, aux, bias)
     M, K = a.shape
     N = w.shape[0]
     kernels.require(w.shape == (N, K), f"gemm: a {tuple(a.shape)} and w {tuple(w.shape)} do not fit")
@@ -124,12 +195,21 @@ def gemm(a: torch.Tensor, w: torch.Tensor, epilogue: str = "none",
     if aux is not None:
         kernels.require(aux.shape == (M, N) and aux.dtype == a.dtype and aux.is_contiguous(),
                         f"gemm: aux must be contiguous {a.dtype} (M, N), got {tuple(aux.shape)}")
-    out = torch.empty((M, N), dtype=a.dtype, device=a.device)
-    err = kernels.library().t5_gemm(
-        a.data_ptr(), w.data_ptr(), out.data_ptr(), aux.data_ptr() if aux is not None else None,
-        M, N, K, dtype, EPILOGUES[epilogue], kernels.stream_ptr(a))
-    kernels.check("t5_gemm", err)
-    kernels.LAUNCHES["t5_gemm"] += 1
+    out_dtype = torch.float32 if epilogue == "bias_residual_f32" else a.dtype
+    out = torch.empty((M, N), dtype=out_dtype, device=a.device)
+    aux_ptr = aux.data_ptr() if aux is not None else None
+    if bias is None:
+        err = kernels.library().t5_gemm(a.data_ptr(), w.data_ptr(), out.data_ptr(), aux_ptr, M, N, K, dtype,
+                                        EPILOGUES[epilogue], kernels.stream_ptr(a))
+        name = "t5_gemm"
+    else:
+        kernels.require(bias.shape == (N,) and bias.dtype == a.dtype and bias.is_contiguous(),
+                        f"gemm: bias must be contiguous {a.dtype} (N,), got {tuple(bias.shape)} {bias.dtype}")
+        err = kernels.library().bert_gemm(a.data_ptr(), w.data_ptr(), out.data_ptr(), aux_ptr, bias.data_ptr(),
+                                          M, N, K, dtype, EPILOGUES[epilogue], kernels.stream_ptr(a))
+        name = "bert_gemm"
+    kernels.check(name, err)
+    kernels.LAUNCHES[name] += 1
     return out
 
 
@@ -203,10 +283,15 @@ def fused_t5_layer(x, key_mask, bias, layer, *, num_heads: int, eps: float, gate
 # the backward's products: A.W, A^T.B (f32) and the FFN-backward epilogues
 # --------------------------------------------------------------------------- #
 LAYOUTS = {"nt": 0, "nn": 1, "tn": 2}
-BWD_EPILOGUES = {"store": 0, "store_f32": 1, "acc_f32": 2, "relu_bwd": 3, "gelu_bwd": 4}
-# (layout, epilogue) pairs the kernel takes, and how many outputs each gives
-BWD_PAIRS = {("nt", "relu_bwd"): 2, ("nt", "gelu_bwd"): 3, ("nn", "store"): 1, ("nn", "store_f32"): 1,
-             ("nn", "acc_f32"): 1, ("tn", "store_f32"): 1}
+# the codes of csrc/gemm_bwd.cuh; 5 and above launch `bert_gemm_bwd`
+BWD_EPILOGUES = {"store": 0, "store_f32": 1, "acc_f32": 2, "relu_bwd": 3, "gelu_bwd": 4,
+                 "bias_gelu_grad": 5, "mul_f32": 6, "add_f32_store": 7}
+# (layout, epilogue) pairs the kernels take -> (outputs, aux operands): "c" is
+# (M, N) in the compute dtype, "f" (M, N) f32, "b" a bias (N,) in the compute dtype
+BWD_PAIRS = {("nt", "relu_bwd"): ("cc", "c"), ("nt", "gelu_bwd"): ("ccc", "cc"), ("nn", "store"): ("c", ""),
+             ("nn", "store_f32"): ("f", ""), ("nn", "acc_f32"): ("f", ""), ("tn", "store_f32"): ("f", ""),
+             ("nt", "bias_gelu_grad"): ("cf", "b"), ("nn", "mul_f32"): ("fc", "f"),
+             ("nn", "add_f32_store"): ("c", "f")}
 
 
 def _gelu_tanh_and_grad(g):
@@ -220,9 +305,12 @@ def gemm_bwd_reference(a, b, layout: str, epilogue: str, aux0=None, aux1=None, a
     """Plain version of the backward GEMM kernel: the f32 product of
     a (M, K) . b (N, K)^T ("nt"), a (M, K) . b (K, N) ("nn") or
     a (K, M)^T . b (K, N) ("tn"), then the epilogue with the kernel's casts
-    (csrc/t5_layer_bwd.cu lists them): "store" -> a's dtype, "store_f32",
+    (csrc/gemm_bwd.cuh lists them): "store" -> a's dtype, "store_f32",
     "acc_f32" (adds into `acc` in place and returns it), "relu_bwd"
-    (aux0 = df) -> (dpre, f), "gelu_bwd" (aux0 = u, aux1 = df) -> (f, du, dgl)."""
+    (aux0 = df) -> (dpre, f), "gelu_bwd" (aux0 = u, aux1 = df) -> (f, du, dgl),
+    "bias_gelu_grad" (aux0 = bias (N,)) -> (gelu(p + bias) in a's dtype,
+    gelu'(p + bias) f32), "mul_f32" (aux0 f32) -> (p * aux0 f32, its cast),
+    "add_f32_store" (aux0 f32) -> cast(aux0 + p)."""
     cdt = a.dtype
     p = torch.matmul(a.float().t() if layout == "tn" else a.float(), b.float().t() if layout == "nt" else b.float())
     if epilogue == "store":
@@ -237,20 +325,45 @@ def gemm_bwd_reference(a, b, layout: str, epilogue: str, aux0=None, aux1=None, a
         ge, dge = _gelu_tanh_and_grad(p.to(cdt).float())
         u, df = aux0.float(), aux1.float()
         return (ge.to(cdt).float() * u).to(cdt), (df * ge).to(cdt), (df * u * dge).to(cdt)
+    if epilogue == "bias_gelu_grad":
+        ge, dge = _gelu_erf_and_grad(p + aux0.float())
+        return ge.to(cdt), dge
+    if epilogue == "mul_f32":
+        v = p * aux0
+        return v, v.to(cdt)
+    if epilogue == "add_f32_store":
+        return (aux0 + p).to(cdt)
     raise ValueError(f"unknown epilogue {epilogue!r}")
+
+
+SM_COUNT = 132  # H100 SXM; only sizes the split below, any value is correct
+
+
+def tn_splits(M: int, N: int, K: int, bf16: bool) -> int:
+    """Into how many row ranges a weight gradient a^T . b is cut: 1 when its
+    (M, N) output already has a tile for every SM or few rows, else enough
+    ranges of at least 512 rows for about two tiles per SM, at most 32. The
+    partial products are summed in range order, so the result does not depend
+    on timing; it depends on this number only in the order of an f32 sum."""
+    tile = 128 if bf16 else 64
+    tiles = -(-M // tile) * -(-N // tile)
+    if tiles >= SM_COUNT or K < 1024:
+        return 1
+    return max(1, min(-(-2 * SM_COUNT // tiles), K // 512, 32))
 
 
 def gemm_bwd(a: torch.Tensor, b: torch.Tensor, layout: str, epilogue: str,
              aux0: Optional[torch.Tensor] = None, aux1: Optional[torch.Tensor] = None,
              acc: Optional[torch.Tensor] = None):
     """The products of the layer backward (see `gemm_bwd_reference` for the
-    layouts and epilogues). Outputs are (M, N): in a's dtype, or f32 for the
-    _f32 epilogues."""
-    n_out = BWD_PAIRS.get((layout, epilogue))
-    if n_out is None:
+    layouts and epilogues). Outputs are (M, N), in a's dtype or f32 as
+    `BWD_PAIRS` says."""
+    spec = BWD_PAIRS.get((layout, epilogue))
+    if spec is None:
         raise ValueError(f"gemm_bwd: no kernel for layout {layout!r} with epilogue {epilogue!r}")
-    n_aux = {"relu_bwd": 1, "gelu_bwd": 2}.get(epilogue, 0)
-    if (aux0 is not None, aux1 is not None) != (n_aux >= 1, n_aux >= 2) or (acc is None) != (epilogue != "acc_f32"):
+    out_kinds, aux_kinds = spec
+    if (aux0 is not None, aux1 is not None) != (len(aux_kinds) >= 1, len(aux_kinds) >= 2) \
+            or (acc is None) != (epilogue != "acc_f32"):
         raise ValueError(f"gemm_bwd: wrong aux/acc operands for epilogue {epilogue!r}")
     if not kernels.on_cuda(a, b, aux0, aux1, acc):
         return gemm_bwd_reference(a, b, layout, epilogue, aux0, aux1, acc)
@@ -266,25 +379,35 @@ def gemm_bwd(a: torch.Tensor, b: torch.Tensor, layout: str, epilogue: str,
         vec = {"nt": (K,), "nn": (K, N), "tn": (M, N)}[layout]
         kernels.require(all(n % 8 == 0 for n in vec) and a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0,
                         "gemm_bwd: the bf16 kernel loads 16-byte rows: contiguous dims % 8 == 0, aligned a and b")
-    for t in (aux0, aux1):
-        if t is not None:
-            kernels.require(t.shape == (M, N) and t.dtype == a.dtype and t.is_contiguous(),
-                            f"gemm_bwd: aux must be contiguous {a.dtype} (M, N)")
+    kind_dtype = {"c": a.dtype, "f": torch.float32, "b": a.dtype}
+    for t, kind in zip((aux0, aux1), aux_kinds):
+        kernels.require(t.shape == ((N,) if kind == "b" else (M, N)) and t.dtype == kind_dtype[kind]
+                        and t.is_contiguous(), f"gemm_bwd {epilogue}: aux must be contiguous {kind_dtype[kind]} "
+                        f"{'(N,)' if kind == 'b' else '(M, N)'}, got {tuple(t.shape)} {t.dtype}")
     if acc is not None:
         kernels.require(acc.shape == (M, N) and acc.dtype == torch.float32 and acc.is_contiguous(),
                         "gemm_bwd: acc must be contiguous f32 (M, N)")
         outs = [acc]
     else:
-        out_dtype = torch.float32 if epilogue == "store_f32" else a.dtype
-        outs = [torch.empty((M, N), dtype=out_dtype, device=a.device) for _ in range(n_out)]
-    ptrs = [t.data_ptr() for t in outs] + [None] * (3 - len(outs))
-    err = kernels.library().t5_gemm_bwd(
-        a.data_ptr(), b.data_ptr(), *ptrs, aux0.data_ptr() if aux0 is not None else None,
-        aux1.data_ptr() if aux1 is not None else None, M, N, K, LAYOUTS[layout], dtype,
-        BWD_EPILOGUES[epilogue], kernels.stream_ptr(a))
-    kernels.check("t5_gemm_bwd", err)
-    kernels.LAUNCHES["t5_gemm_bwd"] += 1
-    return outs[0] if n_out == 1 else tuple(outs)
+        outs = [torch.empty((M, N), dtype=kind_dtype[kind], device=a.device) for kind in out_kinds]
+    ptr = lambda t: t.data_ptr() if t is not None else None
+    if BWD_EPILOGUES[epilogue] < 5:
+        name = "t5_gemm_bwd"
+        ptrs = [t.data_ptr() for t in outs] + [None] * (3 - len(outs))
+        splits = tn_splits(M, N, K, a.dtype == torch.bfloat16) if layout == "tn" else 1
+        scratch = torch.empty((splits, M, N), dtype=torch.float32, device=a.device) if splits > 1 else None
+        err = kernels.library().t5_gemm_bwd(a.data_ptr(), b.data_ptr(), *ptrs, ptr(aux0), ptr(aux1), M, N, K,
+                                            LAYOUTS[layout], dtype, BWD_EPILOGUES[epilogue], ptr(scratch), splits,
+                                            kernels.stream_ptr(a))
+    else:
+        name = "bert_gemm_bwd"
+        ptrs = [t.data_ptr() for t in outs] + [None] * (2 - len(outs))
+        err = kernels.library().bert_gemm_bwd(a.data_ptr(), b.data_ptr(), *ptrs, ptr(aux0), M, N, K,
+                                              LAYOUTS[layout], dtype, BWD_EPILOGUES[epilogue],
+                                              kernels.stream_ptr(a))
+    kernels.check(name, err)
+    kernels.LAUNCHES[name] += 1
+    return outs[0] if len(outs) == 1 else tuple(outs)
 
 
 # --------------------------------------------------------------------------- #
@@ -456,3 +579,261 @@ class T5LayerTrain(torch.autograd.Function):
 def t5_layer_train(x, key_mask, bias, l: Dict[str, torch.Tensor], *, num_heads: int, eps: float, gated: bool):
     """`T5LayerTrain` on a `fuse_t5_blocks` entry."""
     return T5LayerTrain.apply(x, key_mask, bias, num_heads, eps, gated, *(l[k] for k in layer_keys(gated)))
+
+
+# --------------------------------------------------------------------------- #
+# K9: the post-LN BERT layer
+# --------------------------------------------------------------------------- #
+BERT_KEYS = ("wqkv", "bqkv", "wo", "bo", "ln1", "w1", "b1", "w2", "b2", "ln2")
+
+
+def layer_norm_reference(y: torch.Tensor, ln: torch.Tensor, eps: float, dtype: torch.dtype) -> torch.Tensor:
+    """Plain version of the LayerNorm kernel: y (R, d) f32, ln (2, d) =
+    [scale; bias]; mean and variance in f32, the result cast to `dtype`."""
+    mean = y.mean(dim=-1, keepdim=True)
+    var = (y - mean).square().mean(dim=-1, keepdim=True)
+    n = (y - mean) * torch.rsqrt(var + eps)
+    return (n * ln[0].float() + ln[1].float()).to(dtype)
+
+
+def layer_norm_rows(y: torch.Tensor, ln: torch.Tensor, eps: float, dtype: torch.dtype) -> torch.Tensor:
+    """LayerNorm over the rows of the f32 sum y (R, d) with ln (2, d) in
+    `dtype`; the result is in `dtype`."""
+    if not kernels.on_cuda(y, ln):
+        return layer_norm_reference(y, ln, eps, dtype)
+    R, d = y.shape
+    kernels.require(y.dtype == torch.float32 and y.is_contiguous(), "layer_norm_rows: y must be contiguous f32")
+    kernels.require(ln.shape == (2, d) and ln.dtype == dtype and ln.is_contiguous(),
+                    f"layer_norm_rows: ln must be contiguous {dtype} (2, {d}), got {tuple(ln.shape)} {ln.dtype}")
+    code = kernels.dtype_code(ln, (torch.float32, torch.bfloat16))
+    out = torch.empty((R, d), dtype=dtype, device=y.device)
+    err = kernels.library().bert_layer_norm(y.data_ptr(), ln.data_ptr(), out.data_ptr(), R, d, float(eps), code,
+                                            kernels.stream_ptr(y))
+    kernels.check("bert_layer_norm", err)
+    kernels.LAUNCHES["bert_layer_norm"] += 1
+    return out
+
+
+def fuse_bert_blocks(layers) -> List[Dict[str, torch.Tensor]]:
+    """Per-layer weights in the kernels' form, built once per encode from
+    BertLayer modules (models/bert.py): wqkv (3d, d) = [q; k; v] and bqkv
+    (3d,), wo (d, d), w1 (d_ff, d), w2 (d, d_ff) with their biases, and
+    ln1/ln2 (2, d) = [scale; bias]. Differentiable: gradients reach the
+    modules' tensors through the concats."""
+    return [{"wqkv": torch.cat([l.q_w, l.k_w, l.v_w], dim=0), "bqkv": torch.cat([l.q_b, l.k_b, l.v_b], dim=0),
+             "wo": l.o_w, "bo": l.o_b, "ln1": torch.stack([l.attn_ln_w, l.attn_ln_b]),
+             "w1": l.fc1_w, "b1": l.fc1_b, "w2": l.fc2_w, "b2": l.fc2_b,
+             "ln2": torch.stack([l.out_ln_w, l.out_ln_b])} for l in layers]
+
+
+def _bert_layer(x, key_mask, l, num_heads, eps, matmul, norm, attend, save_x1=False):
+    B, T, d = x.shape
+    dh = d // num_heads
+    cdt = x.dtype
+    w = {k: l[k].to(cdt).contiguous() for k in BERT_KEYS}
+    x2 = x.reshape(B * T, d)
+    qkv = matmul(x2, w["wqkv"], "bias", bias=w["bqkv"]).view(B, T, 3, num_heads, dh)
+    attn, _ = attend(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], key_mask, None, dh ** -0.5, False, BERT_MASK_VALUE)
+    y1 = matmul(attn.reshape(B * T, d), w["wo"], "bias_residual_f32", x2, w["bo"])
+    x1 = norm(y1, w["ln1"], eps, cdt)
+    h = matmul(x1, w["w1"], "bias_gelu", bias=w["b1"])
+    y2 = matmul(h, w["w2"], "bias_residual_f32", x1, w["b2"])
+    out = norm(y2, w["ln2"], eps, cdt).view(B, T, d)
+    return (out, x1.view(B, T, d)) if save_x1 else out
+
+
+def fused_bert_layer_parts(x: torch.Tensor, key_mask: torch.Tensor, l: Dict[str, torch.Tensor], *,
+                           num_heads: int, eps: float, save_x1: bool = False):
+    """One post-LN BERT layer from a `fuse_bert_blocks` entry: x (B, T, d),
+    key_mask (B, T) bool. Returns out, or (out, x1) with save_x1, x1 the
+    post-LN1 activation the backward starts from. Kernels on CUDA, plain
+    versions on the CPU. Finite everywhere; a sequence with no valid key has
+    a zero attention output (see the module docstring)."""
+    return _bert_layer(x.contiguous(), key_mask.contiguous(), l, num_heads, eps, gemm, layer_norm_rows,
+                       flash_attention_fwd, save_x1)
+
+
+def bert_layer_reference(x, key_mask, l, *, num_heads: int, eps: float, save_x1: bool = False):
+    """The BERT layer from the plain versions only, on any device."""
+    return _bert_layer(x.contiguous(), key_mask.contiguous(), l, num_heads, eps, gemm_reference,
+                       layer_norm_reference, flash_attention_reference, save_x1)
+
+
+def fused_bert_layer(x, key_mask, layer, *, num_heads: int, eps: float):
+    """`fused_bert_layer_parts` on one BertLayer module."""
+    return fused_bert_layer_parts(x, key_mask, fuse_bert_blocks([layer])[0], num_heads=num_heads, eps=eps)
+
+
+# --------------------------------------------------------------------------- #
+# K10: the BERT layer backward
+# --------------------------------------------------------------------------- #
+def layer_norm_bwd_reference(y: torch.Tensor, g: torch.Tensor, ln: torch.Tensor, eps: float):
+    """Plain version of the LayerNorm-backward kernel (`_ln_bwd`): for
+    out = n * w + b with n = (y - mean) * rstd and g the cotangent at out,
+    dy = rstd * (dn - mean(dn) - n * mean(dn * n)) with dn = g * w. Returns
+    (dy f32, dy in g's dtype, dln (2, d) f32 = [sum_rows(g * n); sum_rows(g)],
+    sum_rows(dy) f32)."""
+    mean = y.mean(dim=-1, keepdim=True)
+    var = (y - mean).square().mean(dim=-1, keepdim=True)
+    rstd = torch.rsqrt(var + eps)
+    n = (y - mean) * rstd
+    g32 = g.float()
+    dn = g32 * ln[0].float()
+    dy = rstd * (dn - dn.mean(dim=-1, keepdim=True) - n * (dn * n).mean(dim=-1, keepdim=True))
+    return dy, dy.to(g.dtype), torch.stack([(g32 * n).sum(dim=0), g32.sum(dim=0)]), dy.sum(dim=0)
+
+
+def layer_norm_bwd(y: torch.Tensor, g: torch.Tensor, ln: torch.Tensor, eps: float):
+    """LayerNorm backward over rows: y (R, d) f32 the sum the norm read,
+    g (R, d) the cotangent at its output and ln (2, d), both in the compute
+    dtype. Returns (dy f32, dy cast, dln (2, d) f32, sum_rows(dy) (d,) f32);
+    the row sums run in a fixed order."""
+    if not kernels.on_cuda(y, g, ln):
+        return layer_norm_bwd_reference(y, g, ln, eps)
+    R, d = y.shape
+    kernels.require(d <= 4096, f"layer_norm_bwd: width {d} > 4096")
+    kernels.require(y.dtype == torch.float32 and g.shape == y.shape and ln.shape == (2, d) and ln.dtype == g.dtype,
+                    "layer_norm_bwd: y f32 (R, d), g (R, d) and ln (2, d) in one dtype")
+    kernels.require(all(t.is_contiguous() for t in (y, g, ln)), "layer_norm_bwd: need contiguous operands")
+    dtype = kernels.dtype_code(g, (torch.float32, torch.bfloat16))
+    dy32 = torch.empty_like(y)
+    dyc = torch.empty_like(g)
+    sums = torch.empty((3, d), dtype=torch.float32, device=y.device)
+    part = torch.empty(((R + 31) // 32, 3, d), dtype=torch.float32, device=y.device)
+    err = kernels.library().bert_ln_bwd(y.data_ptr(), g.data_ptr(), ln.data_ptr(), dy32.data_ptr(), dyc.data_ptr(),
+                                        sums.data_ptr(), part.data_ptr(), R, d, float(eps), dtype,
+                                        kernels.stream_ptr(y))
+    kernels.check("bert_ln_bwd", err)
+    kernels.LAUNCHES["bert_ln_bwd"] += 1
+    return dy32, dyc, sums[:2], sums[2]
+
+
+def col_sum_reference(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of the column-sum kernel: sum over rows, f32."""
+    return x.float().sum(dim=0)
+
+
+def col_sum(x: torch.Tensor) -> torch.Tensor:
+    """(n,) f32 = sum over the rows of x (R, n), f32 or bf16, in a fixed
+    order: a bias gradient."""
+    if not kernels.on_cuda(x):
+        return col_sum_reference(x)
+    R, n = x.shape
+    kernels.require(x.is_contiguous() and R <= 64 * 65535, "col_sum: need contiguous x of at most 4,194,240 rows")
+    dtype = kernels.dtype_code(x, (torch.float32, torch.bfloat16))
+    out = torch.empty(n, dtype=torch.float32, device=x.device)
+    part = torch.empty(((R + 63) // 64, n), dtype=torch.float32, device=x.device)
+    err = kernels.library().bert_col_sum(x.data_ptr(), out.data_ptr(), part.data_ptr(), R, n, dtype,
+                                         kernels.stream_ptr(x))
+    kernels.check("bert_col_sum", err)
+    kernels.LAUNCHES["bert_col_sum"] += 1
+    return out
+
+
+def _bert_ffn_bwd(x1, g, ln2, w1, b1, w2, b2, eps, matmul, mm_bwd, n_bwd, csum):
+    B, T, d = x1.shape
+    cdt = x1.dtype
+    x2, g2 = x1.reshape(B * T, d), g.reshape(B * T, d)
+    ln2, w1, b1, w2, b2 = (t.to(cdt).contiguous() for t in (ln2, w1, b1, w2, b2))
+    # recompute: the GELU and its derivative on the f32 pre-activation, then y2
+    ge, dge = mm_bwd(x2, w1, "nt", "bias_gelu_grad", b1)
+    y2 = matmul(ge, w2, "bias_residual_f32", x2, b2)
+    dy2, dy2_c, dln2, db2 = n_bwd(y2, g2, ln2, eps)
+    dw2 = mm_bwd(dy2_c, ge, "tn", "store_f32")
+    dpre32, dpre = mm_bwd(dy2_c, w2, "nn", "mul_f32", dge)
+    db1 = csum(dpre32)
+    dw1 = mm_bwd(dpre, x2, "tn", "store_f32")
+    dx1 = mm_bwd(dpre, w1, "nn", "add_f32_store", dy2)
+    return dx1.view(B, T, d), dln2, dw1, db1, dw2, db2
+
+
+def bert_ffn_bwd(x1: torch.Tensor, g: torch.Tensor, ln2, w1, b1, w2, b2, *, eps: float):
+    """K10, FFN + LN2 backward (`fused_encoder_bwd.py::bert_ffn_bwd`): x1 the
+    saved post-LN1 activation and g the cotangent at the layer output, both
+    (B, T, d); w1 (d_ff, d) and w2 (d, d_ff) in the (out, in) layout. Returns
+    (dx1 with the residual path, dln2 (2, d), dw1, db1, dw2, db2), all but
+    dx1 f32."""
+    return _bert_ffn_bwd(x1.contiguous(), g.contiguous(), ln2, w1, b1, w2, b2, eps, gemm, gemm_bwd, layer_norm_bwd,
+                         col_sum)
+
+
+def bert_ffn_bwd_reference(x1, g, ln2, w1, b1, w2, b2, *, eps: float):
+    """`bert_ffn_bwd` from the plain versions only, on any device."""
+    return _bert_ffn_bwd(x1.contiguous(), g.contiguous(), ln2, w1, b1, w2, b2, eps, gemm_reference,
+                         gemm_bwd_reference, layer_norm_bwd_reference, col_sum_reference)
+
+
+def _bert_attn_bwd(x, dy, key_mask, wqkv, bqkv, wo, bo, ln1, num_heads, eps, matmul, attend, attend_bwd, mm_bwd,
+                   n_bwd, csum):
+    B, T, d = x.shape
+    dh = d // num_heads
+    cdt = x.dtype
+    scale = dh ** -0.5
+    x2, dy2 = x.reshape(B * T, d), dy.reshape(B * T, d)
+    wqkv, bqkv, wo, bo, ln1 = (t.to(cdt).contiguous() for t in (wqkv, bqkv, wo, bo, ln1))
+    # recompute: qkv, the attention (K2) and the sum LN1 read
+    qkv = matmul(x2, wqkv, "bias", bias=bqkv).view(B, T, 3, num_heads, dh)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    a, lse = attend(q, k, v, key_mask, None, scale, False, BERT_MASK_VALUE)
+    a2 = a.reshape(B * T, d)
+    y1 = matmul(a2, wo, "bias_residual_f32", x2, bo)
+    dy1, dao, dln1, dbo = n_bwd(y1, dy2, ln1, eps)
+    dwo = mm_bwd(dao, a2, "tn", "store_f32")
+    da = mm_bwd(dao, wo, "nn", "store").view(B, T, num_heads, dh)
+    dqkv = torch.empty((B, T, 3, num_heads, dh), dtype=cdt, device=x.device)
+    attend_bwd(q, k, v, a, lse, da, key_mask, None, scale, False, BERT_MASK_VALUE,
+               grads=(dqkv[:, :, 0], dqkv[:, :, 1], dqkv[:, :, 2]))
+    dqkv = dqkv.view(B * T, 3 * d)
+    dwqkv = mm_bwd(dqkv, x2, "tn", "store_f32")
+    dbqkv = csum(dqkv)
+    dx = mm_bwd(dqkv, wqkv, "nn", "add_f32_store", dy1)
+    return dx.view(B, T, d), dln1, dwqkv, dbqkv, dwo, dbo
+
+
+def bert_attn_bwd(x: torch.Tensor, dy: torch.Tensor, key_mask: torch.Tensor, wqkv, bqkv, wo, bo, ln1, *,
+                  num_heads: int, eps: float):
+    """K10, attention + LN1 backward (`fused_encoder_bwd.py::bert_attn_bwd`):
+    x the saved layer input and dy the cotangent at x1, both (B, T, d);
+    key_mask (B, T) bool; wqkv (3d, d), wo (d, d). Returns (dx with the
+    residual path, dln1 (2, d), dwqkv, dbqkv, dwo, dbo), all but dx f32. A
+    sequence with no valid key gets a zero attention gradient."""
+    return _bert_attn_bwd(x.contiguous(), dy.contiguous(), key_mask.contiguous(), wqkv, bqkv, wo, bo, ln1, num_heads,
+                          eps, gemm, flash_attention_fwd, flash_attention_bwd, gemm_bwd, layer_norm_bwd, col_sum)
+
+
+def bert_attn_bwd_reference(x, dy, key_mask, wqkv, bqkv, wo, bo, ln1, *, num_heads: int, eps: float):
+    """`bert_attn_bwd` from the plain versions only, on any device."""
+    return _bert_attn_bwd(x.contiguous(), dy.contiguous(), key_mask.contiguous(), wqkv, bqkv, wo, bo, ln1, num_heads,
+                          eps, gemm_reference, flash_attention_reference, flash_attention_bwd_reference,
+                          gemm_bwd_reference, layer_norm_bwd_reference, col_sum_reference)
+
+
+class BertLayerTrain(torch.autograd.Function):
+    """One BERT layer with the hand-written backward: forward K9 with
+    save_x1, backward `bert_ffn_bwd` then `bert_attn_bwd`
+    (`make_fused_bert_layer_train`). Saves x and x1 only; gradients reach x
+    and every weight, each in its own dtype."""
+
+    @staticmethod
+    def forward(ctx, x, key_mask, num_heads, eps, *ws):
+        out, x1 = fused_bert_layer_parts(x, key_mask, dict(zip(BERT_KEYS, ws)), num_heads=num_heads, eps=eps,
+                                         save_x1=True)
+        ctx.save_for_backward(x.contiguous(), x1, key_mask, *ws)
+        ctx.cfg = (num_heads, eps)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        num_heads, eps = ctx.cfg
+        x, x1, key_mask, *ws = ctx.saved_tensors
+        l = dict(zip(BERT_KEYS, ws))
+        dx1, dln2, dw1, db1, dw2, db2 = bert_ffn_bwd(x1, g, l["ln2"], l["w1"], l["b1"], l["w2"], l["b2"], eps=eps)
+        dx, dln1, dwqkv, dbqkv, dwo, dbo = bert_attn_bwd(x, dx1, key_mask, l["wqkv"], l["bqkv"], l["wo"], l["bo"],
+                                                         l["ln1"], num_heads=num_heads, eps=eps)
+        grads = dict(wqkv=dwqkv, bqkv=dbqkv, wo=dwo, bo=dbo, ln1=dln1, w1=dw1, b1=db1, w2=dw2, b2=db2, ln2=dln2)
+        return (dx, None, None, None, *(grads[k].to(l[k].dtype) for k in BERT_KEYS))
+
+
+def bert_layer_train(x, key_mask, l: Dict[str, torch.Tensor], *, num_heads: int, eps: float):
+    """`BertLayerTrain` on a `fuse_bert_blocks` entry."""
+    return BertLayerTrain.apply(x, key_mask, num_heads, eps, *(l[k] for k in BERT_KEYS))

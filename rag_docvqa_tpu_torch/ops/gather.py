@@ -1,8 +1,8 @@
 """Assembly of generator inputs from retrieval output, on the device.
 
 Counterpart of `rag_docvqa_tpu/ops/gather.py` for the concat strategy:
-`compute_ownership`, `group_boxes`, `_ordered_slots`, `_flatten_tokens_src`
-and `assemble_concat`. The per-chunk and per-page assemblies wait for the
+`compute_ownership`, `group_boxes`, `_ordered_slots`, `_flatten_tokens`,
+`_flatten_tokens_src` and `assemble_concat`. The per-chunk and per-page assemblies wait for the
 slice of the other strategies.
 
 Semantics ("slot" = word occurrence, see data/contract.py):
@@ -83,6 +83,23 @@ def group_boxes(batch: ChunkedBatch, owner: torch.Tensor, K: int) -> torch.Tenso
     empty = ~onehot.any(dim=2)
     fallback = torch.tensor([0.0, 0.0, 1.0, 1.0], device=owner.device)
     return torch.where(empty[..., None], fallback, out)
+
+
+def _flatten_tokens(
+    order_tokens: torch.Tensor,  # (B, M, TW) in output word order
+    order_ntok: torch.Tensor,  # (B, M), 0 for dropped slots
+    order_box: torch.Tensor,  # (B, M, 4) int scaled boxes
+    order_label: torch.Tensor,  # (B, M)
+    prompt_tokens: torch.Tensor,  # (B, LP)
+    prompt_len: torch.Tensor,  # (B,)
+    cfg: AssembleConfig,
+) -> GeneratorInputs:
+    """Payloads already in output word order: `_flatten_tokens_src` with an
+    identity slot permutation."""
+    B, M, _ = order_tokens.shape
+    identity = torch.arange(M, device=order_tokens.device)[None, :].expand(B, M)
+    return _flatten_tokens_src(identity, order_ntok, order_tokens, order_box, order_label, prompt_tokens,
+                               prompt_len, cfg)
 
 
 def _flatten_tokens_src(

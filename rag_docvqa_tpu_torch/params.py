@@ -8,6 +8,9 @@ axis, here they are one module per layer; the rel-pos tables are
 `to_jax` gives back the part of that tree the port holds (not the visual
 tower nor the LayoutT5 head, which wait for their slices).
 `index_from_numpy` carries a JAX `ShardedIndex`'s arrays into the port's.
+`bert_from_jax` / `bert_to_jax` do the same for a BERT tree (`init_bert_params`
+or `convert_bert_state_dict`): stacked (L, in, out) kernels <-> per-layer
+(out, in), the biases, the two LayerNorm pairs and the classifier head.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from typing import Any, Dict, Optional, Union
 import numpy as np
 import torch
 
+from rag_docvqa_tpu_torch.models.bert import BertLayer, BertParams
 from rag_docvqa_tpu_torch.models.embeddings import SpatialEmbeddings
 from rag_docvqa_tpu_torch.models.t5 import (
     T5Attention,
@@ -154,6 +158,46 @@ def to_jax(p: Union[VT5Params, T5Params]) -> Tree:
         tree["layout_emb"] = _np(p.layout_emb)
     if p.layout_scale is not None:
         tree["layout_scale"] = _np(p.layout_scale)
+    return tree
+
+
+# --------------------------------------------------------------------------- #
+# BERT
+# --------------------------------------------------------------------------- #
+_BERT_DENSE = ("q", "k", "v", "o", "fc1", "fc2")
+_BERT_LN = ("attn_ln_w", "attn_ln_b", "out_ln_w", "out_ln_b")
+
+
+def bert_from_jax(tree: Tree, device="cpu") -> BertParams:
+    """A JAX BERT tree -> BertParams: f32 tensors on `device`; cast with
+    `.to(dtype)` afterwards."""
+    blocks = tree["blocks"]
+    layers = []
+    for l in range(len(blocks["attn_ln_w"])):
+        t = {n: _t(blocks[n][l], device) for n in _BERT_LN}
+        for n in _BERT_DENSE:
+            t[f"{n}_w"], t[f"{n}_b"] = _dense(blocks[n]["kernel"][l], device), _t(blocks[n]["bias"][l], device)
+        layers.append(BertLayer(**t))
+    head = {}
+    if "cls_dense" in tree:
+        for n in ("cls_dense", "cls_out"):
+            head[f"{n}_w"], head[f"{n}_b"] = _dense(tree[n]["kernel"], device), _t(tree[n]["bias"], device)
+    return BertParams(*(_t(tree[n], device) for n in ("word_emb", "pos_emb", "type_emb", "emb_ln_w", "emb_ln_b")),
+                      layers, **head)
+
+
+def bert_to_jax(p: BertParams) -> Tree:
+    """The inverse of `bert_from_jax`: a tree of f32 numpy arrays."""
+    layers = list(p.layers)
+    blocks: Tree = {n: _stack(layers, lambda L: _np(getattr(L, n))) for n in _BERT_LN}
+    for n in _BERT_DENSE:
+        blocks[n] = {"kernel": _stack(layers, lambda L: _np(getattr(L, f"{n}_w")).T),
+                     "bias": _stack(layers, lambda L: _np(getattr(L, f"{n}_b")))}
+    tree: Tree = {n: _np(getattr(p, n)) for n in ("word_emb", "pos_emb", "type_emb", "emb_ln_w", "emb_ln_b")}
+    tree["blocks"] = blocks
+    if p.has_head:
+        for n in ("cls_dense", "cls_out"):
+            tree[n] = {"kernel": _np(getattr(p, f"{n}_w")).T, "bias": _np(getattr(p, f"{n}_b"))}
     return tree
 
 

@@ -57,13 +57,13 @@ class CheckpointManager:
     def restore(self, state_like: TrainState, step: Optional[int] = None) -> TrainState:
         """Loads into `state_like`'s parameter module (in place) and returns
         the restored state; the latest step unless `step` is given."""
-        blob = self._load(step, state_like.params.t5.shared.device)
+        blob = self._load(step, next(state_like.params.parameters()).device)
         state_like.params.load_state_dict(blob["params"])
         return TrainState(params=state_like.params, opt_state=blob["opt_state"], step=blob["step"])
 
     def restore_params(self, params_like, step: Optional[int] = None):
         """Only the parameters, into `params_like` (in place)."""
-        params_like.load_state_dict(self._load(step, params_like.t5.shared.device)["params"])
+        params_like.load_state_dict(self._load(step, next(params_like.parameters()).device)["params"])
         return params_like
 
     def best_step(self) -> Optional[int]:

@@ -14,6 +14,10 @@ match optax where torch's own pieces differ:
   * weight decay applies to every trainable tensor, norms included, and is
     added to the Adam direction before the learning rate scales it.
 
+`clip_norm=None` leaves the gradients unclipped and `constant_lr=True` uses
+`lr` at every update: together with weight_decay 1e-4 that is
+`optax.adamw(lr)`, the contrastive trainer's optimizer.
+
 The state is a dict of tensors, as an optax state is a tree of arrays:
 {"count": int, "mu": {name: tensor}, "nu": {name: tensor}}; `update`
 changes the parameters and the state in place.
@@ -61,12 +65,16 @@ class Optimizer:
     lr: float = 2e-4
     warmup_steps: int = 1000
     total_steps: int = 100_000
-    clip_norm: float = 3.0
+    clip_norm: Optional[float] = 3.0  # None: no clipping
     weight_decay: float = 0.01
     mask: Optional[Dict[str, bool]] = None  # None: every parameter trains
+    constant_lr: bool = False  # lr at every update, no warmup or decay
 
     def __post_init__(self):
-        self.schedule = linear_warmup_decay(self.lr, self.warmup_steps, self.total_steps)
+        if self.constant_lr:
+            self.schedule = lambda count: self.lr
+        else:
+            self.schedule = linear_warmup_decay(self.lr, self.warmup_steps, self.total_steps)
 
     def trainable(self, params: nn.Module) -> Dict[str, torch.Tensor]:
         """The parameters this optimizer updates, by name."""
@@ -89,11 +97,12 @@ class Optimizer:
         names = list(state["mu"])
         p = [params[n] for n in names]
         g = [grads[n] for n in names]
-        # optax: where(norm < max_norm, g, (g / norm) * max_norm), no host sync
-        norm = global_norm(g)
-        clipped = norm >= self.clip_norm
-        g = torch._foreach_mul(torch._foreach_div(g, torch.where(clipped, norm, 1.0)),
-                               torch.where(clipped, self.clip_norm, 1.0))
+        if self.clip_norm is not None:
+            # optax: where(norm < max_norm, g, (g / norm) * max_norm), no host sync
+            norm = global_norm(g)
+            clipped = norm >= self.clip_norm
+            g = torch._foreach_mul(torch._foreach_div(g, torch.where(clipped, norm, 1.0)),
+                                   torch.where(clipped, self.clip_norm, 1.0))
         mu = [state["mu"][n] for n in names]
         nu = [state["nu"][n] for n in names]
         count = state["count"]

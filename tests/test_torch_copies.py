@@ -1,8 +1,9 @@
 """The port's own copies of the plain-Python host modules, held against the
 originals in the JAX package so they cannot drift unnoticed: the chunker
 (`ops/chunking.py`) on seeded pages, the metrics (`metrics/`) on a few
-strings. Everything here is integer or string work on the host: equal
-exactly."""
+strings, and `convert_bert_state_dict` (numpy only, but in a module of the
+JAX package that imports jax) on seeded state dicts. Everything here is
+integer, string or copying work on the host: equal exactly."""
 
 import dataclasses
 
@@ -11,9 +12,11 @@ import pytest
 
 from rag_docvqa_tpu import metrics as j_metrics
 from rag_docvqa_tpu.metrics import mmlongbench as j_mmlb
+from rag_docvqa_tpu.models import bert as j_bert
 from rag_docvqa_tpu.ops import chunking as j_chunking
 from rag_docvqa_tpu_torch import metrics as p_metrics
 from rag_docvqa_tpu_torch.metrics import mmlongbench as p_mmlb
+from rag_docvqa_tpu_torch.models import bert as p_bert
 from rag_docvqa_tpu_torch.ops import chunking as p_chunking
 
 
@@ -110,3 +113,48 @@ def test_mmlongbench_summary_copy_matches_original():
     assert p_mmlb.eval_acc_and_f1(samples) == j_mmlb.eval_acc_and_f1(samples)
     assert p_mmlb.eval_acc_and_f1([]) == j_mmlb.eval_acc_and_f1([])
     assert p_metrics.__all__ == j_metrics.__all__
+
+
+def _hf_state_dict(cfg, prefix, rng):
+    """A state dict with the HF names and shapes of a BERT / RoBERTa
+    classifier, random values."""
+    d, f = cfg.hidden_size, cfg.intermediate_size
+    e, sd = prefix + "embeddings.", {}
+    r = lambda *s: rng.randn(*s).astype(np.float32)
+    sd[e + "word_embeddings.weight"], sd[e + "position_embeddings.weight"] = r(cfg.vocab_size, d), r(cfg.max_position_embeddings, d)
+    if cfg.type_vocab_size:
+        sd[e + "token_type_embeddings.weight"] = r(cfg.type_vocab_size, d)
+    sd[e + "LayerNorm.weight"], sd[e + "LayerNorm.bias"] = r(d), r(d)
+    for i in range(cfg.num_layers):
+        l = f"{prefix}encoder.layer.{i}."
+        for name, (dout, din) in (("attention.self.query", (d, d)), ("attention.self.key", (d, d)),
+                                  ("attention.self.value", (d, d)), ("attention.output.dense", (d, d)),
+                                  ("intermediate.dense", (f, d)), ("output.dense", (d, f))):
+            sd[l + name + ".weight"], sd[l + name + ".bias"] = r(dout, din), r(dout)
+        for name in ("attention.output.LayerNorm", "output.LayerNorm"):
+            sd[l + name + ".weight"], sd[l + name + ".bias"] = r(d), r(d)
+    if cfg.num_labels:
+        sd["classifier.dense.weight"], sd["classifier.dense.bias"] = r(d, d), r(d)
+        sd["classifier.out_proj.weight"], sd["classifier.out_proj.bias"] = r(cfg.num_labels, d), r(cfg.num_labels)
+    return sd
+
+
+BERT_COPY_CASES = {"bert_model": (dict(type_vocab_size=2), ""), "roberta_classifier": (dict(type_vocab_size=0, num_labels=1,
+                                                                                          position_offset=2, pad_id=1), "roberta.")}
+
+
+@pytest.mark.parametrize("case", BERT_COPY_CASES)
+def test_convert_bert_state_dict_copy_matches_original(case):
+    import jax
+
+    over, prefix = BERT_COPY_CASES[case]
+    kw = dict(vocab_size=50, hidden_size=16, num_layers=3, num_heads=2, intermediate_size=24, max_position_embeddings=20, **over)
+    sd = _hf_state_dict(p_bert.BertConfig(**kw), prefix, np.random.RandomState(0))
+    want = j_bert.convert_bert_state_dict(sd, j_bert.BertConfig(**kw), prefix)
+    got = p_bert.convert_bert_state_dict(sd, p_bert.BertConfig(**kw), prefix)
+    flat_w, flat_g = jax.tree_util.tree_flatten_with_path(want)[0], jax.tree_util.tree_flatten_with_path(got)[0]
+    assert [p for p, _ in flat_w] == [p for p, _ in flat_g]
+    for (path, w), (_, g) in zip(flat_w, flat_g):
+        np.testing.assert_array_equal(g, w, err_msg=jax.tree_util.keystr(path))
+    assert dataclasses.asdict(p_bert.BertConfig(**kw)) == dataclasses.asdict(j_bert.BertConfig(**kw))
+    assert dataclasses.asdict(p_bert.BertConfig()) == dataclasses.asdict(j_bert.BertConfig())

@@ -143,6 +143,11 @@ JAX_FREE = textwrap.dedent("""
     import rag_docvqa_tpu_torch.precompute, rag_docvqa_tpu_torch.params, rag_docvqa_tpu_torch.native
     import rag_docvqa_tpu_torch.parallel.index, rag_docvqa_tpu_torch.ops.quant, rag_docvqa_tpu_torch.ops.topk
     import rag_docvqa_tpu_torch.metrics.evaluator, rag_docvqa_tpu_torch.metrics.mmlongbench
+    import rag_docvqa_tpu_torch.models.bert, rag_docvqa_tpu_torch.models.embedder, rag_docvqa_tpu_torch.engine.reranker
+    import rag_docvqa_tpu_torch.training.contrastive, rag_docvqa_tpu_torch.train_cl, rag_docvqa_tpu_torch.kernels
+    import pkgutil, importlib, rag_docvqa_tpu_torch
+    for mod in pkgutil.walk_packages(rag_docvqa_tpu_torch.__path__, "rag_docvqa_tpu_torch."):
+        importlib.import_module(mod.name)   # whatever a later slice adds is covered too
     tok = HashTokenizer(4096)
     docs = make_corpus(2, n_pages=2, words_per_page=30, seed=1)
     batch, aux = DocVQAIngestor(tok, ChunkSpec(chunk_size=12, overlap=2), Caps(max_pages=4, max_chunks=16,
@@ -173,7 +178,26 @@ JAX_FREE = textwrap.dedent("""
         agree[dtype + ("_refine" if refine else "")] = float(np.mean(
             [len(set(idx[b].tolist()) & set(want[b].tolist())) / 5 for b in range(3)]))
     assert not [m for m in sys.modules if m == "rag_docvqa_tpu" or m.startswith("rag_docvqa_tpu.")]
-    print(json.dumps({"n": len(out["pred_answers"]), "conf": out["confidences"], "anls": score, "agree": agree}))
+    # the BERT family, end to end on the CPU: a reranked batch and two contrastive steps
+    from rag_docvqa_tpu_torch.config import build_reranker
+    from rag_docvqa_tpu_torch.models import bert
+    from rag_docvqa_tpu_torch.training.contrastive import ContrastiveConfig, train_contrastive
+    rr = build_reranker({"rerank_pair_len": 64, "rerank_max_chunk_num": 2}, tok)
+    rr.params.to(torch.bfloat16)
+    reranked = RAGVT5Engine(RAGConfig(chunk_num=3, max_source_length=160, max_new_tokens=4), cfg, params, tok,
+                            reranker=rr).inference(batch, aux)
+    kept = [len(p) for p in reranked["pred_answer_pages"]]
+    bcfg = bert.BertConfig(vocab_size=4096, hidden_size=32, num_layers=2, num_heads=4, intermediate_size=64,
+                           max_position_embeddings=16)
+    pairs = [(f"question {i}", f"chunk {i} text") for i in range(8)]
+    _, losses = train_contrastive(lambda p, ids, mask: bert.bert_sentence_embed(p, bcfg, ids, mask),
+                                  bert.init_bert_params(torch.Generator().manual_seed(0), bcfg), tok, pairs,
+                                  ContrastiveConfig(lr=1e-3, epochs=2, batch_size=8, max_tokens=16))
+    assert not [m for m in sys.modules if m == "rag_docvqa_tpu" or m.startswith("rag_docvqa_tpu.")]
+    assert not any(m.split(".")[0] in ("jax", "flax", "jaxlib", "optax", "orbax")
+                   for m in sys.modules if sys.modules[m] is not None)
+    print(json.dumps({"n": len(out["pred_answers"]), "conf": out["confidences"], "anls": score, "agree": agree,
+                      "kept": kept, "cl_losses": losses}))
 """)
 
 
@@ -183,6 +207,8 @@ def test_port_runs_without_jax_or_flax():
     res = json.loads(proc.stdout.strip().splitlines()[-1])
     assert res["n"] == 2 and all(np.isfinite(res["conf"]))
     assert res["agree"]["f32"] == 1.0 and res["agree"]["int4_refine"] >= 0.9 and res["agree"]["int8"] >= 0.8
+    assert all(1 <= k <= 2 for k in res["kept"]) and len(res["kept"]) == 2
+    assert all(np.isfinite(res["cl_losses"])) and res["cl_losses"][1] < res["cl_losses"][0]
 
 
 def test_chip_smoke_refuses_without_gpu(tmp_path):
