@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's RAG-VT5 serving and training paths, its corpus
-index and its BERT family once on one CUDA card.
+index, its BERT family and its visual paths (the DiT branch of RAG-VT5,
+RAG-Pix2Struct) once on one CUDA card.
 
     python3 chip_smoke.py            # every phase, the report and the result line
-    python3 chip_smoke.py 8          # phases 1-2 and the named ones (3-8) alone, for work on them: no report
+    python3 chip_smoke.py 9          # phases 1-2 and the named ones (3-9) alone, for work on them: no report
 
-Eight phases; any failure raises and the script exits non-zero:
+Nine phases; any failure raises and the script exits non-zero:
 
   1. a CUDA device is required; prints the card's name and power limit and
      turns TF32 off, so f32 products are full f32;
@@ -111,12 +112,57 @@ Eight phases; any failure raises and the script exits non-zero:
         repeated batch: loss finite and falling, every K9/K10 kernel
         launched, ms per step split into forward, backward and update by
         CUDA events; the eight losses of a second run from the same seed are
-        compared digit for digit and the result printed.
+        compared digit for digit and the result printed;
+  9. the visual paths (the pre-LN ViT layer K14, the query-tiled T5 layer
+     K13, K1 without a bias, MaxSim K15), TF32 still off:
+     a. K14's parts (the LayerNorm over the compute dtype, the GEMM's bias,
+        bias + erf-GELU and bias + layer-scale + residual epilogues, the
+        attention with the score rows in shared memory: dh 40, 64 and 128, a
+        bf16 rel-pos bias, a row with no valid key) and the whole layer
+        against their plain versions: small ragged f32 cases (plain ViT and
+        BEiT with bias and layer-scale, T 197 and T 21), then ViT-base width
+        B 32 T 197 in f32 (<= 1e-4) and bf16 (<= 2e-2 of max(1, max|ref|));
+        then K2 and the whole K1 layer with the shared bf16 T5 bias at path
+        1's encoder length, B 32 T 709 (ragged text, all visual tokens), f32
+        and bf16, timed beside SDPA;
+     b. the full-width f32 12-layer ViT-base `vit_encode` at B 8 against the
+        plain stack (<= 1e-4);
+     c. path 1: two batches of 32 documents through RAGVT5Engine.inference as
+        in phase 5 with `use_visual`: 8 page images per document from a seed,
+        the top-10 chunk boxes cropped and grid-packed on the host, the
+        ViT-base tower (197 tokens) and the matcher, encoder length 709;
+        finite confidences in [0, 1], every kernel of K1-K3 and K14 launched;
+        ms per batch by stage, and the tower alone;
+     d. the bias-free tensor-core attention (bf16: ragged lengths, dk 16, 32,
+        64 and 128, a row with no valid key; then B 136 T 128, B 8 T 1024 and
+        B 8 T 2048 at H 12, each beside SDPA and K2), K13 (small f32 and bf16
+        cases against the plain version with the TPU kernel's own tiles and
+        against K1's plain parts; then B 8 T 2048), K1 without a bias (B 136
+        T 128 and B 8 T 1024, ragged masks, rows with no valid token), K15 (one query and batched, tiles that do not divide, both
+        masks, a patch set with no valid token; then B 8 and B 32 x 16 sets,
+        T 128, D 768; <= 1e-4) and K3 over int8 caches of Te 709, 1024 and
+        2048, each against its plain version;
+     e. the full-width f32 12-layer pix2struct-base `vision_encode` at T 128
+        (K1 without a bias) and T 2048 (K13) against the plain stacks, each
+        layer's launches counted (K2 for the f32 attention);
+     f. path 2: RAGPix2StructEngine at pix2struct-base width (vocabulary
+        50,244, untied head, int8 cross cache, K3 on, bf16, f16 patches on the
+        wire), chunk_num 10, 16 new tokens: 8 documents x 4 pages of 512 x 512
+        from a seed through `inference` cold and with `prepare_docs` (the same
+        answers), the stages of a prepared batch, K15 and the top-10 on the
+        engine's own embeddings against the plain function, `inference_stream`
+        over 4 batches (the per-batch answers, in order), `build_visual_index`
+        + `inference_indexed` at B 32, and the 2048-patch budget at B 8, whose
+        generator row runs K13; before them one bf16 `vision_encode` at T 128,
+        1024 and 2048 with its launches counted; every kernel of each run
+        launched, each tower's launches exactly its layers' (no K2), tokens
+        decoded, confidences finite in [0, 1], pages in range.
 
 The line before the last is a JSON object with every kernel's launches in
 its path's run (phase 5 for serving, 6d for training, 7b-c for the index,
-8c for the BERT forward kernels, 8f for the backward ones; every path's
-counts of every kernel under "launches_by_path"),
+8c for the BERT forward kernels, 8f for the backward ones, 9c for K14, 9f for
+K15, K1 without a bias and K13; every path's counts of every kernel under
+"launches_by_path"),
 its worst error over its own checks, and, at its path's shape, its time,
 the plain version's, the time of one PyTorch call that computes the same
 function where there is one ("library_ms", else null; timed here, used
@@ -127,13 +173,19 @@ under "cases"); the whole K1 layer's error
 and times under "t5_layer", K7's and K8's under "t5_ffn_bwd" and
 "t5_attn_bwd", the train steps under "train_step", the whole K9 layer
 under "bert_layer", K10's halves under "bert_ffn_bwd" and "bert_attn_bwd",
-and paths 1-3 under "embed_index", "rerank_serve" and "contrastive_step".
+paths 1-3 of phase 8 under "embed_index", "rerank_serve" and
+"contrastive_step", the whole K14 layer under "vit_layer", and the two visual
+paths under "visual_serve" and "p2s_serve". "t5_layer_nobias" (K1 without a
+bias) and "t5_layer_qtiled" (K13) are whole layers outside the kernel list,
+each with its error, its times and the launches of its parts (t5_rms_norm,
+t5_gemm and, in bf16, t5_qtiled_attention); that each served tower ran
+exactly those, and K2 never, is asserted from the launch counts.
 The last line is
 {"ok": true, "device": {...}}. Weights are random, made from a seed.
 
 Nothing here imports jax or flax, nor any module of the JAX package: the
-port keeps its own copies of the plain-Python chunker (ops/chunking.py) and
-metrics (metrics/).
+port keeps its own copies of the plain-Python chunker (ops/chunking.py),
+metrics (metrics/) and image patch math (ops/patches.py).
 """
 
 from __future__ import annotations
@@ -192,6 +244,16 @@ KERNELS = {
                     "contrastive", "16384x384 bf16"),
     "bert_col_sum": ("rag_docvqa_tpu_torch/csrc/bert_layer_bwd.cu", "rag_docvqa_tpu/ops/fused_encoder_bwd.py:800",
                      "contrastive", "16384x1536 f32"),
+    "vit_layer_norm": ("rag_docvqa_tpu_torch/csrc/vit_layer.cu", "rag_docvqa_tpu/ops/fused_encoder.py:1031",
+                       "serve_visual", "6304x768 bf16"),
+    "vit_gemm": ("rag_docvqa_tpu_torch/csrc/vit_layer.cu", "rag_docvqa_tpu/ops/fused_encoder.py:1031",
+                 "serve_visual", "fc2 6304x768x3072 bias_scale_residual bf16"),
+    "vit_attention": ("rag_docvqa_tpu_torch/csrc/vit_layer.cu", "rag_docvqa_tpu/ops/fused_encoder.py:1031",
+                      "serve_visual", "B32 H12 T197 dh64 bias bf16"),
+    "maxsim": ("rag_docvqa_tpu_torch/csrc/maxsim.cu", "rag_docvqa_tpu/ops/late_interaction.py:56",
+               "p2s", "B8 mc16 Tq128 Tp128 D768 f32"),
+    "t5_qtiled_attention": ("rag_docvqa_tpu_torch/csrc/t5_layer_qtiled.cu", "rag_docvqa_tpu/ops/fused_encoder.py:580",
+                            "p2s_page", "B8 H12 T2048 dk64 bf16"),
 }
 # the kernels each path launches
 SERVE_KERNELS = ("t5_rms_norm", "t5_gemm", "flash_fwd", "decode_cross_attention")
@@ -261,6 +323,7 @@ class Checks:
     def __init__(self):
         self.err = {}
         self.times = {}  # unit -> {case label: {"ms", "plain_ms", "library_ms", "bound_ms", "bound_by"}}
+        self.k2_on_bias_free_rows = {}  # case label of t5_qtiled_attention -> K2's ms on the same row
 
     def compare(self, unit: str, label: str, got: torch.Tensor, want: torch.Tensor, limit: float) -> float:
         torch.cuda.synchronize()
@@ -1593,6 +1656,738 @@ def contrastive_path(g: torch.Generator, steps: int = 8):
     return launches, summary
 
 
+# --------------------------------------------------------------------------- #
+# phase 9: the visual paths (K14, K13, K1 without a bias, K15)
+# --------------------------------------------------------------------------- #
+VIT_B, VIT_T, VIT_D, VIT_H, VIT_MLP = 32, 197, 768, 12, 3072  # ViT-base at 224 px, the served batch
+P2S_D, P2S_H, P2S_DFF = 768, 12, 2048  # pix2struct-base vision width
+VIT_KERNELS = ("vit_layer_norm", "vit_gemm", "vit_attention")  # K14
+SERVE_VISUAL_KERNELS = SERVE_KERNELS + VIT_KERNELS
+# both bias-free layers (K1 without a bias, K13) are t5_rms_norm, t5_gemm and, in bf16, t5_qtiled_attention
+TOWER_KERNELS = ("t5_rms_norm", "t5_gemm", "t5_qtiled_attention")
+P2S_KERNELS = TOWER_KERNELS + ("maxsim", "decode_cross_attention")
+
+
+def random_vit_layer(g: torch.Generator, d: int, dff: int, H: int, T: int, has_bias: bool, has_gamma: bool) -> dict:
+    """One ViT / BEiT layer in the kernels' form (f32; the rel-pos bias bf16):
+    weights of unit-variance outputs, random biases, LayerNorm pairs and, for
+    BEiT, a zero key bias, a bias (H, T, T) and layer-scale rows."""
+    l = random_bert_layer(g, d, dff)
+    if has_bias:
+        l["bqkv"][d:2 * d] = 0.0
+        l["bias"] = torch.randn((H, T, T), generator=g, device=g.device).to(torch.bfloat16)
+    if has_gamma:
+        l["gamma"] = torch.rand((2, d), generator=g, device=g.device) * 0.5 + 0.1
+    return l
+
+
+def cast_layer(l: dict, dtype: torch.dtype) -> dict:
+    return {k: (v if k == "bias" else v.to(dtype)) for k, v in l.items()}
+
+
+def t5_layer_work(B: int, T: int, d: int, inner: int, dff: int, H: int, gated: bool) -> float:
+    """Operations of one T5 layer: the products and the attention."""
+    return 2.0 * B * T * (4 * d * inner + (3 if gated else 2) * d * dff) + 4.0 * B * H * T * T * (inner // H)
+
+
+def check_vit_kernels(checks: Checks, g: torch.Generator) -> None:
+    """9a: K14's parts and the whole layer against their plain versions."""
+    import torch.nn.functional as F
+
+    from rag_docvqa_tpu_torch.ops import fused_encoder as fe
+
+    dev = g.device
+    randn = lambda *s: torch.randn(s, generator=g, device=dev)
+    B, T, d, H, dff = VIT_B, VIT_T, VIT_D, VIT_H, VIT_MLP
+    R = B * T
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        timed = dtype == torch.bfloat16
+        for rows, width in ((77, 64), (R, d)):
+            x, ln = (randn(rows, width) * 3.0 + 0.5).to(dtype), torch.stack(
+                [torch.rand(width, generator=g, device=dev) + 0.5, randn(width)]).to(dtype)
+            got, want = fe.vit_layer_norm_rows(x, ln, 1e-12), fe.vit_layer_norm_reference(x, ln, 1e-12)
+            checks.compare("vit_layer_norm", f"{rows}x{width} {tag}", got, want, tol(dtype, want))
+            if timed and rows > 77:
+                checks.timed("vit_layer_norm", f"{rows}x{width} {tag}", lambda: fe.vit_layer_norm_rows(x, ln, 1e-12),
+                             lambda: fe.vit_layer_norm_reference(x, ln, 1e-12),
+                             library=lambda: F.layer_norm(x, (width,), ln[0], ln[1], 1e-12),
+                             io_bytes=nbytes(x, ln, got), ops=8.0 * rows * width)
+        for (M, N, K, epi, scaled), label in (((77, 100, 72, "bias", False), "ragged 77x100x72 bias"),
+                                               ((77, 96, 64, "bias_gelu", False), "ragged 77x96x64 bias_gelu"),
+                                               ((77, 96, 64, "bias_scale_residual", True), "ragged 77x96x64 bias_scale_residual"),
+                                               ((77, 96, 64, "bias_scale_residual", False), "ragged 77x96x64 bias_residual"),
+                                               ((R, 3 * d, d, "bias", False), f"qkv {R}x{3 * d}x{d} bias"),
+                                               ((R, dff, d, "bias_gelu", False), f"fc1 {R}x{dff}x{d} bias_gelu"),
+                                               ((R, d, dff, "bias_scale_residual", True), f"fc2 {R}x{d}x{dff} bias_scale_residual")):
+            a, w, bias = randn(M, K).to(dtype), (randn(N, K) * K**-0.5).to(dtype), (randn(N) * 0.5).to(dtype)
+            aux = randn(M, N).to(dtype) if epi == "bias_scale_residual" else None
+            scale = (torch.rand(N, generator=g, device=dev) + 0.1).to(dtype) if scaled else None
+            got, want = fe.vit_gemm(a, w, epi, aux, bias, scale), fe.gemm_reference(a, w, epi, aux, bias, scale)
+            checks.compare("vit_gemm", f"{label} {tag}", got, want, tol(dtype, want))
+            if timed and M > 77:
+                library = (lambda: torch.addmm(bias, a, w.t())) if epi == "bias" else None  # the others: no single call
+                checks.timed("vit_gemm", f"{label} {tag}", lambda: fe.vit_gemm(a, w, epi, aux, bias, scale),
+                             lambda: fe.gemm_reference(a, w, epi, aux, bias, scale), library=library,
+                             io_bytes=nbytes(a, w, bias, aux, scale, got), ops=2.0 * M * N * K, ops_in=op_type(dtype))
+            del a, w, aux, got, want
+        # the attention: ragged small cases (dh 40 and 128, a row of no valid key, T no multiple of 4 or 8),
+        # then the path's shape with and without the rel-pos bias
+        for (Bc, Tc, Hc, dhc, biased, lens), label in (((3, 77, 4, 40, True, [77, 50, 0]), "ragged T77 dh40 bias"),
+                                                       ((2, 21, 2, 128, False, [21, 5]), "ragged T21 dh128"),
+                                                       ((B, T, H, d // H, True, None), f"B{B} H{H} T{T} dh{d // H} bias"),
+                                                       ((B, T, H, d // H, False, None), f"B{B} H{H} T{T} dh{d // H}")):
+            qkv = randn(Bc, Tc, 3, Hc, dhc).to(dtype)
+            mask = torch.ones((Bc, Tc), dtype=torch.bool, device=dev) if lens is None else \
+                torch.arange(Tc, device=dev)[None, :] < torch.tensor(lens, device=dev)[:, None]
+            bias = randn(Hc, Tc, Tc).to(torch.bfloat16) if biased else None
+            scale = dhc ** -0.5
+            got, want = fe.vit_attention(qkv, mask, bias, scale), fe.vit_attention_reference(qkv, mask, bias, scale)
+            checks.compare("vit_attention", f"{label} {tag}", got, want, tol(dtype, want))
+            if timed and lens is None:
+                qt, kt, vt = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+                add = None if bias is None else bias.to(dtype)[None]
+                checks.timed("vit_attention", f"{label} {tag}", lambda: fe.vit_attention(qkv, mask, bias, scale),
+                             lambda: fe.vit_attention_reference(qkv, mask, bias, scale),
+                             library=lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=add, scale=scale),
+                             io_bytes=nbytes(qkv, mask, bias, got), ops=4.0 * Bc * Hc * Tc * Tc * dhc, ops_in=op_type(dtype))
+            del qkv, got, want
+
+    # the whole layer, f32, small and ragged: plain ViT and BEiT (bias + layer-scale), T 197 and T 21
+    for form, has_bias, has_gamma in (("vit", False, False), ("beit", True, True)):
+        for Tc, lens in ((197, [197, 197, 120]), (21, [21, 13, 1])):
+            l = random_vit_layer(g, 64, 128, 4, Tc, has_bias, has_gamma)
+            x = randn(3, Tc, 64)
+            mask = torch.arange(Tc, device=dev)[None, :] < torch.tensor(lens, device=dev)[:, None]
+            got = fe.fused_vit_layer_parts(x, mask, l, num_heads=4, eps=1e-12)
+            want = fe.vit_layer_reference(x, mask, l, num_heads=4, eps=1e-12)
+            checks.compare("vit_layer", f"ragged {form} B3 T{Tc} d64 f32", got, want, F32_TOL)
+    # ViT-base width, the served batch, both forms
+    for form, has_bias, has_gamma in (("vit", False, False), ("beit", True, True)):
+        layer = random_vit_layer(g, d, dff, H, T, has_bias, has_gamma)
+        for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            l = cast_layer(layer, dtype)
+            x, mask = randn(B, T, d).to(dtype), torch.ones((B, T), dtype=torch.bool, device=dev)
+            kw = dict(num_heads=H, eps=1e-12)
+            got, want = fe.fused_vit_layer_parts(x, mask, l, **kw), fe.vit_layer_reference(x, mask, l, **kw)
+            checks.compare("vit_layer", f"{form} B{B} T{T} ViT-base {tag}", got, want, tol(dtype, want))
+            if dtype == torch.bfloat16:
+                weights = [v for k, v in l.items()]
+                checks.timed("vit_layer", f"{form} B{B} T{T} ViT-base {tag}", lambda: fe.fused_vit_layer_parts(x, mask, l, **kw),
+                             lambda: fe.vit_layer_reference(x, mask, l, **kw), iters=5,
+                             io_bytes=nbytes(x, mask, got, *weights),
+                             ops=2.0 * R * (4 * d * d + 2 * d * dff) + 4.0 * B * H * T * T * (d // H), ops_in="bf16")
+            del l, x, got, want
+    torch.cuda.empty_cache()
+
+
+def check_visual_length(checks: Checks, g: torch.Generator) -> None:
+    """9a, second part: K2 and the whole K1 layer at the visual branch's
+    encoder length, 512 text + 197 visual tokens = 709 (odd: no row of the
+    bf16 bias is 16-byte aligned, the GEMMs' last tile is a tail), with the
+    shared T5 rel-pos bias in bf16 as `encode` makes it, ragged text and
+    every visual token valid, f32 and bf16."""
+    import torch.nn.functional as F
+
+    from rag_docvqa_tpu_torch.models import t5 as t5m
+    from rag_docvqa_tpu_torch.ops import flash_attention as fa
+    from rag_docvqa_tpu_torch.ops import fused_encoder as fe
+
+    dev = g.device
+    randn = lambda *s: torch.randn(s, generator=g, device=dev)
+    cfg = t5m.T5Config()
+    B, T, H, dk, d = VIT_B, 512 + VIT_T, cfg.num_heads, cfg.d_kv, cfg.d_model
+    params = t5m.init_t5_params(g, t5m.T5Config(num_encoder_layers=1, num_decoder_layers=1))
+    layer = fe.fuse_t5_blocks(params.encoder.layers, False)[0]
+    pos = torch.arange(T)
+    bias = t5m.relative_bias(params.encoder.rel_bias, pos, pos, True, cfg)[0].to(torch.bfloat16).contiguous()
+    lens = torch.tensor([512 - 13 * i for i in range(B)], device=dev)
+    ids = torch.arange(T, device=dev)[None, :]
+    mask = (ids < lens[:, None]) | (ids >= 512)
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        q, k, v = (randn(B, T, H, dk).to(dtype) for _ in range(3))
+        q = q * dk ** -0.5  # T5 has no scale inside: scores of order one
+        args = (q, k, v, mask, bias[None], 1.0, False, fe.T5_MASK_VALUE)
+        (got, glse), (want, wlse) = fa.flash_attention_fwd(*args), fa.flash_attention_reference(*args)
+        label = f"B{B} H{H} T{T} dk{dk} shared bf16 bias {tag}"
+        checks.compare("flash_fwd", f"{label} out", got, want, tol(dtype, want))
+        checks.compare("flash_fwd", f"{label} lse", glse, wlse, tol(dtype, wlse))
+        if dtype == torch.bfloat16:
+            add = (bias.float()[None] + torch.where(mask, 0.0, fe.T5_MASK_VALUE)[:, None, None, :]).to(dtype)
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            checks.timed("flash_fwd", label, lambda: fa.flash_attention_fwd(*args),
+                         lambda: fa.flash_attention_reference(*args),
+                         library=lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=add, scale=1.0),
+                         io_bytes=nbytes(q, k, v, mask, bias, got, glse), ops=4.0 * B * H * T * T * dk, ops_in="bf16")
+            del add
+        del q, k, v, args, got, want
+        l = {name: w.to(dtype) for name, w in layer.items()}
+        x = randn(B, T, d).to(dtype)
+        kw = dict(num_heads=H, eps=cfg.layer_norm_eps, gated=False)
+        got, want = fe.fused_t5_layer_parts(x, mask, bias, l, **kw), fe.t5_layer_reference(x, mask, bias, l, **kw)
+        checks.compare("t5_layer", f"B{B} T{T} t5-base {tag}", got, want, tol(dtype, want))
+        if dtype == torch.bfloat16:
+            checks.timed("t5_layer", f"B{B} T{T} t5-base {tag}", lambda: fe.fused_t5_layer_parts(x, mask, bias, l, **kw),
+                         lambda: fe.t5_layer_reference(x, mask, bias, l, **kw), iters=5,
+                         io_bytes=nbytes(x, mask, bias, got, *l.values()),
+                         ops=t5_layer_work(B, T, d, cfg.inner_dim, cfg.d_ff, H, False), ops_in="bf16")
+        del x, got, want
+    torch.cuda.empty_cache()
+
+
+def plain_vit_stack(params, cfg, pixels):
+    """`vit_encode` from the plain layer only."""
+    from rag_docvqa_tpu_torch.models import vit
+    from rag_docvqa_tpu_torch.models.layers import dense, layer_norm
+    from rag_docvqa_tpu_torch.ops import fused_encoder as fe
+
+    B = pixels.shape[0]
+    x = dense(vit.extract_patches(pixels, cfg.patch_size), params.patch_w, params.patch_b)
+    x = torch.cat([params.cls_token.expand(B, 1, cfg.hidden_size), x], dim=1) + params.pos_embed
+    mask = torch.ones(x.shape[:2], dtype=torch.bool, device=x.device)
+    for l in fe.fuse_vit_blocks(params.layers):
+        x = fe.vit_layer_reference(x, mask, l, num_heads=cfg.num_heads, eps=cfg.layer_norm_eps)
+    return layer_norm(x, params.final_ln_w, params.final_ln_b, cfg.layer_norm_eps)
+
+
+def check_vit_stack(g: torch.Generator) -> None:
+    """9b: the full-width f32 ViT-base tower against the plain stack."""
+    from rag_docvqa_tpu_torch.models import vit
+
+    cfg = vit.ViTConfig()
+    params = vit.init_vit_params(g, cfg)
+    for layer in params.layers:  # the init's zero biases would hide the bias epilogues
+        for name in ("q_b", "k_b", "v_b", "o_b", "fc1_b", "fc2_b"):
+            getattr(layer, name).normal_(0.0, 0.1, generator=g)
+    pixels = torch.randn((8, cfg.image_size, cfg.image_size, 3), generator=g, device=g.device)
+    t0 = time.perf_counter()
+    got = vit.vit_encode(params, cfg, pixels)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    want = plain_vit_stack(params, cfg, pixels)
+    err = (got - want).abs().max().item()
+    log(f"  vit_encode f32 ViT-base B8 T{cfg.seq_len} (12 layers) kernels vs plain stack: max_abs_err {err:.3e} "
+        f"(limit {F32_TOL:.0e}), max|ref| {want.abs().max().item():.3g}, {ms:.1f} ms")
+    if not (got.shape == (8, cfg.seq_len, cfg.hidden_size) and math.isfinite(err) and err <= F32_TOL):
+        raise AssertionError(f"full-width vit_encode differs from the plain stack by {err}")
+
+
+def serve_visual(g: torch.Generator):
+    """9c: RAGVT5Engine.inference, concat, with the visual branch: t5-base as
+    phase 5 plus the ViT-base tower on one grid image per document."""
+    import numpy as np
+
+    from rag_docvqa_tpu_torch import kernels
+    from rag_docvqa_tpu_torch.data.contract import Caps
+    from rag_docvqa_tpu_torch.data.ingest import DocVQAIngestor
+    from rag_docvqa_tpu_torch.data.synthetic import make_corpus
+    from rag_docvqa_tpu_torch.data.tokenizer import HashTokenizer
+    from rag_docvqa_tpu_torch.engine.rag_vt5 import RAGConfig, RAGVT5Engine
+    from rag_docvqa_tpu_torch.models import t5 as t5m
+    from rag_docvqa_tpu_torch.models import vt5 as vt5m
+    from rag_docvqa_tpu_torch.ops.chunking import ChunkSpec
+
+    tok = HashTokenizer(32128)
+    ingestor = DocVQAIngestor(tok, ChunkSpec(chunk_size=60, overlap=10), Caps())
+    docs = make_corpus(96, n_pages=8, words_per_page=120, seed=SEED + 2)
+    rng = np.random.RandomState(SEED + 2)
+    for doc in docs:  # page renders from the seed
+        doc.images = [rng.randint(0, 255, (256, 192, 3), dtype=np.uint8) for _ in range(8)]
+    ingestor.caps = ingestor.plan_caps(docs)
+    batches = [ingestor.ingest(docs[i:i + 32]) for i in range(0, 96, 32)]
+    vt5_cfg = vt5m.VT5Config(t5=t5m.T5Config(decode_kv_int8=True, fused_decode_attn=True), use_visual=True)
+    params = vt5m.init_vt5_params(g, vt5_cfg).to(torch.bfloat16)
+    engine = RAGVT5Engine(RAGConfig(page_retrieval="concat", chunk_num=10, include_surroundings=0,
+                                    max_source_length=512, max_new_tokens=16, use_visual=True), vt5_cfg, params, tok)
+    engine.inference(*batches[0])  # warmup, not counted
+    torch.cuda.synchronize()
+
+    kernels.reset_launch_counts()
+    rows = []
+    for i, (batch, aux) in enumerate(batches[1:]):
+        t0 = time.perf_counter()
+        out = engine.inference(batch, aux)
+        wall = (time.perf_counter() - t0) * 1e3
+        conf, t = out["confidences"], out["timings"]
+        # a product of 15 maxima of a near-uniform softmax over 32,128 words (random weights) can
+        # underflow f32 to 0: finite and inside [0, 1] is the check
+        if len(out["pred_answers"]) != 32 or not all(math.isfinite(c) and 0.0 <= c <= 1.0 + 1e-6 for c in conf):
+            raise AssertionError(f"visual batch {i}: bad answers or confidences {conf}")
+        rows.append({"wall_ms": wall, "retrieve_assemble_ms": t["retrieve_assemble_s"] * 1e3,
+                     "visual_ms": t["visual_s"] * 1e3, "encode_ms": (t["encode_s"] - t["visual_s"]) * 1e3,
+                     "decode_ms": t["decode_s"] * 1e3})
+        log(f"  batch {i}: {wall:.1f} ms wall; retrieve+assemble {rows[-1]['retrieve_assemble_ms']:.2f} ms, visual branch "
+            f"(host crops, grid and resize, then ViT-base B32 T{VIT_T}) {rows[-1]['visual_ms']:.2f} ms, encode (Te "
+            f"{512 + VIT_T}) {rows[-1]['encode_ms']:.2f} ms, decode {rows[-1]['decode_ms']:.2f} ms")
+    launches = dict(kernels.LAUNCHES)
+    # the tower alone, between two synchronizes, on pixels already on the card
+    pixels = torch.randn((32, 224, 224, 3), generator=g, device=g.device)
+    tower_ms = time_ms(lambda: vt5m.visual_features(params, vt5_cfg, pixels), iters=3, warmup=1)
+    log(f"  visual_features alone (ViT-base bf16 B32, 12 layers + matcher): {tower_ms:.2f} ms")
+    log(f"  launches in the two visual batches: {launches}")
+    check_launched(launches, SERVE_VISUAL_KERNELS, "visual serving")
+    mean = lambda key: sum(r[key] for r in rows) / len(rows)
+    return launches, {"ms_per_batch": mean("wall_ms"), "retrieve_assemble_ms": mean("retrieve_assemble_ms"),
+                      "visual_ms": mean("visual_ms"), "encode_ms": mean("encode_ms"), "decode_ms": mean("decode_ms"),
+                      "visual_tower_ms": tower_ms,
+                      "Te": 512 + VIT_T, "batches": rows}
+
+
+def random_t5_layer(g: torch.Generator, d: int, inner: int, dff: int, gated: bool, dk: int) -> dict:
+    """One bias-free T5 layer in the kernels' form (f32), weights of
+    unit-variance outputs; the query rows carry dk^-0.5, as T5's init does,
+    since the attention has no scale."""
+    dev = g.device
+    randn = lambda *s: torch.randn(s, generator=g, device=dev)
+    l = {"wqkv": randn(3 * inner, d) * d**-0.5, "wo": randn(d, inner) * inner**-0.5,
+         "ln0": torch.rand(d, generator=g, device=dev) + 0.5, "ln1": torch.rand(d, generator=g, device=dev) + 0.5,
+         "wof": randn(d, dff) * dff**-0.5}
+    if gated:
+        l.update(wi_0=randn(dff, d) * d**-0.5, wi_1=randn(dff, d) * d**-0.5)
+    else:
+        l["wi"] = randn(dff, d) * d**-0.5
+    l["wqkv"][:inner] *= dk ** -0.5
+    return l
+
+
+def check_p2s_kernels(checks: Checks, g: torch.Generator) -> None:
+    """9d: K13, K1 without a bias, K15 and K3 at the longer caches against
+    their plain versions."""
+    from rag_docvqa_tpu_torch.models import t5 as t5m
+    from rag_docvqa_tpu_torch.ops import decode_attention as da
+    from rag_docvqa_tpu_torch.ops import fused_encoder as fe
+    from rag_docvqa_tpu_torch.ops import late_interaction as li
+
+    dev = g.device
+    randn = lambda *s: torch.randn(s, generator=g, device=dev)
+    lens_mask = lambda T, lens: torch.arange(T, device=dev)[None, :] < torch.tensor(lens, device=dev)[:, None]
+    d, H, dff = P2S_D, P2S_H, P2S_DFF
+
+    # the bias-free attention kernel (bf16): ragged cases (T no multiple of the 64-wide tiles, dk 16, 32, 64 and
+    # 128, a row with no valid key, a single key), then the three shapes the tower gives it: the page budget's
+    # (K13) and the two of K1 without a bias, each beside SDPA and beside K2 on the same row
+    import torch.nn.functional as F
+
+    from rag_docvqa_tpu_torch.ops import flash_attention as fa
+    for Bc, T, Hc, dk, lens in ((3, 77, 4, 64, [77, 50, 0]), (2, 200, 2, 128, [200, 1]), (2, 64, 3, 32, [64, 33]),
+                                (4, 77, 4, 16, [77, 58, 5, 0]),
+                                (136, 128, H, d // H, [128 - (i * 5) % 128 if i % 17 else 0 for i in range(136)]),
+                                (8, 1024, H, d // H, [1024, 1000, 900, 640, 512, 300, 77, 0]),
+                                (8, 2048, H, d // H, [2048, 2048, 1900, 1500, 1100, 700, 64, 2048])):
+        qkv = randn(Bc, T, 3, Hc, dk).to(torch.bfloat16)
+        qkv[:, :, 0] *= dk ** -0.5  # no scale inside: scores of order one
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        mask = lens_mask(T, lens)
+        got, want = fe.qtiled_attention(q, k, v, mask), fe.qtiled_attention_reference(q, k, v, mask)
+        label = f"B{Bc} H{Hc} T{T} dk{dk} bf16"
+        checks.compare("t5_qtiled_attention", label, got, want, tol(torch.bfloat16, want))
+        if Bc >= 8:
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            pad = torch.where(mask, 0.0, fe.T5_MASK_VALUE)[:, None, None, :].to(torch.bfloat16)
+            checks.timed("t5_qtiled_attention", label, lambda: fe.qtiled_attention(q, k, v, mask),
+                         lambda: fe.qtiled_attention_reference(q, k, v, mask),
+                         library=lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=pad, scale=1.0),
+                         io_bytes=nbytes(qkv, mask, got), ops=4.0 * Bc * Hc * T * T * dk, ops_in="bf16")
+            # and K2 on the same row: why every bias-free bf16 row takes this kernel
+            k2_ms = time_ms(lambda: fa.flash_attention_fwd(q, k, v, mask, None, 1.0, False, fe.T5_MASK_VALUE))
+            checks.k2_on_bias_free_rows[label] = k2_ms
+            log(f"  flash_fwd (K2) on the same row: {k2_ms:.4f} ms")
+        del qkv, got, want
+    torch.cuda.empty_cache()
+    # K13, small f32: against the plain version with the TPU kernel's tiles (TQ | T) and against K1's plain parts
+    for gated, T, TQ, kc, chunk in ((True, 64, 16, 16, 0), (False, 96, 32, 64, 64), (True, 128, 128, 32, 32)):
+        l = random_t5_layer(g, 64, 64, 128, gated, 16)
+        x, mask = randn(4, T, 64), lens_mask(T, [T, T - 19, 5, 0])
+        kw = dict(num_heads=4, eps=1e-6, gated=gated)
+        got = fe.fused_t5_layer_qtiled(x, mask, l, **kw)
+        want = fe.t5_layer_qtiled_reference(x, mask, l, TQ=TQ, kc=kc, ffn_chunk=chunk, **kw)
+        checks.compare("t5_layer_qtiled", f"ragged T{T} TQ{TQ} kc{kc} ffn{chunk} {'gated' if gated else 'relu'} f32", got, want, F32_TOL)
+        checks.compare("t5_layer_qtiled", f"ragged T{T} vs K1's plain parts f32", got,
+                       fe.t5_layer_reference(x, mask, None, l, **kw), F32_TOL)
+    # K13 and K1 without a bias, small bf16 (dk 16 and dk 32, T no multiple of the tiles, a row without keys):
+    # on the card the same launches, each against its own plain version
+    x0, mask = randn(4, 77, 128), lens_mask(77, [77, 58, 5, 0])
+    for dmodel, dk in ((64, 16), (128, 32)):
+        ls = cast_layer(random_t5_layer(g, dmodel, dmodel, 2 * dmodel, True, dk), torch.bfloat16)
+        x = x0[:, :, :dmodel].to(torch.bfloat16).contiguous()
+        kw = dict(num_heads=4, eps=1e-6, gated=True)
+        got = fe.fused_t5_layer_qtiled(x, mask, ls, **kw)
+        want = fe.t5_layer_qtiled_reference(x, mask, ls, TQ=77, kc=32, ffn_chunk=64, **kw)
+        checks.compare("t5_layer_qtiled", f"ragged T77 d{dmodel} dk{dk}, one row without keys bf16", got, want,
+                       tol(torch.bfloat16, want))
+        got, want = fe.fused_t5_layer_parts(x, mask, None, ls, **kw), fe.t5_layer_reference(x, mask, None, ls, **kw)
+        checks.compare("t5_layer_nobias", f"ragged T77 d{dmodel} dk{dk}, one row without keys bf16", got, want,
+                       tol(torch.bfloat16, want))
+    try:  # dk 40: no tensor-core tile of that width, and no other route
+        fe.fused_t5_layer_parts(randn(2, 16, 160).to(torch.bfloat16), lens_mask(16, [16, 9]), None,
+                                cast_layer(random_t5_layer(g, 160, 160, 64, True, 40), torch.bfloat16), **kw)
+        raise AssertionError("a bias-free bf16 layer with a head of 40 must raise")
+    except ValueError:
+        pass
+    layer = random_t5_layer(g, d, d, dff, True, d // H)
+    weights = lambda l: list(l.values())
+    # K13 at the page budget: B 8, T 2048
+    B, T = 8, 2048
+    mask = lens_mask(T, [2048, 2048, 1900, 1500, 1100, 700, 64, 2048])
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        l = cast_layer(layer, dtype)
+        x = randn(B, T, d).to(dtype)
+        kw = dict(num_heads=H, eps=1e-6, gated=True)
+        got = fe.fused_t5_layer_qtiled(x, mask, l, **kw)
+        want = fe.t5_layer_qtiled_reference(x, mask, l, TQ=512, kc=512, ffn_chunk=0, **kw)
+        checks.compare("t5_layer_qtiled", f"B{B} T{T} pix2struct-base {tag}", got, want, tol(dtype, want))
+        if dtype == torch.bfloat16:
+            checks.timed("t5_layer_qtiled", f"B{B} T{T} pix2struct-base {tag}", lambda: fe.fused_t5_layer_qtiled(x, mask, l, **kw),
+                         lambda: fe.t5_layer_qtiled_reference(x, mask, l, TQ=512, kc=512, ffn_chunk=0, **kw), iters=3,
+                         io_bytes=nbytes(x, mask, got, *weights(l)), ops=t5_layer_work(B, T, d, d, dff, H, True), ops_in="bf16")
+        del l, x, got, want
+    torch.cuda.empty_cache()
+    # K1 without a bias: the chunk budget (T 128 x the 136 patch sets of 8 documents) and the generator's
+    # 1024-patch row; ragged masks and rows with no valid token (the padded chunk slots)
+    for B, T, lens in ((136, 128, [128 - (i * 5) % 128 if i % 17 else 0 for i in range(136)]),
+                       (8, 1024, [1024, 1000, 900, 640, 512, 300, 77, 0])):
+        mask = lens_mask(T, lens)
+        for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            l = cast_layer(layer, dtype)
+            x = randn(B, T, d).to(dtype)
+            kw = dict(num_heads=H, eps=1e-6, gated=True)
+            got = fe.fused_t5_layer_parts(x, mask, None, l, **kw)
+            want = fe.t5_layer_reference(x, mask, None, l, **kw)
+            checks.compare("t5_layer_nobias", f"B{B} T{T} pix2struct-base {tag}", got, want, tol(dtype, want))
+            if dtype == torch.bfloat16:
+                checks.timed("t5_layer_nobias", f"B{B} T{T} pix2struct-base {tag}",
+                             lambda: fe.fused_t5_layer_parts(x, mask, None, l, **kw),
+                             lambda: fe.t5_layer_reference(x, mask, None, l, **kw), iters=5,
+                             io_bytes=nbytes(x, mask, got, *weights(l)), ops=t5_layer_work(B, T, d, d, dff, H, True),
+                             ops_in="bf16")
+            del l, x, got, want
+    torch.cuda.empty_cache()
+
+    # K15: small ragged cases (one query and batched, Tq and Tp no multiples of the 64-wide tile, D no multiple
+    # of 16, masks, a patch set of no valid token), then the engine's shapes
+    q, p = randn(70, 40), randn(5, 77, 40)
+    pm = torch.rand((5, 77), generator=g, device=dev) < 0.7
+    pm[3] = False
+    got, want = li.late_interaction(q, p, patch_mask=pm), li.late_interaction_reference(q, p, patch_mask=pm)
+    checks.compare("maxsim", "ragged one query Tq70 N5 Tp77 D40", got, want, F32_TOL)
+    if got[3].item() != 0.0:
+        raise AssertionError("maxsim: a patch set with no valid token must score 0")
+    checks.compare("maxsim", "ragged one query, no masks", li.late_interaction(q, p), li.late_interaction_reference(q, p), F32_TOL)
+    for B, mc in ((8, 16), (32, 16)):
+        Tq = Tp = 128
+        q, p = randn(B, Tq, d), randn(B, mc, Tp, d)
+        qm = (torch.arange(Tq, device=dev)[None, :] < torch.randint(1, Tq + 1, (B, 1), generator=g, device=dev)).float()
+        pm = (torch.arange(Tp, device=dev)[None, None, :] < torch.randint(1, Tp + 1, (B, mc, 1), generator=g, device=dev)).float()
+        pm[:, 12:] = 0.0  # padded chunk slots: no valid token
+        got, want = li.late_interaction(q, p, qm, pm), li.late_interaction_reference(q, p, qm, pm)
+        checks.compare("maxsim", f"B{B} mc{mc} Tq{Tq} Tp{Tp} D{d} f32", got, want, F32_TOL)
+        if got[:, 12:].abs().max().item() != 0.0:
+            raise AssertionError("maxsim: padded chunk slots must score 0")
+        checks.timed("maxsim", f"B{B} mc{mc} Tq{Tq} Tp{Tp} D{d} f32", lambda: li.late_interaction(q, p, qm, pm),
+                     lambda: li.late_interaction_reference(q, p, qm, pm), io_bytes=nbytes(q, p, qm, pm, got),
+                     ops=2.0 * B * mc * Tq * Tp * d)
+    # K3 over the longer caches of these paths: Te 709 (VT5 + visual tokens), 1024 and 2048, int8
+    for Te in (709, 1024, 2048):
+        B, dk = (32, 64) if Te == 709 else (8, 64)
+        q = randn(B, H, dk)
+        k, ks = t5m._quantize_kv(randn(B, H, Te, dk))
+        v, vs = t5m._quantize_kv(randn(B, H, Te, dk))
+        ks, vs = ks[:, :, 0, :], vs[:, :, 0, :]
+        k2, v2 = da.pack_decode_kv(k, v)
+        m = torch.arange(Te, device=dev)[None, :] < torch.randint(1, Te + 1, (B,), generator=g, device=dev)[:, None]
+        got = da.fused_cross_attention(q, k2, v2, m, ks, vs)
+        want = (da.cross_attention_reference(q * ks, k2, v2, m).view(B, H, dk) * vs).reshape(B, H * dk)
+        checks.compare("decode_cross_attention", f"B{B} H{H} dk{dk} Te{Te} int8 cache", got, want, F32_TOL)
+        checks.timed("decode_cross_attention", f"B{B} H{H} dk{dk} Te{Te} int8 cache",
+                     lambda: da.fused_cross_attention(q, k2, v2, m, ks, vs),
+                     lambda: da.cross_attention_reference(q * ks, k2, v2, m),
+                     io_bytes=nbytes(q, k2, v2, m, ks, vs, got), ops=4.0 * B * H * Te * dk)
+    torch.cuda.empty_cache()
+
+
+def check_p2s_stack(g: torch.Generator) -> None:
+    """9e: the full-width f32 pix2struct-base vision tower at the chunk
+    budget (K1 without a bias) and at the page budget (K13) against the
+    plain stacks."""
+    from rag_docvqa_tpu_torch import kernels
+    from rag_docvqa_tpu_torch.models import pix2struct as p2s
+    from rag_docvqa_tpu_torch.models.layers import dense, rms_norm
+    from rag_docvqa_tpu_torch.ops import fused_encoder as fe
+
+    cfg = p2s.Pix2StructConfig()
+    v = cfg.vision
+    params = p2s.init_p2s_params(g, cfg)
+    dev = g.device
+    for B, T, lens in ((16, 128, [128 - 7 * i for i in range(16)]), (2, 2048, [2048, 1300])):
+        cols = 32
+        ids = torch.arange(T, device=dev)
+        mask = (ids[None, :] < torch.tensor(lens, device=dev)[:, None]).float()
+        patches = torch.cat([(ids // cols + 1)[None, :, None].expand(B, T, 1).float(),
+                             (ids % cols + 1)[None, :, None].expand(B, T, 1).float(),
+                             torch.randn((B, T, v.patch_dim), generator=g, device=dev)], dim=-1) * mask[..., None]
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = p2s.vision_encode(params, cfg, patches, mask)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        check_tower_route(kernels.LAUNCHES, v.num_layers, 1, False, f"f32 vision_encode at T {T}")
+        p = params.vision
+        x = dense(patches[:, :, 2:], p.patch_w, p.patch_b) + p.row_emb[patches[:, :, 0].long()] + p.col_emb[patches[:, :, 1].long()]
+        for l in fe.fuse_t5_blocks(p.layers, True):
+            kw = dict(num_heads=v.num_heads, eps=v.layer_norm_eps, gated=True)
+            x = fe.t5_layer_qtiled_reference(x, mask.bool(), l, TQ=512, kc=512, **kw) if T > p2s.QTILED_ABOVE else \
+                fe.t5_layer_reference(x, mask.bool(), None, l, **kw)
+        want = rms_norm(x, p.final_ln, v.layer_norm_eps)
+        valid = mask.bool()
+        err = (got - want)[valid].abs().max().item()
+        route = "K13" if T > p2s.QTILED_ABOVE else "K1 without a bias"
+        log(f"  vision_encode f32 pix2struct-base B{B} T{T} (12 layers, {route}) kernels vs plain stack: max_abs_err "
+            f"{err:.3e} (limit {F32_TOL:.0e}), max|ref| {want[valid].abs().max().item():.3g}, {ms:.1f} ms")
+        if not (math.isfinite(err) and err <= F32_TOL and bool(torch.isfinite(got).all())):
+            raise AssertionError(f"full-width vision_encode at T {T} differs from the plain stack by {err}")
+        del x, got, want
+    torch.cuda.empty_cache()
+
+
+def p2s_documents(seed: int, n_docs: int, n_pages: int = 4, size: int = 512):
+    """Synthetic page renders from a seed: noise with dark text-like bars, so
+    that the horizontal strips of a page differ."""
+    import numpy as np
+
+    from rag_docvqa_tpu_torch.data.contract import RawDocument
+
+    rng = np.random.RandomState(seed)
+    docs = []
+    for i in range(n_docs):
+        pages = []
+        for _ in range(n_pages):
+            page = rng.randint(200, 256, (size, size, 3)).astype(np.uint8)
+            for y in rng.randint(8, size - 8, 24):
+                x0 = rng.randint(0, size // 2)
+                page[y:y + 4, x0:x0 + rng.randint(16, size // 2)] = rng.randint(0, 80)
+            pages.append(page)
+        docs.append(RawDocument(question=f"what is the total of invoice {seed}-{i}?", words=[[]], boxes=[[]], images=pages))
+    return docs
+
+
+def tower_launches(params, cfg, B: int, T: int, g: torch.Generator) -> dict:
+    """The launches of one `vision_encode` of B rows of T patches (random
+    pixels, a 32-wide grid of ids, ragged masks), counts set to 0 just before."""
+    from rag_docvqa_tpu_torch import kernels
+    from rag_docvqa_tpu_torch.models import pix2struct as p2s
+
+    dev = g.device
+    ids = torch.arange(T, device=dev)
+    mask = (ids[None, :] < torch.tensor([T - 37 * i for i in range(B)], device=dev)[:, None]).float()
+    patches = torch.cat([(ids // 32 + 1)[None, :, None].expand(B, T, 1).float(),
+                         (ids % 32 + 1)[None, :, None].expand(B, T, 1).float(),
+                         torch.randn((B, T, cfg.vision.patch_dim), generator=g, device=dev)], dim=-1) * mask[..., None]
+    kernels.reset_launch_counts()
+    with torch.inference_mode():
+        out = p2s.vision_encode(params, cfg, patches, mask)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"vision_encode at T {T}: non-finite values")
+    return dict(kernels.LAUNCHES)
+
+
+def check_tower_route(counts: dict, layers: int, encodes: int, bf16: bool, what: str) -> None:
+    """A bias-free layer is two norms, five products (qkv, O, two gated
+    inputs, FFN out) and one attention: `t5_qtiled_attention` for a bf16 row
+    and never K2, K2 for an f32 one. The route is read off the launch counts."""
+    n = layers * encodes
+    want = {"t5_rms_norm": 2 * n, "t5_gemm": 5 * n, "t5_qtiled_attention": n if bf16 else 0, "flash_fwd": 0 if bf16 else n}
+    got = {k: counts[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{what}: the tower launched {got}, not {want}")
+
+
+def serve_p2s(g: torch.Generator):
+    """9f: RAGPix2StructEngine at pix2struct-base width with an int8 cross
+    cache: inference cold and prepared, the stream, the resident index, and
+    the 2048-patch budget (K13)."""
+    import numpy as np
+
+    from dataclasses import replace
+
+    from rag_docvqa_tpu_torch import kernels
+    from rag_docvqa_tpu_torch.data.tokenizer import HashTokenizer
+    from rag_docvqa_tpu_torch.engine.rag_pix2struct import P2SRAGConfig, RAGPix2StructEngine, _score_topk
+    from rag_docvqa_tpu_torch.models import pix2struct as p2s
+    from rag_docvqa_tpu_torch.ops import late_interaction as li
+    from rag_docvqa_tpu_torch.ops.topk import masked_topk
+
+    base = p2s.Pix2StructConfig()
+    cfg = replace(base, text=replace(base.text, decode_kv_int8=True, fused_decode_attn=True))
+    params = p2s.init_p2s_params(g, cfg).to(torch.bfloat16)
+    tok = HashTokenizer(cfg.text.vocab_size)
+    rag = P2SRAGConfig(chunk_num=10, max_new_tokens=16)
+    engine = RAGPix2StructEngine(rag, cfg, params, tok)
+    if engine._xfer != np.float16:
+        raise AssertionError("bf16 weights within the 2048 budget must ship f16 patches")
+    B = 8
+    batches = [p2s_documents(SEED + 10 + i, B) for i in range(5)]
+    images = lambda docs: [[np.asarray(im) for im in d.images] for d in docs]
+
+    def check(out, n, what):
+        conf = out["confidences"]
+        if len(out["pred_answers"]) != n or not all(math.isfinite(c) and 0.0 <= c <= 1.0 + 1e-6 for c in conf):
+            raise AssertionError(f"{what}: bad answers or confidences {conf}")
+        if not all(isinstance(p, list) and all(0 <= x < 4 for x in p) for p in out["pred_answer_pages"]):
+            raise AssertionError(f"{what}: bad pages {out['pred_answer_pages']}")
+
+    engine.inference(batches[0])  # warmup, not counted
+    torch.cuda.synchronize()
+    summary = {}
+    L = cfg.vision.num_layers
+    for T in (128, 1024, 2048):  # K1 without a bias (chunk sets, the generator's row) and K13 (the page budget)
+        check_tower_route(tower_launches(params, cfg, 2, T, g), L, 1, True, f"bf16 vision_encode at T {T}")
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    cold = engine.inference(batches[1])
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    prepared = engine.prepare_docs(images(batches[1]))
+    prepare_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    warm = engine.inference(batches[1], prepared=prepared)
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(kernels.LAUNCHES)
+    check(cold, B, "inference")
+    check(warm, B, "prepared inference")
+    if cold["pred_answers"] != warm["pred_answers"] or cold["pred_answer_pages"] != warm["pred_answer_pages"]:
+        raise AssertionError("prepared documents change the answers")
+    n_chunks = [p.n_chunks for p in prepared]
+    log(f"  inference B{B} x 4 pages of 512x512, k 10, 1024-patch budget, 16 new tokens: cold {cold_ms:.1f} ms (host "
+        f"prepare {prepare_ms:.1f} ms of it), with prepare_docs {warm_ms:.1f} ms; {min(n_chunks)}..{max(n_chunks)} chunks "
+        f"per document, {B * engine._chunk_cap(n_chunks) + B} patch sets of T 128 per encode")
+    log(f"  launches in the two served batches: {launches}")
+    check_launched(launches, P2S_KERNELS, "RAG-Pix2Struct serving")
+    # two batches of a retrieve encode (T 128) and a generator encode (T 1024) each
+    check_tower_route(launches, L, 4, True, "two served batches")
+    summary.update(cold_ms=cold_ms, prepare_ms=prepare_ms, prepared_ms=warm_ms)
+
+    # where a prepared batch's time goes: the steps of `_dispatch_batch`, each ended by a synchronize
+    from rag_docvqa_tpu_torch.ops.decode import greedy_decode
+    from rag_docvqa_tpu_torch.ops.patches import pack_multi_image_patches, render_text
+    t0 = time.perf_counter()
+    crops, _, _, _ = engine._retrieve_batch([d.question for d in batches[1]], images(batches[1]), prepared=prepared)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    packed = [pack_multi_image_patches(c, rag.max_total_patches, normalize=True, header=render_text(d.question))
+              for d, c in zip(batches[1], crops)]
+    t2 = time.perf_counter()
+    with torch.inference_mode():
+        patches = engine._dev(np.stack([f for f, _ in packed]).astype(engine._xfer, copy=False))
+        masks = engine._dev(np.stack([m for _, m in packed]))
+        enc = p2s.vision_encode(params, cfg, patches, masks)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        greedy_decode(params.text, cfg.text, enc, masks.bool(), rag.max_new_tokens)
+        torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    split = {"retrieve_ms": (t1 - t0) * 1e3, "pack_ms": (t2 - t1) * 1e3, "generator_encode_ms": (t3 - t2) * 1e3,
+             "decode_ms": (t4 - t3) * 1e3}
+    log(f"  a prepared batch by stage: retrieve (render questions, encode 136 sets, MaxSim, top-k, merge crops) "
+        f"{split['retrieve_ms']:.1f} ms, host pack of the crops {split['pack_ms']:.1f} ms, generator encode "
+        f"(copy + B{B} T 1024) {split['generator_encode_ms']:.1f} ms, decode (16 steps, Te 1024) {split['decode_ms']:.1f} ms")
+    summary["prepared_split"] = split
+
+    # K15 on the engine's own embeddings, and the top-k as the index checks did: every returned value is
+    # the plain score of its row, the best value is the plain best
+    index8 = engine.build_visual_index(prepared)
+    q_patches = np.stack([engine._render_question(d.question)[0] for d in batches[1]])
+    q_mask = np.stack([engine._render_question(d.question)[1] for d in batches[1]])
+    with torch.inference_mode():
+        q_emb = p2s.vision_encode(params, cfg, engine._dev(q_patches), engine._dev(q_mask))
+        got = li.late_interaction(q_emb, index8.emb, engine._dev(q_mask), index8.tok_mask)
+        want = li.late_interaction_reference(q_emb, index8.emb, engine._dev(q_mask), index8.tok_mask)
+        vals, idx, valid = _score_topk(index8.emb, index8.tok_mask, q_emb, engine._dev(q_mask), index8.chunk_valid, 10)
+        plain_vals = masked_topk(want, index8.chunk_valid, 10)[0]
+    err = (got - want).abs().max().item()
+    at_rows = (want.gather(1, idx) - vals)[valid].abs().max().item()
+    best = (plain_vals[:, 0] - vals[:, 0]).abs().max().item()
+    log(f"  MaxSim on the engine's embeddings (B{B} x mc {index8.mc}, bf16 tower, f32 scores): kernel vs plain "
+        f"{err:.3e}; top-10 values at the returned rows within {at_rows:.3e}, best within {best:.3e} (limit 1e-4); "
+        f"scores {want[index8.chunk_valid].min().item():.3f}..{want[index8.chunk_valid].max().item():.3f}")
+    if not (err <= F32_TOL and at_rows <= F32_TOL and best <= F32_TOL and bool(valid.all())):
+        raise AssertionError(f"MaxSim on the engine's embeddings: {err}, {at_rows}, {best}")
+    if got[~index8.chunk_valid].abs().max().item() != 0.0:
+        raise AssertionError("padded chunk slots must score 0")
+    summary["maxsim_err_on_engine_embeddings"] = err
+
+    # the stream over four batches: the per-batch answers, in order
+    stream_docs = batches[1:5]
+    per_batch = [engine.inference(docs) for docs in stream_docs]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    piped = list(engine.inference_stream(iter(stream_docs), depth=2))
+    stream_ms = (time.perf_counter() - t0) * 1e3
+    for i, (a, b) in enumerate(zip(piped, per_batch)):
+        check(a, B, f"stream batch {i}")
+        if a["pred_answers"] != b["pred_answers"] or a["pred_answer_pages"] != b["pred_answer_pages"] or \
+                max(abs(x - y) for x, y in zip(a["confidences"], b["confidences"])) > 1e-3:
+            raise AssertionError(f"inference_stream batch {i} differs from the per-batch call")
+    log(f"  inference_stream over 4 batches of {B}: {stream_ms:.1f} ms = {stream_ms / 4:.1f} ms per batch, the same answers "
+        f"and pages as per-batch calls, in order")
+    summary["stream_ms_per_batch"] = stream_ms / 4
+
+    # the resident index: 32 documents, one query each
+    docs32 = [d for docs in batches[1:5] for d in docs]
+    t0 = time.perf_counter()
+    prepared32 = engine.prepare_docs(images(docs32))
+    prep32_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    index = engine.build_visual_index(prepared32)
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    questions, doc_ids = [d.question for d in docs32], list(range(32))
+    engine.inference_indexed(questions, doc_ids, index)  # warmup
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = engine.inference_indexed(questions, doc_ids, index)
+    indexed_ms = (time.perf_counter() - t0) * 1e3
+    indexed_launches = dict(kernels.LAUNCHES)
+    check(out, 32, "inference_indexed")
+    r = out["retrieval"]
+    if not (r["chunk_indices"].shape == (32, 10) and r["valid"].all() and np.isfinite(r["similarities"]).all()
+            and (np.diff(r["similarities"], axis=1) <= 1e-6).all()):
+        raise AssertionError("inference_indexed: bad retrieval")
+    # the host path over the same prepared documents ranks from the same embeddings
+    _, _, host_vals, _ = engine._retrieve_batch(questions[:B], None, prepared=prepared32[:B])
+    host_err = float(np.abs(host_vals - r["similarities"][:B]).max())
+    resident = sum(t.numel() * t.element_size() for t in (index.emb, index.patches, index.tok_mask))
+    log(f"  build_visual_index over 32 documents (host prepare {prep32_ms:.1f} ms, encode {build_ms:.1f} ms, "
+        f"{resident / 2**20:.1f} MiB resident); inference_indexed B32: {indexed_ms:.1f} ms; top-10 scores within "
+        f"{host_err:.2e} of the host path's (batch shapes differ: bf16 tower)")
+    log(f"  launches in the indexed batch: {indexed_launches}")
+    check_launched(indexed_launches, P2S_KERNELS, "indexed RAG-Pix2Struct serving")
+    check_tower_route(indexed_launches, L, 2, True, "the indexed batch")  # the questions' encode and the generator's
+    if host_err > 5e-2:
+        raise AssertionError(f"indexed and host retrieval scores differ by {host_err}")
+    summary.update(index_prepare_ms=prep32_ms, index_build_ms=build_ms, indexed_ms=indexed_ms,
+                   index_resident_bytes=resident)
+    del index, index8
+    torch.cuda.empty_cache()
+
+    # the 2048-patch page budget: the generator's row runs K13
+    page_engine = RAGPix2StructEngine(replace(rag, max_total_patches=2048), cfg, params, tok)
+    page_engine.inference(batches[0], prepared=engine.prepare_docs(images(batches[0])))  # warmup
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = page_engine.inference(batches[1], prepared=prepared)
+    page_ms = (time.perf_counter() - t0) * 1e3
+    page_launches = dict(kernels.LAUNCHES)
+    check(out, B, "2048-patch inference")
+    log(f"  inference B{B} at the 2048-patch budget (generator row T 2048 through K13, Te 2048): {page_ms:.1f} ms "
+        f"with prepare_docs")
+    log(f"  launches in the 2048-patch batch: {page_launches}")
+    check_launched(page_launches, P2S_KERNELS, "2048-patch RAG-Pix2Struct serving")
+    check_tower_route(page_launches, L, 2, True, "the 2048-patch batch")  # the retrieve encode and the T 2048 row
+    summary["page_budget_ms"] = page_ms
+    return launches, indexed_launches, page_launches, summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -1617,8 +2412,8 @@ def main() -> int:
     g = torch.Generator(device="cuda").manual_seed(SEED)
     checks = Checks()
     only = set(sys.argv[1:])  # e.g. `chip_smoke.py 8`: that phase alone, for work on it; no report
-    if only - {"3", "4", "5", "6", "7", "8"}:
-        raise SystemExit(f"usage: chip_smoke.py [phase ...], phases 3-8; got {sorted(only)}")
+    if only - {"3", "4", "5", "6", "7", "8", "9"}:
+        raise SystemExit(f"usage: chip_smoke.py [phase ...], phases 3-9; got {sorted(only)}")
     want = lambda phase: not only or phase in only
     launches, path_launches = {}, {}
     if want("3") or want("4") or want("5"):
@@ -1691,6 +2486,30 @@ def main() -> int:
         launches.update({k: embed_launches[k] for k in KERNELS if KERNELS[k][2] == "embed"})
         launches.update({k: contrastive_launches[k] for k in KERNELS if KERNELS[k][2] == "contrastive"})
         torch.cuda.empty_cache()
+    if want("9"):
+        with torch.inference_mode():
+            log("phase 9a: the ViT layer (K14) and its parts against their plain versions")
+            check_vit_kernels(checks, g)
+            log("phase 9a: K2 and the K1 layer with the T5 bias at the visual branch's encoder length, T 709")
+            check_visual_length(checks, g)
+            log("phase 9b: full-width f32 ViT-base tower")
+            check_vit_stack(g)
+            torch.cuda.empty_cache()
+            log(f"phase 9c: RAGVT5Engine.inference, concat, use_visual, t5-base + ViT-base, bf16; card and power "
+                f"limit: {card}")
+            visual_launches, visual_summary = serve_visual(g)
+            torch.cuda.empty_cache()
+            log("phase 9d: the query-tiled T5 layer (K13), K1 without a bias, MaxSim (K15), K3 at Te 709-2048")
+            check_p2s_kernels(checks, g)
+            log("phase 9e: full-width f32 pix2struct-base vision tower, T 128 and T 2048")
+            check_p2s_stack(g)
+        log(f"phase 9f: RAGPix2StructEngine, pix2struct-base, bf16, int8 cross cache; card and power limit: {card}")
+        p2s_launches, p2s_indexed_launches, p2s_page_launches, p2s_summary = serve_p2s(g)
+        path_launches.update(serve_visual=visual_launches, p2s=p2s_launches, p2s_indexed=p2s_indexed_launches,
+                             p2s_page=p2s_page_launches)
+        for path, counts in (("serve_visual", visual_launches), ("p2s", p2s_launches), ("p2s_page", p2s_page_launches)):
+            launches.update({k: counts[k] for k in KERNELS if KERNELS[k][2] == path})
+        torch.cuda.empty_cache()
     if only:
         print(json.dumps({"ok": True, "phases": sorted(only), "card": card}), flush=True)
         return 0
@@ -1709,7 +2528,8 @@ def main() -> int:
              "cases": checks.times[name]}
             for name, (src, rep, _, case) in KERNELS.items()],
         # the whole layer K1 composes from rms_norm, gemm and flash_fwd
-        "t5_layer": {"max_abs_err": checks.err["t5_layer"], **pair("t5_layer", "B32 T512 t5-base bf16")},
+        "t5_layer": {"max_abs_err": checks.err["t5_layer"], **pair("t5_layer", "B32 T512 t5-base bf16"),
+                     "cases": checks.times["t5_layer"]},
         # K7 and K8 compose from gemm_bwd, rms_bwd and (K8) the K1 parts and K6
         "t5_ffn_bwd": {"max_abs_err": checks.err["t5_ffn_bwd"], **pair("t5_ffn_bwd", "B8 T512 t5-base bf16")},
         "t5_attn_bwd": {"max_abs_err": checks.err["t5_attn_bwd"], **pair("t5_attn_bwd", "B8 T512 t5-base bf16")},
@@ -1728,6 +2548,23 @@ def main() -> int:
         "embed_index": embed_summary,
         "rerank_serve": rerank_summary,
         "contrastive_step": contrastive_summary,
+        # the whole layer K14 composes from vit_layer_norm, vit_gemm and vit_attention
+        "vit_layer": {"max_abs_err": checks.err["vit_layer"], **times("vit_layer", f"beit B{VIT_B} T{VIT_T} ViT-base bf16"),
+                      "cases": checks.times["vit_layer"]},
+        # the two bias-free whole layers, composed from t5_rms_norm, t5_gemm and the bias-free attention
+        # (t5_qtiled_attention in bf16): K1 without a bias and K13, each against its own plain version; their
+        # parts' launches in the served batches and in the 2048-patch batch; K2's time on the attention's rows
+        "t5_layer_nobias": {"max_abs_err": checks.err["t5_layer_nobias"],
+                            **times("t5_layer_nobias", "B136 T128 pix2struct-base bf16"),
+                            "cases": checks.times["t5_layer_nobias"],
+                            "parts_launched": {k: p2s_launches[k] for k in TOWER_KERNELS}},
+        "t5_layer_qtiled": {"max_abs_err": checks.err["t5_layer_qtiled"],
+                            **times("t5_layer_qtiled", "B8 T2048 pix2struct-base bf16"),
+                            "cases": checks.times["t5_layer_qtiled"],
+                            "parts_launched": {k: p2s_page_launches[k] for k in TOWER_KERNELS}},
+        "flash_fwd_ms_on_bias_free_rows": checks.k2_on_bias_free_rows,
+        "visual_serve": visual_summary,
+        "p2s_serve": p2s_summary,
         # every kernel's launches in each path's run, counts set to 0 just before it
         "launches_by_path": path_launches,
         "card": card,

@@ -1,11 +1,13 @@
 """Layered YAML configs -> the port's config dataclasses.
 
-Counterpart of the VT5 part of `rag_docvqa_tpu/config.py`: `load_config`
-merges the dataset config, the model config, its `training_parameters` and
-the CLI overrides in that order, as there, and the `build_*` helpers map
-the flat dict onto `RAGConfig`, `VT5Config`, `ChunkSpec` and `Caps`;
-`build_reranker` is the BERT branch of the JAX one, and `build_engine` the
-VT5 branch of the JAX model registry with its `rerank` key.
+Counterpart of the VT5 and Pix2Struct parts of `rag_docvqa_tpu/config.py`:
+`load_config` merges the dataset config, the model config, its
+`training_parameters` and the CLI overrides in that order, as there, and the
+`build_*` helpers map the flat dict onto `RAGConfig`, `VT5Config` (with the
+`use_visual` and `visual_*` keys of the DiT tower), `Pix2StructConfig`,
+`ChunkSpec` and `Caps`; `build_reranker` is the BERT branch of the JAX one,
+and `build_engine` the VT5 and Pix2Struct branches of the JAX model registry
+with its `rerank` key.
 PyYAML is imported only by `load_yaml`, so the rest of the port runs where
 it is not installed.
 """
@@ -21,6 +23,7 @@ from rag_docvqa_tpu_torch.engine.rag_vt5 import STRATEGIES, RAGConfig
 from rag_docvqa_tpu_torch.models import t5 as t5m
 from rag_docvqa_tpu_torch.models import vt5 as vt5m
 from rag_docvqa_tpu_torch.models.embeddings import SpatialConfig
+from rag_docvqa_tpu_torch.models.vit import ViTConfig
 
 HIERARCHICAL_MODELS = ("hi-vt5", "hivt5", "hi-lt5", "hi-layoutlmv3")
 _CHUNKED = tuple(s for s in STRATEGIES if s not in ("oracle", "none"))
@@ -75,12 +78,11 @@ def build_rag_config(c: Dict[str, Any]) -> RAGConfig:
         sep_token_id=c.get("sep_token_id", 0) if c.get("add_sep_token", False) else 0,
         max_source_length=c.get("max_source_length", 512),
         max_new_tokens=c.get("max_new_tokens", 100),
+        use_visual=bool(c.get("use_visual", False)),
     )
 
 
 def build_vt5_config(c: Dict[str, Any], vocab_size: int) -> vt5m.VT5Config:
-    if c.get("use_visual", False):
-        raise NotImplementedError("the visual branch waits for ROADMAP Queue 1 item 13")
     d = c.get("d_model", 768)
     return vt5m.VT5Config(
         t5=t5m.T5Config(
@@ -97,6 +99,32 @@ def build_vt5_config(c: Dict[str, Any], vocab_size: int) -> vt5m.VT5Config:
         spatial=SpatialConfig(max_2d_positions=c.get("max_2d_position_embeddings", 1024), hidden_size=d,
                               dropout_rate=c.get("dropout_rate", 0.1)),
         use_layout_labels=c.get("use_layout_labels", "Default"),
+        use_visual=bool(c.get("use_visual", False)),
+        vit=ViTConfig(
+            hidden_size=c.get("visual_hidden_size", 768),
+            num_layers=c.get("visual_num_layers", 12),
+            num_heads=c.get("visual_num_heads", 12),
+            mlp_dim=c.get("visual_mlp_dim", 3072),
+            patch_size=c.get("visual_patch_size", 16),
+            image_size=c.get("visual_image_size", 224),
+        ),
+    )
+
+
+def build_p2s_config(c: Dict[str, Any], vocab_size: int):
+    from rag_docvqa_tpu_torch.models import pix2struct as p2s
+
+    d = c.get("d_model", 768)
+    return p2s.Pix2StructConfig(
+        vision=p2s.P2SVisionConfig(hidden_size=d, num_layers=c.get("num_layers", 12),
+                                   num_heads=c.get("num_heads", 12), d_ff=c.get("d_ff", d * 4)),
+        text=t5m.T5Config(
+            vocab_size=vocab_size, d_model=d, d_kv=c.get("d_kv", 64), num_heads=c.get("num_heads", 12),
+            d_ff=c.get("d_ff", d * 4), num_encoder_layers=0,
+            num_decoder_layers=c.get("num_decoder_layers", c.get("num_layers", 12)),
+            dropout_rate=c.get("dropout_rate", 0.0), gated_ffn=True, tie_word_embeddings=False,
+            decode_kv_int8=bool(c.get("decode_kv_int8", False)),
+        ),
     )
 
 
@@ -163,13 +191,28 @@ def build_reranker(c: Dict[str, Any], tokenizer, seed: int = 0, device="cpu"):
 
 
 def build_engine(c: Dict[str, Any], params, tokenizer):
-    """The RAG-VT5 engine of a config, with the rerank stage when `rerank`
-    is set (its weights on the parameters' device, in their dtype)."""
+    """The engine of a config: RAG-Pix2Struct for `model_name: Pix2Struct`
+    (params a `P2SParams`), else RAG-VT5 (params a `VT5Params`), with the
+    rerank stage when `rerank` is set (its weights on the parameters' device,
+    in their dtype)."""
     from rag_docvqa_tpu_torch.engine.rag_vt5 import RAGVT5Engine
 
     name = str(c.get("model_name", "VT5")).lower()
+    if name in ("pix2struct", "ragpix2struct"):
+        from rag_docvqa_tpu_torch.engine.rag_pix2struct import P2SRAGConfig, RAGPix2StructEngine
+
+        return RAGPix2StructEngine(
+            P2SRAGConfig(
+                chunk_num=c.get("chunk_num", 10),
+                include_surroundings=_scalar(c.get("include_surroundings", 0)),
+                chunk_mode=c.get("chunk_mode", "horizontal"),
+                max_new_tokens=c.get("max_new_tokens", 32),
+                use_rag=c.get("page_retrieval", "concat") != "none",
+            ),
+            build_p2s_config(c, tokenizer.vocab_size), params, tokenizer)
     if name not in ("vt5", "ragvt5", "rag-vt5"):
-        raise NotImplementedError(f"engine {name!r}: the port has RAG-VT5 only (ROADMAP Queue 1 items 12-15)")
+        raise NotImplementedError(f"engine {name!r}: the port has RAG-VT5 and RAG-Pix2Struct; Hi-VT5 waits in "
+                                  "ROADMAP Queue 1 item 12, the causal-LM engines in item 15")
     if c.get("use_not_answerable_classifier", False):
         raise NotImplementedError("the not-answerable classifier waits for ROADMAP Queue 1 item 8")
     reranker = None

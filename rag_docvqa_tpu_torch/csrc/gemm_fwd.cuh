@@ -18,6 +18,10 @@
 //   bias_gelu          C = cast(gelu_erf(acc + bias)), the GELU in f32
 //   bias_residual_f32  C = aux + (acc + bias), written as f32: the sum a
 //                      LayerNorm reads
+//   bias_scale_residual  C = cast(cast(cast(acc + bias) * scale) + aux), every
+//                      step in T: the pre-LN ViT layer's residual branches
+//                      (vit_layer.cu); scale (N,) is the layer-scale row, null
+//                      for none
 #pragma once
 
 #include <mma.h>
@@ -28,12 +32,13 @@ namespace {
 
 enum Epilogue : int {
   EPI_NONE = 0, EPI_RELU = 1, EPI_RESIDUAL = 2, EPI_GELU_MUL = 3,
-  EPI_BIAS = 4, EPI_BIAS_GELU = 5, EPI_BIAS_RESIDUAL_F32 = 6
+  EPI_BIAS = 4, EPI_BIAS_GELU = 5, EPI_BIAS_RESIDUAL_F32 = 6, EPI_BIAS_SCALE_RESIDUAL = 7
 };
 
 template <typename T, int EPI>
 __device__ __forceinline__ void epilogue(float acc, void* __restrict__ C, const T* __restrict__ aux,
-                                         const T* __restrict__ bias, long long idx, int col) {
+                                         const T* __restrict__ bias, const T* __restrict__ scale,
+                                         long long idx, int col) {
   T* out = static_cast<T*>(C);
   if (EPI == EPI_NONE) {
     out[idx] = from_f<T>(acc);
@@ -52,8 +57,12 @@ __device__ __forceinline__ void epilogue(float acc, void* __restrict__ C, const 
   } else if (EPI == EPI_BIAS_GELU) {
     const float h = acc + to_f(bias[col]);
     out[idx] = from_f<T>(0.5f * h * (1.f + erf32(h * 0.70710678118654752f)));
-  } else {  // EPI_BIAS_RESIDUAL_F32
+  } else if (EPI == EPI_BIAS_RESIDUAL_F32) {
     static_cast<float*>(C)[idx] = to_f(aux[idx]) + (acc + to_f(bias[col]));
+  } else {  // EPI_BIAS_SCALE_RESIDUAL
+    float y = round_to<T>(acc + to_f(bias[col]));
+    if (scale != nullptr) y = round_to<T>(y * to_f(scale[col]));
+    out[idx] = from_f<T>(y + to_f(aux[idx]));
   }
 }
 
@@ -63,7 +72,8 @@ constexpr int SBM = 64, SBN = 64, SBK = 16;
 template <typename T, int EPI>
 __global__ void __launch_bounds__(256) gemm_simt_kernel(
     const T* __restrict__ A, const T* __restrict__ W, void* __restrict__ C,
-    const T* __restrict__ aux, const T* __restrict__ bias, int M, int N, int K) {
+    const T* __restrict__ aux, const T* __restrict__ bias, const T* __restrict__ scale,
+    int M, int N, int K) {
   __shared__ float As[SBK][SBM + 4];
   __shared__ float Ws[SBK][SBN + 4];
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
@@ -105,7 +115,7 @@ __global__ void __launch_bounds__(256) gemm_simt_kernel(
     for (int j = 0; j < 4; ++j) {
       const int gn = n0 + tx * 4 + j;
       if (gn >= N) continue;
-      epilogue<T, EPI>(acc[i][j], C, aux, bias, (long long)gm * N + gn, gn);
+      epilogue<T, EPI>(acc[i][j], C, aux, bias, scale, (long long)gm * N + gn, gn);
     }
   }
 }
@@ -117,7 +127,8 @@ template <int EPI>
 __global__ void __launch_bounds__(256) gemm_wmma_bf16_kernel(
     const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* __restrict__ W,
     void* __restrict__ C, const __nv_bfloat16* __restrict__ aux,
-    const __nv_bfloat16* __restrict__ bias, int M, int N, int K) {
+    const __nv_bfloat16* __restrict__ bias, const __nv_bfloat16* __restrict__ scale,
+    int M, int N, int K) {
   using namespace nvcuda;
   __shared__ __align__(128) __nv_bfloat16 As[WBM * WLD];
   __shared__ __align__(128) __nv_bfloat16 Ws[WBN * WLD];
@@ -174,22 +185,24 @@ __global__ void __launch_bounds__(256) gemm_wmma_bf16_kernel(
         const int gm = m0 + wm * 64 + i * 16 + e / 16;
         const int gn = n0 + wn * 32 + j * 16 + e % 16;
         if (gm < M && gn < N)
-          epilogue<__nv_bfloat16, EPI>(st[e], C, aux, bias, (long long)gm * N + gn, gn);
+          epilogue<__nv_bfloat16, EPI>(st[e], C, aux, bias, scale, (long long)gm * N + gn, gn);
       }
       __syncwarp();
     }
 }
 
-// a, w, aux and bias in `dtype` (DT_F32 or DT_BF16); c in `dtype`, or f32 for
-// the _f32 epilogue. Returns cudaGetLastError() after the launch.
+// a, w, aux, bias and scale in `dtype` (DT_F32 or DT_BF16); c in `dtype`, or
+// f32 for the _f32 epilogue. Returns cudaGetLastError() after the launch.
 template <int EPI>
 cudaError_t gemm_fwd(int dtype, const void* a, const void* w, void* c, const void* aux,
-                     const void* bias, int M, int N, int K, cudaStream_t s) {
+                     const void* bias, int M, int N, int K, cudaStream_t s,
+                     const void* scale = nullptr) {
   if (dtype == DT_F32) {
     dim3 grid((N + SBN - 1) / SBN, (M + SBM - 1) / SBM);
     gemm_simt_kernel<float, EPI><<<grid, 256, 0, s>>>(
         static_cast<const float*>(a), static_cast<const float*>(w), c,
-        static_cast<const float*>(aux), static_cast<const float*>(bias), M, N, K);
+        static_cast<const float*>(aux), static_cast<const float*>(bias),
+        static_cast<const float*>(scale), M, N, K);
     return cudaGetLastError();
   }
   if (dtype == DT_BF16) {
@@ -197,7 +210,8 @@ cudaError_t gemm_fwd(int dtype, const void* a, const void* w, void* c, const voi
     dim3 grid((N + WBN - 1) / WBN, (M + WBM - 1) / WBM);
     gemm_wmma_bf16_kernel<EPI><<<grid, 256, 0, s>>>(
         static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(w), c,
-        static_cast<const __nv_bfloat16*>(aux), static_cast<const __nv_bfloat16*>(bias), M, N, K);
+        static_cast<const __nv_bfloat16*>(aux), static_cast<const __nv_bfloat16*>(bias),
+        static_cast<const __nv_bfloat16*>(scale), M, N, K);
     return cudaGetLastError();
   }
   return cudaErrorInvalidValue;

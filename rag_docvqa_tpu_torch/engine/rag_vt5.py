@@ -4,17 +4,21 @@ Counterpart of `rag_docvqa_tpu/engine/rag_vt5.py` for the `concat` and
 `oracle` strategies: `RAGConfig`, `retrieve` (the JAX `retrieve_device`)
 and `RAGVT5Engine.inference` with `_decode` and `_result`, with the optional
 cross-encoder rerank stage after retrieval (engine/reranker.py; never for
-`oracle`). The other strategies raise `NotImplementedError` naming the
-ROADMAP slice that ports them; NAC, chunk reordering (ROADMAP Queue 1
-item 8) and the visual branch (item 13) are not in the port yet, nor their
-config fields.
+`oracle`) and the visual branch (`use_visual`, `_visual`): the top-k chunk
+boxes are cropped from the page images, packed into one grid image per
+sample, resized, normalised and fed through the DiT tower (K14), and the
+197 visual tokens are appended to the encoder input. The other strategies
+raise `NotImplementedError` naming the ROADMAP slice that ports them; NAC
+and chunk reordering (ROADMAP Queue 1 item 8) are not in the port yet, nor
+their config fields.
 
 Everything from retrieval to the decoded ids runs on the parameters'
 device; the host tokenizes at ingest and detokenizes the answers. The
 result carries the stage split of the wall time under "timings", each stage
 ended by a device synchronize; with a reranker, "rerank_time" under
 "retrieval" is the reranker call alone between two synchronizes (it is part
-of "retrieve_assemble_s").
+of "retrieve_assemble_s"); with the visual branch, "visual_s" is the host
+crops and grid plus the tower (it is part of "encode_s").
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from rag_docvqa_tpu_torch.models import vt5 as vt5m
 from rag_docvqa_tpu_torch.models.embedder import vt5_table_embed
 from rag_docvqa_tpu_torch.ops.decode import greedy_decode
 from rag_docvqa_tpu_torch.ops.gather import AssembleConfig, assemble_concat, group_boxes
+from rag_docvqa_tpu_torch.ops.patches import concatenate_patches_grid, crop_box, resize_image
 from rag_docvqa_tpu_torch.ops.topk import NEG_INF, masked_topk
 
 STRATEGIES = (
@@ -49,6 +54,7 @@ class RAGConfig:
     sep_token_id: int = 0  # nonzero enables <sep> between chunk groups
     max_source_length: int = 512
     max_new_tokens: int = 100
+    use_visual: bool = False  # feed the DiT visual tokens of the retrieved chunks
 
     def __post_init__(self):
         if self.page_retrieval not in STRATEGIES:
@@ -130,7 +136,11 @@ class RAGVT5Engine:
         gen, owner = assemble_concat(batch, ret.top_k_idx, ret.top_k_valid, cfg.assemble())
         _sync(dev)
         t1 = time.perf_counter()
-        embeds, mask = vt5m.input_embeds(self.params, self.vt5_cfg, gen)
+        visual = self._visual(batch, aux, owner, ret)
+        if visual is not None:
+            _sync(dev)
+        tv = time.perf_counter()
+        embeds, mask = vt5m.input_embeds(self.params, self.vt5_cfg, gen, visual)
         enc = t5m.encode(self.params.t5, self.vt5_cfg.t5, embeds, mask)
         _sync(dev)
         t2 = time.perf_counter()
@@ -152,7 +162,40 @@ class RAGVT5Engine:
         if self.reranker is not None:
             result["retrieval"]["rerank_time"] = rerank_s
         result["timings"] = {"retrieve_assemble_s": t1 - t0, "encode_s": t2 - t1, "decode_s": t3 - t2}
+        if visual is not None:
+            result["timings"]["visual_s"] = tv - t1  # host crops and grid + the tower; part of encode_s
         return result
+
+    def _visual(self, batch, aux, owner, ret) -> Optional[torch.Tensor]:
+        """Visual tokens of the retrieved chunks: the top-k chunk boxes are
+        cropped from their pages and grid-packed into one image per sample,
+        which goes through the DiT tower and the matcher. Returns
+        (B, 197, D) features, or None when the visual branch is off or the
+        batch carries no page images."""
+        if not (self.cfg.use_visual and self.vt5_cfg.use_visual and self.params.visual is not None):
+            return None
+        if aux is None or not aux.get("images") or aux["images"][0] is None:
+            return None
+        boxes = group_boxes(batch, owner, ret.top_k_idx.shape[1]).cpu().numpy()
+        pages = ret.top_k_page.cpu().numpy()
+        valid = ret.top_k_valid.cpu().numpy()
+        size = self.vt5_cfg.vit.image_size
+        images = []
+        for b in range(batch.batch_size):
+            page_imgs = aux["images"][b]
+            crops = []
+            for r in range(boxes.shape[1]):
+                if not valid[b, r] or page_imgs is None:
+                    continue
+                img = page_imgs[pages[b, r]]
+                if img is None:
+                    continue
+                crops.append(crop_box(np.asarray(img), boxes[b, r]))
+            # the DiT feature extractor's normalisation: (x / 255 - 0.5) / 0.5
+            img = resize_image(concatenate_patches_grid(crops), size, size) / 255.0
+            images.append((img - 0.5) / 0.5)
+        pixels = torch.from_numpy(np.stack(images).astype(np.float32)).to(self.device)
+        return vt5m.visual_features(self.params, self.vt5_cfg, pixels)
 
     def _decode(self, tokens: np.ndarray) -> List[str]:
         t5c = self.vt5_cfg.t5

@@ -49,6 +49,11 @@ LAUNCHES: Dict[str, int] = {
     "bert_gemm_bwd": 0,    # K10 products, csrc/bert_layer_bwd.cu
     "bert_ln_bwd": 0,      # K10 LayerNorm backward, csrc/bert_layer_bwd.cu
     "bert_col_sum": 0,     # K10 bias gradients, csrc/bert_layer_bwd.cu
+    "vit_layer_norm": 0,   # K14 LayerNorm over the compute dtype, csrc/vit_layer.cu
+    "vit_gemm": 0,         # K14 products, csrc/vit_layer.cu
+    "vit_attention": 0,    # K14 attention, csrc/vit_layer.cu
+    "maxsim": 0,           # K15, csrc/maxsim.cu
+    "t5_qtiled_attention": 0,  # the bias-free bf16 attention (K13, K1 without a bias), csrc/t5_layer_qtiled.cu
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -74,6 +79,11 @@ _SIGNATURES = {
     "bert_gemm_bwd": [_P] * 5 + [_I] * 6 + [_P],
     "bert_ln_bwd": [_P] * 7 + [_I, _I, _F, _I, _P],
     "bert_col_sum": [_P] * 3 + [_I] * 3 + [_P],
+    "vit_layer_norm": [_P] * 3 + [_I, _I, _F, _I, _P],
+    "vit_gemm": [_P] * 6 + [_I] * 5 + [_P],
+    "vit_attention": [_P] * 4 + [_I] * 4 + [_F, _I, _P],
+    "maxsim": [_P] * 6 + [_I] * 5 + [_P],
+    "t5_qtiled_attention": [_P] * 5 + [_I] * 4 + [_LL] * 6 + [_P],
 }
 
 

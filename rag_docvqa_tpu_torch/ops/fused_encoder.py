@@ -1,5 +1,6 @@
-"""The T5 (K1, K7, K8) and BERT (K9, K10) encoder layers through hand-written
-kernels. The T5 layer first; the BERT layer at the end of this docstring.
+"""The T5 (K1, K13, K7, K8), BERT (K9, K10) and ViT (K14) encoder layers
+through hand-written kernels. The T5 layer first; the BERT layer, the ViT
+layer and the query-tiled T5 layer at the end of this docstring.
 
 Counterpart of the T5 part of `rag_docvqa_tpu/ops/fused_encoder.py`
 (`fuse_t5_blocks`, `fused_t5_layer_parts`, `fused_t5_layer`). The TPU
@@ -10,7 +11,9 @@ three kernels with the TPU kernel's cast points (csrc/t5_layer.cu says how):
   (b) `gemm`: C = A @ W^T with f32 accumulation and an epilogue of none,
       ReLU, "+ residual" or "gelu_tanh(g) * u" -- every product is cast to
       the compute dtype before the residual add;
-  (c) K2 (ops/flash_attention.py) with mask_value -1e9, the TPU kernel's.
+  (c) K2 (ops/flash_attention.py) with mask_value -1e9, the TPU kernel's;
+      for a layer without a bias (Pix2Struct's tower) `bias_free_attention`:
+      the tensor-core kernel of K13 below for a bf16 row, K2 for an f32 one.
 
 `save_x1=True` also returns x1 = x + attn, the attention-residual sum the
 backward starts from (the train forward of `make_fused_t5_layer_train`).
@@ -35,8 +38,7 @@ Weight gradients are f32 in the port's (out, in) layout.
 Each wrapper launches its kernel on CUDA tensors and runs its plain version
 on CPU tensors. `t5_layer_reference`, `t5_ffn_bwd_reference` and
 `t5_attn_bwd_reference` are built only from the plain versions, for checks
-on the card. The ViT layer (K14) and the query-tiled form (K13) wait for
-later slices; `ffn_chunk`, `attn_stream` and the row pickers are VMEM
+on the card. `ffn_chunk`, `attn_stream` and the row pickers are VMEM
 artifacts with no counterpart.
 
 The post-LN BERT layer (K9; the BERT part of the JAX `ops/fused_encoder.py`:
@@ -63,6 +65,40 @@ normalisation (the TPU kernel rounds p / sum), and the score gradient is
 rounded before the scale (the TPU kernel rounds p * (dp - srow) * scale). In
 f32 the two agree to rounding; a sequence with no valid key gives a zero
 attention output and a zero gradient here, a uniform softmax on the TPU.
+
+The pre-LN ViT / BEiT layer (K14; the JAX `fuse_vit_blocks`,
+`fused_vit_layer_parts`) is csrc/vit_layer.cu: `vit_layer_norm_rows`, a row
+LayerNorm that reads and writes the compute dtype, `vit_gemm`, the same GEMM
+with the epilogues "bias", "bias_gelu" and
+
+  "bias_scale_residual"  cast(cast(cast(a.W^T + b) * g) + aux), all in the
+                         compute dtype: the layer-scale residual branches,
+
+and `vit_attention`, which keeps a block's whole score rows in shared memory
+so that the probabilities are divided by their sum before the cast, the TPU
+kernel's order (K2's online softmax casts first). Keys are masked at -1e30;
+the optional per-layer rel-pos bias (H, T, T) is bf16 for every x dtype, as
+`fuse_vit_blocks` makes it. T is not padded to a multiple of 8.
+
+The query-tiled T5 layer (K13; the JAX `_t5_layer_call_qtiled`, the
+2048-patch page budget of Pix2Struct) tiles the queries over the grid
+because one row's working set outgrows VMEM: QKV once per row, then per
+query tile and head an online softmax over key chunks (scores masked at
+-1e9, p cast before p.V, the division by max(l, 1e-30) after the last
+chunk), O + residual, RMS, the FFN in d_ff chunks with f32 accumulation. On
+the card the same layer is `fused_t5_layer_qtiled`: K1's RMSNorm and GEMMs
+(QKV is one GEMM per row; the FFN's f32 accumulation over d_ff chunks is a
+GEMM's accumulator) around an attention kernel written for the bias-free
+bf16 row, `qtiled_attention` (csrc/t5_layer_qtiled.cu: that loop on the
+tensor cores, 64 queries a block, 64-key chunks). It is 3.0, 4.8 and 4.9
+times faster than K2 on such a row at the lengths the tower runs (128, 1024,
+2048; NVIDIA H100 80GB HBM3, 700 W, `chip_smoke.py` phase 9d), so K1 without
+a bias takes it too: on the card the two bias-free layers are one
+set of launches, and `vision_encode`'s choice by length names the TPU
+picker's line and the plain version each is held against. An f32 row keeps
+K2, which runs the same loop in exact f32. Chunk sizes change only the order
+of f32 sums. `t5_layer_qtiled_reference` follows the TPU kernel step by step,
+chunk loops included, for the tests and the checks on the card.
 """
 
 from __future__ import annotations
@@ -85,8 +121,12 @@ T5_MASK_VALUE = -1e9  # the TPU layer kernel's and _attend's masked score
 BERT_MASK_VALUE = -1e30  # the TPU BERT kernel's masked score
 
 # the codes of csrc/gemm_fwd.cuh; 4 and above take a bias and launch `bert_gemm`
-EPILOGUES = {"none": 0, "relu": 1, "residual": 2, "gelu_mul": 3, "bias": 4, "bias_gelu": 5, "bias_residual_f32": 6}
-_AUX_EPILOGUES = ("residual", "gelu_mul", "bias_residual_f32")
+EPILOGUES = {"none": 0, "relu": 1, "residual": 2, "gelu_mul": 3, "bias": 4, "bias_gelu": 5, "bias_residual_f32": 6,
+             "bias_scale_residual": 7}
+_AUX_EPILOGUES = ("residual", "gelu_mul", "bias_residual_f32", "bias_scale_residual")
+VIT_EPILOGUES = ("bias", "bias_gelu", "bias_scale_residual")  # what `vit_gemm` launches
+
+VIT_MASK_VALUE = -1e30  # the TPU ViT kernel's masked score
 
 _ERF_ALPHA = (-2.72614225801306e-10, 2.77068142495902e-08, -2.10102402082508e-06, -5.69250639462346e-05,
               -7.34990630326855e-04, -2.95459980854025e-03, -1.60960333262415e-02)
@@ -143,7 +183,8 @@ def rms_norm_rows(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Te
 # (b) GEMM with epilogue
 # --------------------------------------------------------------------------- #
 def gemm_reference(a: torch.Tensor, w: torch.Tensor, epilogue: str = "none",
-                   aux: Optional[torch.Tensor] = None, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   aux: Optional[torch.Tensor] = None, bias: Optional[torch.Tensor] = None,
+                   scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain version of the GEMM kernel: f32 product of a (M, K) and
     w (N, K), then the epilogue with the kernel's casts, in a's dtype (f32
     for "bias_residual_f32")."""
@@ -151,6 +192,11 @@ def gemm_reference(a: torch.Tensor, w: torch.Tensor, epilogue: str = "none",
     acc = torch.matmul(a.float(), w.float().t())
     if bias is not None:
         acc = acc + bias.float()
+    if epilogue == "bias_scale_residual":
+        y = acc.to(cdt)
+        if scale is not None:
+            y = y * scale.to(cdt)
+        return y + aux
     if epilogue == "bias":
         return acc.to(cdt)
     if epilogue == "bias_gelu":
@@ -170,19 +216,17 @@ def gemm_reference(a: torch.Tensor, w: torch.Tensor, epilogue: str = "none",
     raise ValueError(f"unknown epilogue {epilogue!r}")
 
 
-def gemm(a: torch.Tensor, w: torch.Tensor, epilogue: str = "none",
-         aux: Optional[torch.Tensor] = None, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """epilogue(a (M, K) @ w (N, K)^T) -> (M, N) in a's dtype (f32 for
-    "bias_residual_f32"); aux (M, N) is the residual or the up-projection u
-    ("gelu_mul"), bias (N,) the dense bias of the "bias*" epilogues."""
-    if epilogue not in EPILOGUES:
-        raise ValueError(f"unknown epilogue {epilogue!r}")
+def _gemm(entry: str, a, w, epilogue, aux, bias, scale):
+    """The checks and the launch shared by `gemm` and `vit_gemm`; `entry` is
+    the C entry point (and the launch counter)."""
     if (aux is None) != (epilogue not in _AUX_EPILOGUES):
         raise ValueError(f"epilogue {epilogue!r} {'needs' if aux is None else 'takes no'} aux")
     if (bias is None) != (not epilogue.startswith("bias")):
         raise ValueError(f"epilogue {epilogue!r} {'needs' if bias is None else 'takes no'} bias")
-    if not kernels.on_cuda(a, w, aux, bias):
-        return gemm_reference(a, w, epilogue, aux, bias)
+    if scale is not None and epilogue != "bias_scale_residual":
+        raise ValueError(f"epilogue {epilogue!r} takes no scale")
+    if not kernels.on_cuda(a, w, aux, bias, scale):
+        return gemm_reference(a, w, epilogue, aux, bias, scale)
     M, K = a.shape
     N = w.shape[0]
     kernels.require(w.shape == (N, K), f"gemm: a {tuple(a.shape)} and w {tuple(w.shape)} do not fit")
@@ -195,22 +239,45 @@ def gemm(a: torch.Tensor, w: torch.Tensor, epilogue: str = "none",
     if aux is not None:
         kernels.require(aux.shape == (M, N) and aux.dtype == a.dtype and aux.is_contiguous(),
                         f"gemm: aux must be contiguous {a.dtype} (M, N), got {tuple(aux.shape)}")
+    for name, t in (("bias", bias), ("scale", scale)):
+        if t is not None:
+            kernels.require(t.shape == (N,) and t.dtype == a.dtype and t.is_contiguous(),
+                            f"gemm: {name} must be contiguous {a.dtype} (N,), got {tuple(t.shape)} {t.dtype}")
     out_dtype = torch.float32 if epilogue == "bias_residual_f32" else a.dtype
     out = torch.empty((M, N), dtype=out_dtype, device=a.device)
-    aux_ptr = aux.data_ptr() if aux is not None else None
-    if bias is None:
-        err = kernels.library().t5_gemm(a.data_ptr(), w.data_ptr(), out.data_ptr(), aux_ptr, M, N, K, dtype,
-                                        EPILOGUES[epilogue], kernels.stream_ptr(a))
-        name = "t5_gemm"
+    ptr = lambda t: t.data_ptr() if t is not None else None
+    tail = (M, N, K, dtype, EPILOGUES[epilogue], kernels.stream_ptr(a))
+    if entry == "t5_gemm":
+        err = kernels.library().t5_gemm(a.data_ptr(), w.data_ptr(), out.data_ptr(), ptr(aux), *tail)
+    elif entry == "bert_gemm":
+        err = kernels.library().bert_gemm(a.data_ptr(), w.data_ptr(), out.data_ptr(), ptr(aux), ptr(bias), *tail)
     else:
-        kernels.require(bias.shape == (N,) and bias.dtype == a.dtype and bias.is_contiguous(),
-                        f"gemm: bias must be contiguous {a.dtype} (N,), got {tuple(bias.shape)} {bias.dtype}")
-        err = kernels.library().bert_gemm(a.data_ptr(), w.data_ptr(), out.data_ptr(), aux_ptr, bias.data_ptr(),
-                                          M, N, K, dtype, EPILOGUES[epilogue], kernels.stream_ptr(a))
-        name = "bert_gemm"
-    kernels.check(name, err)
-    kernels.LAUNCHES[name] += 1
+        err = kernels.library().vit_gemm(a.data_ptr(), w.data_ptr(), out.data_ptr(), ptr(aux), ptr(bias),
+                                         ptr(scale), *tail)
+    kernels.check(entry, err)
+    kernels.LAUNCHES[entry] += 1
     return out
+
+
+def gemm(a: torch.Tensor, w: torch.Tensor, epilogue: str = "none",
+         aux: Optional[torch.Tensor] = None, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """epilogue(a (M, K) @ w (N, K)^T) -> (M, N) in a's dtype (f32 for
+    "bias_residual_f32"); aux (M, N) is the residual or the up-projection u
+    ("gelu_mul"), bias (N,) the dense bias of the "bias*" epilogues. The T5
+    layer's epilogues launch `t5_gemm`, the BERT layer's `bert_gemm`."""
+    if epilogue not in EPILOGUES or epilogue == "bias_scale_residual":
+        raise ValueError(f"unknown epilogue {epilogue!r}")
+    return _gemm("bert_gemm" if epilogue.startswith("bias") else "t5_gemm", a, w, epilogue, aux, bias, None)
+
+
+def vit_gemm(a: torch.Tensor, w: torch.Tensor, epilogue: str, aux: Optional[torch.Tensor] = None,
+             bias: Optional[torch.Tensor] = None, scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The ViT layer's products (K14): "bias", "bias_gelu" or
+    "bias_scale_residual" (aux (M, N) the residual, scale (N,) the layer-scale
+    row or None), all in a's dtype."""
+    if epilogue not in VIT_EPILOGUES:
+        raise ValueError(f"vit_gemm: unknown epilogue {epilogue!r}")
+    return _gemm("vit_gemm", a, w, epilogue, aux, bias, scale)
 
 
 # --------------------------------------------------------------------------- #
@@ -260,10 +327,10 @@ def fused_t5_layer_parts(x: torch.Tensor, key_mask: torch.Tensor, bias: Optional
                          gated: bool, save_x1: bool = False):
     """One encoder layer from a `fuse_t5_blocks` entry: x (B, T, d),
     key_mask (B, T) bool, bias (H, T, T) batch-shared or None (the bias-free
-    form). Returns out, or (out, x1) with save_x1. Kernels on CUDA, plain
-    versions on the CPU."""
+    form, whose attention is `bias_free_attention`). Returns out, or
+    (out, x1) with save_x1. Kernels on CUDA, plain versions on the CPU."""
     return _t5_layer(x.contiguous(), key_mask.contiguous(), bias, l, num_heads, eps, gated,
-                     rms_norm_rows, gemm, flash_attention_fwd, save_x1)
+                     rms_norm_rows, gemm, flash_attention_fwd if bias is not None else bias_free_attention, save_x1)
 
 
 def t5_layer_reference(x, key_mask, bias, l, *, num_heads: int, eps: float, gated: bool,
@@ -837,3 +904,252 @@ class BertLayerTrain(torch.autograd.Function):
 def bert_layer_train(x, key_mask, l: Dict[str, torch.Tensor], *, num_heads: int, eps: float):
     """`BertLayerTrain` on a `fuse_bert_blocks` entry."""
     return BertLayerTrain.apply(x, key_mask, num_heads, eps, *(l[k] for k in BERT_KEYS))
+
+
+# --------------------------------------------------------------------------- #
+# K13: the query-tiled bias-free T5 layer
+# --------------------------------------------------------------------------- #
+def t5_layer_qtiled_reference(x, key_mask, l, *, num_heads: int, eps: float, gated: bool,
+                              TQ: int = 512, kc: int = 512, ffn_chunk: int = 0):
+    """Plain version of K13, following `_t5_layer_kernel_qtiled` step by
+    step: QKV once per row; per query tile and head an online softmax over
+    key chunks of `kc` (scores masked at -1e9, p cast to x's dtype before
+    p.V, the division by max(l, 1e-30) after the last chunk); O + residual;
+    RMS; the FFN, with `ffn_chunk` in d_ff chunks accumulated in f32;
+    residual. T must be a multiple of TQ, as on the TPU."""
+    B, T, d = x.shape
+    if T % TQ:
+        raise ValueError(f"T {T} is not a multiple of the query tile {TQ}")
+    inner = l["wo"].shape[1]
+    dk = inner // num_heads
+    cdt = x.dtype
+    mm = lambda a, w: torch.matmul(a.float(), w.to(cdt).float().t())  # f32 accumulation
+    h = rms_norm(x, l["ln0"].to(cdt), eps)
+    qkv = mm(h, l["wqkv"]).to(cdt).view(B, T, 3, num_heads, dk)
+    out = torch.empty_like(x)
+    for q0 in range(0, T, TQ):
+        q = qkv[:, q0:q0 + TQ, 0].float()  # (B, TQ, H, dk)
+        m = torch.full((B, num_heads, TQ, 1), -1e30, dtype=torch.float32, device=x.device)
+        lsum = torch.zeros_like(m)
+        acc = torch.zeros((B, num_heads, TQ, dk), dtype=torch.float32, device=x.device)
+        for c0 in range(0, T, kc):
+            k_c, v_c = qkv[:, c0:c0 + kc, 1].float(), qkv[:, c0:c0 + kc, 2].float()
+            s = torch.einsum("bqhd,bkhd->bhqk", q, k_c)
+            s = torch.where(key_mask[:, None, None, c0:c0 + kc], s, T5_MASK_VALUE)
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new)
+            lsum = lsum * alpha + p.sum(dim=-1, keepdim=True)
+            acc = acc * alpha + torch.einsum("bhqk,bkhd->bhqd", p.to(cdt).float(), v_c)
+            m = m_new
+        attn = (acc / lsum.clamp(min=1e-30)).to(cdt).transpose(1, 2).reshape(B, TQ, inner)
+        x1 = x[:, q0:q0 + TQ] + mm(attn, l["wo"]).to(cdt)
+        h2 = rms_norm(x1, l["ln1"].to(cdt), eps)
+
+        def ffn_in(sl):
+            if gated:
+                g = mm(h2, l["wi_0"][sl]).to(cdt).float()
+                ge = (0.5 * g * (1.0 + torch.tanh((2.0 / torch.pi) ** 0.5 * (g + 0.044715 * g * g * g)))).to(cdt)
+                return ge * mm(h2, l["wi_1"][sl]).to(cdt)
+            return mm(h2, l["wi"][sl]).clamp(min=0).to(cdt)
+
+        d_ff = l["wof"].shape[1]
+        fo32 = torch.zeros((B, TQ, d), dtype=torch.float32, device=x.device)
+        step = ffn_chunk or d_ff
+        for c0 in range(0, d_ff, step):
+            sl = slice(c0, min(c0 + step, d_ff))
+            fo32 = fo32 + mm(ffn_in(sl), l["wof"][:, sl])
+        out[:, q0:q0 + TQ] = x1 + fo32.to(cdt)
+    return out
+
+
+def qtiled_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               key_mask: torch.Tensor) -> torch.Tensor:
+    """Plain version of K13's attention kernel: q, k, v (B, T, H, dk),
+    key_mask (B, T) bool -> (B, T, H, dk). No scale, no bias, masked keys at
+    -1e9, probabilities rounded to v's dtype before p.v, f32 sums, the
+    division last."""
+    return flash_attention_reference(q, k, v, key_mask, None, 1.0, False, T5_MASK_VALUE)[0]
+
+
+def qtiled_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_mask: torch.Tensor) -> torch.Tensor:
+    """The bias-free T5 attention (K13's, and K1's without a bias) on the tensor cores: q, k, v
+    (B, T, H, dk) bf16 (views of one qkv tensor will do: heads and dk
+    contiguous), key_mask (B, T) bool -> (B, T, H, dk) bf16."""
+    if not kernels.on_cuda(q, k, v, key_mask):
+        return qtiled_attention_reference(q, k, v, key_mask)
+    B, T, H, dk = q.shape
+    kernels.require(q.dtype == k.dtype == v.dtype == torch.bfloat16, "qtiled_attention: the kernel takes bf16")
+    kernels.require(dk in (16, 32, 64, 128), f"qtiled_attention: head dim {dk} not in (16, 32, 64, 128)")
+    kernels.require(k.shape == q.shape and v.shape == q.shape, "qtiled_attention: q, k and v must share one shape")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        kernels.require(t.stride(3) == 1 and t.stride(2) == dk and t.stride(1) % 8 == 0 and t.stride(0) % 8 == 0
+                        and t.data_ptr() % 16 == 0,
+                        f"qtiled_attention: {name} needs contiguous heads and dk and 16-byte aligned rows, strides "
+                        f"{t.stride()}")
+    kernels.require(key_mask.dtype == torch.bool and key_mask.shape == (B, T) and key_mask.is_contiguous(),
+                    "qtiled_attention: key_mask must be contiguous bool (B, T)")
+    out = torch.empty((B, T, H, dk), dtype=q.dtype, device=q.device)
+    err = kernels.library().t5_qtiled_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(), out.data_ptr(), B, H, T, dk,
+        q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1), kernels.stream_ptr(q))
+    kernels.check("t5_qtiled_attention", err)
+    kernels.LAUNCHES["t5_qtiled_attention"] += 1
+    return out
+
+
+def bias_free_attention(q, k, v, key_mask, bias, scale, causal, mask_value):
+    """`_t5_layer`'s attention slot for every bias-free row (K1 without a
+    bias and K13): the tensor-core kernel for a bf16 row, K2 (the same loop
+    in exact f32) for an f32 one."""
+    if q.dtype == torch.bfloat16:
+        return qtiled_attention(q, k, v, key_mask), None
+    return flash_attention_fwd(q, k, v, key_mask, bias, scale, causal, mask_value)
+
+
+def fused_t5_layer_qtiled(x: torch.Tensor, key_mask: torch.Tensor, l: Dict[str, torch.Tensor], *,
+                          num_heads: int, eps: float, gated: bool) -> torch.Tensor:
+    """K13: one bias-free T5 layer for a long row (the 2048-patch page budget)
+    from a `fuse_t5_blocks` entry: x (B, T, d), key_mask (B, T) bool. On
+    CUDA tensors K1's RMSNorm and GEMMs around `bias_free_attention`, the
+    launches of `fused_t5_layer_parts(bias=None)` (the module docstring says
+    why they are the query-tiled layer); on CPU tensors the plain version,
+    one query tile."""
+    x, key_mask = x.contiguous(), key_mask.contiguous()
+    if not kernels.on_cuda(x, key_mask):
+        return t5_layer_qtiled_reference(x, key_mask, l, num_heads=num_heads, eps=eps, gated=gated,
+                                         TQ=x.shape[1], kc=512)
+    return fused_t5_layer_parts(x, key_mask, None, l, num_heads=num_heads, eps=eps, gated=gated)
+
+
+# --------------------------------------------------------------------------- #
+# K14: the pre-LN ViT / BEiT layer
+# --------------------------------------------------------------------------- #
+VIT_KEYS = ("wqkv", "bqkv", "wo", "bo", "ln1", "ln2", "w1", "b1", "w2", "b2")  # + optional "bias", "gamma"
+
+
+def vit_layer_norm_reference(x: torch.Tensor, ln: torch.Tensor, eps: float) -> torch.Tensor:
+    """Plain version of the ViT LayerNorm kernel: x (R, d) and ln (2, d) =
+    [scale; bias] in one dtype; statistics in f32, the result in x's dtype."""
+    x32 = x.float()
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mean).square().mean(dim=-1, keepdim=True)
+    return ((x32 - mean) * torch.rsqrt(var + eps) * ln[0].float() + ln[1].float()).to(x.dtype)
+
+
+def vit_layer_norm_rows(x: torch.Tensor, ln: torch.Tensor, eps: float) -> torch.Tensor:
+    """LayerNorm over the rows of x (R, d) with ln (2, d), both in the compute
+    dtype; the result is in it too."""
+    if not kernels.on_cuda(x, ln):
+        return vit_layer_norm_reference(x, ln, eps)
+    R, d = x.shape
+    kernels.require(ln.shape == (2, d) and ln.dtype == x.dtype and x.is_contiguous() and ln.is_contiguous(),
+                    f"vit_layer_norm_rows: need contiguous x (R, d) and ln (2, d) in one dtype, got "
+                    f"{tuple(x.shape)} {x.dtype}, {tuple(ln.shape)} {ln.dtype}")
+    code = kernels.dtype_code(x, (torch.float32, torch.bfloat16))
+    out = torch.empty_like(x)
+    err = kernels.library().vit_layer_norm(x.data_ptr(), ln.data_ptr(), out.data_ptr(), R, d, float(eps), code,
+                                           kernels.stream_ptr(x))
+    kernels.check("vit_layer_norm", err)
+    kernels.LAUNCHES["vit_layer_norm"] += 1
+    return out
+
+
+def vit_attention_reference(qkv: torch.Tensor, key_mask: torch.Tensor, bias: Optional[torch.Tensor],
+                            scale: float) -> torch.Tensor:
+    """Plain version of the ViT attention kernel: qkv (B, T, 3, H, dh),
+    key_mask (B, T) bool, bias (H, T, T) or None -> (B, T, H*dh). f32 scores
+    times `scale` plus the bias, masked keys at -1e30, the softmax divided by
+    its sum in f32 and then cast to qkv's dtype, p.v accumulated in f32."""
+    B, T, _, H, dh = qkv.shape
+    s = torch.einsum("bqhd,bkhd->bhqk", qkv[:, :, 0].float(), qkv[:, :, 1].float())
+    if scale != 1.0:
+        s = s * scale
+    if bias is not None:
+        s = s + bias.float()[None]
+    s = torch.where(key_mask[:, None, None, :], s, VIT_MASK_VALUE)
+    p = torch.softmax(s, dim=-1).to(qkv.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", p.float(), qkv[:, :, 2].float()).to(qkv.dtype).reshape(B, T, H * dh)
+
+
+VIT_ATTENTION_SMEM = 227 * 1024  # bytes a block may use (csrc/vit_layer.cu keeps 32 score rows there)
+
+
+def vit_attention(qkv: torch.Tensor, key_mask: torch.Tensor, bias: Optional[torch.Tensor], scale: float):
+    """softmax(q.k^T * scale + bias, keys masked) @ v for a short sequence:
+    qkv (B, T, 3, H, dh) contiguous, key_mask (B, T) bool, bias (H, T, T)
+    bf16 shared by the batch, or None -> (B, T, H*dh) in qkv's dtype."""
+    if not kernels.on_cuda(qkv, key_mask, bias):
+        return vit_attention_reference(qkv, key_mask, bias, scale)
+    B, T, three, H, dh = qkv.shape
+    kernels.require(three == 3 and qkv.is_contiguous(), "vit_attention: qkv must be contiguous (B, T, 3, H, dh)")
+    kernels.require(dh <= 128, f"vit_attention: head dim {dh} > 128")
+    DH = 32 if dh <= 32 else 64 if dh <= 64 else 128
+    kernels.require((96 * (DH + 1) + 32 * (T + 1)) * 4 <= VIT_ATTENTION_SMEM,
+                    f"vit_attention: T {T} too long for the score rows in shared memory")
+    kernels.require(key_mask.dtype == torch.bool and key_mask.shape == (B, T) and key_mask.is_contiguous(),
+                    "vit_attention: key_mask must be contiguous bool (B, T)")
+    if bias is not None:
+        kernels.require(bias.shape == (H, T, T) and bias.dtype == torch.bfloat16 and bias.is_contiguous(),
+                        f"vit_attention: bias must be contiguous bf16 (H, T, T), got {tuple(bias.shape)} {bias.dtype}")
+    code = kernels.dtype_code(qkv, (torch.float32, torch.bfloat16))
+    out = torch.empty((B, T, H * dh), dtype=qkv.dtype, device=qkv.device)
+    err = kernels.library().vit_attention(qkv.data_ptr(), key_mask.data_ptr(),
+                                          bias.data_ptr() if bias is not None else None, out.data_ptr(),
+                                          B, H, T, dh, float(scale), code, kernels.stream_ptr(qkv))
+    kernels.check("vit_attention", err)
+    kernels.LAUNCHES["vit_attention"] += 1
+    return out
+
+
+def fuse_vit_blocks(layers, rel_index: Optional[torch.Tensor] = None) -> List[Dict[str, torch.Tensor]]:
+    """Per-layer weights in the kernels' form, built once per encode from
+    ViTLayer modules (models/vit.py): wqkv (3d, d) = [q; k; v] and bqkv (3d,)
+    (BEiT's missing k bias becomes zeros), wo (d, d), w1 (mlp, d), w2 (d, mlp)
+    with their biases, ln1/ln2 (2, d) = [scale; bias]; with `rel_index`
+    (T, T) the layer's rel-pos table gathered to bias (H, T, T) bf16, and
+    gamma (2, d) = [lambda_1; lambda_2] where the layer has layer-scale."""
+    out = []
+    for l in layers:
+        k_b = l.k_b if l.k_b is not None else torch.zeros_like(l.q_b)
+        f = {"wqkv": torch.cat([l.q_w, l.k_w, l.v_w], dim=0), "bqkv": torch.cat([l.q_b, k_b, l.v_b], dim=0),
+             "wo": l.o_w, "bo": l.o_b, "ln1": torch.stack([l.ln1_w, l.ln1_b]), "ln2": torch.stack([l.ln2_w, l.ln2_b]),
+             "w1": l.fc1_w, "b1": l.fc1_b, "w2": l.fc2_w, "b2": l.fc2_b}
+        if rel_index is not None:
+            f["bias"] = l.rel_bias_table[rel_index.to(l.rel_bias_table.device)].permute(2, 0, 1) \
+                .to(torch.bfloat16).contiguous()
+        if l.lambda_1 is not None:
+            f["gamma"] = torch.stack([l.lambda_1, l.lambda_2])
+        out.append(f)
+    return out
+
+
+def _vit_layer(x, key_mask, l, num_heads, eps, norm, matmul, attend):
+    B, T, d = x.shape
+    dh = d // num_heads
+    cdt = x.dtype
+    w = {k: l[k].to(cdt).contiguous() for k in VIT_KEYS}
+    gamma = l["gamma"].to(cdt).contiguous() if "gamma" in l else (None, None)
+    x2 = x.reshape(B * T, d)
+    h = norm(x2, w["ln1"], eps)
+    qkv = matmul(h, w["wqkv"], "bias", bias=w["bqkv"]).view(B, T, 3, num_heads, dh)
+    a = attend(qkv, key_mask, l.get("bias"), dh ** -0.5)
+    x1 = matmul(a.reshape(B * T, d), w["wo"], "bias_scale_residual", x2, w["bo"], gamma[0])
+    h2 = norm(x1, w["ln2"], eps)
+    f = matmul(h2, w["w1"], "bias_gelu", bias=w["b1"])
+    return matmul(f, w["w2"], "bias_scale_residual", x1, w["b2"], gamma[1]).view(B, T, d)
+
+
+def fused_vit_layer_parts(x: torch.Tensor, key_mask: torch.Tensor, l: Dict[str, torch.Tensor], *,
+                          num_heads: int, eps: float) -> torch.Tensor:
+    """K14: one pre-LN ViT / BEiT layer from a `fuse_vit_blocks` entry:
+    x (B, T, d), key_mask (B, T) bool (True = a real token). Kernels on CUDA,
+    plain versions on the CPU."""
+    return _vit_layer(x.contiguous(), key_mask.contiguous(), l, num_heads, eps, vit_layer_norm_rows, vit_gemm,
+                      vit_attention)
+
+
+def vit_layer_reference(x, key_mask, l, *, num_heads: int, eps: float) -> torch.Tensor:
+    """The ViT layer from the plain versions only, on any device."""
+    return _vit_layer(x.contiguous(), key_mask.contiguous(), l, num_heads, eps, vit_layer_norm_reference,
+                      gemm_reference, vit_attention_reference)

@@ -1,8 +1,8 @@
 """Device-resident, logically sharded embedding index with global top-k
 queries.
 
-Counterpart of `ShardedIndex` and `single_device_query` in
-`rag_docvqa_tpu/parallel/index.py`. There the chunk embedding matrix is laid
+Counterpart of `ShardedIndex`, `single_device_query` and
+`sharded_maxsim_topk` in `rag_docvqa_tpu/parallel/index.py`. There the chunk embedding matrix is laid
 out over a mesh axis, every chip scores its shard, and an all-gather of k
 candidates per shard feeds one merge. Here the matrix is one tensor on one
 device and the `n_shards` shards are contiguous row ranges of it, scored one
@@ -10,8 +10,8 @@ after the other, so the shard arithmetic and the merge with its tie rule are
 the same code as they will be across GPUs: pad to `n_shards * tile_n` rows,
 `local_valid` per shard, `gidx = idx + sid * shard_len`, candidates
 concatenated in ascending shard order, one top-k with ties to the lowest
-position. The collectives over several GPUs and `sharded_maxsim_topk` are
-not ported yet.
+position. `sharded_maxsim_topk` is the same scheme over a patch-token index
+scored by MaxSim (K15). The collectives over several GPUs are not ported yet.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from rag_docvqa_tpu_torch.ops.late_interaction import late_interaction
 from rag_docvqa_tpu_torch.ops.quant import (
     _rescore_host,
     _to_numpy,
@@ -198,3 +199,32 @@ def single_device_query(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Unsharded reference: normalize + matmul + top-k."""
     return cosine_topk_flat(l2_normalize(embeddings.float()), queries, k, index_mask=index_mask)
+
+
+def sharded_maxsim_topk(patches: torch.Tensor, patch_mask: torch.Tensor, query: torch.Tensor, *, n_shards: int,
+                        n_valid: int, k: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """MaxSim late interaction over a patch index cut into `n_shards` row
+    ranges: patches (N_pad, Tp, D) with N_pad a multiple of n_shards,
+    patch_mask (N_pad, Tp) bool, query (Tq, D). Each range is scored by
+    `late_interaction` and gives a local top-k over its valid rows; the
+    candidates, concatenated in ascending shard order, feed one top-k, so
+    ties resolve to the lowest global row as in an unsharded top-k. Returns
+    (vals (k,), idx (k,) int64, valid (k,))."""
+    N = patches.shape[0]
+    if N % n_shards:
+        raise ValueError(f"{N} rows do not divide into {n_shards} shards")
+    shard_len = N // n_shards
+    cand_vals, cand_idx = [], []
+    for sid in range(n_shards):
+        rows = slice(sid * shard_len, (sid + 1) * shard_len)
+        scores = late_interaction(query, patches[rows], patch_mask=patch_mask[rows])  # (shard_len,)
+        local_valid = min(max(n_valid - sid * shard_len, 0), shard_len)
+        scores = torch.where(_valid_rows(shard_len, local_valid, scores.device), scores, float("-inf"))
+        vals, idx = torch.sort(scores, descending=True, stable=True)
+        kk = min(k, shard_len)
+        cand_vals.append(vals[:kk])
+        cand_idx.append(idx[:kk] + sid * shard_len)
+    cand_vals, cand_idx = torch.cat(cand_vals), torch.cat(cand_idx)
+    out_vals, pos = torch.sort(cand_vals, descending=True, stable=True)
+    out_vals, pos = out_vals[:k], pos[:k]
+    return out_vals, cand_idx[pos], torch.isfinite(out_vals)

@@ -5,8 +5,12 @@ there and (out, in) here; the JAX layers are stacked on a leading (L, ...)
 axis, here they are one module per layer; the rel-pos tables are
 (buckets, H) in both. `from_jax` takes a tree of numpy arrays (or anything
 `np.asarray` reads) as `init_vt5_params` or `init_t5_params` build it;
-`to_jax` gives back the part of that tree the port holds (not the visual
-tower nor the LayoutT5 head, which wait for their slices).
+`to_jax` gives back the part of that tree the port holds (the `visual`
+subtree, ViT and matcher, included; not the LayoutT5 head, which is not
+ported yet). `vit_from_jax` / `vit_to_jax` convert a ViT / BEiT tree
+(`init_vit_params` or `convert_vit_state_dict`), `p2s_from_jax` /
+`p2s_to_jax` a Pix2Struct tree (`init_p2s_params` or
+`convert_p2s_state_dict`): the stacked vision tower and the decoder-only T5.
 `index_from_numpy` carries a JAX `ShardedIndex`'s arrays into the port's.
 `bert_from_jax` / `bert_to_jax` do the same for a BERT tree (`init_bert_params`
 or `convert_bert_state_dict`): stacked (L, in, out) kernels <-> per-layer
@@ -22,6 +26,7 @@ import torch
 
 from rag_docvqa_tpu_torch.models.bert import BertLayer, BertParams
 from rag_docvqa_tpu_torch.models.embeddings import SpatialEmbeddings
+from rag_docvqa_tpu_torch.models.pix2struct import P2SParams, P2SVision
 from rag_docvqa_tpu_torch.models.t5 import (
     T5Attention,
     T5DecoderLayer,
@@ -30,7 +35,8 @@ from rag_docvqa_tpu_torch.models.t5 import (
     T5Params,
     T5Stack,
 )
-from rag_docvqa_tpu_torch.models.vt5 import VT5Params
+from rag_docvqa_tpu_torch.models.vit import ViTLayer, ViTParams
+from rag_docvqa_tpu_torch.models.vt5 import VisualParams, VT5Params
 from rag_docvqa_tpu_torch.parallel.index import ShardedIndex
 
 Tree = Dict[str, Any]
@@ -56,16 +62,22 @@ def _ffn(tree: Tree, l: int, device) -> T5FFN:
     return T5FFN(wo, wi=_dense(tree["wi"][l], device))
 
 
+def _encoder_layers(enc: Tree, device):
+    return [T5EncoderLayer(_t(enc["ln0"][l], device), _t(enc["ln1"][l], device),
+                           _attn(enc["attn"], l, device), _ffn(enc["ffn"], l, device))
+            for l in range(len(enc.get("ln0", ())))]
+
+
 def t5_from_jax(tree: Tree, device="cpu") -> T5Params:
+    """A T5 tree -> T5Params. A decoder-only tree (Pix2Struct's text model:
+    "encoder" empty) gets an encoder stack with no layers."""
     enc, dec = tree["encoder"], tree["decoder"]
-    n_enc, n_dec = len(enc["ln0"]), len(dec["ln0"])
-    encoder = T5Stack(
-        _t(enc["rel_bias"], device),
-        [T5EncoderLayer(_t(enc["ln0"][l], device), _t(enc["ln1"][l], device),
-                        _attn(enc["attn"], l, device), _ffn(enc["ffn"], l, device))
-         for l in range(n_enc)],
-        _t(enc["final_ln"], device),
-    )
+    n_dec = len(dec["ln0"])
+    if enc:
+        encoder = T5Stack(_t(enc["rel_bias"], device), _encoder_layers(enc, device), _t(enc["final_ln"], device))
+    else:
+        d = np.asarray(tree["shared"]).shape[1]
+        encoder = T5Stack(torch.zeros((0, 0), device=device), [], torch.ones(d, device=device))
     decoder = T5Stack(
         _t(dec["rel_bias"], device),
         [T5DecoderLayer(_t(dec["ln0"][l], device), _t(dec["ln1"][l], device), _t(dec["ln2"][l], device),
@@ -91,7 +103,12 @@ def from_jax(tree: Tree, device="cpu") -> Union[VT5Params, T5Params]:
         _t(sp["matcher"]["bias"], device))
     layout_emb = _t(tree["layout_emb"], device) if "layout_emb" in tree else None
     layout_scale = _t(tree["layout_scale"], device) if "layout_scale" in tree else None
-    return VT5Params(t5_from_jax(tree["t5"], device), spatial, layout_emb, layout_scale)
+    visual = None
+    if "visual" in tree:
+        m = tree["visual"]["matcher"]
+        visual = VisualParams(vit_from_jax(tree["visual"]["vit"], device), _dense(m["kernel"], device),
+                              _t(m["bias"], device))
+    return VT5Params(t5_from_jax(tree["t5"], device), spatial, layout_emb, layout_scale, visual=visual)
 
 
 # --------------------------------------------------------------------------- #
@@ -114,18 +131,18 @@ def _ffn_tree(layers) -> Tree:
     return {n: _stack(layers, lambda L: _np(getattr(L.ffn, n)).T) for n in names}
 
 
+def _encoder_tree(enc) -> Tree:
+    return {"attn": _attn_tree(enc, "attn"), "ffn": _ffn_tree(enc),
+            "ln0": _stack(enc, lambda L: _np(L.ln0)), "ln1": _stack(enc, lambda L: _np(L.ln1))}
+
+
 def t5_to_jax(p: T5Params) -> Tree:
     enc, dec = list(p.encoder.layers), list(p.decoder.layers)
     tree: Tree = {
         "shared": _np(p.shared),
-        "encoder": {
-            "rel_bias": _np(p.encoder.rel_bias),
-            "attn": _attn_tree(enc, "attn"),
-            "ffn": _ffn_tree(enc),
-            "ln0": _stack(enc, lambda L: _np(L.ln0)),
-            "ln1": _stack(enc, lambda L: _np(L.ln1)),
-            "final_ln": _np(p.encoder.final_ln),
-        },
+        # a decoder-only model (Pix2Struct's text part) has no encoder layers
+        "encoder": {"rel_bias": _np(p.encoder.rel_bias), **(_encoder_tree(enc) if enc else {}),
+                    "final_ln": _np(p.encoder.final_ln)},
         "decoder": {
             "rel_bias": _np(p.decoder.rel_bias),
             "self_attn": _attn_tree(dec, "self_attn"),
@@ -158,7 +175,77 @@ def to_jax(p: Union[VT5Params, T5Params]) -> Tree:
         tree["layout_emb"] = _np(p.layout_emb)
     if p.layout_scale is not None:
         tree["layout_scale"] = _np(p.layout_scale)
+    if p.visual is not None:
+        tree["visual"] = {"vit": vit_to_jax(p.visual.vit),
+                          "matcher": {"kernel": _np(p.visual.matcher_w).T, "bias": _np(p.visual.matcher_b)}}
     return tree
+
+
+# --------------------------------------------------------------------------- #
+# ViT / BEiT
+# --------------------------------------------------------------------------- #
+_VIT_DENSE = ("q", "k", "v", "o", "fc1", "fc2")
+_VIT_VECTORS = ("ln1_w", "ln1_b", "ln2_w", "ln2_b")
+_VIT_OPTIONAL = ("rel_bias_table", "lambda_1", "lambda_2")
+
+
+def vit_from_jax(tree: Tree, device="cpu") -> ViTParams:
+    """A JAX ViT / BEiT tree -> ViTParams: f32 tensors on `device`."""
+    blocks = tree["blocks"]
+    layers = []
+    for l in range(len(blocks["ln1_w"])):
+        t = {n: _t(blocks[n][l], device) for n in _VIT_VECTORS}
+        for n in _VIT_DENSE:
+            t[f"{n}_w"] = _dense(blocks[n]["kernel"][l], device)
+            t[f"{n}_b"] = _t(blocks[n]["bias"][l], device) if "bias" in blocks[n] else None
+        for n in _VIT_OPTIONAL:
+            t[n] = _t(blocks[n][l], device) if n in blocks else None
+        layers.append(ViTLayer(**t))
+    pe = tree["patch_embed"]
+    pos = _t(tree["pos_embed"], device) if "pos_embed" in tree else None
+    return ViTParams(_dense(pe["kernel"], device), _t(pe["bias"], device), _t(tree["cls_token"], device), pos,
+                     layers, _t(tree["final_ln_w"], device), _t(tree["final_ln_b"], device))
+
+
+def vit_to_jax(p: ViTParams) -> Tree:
+    """The inverse of `vit_from_jax`: a tree of f32 numpy arrays."""
+    layers = list(p.layers)
+    blocks: Tree = {n: _stack(layers, lambda L: _np(getattr(L, n))) for n in _VIT_VECTORS}
+    for n in _VIT_DENSE:
+        blocks[n] = {"kernel": _stack(layers, lambda L: _np(getattr(L, f"{n}_w")).T)}
+        if getattr(layers[0], f"{n}_b") is not None:
+            blocks[n]["bias"] = _stack(layers, lambda L: _np(getattr(L, f"{n}_b")))
+    for n in _VIT_OPTIONAL:
+        if getattr(layers[0], n) is not None:
+            blocks[n] = _stack(layers, lambda L: _np(getattr(L, n)))
+    tree: Tree = {"patch_embed": {"kernel": _np(p.patch_w).T, "bias": _np(p.patch_b)},
+                  "cls_token": _np(p.cls_token), "blocks": blocks,
+                  "final_ln_w": _np(p.final_ln_w), "final_ln_b": _np(p.final_ln_b)}
+    if p.pos_embed is not None:
+        tree["pos_embed"] = _np(p.pos_embed)
+    return tree
+
+
+# --------------------------------------------------------------------------- #
+# Pix2Struct
+# --------------------------------------------------------------------------- #
+def p2s_from_jax(tree: Tree, device="cpu") -> P2SParams:
+    """A JAX Pix2Struct tree ({"vision", "text"}) -> P2SParams: f32 tensors
+    on `device`; cast with `.to(dtype)` afterwards."""
+    v = tree["vision"]
+    vision = P2SVision(_dense(v["patch_proj"]["kernel"], device), _t(v["patch_proj"]["bias"], device),
+                       _t(v["row_emb"], device), _t(v["col_emb"], device), _encoder_layers(v, device),
+                       _t(v["final_ln"], device))
+    return P2SParams(vision, t5_from_jax(tree["text"], device))
+
+
+def p2s_to_jax(p: P2SParams) -> Tree:
+    """The inverse of `p2s_from_jax`: a tree of f32 numpy arrays."""
+    v = p.vision
+    return {"vision": {"patch_proj": {"kernel": _np(v.patch_w).T, "bias": _np(v.patch_b)},
+                       "row_emb": _np(v.row_emb), "col_emb": _np(v.col_emb), **_encoder_tree(list(v.layers)),
+                       "final_ln": _np(v.final_ln)},
+            "text": t5_to_jax(p.text)}
 
 
 # --------------------------------------------------------------------------- #

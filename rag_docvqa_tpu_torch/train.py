@@ -43,7 +43,8 @@ def build_docs(config, split):
         raise NotImplementedError("the port trains on the synthetic corpus only; the dataset loaders wait for "
                                   "ROADMAP Queue 1 item 18")
     if config.get("synthetic_images"):
-        raise NotImplementedError("synthetic page images feed the visual branch, ROADMAP Queue 1 item 13")
+        raise NotImplementedError("synthetic page images feed the visual branch, which serves but does not train yet "
+                                  "(training with visual tokens: ROADMAP Queue 1 item 13)")
     from rag_docvqa_tpu_torch.data.synthetic import make_corpus
 
     n = config.get("n_train_docs", 64) if split == "train" else config.get("n_val_docs", 16)

@@ -1,9 +1,10 @@
 """The port's own copies of the plain-Python host modules, held against the
 originals in the JAX package so they cannot drift unnoticed: the chunker
 (`ops/chunking.py`) on seeded pages, the metrics (`metrics/`) on a few
-strings, and `convert_bert_state_dict` (numpy only, but in a module of the
-JAX package that imports jax) on seeded state dicts. Everything here is
-integer, string or copying work on the host: equal exactly."""
+strings, `convert_bert_state_dict` (numpy only, but in a module of the
+JAX package that imports jax) on seeded state dicts, and the image patch
+math (`ops/patches.py`) on seeded page images. Everything here is integer,
+string, copying or identical numpy work on the host: equal exactly."""
 
 import dataclasses
 
@@ -14,10 +15,12 @@ from rag_docvqa_tpu import metrics as j_metrics
 from rag_docvqa_tpu.metrics import mmlongbench as j_mmlb
 from rag_docvqa_tpu.models import bert as j_bert
 from rag_docvqa_tpu.ops import chunking as j_chunking
+from rag_docvqa_tpu.ops import patches as j_patches
 from rag_docvqa_tpu_torch import metrics as p_metrics
 from rag_docvqa_tpu_torch.metrics import mmlongbench as p_mmlb
 from rag_docvqa_tpu_torch.models import bert as p_bert
 from rag_docvqa_tpu_torch.ops import chunking as p_chunking
+from rag_docvqa_tpu_torch.ops import patches as p_patches
 
 
 def _page(n_words, seed):
@@ -158,3 +161,83 @@ def test_convert_bert_state_dict_copy_matches_original(case):
         np.testing.assert_array_equal(g, w, err_msg=jax.tree_util.keystr(path))
     assert dataclasses.asdict(p_bert.BertConfig(**kw)) == dataclasses.asdict(j_bert.BertConfig(**kw))
     assert dataclasses.asdict(p_bert.BertConfig()) == dataclasses.asdict(j_bert.BertConfig())
+
+
+def _same(a, b):
+    if isinstance(a, (list, tuple)):
+        assert type(a) is type(b) and len(a) == len(b)
+        for x, y in zip(a, b):
+            _same(x, y)
+    elif isinstance(a, np.ndarray):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    else:
+        assert a == b
+
+
+PATCH_IMAGES = {"portrait": (600, 400), "landscape": (200, 520), "strip": (96, 160), "tiny": (20, 17)}
+
+
+@pytest.mark.parametrize("mode", ["square", "horizontal", "page"])
+@pytest.mark.parametrize("image", sorted(PATCH_IMAGES))
+def test_divide_image_copy_matches_original(image, mode):
+    img = np.random.RandomState(len(image)).randint(0, 255, (*PATCH_IMAGES[image], 3), np.uint8)
+    for size, overlap in ((256, True), (96, False), (64, True)):
+        _same(p_patches.divide_image_into_patches(img, size, overlap, mode),
+              j_patches.divide_image_into_patches(img, size, overlap, mode))
+
+
+@pytest.mark.parametrize("image", sorted(PATCH_IMAGES))
+def test_extract_and_pack_patches_copy_matches_original(image):
+    rng = np.random.RandomState(len(image) + 1)
+    img = rng.randint(0, 255, (*PATCH_IMAGES[image], 3), np.uint8)
+    for kw in (dict(max_patches=24, normalize=True), dict(max_patches=128, normalize=True, row_offset=5),
+               dict(max_patches=16, pad=False, normalize=True)):
+        _same(p_patches.extract_flattened_patches(img, **kw), j_patches.extract_flattened_patches(img, **kw))
+    f = img.astype(np.float32)
+    _same(p_patches.extract_flattened_patches(p_patches.adaptive_normalize(f), 24),
+          j_patches.extract_flattened_patches(j_patches.adaptive_normalize(f), 24))
+    _same(p_patches.patch_grid_shape(*PATCH_IMAGES[image], 128), j_patches.patch_grid_shape(*PATCH_IMAGES[image], 128))
+    header = p_patches.render_text("what is the total amount due on this invoice?")
+    _same(header, j_patches.render_text("what is the total amount due on this invoice?"))
+    other = rng.randint(0, 255, (120, 90, 3), np.uint8)
+    for images, hd in (([img, other], header), ([img], None), ([], header)):
+        _same(p_patches.pack_multi_image_patches(images, 96, header=hd),
+              j_patches.pack_multi_image_patches(images, 96, header=hd))
+    _same(p_patches.resize_image(img, 32, 32), j_patches.resize_image(img, 32, 32))
+    _same(p_patches.stack_header(header, img), j_patches.stack_header(header, img))
+
+
+def test_layout_and_grid_patches_copy_matches_original():
+    rng = np.random.RandomState(3)
+    img = rng.randint(0, 255, (400, 300, 3), np.uint8)
+    boxes = [[0.5, 0.1, 0.9, 0.3], [0.1, 0.1, 0.4, 0.5], [0.2, 0.6, 0.6, 0.9], [0.0, 0.0, 1.0, 0.6]]
+    labels, clusters = [1, 2, 3, 1], [0, 0, -1, 1]
+    _same(p_patches.layout_region_crops(img, boxes, labels, clusters), j_patches.layout_region_crops(img, boxes, labels, clusters))
+    _same(p_patches.layout_region_crops(img, boxes, labels), j_patches.layout_region_crops(img, boxes, labels))
+    for kw in (dict(patch_size=96, overlap=False, mode="horizontal"), dict(patch_size=64, overlap=True, mode="square")):
+        _same(p_patches.divide_image_into_layout_patches(img, boxes, labels, clusters, **kw),
+              j_patches.divide_image_into_layout_patches(img, boxes, labels, clusters, **kw))
+    crops = [p_patches.crop_box(img, b) for b in boxes]
+    for a, b in zip(crops, (j_patches.crop_box(img, b) for b in boxes)):
+        _same(a, b)
+    for n in (0, 1, 3, 4):
+        _same(p_patches.concatenate_patches_grid(crops[:n]), j_patches.concatenate_patches_grid(crops[:n]))
+    assert set(n for n in dir(j_patches) if not n.startswith("_")) == set(n for n in dir(p_patches) if not n.startswith("_"))
+
+
+def test_render_text_fallback_without_pil(monkeypatch):
+    """A machine without PIL renders the deterministic byte strip, in both."""
+    import builtins
+
+    real = builtins.__import__
+
+    def no_pil(name, *a, **k):
+        if name == "PIL" or name.startswith("PIL."):
+            raise ImportError(name)
+        return real(name, *a, **k)
+
+    monkeypatch.setattr(builtins, "__import__", no_pil)
+    got, want = p_patches.render_text("what is item 3?"), j_patches.render_text("what is item 3?")
+    _same(got, want)
+    assert got.shape == (16, 16, 3) and got[4, 0, 0] == ord("w")

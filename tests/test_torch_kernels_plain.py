@@ -226,3 +226,39 @@ def test_build_hash_follows_sources(tmp_path, monkeypatch):
     monkeypatch.setattr(kernels.os.path, "exists", lambda path: False)
     with pytest.raises(RuntimeError, match="nvcc"):
         kernels._nvcc()
+
+
+NEW_WRAPPERS = {
+    "vit_layer_norm_rows": lambda m: p_fe.vit_layer_norm_rows(m(4, 8), m(2, 8), 1e-12),
+    "vit_gemm": lambda m: p_fe.vit_gemm(m(4, 8), m(3, 8), "bias", bias=m(3)),
+    "vit_attention": lambda m: p_fe.vit_attention(m(1, 4, 3, 2, 8), m(1, 4).bool(), None, 1.0),
+    "fused_vit_layer_parts": lambda m: p_fe.fused_vit_layer_parts(
+        m(1, 4, 8), m(1, 4).bool(), {k: m(1) for k in p_fe.VIT_KEYS}, num_heads=2, eps=1e-12),
+    "fused_t5_layer_qtiled": lambda m: p_fe.fused_t5_layer_qtiled(
+        m(1, 4, 8), torch.ones(1, 4, dtype=torch.bool), {}, num_heads=2, eps=1e-6, gated=True),
+    "qtiled_attention": lambda m: p_fe.qtiled_attention(m(1, 4, 2, 32), m(1, 4, 2, 32), m(1, 4, 2, 32), m(1, 4).bool()),
+    "late_interaction": lambda m: __import__("rag_docvqa_tpu_torch.ops.late_interaction", fromlist=["x"])
+    .late_interaction(m(4, 8), m(2, 3, 8)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(NEW_WRAPPERS))
+def test_visual_wrappers_refuse_tensors_off_cpu_and_cuda(name):
+    """The wrappers of K13, K14 and K15 keep the device rule: a tensor that is
+    on neither the CPU nor a CUDA device raises, nothing falls back, and no
+    launch is counted off the card."""
+    with pytest.raises((ValueError, NotImplementedError, RuntimeError)):
+        NEW_WRAPPERS[name](lambda *s: torch.zeros(*s, device="meta"))
+    assert kernels.LAUNCHES == dict.fromkeys(kernels.LAUNCHES, 0)
+
+
+def test_kernel_table_covers_every_source():
+    """Every C entry point has a launch counter and a signature, no counter
+    stands for anything but a C entry point, and the sources of the visual
+    paths are in the build."""
+    assert set(kernels._SIGNATURES) == set(kernels.LAUNCHES)
+    assert {"vit_layer_norm", "vit_gemm", "vit_attention", "maxsim", "t5_qtiled_attention"} <= set(kernels._SIGNATURES)
+    assert {"vit_layer.cu", "maxsim.cu", "t5_layer_qtiled.cu"} <= {p.name for p in kernels._sources()}
+    text = {p.name: p.read_text() for p in kernels._sources()}
+    for entry in kernels._SIGNATURES:
+        assert any(f'extern "C" int {entry}(' in t for t in text.values()), entry
