@@ -18,7 +18,16 @@ Nine phases; any failure raises and the script exits non-zero:
      f32 (max abs error <= 1e-4) and bf16 (max abs error <= 2e-2 of the
      largest reference value, at least 1); the decode-attention kernel does
      f32 math on every cache dtype and is held to 1e-4 on each. Times both
-     with CUDA events after a warmup;
+     with CUDA events after a warmup, K3 on a bf16 cache beside SDPA with a
+     query length of 1. The two kernels that run on wgmma get the edges of
+     their tiles in bf16: K2 (64 queries x 64 keys a tile) at T 63, 64, 65 and
+     129 with dh 40 and 64, causal with GQA, Tq != Tk, a per-batch f32 bias
+     with bf16 q, both mask values with a row that has no valid key, and dh
+     20 (rows not 16-byte aligned: the plain-load path); the forward GEMM
+     (128 x 128 or 128 x 256 tiles, K steps of 64) at 129x136x72 and
+     77x135x200 for each of its eight epilogues (N 135 is odd: single-element
+     stores). Each such case is launched twice and the two results must be
+     equal bit for bit;
   4. runs the full-width f32 t5-base stack at B 8: encode through the
      kernels against the plain stack (<= 1e-4), and greedy decode with the
      decode-attention kernel on and off (identical ids, f32, bf16 and int8
@@ -79,7 +88,8 @@ Nine phases; any failure raises and the script exits non-zero:
   8. the BERT family (post-LN layer K9, its backward K10), TF32 still off:
      a. K9's parts (the GEMM's bias, bias + erf-GELU and bias + residual-in-
         f32 epilogues, the row LayerNorm at eps 1e-12 with a constant row, K2
-        at dh 32 and 64 with no bias and mask value -1e30) and the whole
+        at dh 32 and 64 with no bias and mask value -1e30: in bf16 dh 32 runs
+        in the wgmma kernel's 64-wide instantiation) and the whole
         layer against their plain versions: a small ragged case (B 7, T 24,
         d 64, one sequence with no valid key: finite) and both path shapes,
         bge-small B 1024 T 64 and XLM-R-base width B 320 T 192, f32 <= 1e-4
@@ -123,8 +133,9 @@ Nine phases; any failure raises and the script exits non-zero:
         BEiT with bias and layer-scale, T 197 and T 21), then ViT-base width
         B 32 T 197 in f32 (<= 1e-4) and bf16 (<= 2e-2 of max(1, max|ref|));
         then K2 and the whole K1 layer with the shared bf16 T5 bias at path
-        1's encoder length, B 32 T 709 (ragged text, all visual tokens), f32
-        and bf16, timed beside SDPA;
+        1's encoder length, B 32 T 709 (ragged text, all visual tokens; an odd
+        Tk, so the bf16 kernel reads the bias one element at a time), f32 and
+        bf16, timed beside SDPA;
      b. the full-width f32 12-layer ViT-base `vit_encode` at B 8 against the
         plain stack (<= 1e-4);
      c. path 1: two batches of 32 documents through RAGVT5Engine.inference as
@@ -371,30 +382,62 @@ def check_kernels(checks: Checks, g: torch.Generator) -> None:
     randn = lambda *s: torch.randn(s, generator=g, device=dev)
 
     # ---- K2 flash attention ----
-    def flash_case(B, T, H, Hkv, dh, dtype, bias_kind, causal, scale, mask_value, lens, label, timed=False):
+    def flash_case(B, T, H, Hkv, dh, dtype, bias_kind, causal, scale, mask_value, lens, label, timed=False, Tk=None,
+                   twice=False):
+        """K2 against its plain version: out, lse of the rows with a valid key,
+        the lse contract of the others; `twice` launches again and wants the
+        same bits. T queries, Tk keys (T when None); bias_kind None, "shared",
+        "batched" (in q's dtype; bf16 for bf16) or "batched f32"."""
+        Tk = T if Tk is None else Tk
         q = randn(B, T, H, dh).to(dtype)
-        k, v = randn(B, T, Hkv, dh).to(dtype), randn(B, T, Hkv, dh).to(dtype)
-        mask = torch.arange(T, device=dev)[None, :] < torch.tensor(lens, device=dev)[:, None]
+        k, v = randn(B, Tk, Hkv, dh).to(dtype), randn(B, Tk, Hkv, dh).to(dtype)
+        mask = torch.arange(Tk, device=dev)[None, :] < torch.tensor(lens, device=dev)[:, None]
         bias = None
         if bias_kind:
-            bias = randn(B if bias_kind == "batched" else 1, H, T, T).to(torch.bfloat16 if dtype == torch.bfloat16 else torch.float32)
-        got, glse = fa.flash_attention_fwd(q, k, v, mask, bias, scale, causal, mask_value)
+            bias = randn(1 if bias_kind == "shared" else B, H, T, Tk)
+            if dtype == torch.bfloat16 and bias_kind != "batched f32":
+                bias = bias.bfloat16()
+        run = lambda: fa.flash_attention_fwd(q, k, v, mask, bias, scale, causal, mask_value)
+        got, glse = run()
         want, wlse = fa.flash_attention_reference(q, k, v, mask, bias, scale, causal, mask_value)
         checks.compare("flash_fwd", f"{label} out", got, want, tol(dtype, want))
         alive = wlse > mask_value / 2  # rows with a valid key; the out check covers the rest
         # lse is f32 in both; its bf16 limit scales with the bf16 inputs' scores
         checks.compare("flash_fwd", f"{label} lse", glse[alive], wlse[alive], tol(dtype, wlse[alive]))
+        dead = glse[~alive]  # no valid key: -1e30 under the flash mask value, the uniform row's lse under -1e9
+        if not bool((dead <= mask_value / 2).all() if mask_value == fa.NEG_INF else torch.isfinite(dead).all()):
+            raise AssertionError(f"flash_fwd {label}: lse of a row with no valid key is {dead.max().item()}")
+        if twice:
+            again, alse = run()
+            if not (torch.equal(got, again) and torch.equal(glse, alse)):
+                raise AssertionError(f"flash_fwd {label}: a second launch on the same input gave other bits")
         if timed:
             # the one library call: SDPA with the bias and the key mask summed
             # into one additive (B, H, T, T) mask beforehand (the kernel
             # streams the shared bias instead); it returns no lse
             add = (bias.float() + torch.where(mask, 0.0, mask_value)[:, None, None, :]).to(dtype)
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            checks.timed("flash_fwd", label, lambda: fa.flash_attention_fwd(q, k, v, mask, bias, scale, causal, mask_value),
+            checks.timed("flash_fwd", label, run,
                          lambda: fa.flash_attention_reference(q, k, v, mask, bias, scale, causal, mask_value),
                          library=lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=add, scale=scale),
                          io_bytes=nbytes(q, k, v, mask, bias, got, glse), ops=4.0 * B * H * T * T * dh,
                          ops_in=op_type(dtype))
+
+    # bf16, on the edges of the tensor-core kernel's 64 x 64 tiles
+    bf16, t5_mask = torch.bfloat16, fe.T5_MASK_VALUE
+    for T in (63, 64, 65, 129):
+        for dh in (40, 64):
+            flash_case(3, T, 4, 4, dh, bf16, "shared", False, dh ** -0.5, t5_mask, [T, T // 2, 1],
+                       f"edge T{T} dh{dh} shared bias bf16", twice=True)
+    flash_case(3, 129, 8, 2, 64, bf16, None, True, 0.125, fa.NEG_INF, [129, 70, 0], "edge T129 causal gqa bf16", twice=True)
+    flash_case(3, 65, 4, 4, 64, bf16, "batched f32", False, 0.125, fa.NEG_INF, [129, 64, 5],
+               "edge Tq65 Tk129 f32 batched bias bf16", Tk=129, twice=True)
+    flash_case(2, 129, 4, 2, 40, bf16, "shared", True, 40 ** -0.5, fa.NEG_INF, [65, 33],
+               "edge Tq129 Tk65 causal gqa dh40 bf16", Tk=65, twice=True)
+    flash_case(2, 64, 4, 4, 64, bf16, "shared", False, 0.125, fa.NEG_INF, [64, 0], "edge no valid key -1e30 bf16", twice=True)
+    flash_case(2, 65, 4, 4, 64, bf16, "shared", False, 0.125, t5_mask, [65, 0], "edge no valid key -1e9 bf16", twice=True)
+    flash_case(2, 65, 4, 4, 20, bf16, "shared", False, 20 ** -0.5, fa.NEG_INF, [65, 40],
+               "edge dh20 (rows not 16-byte aligned) bf16", twice=True)
 
     for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         flash_case(3, 77, 4, 2, 40, dtype, "batched", True, 0.5, fa.NEG_INF, [77, 50, 0], f"ragged gqa causal {tag}")
@@ -431,6 +474,24 @@ def check_kernels(checks: Checks, g: torch.Generator) -> None:
                 checks.timed("t5_gemm", f"{label} {tag}", lambda: fe.gemm(a, w, epi, aux),
                              lambda: fe.gemm_reference(a, w, epi, aux), library=library,
                              io_bytes=nbytes(a, w, aux, got), ops=2.0 * M * N * K, ops_in=op_type(dtype))
+
+    # the bf16 GEMM's tails in M, N and K (K 72 is one full step of 64 and one of
+    # 8; N 135 is odd, so the epilogue stores single elements), every epilogue,
+    # and a second launch's bits
+    for M, N, K in ((129, 136, 72), (77, 135, 200)):
+        for epi in fe.EPILOGUES:
+            a, w = randn(M, K).bfloat16(), (randn(N, K) * K**-0.5).bfloat16()
+            aux = randn(M, N).bfloat16() if epi in ("residual", "gelu_mul", "bias_residual_f32", "bias_scale_residual") else None
+            b = randn(N).bfloat16() if epi.startswith("bias") else None
+            sc = randn(N).bfloat16() if epi == "bias_scale_residual" else None
+            run = (lambda: fe.vit_gemm(a, w, epi, aux, b, sc)) if epi == "bias_scale_residual" else (lambda: fe.gemm(a, w, epi, aux, b))
+            got, want = run(), fe.gemm_reference(a, w, epi, aux, b, sc)
+            unit = "vit_gemm" if epi == "bias_scale_residual" else ("bert_gemm" if epi.startswith("bias") else "t5_gemm")
+            if got.dtype != want.dtype:
+                raise AssertionError(f"{unit} {epi}: output is {got.dtype}, the plain version's {want.dtype}")
+            checks.compare(unit, f"tails {M}x{N}x{K} {epi} bf16", got, want, tol(torch.bfloat16, want))
+            if not torch.equal(got, run()):
+                raise AssertionError(f"{unit} {epi} {M}x{N}x{K}: a second launch on the same input gave other bits")
 
     params = t5m.init_t5_params(g, t5m.T5Config(num_encoder_layers=1, num_decoder_layers=1))
     layer = fe.fuse_t5_blocks(params.encoder.layers, False)[0]
@@ -473,9 +534,16 @@ def check_kernels(checks: Checks, g: torch.Generator) -> None:
             # f32 math on the stored values in both: the f32 limit holds for every cache dtype
             checks.compare("decode_cross_attention", f"{label} {tag} cache", got, want, F32_TOL)
             if B == 32 and kv_dtype != torch.float32:
+                # a bf16 cache has one library call: SDPA with a query length of 1
+                # over the unpacked K/V and the key mask (bf16 math, bf16 out); no
+                # one call reads an int8 cache with its channel scales
+                library = None
+                if kv_dtype == torch.bfloat16:
+                    q1, m1 = q.bfloat16()[:, :, None, :], m[:, None, None, :]
+                    library = lambda: F.scaled_dot_product_attention(q1, k, v, attn_mask=m1, scale=1.0)
                 checks.timed("decode_cross_attention", f"{label} {tag} cache",
                              lambda: da.fused_cross_attention(q, k2, v2, m, ks, vs),
-                             lambda: da.cross_attention_reference(qs, k2, v2, m),
+                             lambda: da.cross_attention_reference(qs, k2, v2, m), library=library,
                              io_bytes=nbytes(q, k2, v2, m, ks, vs, got), ops=4.0 * B * H * Te * dk)
 
 

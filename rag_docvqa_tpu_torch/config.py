@@ -79,6 +79,7 @@ def build_rag_config(c: Dict[str, Any]) -> RAGConfig:
         max_source_length=c.get("max_source_length", 512),
         max_new_tokens=c.get("max_new_tokens", 100),
         use_visual=bool(c.get("use_visual", False)),
+        reorder_chunks=bool(c.get("reorder_chunks", False)),
     )
 
 
@@ -100,14 +101,9 @@ def build_vt5_config(c: Dict[str, Any], vocab_size: int) -> vt5m.VT5Config:
                               dropout_rate=c.get("dropout_rate", 0.1)),
         use_layout_labels=c.get("use_layout_labels", "Default"),
         use_visual=bool(c.get("use_visual", False)),
-        vit=ViTConfig(
-            hidden_size=c.get("visual_hidden_size", 768),
-            num_layers=c.get("visual_num_layers", 12),
-            num_heads=c.get("visual_num_heads", 12),
-            mlp_dim=c.get("visual_mlp_dim", 3072),
-            patch_size=c.get("visual_patch_size", 16),
-            image_size=c.get("visual_image_size", 224),
-        ),
+        # `visual_hidden_size` is the one key RAG-VT5's tower reads, as JAX's
+        # `build_vt5_config` does: the rest of the tower stays at ViTConfig's defaults
+        vit=ViTConfig(hidden_size=c.get("visual_hidden_size", 768)),
     )
 
 

@@ -22,7 +22,9 @@
 // What bounds it on the H100: at bge-small (d 384, d_ff 1536, B 1024, T 64)
 // a layer is ~0.23 TFLOP of products over ~0.9 GB of activations that the
 // split moves through device memory, so the products and the traffic are of
-// one order; the GEMM is gemm_fwd.cuh's template (WMMA bf16, SIMT f32). The
+// one order; the GEMM is gemm_fwd.cuh's template (bf16: wgmma.mma_async from a
+// cp.async ring, two blocks an SM so the erf-GELU epilogue of one runs under
+// the products of the other; f32: SIMT, exact). The
 // LayerNorm reads an f32 row three times (mean, variance, output; the second
 // and third from cache) and is bound by memory.
 #include "gemm_fwd.cuh"

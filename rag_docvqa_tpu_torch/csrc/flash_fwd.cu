@@ -12,19 +12,43 @@
 //
 // What bounds it on the H100: at t5-base (T 512, dh 64) attention is
 // 4*B*H*T*T*dh FLOPs against B*H*T*dh*8 bytes of q/k/v/o, ~64 FLOP/byte in
-// bf16, so it is bound by arithmetic, and this SIMT kernel by shared-memory
-// bandwidth (about one shared load per FMA). The (H, T, T) bias is read
-// from global memory for every batch row, never expanded per batch: at
-// t5-base its 6 MB stay in the 50 MB L2.
+// bf16, so by the card's table it is bound by bytes only barely and in
+// practice by the instruction rate of the two products and the softmax between.
+// The (H, T, T) bias is read from global memory for every batch row, never
+// expanded per batch: at t5-base its 6 MB stay in the 50 MB L2.
 //
-// Design: one block per (32-query tile, head, batch row); 128 threads, four
-// per query row. Key/value tiles of 64 rows are staged in shared memory as
-// f32; each thread keeps 16 scores and dh/4 output columns in registers and
-// the row's running max and sum are combined across its four threads with
-// warp shuffles. Probabilities are rounded to the value dtype before p@v,
-// as the TPU kernel does; accumulation is f32 throughout. Tensor cores,
-// TMA and a pipelined tile ring are later work.
-#include "common.cuh"
+// bf16 rows (flash_fwd_wgmma_kernel): one warpgroup per block owns 64 query
+// rows of one head. Both products run on the tensor cores through
+// wgmma.mma_async m64n64k16: S = Q K^T with Q and the K tile read K-major from
+// 128-byte-swizzled shared tiles (hopper.cuh); O += P V with V as the B operand
+// in its natural [keys][dh] layout (MN-major, the transposed-B form) and P as
+// the A operand straight from registers: the accumulator layout of S, packed
+// to bf16 pairs, is the A fragment of the next product, so P never touches
+// shared memory. The softmax lives on the f32 accumulators where they lie:
+// scale, bias (read from global/L2 in the accumulator's layout, asked for while
+// the first product runs), mask, row maximum and sum by two quad shuffles, the
+// rescale of O by alpha. K/V tiles of 64 keys come through a ring of FST
+// stages filled by 16-byte cp.async, two tiles in flight while one is
+// worked on; rows past Tk and columns past dh are zero-filled, so any dh <=
+// 128 runs in the 64- or 128-wide instantiation. Inputs whose rows are not
+// 16-byte aligned (dh % 8 != 0, odd strides) fill the same tiles with plain
+// loads. A tile's key-mask bytes are folded with the Tk bound into one code
+// per key in shared memory. Three blocks fit an SM (57 KB each at dh 64), so
+// one block's softmax overlaps another's products.
+// Cast points, as the TPU kernel's: f32 scores, p rounded to bf16 before p @ v,
+// the row sum l over the unrounded p, f32 accumulation, the division by
+// max(l, 1e-30) last. exp(x - m) is ex2.approx.ftz of (x - m) * log2 e, the
+// instruction __expf lowers to (2 ulp), inside the 2e-2 the bf16 output is held to.
+//
+// f32 rows (flash_fwd_kernel) keep the exact SIMT design, since the tensor
+// cores have no exact f32 product: one block per (32-query tile, head, batch
+// row); 128 threads, four per query row. Key/value tiles of 64 rows are staged
+// in shared memory as f32; each thread keeps 16 scores and dh/4 output columns
+// in registers and the row's running max and sum are combined across its four
+// threads with warp shuffles; expf.
+//
+// Neither uses atomics: the same input gives the same bits on every run.
+#include "hopper.cuh"
 
 namespace {
 
@@ -161,6 +185,352 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
   }
 }
 
+// ---- bf16: wgmma, softmax in registers, cp.async ring ----------------------
+constexpr int WQ = 64;         // query rows per block: one warpgroup
+constexpr int WK = 64;         // keys per tile
+constexpr int FST = 3;         // K/V ring stages
+constexpr int SUB = 64 * 128;  // bytes of one swizzled 64-row x 64-column bf16 tile
+
+// Q, the ring of K and V tiles, one mask code per key of each stage, and room
+// to align the tiles to 1024 bytes
+template <int DH>
+constexpr int wgmma_smem_bytes() {
+  return (DH / 64) * SUB * (1 + 2 * FST) + FST * WK + 1024;
+}
+
+// Two neighbouring bias values as they were loaded: they are turned into floats
+// where the scores use them, so the loads are not waited for where they start
+template <typename BT> struct BiasPair;
+template <> struct BiasPair<float> {
+  float2 v;
+  __device__ __forceinline__ void zero() { v = make_float2(0.f, 0.f); }
+  __device__ __forceinline__ void pair(const float* p) { v = *reinterpret_cast<const float2*>(p); }
+  __device__ __forceinline__ void one(const float* p, int e) { (e ? v.y : v.x) = *p; }
+  __device__ __forceinline__ float2 get(bool) const { return v; }
+};
+template <> struct BiasPair<__nv_bfloat16> {
+  uint32_t lo, hi;  // loaded as a pair: both in lo, the lower column in its low half; singly: one each
+  __device__ __forceinline__ void zero() { lo = hi = 0u; }
+  __device__ __forceinline__ void pair(const __nv_bfloat16* p) { lo = *reinterpret_cast<const uint32_t*>(p); }
+  __device__ __forceinline__ void one(const __nv_bfloat16* p, int e) {
+    (e ? hi : lo) = *reinterpret_cast<const uint16_t*>(p);
+  }
+  __device__ __forceinline__ float2 get(bool paired) const {
+    return make_float2(__uint_as_float(lo << 16), __uint_as_float(paired ? lo & 0xffff0000u : hi << 16));
+  }
+};
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&t);
+}
+__device__ __forceinline__ float exp2f_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+template <typename BT, int DH, bool VEC>
+__global__ void __launch_bounds__(128, DH == 64 ? 3 : 2) flash_fwd_wgmma_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const uint8_t* __restrict__ mask,
+    const BT* __restrict__ bias, __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+    int H, int Hkv, int Tq, int Tk, int dh,
+    long long q_sb, long long q_st, long long k_sb, long long k_st,
+    long long v_sb, long long v_st, int bias_batched,
+    float scale, int causal, float mask_value, int bias_pairs, int out_pairs) {
+  using bf16 = __nv_bfloat16;
+  constexpr int NS = DH / 64;            // 64-column tiles across dh
+  constexpr int STAGE = 2 * NS * SUB;    // K then V
+  extern __shared__ uint8_t flash_smem[];
+  const uint32_t raw = smem_u32(flash_smem), base = (raw + 1023u) & ~1023u;
+  uint8_t* gen = flash_smem + (base - raw);  // the aligned base as a generic pointer
+  const uint32_t q_s = base, ring_s = base + NS * SUB;
+  uint8_t* codes = gen + NS * SUB + FST * STAGE;  // [FST][WK]: 0 masked, 1 valid, 2 past Tk
+
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (H / Hkv);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int q0 = blockIdx.x * WQ;
+  const int qr[2] = {q0 + warp * 16 + (lane >> 2), q0 + warp * 16 + (lane >> 2) + 8};  // this thread's two rows
+  const int cq = (lane & 3) * 2;  // its first column within a block of 8
+
+  const bf16* qb = q + b * q_sb + (long long)h * dh;
+  const bf16* kb = k + b * k_sb + (long long)hk * dh;
+  const bf16* vb = v + b * v_sb + (long long)hk * dh;
+  const uint8_t* mrow = mask != nullptr ? mask + (long long)b * Tk : nullptr;
+
+  // 64 rows of `src` from row r0 into NS swizzled tiles at `off` past the
+  // base; rows past `rows` and columns past dh are zeros. VEC: 16-byte
+  // cp.async, DH / 8 neighbouring threads on one row; a thread's chunk and its
+  // row modulo 8 are the same in every pass, so its swizzled offset is too.
+  constexpr int CPR = DH / 8, RPP = 128 / CPR;  // chunks a row, rows a pass
+  const int ld_c = tid % CPR, ld_r = tid / CPR;
+  const uint32_t ld_off = (ld_c >> 3) * SUB + swz_off(ld_r, ld_c & 7);
+  const bool ld_col = ld_c * 8 < dh;
+  auto load_rows = [&](uint32_t off, const bf16* src, long long st, int r0, int rows) {
+    if (VEC) {
+      const bf16* p = src + (long long)(r0 + ld_r) * st + ld_c * 8;
+#pragma unroll
+      for (int pass = 0; pass < 64 / RPP; ++pass) {
+        const bool in = ld_col && r0 + ld_r + pass * RPP < rows;
+        cp_async16(base + off + ld_off + pass * RPP * 128, in ? p + (long long)pass * RPP * st : src, in);
+      }
+    } else {
+      for (int i = tid; i < 64 * DH; i += 128) {
+        const int row = i / DH, d = i % DH;
+        const bool in = r0 + row < rows && d < dh;
+        const bf16 val = in ? src[(long long)(r0 + row) * st + d] : __float2bfloat16(0.f);
+        *reinterpret_cast<bf16*>(gen + off + (d >> 6) * SUB + swz_off(row, (d & 63) >> 3) + (d & 7) * 2) = val;
+      }
+    }
+  };
+  // a tile's K and V rows (asynchronous); its key codes go in two steps, so that
+  // the global read of the mask byte is not waited for where it starts
+  auto load_kv = [&](int t) {
+    const int stage = t % FST, k0 = t * WK;
+    load_rows(NS * SUB + stage * STAGE, kb, k_st, k0, Tk);
+    load_rows(NS * SUB + stage * STAGE + NS * SUB, vb, v_st, k0, Tk);
+  };
+  auto read_code = [&](int t) -> uint8_t {  // threads 0..WK-1, one key each
+    const int gk = t * WK + tid;
+    if (tid >= WK || gk >= Tk) return 2;
+    return (mrow == nullptr || mrow[gk] != 0) ? 1 : 0;
+  };
+  auto write_code = [&](int t, uint8_t code) {
+    if (tid < WK) codes[(t % FST) * WK + tid] = code;
+  };
+
+  // causal: tiles wholly above the diagonal of this query tile are skipped
+  const int k_end = causal ? min(Tk, q0 + WQ) : Tk;
+  const int nt = (k_end + WK - 1) / WK;
+
+  load_rows(0, qb, q_st, q0, Tq);
+#pragma unroll
+  for (int s = 0; s < FST - 1; ++s) {
+    if (s < nt) {
+      load_kv(s);
+      write_code(s, read_code(s));
+    }
+    cp_async_commit();
+  }
+
+  float o[NS][32];
+#pragma unroll
+  for (int n = 0; n < NS; ++n)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[n][i] = 0.f;
+  float m[2] = {EXCLUDED, EXCLUDED}, l[2] = {0.f, 0.f};
+
+  // this thread's two bias rows (a row past Tq reads row Tq - 1; its scores are never stored)
+  const BT* brow[2] = {nullptr, nullptr};
+  if (bias != nullptr) {
+    const long long bh = ((long long)(bias_batched ? b : 0) * H + h) * Tq;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) brow[half] = bias + (bh + min(qr[half], Tq - 1)) * Tk + cq;
+  }
+
+  for (int t = 0; t < nt; ++t) {
+    cp_async_wait<FST - 2>();  // this thread's copies of tile t (and of Q) have landed
+    fence_async_shared();
+    __syncthreads();  // everyone's have; and every warp is done with tile t - 1
+    const int stage = t % FST, k0 = t * WK;
+    // the bias of this thread's 32 scores, asked for first so that it arrives under
+    // the copies' start and the first product: pairs where the tile lies inside Tk
+    // and the rows are 4-byte aligned, else guarded singles
+    BiasPair<BT> bz[2][8];
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) bz[half][j].zero();
+    const bool paired = bias_pairs && k0 + WK <= Tk;
+    if (bias != nullptr) {
+      if (paired) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) bz[half][j].pair(brow[half] + k0 + j * 8);
+      } else {
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              if (k0 + j * 8 + cq + e < Tk) bz[half][j].one(brow[half] + k0 + j * 8 + e, e);
+      }
+    }
+    const bool more = t + FST - 1 < nt;
+    if (more) load_kv(t + FST - 1);  // into tile t - 1's stage
+    cp_async_commit();
+    const uint8_t next_code = more ? read_code(t + FST - 1) : 0;  // stored at the end of this step
+
+    const uint32_t k_s = ring_s + stage * STAGE, v_s = k_s + NS * SUB;
+
+    // S = Q K^T over dh in steps of 16 (steps past dh hold zeros and are skipped)
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk)
+      if (kk * 16 < dh) {
+        const uint32_t step = (kk >> 2) * SUB + (kk & 3) * 32;
+        wgmma_m64n64k16_ss<0>(s, wgmma_desc(q_s + step), wgmma_desc(k_s + step), kk > 0);
+      }
+    wgmma_commit();
+
+    wgmma_wait<0>();
+    fence_regs(s);
+
+    // scores: scale and bias, then the key's code decides with one select
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const uint32_t cm = *reinterpret_cast<const uint16_t*>(codes + stage * WK + j * 8 + cq);
+      const float2 bj[2] = {bz[0][j].get(paired), bz[1][j].get(paired)};
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const uint32_t code = cm >> (8 * e);
+        const bool valid = (code & 1u) != 0;
+        const float off = (code & 2u) != 0 ? EXCLUDED : mask_value;  // what a key that is not attended scores
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int i = j * 4 + half * 2 + e;
+          s[i] = valid ? fmaf(s[i], scale, e ? bj[half].y : bj[half].x) : off;
+        }
+      }
+    }
+    // causal: only a tile that reaches the diagonal compares key and query rows
+    if (causal && k0 + WK - 1 > q0) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int gk = k0 + (i >> 2) * 8 + cq + (i & 1);
+        if (gk > qr[(i >> 1) & 1] && s[i] != EXCLUDED) s[i] = mask_value;
+      }
+    }
+    float tmax[2] = {EXCLUDED, EXCLUDED};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) tmax[(i >> 1) & 1] = fmaxf(tmax[(i >> 1) & 1], s[i]);
+    // exp(x - m) as ex2((x - m) * log2 e): the instruction __expf lowers to. The
+    // difference is taken first, so it is exact where x == m whatever their size
+    // (a row of mask_value -1e9). A key past Tk (EXCLUDED) and every key of a row
+    // with no valid key yet (m_use = +max) underflow to exactly 0, so no score
+    // needs a select here.
+    constexpr float LOG2E = 1.4426950408889634f;
+    float alpha[2], m_use[2];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const float m_new = fmaxf(m[half], quad_max(tmax[half]));
+      // a row with no valid key so far keeps exp(0) = 1 out of the sums
+      const bool alive = m_new > NEG_INF * 0.5f;
+      alpha[half] = alive ? exp2f_approx((m[half] - m_new) * LOG2E) : 0.f;
+      m_use[half] = alive ? m_new : 3.402823466e38f;
+      m[half] = m_new;
+    }
+    float psum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int half = (i >> 1) & 1;
+      const float p = exp2f_approx((s[i] - m_use[half]) * LOG2E);
+      psum[half] += p;  // the sum takes p before it is rounded
+      s[i] = p;
+    }
+#pragma unroll
+    for (int half = 0; half < 2; ++half) l[half] = l[half] * alpha[half] + quad_sum(psum[half]);
+
+    // P as the A operand: column blocks 2kk and 2kk + 1 are the 16 keys of step kk
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      pa[kk][0] = pack_bf16(s[kk * 8 + 0], s[kk * 8 + 1]);
+      pa[kk][1] = pack_bf16(s[kk * 8 + 2], s[kk * 8 + 3]);
+      pa[kk][2] = pack_bf16(s[kk * 8 + 4], s[kk * 8 + 5]);
+      pa[kk][3] = pack_bf16(s[kk * 8 + 6], s[kk * 8 + 7]);
+    }
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[n][i] *= alpha[(i >> 1) & 1];
+      fence_regs(o[n]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+        wgmma_m64n64k16_rs<1>(o[n], pa[kk], wgmma_desc(v_s + n * SUB + kk * 16 * 128), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int n = 0; n < NS; ++n) fence_regs(o[n]);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(pa[kk][i])::"memory");
+    if (more) write_code(t + FST - 1, next_code);  // read after a later step's barrier
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int qrow = qr[half];
+    if (qrow >= Tq) continue;
+    const float denom = fmaxf(l[half], 1e-30f);
+    bf16* orow = out + (((long long)b * Tq + qrow) * H + h) * dh;
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int d = n * 64 + j * 8 + cq;
+        const float v0 = o[n][j * 4 + half * 2] / denom, v1 = o[n][j * 4 + half * 2 + 1] / denom;
+        if (out_pairs && d + 1 < dh) {
+          *reinterpret_cast<uint32_t*>(orow + d) = pack_bf16(v0, v1);
+        } else {
+          if (d < dh) orow[d] = __float2bfloat16(v0);
+          if (d + 1 < dh) orow[d + 1] = __float2bfloat16(v1);
+        }
+      }
+    if (lse != nullptr && (lane & 3) == 0)
+      lse[((long long)b * H + h) * Tq + qrow] = m[half] > NEG_INF * 0.5f ? m[half] + logf(denom) : NEG_INF;
+  }
+}
+
+template <typename BT, int DH, bool VEC>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, const void* mask,
+                         const void* bias, void* out, void* lse, int B, int H, int Hkv,
+                         int Tq, int Tk, int dh, long long q_sb, long long q_st,
+                         long long k_sb, long long k_st, long long v_sb, long long v_st,
+                         int bias_batched, float scale, int causal, float mask_value,
+                         cudaStream_t stream) {
+  constexpr int smem = wgmma_smem_bytes<DH>();
+  auto kern = flash_fwd_wgmma_kernel<BT, DH, VEC>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  // all of the SM's shared memory, so that as many blocks as the ring allows are resident
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  auto aligned = [](const void* p, uintptr_t to) { return reinterpret_cast<uintptr_t>(p) % to == 0; };
+  // pair loads and stores need even offsets
+  const int bias_pairs = Tk % 2 == 0 && aligned(bias, 2 * sizeof(BT));
+  const int out_pairs = dh % 2 == 0 && aligned(out, 4);
+  dim3 grid((Tq + WQ - 1) / WQ, H, B);
+  kern<<<grid, 128, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const uint8_t*>(mask),
+      static_cast<const BT*>(bias), static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse),
+      H, Hkv, Tq, Tk, dh, q_sb, q_st, k_sb, k_st, v_sb, v_st, bias_batched, scale, causal,
+      mask_value, bias_pairs, out_pairs);
+  return cudaGetLastError();
+}
+
 template <typename T, typename BT, int DH>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* mask,
                    const void* bias, void* out, void* lse, int B, int H, int Hkv,
@@ -181,19 +551,32 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* mask
   return cudaGetLastError();
 }
 
-template <typename T, typename BT>
-cudaError_t launch_dh(int dh, const void* q, const void* k, const void* v,
-                      const void* mask, const void* bias, void* out, void* lse,
-                      int B, int H, int Hkv, int Tq, int Tk, long long q_sb,
-                      long long q_st, long long k_sb, long long k_st, long long v_sb,
-                      long long v_st, int bias_batched, float scale, int causal,
-                      float mask_value, cudaStream_t s) {
+#define FLASH_PARAMS                                                                          \
+  const void *q, const void *k, const void *v, const void *mask, const void *bias, void *out, \
+      void *lse, int B, int H, int Hkv, int Tq, int Tk, int dh, long long q_sb, long long q_st, \
+      long long k_sb, long long k_st, long long v_sb, long long v_st, int bias_batched,      \
+      float scale, int causal, float mask_value, cudaStream_t s
 #define FLASH_ARGS q, k, v, mask, bias, out, lse, B, H, Hkv, Tq, Tk, dh, q_sb, q_st, \
                    k_sb, k_st, v_sb, v_st, bias_batched, scale, causal, mask_value, s
-  if (dh <= 32) return launch<T, BT, 32>(FLASH_ARGS);
-  if (dh <= 64) return launch<T, BT, 64>(FLASH_ARGS);
-  if (dh <= 128) return launch<T, BT, 128>(FLASH_ARGS);
-#undef FLASH_ARGS
+
+// f32 rows: the SIMT kernel, dh padded to 32, 64 or 128
+template <typename BT>
+cudaError_t launch_f32(FLASH_PARAMS) {
+  if (dh <= 32) return launch<float, BT, 32>(FLASH_ARGS);
+  if (dh <= 64) return launch<float, BT, 64>(FLASH_ARGS);
+  if (dh <= 128) return launch<float, BT, 128>(FLASH_ARGS);
+  return cudaErrorInvalidValue;
+}
+
+// bf16 rows: the wgmma kernel, dh padded to 64 or 128; 16-byte copies where
+// every row of q, k and v starts on a 16-byte boundary, plain loads elsewhere
+template <typename BT>
+cudaError_t launch_bf16(FLASH_PARAMS) {
+  auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  const bool vec = dh % 8 == 0 && q_sb % 8 == 0 && q_st % 8 == 0 && k_sb % 8 == 0 && k_st % 8 == 0 &&
+                   v_sb % 8 == 0 && v_st % 8 == 0 && aligned(q) && aligned(k) && aligned(v);
+  if (dh <= 64) return vec ? launch_wgmma<BT, 64, true>(FLASH_ARGS) : launch_wgmma<BT, 64, false>(FLASH_ARGS);
+  if (dh <= 128) return vec ? launch_wgmma<BT, 128, true>(FLASH_ARGS) : launch_wgmma<BT, 128, false>(FLASH_ARGS);
   return cudaErrorInvalidValue;
 }
 
@@ -211,14 +594,10 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, const void
                          int causal, float mask_value, void* stream) {
   if (Hkv <= 0 || H % Hkv != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define ARGS dh, q, k, v, mask, bias, out, lse, B, H, Hkv, Tq, Tk, q_sb, q_st, k_sb, k_st, \
-             v_sb, v_st, bias_batched, scale, causal, mask_value, s
   cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == DT_F32 && bias_dtype == DT_F32) err = launch_dh<float, float>(ARGS);
-  else if (dtype == DT_F32 && bias_dtype == DT_BF16) err = launch_dh<float, __nv_bfloat16>(ARGS);
-  else if (dtype == DT_BF16 && bias_dtype == DT_F32) err = launch_dh<__nv_bfloat16, float>(ARGS);
-  else if (dtype == DT_BF16 && bias_dtype == DT_BF16)
-    err = launch_dh<__nv_bfloat16, __nv_bfloat16>(ARGS);
-#undef ARGS
+  if (dtype == DT_F32 && bias_dtype == DT_F32) err = launch_f32<float>(FLASH_ARGS);
+  else if (dtype == DT_F32 && bias_dtype == DT_BF16) err = launch_f32<__nv_bfloat16>(FLASH_ARGS);
+  else if (dtype == DT_BF16 && bias_dtype == DT_F32) err = launch_bf16<float>(FLASH_ARGS);
+  else if (dtype == DT_BF16 && bias_dtype == DT_BF16) err = launch_bf16<__nv_bfloat16>(FLASH_ARGS);
   return (int)err;
 }

@@ -21,8 +21,9 @@
 // What bounds it on the H100: the GEMMs. At t5-base, B 32, T 512 a layer is
 // ~232 GFLOP of products over ~60 MB of activations and weights, far above
 // the ridge point, so the tensor-core rate is the limit. The GEMM template
-// is gemm_fwd.cuh's (WMMA bf16, SIMT f32), shared with the BERT layer. The
-// RMSNorm is one block per row, bound by memory.
+// is gemm_fwd.cuh's (bf16: wgmma.mma_async from a cp.async ring of swizzled
+// tiles; f32: SIMT, exact), shared with the BERT and ViT layers. The RMSNorm
+// is one block per row, bound by memory.
 #include "gemm_fwd.cuh"
 
 namespace {

@@ -18,10 +18,10 @@
 // the order of f32 sums.
 //
 // What bounds it on the H100: at B 8, H 12, T 2048, dk 64 the attention is
-// 103 GFLOP against 50 MB of q, k, v and o: arithmetic, by three orders. K2
-// (flash_fwd.cu) does these products on SIMT FMAs and takes 8.6 of the
-// layer's 10.1 ms there; here both products run on WMMA (mma.sync, bf16 in,
-// f32 accumulate). One block is 4 warps of 16 query rows; a warp keeps its
+// 103 GFLOP against 50 MB of q, k, v and o: arithmetic, by three orders. Both
+// products run on WMMA (mma.sync, bf16 in, f32 accumulate); K2's bf16 rows
+// (flash_fwd.cu) run on wgmma with the softmax in registers, and
+// chip_smoke.py times both kernels on the bias-free rows. One block is 4 warps of 16 query rows; a warp keeps its
 // q fragments and its f32 accumulator fragments in registers, writes its
 // 16 x 64 scores to shared memory, where two lanes per row do the softmax
 // step, and multiplies the bf16 probabilities with the v tile into the
@@ -32,8 +32,8 @@
 // are 68 words apart (WMMA wants a multiple of 4), so rows r and r + 8 start
 // in one bank: a lane takes, of every four columns, the two that `lane_col`
 // gives it, and the 32 lanes of a step hit 32 banks. The K and V tiles are
-// loaded by all four warps with 16-byte loads; nothing is pipelined yet.
-// f32 rows keep K2 (WMMA has no exact f32 product).
+// loaded by all four warps with 16-byte loads; nothing is pipelined here.
+// f32 rows keep K2's SIMT kernel (the tensor cores have no exact f32 product).
 #include <mma.h>
 
 #include "common.cuh"

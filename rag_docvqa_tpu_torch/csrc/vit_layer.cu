@@ -27,8 +27,9 @@
 // What bounds it on the H100: the GEMMs. At ViT-base (d 768, mlp 3072, B 32,
 // T 197) a layer is ~90 GFLOP of products and 3.8 GFLOP of attention over
 // ~70 MB of activations and weights, far above the ridge point; the GEMM is
-// gemm_fwd.cuh's template (WMMA bf16, SIMT f32) and the attention is SIMT,
-// bound by shared-memory bandwidth like K2. The LayerNorm is bound by memory.
+// gemm_fwd.cuh's template (bf16: wgmma.mma_async from a cp.async ring; f32:
+// SIMT, exact) and the attention is SIMT, bound by shared-memory bandwidth as
+// K2's f32 rows are. The LayerNorm is bound by memory.
 #include "gemm_fwd.cuh"
 
 namespace {

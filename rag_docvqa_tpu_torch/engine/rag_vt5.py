@@ -4,18 +4,23 @@ Counterpart of `rag_docvqa_tpu/engine/rag_vt5.py` for the `concat` and
 `oracle` strategies: `RAGConfig`, `retrieve` (the JAX `retrieve_device`)
 and `RAGVT5Engine.inference` with `_decode` and `_result`, with the optional
 cross-encoder rerank stage after retrieval (engine/reranker.py; never for
-`oracle`) and the visual branch (`use_visual`, `_visual`): the top-k chunk
+`oracle`), the optional reorder of the top-k chunks into reading order
+(`reorder_chunks`, `reading_order`; after the reranker, never for `oracle`)
+and the visual branch (`use_visual`, `_visual`): the top-k chunk
 boxes are cropped from the page images, packed into one grid image per
 sample, resized, normalised and fed through the DiT tower (K14), and the
 197 visual tokens are appended to the encoder input. The other strategies
 raise `NotImplementedError` naming the ROADMAP slice that ports them; NAC
-and chunk reordering (ROADMAP Queue 1 item 8) are not in the port yet, nor
-their config fields.
+(ROADMAP Queue 1 item 8) is not in the port yet, nor its config fields.
 
 Everything from retrieval to the decoded ids runs on the parameters'
 device; the host tokenizes at ingest and detokenizes the answers. The
 result carries the stage split of the wall time under "timings", each stage
-ended by a device synchronize; with a reranker, "rerank_time" under
+ended by a device synchronize. "retrieval_time" under "retrieval" ends after
+retrieve, rerank and reorder, before the assembly, as the JAX engine's does,
+and "generation_time" covers the assembly, the visual branch, encode and
+decode; "retrieve_assemble_s" under "timings" includes the assembly. With a
+reranker, "rerank_time" under
 "retrieval" is the reranker call alone between two synchronizes (it is part
 of "retrieve_assemble_s"); with the visual branch, "visual_s" is the host
 crops and grid plus the tower (it is part of "encode_s").
@@ -55,6 +60,7 @@ class RAGConfig:
     max_source_length: int = 512
     max_new_tokens: int = 100
     use_visual: bool = False  # feed the DiT visual tokens of the retrieved chunks
+    reorder_chunks: bool = False  # top-k chunks into reading order before assembly
 
     def __post_init__(self):
         if self.page_retrieval not in STRATEGIES:
@@ -91,6 +97,24 @@ def retrieve(shared: torch.Tensor, batch: ChunkedBatch, k: int, oracle: bool = F
         top_k_page=take(batch.chunk_page), top_k_label=take(batch.chunk_label),
         top_k_box=torch.gather(batch.chunk_box, 1, idx[..., None].expand(-1, -1, 4)),
         similarities=sims,
+    )
+
+
+def reading_order(ret: RetrievalResult, batch: ChunkedBatch) -> RetrievalResult:
+    """The top-k chunks in document reading order, ascending (page,
+    slot_start), invalid rows kept at the end (the JAX
+    `reading_order_device`): a stable sort, so ties keep their rank order."""
+    start = torch.take_along_dim(batch.chunk_slot_start, ret.top_k_idx.long(), dim=1)
+    W = batch.slot_mask.shape[1]
+    key = ret.top_k_page.to(torch.int64) * (W + 1) + start.to(torch.int64)  # lexicographic (page, position)
+    key = torch.where(ret.top_k_valid, key, torch.full_like(key, torch.iinfo(torch.int32).max))
+    order = torch.argsort(key, dim=1, stable=True)
+    take = lambda x: torch.take_along_dim(x, order, dim=1)
+    return RetrievalResult(
+        top_k_idx=take(ret.top_k_idx), top_k_valid=take(ret.top_k_valid), top_k_score=take(ret.top_k_score),
+        top_k_page=take(ret.top_k_page), top_k_label=take(ret.top_k_label),
+        top_k_box=torch.take_along_dim(ret.top_k_box, order[..., None], dim=1),
+        similarities=ret.similarities,
     )
 
 
@@ -133,6 +157,10 @@ class RAGVT5Engine:
             ret = self.reranker(batch, ret)
             _sync(dev)
             rerank_s = time.perf_counter() - tr
+        if cfg.reorder_chunks and not oracle:
+            ret = reading_order(ret, batch)
+        _sync(dev)
+        tr1 = time.perf_counter()  # retrieval ends here; the assembly counts as generation
         gen, owner = assemble_concat(batch, ret.top_k_idx, ret.top_k_valid, cfg.assemble())
         _sync(dev)
         t1 = time.perf_counter()
@@ -157,8 +185,8 @@ class RAGVT5Engine:
             pages_np = ret.top_k_page.cpu().numpy()
             pages = [pages_np[b][valid_np[b]].tolist() for b in range(B)]
         result = self._result(answers, confs, pages, ret, batch, aux, owner)
-        result["retrieval"]["retrieval_time"] = t1 - t0
-        result["retrieval"]["generation_time"] = t3 - t1
+        result["retrieval"]["retrieval_time"] = tr1 - t0
+        result["retrieval"]["generation_time"] = t3 - tr1
         if self.reranker is not None:
             result["retrieval"]["rerank_time"] = rerank_s
         result["timings"] = {"retrieve_assemble_s": t1 - t0, "encode_s": t2 - t1, "decode_s": t3 - t2}

@@ -1,34 +1,41 @@
 """Port parity, the whole slice: `RAGVT5Engine.inference` with the concat
 and oracle strategies on the VT5_tiny.yml dims against the JAX engine on
-the same ingested batch and weights; the port running with jax, flax, optax
-and orbax unimportable; and chip_smoke.py refusing to run without a GPU."""
+the same ingested batch and weights, with `reorder_chunks` down to the
+assembled token ids, and where its `retrieval_time` clock stops; the port
+running with jax, flax, optax and orbax unimportable; and chip_smoke.py
+refusing to run without a GPU."""
 
 import json
 import os
 import subprocess
 import sys
 import textwrap
+import time
 
 import jax
 import numpy as np
 import pytest
 import torch
 
+from rag_docvqa_tpu import config as j_config
 from rag_docvqa_tpu.data import DocVQAIngestor as JIngestor
 from rag_docvqa_tpu.data import HashTokenizer as JHashTokenizer
 from rag_docvqa_tpu.data.contract import Caps as JCaps
 from rag_docvqa_tpu.data.synthetic import make_corpus as j_make_corpus
 from rag_docvqa_tpu.engine import RAGConfig as JRAGConfig
 from rag_docvqa_tpu.engine import RAGVT5Engine as JEngine
+from rag_docvqa_tpu.engine import rag_vt5 as j_rag
 from rag_docvqa_tpu.models import t5 as j_t5
 from rag_docvqa_tpu.models import vt5 as j_vt5
 from rag_docvqa_tpu.models.embeddings import SpatialConfig as JSpatialConfig
 from rag_docvqa_tpu.ops.chunking import ChunkSpec
+from rag_docvqa_tpu_torch import config as p_config
 from rag_docvqa_tpu_torch import params as p_params
 from rag_docvqa_tpu_torch.data.contract import Caps
 from rag_docvqa_tpu_torch.data.ingest import DocVQAIngestor
 from rag_docvqa_tpu_torch.data.synthetic import make_corpus
 from rag_docvqa_tpu_torch.data.tokenizer import HashTokenizer
+from rag_docvqa_tpu_torch.engine import rag_vt5 as p_rag
 from rag_docvqa_tpu_torch.engine.rag_vt5 import RAGConfig, RAGVT5Engine
 from rag_docvqa_tpu_torch.models import t5 as p_t5
 from rag_docvqa_tpu_torch.models import vt5 as p_vt5
@@ -82,6 +89,81 @@ def test_engine_matches_jax(weights, strategy):
     np.testing.assert_array_equal(r["boxes"], np.asarray(w["boxes"]))
     assert r["text"] == w["text"]
     assert set(got["timings"]) == {"retrieve_assemble_s", "encode_s", "decode_s"}
+
+
+def _ingested(seed=5):
+    jdocs = j_make_corpus(3, n_pages=3, words_per_page=40, seed=seed)
+    pdocs = make_corpus(3, n_pages=3, words_per_page=40, seed=seed)
+    jtok, ptok = JHashTokenizer(4096), HashTokenizer(4096)
+    jb, jaux = JIngestor(jtok, SPEC, JCaps(**CAPS)).ingest(jdocs)
+    pb, paux = DocVQAIngestor(ptok, SPEC, Caps(**CAPS)).ingest(pdocs)
+    return jtok, ptok, jb, jaux, pb, paux
+
+
+def _capture_assembled(monkeypatch, module):
+    """Wraps the module's `assemble_concat` to keep the token ids it returns."""
+    seen = []
+    inner = module.assemble_concat
+
+    def wrapped(*args, **kwargs):
+        gen, owner = inner(*args, **kwargs)
+        seen.append(np.asarray(gen.input_ids))
+        return gen, owner
+
+    monkeypatch.setattr(module, "assemble_concat", wrapped)
+    return seen
+
+
+def test_reorder_chunks_engine_matches_jax(weights, monkeypatch):
+    """A config with `reorder_chunks: true` gives the JAX engine's assembled
+    token ids exactly (reading order after retrieval, never for oracle)."""
+    jcfg, tree, pcfg, port = weights
+    jtok, ptok, jb, jaux, pb, paux = _ingested()
+    kw = dict(RAG_KW, chunk_num=5, include_surroundings=1)
+    c = dict(kw, reorder_chunks=True, page_retrieval="concat")
+    prag = p_config.build_rag_config(c)
+    assert prag.reorder_chunks and j_config.build_rag_config(c).reorder_chunks
+    assert not p_config.build_rag_config({}).reorder_chunks
+    jseen, pseen = _capture_assembled(monkeypatch, j_rag), _capture_assembled(monkeypatch, p_rag)
+    want = JEngine(JRAGConfig(reorder_chunks=True, **kw), jcfg, jax.tree.map(jax.numpy.asarray, tree),
+                   jtok).inference(jb, jaux)
+    got = RAGVT5Engine(prag, pcfg, port, ptok).inference(pb, paux)
+    np.testing.assert_array_equal(pseen[0], jseen[0])
+    assert got["pred_answers"] == want["pred_answers"]
+    assert got["pred_answer_pages"] == want["pred_answer_pages"]
+    assert got["retrieval"]["top_k_layout_labels"] == want["retrieval"]["top_k_layout_labels"]
+    np.testing.assert_array_equal(got["retrieval"]["boxes"], np.asarray(want["retrieval"]["boxes"]))
+    # the key changes what the generator reads: without it the ids differ
+    RAGVT5Engine(RAGConfig(**kw), pcfg, port, ptok).inference(pb, paux)
+    assert not np.array_equal(pseen[1], pseen[0])
+    a = RAGVT5Engine(RAGConfig(reorder_chunks=True, page_retrieval="oracle", **kw), pcfg, port, ptok).inference(pb, paux)
+    b = RAGVT5Engine(RAGConfig(page_retrieval="oracle", **kw), pcfg, port, ptok).inference(pb, paux)
+    np.testing.assert_array_equal(pseen[2], pseen[3])
+    assert a["pred_answers"] == b["pred_answers"]
+
+
+def test_retrieval_time_ends_before_assembly(weights, monkeypatch):
+    """The assembly counts as generation, as in the JAX engine: a slow
+    `assemble_concat` lengthens `generation_time` and `retrieve_assemble_s`,
+    not `retrieval_time`."""
+    _, _, pcfg, port = weights
+    _, ptok, _, _, pb, paux = _ingested()
+    engine = RAGVT5Engine(RAGConfig(**RAG_KW), pcfg, port, ptok)
+    engine.inference(pb, paux)  # warm
+    pause = 0.4
+    inner = p_rag.assemble_concat
+
+    def slow(*args, **kwargs):
+        time.sleep(pause)
+        return inner(*args, **kwargs)
+
+    monkeypatch.setattr(p_rag, "assemble_concat", slow)
+    slowed = engine.inference(pb, paux)
+    r, t = slowed["retrieval"], slowed["timings"]
+    assert r["retrieval_time"] < pause
+    assert r["generation_time"] >= pause
+    assert t["retrieve_assemble_s"] >= pause
+    assert r["generation_time"] >= t["encode_s"] + t["decode_s"]
 
 
 def test_engine_refuses_unported_strategies(weights):

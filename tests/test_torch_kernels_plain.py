@@ -100,6 +100,68 @@ def test_flash_t5_mask_value_gives_uniform_rows():
                                rtol=1e-5, atol=1e-5)
 
 
+# The shapes where a kernel tiled 64 x 64 breaks (one short of a tile, a full
+# tile, one over, two tiles and one), at head dims that fill a 64-wide
+# instantiation and that do not: on the card the plain version is the
+# tensor-core kernel's yardstick there, so it is held to the JAX kernel here.
+EDGE_CASES = {f"T{T}_dh{dh}": dict(Tq=T, Tk=T, dh=dh) for T in (63, 64, 65, 129) for dh in (40, 64)}
+EDGE_CASES.update({
+    "causal_gqa_T129": dict(Tq=129, Tk=129, dh=64, hkv=2, causal=True),
+    "Tq65_Tk129": dict(Tq=65, Tk=129, dh=40),
+    "Tq129_Tk65": dict(Tq=129, Tk=65, dh=64),
+    "t5_mask_value_T65": dict(Tq=65, Tk=65, dh=64, mask_value=-1e9),
+    "t5_mask_value_T129_dh40": dict(Tq=129, Tk=129, dh=40, mask_value=-1e9),
+})
+
+
+@pytest.mark.parametrize("name", sorted(EDGE_CASES))
+def test_flash_plain_matches_jax_at_tile_edges(name):
+    """out within 1e-5 of the JAX flash forward (interpret mode, 64-wide
+    blocks, so the edge falls inside its padding too) and of its
+    `attention_reference`; lse within 1e-5 of the JAX kernel's; one batch row
+    has no valid key. With mask_value -1e9 (K1's) that row is a uniform
+    average in the plain version and in the JAX arithmetic it stands for."""
+    case = EDGE_CASES[name]
+    Tq, Tk, dh, H = case["Tq"], case["Tk"], case["dh"], 4
+    hkv, causal, mask_value = case.get("hkv", H), case.get("causal", False), case.get("mask_value", p_fa.NEG_INF)
+    rng = np.random.RandomState(Tq + Tk + dh)
+    B = 3
+    q = rng.randn(B, Tq, H, dh).astype(np.float32)
+    k = rng.randn(B, Tk, hkv, dh).astype(np.float32)
+    v = rng.randn(B, Tk, hkv, dh).astype(np.float32)
+    mask = np.arange(Tk)[None, :] < np.array([Tk, Tk // 2 + 1, 0])[:, None]
+    bias = rng.randn(1, H, Tq, Tk).astype(np.float32)
+    scale = dh ** -0.5
+    out, lse = p_fa.flash_attention_reference(_t(q), _t(k), _t(v), _t(mask), _t(bias), scale, causal, mask_value)
+    assert out.shape == (B, Tq, H, dh) and lse.shape == (B, H, Tq) and lse.dtype == torch.float32
+    jq, jk, jv, jm, jb = (jnp.asarray(a) for a in (q, k, v, mask, bias))
+    alive = mask.any(axis=1)
+    if mask_value == p_fa.NEG_INF:
+        want = j_fa.flash_attention(jq, jk, jv, jm, jb, scale=scale, causal=causal, block_q=64, block_k=64,
+                                    interpret=True)
+        np.testing.assert_allclose(out.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+        ref = j_fa.attention_reference(jq, jk, jv, jm, jb, scale, causal)
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+        assert (out.numpy()[~alive] == 0).all() and (lse.numpy()[~alive] < p_fa.NEG_INF / 2).all()
+        if Tq == Tk:  # the JAX kernel's own lse, one block over the whole length
+            rep = H // hkv
+            qT = jnp.transpose(jq, (0, 2, 1, 3)).reshape(B, hkv, rep, Tq, dh)
+            kT, vT = jnp.transpose(jk, (0, 2, 1, 3)), jnp.transpose(jv, (0, 2, 1, 3))
+            _, jlse = j_fa._fwd_call_impl(qT, kT, vT, jm[:, None, :], jb.reshape(1, hkv, rep, Tq, Tk), scale=scale,
+                                          causal=causal, bq=Tq, bk=Tk, rep=rep, interpret=True)
+            np.testing.assert_allclose(lse.numpy()[alive], np.asarray(jlse).reshape(B, H, Tq)[alive], rtol=1e-5, atol=1e-5)
+    else:
+        # K1's arithmetic (`_t5_layer_kernel`, `_attend`): masked scores at -1e9, a plain softmax
+        kk, vv = (jnp.repeat(a, H // hkv, axis=2) for a in (jk, jv))
+        sc = jnp.einsum("bqhd,bkhd->bhqk", jq, kk) * scale + jb
+        sc = jnp.where(jm[:, None, None, :], sc, mask_value)
+        want = jnp.einsum("bhqk,bkhd->bqhd", jax.nn.softmax(sc, axis=-1), vv)
+        np.testing.assert_allclose(out.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(lse.numpy(), np.asarray(jax.nn.logsumexp(sc, axis=-1)), rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(out.numpy()[~alive], np.broadcast_to(v[~alive].mean(axis=1, keepdims=True),
+                                                                        out.numpy()[~alive].shape), rtol=1e-5, atol=1e-5)
+
+
 # --------------------------------------------------------------------------- #
 # K1: the T5 encoder layer
 # --------------------------------------------------------------------------- #
@@ -157,6 +219,63 @@ def test_gemm_epilogues_cast_before_residual():
                        torch.nn.functional.gelu(g.float(), approximate="tanh").bfloat16() * aux)
     with pytest.raises(ValueError):
         p_fe.gemm(a, w, "residual")
+
+
+def _jax_epilogue(epi, acc, aux, bias, scale, cdt):
+    """The JAX layer kernels' own arithmetic after a product `acc` (f32):
+    `_t5_layer_kernel` (none, relu, residual, gelu_mul), `_layer_kernel`
+    (bias, bias_gelu, bias_residual_f32) and `_vit_layer_kernel`
+    (bias_scale_residual), each with its casts to the compute dtype."""
+    f32 = jnp.float32
+    if epi == "none":
+        return acc.astype(cdt)
+    if epi == "relu":
+        return jnp.maximum(acc, 0.0).astype(cdt)
+    if epi == "residual":
+        return aux + acc.astype(cdt)
+    if epi == "gelu_mul":
+        return jax.nn.gelu(acc.astype(cdt).astype(f32), approximate=True).astype(cdt) * aux
+    h = acc + bias.astype(f32)
+    if epi == "bias":
+        return h.astype(cdt)
+    if epi == "bias_gelu":
+        return (0.5 * h * (1.0 + j_fe._erf32(h * (2.0 ** -0.5)))).astype(cdt)
+    if epi == "bias_residual_f32":
+        return aux.astype(f32) + h
+    y = h.astype(cdt)
+    if scale is not None:
+        y = y * scale
+    return y + aux
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("epi", sorted(p_fe.EPILOGUES))
+def test_gemm_plain_epilogues_at_tile_tails(epi, dtype):
+    """Every epilogue of `gemm_reference` at (M, N, K) = (129, 136, 72), past a
+    128-wide tile in M and N and past a 64-deep step in K, against the JAX
+    layer kernels' arithmetic on the same product. f32: 1e-5. bf16: the two
+    frameworks sum the f32 product in another order, so a value on a rounding
+    boundary may land one bf16 step apart: 2^-7 of its size."""
+    M, N, K = 129, 136, 72
+    rng = np.random.RandomState(len(epi))
+    a, w = rng.randn(M, K).astype(np.float32), (rng.randn(N, K) * K ** -0.5).astype(np.float32)
+    aux = rng.randn(M, N).astype(np.float32) if epi in p_fe._AUX_EPILOGUES else None
+    bias = rng.randn(N).astype(np.float32) if epi.startswith("bias") else None
+    scale = rng.randn(N).astype(np.float32) if epi == "bias_scale_residual" else None
+    tdt, jdt = (torch.float32, jnp.float32) if dtype == "f32" else (torch.bfloat16, jnp.bfloat16)
+    pt = lambda x: None if x is None else _t(x).to(tdt)
+    jx = lambda x: None if x is None else jnp.asarray(x).astype(jdt)
+    got = p_fe.gemm_reference(pt(a), pt(w), epi, pt(aux), pt(bias), pt(scale))
+    acc = jnp.dot(jx(a), jx(w).T, preferred_element_type=jnp.float32)
+    want = _jax_epilogue(epi, acc, jx(aux), jx(bias), jx(scale), jdt)
+    assert got.shape == (M, N)
+    assert got.dtype == (torch.float32 if epi == "bias_residual_f32" else tdt)
+    tol = 1e-5 if dtype == "f32" or epi == "bias_residual_f32" else 2.0 ** -7
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)), rtol=tol, atol=tol)
+    # the wrappers run exactly this on CPU tensors
+    run = p_fe.vit_gemm if epi == "bias_scale_residual" else p_fe.gemm
+    args = (pt(a), pt(w), epi, pt(aux), pt(bias)) + ((pt(scale),) if epi == "bias_scale_residual" else ())
+    assert torch.equal(run(*args), got)
 
 
 # --------------------------------------------------------------------------- #

@@ -15,15 +15,16 @@ from rag_docvqa_tpu.data.contract import Caps as JCaps
 from rag_docvqa_tpu.data.ingest import DocVQAIngestor as JIngestor
 from rag_docvqa_tpu.data.synthetic import make_corpus as j_make_corpus
 from rag_docvqa_tpu.data.tokenizer import HashTokenizer as JHashTokenizer
-from rag_docvqa_tpu.engine.rag_vt5 import retrieve_device
+from rag_docvqa_tpu.data.contract import RetrievalResult as JRetrievalResult
+from rag_docvqa_tpu.engine.rag_vt5 import reading_order_device, retrieve_device
 from rag_docvqa_tpu.ops import gather as j_gather
 from rag_docvqa_tpu.ops import topk as j_topk
 from rag_docvqa_tpu.ops.chunking import ChunkSpec
-from rag_docvqa_tpu_torch.data.contract import Caps, to_device
+from rag_docvqa_tpu_torch.data.contract import Caps, RetrievalResult, to_device
 from rag_docvqa_tpu_torch.data.ingest import DocVQAIngestor
 from rag_docvqa_tpu_torch.data.synthetic import make_corpus
 from rag_docvqa_tpu_torch.data.tokenizer import HashTokenizer
-from rag_docvqa_tpu_torch.engine.rag_vt5 import retrieve
+from rag_docvqa_tpu_torch.engine.rag_vt5 import reading_order, retrieve
 from rag_docvqa_tpu_torch.ops import gather as p_gather
 from rag_docvqa_tpu_torch.ops import topk as p_topk
 
@@ -105,6 +106,36 @@ def test_retrieve_matches(oracle):
     np.testing.assert_array_equal(rp.top_k_box.numpy(), np.asarray(rj.top_k_box))
     np.testing.assert_allclose(rp.top_k_score.numpy(), np.asarray(rj.top_k_score), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(rp.similarities.numpy(), np.asarray(rj.similarities), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_reading_order_matches_jax(seed):
+    """`reorder_chunks`: seeded top-k sets with the chunks in random order, one
+    chunk drawn twice (a tie in (page, slot_start): the stable sort keeps its
+    rank order), invalid rows in the middle and a row with no valid chunk.
+    Everything is moved, nothing computed: all outputs equal exactly."""
+    jb, _, pb, _ = _batches(seed=7 + seed)
+    rng = np.random.RandomState(seed)
+    B, C = jb.chunk_mask.shape
+    K = 6
+    idx = np.stack([rng.permutation(C)[:K] for _ in range(B)]).astype(np.int32)
+    idx[:, 4] = idx[:, 1]
+    valid = jb.chunk_mask[np.arange(B)[:, None], idx] & (rng.rand(B, K) > 0.25)
+    valid[-1] = False
+    rows = np.arange(B)[:, None]
+    fields = dict(top_k_idx=idx, top_k_valid=valid, top_k_score=rng.rand(B, K).astype(np.float32),
+                  top_k_page=jb.chunk_page[rows, idx], top_k_label=jb.chunk_label[rows, idx],
+                  top_k_box=jb.chunk_box[rows, idx], similarities=rng.rand(B, C).astype(np.float32))
+    want = reading_order_device(JRetrievalResult(**{k: jnp.asarray(v) for k, v in fields.items()}), _jbatch(jb))
+    tfields = {k: torch.from_numpy(v) for k, v in fields.items()}
+    tfields["top_k_idx"] = tfields["top_k_idx"].long()
+    got = reading_order(RetrievalResult(**tfields), to_device(pb, "cpu"))
+    for name in fields:
+        np.testing.assert_array_equal(getattr(got, name).numpy(), np.asarray(getattr(want, name)), err_msg=name)
+    # the sort did something, and invalid rows went to the end
+    assert not np.array_equal(got.top_k_idx.numpy(), idx)
+    v = got.top_k_valid.numpy()
+    assert all(not v[b, i] or v[b, :i].all() for b in range(B) for i in range(K))
 
 
 @pytest.mark.parametrize("surround,sep,max_len", [(0, 0, 160), (2, 0, 160), (1, 7, 160), (3, 7, 48)])

@@ -174,16 +174,22 @@ def test_generate_with_visual_tokens_matches_jax():
 
 
 def test_config_keys_build_the_visual_branch():
+    """`build_vt5_config` reads `visual_hidden_size` only, as the JAX
+    `build_vt5_config`: the same dict through both gives the same tower, and
+    the other `visual_*` keys leave it at `ViTConfig`'s defaults."""
     c = {"use_visual": True, "visual_hidden_size": 16, "visual_num_layers": 2, "visual_num_heads": 2,
          "visual_mlp_dim": 32, "visual_patch_size": 8, "visual_image_size": 32, "d_model": 32, "d_kv": 8,
          "num_heads": 4, "d_ff": 64, "num_layers": 2}
     got = p_config.build_vt5_config(c, 1024)
     assert got.use_visual and p_config.build_rag_config(c).use_visual
-    want = j_config.build_hivt5_config(c, 1024).vit  # the JAX reading of the same visual_* keys
+    want = j_config.build_vt5_config(c, 1024).vit
     assert dataclasses.asdict(got.vit) == dataclasses.asdict(want)
+    assert got.vit.hidden_size == 16 and got.vit.num_layers == j_vit.ViTConfig().num_layers
     assert not p_config.build_vt5_config({}, 1024).use_visual and not p_config.build_rag_config({}).use_visual
     assert dataclasses.asdict(p_config.build_vt5_config({}, 1024).vit) == dataclasses.asdict(j_vit.ViTConfig())
+    # a small tower stays reachable by building the config directly
     tok = HashTokenizer(1024)
-    params = p_vt5.init_vt5_params(torch.Generator().manual_seed(0), got)
-    engine = p_config.build_engine(c, params, tok)
-    assert engine.cfg.use_visual and engine.params.visual is not None
+    small = dataclasses.replace(got, vit=p_vit.ViTConfig(**_vit_kw("vit")))
+    params = p_vt5.init_vt5_params(torch.Generator().manual_seed(0), small)
+    engine = RAGVT5Engine(p_config.build_rag_config(c), small, params, tok)
+    assert engine.cfg.use_visual and engine.params.visual is not None and engine.vt5_cfg.vit.num_layers == 2
