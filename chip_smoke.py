@@ -43,9 +43,17 @@ Nine phases; any failure raises and the script exits non-zero:
         -1e9 and -1e30) and at the training shape B8 H12 T512 dk64 with a
         shared bf16 bias: dq, dk, dv and dbias within 1e-4 (f32) and 2e-2
         (bf16) of max(1, max|ref|);
-     b. the T5 layer backward halves K7 (FFN) and K8 (attention) against
-        their plain versions at t5-base B8 T512 in f32 and bf16, and the
-        whole-layer gradient of T5LayerTrain against autograd through the
+     b. the SASS of csrc/t5_layer_bwd.cu holds HGMMA (cuobjdump -sass of
+        the built library); the backward GEMM `t5_gemm_bwd` for each of its
+        (layout, epilogue) pairs at the edges of its 128 x 128 and 128 x 256
+        tiles and 64-deep K steps (129x136x72, 77x264x200, the wide tile at
+        8192x1280x1024, TN over 1,031 rows in 1 and 3 ranges), bf16 and f32,
+        each bf16 case launched twice for equal bits; then at the path's
+        shapes, timed by events and by the profiler's device time beside
+        torch.matmul at the same layout (the bare product where the epilogue
+        does more); the T5 layer backward halves K7 (FFN) and K8 (attention)
+        against their plain versions at t5-base B8 T512 in f32 and bf16, and
+        the whole-layer gradient of T5LayerTrain against autograd through the
         plain layer (f32);
      c. the full-width f32 12-layer encoder gradient at B2 T512 against
         autograd of the plain stack, within 1e-4 of each gradient's largest
@@ -109,9 +117,10 @@ Nine phases; any failure raises and the script exits non-zero:
         rank); 1 to 5 valid ranks per document with scores sorted descending,
         finite confidences, every kernel of K1-K3 and K9 launched; ms per
         batch and the reranker call alone between two synchronizes;
-     e. K10's parts (the backward GEMM's three BERT epilogues, the weight-
-        gradient product cut into row ranges, the LayerNorm backward, the
-        column sums), `bert_ffn_bwd` and `bert_attn_bwd` at bge-small B 256
+     e. the SASS of csrc/bert_layer_bwd.cu holds HGMMA; K10's parts (the
+        backward GEMM's three BERT epilogues at the tile edges of 6b and at
+        the path's shapes, timed as in 6b; the weight-gradient product cut
+        into row ranges, the LayerNorm backward, the column sums), `bert_ffn_bwd` and `bert_attn_bwd` at bge-small B 256
         T 64 in f32 and bf16, a sequence with no valid key (finite, equal to
         the plain version), BertLayerTrain's whole-layer gradient and the
         full-width f32 12-layer encoder gradient (B 16) against autograd of
@@ -125,10 +134,15 @@ Nine phases; any failure raises and the script exits non-zero:
         compared digit for digit and the result printed;
   9. the visual paths (the pre-LN ViT layer K14, the query-tiled T5 layer
      K13, K1 without a bias, MaxSim K15), TF32 still off:
-     a. K14's parts (the LayerNorm over the compute dtype, the GEMM's bias,
-        bias + erf-GELU and bias + layer-scale + residual epilogues, the
-        attention with the score rows in shared memory: dh 40, 64 and 128, a
-        bf16 rel-pos bias, a row with no valid key) and the whole layer
+     a. the SASS of csrc/vit_layer.cu holds HGMMA; K14's parts (the
+        LayerNorm over the compute dtype, the GEMM's bias, bias + erf-GELU and
+        bias + layer-scale + residual epilogues, the attention: dh 40, 64 and
+        128, a bf16 rel-pos bias with rows padded to a multiple of 8, a row
+        with no valid key; in bf16 at the edges of the wgmma kernel's 64-query
+        tiles and 256-key rows, T 63, 64, 65, 129, 197, 256, 257 and 300 at dh
+        40, 64 and 128, with and without the bias, each launched twice for
+        equal bits; the path's shape timed beside SDPA by events and by the
+        profiler's device time) and the whole layer
         against their plain versions: small ragged f32 cases (plain ViT and
         BEiT with bias and layer-scale, T 197 and T 21), then ViT-base width
         B 32 T 197 in f32 (<= 1e-4) and bf16 (<= 2e-2 of max(1, max|ref|));
@@ -201,9 +215,11 @@ metrics (metrics/) and image patch math (ops/patches.py).
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -291,6 +307,22 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+    """Mean device time of `fn`'s kernels (the CUDA kernel events of a
+    torch.profiler trace), free of the host's time between launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    return sum(e.time_range.elapsed_us() for e in prof.events() if e.device_type == cuda) / iters / 1e3
+
+
 def nbytes(*tensors) -> int:
     """Bytes of the given tensors, each counted once (None skipped)."""
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
@@ -321,10 +353,87 @@ def rel_tol(dtype: torch.dtype, want: torch.Tensor) -> float:
     return (F32_TOL if dtype == torch.float32 else BF16_REL_TOL) * max(want.float().abs().max().item(), 1.0)
 
 
+class PartsBound:
+    """The sum of the bounds of the kernels one call of a composed layer
+    launches (K1, K7-K10: `fe._t5_layer`, `fe._ffn_bwd` and the like take
+    each kernel wrapper as a parameter): `wrap(fn)` gives the wrapper back
+    adding its own call's bound to `ms`, its tensors (arguments and results,
+    each once) over the memory rate and its operations, counted as the
+    per-kernel rows count them, over their type's peak rate."""
+
+    def __init__(self):
+        self.ms = 0.0
+
+    def wrap(self, fn):
+        from rag_docvqa_tpu_torch.ops import flash_attention as fa
+        from rag_docvqa_tpu_torch.ops import fused_encoder as fe
+
+        def mnk(a, b, layout):
+            M, K = (a.shape[1], a.shape[0]) if layout == "tn" else a.shape
+            return M, (b.shape[0] if layout == "nt" else b.shape[1]), K
+
+        def attention(q, k, *_, **__):  # q (B, Tq, H, dh), k (B, Tk, Hkv, dh): one product of the attention
+            return 2.0 * q.shape[0] * q.shape[2] * q.shape[1] * k.shape[1] * q.shape[3]
+
+        ops = {fe.gemm: lambda a, w, *_, **__: 2.0 * a.shape[0] * w.shape[0] * a.shape[1],
+               fe.gemm_bwd: lambda a, b, layout, *_, **__: 2.0 * math.prod(mnk(a, b, layout)),
+               fa.flash_attention_fwd: lambda *a, **k: 2 * attention(*a, **k),
+               fa.flash_attention_bwd: lambda *a, **k: 5 * attention(*a, **k),
+               fe.rms_norm_rows: lambda x, *_: 4.0 * x.numel(), fe.rms_norm_bwd: lambda x, *_: 10.0 * x.numel(),
+               fe.layer_norm_rows: lambda y, *_: 8.0 * y.numel(), fe.layer_norm_bwd: lambda y, *_: 16.0 * y.numel(),
+               fe.col_sum: lambda x: 1.0 * x.numel()}[fn]
+        products = (fe.gemm, fe.gemm_bwd, fa.flash_attention_fwd, fa.flash_attention_bwd)
+
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            tensors = {}
+            for t in (*args, *kw.values(), *(out if isinstance(out, tuple) else (out,))):
+                for x in (t if isinstance(t, tuple) else (t,)):
+                    if isinstance(x, torch.Tensor):
+                        tensors[id(x)] = x
+            first = next(iter(tensors.values()))
+            self.ms += bound(nbytes(*tensors.values()), ops(*args, **kw),
+                             op_type(first.dtype) if fn in products else "f32")[0]
+            return out
+
+        return call
+
+
 def check_launched(launches: dict, names, path: str) -> None:
     missing = [k for k in names if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels of the {path} path never launched: {missing}")
+
+
+@functools.lru_cache(maxsize=1)
+def hgmma_counts() -> dict:
+    """HGMMA instructions per kernel function in the SASS of the built
+    library (`cuobjdump -sass`)."""
+    from rag_docvqa_tpu_torch import kernels
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(kernels.build())], capture_output=True, text=True, timeout=600)
+    if sass.returncode != 0:
+        raise AssertionError(f"cuobjdump -sass failed ({sass.returncode}): {sass.stderr[-2000:]}")
+    counts, fn = {}, None
+    for line in sass.stdout.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts.setdefault(fn, 0)
+        elif fn is not None and "HGMMA" in line:
+            counts[fn] += 1
+    return counts
+
+
+def check_hgmma(source: str) -> None:
+    """Fails unless the built SASS of csrc/<source>.cu holds HGMMA (wgmma) instructions."""
+    stem = source.removesuffix(".cu")
+    mine = {fn: n for fn, n in hgmma_counts().items() if f"_{stem}_cu_" in fn}
+    total = sum(mine.values())
+    log(f"  SASS of csrc/{source}: {total} HGMMA instructions in {sum(1 for n in mine.values() if n)} of its "
+        f"{len(mine)} kernels")
+    if total == 0:
+        raise AssertionError(f"csrc/{source}: no HGMMA in the built SASS; its bf16 kernels are not on wgmma")
 
 
 class Checks:
@@ -349,18 +458,34 @@ class Checks:
         return err
 
     def timed(self, unit: str, label: str, fn, plain, iters: int = 10, library=None, io_bytes=None, ops=0.0,
-              ops_in: str = "f32") -> None:
+              ops_in: str = "f32", library_is: str = "", device: bool = False, parts_bound=None) -> None:
         """Times `fn` against `plain` and, when given, against `library`
-        (one PyTorch call for the same function); `io_bytes` (every input
-        read once, every output written once) and `ops` of type `ops_in`
-        give the bound."""
+        (one PyTorch call for the same function, or for what `library_is`
+        says it computes where no one call does the whole function), all by
+        CUDA events around back-to-back calls; `device` adds the device time
+        of `fn` and `library` alone (`device_ms`), where a fast kernel's
+        wrapper takes longer on the host than the kernel on the card.
+        `io_bytes` (every input read once, every output written once) and
+        `ops` of type `ops_in` give the bound; a composed layer gives the sum
+        of its parts' bounds instead (`parts_bound`, a PartsBound)."""
         row = {"ms": time_ms(fn, iters), "plain_ms": time_ms(plain, iters),
                "library_ms": None if library is None else time_ms(library, iters)}
         text = f"kernel {row['ms']:.4f} ms   plain {row['plain_ms']:.4f} ms"
+        if device:
+            row["device_ms"] = device_ms(fn, iters)
+            text += f"   kernel on the device {row['device_ms']:.4f} ms"
+            if library is not None:
+                row["library_device_ms"] = device_ms(library, iters)
+                text += f" (library {row['library_device_ms']:.4f} ms)"
         if library is not None:
-            text += f"   library {row['library_ms']:.4f} ms"
+            text += f"   library {row['library_ms']:.4f} ms" + (f" ({library_is})" if library_is else "")
+            if library_is:
+                row["library_is"] = library_is
         if io_bytes is not None:
             row["bound_ms"], row["bound_by"] = bound(io_bytes, ops, ops_in)
+        if parts_bound is not None:
+            row["bound_ms"], row["bound_by"] = parts_bound.ms, "sum of its parts' bounds"
+        if "bound_ms" in row:
             text += f"   bound {row['bound_ms']:.4f} ms ({row['bound_by']})"
         self.times.setdefault(unit, {})[label] = row
         log(f"  {unit:24s} {label:44s} {text}")
@@ -508,8 +633,11 @@ def check_kernels(checks: Checks, g: torch.Generator) -> None:
         # K1 = rms_norm + gemm + flash_fwd, against the plain layer
         checks.compare("t5_layer", f"B32 T512 t5-base {tag}", got, want, tol(dtype, want))
         if dtype == torch.bfloat16:
+            pb = PartsBound()
+            fe._t5_layer(x, mask, bias, l, cfg.num_heads, cfg.layer_norm_eps, False, pb.wrap(fe.rms_norm_rows),
+                         pb.wrap(fe.gemm), pb.wrap(fa.flash_attention_fwd))
             checks.timed("t5_layer", f"B32 T512 t5-base {tag}", lambda: fe.fused_t5_layer_parts(x, mask, bias, l, **kw),
-                         lambda: fe.t5_layer_reference(x, mask, bias, l, **kw), iters=5)
+                         lambda: fe.t5_layer_reference(x, mask, bias, l, **kw), iters=5, parts_bound=pb)
     del params
 
     # ---- K3 decode cross-attention ----
@@ -740,6 +868,82 @@ def check_flash_bwd(checks: Checks, g: torch.Generator) -> None:
              f"B8 H12 T512 dk64 shared bias t5-mask {tag}", timed=dtype == torch.bfloat16)
 
 
+# backward-GEMM shapes that cut the bf16 kernel's 128-row and 128- or 256-column
+# tiles and its 64-deep K steps (NT and NN; TN takes M and N multiples of 8),
+# and one that takes the 128 x 256 tile (gemm_wide_tile: K >= 1024, N % 256 == 0,
+# at least 264 wide tiles)
+GEMM_BWD_EDGES = ((129, 136, 72), (77, 264, 200))
+GEMM_BWD_TN_EDGE = (136, 264, 1031)
+GEMM_BWD_WIDE = (8192, 1280, 1024)
+
+
+def gemm_bwd_case(checks: Checks, g: torch.Generator, layout: str, epi: str, M: int, N: int, K: int,
+                  dtype: torch.dtype, label: str, *, twice: bool = False, timed: bool = False, splits=None):
+    """One backward GEMM (t5_gemm_bwd or bert_gemm_bwd by its epilogue)
+    against `gemm_bwd_reference` on seeded operands of unit scale; relu_bwd's
+    dpre follows the kernel's own sign. `twice`: a second launch must give the
+    same bits; `timed`: time it beside `torch.matmul` at the same layout (the
+    bare product, bf16 out, where the epilogue does more); `splits` forces a
+    TN product's number of row ranges."""
+    from rag_docvqa_tpu_torch.ops import fused_encoder as fe
+
+    dev = g.device
+    randn = lambda *s: torch.randn(s, generator=g, device=dev)
+    unit = "bert_gemm_bwd" if fe.BWD_EPILOGUES[epi] >= 5 else "t5_gemm_bwd"
+    a = (randn(K, M) if layout == "tn" else randn(M, K)).to(dtype)
+    b = ((randn(N, K) if layout == "nt" else randn(K, N)) * K**-0.5).to(dtype)
+    make = {"c": lambda: randn(M, N).to(dtype), "f": lambda: randn(M, N), "b": lambda: (randn(N) * 0.5).to(dtype)}
+    aux = [make[kind]() for kind in fe.BWD_PAIRS[(layout, epi)][1]]
+    acc0 = randn(M, N) if epi == "acc_f32" else None  # both add into a copy of one f32 start
+    tn_splits = fe.tn_splits
+    if splits is not None:
+        fe.tn_splits = lambda *_: splits
+    try:
+        run = lambda: fe.gemm_bwd(a, b, layout, epi, *aux, acc=None if acc0 is None else acc0.clone())
+        got = run()
+        outs = got if isinstance(got, tuple) else (got,)
+        want = fe.gemm_bwd_reference(a, b, layout, epi, *aux, acc=None if acc0 is None else acc0.clone())
+        want = want if isinstance(want, tuple) else (want,)
+        checked = list(zip(outs, want))
+        if epi == "relu_bwd":
+            # dpre follows the kernel's own sign decision (see kernel_relu_masks)
+            checks.compare(unit, f"{label} dpre", outs[0], torch.where(outs[1] > 0, aux[0], torch.zeros_like(aux[0])), 0.0)
+            checked = checked[1:]
+        for i, (x, y) in enumerate(checked):
+            checks.compare(unit, f"{label} out{i + (epi == 'relu_bwd')}", x, y, tol(dtype, y))
+        if twice:
+            again = run()
+            if not all(torch.equal(x, y) for x, y in zip(outs, again if isinstance(again, tuple) else (again,))):
+                raise AssertionError(f"{unit} {label}: a second launch on the same input gave other bits")
+        if timed:
+            library = {"nt": lambda: torch.matmul(a, b.t()), "nn": lambda: torch.matmul(a, b),
+                       "tn": lambda: torch.matmul(a.t(), b)}[layout]
+            checks.timed(unit, label, lambda: fe.gemm_bwd(a, b, layout, epi, *aux, acc=acc0),
+                         lambda: fe.gemm_bwd_reference(a, b, layout, epi, *aux, acc=acc0), library=library,
+                         library_is="torch.matmul: the bare product, bf16 out", io_bytes=nbytes(a, b, *aux, *outs),
+                         ops=2.0 * M * N * K, ops_in=op_type(dtype), device=True)
+    finally:
+        fe.tn_splits = tn_splits
+
+
+def check_gemm_bwd_edges(checks: Checks, g: torch.Generator, bert: bool) -> None:
+    """Every (layout, epilogue) pair of one backward entry point (bert_gemm_bwd
+    or t5_gemm_bwd) at the bf16 kernel's tile edges, bf16 and f32, a second
+    bf16 launch's bits; the 128 x 256 tile; TN over 1,031 rows in 1 and 3
+    ranges."""
+    from rag_docvqa_tpu_torch.ops import fused_encoder as fe
+
+    pairs = sorted(p for p in fe.BWD_PAIRS if (fe.BWD_EPILOGUES[p[1]] >= 5) == bert)
+    for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        for layout, epi in pairs:
+            shapes = [(GEMM_BWD_TN_EDGE, 1), (GEMM_BWD_TN_EDGE, 3)] if layout == "tn" else \
+                [(shape, None) for shape in GEMM_BWD_EDGES] + ([(GEMM_BWD_WIDE, None)] if dtype == torch.bfloat16 else [])
+            for (M, N, K), splits in shapes:
+                where = f" in {splits} ranges" if splits else ""
+                gemm_bwd_case(checks, g, layout, epi, M, N, K, dtype, f"edge {layout} {epi} {M}x{N}x{K}{where} {tag}",
+                              twice=dtype == torch.bfloat16, splits=splits)
+
+
 def check_layer_bwd(checks: Checks, g: torch.Generator) -> None:
     """6b: the backward GEMM and norm kernels, K7 and K8 against their plain
     versions, and T5LayerTrain's whole-layer gradient against autograd."""
@@ -753,6 +957,8 @@ def check_layer_bwd(checks: Checks, g: torch.Generator) -> None:
     cfg = t5m.T5Config()
     d, dff, H, eps = cfg.d_model, cfg.d_ff, cfg.num_heads, cfg.layer_norm_eps
     R = 8 * 512
+    check_hgmma("t5_layer_bwd.cu")
+    check_gemm_bwd_edges(checks, g, bert=False)
     for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         for (layout, epi, M, N, K), label in (
                 (("nt", "relu_bwd", 77, 96, 64), "ragged nt relu_bwd 77x96x64"),
@@ -763,29 +969,9 @@ def check_layer_bwd(checks: Checks, g: torch.Generator) -> None:
                 (("nt", "relu_bwd", R, dff, d), f"nt relu_bwd {R}x{dff}x{d}"),
                 (("nn", "store_f32", R, d, dff), f"nn dh2 {R}x{d}x{dff} f32-out"),
                 (("tn", "store_f32", dff, d, R), f"tn dWi {dff}x{d} over {R} rows")):
-            a = randn(K, M) if layout == "tn" else randn(M, K)
-            b = randn(N, K) if layout == "nt" else randn(K, N)
-            a, b = a.to(dtype), (b * K**-0.5).to(dtype)
-            n_aux = {"relu_bwd": 1, "gelu_bwd": 2}.get(epi, 0)
-            aux = [randn(M, N).to(dtype) for _ in range(n_aux)]
-            acc0 = randn(M, N) if epi == "acc_f32" else None  # both add into a copy of one f32 start
-            got = fe.gemm_bwd(a, b, layout, epi, *aux, acc=None if acc0 is None else acc0.clone())
-            outs = got if isinstance(got, tuple) else (got,)
-            want = fe.gemm_bwd_reference(a, b, layout, epi, *aux, acc=None if acc0 is None else acc0.clone())
-            if epi == "relu_bwd":
-                # dpre follows the kernel's own sign decision (see kernel_relu_masks)
-                checks.compare("t5_gemm_bwd", f"{label} {tag} dpre", got[0],
-                               torch.where(got[1] > 0, aux[0], torch.zeros_like(aux[0])), 0.0)
-                got, want = got[1], want[1]
-            for i, (x, y) in enumerate(zip(got, want) if isinstance(got, tuple) else [(got, want)]):
-                checks.compare("t5_gemm_bwd", f"{label} {tag} out{i}", x, y, tol(dtype, y))
-            if not label.startswith("ragged") and dtype == torch.bfloat16:
-                # the bare products have a library call (its output is bf16, the kernel's f32)
-                library = {("nn", "store_f32"): lambda: torch.matmul(a, b),
-                           ("tn", "store_f32"): lambda: torch.matmul(a.t(), b)}.get((layout, epi))
-                checks.timed("t5_gemm_bwd", f"{label} {tag}", lambda: fe.gemm_bwd(a, b, layout, epi, *aux),
-                             lambda: fe.gemm_bwd_reference(a, b, layout, epi, *aux), library=library,
-                             io_bytes=nbytes(a, b, *aux, *outs), ops=2.0 * M * N * K, ops_in=op_type(dtype))
+            path = not label.startswith("ragged")
+            gemm_bwd_case(checks, g, layout, epi, M, N, K, dtype, f"{label} {tag}", twice=path and dtype == torch.bfloat16,
+                          timed=path and dtype == torch.bfloat16)
         for rows, label in ((77, "77x768"), (R, f"{R}x768")):
             x, resid, dh = randn(rows, d).to(dtype), randn(rows, d).to(dtype), randn(rows, d)
             w = (torch.rand(d, generator=g, device=dev) + 0.5).to(dtype)
@@ -820,10 +1006,14 @@ def check_layer_bwd(checks: Checks, g: torch.Generator) -> None:
         for name, a, b in zip(("dx", "dln0", "dwqkv", "dwo", "dbias"), got, want):
             checks.compare("t5_attn_bwd", f"B8 T512 t5-base {tag} {name}", a, b, rel_tol(dtype, b))
         if dtype == torch.bfloat16:
+            ffn_pb, att_pb = PartsBound(), PartsBound()
+            fe._ffn_bwd(*ffn, eps, False, *map(ffn_pb.wrap, (fe.rms_norm_rows, fe.gemm, fe.gemm_bwd, fe.rms_norm_bwd)))
+            fe._attn_bwd(*att, H, eps, *map(att_pb.wrap, (fe.rms_norm_rows, fe.gemm, fa.flash_attention_fwd,
+                                                          fa.flash_attention_bwd, fe.gemm_bwd, fe.rms_norm_bwd)))
             checks.timed("t5_ffn_bwd", f"B8 T512 t5-base {tag}", lambda: fe.t5_ffn_bwd(*ffn, eps=eps, gated=False),
-                         lambda: fe.t5_ffn_bwd_reference(*ffn, eps=eps, gated=False), iters=5)
+                         lambda: fe.t5_ffn_bwd_reference(*ffn, eps=eps, gated=False), iters=5, parts_bound=ffn_pb)
             checks.timed("t5_attn_bwd", f"B8 T512 t5-base {tag}", lambda: fe.t5_attn_bwd(*att, num_heads=H, eps=eps),
-                         lambda: fe.t5_attn_bwd_reference(*att, num_heads=H, eps=eps), iters=5)
+                         lambda: fe.t5_attn_bwd_reference(*att, num_heads=H, eps=eps), iters=5, parts_bound=att_pb)
 
     # the whole layer, f32 with an f32 bias: T5LayerTrain against autograd
     l = {k: v.detach().float().requires_grad_() for k, v in layer.items()}
@@ -1356,8 +1546,10 @@ def check_bert_kernels(checks: Checks, g: torch.Generator) -> None:
             for name, a, b in zip(("out", "x1"), got, want):
                 checks.compare("bert_layer", f"{label} {tag} {name}", a, b, tol(dtype, b))
             if dtype == torch.bfloat16:
+                pb = PartsBound()
+                fe._bert_layer(x, m, l, H, 1e-12, *map(pb.wrap, (fe.gemm, fe.layer_norm_rows, fa.flash_attention_fwd)))
                 checks.timed("bert_layer", f"{label} {tag}", lambda: fe.fused_bert_layer_parts(x, m, l, **kw),
-                             lambda: fe.bert_layer_reference(x, m, l, **kw), iters=5)
+                             lambda: fe.bert_layer_reference(x, m, l, **kw), iters=5, parts_bound=pb)
             del l, x, out, got, want
     torch.cuda.empty_cache()
 
@@ -1517,6 +1709,7 @@ def check_bert_bwd(checks: Checks, g: torch.Generator) -> float:
     layer and the full-width encoder gradient against autograd of the plain
     stack; returns the encoder gradient's worst relative error."""
     from rag_docvqa_tpu_torch.models import bert
+    from rag_docvqa_tpu_torch.ops import flash_attention as fa
     from rag_docvqa_tpu_torch.ops import fused_encoder as fe
 
     dev = g.device
@@ -1524,6 +1717,8 @@ def check_bert_bwd(checks: Checks, g: torch.Generator) -> float:
     # bge-small at the contrastive step's shape
     B, T, d, H, dff, eps = CONTRASTIVE_B, BERT_T, BGE["hidden_size"], BGE["num_heads"], BGE["intermediate_size"], 1e-12
     R = B * T
+    check_hgmma("bert_layer_bwd.cu")
+    check_gemm_bwd_edges(checks, g, bert=True)
     for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         timed = dtype == torch.bfloat16
         for (layout, epi, M, N, K), label in (
@@ -1533,18 +1728,8 @@ def check_bert_bwd(checks: Checks, g: torch.Generator) -> float:
                 (("nt", "bias_gelu_grad", R, dff, d), f"nt bias_gelu_grad {R}x{dff}x{d}"),
                 (("nn", "mul_f32", R, dff, d), f"nn mul_f32 {R}x{dff}x{d}"),
                 (("nn", "add_f32_store", R, d, dff), f"nn add_f32_store {R}x{d}x{dff}")):
-            a = randn(M, K).to(dtype)
-            b = ((randn(N, K) if layout == "nt" else randn(K, N)) * K**-0.5).to(dtype)
-            aux = (randn(N) * 0.5).to(dtype) if epi == "bias_gelu_grad" else randn(M, N)
-            got, want = fe.gemm_bwd(a, b, layout, epi, aux), fe.gemm_bwd_reference(a, b, layout, epi, aux)
-            outs = got if isinstance(got, tuple) else (got,)
-            for i, (x, y) in enumerate(zip(outs, want if isinstance(want, tuple) else (want,))):
-                checks.compare("bert_gemm_bwd", f"{label} {tag} out{i}", x, y, tol(dtype, y))
-            if timed and M > 77:
-                checks.timed("bert_gemm_bwd", f"{label} {tag}", lambda: fe.gemm_bwd(a, b, layout, epi, aux),
-                             lambda: fe.gemm_bwd_reference(a, b, layout, epi, aux),
-                             io_bytes=nbytes(a, b, aux, *outs), ops=2.0 * M * N * K, ops_in=op_type(dtype))
-            del a, b, aux, got, want, outs
+            path = timed and M > 77
+            gemm_bwd_case(checks, g, layout, epi, M, N, K, dtype, f"{label} {tag}", twice=path, timed=path)
         # the weight-gradient products at this shape: few output tiles, so the rows are cut into ranges
         for M, N, label in ((dff, d, "dW1"), (d, d, "dWo")):
             a, b = randn(R, M).to(dtype), randn(R, N).to(dtype)
@@ -1552,10 +1737,12 @@ def check_bert_bwd(checks: Checks, g: torch.Generator) -> float:
             label = f"tn {label} {M}x{N} over {R} rows in {fe.tn_splits(M, N, R, timed)} ranges {tag}"
             checks.compare("t5_gemm_bwd", label, got, want, rel_tol(dtype, want))
             if timed:
+                if not torch.equal(got, fe.gemm_bwd(a, b, "tn", "store_f32")):
+                    raise AssertionError(f"t5_gemm_bwd {label}: a second launch on the same input gave other bits")
                 checks.timed("t5_gemm_bwd", label, lambda: fe.gemm_bwd(a, b, "tn", "store_f32"),
                              lambda: fe.gemm_bwd_reference(a, b, "tn", "store_f32"),
-                             library=lambda: torch.matmul(a.t(), b),  # its output is bf16, the kernel's f32
-                             io_bytes=nbytes(a, b, got), ops=2.0 * M * N * R, ops_in=op_type(dtype))
+                             library=lambda: torch.matmul(a.t(), b), library_is="torch.matmul, bf16 out",
+                             io_bytes=nbytes(a, b, got), ops=2.0 * M * N * R, ops_in=op_type(dtype), device=True)
             del a, b, got, want
         for rows in (77, R):
             y, gg = randn(rows, d) * 3.0 + 0.5, randn(rows, d).to(dtype)
@@ -1596,10 +1783,14 @@ def check_bert_bwd(checks: Checks, g: torch.Generator) -> float:
         for name, a, b in zip(("dx", "dln1", "dwqkv", "dbqkv", "dwo", "dbo"), got, want):
             checks.compare("bert_attn_bwd", f"bge-small B{B} T{T} {tag} {name}", a, b, rel_tol(dtype, b))
         if timed:
+            ffn_pb, att_pb = PartsBound(), PartsBound()
+            fe._bert_ffn_bwd(*ffn, eps, *map(ffn_pb.wrap, (fe.gemm, fe.gemm_bwd, fe.layer_norm_bwd, fe.col_sum)))
+            fe._bert_attn_bwd(*att, H, eps, *map(att_pb.wrap, (fe.gemm, fa.flash_attention_fwd, fa.flash_attention_bwd,
+                                                               fe.gemm_bwd, fe.layer_norm_bwd, fe.col_sum)))
             checks.timed("bert_ffn_bwd", f"bge-small B{B} T{T} {tag}", lambda: fe.bert_ffn_bwd(*ffn, eps=eps),
-                         lambda: fe.bert_ffn_bwd_reference(*ffn, eps=eps), iters=5)
+                         lambda: fe.bert_ffn_bwd_reference(*ffn, eps=eps), iters=5, parts_bound=ffn_pb)
             checks.timed("bert_attn_bwd", f"bge-small B{B} T{T} {tag}", lambda: fe.bert_attn_bwd(*att, num_heads=H, eps=eps),
-                         lambda: fe.bert_attn_bwd_reference(*att, num_heads=H, eps=eps), iters=5)
+                         lambda: fe.bert_attn_bwd_reference(*att, num_heads=H, eps=eps), iters=5, parts_bound=att_pb)
         del l, x, x1, dy, got, want
     torch.cuda.empty_cache()
 
@@ -1739,14 +1930,23 @@ P2S_KERNELS = TOWER_KERNELS + ("maxsim", "decode_cross_attention")
 def random_vit_layer(g: torch.Generator, d: int, dff: int, H: int, T: int, has_bias: bool, has_gamma: bool) -> dict:
     """One ViT / BEiT layer in the kernels' form (f32; the rel-pos bias bf16):
     weights of unit-variance outputs, random biases, LayerNorm pairs and, for
-    BEiT, a zero key bias, a bias (H, T, T) and layer-scale rows."""
+    BEiT, a zero key bias, a bias (H, T, Tb) (`vit_bias`) and layer-scale rows."""
     l = random_bert_layer(g, d, dff)
     if has_bias:
         l["bqkv"][d:2 * d] = 0.0
-        l["bias"] = torch.randn((H, T, T), generator=g, device=g.device).to(torch.bfloat16)
+        l["bias"] = vit_bias(g, H, T)
     if has_gamma:
         l["gamma"] = torch.rand((2, d), generator=g, device=g.device) * 0.5 + 0.1
     return l
+
+
+def vit_bias(g: torch.Generator, H: int, T: int) -> torch.Tensor:
+    """A random rel-pos bias in the kernels' form: (H, T, Tb) bf16, its rows
+    zero-padded to Tb = vit_bias_width(T), as fuse_vit_blocks builds it."""
+    from rag_docvqa_tpu_torch.ops.fused_encoder import vit_bias_width
+
+    b = torch.randn((H, T, T), generator=g, device=g.device)
+    return torch.nn.functional.pad(b, (0, vit_bias_width(T) - T)).to(torch.bfloat16).contiguous()
 
 
 def cast_layer(l: dict, dtype: torch.dtype) -> dict:
@@ -1768,6 +1968,7 @@ def check_vit_kernels(checks: Checks, g: torch.Generator) -> None:
     randn = lambda *s: torch.randn(s, generator=g, device=dev)
     B, T, d, H, dff = VIT_B, VIT_T, VIT_D, VIT_H, VIT_MLP
     R = B * T
+    check_hgmma("vit_layer.cu")
     for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         timed = dtype == torch.bfloat16
         for rows, width in ((77, 64), (R, d)):
@@ -1807,18 +2008,36 @@ def check_vit_kernels(checks: Checks, g: torch.Generator) -> None:
             qkv = randn(Bc, Tc, 3, Hc, dhc).to(dtype)
             mask = torch.ones((Bc, Tc), dtype=torch.bool, device=dev) if lens is None else \
                 torch.arange(Tc, device=dev)[None, :] < torch.tensor(lens, device=dev)[:, None]
-            bias = randn(Hc, Tc, Tc).to(torch.bfloat16) if biased else None
+            bias = vit_bias(g, Hc, Tc) if biased else None
             scale = dhc ** -0.5
             got, want = fe.vit_attention(qkv, mask, bias, scale), fe.vit_attention_reference(qkv, mask, bias, scale)
             checks.compare("vit_attention", f"{label} {tag}", got, want, tol(dtype, want))
             if timed and lens is None:
+                if not torch.equal(got, fe.vit_attention(qkv, mask, bias, scale)):
+                    raise AssertionError(f"vit_attention {label}: a second launch on the same input gave other bits")
                 qt, kt, vt = (qkv[:, :, i].transpose(1, 2) for i in range(3))
-                add = None if bias is None else bias.to(dtype)[None]
+                add = None if bias is None else bias[..., :Tc].to(dtype)[None]
                 checks.timed("vit_attention", f"{label} {tag}", lambda: fe.vit_attention(qkv, mask, bias, scale),
                              lambda: fe.vit_attention_reference(qkv, mask, bias, scale),
                              library=lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=add, scale=scale),
-                             io_bytes=nbytes(qkv, mask, bias, got), ops=4.0 * Bc * Hc * Tc * Tc * dhc, ops_in=op_type(dtype))
+                             io_bytes=nbytes(qkv, mask, bias, got), ops=4.0 * Bc * Hc * Tc * Tc * dhc, ops_in=op_type(dtype),
+                             device=True)
             del qkv, got, want
+    # the bf16 attention at its tiles' edges: T across the 64-query tiles and the 256-key (128 at dh 128) score
+    # row, up to the two-pass rows; dh 40 (a zero-padded K step) to 128; with and without the bias; one row
+    # with no valid key (uniform over the T real keys) and one with a single key; each launched twice
+    for Tc in (63, 64, 65, 129, 197, 256, 257, 300):
+        for dhc in (40, 64, 128):
+            for biased in (False, True):
+                qkv = randn(3, Tc, 3, 2, dhc).bfloat16()
+                mask = torch.arange(Tc, device=dev)[None, :] < torch.tensor([Tc, 1, 0], device=dev)[:, None]
+                bias = vit_bias(g, 2, Tc) if biased else None
+                run = lambda: fe.vit_attention(qkv, mask, bias, dhc ** -0.5)
+                got, want = run(), fe.vit_attention_reference(qkv, mask, bias, dhc ** -0.5)
+                label = f"edge T{Tc} dh{dhc}{' bias' if biased else ''} bf16"
+                checks.compare("vit_attention", label, got, want, tol(torch.bfloat16, want))
+                if not torch.equal(got, run()):
+                    raise AssertionError(f"vit_attention {label}: a second launch on the same input gave other bits")
 
     # the whole layer, f32, small and ragged: plain ViT and BEiT (bias + layer-scale), T 197 and T 21
     for form, has_bias, has_gamma in (("vit", False, False), ("beit", True, True)):
@@ -2586,9 +2805,6 @@ def main() -> int:
         row = checks.times[unit][case]
         return {k: row.get(k) for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
 
-    def pair(unit: str, case: str) -> dict:
-        return {k: checks.times[unit][case][k] for k in ("ms", "plain_ms")}
-
     report = {
         "kernels": [
             {"name": name, "route": "cuda", "source": src, "replaces": rep, "launches": launches[name],
@@ -2596,21 +2812,21 @@ def main() -> int:
              "cases": checks.times[name]}
             for name, (src, rep, _, case) in KERNELS.items()],
         # the whole layer K1 composes from rms_norm, gemm and flash_fwd
-        "t5_layer": {"max_abs_err": checks.err["t5_layer"], **pair("t5_layer", "B32 T512 t5-base bf16"),
+        "t5_layer": {"max_abs_err": checks.err["t5_layer"], **times("t5_layer", "B32 T512 t5-base bf16"),
                      "cases": checks.times["t5_layer"]},
         # K7 and K8 compose from gemm_bwd, rms_bwd and (K8) the K1 parts and K6
-        "t5_ffn_bwd": {"max_abs_err": checks.err["t5_ffn_bwd"], **pair("t5_ffn_bwd", "B8 T512 t5-base bf16")},
-        "t5_attn_bwd": {"max_abs_err": checks.err["t5_attn_bwd"], **pair("t5_attn_bwd", "B8 T512 t5-base bf16")},
+        "t5_ffn_bwd": {"max_abs_err": checks.err["t5_ffn_bwd"], **times("t5_ffn_bwd", "B8 T512 t5-base bf16")},
+        "t5_attn_bwd": {"max_abs_err": checks.err["t5_attn_bwd"], **times("t5_attn_bwd", "B8 T512 t5-base bf16")},
         "t5_layer_train": {"max_abs_err": checks.err["t5_layer_train"]},
         "encoder_grad_max_rel_err": encoder_grad,
         "train_step": train_summary,
         "index": index_summary,
         # the whole layer K9 composes from bert_gemm, bert_layer_norm and flash_fwd, at both path shapes
-        "bert_layer": {"max_abs_err": checks.err["bert_layer"], **pair("bert_layer", "bge-small B1024 T64 bf16"),
+        "bert_layer": {"max_abs_err": checks.err["bert_layer"], **times("bert_layer", "bge-small B1024 T64 bf16"),
                        "cases": checks.times["bert_layer"]},
         # K10's halves compose from bert_gemm_bwd, bert_ln_bwd, bert_col_sum, t5_gemm_bwd, the K9 parts and K6
-        "bert_ffn_bwd": {"max_abs_err": checks.err["bert_ffn_bwd"], **pair("bert_ffn_bwd", "bge-small B256 T64 bf16")},
-        "bert_attn_bwd": {"max_abs_err": checks.err["bert_attn_bwd"], **pair("bert_attn_bwd", "bge-small B256 T64 bf16")},
+        "bert_ffn_bwd": {"max_abs_err": checks.err["bert_ffn_bwd"], **times("bert_ffn_bwd", "bge-small B256 T64 bf16")},
+        "bert_attn_bwd": {"max_abs_err": checks.err["bert_attn_bwd"], **times("bert_attn_bwd", "bge-small B256 T64 bf16")},
         "bert_layer_train": {"max_abs_err": checks.err["bert_layer_train"]},
         "bert_encoder_grad_max_rel_err": bert_encoder_grad,
         "embed_index": embed_summary,

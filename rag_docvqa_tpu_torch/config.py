@@ -146,12 +146,13 @@ def build_caps(c: Dict[str, Any]) -> Caps:
     )
 
 
-def build_reranker(c: Dict[str, Any], tokenizer, seed: int = 0, device="cpu"):
+def build_reranker(c: Dict[str, Any], tokenizer, seed: int = 0, device="cuda"):
     """The cross-encoder reranker of a config: the `rerank_*` keys and the
     `reranker_*` widths (the JAX defaults), vocabulary the tokenizer's, random
-    weights from `seed` on `device`. A weight name with "gemma" selects the
-    LLM pair reranker, which is not ported; converted weight directories wait
-    for the port of models/loader.py."""
+    weights from `seed` on `device`: the card by default, as the CLIs, which
+    raises without one; the CPU only when asked for. A weight name with
+    "gemma" selects the LLM pair reranker, which is not ported; converted
+    weight directories wait for the port of models/loader.py."""
     import torch
 
     from rag_docvqa_tpu_torch.engine.reranker import Reranker, RerankerConfig
@@ -182,6 +183,9 @@ def build_reranker(c: Dict[str, Any], tokenizer, seed: int = 0, device="cpu"):
         intermediate_size=c.get("reranker_d_ff", 128),
         num_labels=1,
     )
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError('build_reranker: no CUDA device found; the reranker is built on the GPU by default, '
+                           'pass device="cpu" to build it on the CPU')
     params = init_bert_params(torch.Generator(device=device).manual_seed(seed), bert_cfg)
     return Reranker(rcfg, bert_cfg, params)
 

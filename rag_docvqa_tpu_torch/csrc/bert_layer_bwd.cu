@@ -32,9 +32,11 @@
 // two passes of fixed order: deterministic, no float atomics. Weights are in
 // the port's (out, in) layout: forward x . W^T, so dX = dY . W, dW = dY^T . X.
 //
-// What bounds it on the H100: the GEMMs (gemm_bwd.cuh's template), about 2x
-// the forward's products; the LayerNorm backward and the column sums are
-// bound by memory.
+// What bounds it on the H100: the GEMMs (gemm_bwd.cuh's wgmma template),
+// about 2x the forward's products; at bge-small B 256 T 64 its epilogues make
+// them bound by bytes (mul_f32 reads and writes f32 (M, N) rows: bound 0.08
+// ms, ~0.14 on the card at 700 W, chip_smoke.py phase 8e). The LayerNorm
+// backward and the column sums are bound by memory.
 #include "gemm_bwd.cuh"
 
 namespace {

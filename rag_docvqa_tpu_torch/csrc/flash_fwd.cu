@@ -384,7 +384,7 @@ __global__ void __launch_bounds__(128, DH == 64 ? 3 : 2) flash_fwd_wgmma_kernel(
     for (int kk = 0; kk < DH / 16; ++kk)
       if (kk * 16 < dh) {
         const uint32_t step = (kk >> 2) * SUB + (kk & 3) * 32;
-        wgmma_m64n64k16_ss<0>(s, wgmma_desc(q_s + step), wgmma_desc(k_s + step), kk > 0);
+        wgmma_m64n64k16_ss<0, 0>(s, wgmma_desc(q_s + step), wgmma_desc(k_s + step), kk > 0);
       }
     wgmma_commit();
 

@@ -20,7 +20,7 @@
 //     128-byte-swizzled tiles (hopper.cuh); rows past M or N and chunks past K
 //     are zero-filled, so ragged shapes need no second path. Two tiles are in
 //     flight ahead of the one the tensor cores work on;
-//   - two forms (GemmTile below), chosen by a fixed rule of the shape
+//   - two forms (GemmTile, hopper.cuh), chosen by a fixed rule of the shape
 //     (gemm_wide_tile): BN 128 with two blocks resident on an SM, so that one
 //     block's epilogue and barriers run under the other's products, and BN 256
 //     with one block on an SM for long K, which reads a third fewer
@@ -175,26 +175,7 @@ __global__ void __launch_bounds__(256) gemm_simt_kernel(
 }
 
 // ---- bf16 tensor-core GEMM (wgmma m64n128k16 / m64n256k16, cp.async ring) ----
-constexpr int GBM = 128, GBK = 64;  // rows of a block tile; a K step is one swizzled row
-constexpr int G_A_BYTES = GBM * GBK * 2;
-// A block tile is 128 x BN, in two forms:
-//   BN 128: 3 stages of 32 KB, two blocks resident on an SM, each product
-//           waited for before the next step (wgmma.wait_group 0): the other
-//           block's products fill that gap, and its mainloop hides this one's
-//           epilogue (the erf-GELU epilogue is as long as a K 384 mainloop);
-//   BN 256: 4 stages of 48 KB, one block on an SM, the product of step k started
-//           before that of step k - 1 is waited for (wgmma.wait_group 1): a
-//           third fewer shared-memory bytes per operation, for long K.
-// Either way two tiles are in flight ahead of the one worked on.
-template <int BN> struct GemmTile {
-  static constexpr int GST = BN == 256 ? 4 : 3;
-  static constexpr int PENDING = BN == 256 ? 1 : 0;  // products left running at the end of a step
-  static constexpr int AHEAD = GST - 1 - PENDING;
-  static constexpr int BLOCKS_PER_SM = BN == 256 ? 1 : 2;
-  static constexpr int STAGE_BYTES = (GBM + BN) * GBK * 2;
-  static constexpr int SMEM = GST * STAGE_BYTES + 1024;  // + room to align the ring to 1024 bytes
-};
-
+// the block tile, its two forms and the ring: GemmTile in hopper.cuh
 template <int EPI, int BN>
 __global__ void __launch_bounds__(256, GemmTile<BN>::BLOCKS_PER_SM) gemm_wgmma_bf16_kernel(
     const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* __restrict__ W,
@@ -254,8 +235,8 @@ __global__ void __launch_bounds__(256, GemmTile<BN>::BLOCKS_PER_SM) gemm_wgmma_b
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < GBK / 16; ++kk) {
-      if constexpr (BN == 256) wgmma_m64n256k16_ss<0>(acc, wgmma_desc(sa + kk * 32), wgmma_desc(sw + kk * 32), 1);
-      else wgmma_m64n128k16_ss<0>(acc, wgmma_desc(sa + kk * 32), wgmma_desc(sw + kk * 32), 1);
+      if constexpr (BN == 256) wgmma_m64n256k16_ss<0, 0>(acc, wgmma_desc(sa + kk * 32), wgmma_desc(sw + kk * 32), 1);
+      else wgmma_m64n128k16_ss<0, 0>(acc, wgmma_desc(sa + kk * 32), wgmma_desc(sw + kk * 32), 1);
     }
     wgmma_commit();
     wgmma_wait<PENDING>();  // BN 256: product kt - 1 is done, kt runs on under the next step's wait
@@ -283,17 +264,6 @@ __global__ void __launch_bounds__(256, GemmTile<BN>::BLOCKS_PER_SM) gemm_wgmma_b
       }
     }
   }
-}
-
-// The tile width, a fixed rule of the shape: the wide tile where K is long
-// enough to amortise a lone block's prologue and epilogue, N fills whole
-// 256-wide tiles, and there are at least two rounds of them over the 132 SMs
-// (measured on the H100: 16384x768x3072 0.155 ms wide, 0.182 narrow;
-// 6304x768x3072, 150 wide tiles, 0.105 against 0.092).
-constexpr int GEMM_SMS = 132;
-inline bool gemm_wide_tile(int M, int N, int K) {
-  const long long tiles = (long long)((M + GBM - 1) / GBM) * ((N + 255) / 256);
-  return K >= 1024 && N % 256 == 0 && tiles >= 2 * GEMM_SMS;
 }
 
 // a, w, aux, bias and scale in `dtype` (DT_F32 or DT_BF16); c in `dtype`, or

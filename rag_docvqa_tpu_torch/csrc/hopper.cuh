@@ -1,17 +1,26 @@
-// Hopper building blocks of the redesigned kernels (gemm_fwd.cuh, flash_fwd.cu):
-// 16-byte cp.async copies into 128-byte-swizzled shared tiles, the shared-memory
-// matrix descriptor that wgmma reads such a tile through, and wgmma.mma_async
-// itself, each as inline PTX for sm_90a.
+// Hopper building blocks of the redesigned kernels (gemm_fwd.cuh, gemm_bwd.cuh,
+// flash_fwd.cu, vit_layer.cu): 16-byte cp.async copies into 128-byte-swizzled
+// shared tiles, the shared-memory matrix descriptors that wgmma reads such tiles
+// through, wgmma.mma_async itself, each as inline PTX for sm_90a, and the block
+// tile and ring of the two wgmma GEMMs.
 //
 // The tile layout, everywhere: rows of 64 bf16 (128 bytes) packed one after the
 // other from a 1024-byte-aligned base; within each group of 8 rows the 16-byte
 // chunk c of row r lies at chunk position c ^ (r & 7) (the 128-byte swizzle, so
 // the eight rows a tensor-core read touches fall in eight different bank groups).
 // A K-major operand (A, or W whose rows are output columns) has the reduction
-// axis along the row; an MN-major B operand (V of attention: rows are keys, the
-// reduction axis) has it across the rows. Both use the same bytes and the same
-// descriptor: 8-row groups 1024 bytes apart. A step of 16 along the reduction axis
-// moves the start address by 32 bytes (K-major) or 16 rows = 2048 bytes (MN-major).
+// axis along the row: 8-row groups 1024 bytes apart (the descriptor's SBO), and a
+// step of 16 along the reduction axis moves the start address by 32 bytes. An
+// MN-major operand (V of attention, or either operand of a backward GEMM that
+// reads a (K, M) or (K, N) matrix) has the reduction axis across the rows: each
+// row holds 64 consecutive M or N elements, 8-row groups along K are again 1024
+// bytes apart (SBO), a step of 16 along K moves the start by 16 rows = 2048 bytes,
+// and an operand wider than 64 is several such 64-wide tiles ("atoms") whose
+// distance is the descriptor's LBO (PTX ISA, "Matrix Descriptor Format" and
+// "Shared Memory Matrix Layout": for MN-major swizzled layouts the leading
+// byte offset is the stride from one swizzle atom to the next along M or N, the
+// stride byte offset the stride between 8-row groups along K). wgmma reads an
+// MN-major operand through its transpose immediate (bf16 only).
 //
 // Accumulator layout of m64nNk16 (PTX ISA, "wgmma register fragment D"): thread t
 // of the warpgroup, warp w = t / 32, lane l = t % 32, holds for each block j of 8
@@ -19,7 +28,8 @@
 // d[4j + 2, 3] = the same columns of row + 8. A row lives in one quad of lanes,
 // so a row reduction is two shuffles (xor 1, xor 2). Two neighbouring column
 // blocks, packed to bf16 pairs, are exactly the A fragment of the next product's
-// 16-wide reduction step (attention's P), which never leaves the registers.
+// 16-wide reduction step (attention's P), which never leaves the registers. The
+// layout of m64n256 is that of four m64n64 side by side.
 #pragma once
 
 #include "common.cuh"
@@ -49,9 +59,16 @@ __device__ __forceinline__ void fence_async_shared() {
 }
 
 // 128-byte-swizzled tile at shared address `saddr` (1024-byte-aligned tile base
-// plus a step along the reduction axis): 8-row groups 1024 bytes apart
+// plus a step along the reduction axis): 8-row groups 1024 bytes apart. This is
+// every K-major operand, and an MN-major one that is a single 64-wide atom.
 __device__ __forceinline__ uint64_t wgmma_desc(uint32_t saddr) {
   return static_cast<uint64_t>((saddr & 0x3FFFFu) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+// an MN-major 128-byte-swizzled operand wider than 64: its 64-wide atoms
+// `atom_bytes` apart (LBO), 8-row groups along K 1024 bytes apart (SBO)
+__device__ __forceinline__ uint64_t wgmma_desc_mn(uint32_t saddr, uint32_t atom_bytes) {
+  return static_cast<uint64_t>((saddr & 0x3FFFFu) >> 4) | (static_cast<uint64_t>((atom_bytes & 0x3FFFFu) >> 4) << 16) |
+         (64ull << 32) | (1ull << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
@@ -65,10 +82,11 @@ template <int N> __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d (64 x N, f32) = (accumulate ? d : 0) + A (64 x 16) @ B (16 x N): A from a K-major
-// shared tile (_ss) or from registers (_rs: a[0..3], each warp's m16k16 A fragment);
-// B from shared memory, K-major when TB == 0, MN-major when TB == 1
-template <int TB>
+// d (64 x N, f32) = (accumulate ? d : 0) + A (64 x 16) @ B (16 x N): A from a
+// shared tile (_ss), K-major when TA == 0, MN-major when TA == 1, or from registers
+// (_rs: a[0..3], each warp's m16k16 A fragment); B from shared memory, K-major when
+// TB == 0, MN-major when TB == 1
+template <int TA, int TB>
 __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
                                                     int accumulate) {
   asm volatile(
@@ -78,13 +96,13 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc
       " %8, %9, %10, %11, %12, %13, %14, %15, "
       " %16, %17, %18, %19, %20, %21, %22, %23, "
       " %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, %35;\n}\n"
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
       :
       "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
       "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
       "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
       "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TB));
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TA), "n"(TB));
 }
 
 template <int TB>
@@ -106,7 +124,7 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate), "n"(TB));
 }
 
-template <int TB>
+template <int TA, int TB>
 __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
                                                     int accumulate) {
   asm volatile(
@@ -120,7 +138,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t des
       " %40, %41, %42, %43, %44, %45, %46, %47, "
       " %48, %49, %50, %51, %52, %53, %54, %55, "
       " %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, %67;\n}\n"
+      "%64, %65, p, 1, 1, %67, %68;\n}\n"
       :
       "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
       "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -130,10 +148,10 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t des
       "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
       "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
       "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TB));
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TA), "n"(TB));
 }
 
-template <int TB>
+template <int TA, int TB>
 __device__ __forceinline__ void wgmma_m64n256k16_ss(float (&d)[128], uint64_t desc_a, uint64_t desc_b,
                                                     int accumulate) {
   asm volatile(
@@ -155,7 +173,7 @@ __device__ __forceinline__ void wgmma_m64n256k16_ss(float (&d)[128], uint64_t de
       " %104, %105, %106, %107, %108, %109, %110, %111, "
       " %112, %113, %114, %115, %116, %117, %118, %119, "
       " %120, %121, %122, %123, %124, %125, %126, %127}, "
-      "%128, %129, p, 1, 1, 0, %131;\n}\n"
+      "%128, %129, p, 1, 1, %131, %132;\n}\n"
       :
       "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
       "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -173,5 +191,37 @@ __device__ __forceinline__ void wgmma_m64n256k16_ss(float (&d)[128], uint64_t de
       "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
       "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
       "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TB));
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+// ---- the block tile and ring of the wgmma GEMMs (gemm_fwd.cuh, gemm_bwd.cuh) ----
+constexpr int GBM = 128, GBK = 64;  // rows of a block tile; a K step is one swizzled row
+constexpr int G_A_BYTES = GBM * GBK * 2;
+// A block tile is 128 x BN, in two forms:
+//   BN 128: 3 stages of 32 KB, two blocks resident on an SM, each product
+//           waited for before the next step (wgmma.wait_group 0): the other
+//           block's products fill that gap, and its mainloop hides this one's
+//           epilogue (the erf-GELU epilogue is as long as a K 384 mainloop);
+//   BN 256: 4 stages of 48 KB, one block on an SM, the product of step k started
+//           before that of step k - 1 is waited for (wgmma.wait_group 1): a
+//           third fewer shared-memory bytes per operation, for long K.
+// Either way two tiles are in flight ahead of the one worked on.
+template <int BN> struct GemmTile {
+  static constexpr int GST = BN == 256 ? 4 : 3;
+  static constexpr int PENDING = BN == 256 ? 1 : 0;  // products left running at the end of a step
+  static constexpr int AHEAD = GST - 1 - PENDING;
+  static constexpr int BLOCKS_PER_SM = BN == 256 ? 1 : 2;
+  static constexpr int STAGE_BYTES = (GBM + BN) * GBK * 2;
+  static constexpr int SMEM = GST * STAGE_BYTES + 1024;  // + room to align the ring to 1024 bytes
+};
+
+// The tile width, a fixed rule of the shape: the wide tile where K is long
+// enough to amortise a lone block's prologue and epilogue, N fills whole
+// 256-wide tiles, and there are at least two rounds of them over the 132 SMs
+// (measured on the H100: 16384x768x3072 0.155 ms wide, 0.182 narrow;
+// 6304x768x3072, 150 wide tiles, 0.105 against 0.092).
+constexpr int GEMM_SMS = 132;
+inline bool gemm_wide_tile(int M, int N, int K) {
+  const long long tiles = (long long)((M + GBM - 1) / GBM) * ((N + 255) / 256);
+  return K >= 1024 && N % 256 == 0 && tiles >= 2 * GEMM_SMS;
 }

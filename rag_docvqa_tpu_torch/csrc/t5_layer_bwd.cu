@@ -34,11 +34,15 @@
 // Weights are in the port's (out, in) layout: the forward is x . W^T, so
 // dX = dY . W and dW = dY^T . X.
 //
-// What bounds it on the H100: the GEMMs, as in the forward: at t5-base B 8
-// T 512 a layer's backward is ~2x its forward's products. The bf16 GEMM runs
-// through gemm_bwd.cuh's template (WMMA on the tensor cores, f32 accumulation;
-// SIMT for f32), shared with the BERT layer backward. The norm backward is
-// bound by memory.
+// What bounds it on the H100: the GEMMs by operations, as in the forward: at
+// t5-base B 8 T 512 a layer's backward is ~2x its forward's products (each
+// product's bound ~0.02 ms). The bf16 GEMM is gemm_bwd.cuh's wgmma template
+// (SIMT for f32), shared with the BERT layer backward; on the H100 (700 W,
+// chip_smoke.py phase 6b, device time) dWi 3072x768 over 4096 rows takes 0.06
+// ms and dh2 0.045 ms, 1.7-2x behind torch.matmul's bare product, and the
+// relu_bwd product ~0.09 ms, where the epilogue's aux read and two outputs
+// are not overlapped with the tensor cores. K7 is then ~0.44 ms and K8 ~2.4,
+// of which K6 is 2.0. The norm backward is bound by memory.
 #include "gemm_bwd.cuh"
 
 namespace {

@@ -81,7 +81,7 @@ _SIGNATURES = {
     "bert_col_sum": [_P] * 3 + [_I] * 3 + [_P],
     "vit_layer_norm": [_P] * 3 + [_I, _I, _F, _I, _P],
     "vit_gemm": [_P] * 6 + [_I] * 5 + [_P],
-    "vit_attention": [_P] * 4 + [_I] * 4 + [_F, _I, _P],
+    "vit_attention": [_P] * 4 + [_I] * 5 + [_F, _I, _P],
     "maxsim": [_P] * 6 + [_I] * 5 + [_P],
     "t5_qtiled_attention": [_P] * 5 + [_I] * 4 + [_LL] * 6 + [_P],
 }

@@ -74,11 +74,14 @@ with the epilogues "bias", "bias_gelu" and
   "bias_scale_residual"  cast(cast(cast(a.W^T + b) * g) + aux), all in the
                          compute dtype: the layer-scale residual branches,
 
-and `vit_attention`, which keeps a block's whole score rows in shared memory
-so that the probabilities are divided by their sum before the cast, the TPU
-kernel's order (K2's online softmax casts first). Keys are masked at -1e30;
-the optional per-layer rel-pos bias (H, T, T) is bf16 for every x dtype, as
-`fuse_vit_blocks` makes it. T is not padded to a multiple of 8.
+and `vit_attention`, which divides the probabilities by their sum before the
+cast, the TPU kernel's order (K2's online softmax casts first): its bf16
+kernel keeps a query tile's whole score rows in registers (two passes over the
+keys for long rows), its f32 kernel in shared memory. Keys are masked at
+-1e30; the optional per-layer rel-pos bias is bf16 for every x dtype, as
+`fuse_vit_blocks` makes it, (H, T, Tb) with its rows padded to Tb, a multiple
+of 8, so that the kernel copies them 16 bytes at a time; only the first T
+columns are read. The sequence itself is not padded.
 
 The query-tiled T5 layer (K13; the JAX `_t5_layer_call_qtiled`, the
 2048-patch page budget of Pix2Struct) tiles the queries over the grid
@@ -406,17 +409,24 @@ def gemm_bwd_reference(a, b, layout: str, epilogue: str, aux0=None, aux1=None, a
 SM_COUNT = 132  # H100 SXM; only sizes the split below, any value is correct
 
 
+TN_MIN_ROWS = 1024  # rows of a range: 16 of the bf16 kernel's K steps of 64, to amortise a block's prologue and epilogue
+
+
 def tn_splits(M: int, N: int, K: int, bf16: bool) -> int:
-    """Into how many row ranges a weight gradient a^T . b is cut: 1 when its
-    (M, N) output already has a tile for every SM or few rows, else enough
-    ranges of at least 512 rows for about two tiles per SM, at most 32. The
-    partial products are summed in range order, so the result does not depend
-    on timing; it depends on this number only in the order of an f32 sum."""
+    """Into how many row ranges a weight gradient a^T . b is cut. It assumes
+    the output tiles of csrc/gemm_bwd.cuh: 128 x 128 for bf16 (the wgmma
+    kernel's narrow form, two blocks resident on an SM), 64 x 64 for f32. 1
+    when the (M, N) output already has a tile for every SM or the rows are
+    fewer than two ranges; else as many ranges of at least TN_MIN_ROWS rows as
+    fit one round of two blocks an SM without a second, partly filled round,
+    at most 32. The partial products are summed in range order, so the result
+    does not depend on timing; it depends on this number only in the order of
+    an f32 sum."""
     tile = 128 if bf16 else 64
     tiles = -(-M // tile) * -(-N // tile)
-    if tiles >= SM_COUNT or K < 1024:
+    if tiles >= SM_COUNT or K < 2 * TN_MIN_ROWS:
         return 1
-    return max(1, min(-(-2 * SM_COUNT // tiles), K // 512, 32))
+    return max(1, min(2 * SM_COUNT // tiles, K // TN_MIN_ROWS, 32))
 
 
 def gemm_bwd(a: torch.Tensor, b: torch.Tensor, layout: str, epilogue: str,
@@ -1058,45 +1068,62 @@ def vit_layer_norm_rows(x: torch.Tensor, ln: torch.Tensor, eps: float) -> torch.
 def vit_attention_reference(qkv: torch.Tensor, key_mask: torch.Tensor, bias: Optional[torch.Tensor],
                             scale: float) -> torch.Tensor:
     """Plain version of the ViT attention kernel: qkv (B, T, 3, H, dh),
-    key_mask (B, T) bool, bias (H, T, T) or None -> (B, T, H*dh). f32 scores
-    times `scale` plus the bias, masked keys at -1e30, the softmax divided by
-    its sum in f32 and then cast to qkv's dtype, p.v accumulated in f32."""
+    key_mask (B, T) bool, bias (H, T, Tb >= T) (its first T columns; Tb > T
+    is a padded row) or None -> (B, T, H*dh). f32 scores times `scale` plus
+    the bias, masked keys at -1e30, the softmax divided by its sum in f32 and
+    then cast to qkv's dtype, p.v accumulated in f32."""
     B, T, _, H, dh = qkv.shape
     s = torch.einsum("bqhd,bkhd->bhqk", qkv[:, :, 0].float(), qkv[:, :, 1].float())
     if scale != 1.0:
         s = s * scale
     if bias is not None:
-        s = s + bias.float()[None]
+        s = s + bias[..., :T].float()[None]
     s = torch.where(key_mask[:, None, None, :], s, VIT_MASK_VALUE)
     p = torch.softmax(s, dim=-1).to(qkv.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", p.float(), qkv[:, :, 2].float()).to(qkv.dtype).reshape(B, T, H * dh)
 
 
-VIT_ATTENTION_SMEM = 227 * 1024  # bytes a block may use (csrc/vit_layer.cu keeps 32 score rows there)
+VIT_ATTENTION_SMEM = 227 * 1024  # bytes a block may use (csrc/vit_layer.cu's f32 kernel keeps 32 score rows there)
+
+
+def vit_bias_width(T: int) -> int:
+    """The padded row length of a ViT rel-pos bias (H, T, Tb): T rounded up
+    to a multiple of 8, so that every row starts on a 16-byte boundary."""
+    return -(-T // 8) * 8
 
 
 def vit_attention(qkv: torch.Tensor, key_mask: torch.Tensor, bias: Optional[torch.Tensor], scale: float):
     """softmax(q.k^T * scale + bias, keys masked) @ v for a short sequence:
-    qkv (B, T, 3, H, dh) contiguous, key_mask (B, T) bool, bias (H, T, T)
-    bf16 shared by the batch, or None -> (B, T, H*dh) in qkv's dtype."""
+    qkv (B, T, 3, H, dh) contiguous, key_mask (B, T) bool, bias (H, T, Tb)
+    bf16 shared by the batch (the first T columns of rows Tb long; the bf16
+    kernel takes Tb a multiple of 8, `vit_bias_width`), or None -> (B, T, H*dh)
+    in qkv's dtype."""
     if not kernels.on_cuda(qkv, key_mask, bias):
         return vit_attention_reference(qkv, key_mask, bias, scale)
     B, T, three, H, dh = qkv.shape
     kernels.require(three == 3 and qkv.is_contiguous(), "vit_attention: qkv must be contiguous (B, T, 3, H, dh)")
     kernels.require(dh <= 128, f"vit_attention: head dim {dh} > 128")
-    DH = 32 if dh <= 32 else 64 if dh <= 64 else 128
-    kernels.require((96 * (DH + 1) + 32 * (T + 1)) * 4 <= VIT_ATTENTION_SMEM,
-                    f"vit_attention: T {T} too long for the score rows in shared memory")
+    if qkv.dtype == torch.float32:
+        DH = 32 if dh <= 32 else 64 if dh <= 64 else 128
+        kernels.require((96 * (DH + 1) + 32 * (T + 1)) * 4 <= VIT_ATTENTION_SMEM,
+                        f"vit_attention: T {T} too long for the f32 kernel's score rows in shared memory")
     kernels.require(key_mask.dtype == torch.bool and key_mask.shape == (B, T) and key_mask.is_contiguous(),
                     "vit_attention: key_mask must be contiguous bool (B, T)")
+    bias_ld = T
     if bias is not None:
-        kernels.require(bias.shape == (H, T, T) and bias.dtype == torch.bfloat16 and bias.is_contiguous(),
-                        f"vit_attention: bias must be contiguous bf16 (H, T, T), got {tuple(bias.shape)} {bias.dtype}")
+        bias_ld = bias.shape[-1]
+        kernels.require(bias.dim() == 3 and bias.shape[:2] == (H, T) and bias_ld >= T and bias.dtype == torch.bfloat16
+                        and bias.is_contiguous(),
+                        f"vit_attention: bias must be contiguous bf16 (H, T, >= T), got {tuple(bias.shape)} {bias.dtype}")
+        if qkv.dtype == torch.bfloat16:
+            kernels.require(bias_ld % 8 == 0 and bias.data_ptr() % 16 == 0,
+                            f"vit_attention: the bf16 kernel copies bias rows 16 bytes at a time: rows of "
+                            f"{bias_ld} elements, need a multiple of 8 (pad them to vit_bias_width(T))")
     code = kernels.dtype_code(qkv, (torch.float32, torch.bfloat16))
     out = torch.empty((B, T, H * dh), dtype=qkv.dtype, device=qkv.device)
     err = kernels.library().vit_attention(qkv.data_ptr(), key_mask.data_ptr(),
                                           bias.data_ptr() if bias is not None else None, out.data_ptr(),
-                                          B, H, T, dh, float(scale), code, kernels.stream_ptr(qkv))
+                                          B, H, T, dh, bias_ld, float(scale), code, kernels.stream_ptr(qkv))
     kernels.check("vit_attention", err)
     kernels.LAUNCHES["vit_attention"] += 1
     return out
@@ -1107,8 +1134,10 @@ def fuse_vit_blocks(layers, rel_index: Optional[torch.Tensor] = None) -> List[Di
     ViTLayer modules (models/vit.py): wqkv (3d, d) = [q; k; v] and bqkv (3d,)
     (BEiT's missing k bias becomes zeros), wo (d, d), w1 (mlp, d), w2 (d, mlp)
     with their biases, ln1/ln2 (2, d) = [scale; bias]; with `rel_index`
-    (T, T) the layer's rel-pos table gathered to bias (H, T, T) bf16, and
-    gamma (2, d) = [lambda_1; lambda_2] where the layer has layer-scale."""
+    (T, T) the layer's rel-pos table gathered to bias (H, T, Tb) bf16, its rows
+    padded with zeros to Tb = vit_bias_width(T) (`vit_attention` reads the
+    first T columns), and gamma (2, d) = [lambda_1; lambda_2] where the layer
+    has layer-scale."""
     out = []
     for l in layers:
         k_b = l.k_b if l.k_b is not None else torch.zeros_like(l.q_b)
@@ -1116,8 +1145,10 @@ def fuse_vit_blocks(layers, rel_index: Optional[torch.Tensor] = None) -> List[Di
              "wo": l.o_w, "bo": l.o_b, "ln1": torch.stack([l.ln1_w, l.ln1_b]), "ln2": torch.stack([l.ln2_w, l.ln2_b]),
              "w1": l.fc1_w, "b1": l.fc1_b, "w2": l.fc2_w, "b2": l.fc2_b}
         if rel_index is not None:
-            f["bias"] = l.rel_bias_table[rel_index.to(l.rel_bias_table.device)].permute(2, 0, 1) \
-                .to(torch.bfloat16).contiguous()
+            T = rel_index.shape[-1]
+            f["bias"] = torch.nn.functional.pad(
+                l.rel_bias_table[rel_index.to(l.rel_bias_table.device)].permute(2, 0, 1).to(torch.bfloat16),
+                (0, vit_bias_width(T) - T)).contiguous()
         if l.lambda_1 is not None:
             f["gamma"] = torch.stack([l.lambda_1, l.lambda_2])
         out.append(f)

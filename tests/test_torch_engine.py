@@ -264,7 +264,7 @@ JAX_FREE = textwrap.dedent("""
     from rag_docvqa_tpu_torch.config import build_reranker
     from rag_docvqa_tpu_torch.models import bert
     from rag_docvqa_tpu_torch.training.contrastive import ContrastiveConfig, train_contrastive
-    rr = build_reranker({"rerank_pair_len": 64, "rerank_max_chunk_num": 2}, tok)
+    rr = build_reranker({"rerank_pair_len": 64, "rerank_max_chunk_num": 2}, tok, device="cpu")
     rr.params.to(torch.bfloat16)
     reranked = RAGVT5Engine(RAGConfig(chunk_num=3, max_source_length=160, max_new_tokens=4), cfg, params, tok,
                             reranker=rr).inference(batch, aux)

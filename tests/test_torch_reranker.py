@@ -205,12 +205,12 @@ def test_build_reranker_and_engine_from_config(world):
              reranker_num_layers=1, reranker_num_heads=2, reranker_d_ff=48, include_surroundings=[2], seed=3,
              chunk_num=K, max_source_length=160, max_new_tokens=2, d_model=32, d_kv=8, num_heads=4, d_ff=64,
              num_layers=2, dropout_rate=0.0)
-    rr = p_config.build_reranker(c, world["ptok"], seed=3)
+    rr = p_config.build_reranker(c, world["ptok"], seed=3, device="cpu")
     assert rr.cfg == p_rr.RerankerConfig(filter_thresh=0.3, max_chunk_num=4, pair_len=64, include_surroundings=2)
     assert rr.bert_cfg == p_bert.BertConfig(vocab_size=VOCAB, hidden_size=32, num_layers=1, num_heads=2,
                                             intermediate_size=48, num_labels=1)
     assert rr.params.has_head and rr.params.word_emb.shape == (VOCAB, 32)
-    again = p_config.build_reranker(c, world["ptok"], seed=3)
+    again = p_config.build_reranker(c, world["ptok"], seed=3, device="cpu")
     assert torch.equal(rr.params.layers[0].fc1_w, again.params.layers[0].fc1_w)  # weights from the seed
     with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
         p_config.build_reranker(dict(c, reranker_weights="BAAI/bge-reranker-v2-gemma"), world["ptok"])
@@ -223,3 +223,14 @@ def test_build_reranker_and_engine_from_config(world):
     assert p_config.build_engine(dict(c, rerank=False), params, world["ptok"]).reranker is None
     with pytest.raises(NotImplementedError, match="Queue 1 item"):
         p_config.build_engine(dict(c, model_name="Hi-VT5"), params, world["ptok"])
+
+
+def test_build_reranker_defaults_to_the_card(world, monkeypatch):
+    """Without a device the reranker is built on the GPU, as the CLIs run:
+    with no card it raises and names the CPU option instead of silently
+    building CPU weights."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    c = dict(rerank_pair_len=64, reranker_d_model=32, reranker_num_layers=1, reranker_num_heads=2, reranker_d_ff=48)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        p_config.build_reranker(c, world["ptok"])
+    assert p_config.build_reranker(c, world["ptok"], device="cpu").params.word_emb.device.type == "cpu"

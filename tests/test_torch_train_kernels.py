@@ -131,8 +131,13 @@ def test_flash_autograd_function_runs_k6():
 # --------------------------------------------------------------------------- #
 # K7 and K8
 # --------------------------------------------------------------------------- #
-def _layer_setup(gated, n_layers=1):
-    cfg = j_t5.T5Config(vocab_size=32, d_model=32, d_kv=8, num_heads=4, d_ff=64, num_encoder_layers=n_layers,
+# the backward's tile edges: B 3 x T 48 = 144 rows cut the card's 128-row GEMM
+# tiles, d_model 72 and d_ff 136 its 64-deep K steps
+EDGE_SHAPE = dict(B=3, T=48, d=72, d_ff=136)
+
+
+def _layer_setup(gated, n_layers=1, d=32, d_ff=64):
+    cfg = j_t5.T5Config(vocab_size=32, d_model=d, d_kv=8, num_heads=4, d_ff=d_ff, num_encoder_layers=n_layers,
                         num_decoder_layers=1, dropout_rate=0.0, gated_ffn=gated)
     tree = jax.tree.map(np.asarray, j_t5.init_t5_params(jax.random.PRNGKey(1), cfg))
     rng = np.random.RandomState(2)
@@ -147,8 +152,15 @@ def _inputs(B=3, T=16, d=32, seed=3):
     rng = np.random.RandomState(seed)
     x = rng.randn(B, T, d).astype(np.float32)
     g = rng.randn(B, T, d).astype(np.float32)
-    mask = np.arange(T)[None, :] < np.array([16, 11, 5])[:, None]
+    mask = np.arange(T)[None, :] < np.array([T, T - 5, 5])[:, None]
     return x, g, mask
+
+
+def _shape(edges):
+    """(layer widths, input shape) of a case: the small default or EDGE_SHAPE."""
+    if not edges:
+        return {}, {}
+    return dict(d=EDGE_SHAPE["d"], d_ff=EDGE_SHAPE["d_ff"]), dict(B=EDGE_SHAPE["B"], T=EDGE_SHAPE["T"], d=EDGE_SHAPE["d"])
 
 
 def _close(got, want, dtype, err_msg=""):
@@ -160,14 +172,18 @@ def _close(got, want, dtype, err_msg=""):
         assert np.abs(got - want).max() <= 2e-2 * max(np.abs(want).max(), 1.0), err_msg
 
 
-@pytest.mark.parametrize("gated,dtype", [(False, "f32"), (True, "f32"), (False, "bf16")])
-def test_ffn_bwd_plain_matches_jax(gated, dtype):
-    cfg, tree, stacked = _layer_setup(gated)
+@pytest.mark.parametrize("gated,dtype,edges", [
+    pytest.param(False, "f32", False, id="False-f32"), pytest.param(True, "f32", False, id="True-f32"),
+    pytest.param(False, "bf16", False, id="False-bf16"), pytest.param(False, "f32", True, id="False-f32-edges"),
+    pytest.param(True, "bf16", True, id="True-bf16-edges")])
+def test_ffn_bwd_plain_matches_jax(gated, dtype, edges):
+    widths, shape = _shape(edges)
+    cfg, tree, stacked = _layer_setup(gated, **widths)
     jl = jax.tree.map(lambda a: jnp.asarray(a)[0], j_fe.fuse_t5_blocks(jax.tree.map(jnp.asarray, stacked), gated))
     jdt, pdt = (jnp.float32, torch.float32) if dtype == "f32" else (jnp.bfloat16, torch.bfloat16)
-    x1, g, _ = _inputs()
     names = ("wi_0", "wi_1", "wof") if gated else ("wi", "wof")
     jws = tuple(jl[n].astype(jdt) for n in names)
+    x1, g, _ = _inputs(**shape)
     want = j_feb.t5_ffn_bwd(jnp.asarray(x1, jdt), jnp.asarray(g, jdt), jl["ln1"].astype(jdt), jws,
                             eps=cfg.layer_norm_eps, gated=gated, interpret=True)
     pws = tuple(_t(np.asarray(w.astype(jnp.float32)).T).to(pdt) for w in jws)
@@ -182,12 +198,16 @@ def test_ffn_bwd_plain_matches_jax(gated, dtype):
     assert torch.equal(wrapped[0], got[0]) and all(torch.equal(a, b) for a, b in zip(wrapped[2], got[2]))
 
 
-@pytest.mark.parametrize("with_bias,dtype", [(True, "f32"), (False, "f32"), (True, "bf16")])
-def test_attn_bwd_plain_matches_jax(with_bias, dtype):
-    cfg, tree, stacked = _layer_setup(False)
+@pytest.mark.parametrize("with_bias,dtype,edges", [
+    pytest.param(True, "f32", False, id="True-f32"), pytest.param(False, "f32", False, id="False-f32"),
+    pytest.param(True, "bf16", False, id="True-bf16"), pytest.param(True, "f32", True, id="True-f32-edges"),
+    pytest.param(False, "bf16", True, id="False-bf16-edges")])
+def test_attn_bwd_plain_matches_jax(with_bias, dtype, edges):
+    widths, shape = _shape(edges)
+    cfg, tree, stacked = _layer_setup(False, **widths)
     jl = jax.tree.map(lambda a: jnp.asarray(a)[0], j_fe.fuse_t5_blocks(jax.tree.map(jnp.asarray, stacked), False))
     jdt, pdt = (jnp.float32, torch.float32) if dtype == "f32" else (jnp.bfloat16, torch.bfloat16)
-    x, dy, mask = _inputs()
+    x, dy, mask = _inputs(**shape)
     T = x.shape[1]
     bias = jnp.asarray(np.random.RandomState(4).randn(cfg.num_heads, T, T), jnp.bfloat16) if with_bias else None
     want = j_feb.t5_attn_bwd(jnp.asarray(x, jdt), jnp.asarray(dy, jdt), jnp.asarray(mask), bias,
@@ -283,6 +303,31 @@ def test_gemm_bwd_epilogues_cast_where_the_tpu_kernel_casts():
     np.testing.assert_allclose(out.numpy(), (1.0 + a[:5, :5] @ b[:5]).numpy(), rtol=1e-6)
     with pytest.raises(ValueError):
         p_fe.gemm_bwd(a, b, "tn", "store")  # no kernel for that pair
+
+
+def test_tn_splits_rule():
+    """The row ranges of a weight gradient (csrc/gemm_bwd.cuh): one where the
+    output has a tile for every SM or the rows make fewer than two ranges of
+    TN_MIN_ROWS; else ranges of at least TN_MIN_ROWS rows whose blocks fit one
+    round of two an SM, at most 32. The kernel's ranges, ceil(K / splits)
+    rounded up to its 64-row K step, are summed in their order: they tile
+    [0, K) in order, none of them empty."""
+    S, lo = p_fe.SM_COUNT, p_fe.TN_MIN_ROWS
+    assert p_fe.tn_splits(3072, 768, 4096, True) == 1  # 144 tiles of 128 x 128
+    assert p_fe.tn_splits(384, 384, 2 * lo - 8, True) == 1  # too few rows for two ranges
+    assert p_fe.tn_splits(1536, 384, 16384, True) == 7 and p_fe.tn_splits(384, 384, 16384, True) == 16
+    for M, N, K in ((1536, 384, 16384), (384, 384, 16384), (768, 768, 4096), (2304, 768, 4096), (1152, 384, 16384),
+                    (96, 64, 100000), (136, 264, 2 * lo), (64, 64, 16384)):
+        for bf16 in (True, False):
+            tile = 128 if bf16 else 64
+            tiles = -(-M // tile) * -(-N // tile)
+            s = p_fe.tn_splits(M, N, K, bf16)
+            assert s == p_fe.tn_splits(M, N, K, bf16)  # a pure function of the shape
+            assert 1 <= s <= 32 and (s == 1 or (s * tiles <= 2 * S and K // s >= lo))
+            chunk = -(-(-(-K // s)) // 64) * 64
+            ranges = [(z * chunk, min(K, (z + 1) * chunk)) for z in range(s)]
+            assert ranges[0][0] == 0 and ranges[-1][1] == K and all(a < b for a, b in ranges)
+            assert all(ranges[z][1] == ranges[z + 1][0] for z in range(s - 1))
 
 
 def test_rms_norm_bwd_matches_autograd():

@@ -68,8 +68,11 @@ def _close(got, want, tol, name=""):
     assert float(np.abs(got - want).max()) <= tol * scale, (name, float(np.abs(got - want).max()), scale)
 
 
-# (B, T, valid lengths): T 197's residue (odd), a T that is no multiple of 8, and an aligned one
-LAYER_CASES = [(3, 17, [17, 17, 17]), (4, 13, [13, 9, 13, 1]), (2, 24, [24, 16])]
+# (B, T, valid lengths): T 197's residue (odd), a T that is no multiple of 8, and an aligned one; then T on
+# either side of the card kernel's 64-query tiles and of its 256-key score row (257: two passes), with rows of
+# no valid key (uniform over the T real keys) and of a single key
+LAYER_CASES = [(3, 17, [17, 17, 17]), (4, 13, [13, 9, 13, 1]), (2, 24, [24, 16]),
+               (2, 63, [63, 0]), (2, 65, [65, 1]), (2, 129, [129, 0]), (1, 257, [257])]
 
 
 @pytest.mark.parametrize("form", ["vit", "beit_bias_gamma", "bias_only", "gamma_only"])
@@ -88,6 +91,32 @@ def test_vit_layer_matches_jax_kernel(form, B, T, lens):
     _close(got.numpy(), want, 2e-5, form)
     ref = fe.vit_layer_reference(torch.from_numpy(x), torch.from_numpy(mask), _port_layer(jl), num_heads=H, eps=EPS)
     assert torch.equal(got, ref)  # on CPU tensors the wrapper is the plain version
+    if has_bias:  # the kernels' form: the bias rows zero-padded to a multiple of 8, as fuse_vit_blocks builds it
+        pl = _port_layer(jl)
+        pl["bias"] = torch.nn.functional.pad(pl["bias"], (0, fe.vit_bias_width(T) - T))
+        assert torch.equal(fe.fused_vit_layer_parts(torch.from_numpy(x), torch.from_numpy(mask), pl, num_heads=H,
+                                                    eps=EPS), got)
+
+
+def test_fuse_vit_blocks_pads_the_bias_rows():
+    """The rel-pos bias in the kernels' form: (H, T, vit_bias_width(T)) bf16,
+    the gathered table in the first T columns and zeros after, contiguous (the
+    card kernel copies its rows 16 bytes at a time)."""
+    _, pcfg = _cfg_pair("beit")
+    params = vit.init_vit_params(torch.Generator().manual_seed(3), pcfg)
+    rng = np.random.RandomState(3)
+    with torch.no_grad():
+        for layer in params.layers:  # the init's table is zeros: make it count
+            layer.rel_bias_table.copy_(torch.from_numpy(rng.randn(*layer.rel_bias_table.shape).astype(np.float32)))
+    rel_index = torch.from_numpy(vit.beit_relative_position_index(pcfg.grid)).long()
+    T = rel_index.shape[-1]
+    Tb = fe.vit_bias_width(T)
+    assert Tb % 8 == 0 and 0 <= Tb - T < 8
+    for layer, fused in zip(params.layers, fe.fuse_vit_blocks(params.layers, rel_index)):
+        b = fused["bias"]
+        assert b.shape == (H, T, Tb) and b.dtype == torch.bfloat16 and b.is_contiguous()
+        assert torch.equal(b[..., :T], layer.rel_bias_table[rel_index].permute(2, 0, 1).to(torch.bfloat16))
+        assert not b[..., T:].any()
 
 
 def test_vit_layer_bf16_bound():
