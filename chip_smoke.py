@@ -67,10 +67,13 @@ Nine phases; any failure raises and the script exits non-zero:
         backward and update. Cut: warmup 2 steps instead of 1000, so the
         learning rate is not zero;
   7. the corpus index, TF32 still off:
-     a. the top-k kernels K4 (fused scoring + running top-k), K5 (segment
+     a. the SASS of csrc/topk_fused.cu and csrc/topk_segmax.cu holds HGMMA
+        (a bf16 index is scored on wgmma with the query in three exact bf16
+        terms); the top-k kernels K4 (fused scoring + running top-k), K5 (segment
         maxima), K11 (int8) and K12 (int4) against their plain versions on
-        a small ragged case (N 1536 with 1100 valid rows, D 64, B 3 and 20,
-        k 5, duplicated rows that tie) and at the path's shape, N 524,288 x
+        small ragged cases (N 1536 with 1100 valid rows, D 64, B 3 and 20,
+        k 5, duplicated rows that tie; no valid row; N 1024 D 32 B 40 k 48)
+        and at the path's shape, N 524,288 x
         D 768, B 256 and B 8, k 10, f32 and bf16 index. Float kernels:
         values and maxima within 1e-4, and every returned index is checked
         by gathering its score from the plain score matrix (on the card
@@ -79,7 +82,10 @@ Nine phases; any failure raises and the script exits non-zero:
         demanded). Integer kernels: maxima equal bit for bit, and the
         two-phase functions' indices and values equal the flat ones
         exactly. Times by CUDA events, beside torch.matmul + torch.topk on
-        the same index (whose tie order is not the contract);
+        the same index (whose tie order is not the contract); K4 and the two
+        whole functions (fused, two-phase) also at B 8, 16, 32, 64 and 256
+        on both float indexes, the two sides of KERNEL_BATCH_CROSSOVER, and
+        K4 and K5 at B 8 and 256 with the row-block count set by hand;
      b. ShardedIndex.build and query at that size in f32, bf16, int8, int4
         and int4 with the host rescore (k' 48, f32 host rows), as 1 and as
         4 row ranges: both give identical results; top-10 agreement with
@@ -158,12 +164,13 @@ Nine phases; any failure raises and the script exits non-zero:
         ViT-base tower (197 tokens) and the matcher, encoder length 709;
         finite confidences in [0, 1], every kernel of K1-K3 and K14 launched;
         ms per batch by stage, and the tower alone;
-     d. the bias-free tensor-core attention (bf16: ragged lengths, dk 16, 32,
-        64 and 128, a row with no valid key; then B 136 T 128, B 8 T 1024 and
-        B 8 T 2048 at H 12, each beside SDPA and K2), K13 (small f32 and bf16
+     d. K2 on the bias-free rows (no bias, scale 1, mask value -1e9; bf16:
+        ragged lengths, dk 16, 32, 64 and 128, a row with no valid key; then
+        B 136 T 128, B 8 T 1024 and B 8 T 2048 at H 12, each beside SDPA), K13 (small f32 and bf16
         cases against the plain version with the TPU kernel's own tiles and
         against K1's plain parts; then B 8 T 2048), K1 without a bias (B 136
-        T 128 and B 8 T 1024, ragged masks, rows with no valid token), K15 (one query and batched, tiles that do not divide, both
+        T 128 and B 8 T 1024, ragged masks, rows with no valid token; dk 40
+        in bf16), K15 (one query and batched, tiles that do not divide, both
         masks, a patch set with no valid token; then B 8 and B 32 x 16 sets,
         T 128, D 768; <= 1e-4) and K3 over int8 caches of Te 709, 1024 and
         2048, each against its plain version;
@@ -180,7 +187,7 @@ Nine phases; any failure raises and the script exits non-zero:
         + `inference_indexed` at B 32, and the 2048-patch budget at B 8, whose
         generator row runs K13; before them one bf16 `vision_encode` at T 128,
         1024 and 2048 with its launches counted; every kernel of each run
-        launched, each tower's launches exactly its layers' (no K2), tokens
+        launched, each tower's launches exactly its layers' (one K2 a layer), tokens
         decoded, confidences finite in [0, 1], pages in range.
 
 The line before the last is a JSON object with every kernel's launches in
@@ -203,8 +210,8 @@ paths 1-3 of phase 8 under "embed_index", "rerank_serve" and
 paths under "visual_serve" and "p2s_serve". "t5_layer_nobias" (K1 without a
 bias) and "t5_layer_qtiled" (K13) are whole layers outside the kernel list,
 each with its error, its times and the launches of its parts (t5_rms_norm,
-t5_gemm and, in bf16, t5_qtiled_attention); that each served tower ran
-exactly those, and K2 never, is asserted from the launch counts.
+t5_gemm and flash_fwd); that each served tower ran exactly those is
+asserted from the launch counts.
 The last line is
 {"ok": true, "device": {...}}. Weights are random, made from a seed.
 
@@ -279,8 +286,6 @@ KERNELS = {
                       "serve_visual", "B32 H12 T197 dh64 bias bf16"),
     "maxsim": ("rag_docvqa_tpu_torch/csrc/maxsim.cu", "rag_docvqa_tpu/ops/late_interaction.py:56",
                "p2s", "B8 mc16 Tq128 Tp128 D768 f32"),
-    "t5_qtiled_attention": ("rag_docvqa_tpu_torch/csrc/t5_layer_qtiled.cu", "rag_docvqa_tpu/ops/fused_encoder.py:580",
-                            "p2s_page", "B8 H12 T2048 dk64 bf16"),
 }
 # the kernels each path launches
 SERVE_KERNELS = ("t5_rms_norm", "t5_gemm", "flash_fwd", "decode_cross_attention")
@@ -443,7 +448,6 @@ class Checks:
     def __init__(self):
         self.err = {}
         self.times = {}  # unit -> {case label: {"ms", "plain_ms", "library_ms", "bound_ms", "bound_by"}}
-        self.k2_on_bias_free_rows = {}  # case label of t5_qtiled_attention -> K2's ms on the same row
 
     def compare(self, unit: str, label: str, got: torch.Tensor, want: torch.Tensor, limit: float) -> float:
         torch.cuda.synchronize()
@@ -979,8 +983,15 @@ def check_layer_bwd(checks: Checks, g: torch.Generator) -> None:
             checks.compare("t5_rms_bwd", f"{label} {tag} dx", got[0], want[0], tol(dtype, want[0]))
             checks.compare("t5_rms_bwd", f"{label} {tag} dw", got[1], want[1], rel_tol(dtype, want[1]))
             if rows == R and dtype == torch.bfloat16:
+                x32, w32 = x.float(), w.float()
+
+                def library():  # autograd of the one library RMSNorm call
+                    xx, wx = x32.detach().requires_grad_(), w32.detach().requires_grad_()
+                    return torch.autograd.grad(torch.nn.functional.rms_norm(xx, (d,), wx, eps), (xx, wx), dh)
+
                 checks.timed("t5_rms_bwd", f"{label} {tag}", lambda: fe.rms_norm_bwd(x, dh, w, resid, eps),
-                             lambda: fe.rms_norm_bwd_reference(x, dh, w, resid, eps),
+                             lambda: fe.rms_norm_bwd_reference(x, dh, w, resid, eps), library=library,
+                             library_is="autograd of F.rms_norm in f32: dx and dw, without the residual add",
                              io_bytes=nbytes(x, dh, w, resid, *got), ops=10.0 * rows * d)
 
     params = t5m.init_t5_params(g, t5m.T5Config(num_encoder_layers=1, num_decoder_layers=1))
@@ -1161,11 +1172,15 @@ INDEX_N, INDEX_D, INDEX_B, INDEX_K = 524288, 768, 256, 10  # the path's shape
 
 def check_index_kernels(checks: Checks, g: torch.Generator) -> dict:
     """7a: K4, K5, K11 and K12 against their plain versions; returns the
-    whole-function times on both sides of the batch crossover."""
+    whole-function times on both sides of the batch crossover and, per float
+    case, K4's value error and its share of indices equal to the plain
+    version's."""
     from rag_docvqa_tpu_torch.ops import quant, topk
 
+    for source in ("topk_fused.cu", "topk_segmax.cu"):
+        check_hgmma(source)
     dev = g.device
-    whole = {}
+    whole = {"k4_against_plain": {}}
 
     def case(N, n_valid, D, B, k, label, dups=(), timed=False, int_kernels=True, dtypes=("f32", "bf16")):
         x = torch.randn((N, D), generator=g, device=dev)
@@ -1187,7 +1202,7 @@ def check_index_kernels(checks: Checks, g: torch.Generator) -> dict:
             # ---- K4
             vals, idx = topk.fused_topk(index, q, n_valid, k)
             want_v, want_i = topk.fused_topk_reference(index, q, n_valid, k)
-            checks.compare("topk_fused", f"{name} values", vals, want_v, F32_TOL)
+            err_v = checks.compare("topk_fused", f"{name} values", vals, want_v, F32_TOL)
             live = want_v > topk.NEG_INF / 2
             if not bool(((idx >= 0) & (idx < max(n_valid, 1)))[live].all()):
                 raise AssertionError(f"topk_fused {name}: an index outside the valid rows")
@@ -1198,6 +1213,7 @@ def check_index_kernels(checks: Checks, g: torch.Generator) -> dict:
                            torch.where(live, scores.gather(1, idx.long()), vals), vals, F32_TOL)
             same = (idx == want_i)[live].float().mean().item() if bool(live.any()) else 1.0
             log(f"  {'topk_fused':24s} {name:44s} indices equal to the plain version's: {same:.6f}")
+            whole["k4_against_plain"][name] = {"values_max_abs_err": err_v, "indices_equal_share": same}
             # ---- K5
             for group, sgroups in ((8, 16), (16, 1)):
                 seg, sup = topk.segment_max(index, q, n_valid, group, sgroups)
@@ -1214,19 +1230,48 @@ def check_index_kernels(checks: Checks, g: torch.Generator) -> dict:
                 elt = index.element_size()
                 qd = q.to(index.dtype)
                 library = lambda: torch.matmul(qd, index.t()).topk(k)  # its tie order is not the contract
+                # a bf16 index's kernels read the query as three bf16 terms and make three products of each
+                q_in, terms, ops_in = (topk.split_bf16x3(q), 3, "bf16") if tag == "bf16" else (q, 1, "f32")
                 checks.timed("topk_fused", f"N{N} D{D} B{B} k{k} {tag}", lambda: topk.fused_topk(index, q, n_valid, k),
                              lambda: topk.fused_topk_reference(index, q, n_valid, k), library=library,
-                             io_bytes=n_valid * D * elt + nbytes(q, vals, idx), ops=2.0 * n_valid * D * B)
+                             io_bytes=n_valid * D * elt + nbytes(q_in, vals, idx), ops=terms * 2.0 * n_valid * D * B,
+                             ops_in=ops_in)
                 seg, sup = topk.segment_max(index, q, n_valid, 8, 16)
                 checks.timed("topk_segmax", f"N{N} D{D} B{B} g8 sg16 {tag}",
                              lambda: topk.segment_max(index, q, n_valid, 8, 16),
                              lambda: topk.segment_max_reference(index, q, n_valid, 8, 16), library=library,
-                             io_bytes=nbytes(index, q, seg, sup), ops=flops)
+                             io_bytes=nbytes(index, q_in, seg, sup), ops=terms * flops, ops_in=ops_in)
                 whole[f"B{B} {tag}"] = {
                     "fused_ms": time_ms(lambda: topk.cosine_topk_fused(index, q, n_valid, k)),
                     "twophase_ms": time_ms(lambda: topk.cosine_topk_twophase(index, q, n_valid, k)),
                     "matmul_topk_ms": checks.times["topk_fused"][f"N{N} D{D} B{B} k{k} {tag}"]["library_ms"]}
                 log(f"  whole functions at {name}: {whole[f'B{B} {tag}']}")
+                if B == INDEX_B:  # the batch sweep across the crossover, on the same index
+                    sweep = {}
+                    for b in (8, 16, 32, 64, 256):
+                        qb = q[:b]
+                        sweep[b] = {"k4_ms": time_ms(lambda: topk.fused_topk(index, qb, n_valid, k)),
+                                    "fused_ms": time_ms(lambda: topk.cosine_topk_fused(index, qb, n_valid, k)),
+                                    "twophase_ms": time_ms(lambda: topk.cosine_topk_twophase(index, qb, n_valid, k))}
+                    whole[f"sweep {tag}"] = sweep
+                    log(f"  K4 and the whole functions by batch at N{N} D{D} k{k} {tag}: {sweep}")
+                    # the number of runs K4 and K5 cut the tiles into (ops/topk.py::_row_blocks; the f32 K5 takes
+                    # one tile a block), set by hand
+                    runs, rule = {}, topk._row_blocks
+                    try:
+                        for b, counts in ((8, (264, 396, 586, 792)), (256, (66, 99, 133, 198))):
+                            qb = q[:b]
+                            for n_rb in counts:
+                                topk._row_blocks = lambda *_: n_rb
+                                row = {"k4_ms": time_ms(lambda: topk.fused_topk(index, qb, n_valid, k))}
+                                if tag == "bf16":
+                                    row["k5_ms"] = time_ms(lambda: topk.segment_max(index, qb, n_valid, 8, 16))
+                                runs[f"B{b} n_rb {n_rb}"] = row
+                    finally:
+                        topk._row_blocks = rule
+                    whole[f"row blocks {tag}"] = runs
+                    log(f"  K4 and K5 by row-block count at N{N} D{D} {tag} (the rule gives "
+                        f"{'586 at B 8, 133' if tag == 'f32' else '396 at B 8, 66'} at B 256): {runs}")
             del scores, index
         if not int_kernels:
             return
@@ -1922,8 +1967,8 @@ VIT_B, VIT_T, VIT_D, VIT_H, VIT_MLP = 32, 197, 768, 12, 3072  # ViT-base at 224 
 P2S_D, P2S_H, P2S_DFF = 768, 12, 2048  # pix2struct-base vision width
 VIT_KERNELS = ("vit_layer_norm", "vit_gemm", "vit_attention")  # K14
 SERVE_VISUAL_KERNELS = SERVE_KERNELS + VIT_KERNELS
-# both bias-free layers (K1 without a bias, K13) are t5_rms_norm, t5_gemm and, in bf16, t5_qtiled_attention
-TOWER_KERNELS = ("t5_rms_norm", "t5_gemm", "t5_qtiled_attention")
+# both bias-free layers (K1 without a bias, K13) are t5_rms_norm, t5_gemm and K2 without a bias
+TOWER_KERNELS = ("t5_rms_norm", "t5_gemm", "flash_fwd")
 P2S_KERNELS = TOWER_KERNELS + ("maxsim", "decode_cross_attention")
 
 
@@ -2249,12 +2294,14 @@ def check_p2s_kernels(checks: Checks, g: torch.Generator) -> None:
     lens_mask = lambda T, lens: torch.arange(T, device=dev)[None, :] < torch.tensor(lens, device=dev)[:, None]
     d, H, dff = P2S_D, P2S_H, P2S_DFF
 
-    # the bias-free attention kernel (bf16): ragged cases (T no multiple of the 64-wide tiles, dk 16, 32, 64 and
-    # 128, a row with no valid key, a single key), then the three shapes the tower gives it: the page budget's
-    # (K13) and the two of K1 without a bias, each beside SDPA and beside K2 on the same row
+    # K2 on every bias-free bf16 row (K13 and K1 without a bias: no bias, scale 1, mask value -1e9): ragged cases
+    # (T no multiple of the 64-wide tiles, dk 16, 32, 64 and 128, a row with no valid key, a single key), then the
+    # three shapes the tower gives it: the page budget's (K13) and the two of K1 without a bias, each beside SDPA
     import torch.nn.functional as F
 
     from rag_docvqa_tpu_torch.ops import flash_attention as fa
+    bias_free = lambda q, k, v, m: fa.flash_attention_fwd(q, k, v, m, None, 1.0, False, fe.T5_MASK_VALUE)[0]
+    bias_free_plain = lambda q, k, v, m: fa.flash_attention_reference(q, k, v, m, None, 1.0, False, fe.T5_MASK_VALUE)[0]
     for Bc, T, Hc, dk, lens in ((3, 77, 4, 64, [77, 50, 0]), (2, 200, 2, 128, [200, 1]), (2, 64, 3, 32, [64, 33]),
                                 (4, 77, 4, 16, [77, 58, 5, 0]),
                                 (136, 128, H, d // H, [128 - (i * 5) % 128 if i % 17 else 0 for i in range(136)]),
@@ -2264,20 +2311,15 @@ def check_p2s_kernels(checks: Checks, g: torch.Generator) -> None:
         qkv[:, :, 0] *= dk ** -0.5  # no scale inside: scores of order one
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         mask = lens_mask(T, lens)
-        got, want = fe.qtiled_attention(q, k, v, mask), fe.qtiled_attention_reference(q, k, v, mask)
-        label = f"B{Bc} H{Hc} T{T} dk{dk} bf16"
-        checks.compare("t5_qtiled_attention", label, got, want, tol(torch.bfloat16, want))
+        got, want = bias_free(q, k, v, mask), bias_free_plain(q, k, v, mask)
+        label = f"bias-free B{Bc} H{Hc} T{T} dk{dk} bf16"
+        checks.compare("flash_fwd", label, got, want, tol(torch.bfloat16, want))
         if Bc >= 8:
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             pad = torch.where(mask, 0.0, fe.T5_MASK_VALUE)[:, None, None, :].to(torch.bfloat16)
-            checks.timed("t5_qtiled_attention", label, lambda: fe.qtiled_attention(q, k, v, mask),
-                         lambda: fe.qtiled_attention_reference(q, k, v, mask),
+            checks.timed("flash_fwd", label, lambda: bias_free(q, k, v, mask), lambda: bias_free_plain(q, k, v, mask),
                          library=lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=pad, scale=1.0),
                          io_bytes=nbytes(qkv, mask, got), ops=4.0 * Bc * Hc * T * T * dk, ops_in="bf16")
-            # and K2 on the same row: why every bias-free bf16 row takes this kernel
-            k2_ms = time_ms(lambda: fa.flash_attention_fwd(q, k, v, mask, None, 1.0, False, fe.T5_MASK_VALUE))
-            checks.k2_on_bias_free_rows[label] = k2_ms
-            log(f"  flash_fwd (K2) on the same row: {k2_ms:.4f} ms")
         del qkv, got, want
     torch.cuda.empty_cache()
     # K13, small f32: against the plain version with the TPU kernel's tiles (TQ | T) and against K1's plain parts
@@ -2304,12 +2346,12 @@ def check_p2s_kernels(checks: Checks, g: torch.Generator) -> None:
         got, want = fe.fused_t5_layer_parts(x, mask, None, ls, **kw), fe.t5_layer_reference(x, mask, None, ls, **kw)
         checks.compare("t5_layer_nobias", f"ragged T77 d{dmodel} dk{dk}, one row without keys bf16", got, want,
                        tol(torch.bfloat16, want))
-    try:  # dk 40: no tensor-core tile of that width, and no other route
-        fe.fused_t5_layer_parts(randn(2, 16, 160).to(torch.bfloat16), lens_mask(16, [16, 9]), None,
-                                cast_layer(random_t5_layer(g, 160, 160, 64, True, 40), torch.bfloat16), **kw)
-        raise AssertionError("a bias-free bf16 layer with a head of 40 must raise")
-    except ValueError:
-        pass
+    # dk 40: K2 zero-fills the head to its 64-wide tile
+    x, mask = randn(2, 16, 160).to(torch.bfloat16), lens_mask(16, [16, 9])
+    ls = cast_layer(random_t5_layer(g, 160, 160, 64, True, 40), torch.bfloat16)
+    want = fe.t5_layer_reference(x, mask, None, ls, **kw)
+    checks.compare("t5_layer_nobias", "T16 d160 dk40 bf16", fe.fused_t5_layer_parts(x, mask, None, ls, **kw), want,
+                   tol(torch.bfloat16, want))
     layer = random_t5_layer(g, d, d, dff, True, d // H)
     weights = lambda l: list(l.values())
     # K13 at the page budget: B 8, T 2048
@@ -2416,7 +2458,7 @@ def check_p2s_stack(g: torch.Generator) -> None:
         got = p2s.vision_encode(params, cfg, patches, mask)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
-        check_tower_route(kernels.LAUNCHES, v.num_layers, 1, False, f"f32 vision_encode at T {T}")
+        check_tower_route(kernels.LAUNCHES, v.num_layers, 1, f"f32 vision_encode at T {T}")
         p = params.vision
         x = dense(patches[:, :, 2:], p.patch_w, p.patch_b) + p.row_emb[patches[:, :, 0].long()] + p.col_emb[patches[:, :, 1].long()]
         for l in fe.fuse_t5_blocks(p.layers, True):
@@ -2477,12 +2519,12 @@ def tower_launches(params, cfg, B: int, T: int, g: torch.Generator) -> dict:
     return dict(kernels.LAUNCHES)
 
 
-def check_tower_route(counts: dict, layers: int, encodes: int, bf16: bool, what: str) -> None:
+def check_tower_route(counts: dict, layers: int, encodes: int, what: str) -> None:
     """A bias-free layer is two norms, five products (qkv, O, two gated
-    inputs, FFN out) and one attention: `t5_qtiled_attention` for a bf16 row
-    and never K2, K2 for an f32 one. The route is read off the launch counts."""
+    inputs, FFN out) and one attention, K2 without a bias, in bf16 as in
+    f32. The route is read off the launch counts."""
     n = layers * encodes
-    want = {"t5_rms_norm": 2 * n, "t5_gemm": 5 * n, "t5_qtiled_attention": n if bf16 else 0, "flash_fwd": 0 if bf16 else n}
+    want = {"t5_rms_norm": 2 * n, "t5_gemm": 5 * n, "flash_fwd": n}
     got = {k: counts[k] for k in want}
     if got != want:
         raise AssertionError(f"{what}: the tower launched {got}, not {want}")
@@ -2527,7 +2569,7 @@ def serve_p2s(g: torch.Generator):
     summary = {}
     L = cfg.vision.num_layers
     for T in (128, 1024, 2048):  # K1 without a bias (chunk sets, the generator's row) and K13 (the page budget)
-        check_tower_route(tower_launches(params, cfg, 2, T, g), L, 1, True, f"bf16 vision_encode at T {T}")
+        check_tower_route(tower_launches(params, cfg, 2, T, g), L, 1, f"bf16 vision_encode at T {T}")
 
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
@@ -2551,7 +2593,7 @@ def serve_p2s(g: torch.Generator):
     log(f"  launches in the two served batches: {launches}")
     check_launched(launches, P2S_KERNELS, "RAG-Pix2Struct serving")
     # two batches of a retrieve encode (T 128) and a generator encode (T 1024) each
-    check_tower_route(launches, L, 4, True, "two served batches")
+    check_tower_route(launches, L, 4, "two served batches")
     summary.update(cold_ms=cold_ms, prepare_ms=prepare_ms, prepared_ms=warm_ms)
 
     # where a prepared batch's time goes: the steps of `_dispatch_batch`, each ended by a synchronize
@@ -2649,7 +2691,7 @@ def serve_p2s(g: torch.Generator):
         f"{host_err:.2e} of the host path's (batch shapes differ: bf16 tower)")
     log(f"  launches in the indexed batch: {indexed_launches}")
     check_launched(indexed_launches, P2S_KERNELS, "indexed RAG-Pix2Struct serving")
-    check_tower_route(indexed_launches, L, 2, True, "the indexed batch")  # the questions' encode and the generator's
+    check_tower_route(indexed_launches, L, 2, "the indexed batch")  # the questions' encode and the generator's
     if host_err > 5e-2:
         raise AssertionError(f"indexed and host retrieval scores differ by {host_err}")
     summary.update(index_prepare_ms=prep32_ms, index_build_ms=build_ms, indexed_ms=indexed_ms,
@@ -2670,7 +2712,7 @@ def serve_p2s(g: torch.Generator):
         f"with prepare_docs")
     log(f"  launches in the 2048-patch batch: {page_launches}")
     check_launched(page_launches, P2S_KERNELS, "2048-patch RAG-Pix2Struct serving")
-    check_tower_route(page_launches, L, 2, True, "the 2048-patch batch")  # the retrieve encode and the T 2048 row
+    check_tower_route(page_launches, L, 2, "the 2048-patch batch")  # the retrieve encode and the T 2048 row
     summary["page_budget_ms"] = page_ms
     return launches, indexed_launches, page_launches, summary
 
@@ -2748,6 +2790,7 @@ def main() -> int:
         check_launched(index_launches, INDEX_KERNELS, "index")
         path_launches["index"] = index_launches
         launches.update({k: index_launches[k] for k in INDEX_KERNELS})
+        index_summary["k4_against_plain"] = crossover.pop("k4_against_plain")
         index_summary["whole_function_ms"] = crossover
         torch.cuda.empty_cache()
     if want("8"):
@@ -2835,9 +2878,9 @@ def main() -> int:
         # the whole layer K14 composes from vit_layer_norm, vit_gemm and vit_attention
         "vit_layer": {"max_abs_err": checks.err["vit_layer"], **times("vit_layer", f"beit B{VIT_B} T{VIT_T} ViT-base bf16"),
                       "cases": checks.times["vit_layer"]},
-        # the two bias-free whole layers, composed from t5_rms_norm, t5_gemm and the bias-free attention
-        # (t5_qtiled_attention in bf16): K1 without a bias and K13, each against its own plain version; their
-        # parts' launches in the served batches and in the 2048-patch batch; K2's time on the attention's rows
+        # the two bias-free whole layers, composed from t5_rms_norm, t5_gemm and K2 without a bias: K1 without a
+        # bias and K13, each against its own plain version; their parts' launches in the served batches and in
+        # the 2048-patch batch
         "t5_layer_nobias": {"max_abs_err": checks.err["t5_layer_nobias"],
                             **times("t5_layer_nobias", "B136 T128 pix2struct-base bf16"),
                             "cases": checks.times["t5_layer_nobias"],
@@ -2846,7 +2889,6 @@ def main() -> int:
                             **times("t5_layer_qtiled", "B8 T2048 pix2struct-base bf16"),
                             "cases": checks.times["t5_layer_qtiled"],
                             "parts_launched": {k: p2s_page_launches[k] for k in TOWER_KERNELS}},
-        "flash_fwd_ms_on_bias_free_rows": checks.k2_on_bias_free_rows,
         "visual_serve": visual_summary,
         "p2s_serve": p2s_summary,
         # every kernel's launches in each path's run, counts set to 0 just before it

@@ -6,8 +6,9 @@
 // their `_nobias` forms) of rag_docvqa_tpu/ops/flash_attention.py, called
 // from `_fwd_call_impl` / `_fwd_call_single`. The same kernel, with
 // mask_value = -1e9, is the attention part of the T5 layer (K1,
-// t5_layer.cu), where the TPU kernel masks with -1e9 and so gives a uniform
-// softmax on a row with no valid key; with mask_value = -1e30 such a row
+// t5_layer.cu; without a bias also K13, `_t5_layer_kernel_qtiled`), where
+// the TPU kernel masks with -1e9 and so gives a uniform softmax on a row
+// with no valid key; with mask_value = -1e30 such a row
 // gives zeros and lse = -1e30, the flash contract.
 //
 // What bounds it on the H100: at t5-base (T 512, dh 64) attention is

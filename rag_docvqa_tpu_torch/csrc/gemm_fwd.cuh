@@ -6,8 +6,9 @@
 //
 // It replaces the products inside the TPU whole-layer kernels of
 // rag_docvqa_tpu/ops/fused_encoder.py (`_t5_layer_kernel`, `_layer_kernel`,
-// `_vit_layer_kernel`, `_t5_layer_kernel_qtiled`), which the 227 KB of a Hopper
-// block's shared memory split at the products.
+// `_vit_layer_kernel`; `_t5_layer_kernel_qtiled`, K13, whose products are the
+// T5 layer's GEMMs here), which the 227 KB of a Hopper block's shared memory
+// split at the products.
 //
 // What bounds it on the H100: operations. At the served shapes (16384 x 768 x
 // 3072 and the like) a product is hundreds of FLOP per byte, so the tensor-core

@@ -1,5 +1,5 @@
 // Hopper building blocks of the redesigned kernels (gemm_fwd.cuh, gemm_bwd.cuh,
-// flash_fwd.cu, vit_layer.cu): 16-byte cp.async copies into 128-byte-swizzled
+// flash_fwd.cu, vit_layer.cu, topk_common.cuh): 16-byte cp.async copies into 128-byte-swizzled
 // shared tiles, the shared-memory matrix descriptors that wgmma reads such tiles
 // through, wgmma.mma_async itself, each as inline PTX for sm_90a, and the block
 // tile and ring of the two wgmma GEMMs.
@@ -85,7 +85,40 @@ template <int N> __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 // d (64 x N, f32) = (accumulate ? d : 0) + A (64 x 16) @ B (16 x N): A from a
 // shared tile (_ss), K-major when TA == 0, MN-major when TA == 1, or from registers
 // (_rs: a[0..3], each warp's m16k16 A fragment); B from shared memory, K-major when
-// TB == 0, MN-major when TB == 1
+// TB == 0, MN-major when TB == 1. The narrow forms n8, n16 and n32 are the top-k
+// score tile's (topk_common.cuh).
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n8k16_ss(float (&d)[4], uint64_t desc_a, uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {%0, %1, %2, %3}, %4, %5, p, 1, 1, %7, %8;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n16k16_ss(float (&d)[8], uint64_t desc_a, uint64_t desc_b,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, %11, %12;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16], uint64_t desc_a, uint64_t desc_b,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
 template <int TA, int TB>
 __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
                                                     int accumulate) {

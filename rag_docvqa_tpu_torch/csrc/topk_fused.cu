@@ -14,9 +14,11 @@
 // in which no score beats its query's k-th best.
 //
 // What bounds it on the H100: at B <= 16, where the dispatch uses it, the
-// one read of the index (bytes); at large B the f32 FMA rate (operations),
-// since the queries stay f32 (see topk_common.cuh). Rows at or beyond
-// `n_valid` score NEG_INF and tiles wholly beyond it are never read.
+// one read of the index (bytes); at large B the rate of the score products
+// (operations): f32 FMA for an f32 index, the tensor cores for a bf16 one,
+// whose queries come as three exact bf16 terms (topk_common.cuh, Bf16Tile).
+// Rows at or beyond `n_valid` score NEG_INF and tiles wholly beyond it are
+// never read.
 #include "topk_common.cuh"
 
 #include <climits>
@@ -50,56 +52,41 @@ __device__ __forceinline__ void warp_insert(float* tv, int* ti, int k, float cv,
   __syncwarp();
 }
 
-template <typename Op, int QT>
-__global__ void __launch_bounds__(NT) fused_topk_kernel(
-    const typename Op::idx_t* __restrict__ index, int N, const uint32_t* __restrict__ qu, int B, int n_units,
-    int n_valid, int k, int tiles_per_block, int nqb, float* __restrict__ cand_v, int* __restrict__ cand_i) {
-  using S = TileShape<QT>;
-  constexpr int TQ = S::TQ;
-  extern __shared__ __align__(16) uint32_t smem[];
-  float* sc = reinterpret_cast<float*>(smem);
-  float* tv = reinterpret_cast<float*>(smem + S::SMEM_UNITS);  // [TQ][k]
-  int* ti = reinterpret_cast<int*>(tv + TQ * k);               // [TQ][k]
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int qb = blockIdx.x % nqb, rb = blockIdx.x / nqb;
-  const int q0 = qb * TQ;
-
-  for (int t = tid; t < TQ * k; t += NT) { tv[t] = NEG_INF; ti[t] = 0; }
-  // (score_tile opens with a __syncthreads())
-
-  const int ntiles = (N + TN - 1) / TN;
-  const int t_end = min((rb + 1) * tiles_per_block, ntiles);
-  for (int tile = rb * tiles_per_block; tile < t_end; ++tile) {
-    const int row0 = tile * TN;
-    if (row0 >= n_valid) break;  // nothing but padding from here on
-    score_tile<Op, QT>(index, n_units, N, qu, B, n_units, nullptr, n_valid, row0, q0, smem);
-    for (int qq = warp; qq < TQ && q0 + qq < B; qq += NT / 32) {
-      float* qv = tv + qq * k;
-      int* qi = ti + qq * k;
-      float thr_v = qv[k - 1];
-      int thr_i = qi[k - 1];
+// every warp takes queries warp, warp + 8, ...: the tile's rows that beat its
+// query's k-th best go into the query's list, in row order
+template <int TQ, int SC_STRIDE>
+__device__ __forceinline__ void insert_tile(const float* sc, float* tv, int* ti, int k, int row0, int q0, int B) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int qq = warp; qq < TQ && q0 + qq < B; qq += NT / 32) {
+    float* qv = tv + qq * k;
+    int* qi = ti + qq * k;
+    float thr_v = qv[k - 1];
+    int thr_i = qi[k - 1];
 #pragma unroll
-      for (int j = 0; j < TN / 32; ++j) {
-        const int r = lane + 32 * j;
-        const float v = sc[r * S::SC_STRIDE + qq];
-        const int gi = row0 + r;
-        unsigned m = __ballot_sync(0xffffffffu, better(v, gi, thr_v, thr_i));
-        while (m) {
-          const int src = __ffs(m) - 1;
-          m &= m - 1;
-          const float cv = __shfl_sync(0xffffffffu, v, src);
-          const int ci = __shfl_sync(0xffffffffu, gi, src);
-          if (better(cv, ci, thr_v, thr_i)) {  // the same for the whole warp
-            warp_insert(qv, qi, k, cv, ci, lane);
-            thr_v = qv[k - 1];
-            thr_i = qi[k - 1];
-          }
+    for (int j = 0; j < TN / 32; ++j) {
+      const int r = lane + 32 * j;
+      const float v = sc[r * SC_STRIDE + qq];
+      const int gi = row0 + r;
+      unsigned m = __ballot_sync(0xffffffffu, better(v, gi, thr_v, thr_i));
+      while (m) {
+        const int src = __ffs(m) - 1;
+        m &= m - 1;
+        const float cv = __shfl_sync(0xffffffffu, v, src);
+        const int ci = __shfl_sync(0xffffffffu, gi, src);
+        if (better(cv, ci, thr_v, thr_i)) {  // the same for the whole warp
+          warp_insert(qv, qi, k, cv, ci, lane);
+          thr_v = qv[k - 1];
+          thr_i = qi[k - 1];
         }
       }
     }
   }
-  __syncthreads();
-  for (int t = tid; t < TQ * k; t += NT) {
+}
+
+// the block's lists [TQ][k] out as its row block's candidates
+__device__ __forceinline__ void write_candidates(const float* tv, const int* ti, int TQ, int k, int q0, int B, int rb,
+                                                 float* __restrict__ cand_v, int* __restrict__ cand_i) {
+  for (int t = threadIdx.x; t < TQ * k; t += NT) {
     const int b = q0 + t / k;
     if (b < B) {
       const long long o = ((long long)rb * B + b) * k + t % k;
@@ -107,6 +94,63 @@ __global__ void __launch_bounds__(NT) fused_topk_kernel(
       cand_i[o] = ti[t];
     }
   }
+}
+
+// f32 index: the SIMT score tile
+template <typename Op, int QT>
+__global__ void __launch_bounds__(NT) fused_topk_kernel(
+    const typename Op::idx_t* __restrict__ index, int N, const uint32_t* __restrict__ qu, int B, int n_units,
+    int n_valid, int k, int n_rb, int nqb, float* __restrict__ cand_v, int* __restrict__ cand_i) {
+  using S = TileShape<QT>;
+  constexpr int TQ = S::TQ;
+  extern __shared__ __align__(16) uint32_t smem[];
+  const float* sc = reinterpret_cast<const float*>(smem);
+  float* tv = reinterpret_cast<float*>(smem + S::SMEM_UNITS);  // [TQ][k]
+  int* ti = reinterpret_cast<int*>(tv + TQ * k);               // [TQ][k]
+  const int tid = threadIdx.x;
+  const int qb = blockIdx.x % nqb, rb = blockIdx.x / nqb;
+  const int q0 = qb * TQ;
+
+  for (int t = tid; t < TQ * k; t += NT) { tv[t] = NEG_INF; ti[t] = 0; }
+  // (score_tile opens with a __syncthreads())
+
+  int t_first, t_end;
+  row_block_tiles(rb, n_rb, (N + TN - 1) / TN, t_first, t_end);
+  for (int tile = t_first; tile < t_end; ++tile) {
+    const int row0 = tile * TN;
+    if (row0 >= n_valid) break;  // nothing but padding from here on
+    score_tile<Op, QT>(index, n_units, N, qu, B, n_units, nullptr, n_valid, row0, q0, smem);
+    insert_tile<TQ, S::SC_STRIDE>(sc, tv, ti, k, row0, q0, B);
+  }
+  __syncthreads();
+  write_candidates(tv, ti, TQ, k, q0, B, rb, cand_v, cand_i);
+}
+
+// bf16 index: the wgmma score tile, fed with the three query terms (3, B, D);
+// the ring (the scores in one of its stages), then the lists in shared memory
+template <int TQ>
+__global__ void __launch_bounds__(NT, Bf16Tile<TQ>::BLOCKS_PER_SM) fused_topk_bf16_kernel(
+    const __nv_bfloat16* __restrict__ index, int N, const __nv_bfloat16* __restrict__ qt, int B, int D, int n_valid,
+    int k, int n_rb, int nqb, float* __restrict__ cand_v, int* __restrict__ cand_i) {
+  using T = Bf16Tile<TQ>;
+  extern __shared__ __align__(16) uint8_t topk_smem[];
+  const int qb = blockIdx.x % nqb, rb = blockIdx.x / nqb;
+  const int q0 = qb * TQ;
+  int t_first, t_end;
+  row_block_tiles(rb, n_rb, (N + TN - 1) / TN, t_first, t_end);
+  t_end = min(t_end, (n_valid + TN - 1) / TN);  // padding is never read
+  T tile(topk_smem, index, N, D, qt, B, q0, t_first, t_end);
+  float* tv = reinterpret_cast<float*>(tile.tail());  // [TQ][k]
+  int* ti = reinterpret_cast<int*>(tv + TQ * k);
+  for (int t = threadIdx.x; t < TQ * k; t += NT) { tv[t] = NEG_INF; ti[t] = 0; }
+  // (score opens with a __syncthreads())
+  for (int t = t_first; t < t_end; ++t) {
+    tile.score(t * TN, n_valid);
+    insert_tile<TQ, T::SC_STRIDE>(tile.sc, tv, ti, k, t * TN, q0, B);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  write_candidates(tv, ti, TQ, k, q0, B, rb, cand_v, cand_i);
 }
 
 // one block per query: k rounds, each taking the best candidate that is
@@ -152,42 +196,68 @@ __global__ void __launch_bounds__(MT) topk_merge_kernel(const float* __restrict_
   }
 }
 
-template <typename Op, int QT>
-cudaError_t launch(const void* index, const void* q, void* cand_v, void* cand_i, void* out_v, void* out_i, int N,
-                   int D, int B, int n_valid, int k, int tiles_per_block, cudaStream_t stream) {
-  using S = TileShape<QT>;
-  const int nqb = (B + S::TQ - 1) / S::TQ;
-  const int ntiles = (N + TN - 1) / TN;
-  const int nrb = (ntiles + tiles_per_block - 1) / tiles_per_block;
-  const int smem = (S::SMEM_UNITS + 2 * S::TQ * k) * (int)sizeof(uint32_t);
-  auto kern = fused_topk_kernel<Op, QT>;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  kern<<<nqb * nrb, NT, smem, stream>>>(static_cast<const typename Op::idx_t*>(index), N,
-                                        static_cast<const uint32_t*>(q), B, D, n_valid, k, tiles_per_block, nqb,
-                                        static_cast<float*>(cand_v), static_cast<int*>(cand_i));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+cudaError_t merge(const void* cand_v, const void* cand_i, void* out_v, void* out_i, int nrb, int B, int k,
+                  cudaStream_t stream) {
   topk_merge_kernel<<<B, MT, 0, stream>>>(static_cast<const float*>(cand_v), static_cast<const int*>(cand_i), nrb,
                                           B, k, static_cast<float*>(out_v), static_cast<int*>(out_i));
   return cudaGetLastError();
 }
 
+template <typename Op, int QT>
+cudaError_t launch(const void* index, const void* q, void* cand_v, void* cand_i, void* out_v, void* out_i, int N,
+                   int D, int B, int n_valid, int k, int nrb, cudaStream_t stream) {
+  using S = TileShape<QT>;
+  const int nqb = (B + S::TQ - 1) / S::TQ;
+  const int smem = (S::SMEM_UNITS + 2 * S::TQ * k) * (int)sizeof(uint32_t);
+  auto kern = fused_topk_kernel<Op, QT>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kern<<<nqb * nrb, NT, smem, stream>>>(static_cast<const typename Op::idx_t*>(index), N,
+                                        static_cast<const uint32_t*>(q), B, D, n_valid, k, nrb, nqb,
+                                        static_cast<float*>(cand_v), static_cast<int*>(cand_i));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return merge(cand_v, cand_i, out_v, out_i, nrb, B, k, stream);
+}
+
+template <int TQ>
+cudaError_t launch_bf16(const void* index, const void* qt, void* cand_v, void* cand_i, void* out_v, void* out_i,
+                        int N, int D, int B, int n_valid, int k, int nrb, cudaStream_t stream) {
+  using T = Bf16Tile<TQ>;
+  const int nqb = (B + TQ - 1) / TQ;
+  const int smem = T::SMEM + 2 * TQ * k * (int)sizeof(uint32_t);
+  auto kern = fused_topk_bf16_kernel<TQ>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  kern<<<nqb * nrb, NT, smem, stream>>>(static_cast<const __nv_bfloat16*>(index), N,
+                                        static_cast<const __nv_bfloat16*>(qt), B, D, n_valid, k, nrb, nqb,
+                                        static_cast<float*>(cand_v), static_cast<int*>(cand_i));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return merge(cand_v, cand_i, out_v, out_i, nrb, B, k, stream);
+}
+
 }  // namespace
 
-// index (N, D) f32 or bf16 (`idx_dtype`), q (B, D) f32 unit rows; cand_v /
-// cand_i (ceil(ceil(N/128) / tiles_per_block), B, k) scratch; out_v (B, k)
-// f32, out_i (B, k) i32. D % 16 == 0, 1 <= k <= 64, 0 <= n_valid <= N.
+// index (N, D) f32 or bf16 (`idx_dtype`); q (B, D) f32 unit rows for an f32
+// index, their three exact bf16 terms (3, B, D) for a bf16 one; cand_v /
+// cand_i (n_row_blocks, B, k) scratch, one row of candidates for each of the
+// contiguous runs the ceil(N/128) tiles are cut into; out_v (B, k) f32, out_i
+// (B, k) i32. D % 16 == 0, 1 <= k <= 64, 0 <= n_valid <= N,
+// 1 <= n_row_blocks <= ceil(N/128).
 extern "C" int topk_fused(const void* index, const void* q, void* cand_v, void* cand_i, void* out_v, void* out_i,
-                          int N, int D, int B, int n_valid, int k, int tiles_per_block, int idx_dtype,
+                          int N, int D, int B, int n_valid, int k, int n_row_blocks, int idx_dtype,
                           void* stream) {
   if (N <= 0 || B <= 0 || D <= 0 || D % 16 != 0 || k < 1 || k > 64 || n_valid < 0 || n_valid > N ||
-      tiles_per_block < 1)
+      n_row_blocks < 1 || n_row_blocks > (N + TN - 1) / TN)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define ARGS index, q, cand_v, cand_i, out_v, out_i, N, D, B, n_valid, k, tiles_per_block, s
+#define ARGS index, q, cand_v, cand_i, out_v, out_i, N, D, B, n_valid, k, n_row_blocks, s
   if (idx_dtype == DT_F32) return (int)(B <= 16 ? launch<OpF32, 1>(ARGS) : launch<OpF32, 4>(ARGS));
-  if (idx_dtype == DT_BF16) return (int)(B <= 16 ? launch<OpBF16, 1>(ARGS) : launch<OpBF16, 4>(ARGS));
+  if (idx_dtype == DT_BF16)
+    return (int)by_query_tile(B, [&](auto tq) { return launch_bf16<decltype(tq)::value>(ARGS); });
 #undef ARGS
   return (int)cudaErrorInvalidValue;
 }

@@ -35,7 +35,7 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 LAUNCHES: Dict[str, int] = {
     "t5_rms_norm": 0,      # K1 (a), csrc/t5_layer.cu
     "t5_gemm": 0,          # K1 (b), csrc/t5_layer.cu
-    "flash_fwd": 0,        # K2, csrc/flash_fwd.cu (also K1 (c))
+    "flash_fwd": 0,        # K2, csrc/flash_fwd.cu (also the attention of K1 and K13)
     "decode_cross_attention": 0,  # K3, csrc/decode_attention.cu
     "flash_bwd": 0,        # K6, csrc/flash_bwd.cu (also the attention of K8)
     "t5_gemm_bwd": 0,      # K7/K8 products, csrc/t5_layer_bwd.cu
@@ -53,7 +53,6 @@ LAUNCHES: Dict[str, int] = {
     "vit_gemm": 0,         # K14 products, csrc/vit_layer.cu
     "vit_attention": 0,    # K14 attention, csrc/vit_layer.cu
     "maxsim": 0,           # K15, csrc/maxsim.cu
-    "t5_qtiled_attention": 0,  # the bias-free bf16 attention (K13, K1 without a bias), csrc/t5_layer_qtiled.cu
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -71,7 +70,7 @@ _SIGNATURES = {
     "t5_gemm_bwd": [_P] * 7 + [_I] * 6 + [_P, _I, _P],
     "t5_rms_bwd": [_P] * 7 + [_I, _I, _F, _I, _I, _P],
     "topk_fused": [_P] * 6 + [_I] * 7 + [_P],
-    "topk_segmax": [_P] * 4 + [_I] * 7 + [_P],
+    "topk_segmax": [_P] * 4 + [_I] * 8 + [_P],
     "topk_segmax_int8": [_P] * 4 + [_I] * 5 + [_P],
     "topk_segmax_int4": [_P] * 4 + [_I] * 5 + [_P],
     "bert_gemm": [_P] * 5 + [_I] * 5 + [_P],
@@ -83,7 +82,6 @@ _SIGNATURES = {
     "vit_gemm": [_P] * 6 + [_I] * 5 + [_P],
     "vit_attention": [_P] * 4 + [_I] * 5 + [_F, _I, _P],
     "maxsim": [_P] * 6 + [_I] * 5 + [_P],
-    "t5_qtiled_attention": [_P] * 5 + [_I] * 4 + [_LL] * 6 + [_P],
 }
 
 

@@ -19,8 +19,8 @@ a row of at most 1024 patches runs K1's bias-free form
 (`fused_t5_layer_parts(bias=None)`), a longer one K13
 (`fused_t5_layer_qtiled`), which is where the TPU pickers draw the line at
 this width. On the card the two are the same launches (K1's RMSNorm and
-GEMMs around `bias_free_attention`); on the CPU each runs its own plain
-version. There is no `fused=` switch, no `flash_encoder` route and no
+GEMMs around K2 with no bias), bf16 or f32; on the CPU each runs its own
+plain version. There is no `fused=` switch, no `flash_encoder` route and no
 padding of the patch axis to a multiple of 8. Masked keys score -1e9 in
 both, so a patch set with no valid token (a padded chunk slot) attends
 uniformly, as in the TPU layer kernels; such rows are masked downstream by

@@ -11,9 +11,9 @@ three kernels with the TPU kernel's cast points (csrc/t5_layer.cu says how):
   (b) `gemm`: C = A @ W^T with f32 accumulation and an epilogue of none,
       ReLU, "+ residual" or "gelu_tanh(g) * u" -- every product is cast to
       the compute dtype before the residual add;
-  (c) K2 (ops/flash_attention.py) with mask_value -1e9, the TPU kernel's;
-      for a layer without a bias (Pix2Struct's tower) `bias_free_attention`:
-      the tensor-core kernel of K13 below for a bf16 row, K2 for an f32 one.
+  (c) K2 (ops/flash_attention.py) with mask_value -1e9, the TPU kernel's,
+      scale 1 and the shared bias; a layer without a bias (Pix2Struct's
+      tower, K13 below) passes none.
 
 `save_x1=True` also returns x1 = x + attn, the attention-residual sum the
 backward starts from (the train forward of `make_fused_t5_layer_train`).
@@ -91,17 +91,15 @@ query tile and head an online softmax over key chunks (scores masked at
 chunk), O + residual, RMS, the FFN in d_ff chunks with f32 accumulation. On
 the card the same layer is `fused_t5_layer_qtiled`: K1's RMSNorm and GEMMs
 (QKV is one GEMM per row; the FFN's f32 accumulation over d_ff chunks is a
-GEMM's accumulator) around an attention kernel written for the bias-free
-bf16 row, `qtiled_attention` (csrc/t5_layer_qtiled.cu: that loop on the
-tensor cores, 64 queries a block, 64-key chunks). It is 3.0, 4.8 and 4.9
-times faster than K2 on such a row at the lengths the tower runs (128, 1024,
-2048; NVIDIA H100 80GB HBM3, 700 W, `chip_smoke.py` phase 9d), so K1 without
-a bias takes it too: on the card the two bias-free layers are one
-set of launches, and `vision_encode`'s choice by length names the TPU
-picker's line and the plain version each is held against. An f32 row keeps
-K2, which runs the same loop in exact f32. Chunk sizes change only the order
-of f32 sums. `t5_layer_qtiled_reference` follows the TPU kernel step by step,
-chunk loops included, for the tests and the checks on the card.
+GEMM's accumulator) around K2 with no bias, scale 1 and mask value -1e9,
+whose own tiling over 64 queries and 64-key chunks, an online softmax with
+the same cast points, is the TPU kernel's query tiling. K1 without a bias
+is the same set of launches, so on the card the two bias-free layers are
+one route, bf16 or f32, and `vision_encode`'s choice by length names the
+TPU picker's line and the plain version each is held against. Tile sizes
+change only the order of f32 sums. `t5_layer_qtiled_reference` follows the
+TPU kernel step by step, chunk loops included, for the tests and the checks
+on the card.
 """
 
 from __future__ import annotations
@@ -330,10 +328,10 @@ def fused_t5_layer_parts(x: torch.Tensor, key_mask: torch.Tensor, bias: Optional
                          gated: bool, save_x1: bool = False):
     """One encoder layer from a `fuse_t5_blocks` entry: x (B, T, d),
     key_mask (B, T) bool, bias (H, T, T) batch-shared or None (the bias-free
-    form, whose attention is `bias_free_attention`). Returns out, or
-    (out, x1) with save_x1. Kernels on CUDA, plain versions on the CPU."""
+    form). Returns out, or (out, x1) with save_x1. Kernels on CUDA, plain
+    versions on the CPU."""
     return _t5_layer(x.contiguous(), key_mask.contiguous(), bias, l, num_heads, eps, gated,
-                     rms_norm_rows, gemm, flash_attention_fwd if bias is not None else bias_free_attention, save_x1)
+                     rms_norm_rows, gemm, flash_attention_fwd, save_x1)
 
 
 def t5_layer_reference(x, key_mask, bias, l, *, num_heads: int, eps: float, gated: bool,
@@ -973,58 +971,14 @@ def t5_layer_qtiled_reference(x, key_mask, l, *, num_heads: int, eps: float, gat
     return out
 
 
-def qtiled_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                               key_mask: torch.Tensor) -> torch.Tensor:
-    """Plain version of K13's attention kernel: q, k, v (B, T, H, dk),
-    key_mask (B, T) bool -> (B, T, H, dk). No scale, no bias, masked keys at
-    -1e9, probabilities rounded to v's dtype before p.v, f32 sums, the
-    division last."""
-    return flash_attention_reference(q, k, v, key_mask, None, 1.0, False, T5_MASK_VALUE)[0]
-
-
-def qtiled_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_mask: torch.Tensor) -> torch.Tensor:
-    """The bias-free T5 attention (K13's, and K1's without a bias) on the tensor cores: q, k, v
-    (B, T, H, dk) bf16 (views of one qkv tensor will do: heads and dk
-    contiguous), key_mask (B, T) bool -> (B, T, H, dk) bf16."""
-    if not kernels.on_cuda(q, k, v, key_mask):
-        return qtiled_attention_reference(q, k, v, key_mask)
-    B, T, H, dk = q.shape
-    kernels.require(q.dtype == k.dtype == v.dtype == torch.bfloat16, "qtiled_attention: the kernel takes bf16")
-    kernels.require(dk in (16, 32, 64, 128), f"qtiled_attention: head dim {dk} not in (16, 32, 64, 128)")
-    kernels.require(k.shape == q.shape and v.shape == q.shape, "qtiled_attention: q, k and v must share one shape")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        kernels.require(t.stride(3) == 1 and t.stride(2) == dk and t.stride(1) % 8 == 0 and t.stride(0) % 8 == 0
-                        and t.data_ptr() % 16 == 0,
-                        f"qtiled_attention: {name} needs contiguous heads and dk and 16-byte aligned rows, strides "
-                        f"{t.stride()}")
-    kernels.require(key_mask.dtype == torch.bool and key_mask.shape == (B, T) and key_mask.is_contiguous(),
-                    "qtiled_attention: key_mask must be contiguous bool (B, T)")
-    out = torch.empty((B, T, H, dk), dtype=q.dtype, device=q.device)
-    err = kernels.library().t5_qtiled_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(), out.data_ptr(), B, H, T, dk,
-        q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1), kernels.stream_ptr(q))
-    kernels.check("t5_qtiled_attention", err)
-    kernels.LAUNCHES["t5_qtiled_attention"] += 1
-    return out
-
-
-def bias_free_attention(q, k, v, key_mask, bias, scale, causal, mask_value):
-    """`_t5_layer`'s attention slot for every bias-free row (K1 without a
-    bias and K13): the tensor-core kernel for a bf16 row, K2 (the same loop
-    in exact f32) for an f32 one."""
-    if q.dtype == torch.bfloat16:
-        return qtiled_attention(q, k, v, key_mask), None
-    return flash_attention_fwd(q, k, v, key_mask, bias, scale, causal, mask_value)
-
-
 def fused_t5_layer_qtiled(x: torch.Tensor, key_mask: torch.Tensor, l: Dict[str, torch.Tensor], *,
                           num_heads: int, eps: float, gated: bool) -> torch.Tensor:
     """K13: one bias-free T5 layer for a long row (the 2048-patch page budget)
     from a `fuse_t5_blocks` entry: x (B, T, d), key_mask (B, T) bool. On
-    CUDA tensors K1's RMSNorm and GEMMs around `bias_free_attention`, the
-    launches of `fused_t5_layer_parts(bias=None)` (the module docstring says
-    why they are the query-tiled layer); on CPU tensors the plain version,
-    one query tile."""
+    CUDA tensors K1's RMSNorm and GEMMs around K2, the launches of
+    `fused_t5_layer_parts(bias=None)` (the module docstring says why they are
+    the query-tiled layer); on CPU tensors the plain version, one query
+    tile."""
     x, key_mask = x.contiguous(), key_mask.contiguous()
     if not kernels.on_cuda(x, key_mask):
         return t5_layer_qtiled_reference(x, key_mask, l, num_heads=num_heads, eps=eps, gated=gated,

@@ -17,7 +17,10 @@ are normalized here and stay f32 whatever the index's dtype.
 On CUDA tensors the two kernel wrappers (`fused_topk`, `segment_max`)
 launch csrc/topk_fused.cu and csrc/topk_segmax.cu; on CPU tensors they run
 the plain versions beside them (`fused_topk_reference`,
-`segment_max_reference`). Phases 2 and 3 are torch ops on both.
+`segment_max_reference`). Phases 2 and 3 are torch ops on both. For a bf16
+index the kernels take the f32 query as three exact bf16 terms
+(`split_bf16x3`) and score on the tensor cores; the function they compute is
+the plain version's, f32 query and all.
 
 Tie order: `lax.top_k` breaks ties to the lowest index; `torch.topk`
 promises no order. Here the scores are sorted descending with a stable sort,
@@ -36,12 +39,30 @@ from rag_docvqa_tpu_torch import kernels
 NEG_INF = -1e30
 
 # B <= this: the running-merge kernel (K4); above it the two-phase kernels.
-# This is the JAX package's value, chosen there from TPU times; it has not
-# been chosen on this card (PERF.md has both sides' times at B 8 and B 256).
+# The JAX package's value. On the H100 the two float indexes put the line in
+# different places (chip_smoke.py phase 7a times both functions at B 8, 16,
+# 32, 64 and 256; PERF.md has the times): on an f32 index the two-phase
+# function is ahead from B 8 up, on a bf16 index K4 is ahead up to B 64. One
+# line for both stays where the JAX package draws it.
 KERNEL_BATCH_CROSSOVER = 16
 
 _KERNEL_TILE = 128  # index rows per block tile in csrc/topk_common.cuh
 _FUSED_MAX_K = 64
+
+
+def _row_blocks(n_tiles: int, B: int, bf16: bool) -> int:
+    """Into how many contiguous runs of equal length (the last one shorter)
+    K4 and K5 on a bf16 index cut the index tiles; each run is walked by one
+    block per block of queries (16 at B <= 16, 64 above). The bf16 tile takes
+    one wave of the blocks the card holds at once (three an SM, two at 64
+    queries: 396 or 264 blocks in all), each walking its run to the end with
+    no tail of late blocks; the f32 tile keeps its runs of about
+    n_tiles * n_qb / 528 tiles. chip_smoke.py phase 7a sweeps the count;
+    PERF.md has the times."""
+    n_qb = -(-B // (16 if B <= 16 else 64))
+    if not bf16:
+        return -(-n_tiles // max(1, n_tiles * n_qb // 528))
+    return max(1, min(n_tiles, 132 * (2 if B > 32 else 3) // n_qb))
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-8) -> torch.Tensor:
@@ -82,6 +103,44 @@ def cosine_topk_flat(
     return vals, idx.to(torch.int32), valid
 
 
+def split_bf16x3(q: torch.Tensor) -> torch.Tensor:
+    """(B, D) f32 -> (3, B, D) bf16 terms with q0 + q1 + q2 == q exactly:
+    q0 = bf16(q), q1 = bf16(q - q0), q2 = bf16(q - q0 - q1). Both
+    subtractions are exact in f32 (each subtracts the nearest bf16 of a value
+    from it), and the residue left after two roundings to 8 significant bits
+    has at most 24 - 16 = 8, so q2 holds it exactly (while it stays in bf16's
+    normal range: components above ~1e-33). A bf16 x bf16 product is exact in
+    f32, so three such products of a bf16 index row summed in f32 give the
+    row's f32 score against q, up to the order of the sums."""
+    q0 = q.to(torch.bfloat16)
+    r1 = q - q0.float()
+    q1 = r1.to(torch.bfloat16)
+    q2 = (r1 - q1.float()).to(torch.bfloat16)
+    return torch.stack((q0, q1, q2))
+
+
+def _kernel_query(index: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """The query operand of csrc/topk_*.cu: the f32 rows for an f32 index,
+    their three bf16 terms (3, B, D) for a bf16 one."""
+    return split_bf16x3(q) if index.dtype == torch.bfloat16 else q.contiguous()
+
+
+def _require_query(index: torch.Tensor, q: torch.Tensor) -> int:
+    """The contract K4 and K5 share, held on both devices: f32 (B, D) unit
+    rows against an f32 or bf16 (N, D) index, D % 16 == 0. Returns the
+    index's dtype code."""
+    D = index.shape[1]
+    kernels.require(q.dtype == torch.float32 and q.dim() == 2 and q.shape[1] == D,
+                    f"q must be f32 (B, {D}), got {q.dtype} {tuple(q.shape)}")
+    kernels.require(D % 16 == 0, f"the top-k kernels take D % 16 == 0, got {D}")
+    return kernels.dtype_code(index, (torch.float32, torch.bfloat16))
+
+
+def _require_kernel_index(index: torch.Tensor) -> None:
+    kernels.require(index.is_contiguous() and index.data_ptr() % 16 == 0,
+                    "index must be contiguous and 16-byte aligned (the kernels copy rows 16 bytes at a time)")
+
+
 # --------------------------------------------------------------------------- #
 # K4: fused scoring + running top-k
 # --------------------------------------------------------------------------- #
@@ -94,31 +153,25 @@ def fused_topk_reference(index: torch.Tensor, q: torch.Tensor, n_valid: int, k: 
 
 
 def fused_topk(index: torch.Tensor, q: torch.Tensor, n_valid: int, k: int):
-    """K4 on CUDA tensors, its plain version on CPU tensors."""
-    if not kernels.on_cuda(index, q):
-        return fused_topk_reference(index, q, n_valid, k)
+    """K4 on CUDA tensors, its plain version on CPU tensors; the argument
+    checks on both."""
     N, D = index.shape
     B = q.shape[0]
-    kernels.require(q.dtype == torch.float32 and q.shape == (B, D), f"q must be f32 (B, {D}), got {tuple(q.shape)}")
-    kernels.require(D % 16 == 0, f"the top-k kernels take D % 16 == 0, got {D}")
+    code = _require_query(index, q)
     kernels.require(1 <= k <= _FUSED_MAX_K, f"the fused top-k kernel takes 1 <= k <= {_FUSED_MAX_K}, got {k}")
     kernels.require(0 <= n_valid <= N, f"n_valid {n_valid} outside [0, {N}]")
-    kernels.require(index.is_contiguous(), "index must be contiguous")
-    code = kernels.dtype_code(index, (torch.float32, torch.bfloat16))
-    q = q.contiguous()
-    # enough row blocks to fill the card about four times over, each a
-    # contiguous run of tiles
-    n_tiles = -(-N // _KERNEL_TILE)
-    n_qb = -(-B // (16 if B <= 16 else 64))
-    tiles_per_block = max(1, n_tiles * n_qb // 528)
-    n_rb = -(-n_tiles // tiles_per_block)
+    if not kernels.on_cuda(index, q):
+        return fused_topk_reference(index, q, n_valid, k)
+    _require_kernel_index(index)
+    q = _kernel_query(index, q)
+    n_rb = _row_blocks(-(-N // _KERNEL_TILE), B, index.dtype == torch.bfloat16)
     cand_v = torch.empty((n_rb, B, k), dtype=torch.float32, device=q.device)
     cand_i = torch.empty((n_rb, B, k), dtype=torch.int32, device=q.device)
     vals = torch.empty((B, k), dtype=torch.float32, device=q.device)
     idx = torch.empty((B, k), dtype=torch.int32, device=q.device)
     err = kernels.library().topk_fused(
         index.data_ptr(), q.data_ptr(), cand_v.data_ptr(), cand_i.data_ptr(), vals.data_ptr(), idx.data_ptr(),
-        N, D, B, n_valid, k, tiles_per_block, code, kernels.stream_ptr(q))
+        N, D, B, n_valid, k, n_rb, code, kernels.stream_ptr(q))
     kernels.check("topk_fused", err)
     kernels.LAUNCHES["topk_fused"] += 1
     return vals, idx
@@ -168,23 +221,24 @@ def require_segmax_shapes(N: int, D: int, d_mult: int, n_valid: int, group: int)
 
 
 def segment_max(index: torch.Tensor, q: torch.Tensor, n_valid: int, group: int, sgroups: int = 1):
-    """K5 on CUDA tensors, its plain version on CPU tensors."""
-    if not kernels.on_cuda(index, q):
-        return segment_max_reference(index, q, n_valid, group, sgroups)
+    """K5 on CUDA tensors, its plain version on CPU tensors; the argument
+    checks on both."""
     N, D = index.shape
     B = q.shape[0]
-    kernels.require(q.dtype == torch.float32 and q.shape == (B, D), f"q must be f32 (B, {D}), got {tuple(q.shape)}")
+    code = _require_query(index, q)
     require_segmax_shapes(N, D, 16, n_valid, group)
     kernels.require(sgroups >= 1 and (N // group) % sgroups == 0, f"sgroups {sgroups} must divide N/group")
-    kernels.require(index.is_contiguous(), "index must be contiguous")
-    code = kernels.dtype_code(index, (torch.float32, torch.bfloat16))
-    q = q.contiguous()
+    if not kernels.on_cuda(index, q):
+        return segment_max_reference(index, q, n_valid, group, sgroups)
+    _require_kernel_index(index)
+    q = _kernel_query(index, q)
     S = N // group
+    n_rb = _row_blocks(-(-N // _KERNEL_TILE), B, True)  # the bf16 kernel's runs of tiles
     segmax = torch.empty((B, S), dtype=torch.float32, device=q.device)
     supermax = torch.empty((B, S // sgroups), dtype=torch.float32, device=q.device) if sgroups > 1 else None
     err = kernels.library().topk_segmax(
         index.data_ptr(), q.data_ptr(), segmax.data_ptr(), None if supermax is None else supermax.data_ptr(),
-        N, D, B, n_valid, group, sgroups, code, kernels.stream_ptr(q))
+        N, D, B, n_valid, group, sgroups, n_rb, code, kernels.stream_ptr(q))
     kernels.check("topk_segmax", err)
     kernels.LAUNCHES["topk_segmax"] += 1
     return segmax, supermax

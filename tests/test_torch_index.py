@@ -144,6 +144,22 @@ def test_sharded_quantized_index_matches_jax(mesh, mode, size):
     assert overlap >= 0.9, overlap
 
 
+@pytest.mark.parametrize("kernel", ["merge", "twophase"])
+def test_bf16_index_query_matches_jax_xla(kernel):
+    """A bf16 ShardedIndex (the rows whose kernels score on the tensor cores
+    with three-term queries) queried through K4's or K5's route on the CPU
+    gives the JAX `cosine_topk_xla` answer on the same bf16 rows."""
+    from rag_docvqa_tpu.ops import topk as j_topk
+
+    emb, q = _data(2048, 64, 20, seed=9, dups=DUPS)
+    idx = ShardedIndex.build(emb, n_shards=4, tile_n=128, dtype="bf16", kernel=kernel)
+    assert idx.embeddings.dtype == torch.bfloat16
+    rows = idx.embeddings.float().numpy()
+    mask = np.arange(rows.shape[0]) < idx.n_valid
+    want = j_topk.cosine_topk_xla(jnp.asarray(rows), jnp.asarray(q), 10, index_mask=jnp.asarray(mask))
+    _same(idx.query(q, 10), want)
+
+
 def test_small_index_fewer_rows_than_k(mesh):
     emb, q = _data(3, 16, 2, seed=0)
     for dtype in ("f32", "bf16", "int8", "int4"):

@@ -355,7 +355,6 @@ NEW_WRAPPERS = {
         m(1, 4, 8), m(1, 4).bool(), {k: m(1) for k in p_fe.VIT_KEYS}, num_heads=2, eps=1e-12),
     "fused_t5_layer_qtiled": lambda m: p_fe.fused_t5_layer_qtiled(
         m(1, 4, 8), torch.ones(1, 4, dtype=torch.bool), {}, num_heads=2, eps=1e-6, gated=True),
-    "qtiled_attention": lambda m: p_fe.qtiled_attention(m(1, 4, 2, 32), m(1, 4, 2, 32), m(1, 4, 2, 32), m(1, 4).bool()),
     "late_interaction": lambda m: __import__("rag_docvqa_tpu_torch.ops.late_interaction", fromlist=["x"])
     .late_interaction(m(4, 8), m(2, 3, 8)),
 }
@@ -374,10 +373,13 @@ def test_visual_wrappers_refuse_tensors_off_cpu_and_cuda(name):
 def test_kernel_table_covers_every_source():
     """Every C entry point has a launch counter and a signature, no counter
     stands for anything but a C entry point, and the sources of the visual
-    paths are in the build."""
+    paths are in the build. The bias-free attention kernel of K13 is gone:
+    its rows take K2."""
     assert set(kernels._SIGNATURES) == set(kernels.LAUNCHES)
-    assert {"vit_layer_norm", "vit_gemm", "vit_attention", "maxsim", "t5_qtiled_attention"} <= set(kernels._SIGNATURES)
-    assert {"vit_layer.cu", "maxsim.cu", "t5_layer_qtiled.cu"} <= {p.name for p in kernels._sources()}
+    assert {"vit_layer_norm", "vit_gemm", "vit_attention", "maxsim"} <= set(kernels._SIGNATURES)
+    assert "t5_qtiled_attention" not in kernels._SIGNATURES
+    assert {"vit_layer.cu", "maxsim.cu"} <= {p.name for p in kernels._sources()}
+    assert "t5_layer_qtiled.cu" not in {p.name for p in kernels._sources()}
     text = {p.name: p.read_text() for p in kernels._sources()}
     for entry in kernels._SIGNATURES:
         assert any(f'extern "C" int {entry}(' in t for t in text.values()), entry

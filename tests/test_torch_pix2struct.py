@@ -89,23 +89,6 @@ def test_qtiled_layer_matches_jax_kernel(gated, TQ, kc, ffn_chunk):
     _close(parts.numpy(), want, 2e-5, "K1 parts without a bias")
 
 
-def test_qtiled_attention_plain_version():
-    """K13's attention on CPU tensors: the plain version, equal to a softmax
-    without scale or bias, masked keys at -1e9 (a row with no valid key
-    attends uniformly)."""
-    rng = np.random.RandomState(4)
-    qkv = T(rng.randn(3, 19, 3, 4, 16).astype(np.float32))
-    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-    mask = T(np.arange(19)[None, :] < np.asarray([19, 7, 0])[:, None])
-    got = fe.qtiled_attention(q, k, v, mask)
-    assert torch.equal(got, fe.qtiled_attention_reference(q, k, v, mask)) and got.shape == (3, 19, 4, 16)
-    s = torch.einsum("bqhd,bkhd->bhqk", q, k).masked_fill(~mask[:, None, None, :], -1e9)
-    want = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), v)
-    assert (got - want).abs().max() <= 2e-6
-    assert (got[2] - v[2].mean(dim=0)).abs().max() <= 2e-6
-    assert fe.qtiled_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(), mask).dtype == torch.bfloat16
-
-
 def test_qtiled_reference_needs_whole_tiles():
     jl = _port_layer(_jax_layer(0, True))
     x, mask = torch.zeros(1, 12, D), torch.ones(1, 12, dtype=torch.bool)
@@ -151,26 +134,31 @@ def test_bias_free_layer_bf16_bound():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_bias_free_attention_slot_picks_by_dtype(dtype, monkeypatch):
-    """A layer without a bias takes `bias_free_attention`: the tensor-core
-    kernel's wrapper for a bf16 row, K2's for an f32 one; a layer with a bias
-    always K2's. On the CPU both wrappers run the one plain attention."""
+    """Every bias-free row, bf16 or f32, K1's and K13's alike, takes K2's
+    wrapper with no bias, scale 1 and mask value -1e9, as a layer with a bias
+    does with its bias. On the CPU the wrapper runs the plain attention."""
     calls = []
-    real_q, real_f = fe.qtiled_attention, fe.flash_attention_fwd
-    monkeypatch.setattr(fe, "qtiled_attention", lambda *a: (calls.append("qtiled"), real_q(*a))[1])
-    monkeypatch.setattr(fe, "flash_attention_fwd", lambda *a: (calls.append("flash"), real_f(*a))[1])
+    real_f = fe.flash_attention_fwd
+
+    def spy(q, k, v, key_mask, bias, scale, causal, mask_value):
+        calls.append((bias is None, scale, causal, mask_value))
+        return real_f(q, k, v, key_mask, bias, scale, causal, mask_value)
+
+    monkeypatch.setattr(fe, "flash_attention_fwd", spy)
     jl = _jax_layer(2, True)
     rng = np.random.RandomState(2)
     x, mask = T(rng.randn(2, 16, D).astype(np.float32)).to(dtype), T(np.arange(16)[None, :] < np.asarray([16, 7])[:, None])
     l = _port_layer(jl, dtype)
     kw = dict(num_heads=H, eps=EPS, gated=True)
     got = fe.fused_t5_layer_parts(x, mask, None, l, **kw)
-    assert calls == ["qtiled" if dtype == torch.bfloat16 else "flash"]
+    assert calls == [(True, 1.0, False, fe.T5_MASK_VALUE)] and fe.T5_MASK_VALUE == -1e9
     want = fe.t5_layer_reference(x, mask, None, l, **kw)
     assert torch.equal(got, want)
     calls.clear()
     bias = T(rng.randn(H, 16, 16).astype(np.float32)).bfloat16()
     fe.fused_t5_layer_parts(x, mask, bias, l, **kw)
-    assert calls == ["flash"]
+    assert calls == [(False, 1.0, False, fe.T5_MASK_VALUE)]
+    assert not hasattr(fe, "qtiled_attention") and not hasattr(fe, "bias_free_attention")
 
 
 # --------------------------------------------------------------------------- #

@@ -178,6 +178,61 @@ def test_segment_max_reference_matches_k5():
     np.testing.assert_array_equal(s2.numpy(), pseg.numpy())
 
 
+@pytest.mark.parametrize("d", [32, 64, 768])
+def test_split_bf16x3_is_exact(d):
+    """The three bf16 terms a bf16 index's kernels take sum to the f32 unit
+    query bit for bit (summed in f32 in order), each term is bf16 and each
+    residue is below half a bf16 unit of the last place of the one before."""
+    rng = np.random.RandomState(d)
+    q = p_topk.l2_normalize(_t(rng.randn(6, d).astype(np.float32)))
+    terms = p_topk.split_bf16x3(q)
+    assert terms.dtype == torch.bfloat16 and terms.shape == (3, 6, d)
+    q0, q1, q2 = terms.float()
+    assert torch.equal((q0 + q1) + q2, q)
+    assert bool((q1.abs() <= q0.abs() * 2.0 ** -8).all()) and bool((q2.abs() <= q1.abs() * 2.0 ** -8).all())
+
+
+@pytest.mark.parametrize("d", [32, 64, 768])
+def test_three_term_scores_equal_the_f32_product(d):
+    """What the tensor-core tile computes: the exact products of a bf16 index
+    with the three terms, summed in f32 (float64 stands in for the exact
+    products here), equal the plain version's f32 scores to 2e-6."""
+    x, q = _index(300, d, 20 + d)
+    index = _t(x).bfloat16()
+    qn = p_topk.l2_normalize(_t(q))
+    rows = index.double().t()
+    three = sum(t.double() @ rows for t in p_topk.split_bf16x3(qn)).float()
+    plain = qn @ index.float().t()
+    assert float((three - plain).abs().max()) <= 2e-6
+    np.testing.assert_allclose(three.numpy(), (qn.double() @ rows).float().numpy(), rtol=0, atol=1e-7)
+
+
+KERNEL_WRAPPERS = {
+    "fused_topk": lambda index, q: p_topk.fused_topk(index, q, index.shape[0], 5),
+    "segment_max": lambda index, q: p_topk.segment_max(index, q, index.shape[0], 8),
+}
+
+
+@pytest.mark.parametrize("bad", ["query_not_f32", "d_not_multiple_of_16"])
+@pytest.mark.parametrize("wrapper", sorted(KERNEL_WRAPPERS))
+def test_topk_wrappers_refuse_what_the_kernels_do_not_take(wrapper, bad):
+    """K4's and K5's wrappers hold their contract on the CPU as on the card:
+    an f32 query (the bf16 split is theirs to make) and D % 16 == 0; what
+    they take runs the plain version."""
+    d = 40 if bad == "d_not_multiple_of_16" else 32
+    x, q = _index(256, d, 21)
+    index, qn = _t(x).bfloat16(), p_topk.l2_normalize(_t(q))
+    fn = KERNEL_WRAPPERS[wrapper]
+    with pytest.raises(ValueError):
+        fn(index, qn.bfloat16() if bad == "query_not_f32" else qn)
+    if bad == "query_not_f32":
+        got = fn(index, qn)
+        want = (p_topk.fused_topk_reference(index, qn, 256, 5) if wrapper == "fused_topk"
+                else p_topk.segment_max_reference(index, qn, 256, 8))
+        for a, b in zip(got, want):
+            assert (a is None and b is None) or torch.equal(a, b)
+
+
 # --------------------------------------------------------------------------- #
 # ops/quant.py
 # --------------------------------------------------------------------------- #
