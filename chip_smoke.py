@@ -18,8 +18,7 @@ Nine phases; any failure raises and the script exits non-zero:
      f32 (max abs error <= 1e-4) and bf16 (max abs error <= 2e-2 of the
      largest reference value, at least 1); the decode-attention kernel does
      f32 math on every cache dtype and is held to 1e-4 on each. Times both
-     with CUDA events after a warmup, K3 on a bf16 cache beside SDPA with a
-     query length of 1. The two kernels that run on wgmma get the edges of
+     with CUDA events after a warmup. The two kernels that run on wgmma get the edges of
      their tiles in bf16: K2 (64 queries x 64 keys a tile) at T 63, 64, 65 and
      129 with dh 40 and 64, causal with GQA, Tq != Tk, a per-batch f32 bias
      with bf16 q, both mask values with a row that has no valid key, and dh
@@ -27,7 +26,19 @@ Nine phases; any failure raises and the script exits non-zero:
      (128 x 128 or 128 x 256 tiles, K steps of 64) at 129x136x72 and
      77x135x200 for each of its eight epilogues (N 135 is odd: single-element
      stores). Each such case is launched twice and the two results must be
-     equal bit for bit;
+     equal bit for bit. The row RMSNorm (a warp a row) at d 40, 100, 768,
+     1024 and 4096, 1 and 77 rows, every (x, weight) dtype pair; its
+     16384 x 768 bf16 row timed also on the device, beside F.rms_norm. K3
+     (split over the cache) at Te 1, 77, 513, 709 and 2048, dk 40 and 128,
+     B 1, rows with one and with no valid key, a split of masked keys between
+     valid ones, in f32, bf16 and int8 with f32 and bf16 queries, at each of
+     its split lengths (128, 256, 512 bytes of a K2 row): f32 output within
+     1e-4, the bf16 output the f32 one rounded, bit for bit, a second launch
+     the same bits; then at B 32 Te 512
+     (int8 and bf16) timed over 12 distinct layer caches, one per call as a
+     decode step takes them (the device time beside SDPA's over the same 12
+     bf16 caches), and a profiler trace of one int8 call holding K3's own
+     kernels and no other;
   4. runs the full-width f32 t5-base stack at B 8: encode through the
      kernels against the plain stack (<= 1e-4), and greedy decode with the
      decode-attention kernel on and off (identical ids, f32, bf16 and int8
@@ -36,7 +47,8 @@ Nine phases; any failure raises and the script exits non-zero:
      RAGVT5Engine.inference with the configs/RAGVT5.yml values, bf16 random
      weights, an int8 cross cache and the decode-attention kernel; checks
      that every kernel of the serving path was launched and that every
-     confidence is finite;
+     confidence is finite; counts the CUDA kernels and copies of one decode
+     step in a profiler trace, K3's among them;
   6. the training path, outside inference mode:
      a. the flash backward (K6) against its plain version on small ragged
         shapes (shared, per-batch and no bias; causal; GQA; mask values
@@ -173,7 +185,8 @@ Nine phases; any failure raises and the script exits non-zero:
         in bf16), K15 (one query and batched, tiles that do not divide, both
         masks, a patch set with no valid token; then B 8 and B 32 x 16 sets,
         T 128, D 768; <= 1e-4) and K3 over int8 caches of Te 709, 1024 and
-        2048, each against its plain version;
+        2048, each against its plain version and timed over 12 distinct
+        layer caches;
      e. the full-width f32 12-layer pix2struct-base `vision_encode` at T 128
         (K1 without a bias) and T 2048 (K13) against the plain stacks, each
         layer's launches counted (K2 for the f32 attention);
@@ -223,6 +236,7 @@ metrics (metrics/) and image patch math (ops/patches.py).
 from __future__ import annotations
 
 import functools
+import itertools
 import json
 import math
 import os
@@ -503,7 +517,6 @@ def check_kernels(checks: Checks, g: torch.Generator) -> None:
 
     from rag_docvqa_tpu_torch.models.layers import rms_norm
     from rag_docvqa_tpu_torch.models import t5 as t5m
-    from rag_docvqa_tpu_torch.ops import decode_attention as da
     from rag_docvqa_tpu_torch.ops import flash_attention as fa
     from rag_docvqa_tpu_torch.ops import fused_encoder as fe
 
@@ -577,6 +590,17 @@ def check_kernels(checks: Checks, g: torch.Generator) -> None:
     # ---- K1 parts and the whole layer ----
     cfg = t5m.T5Config()
     d, inner, dff = cfg.d_model, cfg.inner_dim, cfg.d_ff
+    # the row RMSNorm (a warp a row): widths in its register buckets (768, 1024,
+    # 4096), one that is no multiple of the 16-byte vector in bf16 (40 is one
+    # in both dtypes, 100 only in f32), 1 and 77 rows, every (x, weight) pair
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        for w_dtype, wtag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            for width in (40, 100, 768, 1024, 4096):
+                for M in (1, 77):
+                    x = (randn(M, width) * 3.0).to(dtype)
+                    w = (torch.rand(width, generator=g, device=dev) + 0.5).to(w_dtype)
+                    got, want = fe.rms_norm_rows(x, w, cfg.layer_norm_eps), rms_norm(x, w, cfg.layer_norm_eps)
+                    checks.compare("t5_rms_norm", f"{M}x{width} x {tag} w {wtag}", got, want, tol(dtype, want))
     for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         for M, label in ((77, "ragged"), (32 * 512, "B32 T512")):
             x = randn(M, d).to(dtype)
@@ -586,7 +610,7 @@ def check_kernels(checks: Checks, g: torch.Generator) -> None:
             if M > 77 and dtype == torch.bfloat16:
                 checks.timed("t5_rms_norm", f"{label} d768 {tag}", lambda: fe.rms_norm_rows(x, w, 1e-6),
                              lambda: rms_norm(x, w, 1e-6), library=lambda: F.rms_norm(x, (d,), w, 1e-6),
-                             io_bytes=nbytes(x, w, got), ops=4.0 * M * d)
+                             io_bytes=nbytes(x, w, got), ops=4.0 * M * d, device=True)
         for (M, N, K, epi), label in (((77, 100, 72, "relu"), "ragged 77x100x72 relu"),
                                       ((77, 96, 64, "gelu_mul"), "ragged 77x96x64 gelu_mul"),
                                       ((16384, 3 * inner, d, "none"), "qkv 16384x2304x768"),
@@ -645,38 +669,134 @@ def check_kernels(checks: Checks, g: torch.Generator) -> None:
     del params
 
     # ---- K3 decode cross-attention ----
+    check_decode_attention(checks, g)
+
+
+def decode_inputs(g: torch.Generator, B: int, H: int, dk: int, Te: int, kv_dtype: torch.dtype, lens=None):
+    """One layer's packed cross cache for K3 as decode_step gives it: q (B, H,
+    dk) f32, K2/V2 in `kv_dtype` (int8 with its channel scales), a key mask
+    of `lens` valid keys (random in 1..Te when None); also the unpacked K/V
+    (B, H, Te, dk) that SDPA reads."""
+    from rag_docvqa_tpu_torch.models import t5 as t5m
+    from rag_docvqa_tpu_torch.ops import decode_attention as da
+
+    dev = g.device
+    q = torch.randn((B, H, dk), generator=g, device=dev)
+    k, v = (torch.randn((B, H, Te, dk), generator=g, device=dev) for _ in range(2))
+    ks = vs = None
+    if kv_dtype == torch.int8:
+        k, ks = t5m._quantize_kv(k)
+        v, vs = t5m._quantize_kv(v)
+        ks, vs = ks[:, :, 0, :], vs[:, :, 0, :]
+    else:
+        k, v = k.to(kv_dtype), v.to(kv_dtype)
+    k2, v2 = da.pack_decode_kv(k, v)
+    n = torch.randint(1, Te + 1, (B,), generator=g, device=dev) if lens is None else torch.tensor(lens, device=dev)
+    m = torch.arange(Te, device=dev)[None, :] < n[:, None]
+    return dict(q=q, k2=k2, v2=v2, m=m, ks=ks, vs=vs, k=k, v=v)
+
+
+def time_decode_layers(checks: Checks, label: str, layers: list, library: bool = False) -> None:
+    """Times K3 as a decode step runs it, the next of 12 distinct layer caches
+    each call (back-to-back calls on one int8 cache would read the 50 MB L2,
+    not device memory), by events and on the device; bf16 query and output,
+    as decode_step asks for under bf16 weights. `library`: SDPA with a query
+    length of 1 over the same 12 unpacked bf16 caches."""
+    import torch.nn.functional as F
+
+    from rag_docvqa_tpu_torch.ops import decode_attention as da
+
+    qs = [L["q"].bfloat16() for L in layers]
+    cycle = lambda: itertools.cycle(zip(qs, layers))
+    it, pit, lit = cycle(), cycle(), cycle()
+
+    def run():
+        q, L = next(it)
+        return da.fused_cross_attention(q, L["k2"], L["v2"], L["m"], L["ks"], L["vs"], out_dtype=torch.bfloat16)
+
+    def plain():
+        q, L = next(pit)
+        return da.cross_attention_reference(q, L["k2"], L["v2"], L["m"], L["ks"], L["vs"], torch.bfloat16)
+
+    def sdpa():
+        q, L = next(lit)
+        return F.scaled_dot_product_attention(q[:, :, None, :], L["k"], L["v"], attn_mask=L["m"][:, None, None, :],
+                                              scale=1.0)
+
+    L = layers[0]
+    B, H, dk = L["q"].shape
+    Te = L["k2"].shape[2]
+    checks.timed("decode_cross_attention", label, run, plain, iters=24, library=sdpa if library else None,
+                 library_is="SDPA, query length 1, bf16 math" if library else "",
+                 io_bytes=nbytes(qs[0], L["k2"], L["v2"], L["m"], L["ks"], L["vs"]) + B * H * dk * 2,
+                 ops=4.0 * B * H * Te * dk, device=True)
+
+
+def check_decode_attention(checks: Checks, g: torch.Generator) -> None:
+    """K3 against its plain version at the edges of its design: Te 1, 77,
+    513, 709 and 2048 (rows of K2 not 16-byte aligned; tails shorter than a
+    16-byte vector and than a split), dk 40 (int8: V2's head slices not
+    16-byte aligned) and 128, B 1, rows with one and with no valid key, a split
+    whose every key is masked between valid ones; f32, bf16 and int8 caches;
+    f32 and bf16 queries; each split length (128, 256 and 512 bytes of a K2
+    row a block: one kernel, or split and combine) and the wrapper's own
+    choice. f32 output
+    within F32_TOL (f32 math on the stored values in both); the bf16 output
+    is the f32 output rounded, bit for bit, and a second launch gives the
+    same bits. Then the main path's shape, timed over 12 distinct caches,
+    and a profiler trace of one int8 call: K3's kernels and nothing else."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rag_docvqa_tpu_torch.ops import decode_attention as da
+
+    cases = (((3, 4, 40, 77, [77, 30, 1]), "ragged"), ((1, 12, 64, 1, [1]), "B1 Te1"),
+             ((2, 4, 128, 513, [513, 0]), "dk128 Te513, a row with no valid key"),
+             ((4, 6, 40, 709, [709, 1, 300, 0]), "dk40 Te709, one and no valid key"),
+             ((2, 12, 64, 2048, None), "Te2048, a split of masked keys"),
+             ((32, 12, 64, 512, None), "B32 H12 dk64 Te512"))
     for kv_dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16"), (torch.int8, "int8")):
-        for B, H, dk, Te, label in ((3, 4, 40, 77, "ragged"), (32, 12, 64, 512, "B32 H12 dk64 Te512")):
-            q = randn(B, H, dk)
-            k, v = randn(B, H, Te, dk), randn(B, H, Te, dk)
-            ks = vs = None
-            if kv_dtype == torch.int8:
-                k, ks = t5m._quantize_kv(k)
-                v, vs = t5m._quantize_kv(v)
-                ks, vs = ks[:, :, 0, :], vs[:, :, 0, :]
-            else:
-                k, v = k.to(kv_dtype), v.to(kv_dtype)
-            k2, v2 = da.pack_decode_kv(k, v)
-            m = torch.arange(Te, device=dev)[None, :] < torch.randint(1, Te + 1, (B,), generator=g, device=dev)[:, None]
-            got = da.fused_cross_attention(q, k2, v2, m, ks, vs)
-            qs = q if ks is None else q * ks
-            want = da.cross_attention_reference(qs, k2, v2, m)
-            if vs is not None:
-                want = (want.view(B, H, dk) * vs).reshape(B, H * dk)
-            # f32 math on the stored values in both: the f32 limit holds for every cache dtype
-            checks.compare("decode_cross_attention", f"{label} {tag} cache", got, want, F32_TOL)
-            if B == 32 and kv_dtype != torch.float32:
-                # a bf16 cache has one library call: SDPA with a query length of 1
-                # over the unpacked K/V and the key mask (bf16 math, bf16 out); no
-                # one call reads an int8 cache with its channel scales
-                library = None
-                if kv_dtype == torch.bfloat16:
-                    q1, m1 = q.bfloat16()[:, :, None, :], m[:, None, None, :]
-                    library = lambda: F.scaled_dot_product_attention(q1, k, v, attn_mask=m1, scale=1.0)
-                checks.timed("decode_cross_attention", f"{label} {tag} cache",
-                             lambda: da.fused_cross_attention(q, k2, v2, m, ks, vs),
-                             lambda: da.cross_attention_reference(qs, k2, v2, m), library=library,
-                             io_bytes=nbytes(q, k2, v2, m, ks, vs, got), ops=4.0 * B * H * Te * dk)
+        for (B, H, dk, Te, lens), label in cases:
+            L = decode_inputs(g, B, H, dk, Te, kv_dtype, lens)
+            if Te == 2048:
+                L["m"][1] = True
+                L["m"][1, 256:768] = False  # masked splits of either length between valid keys
+            for q_dtype in (torch.float32, torch.bfloat16):
+                q = L["q"].to(q_dtype)
+                args = (L["k2"], L["v2"], L["m"], L["ks"], L["vs"])
+                want = da.cross_attention_reference(q, *args)
+                qtag = "f32" if q_dtype == torch.float32 else "bf16"
+                got = da.fused_cross_attention(q, *args)
+                checks.compare("decode_cross_attention", f"{label} {tag} cache, {qtag} q", got, want, F32_TOL)
+                for split in (128 // L["k2"].element_size(), 256 // L["k2"].element_size(), 512 // L["k2"].element_size()):
+                    f32 = da._launch(q, *args, torch.float32, split)
+                    bf = da._launch(q, *args, torch.bfloat16, split)
+                    err = checks.compare("decode_cross_attention", f"{label} {tag} cache, {qtag} q, split {split}",
+                                         f32, want, F32_TOL)
+                    if not (torch.equal(bf, f32.bfloat16()) and torch.equal(f32, da._launch(q, *args, torch.float32, split))):
+                        raise AssertionError(f"decode_cross_attention {label} {tag} split {split}: the bf16 output is "
+                                             f"not the f32 one rounded, or a second launch gave other bits ({err})")
+
+    # the main path's shape: int8 (the served cache) and bf16 (beside SDPA), 12 layer caches
+    for kv_dtype, tag in ((torch.int8, "int8"), (torch.bfloat16, "bf16")):
+        layers = [decode_inputs(g, 32, 12, 64, 512, kv_dtype) for _ in range(12)]
+        time_decode_layers(checks, f"B32 H12 dk64 Te512 {tag} cache", layers, library=kv_dtype == torch.bfloat16)
+        L, q = layers[0], layers[0]["q"].bfloat16()
+        it = L["k2"].element_size()
+        for split in (128 // it, 256 // it, 512 // it):  # the split length the wrapper chooses, against the others
+            ms = device_ms(lambda: da._launch(q, L["k2"], L["v2"], L["m"], L["ks"], L["vs"], torch.bfloat16, split))
+            log(f"  decode_cross_attention   B32 Te512 {tag} cache, split {split} keys (the wrapper's: "
+                f"{da.split_len(32, 12, 512, it)}): {ms:.4f} ms on the device, one cache back to back")
+        if kv_dtype == torch.int8:
+            # one call as decode_step makes it: K3's split and combine kernels and no element-wise torch kernel
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                da.fused_cross_attention(q, L["k2"], L["v2"], L["m"], L["ks"], L["vs"], out_dtype=torch.bfloat16)
+                torch.cuda.synchronize()
+            names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+            log(f"  decode_cross_attention   one int8 call runs {len(names)} kernels: {names}")
+            if not (1 <= len(names) <= 2 and all("decode_attn_split_kernel" in n or "combine_kernel" in n for n in names)):
+                raise AssertionError(f"decode_cross_attention: one call ran {names}, not K3's kernels alone")
+        del layers
 
 
 # --------------------------------------------------------------------------- #
@@ -779,7 +899,34 @@ def serve(g: torch.Generator):
             f"decode {t['decode_s'] * 1e3:.2f} ms; ANLS {score:.4f} (random weights)")
     log(f"  launches in the two served batches: {launches}")
     check_launched(launches, SERVE_KERNELS, "serving")
+    decode_step_kernels(params.t5, vt5_cfg.t5, g)
     return launches
+
+
+def decode_step_kernels(params, cfg, g: torch.Generator) -> None:
+    """The device work of one decode step as the served batch runs it (B 32,
+    Te 512, bf16 weights, int8 cache, K3 on): the CUDA kernels and copies in
+    a profiler trace of one `decode_step`, K3's among them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rag_docvqa_tpu_torch.models import t5 as t5m
+
+    dev = g.device
+    B, Te, T = 32, 512, 16
+    enc = torch.randn((B, Te, cfg.d_model), generator=g, device=dev).bfloat16()
+    mask = torch.arange(Te, device=dev)[None, :] < torch.randint(1, Te + 1, (B, 1), generator=g, device=dev)
+    cache = t5m.init_decode_cache(params, cfg, enc, T)
+    bias = t5m.decoder_self_bias(params, cfg, T)
+    token = torch.zeros(B, dtype=torch.int64, device=dev)
+    t5m.decode_step(params, cfg, cache, token, 0, mask, self_bias=bias[:, :, 0, :])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t5m.decode_step(params, cfg, cache, token, 1, mask, self_bias=bias[:, :, 1, :])
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    k3 = sum(1 for n in names if "decode_attn_split_kernel" in n or "combine_kernel" in n)
+    log(f"  one decode step (B {B}, Te {Te}, {cfg.num_decoder_layers} layers, bf16, int8 cache, K3 on): {len(names)} "
+        f"CUDA kernels and copies, {k3} of them K3's")
 
 
 # --------------------------------------------------------------------------- #
@@ -2414,22 +2561,17 @@ def check_p2s_kernels(checks: Checks, g: torch.Generator) -> None:
         checks.timed("maxsim", f"B{B} mc{mc} Tq{Tq} Tp{Tp} D{d} f32", lambda: li.late_interaction(q, p, qm, pm),
                      lambda: li.late_interaction_reference(q, p, qm, pm), io_bytes=nbytes(q, p, qm, pm, got),
                      ops=2.0 * B * mc * Tq * Tp * d)
-    # K3 over the longer caches of these paths: Te 709 (VT5 + visual tokens), 1024 and 2048, int8
+    # K3 over the longer caches of these paths: Te 709 (VT5 + visual tokens), 1024 and 2048, int8, each timed
+    # over 12 distinct layer caches
     for Te in (709, 1024, 2048):
-        B, dk = (32, 64) if Te == 709 else (8, 64)
-        q = randn(B, H, dk)
-        k, ks = t5m._quantize_kv(randn(B, H, Te, dk))
-        v, vs = t5m._quantize_kv(randn(B, H, Te, dk))
-        ks, vs = ks[:, :, 0, :], vs[:, :, 0, :]
-        k2, v2 = da.pack_decode_kv(k, v)
-        m = torch.arange(Te, device=dev)[None, :] < torch.randint(1, Te + 1, (B,), generator=g, device=dev)[:, None]
-        got = da.fused_cross_attention(q, k2, v2, m, ks, vs)
-        want = (da.cross_attention_reference(q * ks, k2, v2, m).view(B, H, dk) * vs).reshape(B, H * dk)
-        checks.compare("decode_cross_attention", f"B{B} H{H} dk{dk} Te{Te} int8 cache", got, want, F32_TOL)
-        checks.timed("decode_cross_attention", f"B{B} H{H} dk{dk} Te{Te} int8 cache",
-                     lambda: da.fused_cross_attention(q, k2, v2, m, ks, vs),
-                     lambda: da.cross_attention_reference(q * ks, k2, v2, m),
-                     io_bytes=nbytes(q, k2, v2, m, ks, vs, got), ops=4.0 * B * H * Te * dk)
+        B = 32 if Te == 709 else 8
+        layers = [decode_inputs(g, B, H, 64, Te, torch.int8) for _ in range(12)]
+        L = layers[0]
+        got = da.fused_cross_attention(L["q"], L["k2"], L["v2"], L["m"], L["ks"], L["vs"])
+        want = da.cross_attention_reference(L["q"], L["k2"], L["v2"], L["m"], L["ks"], L["vs"])
+        checks.compare("decode_cross_attention", f"B{B} H{H} dk64 Te{Te} int8 cache", got, want, F32_TOL)
+        time_decode_layers(checks, f"B{B} H{H} dk64 Te{Te} int8 cache", layers)
+        del layers
     torch.cuda.empty_cache()
 
 
@@ -2846,7 +2988,8 @@ def main() -> int:
 
     def times(unit: str, case: str) -> dict:
         row = checks.times[unit][case]
-        return {k: row.get(k) for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+        return {k: row.get(k) for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
+                                        "library_device_ms")}
 
     report = {
         "kernels": [

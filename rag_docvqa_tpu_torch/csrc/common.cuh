@@ -19,6 +19,54 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16(x);  // round to nearest even, as XLA's convert
 }
 
+// ---- 16-byte vectors: 4 f32, 8 bf16 or 16 int8 elements ------------------
+template <typename T> struct Vec16 { static constexpr int N = 16 / sizeof(T); };
+
+__device__ __forceinline__ uint4 ldg16(uintptr_t addr) {
+  return __ldg(reinterpret_cast<const uint4*>(addr));
+}
+
+// the N elements of T packed little-endian in four 32-bit words, widened to f32
+__device__ __forceinline__ void unpack16(const uint32_t (&w)[4], float* out, float) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) out[i] = __uint_as_float(w[i]);
+}
+__device__ __forceinline__ void unpack16(const uint32_t (&w)[4], float* out, __nv_bfloat16) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    out[2 * i] = __uint_as_float(w[i] << 16);
+    out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+// int8 without the quarter-rate I2F: byte ^ 0x80 is the byte + 128 unsigned;
+// moved into the low mantissa byte of 2^23 it reads 2^23 + byte + 128, exact
+__device__ __forceinline__ void unpack16(const uint32_t (&w)[4], float* out, int8_t) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t u = w[i] ^ 0x80808080u;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) out[4 * i + j] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650u | j)) - 8388736.f;
+  }
+}
+template <typename T> __device__ __forceinline__ void unpack16(uint4 v, float* out) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+  unpack16(w, out, T());
+}
+
+// N f32 values rounded to T (round to nearest even) and packed into 16 bytes
+__device__ __forceinline__ uint4 pack16(const float* v, float) {
+  return make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]), __float_as_uint(v[2]), __float_as_uint(v[3]));
+}
+__device__ __forceinline__ uint4 pack16(const float* v, __nv_bfloat16) {
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);  // .x in the low half
+    w[i] = *reinterpret_cast<const uint32_t*>(&h);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
 // x rounded to T and read back: where the JAX code casts a value to the
 // compute dtype and keeps computing
 template <typename T> __device__ __forceinline__ float round_to(float x) {

@@ -65,7 +65,7 @@ _SIGNATURES = {
     "flash_fwd": [_P] * 7 + [_I] * 6 + [_LL] * 6 + [_I] * 3 + [_F, _I, _F, _P],
     "t5_rms_norm": [_P] * 3 + [_I, _I, _F, _I, _I, _P],
     "t5_gemm": [_P] * 4 + [_I] * 5 + [_P],
-    "decode_cross_attention": [_P] * 5 + [_I] * 5 + [_P],
+    "decode_cross_attention": [_P] * 8 + [_I] * 8 + [_P],
     "flash_bwd": [_P] * 14 + [_I] * 6 + [_LL] * 12 + [_I] * 3 + [_F, _I, _F, _P],
     "t5_gemm_bwd": [_P] * 7 + [_I] * 6 + [_P, _I, _P],
     "t5_rms_bwd": [_P] * 7 + [_I, _I, _F, _I, _I, _P],

@@ -410,7 +410,8 @@ def decode_step(params: T5Params, cfg: T5Config, cache: DecodeCache, token: torc
                 q, ck, cv, encoder_mask,
                 k_scale=cache.cross_k_scale[i][:, :, 0, :] if int8_kv else None,
                 v_scale=cache.cross_v_scale[i][:, :, 0, :] if int8_kv else None,
-            ).to(q.dtype)
+                out_dtype=q.dtype,
+            )
         elif int8_kv:
             # channel scales fold into the query (scores) and the output (p@V)
             qs = q.float() * cache.cross_k_scale[i][:, :, 0, :]

@@ -4,6 +4,8 @@ tests run them on the CPU), plus the wrappers' device rule and the build's
 source hash. The CUDA kernels themselves are checked against these plain
 versions on the card by chip_smoke.py."""
 
+import itertools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -281,7 +283,8 @@ def test_gemm_plain_epilogues_at_tile_tails(epi, dtype):
 # --------------------------------------------------------------------------- #
 # K3: decode cross-attention
 # --------------------------------------------------------------------------- #
-def test_decode_attention_plain_matches_jax():
+def _decode_seed_case():
+    """f32 query, f32 and int8 caches, f32 output: the first case this test had."""
     rng = np.random.RandomState(0)
     B, H, Te, dk = 3, 4, 24, 8
     q = rng.randn(B, H, dk).astype(np.float32)
@@ -308,6 +311,110 @@ def test_decode_attention_plain_matches_jax():
     want8 = j_dec.fused_cross_attention(jnp.asarray(q), ki2j, vi2j, jnp.asarray(mask), k_scale=jnp.asarray(ks),
                                         v_scale=jnp.asarray(vs), interpret=True, exact=True)
     np.testing.assert_allclose(got8.numpy(), np.asarray(want8), rtol=2e-4, atol=2e-4)
+
+
+# query dtype, cache dtype, output dtype, shape and masks: the kernel's edges
+# (one key, dk 40 and 128, a row with no valid key) with the scales and the
+# cast folded in
+DECODE_CASES = {
+    "te1": dict(Te=1, lens=[1, 1, 1]),
+    "dk40_int8_bf16_query_bf16_out": dict(dk=40, cache="int8", q="bf16", out="bf16"),
+    "dk128_bf16_cache_bf16_query": dict(H=2, dk=128, cache="bf16", q="bf16"),
+    "no_valid_key_int8": dict(cache="int8", lens=[24, 0, 5]),
+    "no_valid_key_bf16_cache_bf16_out": dict(cache="bf16", out="bf16", lens=[0, 11, 1]),
+    "one_valid_key_f32": dict(lens=[1, 24, 2]),
+}
+
+
+def _decode_case(case):
+    rng = np.random.RandomState(1)
+    B, H, dk, Te = 3, case.get("H", 4), case.get("dk", 8), case.get("Te", 24)
+    q = rng.randn(B, H, dk).astype(np.float32)
+    k = rng.randn(B, H, Te, dk).astype(np.float32)
+    v = rng.randn(B, H, Te, dk).astype(np.float32)
+    mask = np.arange(Te)[None, :] < np.array(case.get("lens", [Te, 11, 5]))[:, None]
+    jbf = jnp.bfloat16
+    jq, pq = jnp.asarray(q), _t(q)
+    if case.get("q") == "bf16":
+        jq, pq = jq.astype(jbf), pq.bfloat16()
+    ks = vs = None
+    cache = case.get("cache", "f32")
+    if cache == "int8":
+        ks = (rng.rand(B, H, dk) * 0.03 + 0.01).astype(np.float32)
+        vs = (rng.rand(B, H, dk) * 0.03 + 0.01).astype(np.float32)
+        k = np.clip(np.round(k / ks[:, :, None, :]), -127, 127).astype(np.int8)
+        v = np.clip(np.round(v / vs[:, :, None, :]), -127, 127).astype(np.int8)
+    jk, jv, pk, pv = jnp.asarray(k), jnp.asarray(v), _t(k), _t(v)
+    if cache == "bf16":
+        jk, jv, pk, pv = jk.astype(jbf), jv.astype(jbf), pk.bfloat16(), pv.bfloat16()
+    out = {"f32": (jnp.float32, torch.float32), "bf16": (jbf, torch.bfloat16)}[case.get("out", "f32")]
+    k2j, v2j = j_dec.pack_decode_kv(jk, jv)
+    k2p, v2p = p_dec.pack_decode_kv(pk, pv)
+    want = j_dec.fused_cross_attention(jq, k2j, v2j, jnp.asarray(mask),
+                                       k_scale=None if ks is None else jnp.asarray(ks),
+                                       v_scale=None if vs is None else jnp.asarray(vs),
+                                       interpret=True, exact=True).astype(out[0])
+    got = p_dec.fused_cross_attention(pq, k2p, v2p, _t(mask), None if ks is None else _t(ks),
+                                      None if vs is None else _t(vs), out_dtype=out[1])
+    return got, np.asarray(want.astype(jnp.float32)), out[1], mask
+
+
+@pytest.mark.parametrize("name", ["seed"] + sorted(DECODE_CASES))
+def test_decode_attention_plain_matches_jax(name):
+    """The plain K3 (the CPU path of `fused_cross_attention`) against the JAX
+    kernel in interpret mode, exact=True, cast to the output dtype. f32 output
+    within 2e-5; bf16 output within one bf16 step (2**-7 relative): both sides
+    round their f32 results, which differ in the last f32 bits."""
+    if name == "seed":
+        _decode_seed_case()
+        return
+    got, want, out_dtype, mask = _decode_case(DECODE_CASES[name])
+    assert got.dtype == out_dtype and got.shape == want.shape
+    rtol = 2e-5 if out_dtype == torch.float32 else 2.0 ** -7
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=rtol, atol=2e-5)
+    dead = ~mask.any(axis=1)
+    assert np.isfinite(got.float().numpy()).all()
+    if dead.any():  # a row with no valid key averages all Te keys, as softmax under -1e9 does
+        assert np.abs(want[dead]).max() > 0.0
+
+
+def test_decode_split_len_fills_the_card():
+    """K3 takes 512 bytes of every K2 row a block where that gives one to
+    three blocks an SM (the B 32 Te 512 int8 cache and the B 8 Pix2Struct
+    caches: one wave, and at Te 512 no merge kernel), else 256 bytes, and 128
+    where the card would hold fewer than two blocks an SM."""
+    assert p_dec.split_len(32, 12, 512, 1) == 512
+    assert p_dec.split_len(8, 12, 1024, 1) == p_dec.split_len(8, 12, 2048, 1) == 512
+    assert p_dec.split_len(32, 12, 512, 2) == 128  # bf16: 256 bytes, 1,536 blocks
+    assert p_dec.split_len(32, 12, 709, 1) == 256
+    assert p_dec.split_len(1, 12, 1, 4) == 32
+    for B, Te, itemsize in itertools.product((1, 8, 32), (1, 77, 512, 709, 2048), (1, 2, 4)):
+        assert p_dec.split_len(B, 12, Te, itemsize) * itemsize in (128, 256, 512)
+
+
+# --------------------------------------------------------------------------- #
+# K1's row RMSNorm
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("d", [40, 100, 768])
+@pytest.mark.parametrize("x_dtype,w_dtype", [("f32", "f32"), ("f32", "bf16"), ("bf16", "f32"), ("bf16", "bf16")])
+def test_rms_norm_rows_plain_matches_jax(d, x_dtype, w_dtype):
+    """`rms_norm_rows` on CPU tensors (its plain version) against JAX
+    `rms_norm` for every (x, weight) dtype pair the kernel takes, at widths
+    that are and are not a multiple of its 16-byte vector. f32 within 1e-5;
+    bf16 output within one bf16 step (2**-7 relative)."""
+    from rag_docvqa_tpu.models.layers import rms_norm as j_rms_norm
+
+    rng = np.random.RandomState(d)
+    x = (rng.randn(77, d) * 3.0).astype(np.float32)
+    w = (rng.rand(d) + 0.5).astype(np.float32)
+    dt = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
+    jx, jw = jnp.asarray(x).astype(dt[x_dtype][0]), jnp.asarray(w).astype(dt[w_dtype][0])
+    px, pw = _t(x).to(dt[x_dtype][1]), _t(w).to(dt[w_dtype][1])
+    want = j_rms_norm(jx, jw, 1e-6)
+    got = p_fe.rms_norm_rows(px, pw, 1e-6)
+    assert got.dtype == px.dtype and want.dtype == jx.dtype
+    rtol = 1e-5 if x_dtype == "f32" else 2.0 ** -7
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)), rtol=rtol, atol=1e-6)
 
 
 # --------------------------------------------------------------------------- #
