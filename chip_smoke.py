@@ -37,7 +37,7 @@ Nine phases; any failure raises and the script exits non-zero:
      the same bits; then at B 32 Te 512
      (int8 and bf16) timed over 12 distinct layer caches, one per call as a
      decode step takes them (the device time beside SDPA's over the same 12
-     bf16 caches), and a profiler trace of one int8 call holding K3's own
+     bf16 caches), and the CUDA graph of one int8 call holding K3's own
      kernels and no other;
   4. runs the full-width f32 t5-base stack at B 8: encode through the
      kernels against the plain stack (<= 1e-4), and greedy decode with the
@@ -240,10 +240,12 @@ import itertools
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
 import time
+import warnings
 
 import torch
 
@@ -326,20 +328,99 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 10, warmup: int = 2) -> float:
-    """Mean device time of `fn`'s kernels (the CUDA kernel events of a
-    torch.profiler trace), free of the host's time between launches."""
+def kernel_times(fn, iters: int) -> dict:
+    """Device time of each CUDA kernel (and copy) of one call of `fn`, by
+    name, in microseconds, from a torch.profiler trace of `iters` calls: the
+    names tell which kernels a library call ran. A trace on the H100 can miss
+    events (from a few to over half of them seen), so these are no sum to
+    time a call by: `device_ms` does that."""
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
-    return sum(e.time_range.elapsed_us() for e in prof.events() if e.device_type == cuda) / iters / 1e3
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == cuda:
+            by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    return {n: sum(t) / len(t) * max(1, round(len(t) / iters)) for n, t in by_name.items()}
+
+
+def graph_nodes(fn) -> list:
+    """The device work one call of `fn` enqueues, one entry a node of the CUDA
+    graph captured from it (a kernel by its name, a copy or memset by its
+    kind), from the graph's DOT dump. Unlike a profiler trace, which on the
+    H100 can miss events, the capture holds every launch."""
+    import tempfile
+
+    fn()  # warm up on a side stream, as a capture asks
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    graph.enable_debug_mode()
+    with torch.cuda.graph(graph):
+        fn()
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
+        path = os.path.join(tmp, "graph.dot")
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the dump's own "DEBUG: calling ..." notes
+            graph.debug_dump(path)
+        if not os.path.exists(path):
+            raise AssertionError("graph_nodes: the CUDA graph's DOT dump was not written")
+        with open(path) as f:
+            dot = f.read()
+    starts = [m.start() for m in re.finditer(r'^\s*"?graph_\d+_node_\d+"?\s*\[', dot, re.M)]
+    if not starts:
+        raise AssertionError(f"graph_nodes: no node found in the CUDA graph's DOT dump: {dot[:2000]!r}")
+    names = []
+    for a, b in zip(starts, starts[1:] + [len(dot)]):
+        node = dot[a:b]
+        kind = re.search(r'label="\{?\s*(\w+)', node)
+        kernel = re.search(r"\w*[Kk]ernel\w*(?:<[^(\\|]*>)?", node)
+        names.append(" ".join(x for x in (kind and kind.group(1), kernel and kernel.group(0)) if x) or node[:200])
+    return names
+
+
+@functools.lru_cache(maxsize=1)
+def sleep_cycles_per_ms() -> float:
+    """The rate of torch.cuda._sleep, the card's spin kernel, in cycles a ms."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(1_000_000)
+    start.record()
+    torch.cuda._sleep(10_000_000)
+    end.record()
+    torch.cuda.synchronize()
+    return 10_000_000 / start.elapsed_time(end)
+
+
+def device_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+    """Mean device time of `fn`: CUDA events around `iters` back-to-back
+    calls queued behind a spin kernel that holds the card until the host has
+    launched them all, so the time between the events is the card's work and
+    the launch gaps of a full queue, free of the host's time per call."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3  # one call, host and device: more than its host time alone
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(2.0 * iters * host_ms + 1.0, 500.0) * sleep_cycles_per_ms()))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    # a call that waits for the card itself would count the spin: the plain events bound it
+    return min(start.elapsed_time(end) / iters, time_ms(fn, iters, warmup=0))
 
 
 def nbytes(*tensors) -> int:
@@ -492,6 +573,10 @@ class Checks:
         if device:
             row["device_ms"] = device_ms(fn, iters)
             text += f"   kernel on the device {row['device_ms']:.4f} ms"
+            parts = sorted(kernel_times(fn, iters).items(), key=lambda x: -x[1])
+            name = lambda n: (re.search(r"\w+_kernel(<[^>]*>)?", n) or re.search(r".{1,60}", n)).group(0)
+            log(f"  {unit} {label}: its kernels by name (profiler): "
+                + "; ".join(f"{name(n)} {t:.1f} us" for n, t in parts[:6]))
             if library is not None:
                 row["library_device_ms"] = device_ms(library, iters)
                 text += f" (library {row['library_device_ms']:.4f} ms)"
@@ -744,9 +829,7 @@ def check_decode_attention(checks: Checks, g: torch.Generator) -> None:
     within F32_TOL (f32 math on the stored values in both); the bf16 output
     is the f32 output rounded, bit for bit, and a second launch gives the
     same bits. Then the main path's shape, timed over 12 distinct caches,
-    and a profiler trace of one int8 call: K3's kernels and nothing else."""
-    from torch.profiler import ProfilerActivity, profile
-
+    and the CUDA graph of one int8 call: K3's kernels and nothing else."""
     from rag_docvqa_tpu_torch.ops import decode_attention as da
 
     cases = (((3, 4, 40, 77, [77, 30, 1]), "ragged"), ((1, 12, 64, 1, [1]), "B1 Te1"),
@@ -788,14 +871,12 @@ def check_decode_attention(checks: Checks, g: torch.Generator) -> None:
                 f"{da.split_len(32, 12, 512, it)}): {ms:.4f} ms on the device, one cache back to back")
         if kv_dtype == torch.int8:
             # one call as decode_step makes it: K3's split and combine kernels and no element-wise torch kernel
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                da.fused_cross_attention(q, L["k2"], L["v2"], L["m"], L["ks"], L["vs"], out_dtype=torch.bfloat16)
-                torch.cuda.synchronize()
-            names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-            log(f"  decode_cross_attention   one int8 call runs {len(names)} kernels: {names}")
-            if not (1 <= len(names) <= 2 and all("decode_attn_split_kernel" in n or "combine_kernel" in n for n in names)):
-                raise AssertionError(f"decode_cross_attention: one call ran {names}, not K3's kernels alone")
+            call = lambda: da.fused_cross_attention(q, L["k2"], L["v2"], L["m"], L["ks"], L["vs"],
+                                                    out_dtype=torch.bfloat16)
+            nodes = graph_nodes(call)
+            log(f"  decode_cross_attention   one int8 call runs {len(nodes)} graph nodes: {nodes}")
+            if not (1 <= len(nodes) <= 2 and all("decode_attn_split_kernel" in n or "combine_kernel" in n for n in nodes)):
+                raise AssertionError(f"decode_cross_attention: one call ran {nodes}, not K3's kernels alone")
         del layers
 
 
@@ -980,43 +1061,103 @@ class MaskedRelu:
         return torch.where(m, aux0.float(), 0.0).to(a.dtype), torch.where(m, pre, 0.0).to(a.dtype)
 
 
+def sdpa_bwd_library(q, k, v, out_grad, mask, bias, scale, mask_value):
+    """The library call for K6: the backward kernels of
+    F.scaled_dot_product_attention (torch.autograd.grad of one forward graph,
+    kept), in the (B, H, T, dh) layout SDPA takes; the key mask as a boolean
+    mask without a bias, or summed with the bias into one float mask, the
+    (1, H, T, T) bias expanded so that autograd sums its gradient over the
+    batch. Returns the function that runs the backward once."""
+    F = torch.nn.functional
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    ins = [qt, kt, vt]
+    if bias is None:
+        attn = mask[:, None, None, :]
+    else:
+        bt = bias.to(q.dtype).detach().requires_grad_()
+        ins.append(bt)
+        off = torch.where(mask, 0.0, mask_value).to(q.dtype)[:, None, None, :]
+        attn = bt.expand(q.shape[0], -1, -1, -1) + off
+    o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=attn, scale=scale)
+    do = out_grad.transpose(1, 2)
+    return lambda: torch.autograd.grad(o, ins, do, retain_graph=True)
+
+
+def kernel_names(fn) -> str:
+    """The CUDA kernels of one call of `fn`, by name and device time, the
+    longest first: which backend a library call ran."""
+    fn()
+    torch.cuda.synchronize()
+    times = sorted(kernel_times(fn, 5).items(), key=lambda x: -x[1])
+    return "; ".join(f"{n[:60]} {t:.1f} us" for n, t in times[:4] if t > 0)
+
+
 def check_flash_bwd(checks: Checks, g: torch.Generator) -> None:
-    """6a: K6 against its plain version, both from the same forward."""
+    """6a: K6 against its plain version, both from the same forward; its two
+    timed shapes (the train step's and the contrastive step's) beside the
+    backward of SDPA, a second launch's bits."""
     from rag_docvqa_tpu_torch.ops import flash_attention as fa
     from rag_docvqa_tpu_torch.ops import fused_encoder as fe
 
     dev = g.device
-    randn = lambda *s: torch.randn(s, generator=g, device=dev)
+    check_hgmma("flash_bwd.cu")
 
-    def case(B, T, H, Hkv, dh, dtype, bias_kind, causal, scale, mask_value, lens, label, timed=False):
+    def case(B, T, H, Hkv, dh, dtype, bias_kind, causal, scale, mask_value, lens, label, timed=False, gen=g):
+        randn = lambda *s: torch.randn(s, generator=gen, device=dev)
         q, do = randn(B, T, H, dh).to(dtype), randn(B, T, H, dh).to(dtype)
         k, v = randn(B, T, Hkv, dh).to(dtype), randn(B, T, Hkv, dh).to(dtype)
-        mask = torch.arange(T, device=dev)[None, :] < torch.tensor(lens, device=dev)[:, None]
+        mask = torch.arange(T, device=dev)[None, :] < torch.as_tensor(lens, device=dev)[:, None]
         bias = None
         if bias_kind:
             bias = randn(B if bias_kind == "per-batch" else 1, H, T, T).to(
                 torch.bfloat16 if dtype == torch.bfloat16 else torch.float32)
         args = (mask, bias, scale, causal, mask_value)
         out, lse = fa.flash_attention_reference(q, k, v, *args)
+        out = out.contiguous()  # as K2 returns it: the kernel's wrapper would copy a strided one
         got = fa.flash_attention_bwd(q, k, v, out, lse, do, *args)
         want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, *args)
         for name, a, b in zip(("dq", "dk", "dv", "dbias"), got, want):
             if b is not None:
                 checks.compare("flash_bwd", f"{label} {name}", a, b, rel_tol(dtype, b))
-        if timed:  # five products of 2*T*T*dh each per head
-            checks.timed("flash_bwd", label, lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, *args),
-                         lambda: fa.flash_attention_bwd_reference(q, k, v, out, lse, do, *args),
-                         io_bytes=nbytes(q, k, v, out, lse, do, mask, bias, *got), ops=10.0 * B * H * T * T * dh,
-                         ops_in=op_type(dtype))
+        if not timed:
+            return
+        again = fa.flash_attention_bwd(q, k, v, out, lse, do, *args)
+        if not all(a is None or torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"flash_bwd {label}: a second launch on the same input gave other bits")
+        library = sdpa_bwd_library(q, k, v, do, mask, bias, scale, mask_value)
+        backend = kernel_names(library)
+        log(f"  flash_bwd library at {label}: {backend}")
+        # the function's five products of 2*T*T*dh each per head (S, dP, dV, dK, dQ; the kernel's dQ pass
+        # recomputes S and dP, seven in all)
+        checks.timed("flash_bwd", label, lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, *args),
+                     lambda: fa.flash_attention_bwd_reference(q, k, v, out, lse, do, *args), library=library,
+                     library_is="autograd.grad through F.scaled_dot_product_attention (dq, dk, dv"
+                                + (", the bias summed over the batch" if bias is not None else "") + "): " + backend,
+                     io_bytes=nbytes(q, k, v, out, lse, do, mask, bias, *got), ops=10.0 * B * H * T * T * dh,
+                     ops_in=op_type(dtype), device=True)
 
     t5m = fe.T5_MASK_VALUE
+    # the cases added after the first five draw from their own generator, so that every later phase's data
+    # stay what the shared one gave them before
+    g_new = torch.Generator(device=dev).manual_seed(SEED + 6)
     for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         case(3, 77, 4, 2, 40, dtype, "per-batch", True, 0.5, fa.NEG_INF, [77, 50, 0], f"ragged gqa causal per-batch {tag}")
         case(3, 77, 4, 4, 128, dtype, "shared", False, 1.0, t5m, [77, 30, 0], f"ragged dh128 shared t5-mask {tag}")
         case(2, 45, 4, 1, 64, dtype, None, False, 1.0, fa.NEG_INF, [45, 0], f"ragged gqa4 no bias {tag}")
         case(2, 45, 4, 4, 64, dtype, None, True, 1.0, t5m, [45, 20], f"ragged causal t5-mask no bias {tag}")
+        case(3, 64, 4, 4, 128, dtype, None, False, 0.5, fa.NEG_INF, [64, 33, 0], f"ragged dh128 T64 no bias {tag}",
+             gen=g_new)
+        case(3, 57, 4, 4, 40, dtype, None, False, 0.5, t5m, [57, 9, 0], f"ragged dh40 T57 t5-mask no bias {tag}",
+             gen=g_new)
         case(8, 512, 12, 12, 64, dtype, "shared", False, 1.0, t5m, [512 - 40 * i for i in range(8)],
              f"B8 H12 T512 dk64 shared bias t5-mask {tag}", timed=dtype == torch.bfloat16)
+    # the contrastive step's attention (K10): bge-small, no bias, -1e30, ragged keys; and one sequence with none
+    B, T, H, dh = CONTRASTIVE_B, BERT_T, BGE["num_heads"], BGE["hidden_size"] // BGE["num_heads"]
+    lens = ragged_mask(B, T, dev).sum(1).tolist()
+    case(B, T, H, H, dh, torch.bfloat16, None, False, dh**-0.5, fa.NEG_INF, lens,
+         f"B{B} H{H} T{T} dh{dh} no bias ragged bf16", timed=True, gen=g_new)
+    case(B, T, H, H, dh, torch.bfloat16, None, False, dh**-0.5, fa.NEG_INF, [0] + lens[1:],
+         f"B{B} H{H} T{T} dh{dh} no bias, one sequence without keys bf16", gen=g_new)
 
 
 # backward-GEMM shapes that cut the bf16 kernel's 128-row and 128- or 256-column
@@ -1139,7 +1280,7 @@ def check_layer_bwd(checks: Checks, g: torch.Generator) -> None:
                 checks.timed("t5_rms_bwd", f"{label} {tag}", lambda: fe.rms_norm_bwd(x, dh, w, resid, eps),
                              lambda: fe.rms_norm_bwd_reference(x, dh, w, resid, eps), library=library,
                              library_is="autograd of F.rms_norm in f32: dx and dw, without the residual add",
-                             io_bytes=nbytes(x, dh, w, resid, *got), ops=10.0 * rows * d)
+                             io_bytes=nbytes(x, dh, w, resid, *got), ops=10.0 * rows * d, device=True)
 
     params = t5m.init_t5_params(g, t5m.T5Config(num_encoder_layers=1, num_decoder_layers=1))
     layer = fe.fuse_t5_blocks(params.encoder.layers, False)[0]
@@ -1950,9 +2091,13 @@ def check_bert_bwd(checks: Checks, g: torch.Generator) -> float:
                     yy = y.detach().requires_grad_()
                     return torch.autograd.grad(torch.nn.functional.layer_norm(yy, (d,), w32, b32, eps), yy, gg.float())
 
+                again = fe.layer_norm_bwd(y, gg, ln, eps)
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    raise AssertionError(f"bert_ln_bwd {rows}x{d} {tag}: a second launch on the same input gave other bits")
                 checks.timed("bert_ln_bwd", f"{rows}x{d} {tag}", lambda: fe.layer_norm_bwd(y, gg, ln, eps),
                              lambda: fe.layer_norm_bwd_reference(y, gg, ln, eps), library=library,
-                             io_bytes=nbytes(y, gg, ln, *got), ops=16.0 * rows * d)
+                             library_is="autograd of F.layer_norm in f32: dy, dw, db",
+                             io_bytes=nbytes(y, gg, ln, *got), ops=16.0 * rows * d, device=True)
         for rows, n, in_dtype in ((77, 100, dtype), (R, dff, torch.float32), (R, 3 * d, dtype)):
             x = randn(rows, n).to(in_dtype)
             got, want = fe.col_sum(x), fe.col_sum_reference(x)

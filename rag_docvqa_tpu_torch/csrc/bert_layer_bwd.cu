@@ -37,74 +37,275 @@
 // them bound by bytes (mul_f32 reads and writes f32 (M, N) rows: bound 0.08
 // ms, ~0.14 on the card at 700 W, chip_smoke.py phase 8e). The LayerNorm
 // backward and the column sums are bound by memory.
+#include <algorithm>
+
 #include "gemm_bwd.cuh"
 
 namespace {
 
-// ---- LayerNorm backward -----------------------------------------------------
+// ---- LayerNorm backward: one warp a row -------------------------------------
 // For out = n * w + b with n = (y - mean) * rstd and the cotangent g at out:
 //   dn = g * w;  dy = rstd * (dn - mean(dn) - n * mean(dn * n))
-// written as f32 and in the compute dtype; each block also sums g * n, g and
-// dy over its rows into one row of `part` (3, d). (fused_encoder_bwd.py::_ln_bwd)
-constexpr int LNB_ROWS = 32;       // rows per block
-constexpr int LNB_MAX_COLS = 16;   // per thread: d <= 16 * 256
+// written as f32 and in the compute dtype (fused_encoder_bwd.py::_ln_bwd). The
+// per-column sums g * n, g and dy accumulate in each lane's registers across
+// the rows its warp takes (a grid-stride loop over a grid fixed by the row
+// count, ops/fused_encoder.py::ln_bwd_blocks); the block adds its warps in warp
+// order into one row of `part` (nblocks, 3, d), and `part_sum_kernel` adds the
+// blocks' rows in a fixed order. Bound by memory: y (f32) and g read once, dy
+// in f32 and in the compute dtype written once; no block barrier inside a row.
+constexpr int LNB_WARPS = 8;     // warps (rows in flight) a block
+constexpr int LNB_MAX_D = 4096;
 
-template <typename T>
-__global__ void __launch_bounds__(256) ln_bwd_kernel(
+// 4 consecutive elements of T, packed as loaded (16 bytes of f32, 8 of bf16)
+template <typename T> struct Quad;
+template <> struct Quad<float> {
+  uint4 w;
+  __device__ __forceinline__ void load(const float* p) { w = ldg16(reinterpret_cast<uintptr_t>(p)); }
+  __device__ __forceinline__ void get(float* v) const { unpack16<float>(w, v); }
+  __device__ static void store(float* p, const float* v) { *reinterpret_cast<uint4*>(p) = pack16(v, float()); }
+};
+template <> struct Quad<__nv_bfloat16> {
+  uint2 w;
+  __device__ __forceinline__ void load(const __nv_bfloat16* p) { w = __ldg(reinterpret_cast<const uint2*>(p)); }
+  __device__ __forceinline__ void get(float* v) const {
+    v[0] = __uint_as_float(w.x << 16), v[1] = __uint_as_float(w.x & 0xffff0000u);
+    v[2] = __uint_as_float(w.y << 16), v[3] = __uint_as_float(w.y & 0xffff0000u);
+  }
+  __device__ static void store(__nv_bfloat16* p, const float* v) {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]), hi = __floats2bfloat162_rn(v[2], v[3]);
+    *reinterpret_cast<uint2*>(p) = make_uint2(*reinterpret_cast<const uint32_t*>(&lo), *reinterpret_cast<const uint32_t*>(&hi));
+  }
+};
+
+// d a multiple of 4 and at most NCH * 128 (768 in the largest form): lane l holds columns 4 (l + 32 c)
+// .. + 3, c < NCH, of its row in registers, so every load and store of a warp
+// is one contiguous run of 512 (f32) or 256 (bf16) bytes; the loads of the
+// warp's next row are in flight while it works on this one. The weight,
+// widened to f32, is in shared memory.
+template <typename T, int NCH>
+__global__ void __launch_bounds__(LNB_WARPS * 32, NCH <= 4 ? 2 : 1) ln_bwd_vec_kernel(
     const float* __restrict__ y, const T* __restrict__ g, const T* __restrict__ ln,
     float* __restrict__ dy32, T* __restrict__ dyc, float* __restrict__ part, int rows, int d,
     float eps) {
-  __shared__ float scratch[32];
-  float dw[LNB_MAX_COLS], db[LNB_MAX_COLS], dc[LNB_MAX_COLS];
+  constexpr int NV = NCH * 4;
+  __shared__ float wsm[NCH * 128];
+  __shared__ float comb[3 * NCH * 128];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int e = threadIdx.x; e < d; e += blockDim.x) wsm[e] = to_f(ln[e]);
+  float pw[NV], pb[NV], pd[NV];
 #pragma unroll
-  for (int j = 0; j < LNB_MAX_COLS; ++j) dw[j] = db[j] = dc[j] = 0.f;
-  const int r0 = (int)blockIdx.x * LNB_ROWS, r_end = min(rows, r0 + LNB_ROWS);
-  for (int row = r0; row < r_end; ++row) {
-    const float* yr = y + (long long)row * d;
-    const T* gr = g + (long long)row * d;
-    float s = 0.f;
-    for (int i = threadIdx.x; i < d; i += 256) s += yr[i];
-    const float mean = block_reduce<false>(s, scratch) / d;
-    float v = 0.f;
-    for (int i = threadIdx.x; i < d; i += 256) {
-      const float c = yr[i] - mean;
-      v += c * c;
-    }
-    const float rstd = rsqrtf(block_reduce<false>(v, scratch) / d + eps);
-    float s1 = 0.f, s2 = 0.f;
-    for (int i = threadIdx.x; i < d; i += 256) {
-      const float dn = to_f(gr[i]) * to_f(ln[i]);
-      s1 += dn;
-      s2 += dn * ((yr[i] - mean) * rstd);
-    }
-    const float m1 = block_reduce<false>(s1, scratch) / d;
-    const float m2 = block_reduce<false>(s2, scratch) / d;
-    float* o32 = dy32 + (long long)row * d;
-    T* oc = dyc + (long long)row * d;
+  for (int i = 0; i < NV; ++i) pw[i] = pb[i] = pd[i] = 0.f;
+  __syncthreads();
+  const float inv_d = 1.f / d;
+  const long long stride = (long long)gridDim.x * LNB_WARPS;
+  long long row = (long long)blockIdx.x * LNB_WARPS + warp;
+  Quad<float> cy[NCH], ny[NCH];
+  Quad<T> cg[NCH], ng[NCH];
+  auto load = [&](long long r, Quad<float>(&qy)[NCH], Quad<T>(&qg)[NCH]) {
 #pragma unroll
-    for (int j = 0; j < LNB_MAX_COLS; ++j) {
-      const int i = threadIdx.x + 256 * j;
-      if (i < d) {
-        const float gv = to_f(gr[i]), n = (yr[i] - mean) * rstd;
-        const float dyv = rstd * (gv * to_f(ln[i]) - m1 - n * m2);
-        dw[j] += gv * n;
-        db[j] += gv;
-        dc[j] += dyv;
-        o32[i] = dyv;
-        oc[i] = from_f<T>(dyv);
+    for (int c = 0; c < NCH; ++c) {
+      const int e0 = (c * 32 + lane) * 4;
+      if (e0 < d) {
+        qy[c].load(y + r * d + e0);
+        qg[c].load(g + r * d + e0);
       }
     }
-  }
-  float* p = part + (long long)blockIdx.x * 3 * d;
+  };
+  if (row < rows) load(row, cy, cg);
+  for (; row < rows; row += stride) {
+    if (row + stride < rows) load(row + stride, ny, ng);
+    float yv[NV], gv[NV];
 #pragma unroll
-  for (int j = 0; j < LNB_MAX_COLS; ++j) {
-    const int i = threadIdx.x + 256 * j;
-    if (i < d) {
-      p[i] = dw[j];
-      p[d + i] = db[j];
-      p[2 * d + i] = dc[j];
+    for (int c = 0; c < NCH; ++c) {
+      if ((c * 32 + lane) * 4 < d) {
+        cy[c].get(yv + 4 * c);
+        cg[c].get(gv + 4 * c);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) yv[4 * c + i] = gv[4 * c + i] = 0.f;
+      }
+    }
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) s += yv[i];
+    const float mean = warp_sum(s) * inv_d;
+    float v = 0.f;
+#pragma unroll
+    for (int c = 0; c < NCH; ++c)
+      if ((c * 32 + lane) * 4 < d)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float x = yv[4 * c + i] - mean;
+          v = fmaf(x, x, v);
+        }
+    const float rstd = rsqrtf(warp_sum(v) * inv_d + eps);
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) {
+      const int e0 = (c * 32 + lane) * 4;
+      if (e0 < d)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int j = 4 * c + i;
+          yv[j] = (yv[j] - mean) * rstd;  // n
+          const float dn = gv[j] * wsm[e0 + i];
+          s1 += dn;
+          s2 = fmaf(dn, yv[j], s2);
+        }
+    }
+    const float m1 = warp_sum(s1) * inv_d, m2 = warp_sum(s2) * inv_d;
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) {
+      const int e0 = (c * 32 + lane) * 4;
+      if (e0 < d) {
+        float o[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int j = 4 * c + i;
+          o[i] = rstd * (gv[j] * wsm[e0 + i] - m1 - yv[j] * m2);
+          pw[j] = fmaf(gv[j], yv[j], pw[j]);
+          pb[j] += gv[j];
+          pd[j] += o[i];
+        }
+        Quad<float>::store(dy32 + row * d + e0, o);
+        Quad<T>::store(dyc + row * d + e0, o);
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) {
+      cy[c] = ny[c];
+      cg[c] = ng[c];
     }
   }
+  // the block's warps, added in warp order
+  for (int k = 0; k < LNB_WARPS; ++k) {
+    if (warp == k) {
+#pragma unroll
+      for (int c = 0; c < NCH; ++c) {
+        const int e0 = (c * 32 + lane) * 4;
+        if (e0 < d)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int j = 4 * c + i;
+            comb[e0 + i] = k ? comb[e0 + i] + pw[j] : pw[j];
+            comb[d + e0 + i] = k ? comb[d + e0 + i] + pb[j] : pb[j];
+            comb[2 * d + e0 + i] = k ? comb[2 * d + e0 + i] + pd[j] : pd[j];
+          }
+      }
+    }
+    __syncthreads();
+  }
+  float* p = part + (long long)blockIdx.x * 3 * d;
+  for (int e = threadIdx.x; e < 3 * d; e += blockDim.x) p[e] = comb[e];
+}
+
+// any d <= LNB_MAX_D: one warp a row, element by element (y and g read again
+// from L1/L2 in each pass), each warp's column sums in its own rows of
+// dynamic shared memory [warps][3][d]
+template <typename T>
+__global__ void __launch_bounds__(LNB_WARPS * 32) ln_bwd_any_kernel(
+    const float* __restrict__ y, const T* __restrict__ g, const T* __restrict__ ln,
+    float* __restrict__ dy32, T* __restrict__ dyc, float* __restrict__ part, int rows, int d,
+    float eps) {
+  extern __shared__ float sums_smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
+  float* mine = sums_smem + warp * 3 * d;
+  for (int e = lane; e < 3 * d; e += 32) mine[e] = 0.f;
+  __syncwarp();  // a lane adds into columns another lane zeroed
+  const float inv_d = 1.f / d;
+  for (long long row = (long long)blockIdx.x * warps + warp; row < rows; row += (long long)gridDim.x * warps) {
+    const float* yr = y + row * d;
+    const T* gr = g + row * d;
+    float s = 0.f;
+    for (int e = lane; e < d; e += 32) s += yr[e];
+    const float mean = warp_sum(s) * inv_d;
+    float v = 0.f;
+    for (int e = lane; e < d; e += 32) {
+      const float x = yr[e] - mean;
+      v = fmaf(x, x, v);
+    }
+    const float rstd = rsqrtf(warp_sum(v) * inv_d + eps);
+    float s1 = 0.f, s2 = 0.f;
+    for (int e = lane; e < d; e += 32) {
+      const float dn = to_f(gr[e]) * to_f(ln[e]);
+      s1 += dn;
+      s2 = fmaf(dn, (yr[e] - mean) * rstd, s2);
+    }
+    const float m1 = warp_sum(s1) * inv_d, m2 = warp_sum(s2) * inv_d;
+    for (int e = lane; e < d; e += 32) {
+      const float gv = to_f(gr[e]), n = (yr[e] - mean) * rstd;
+      const float o = rstd * (gv * to_f(ln[e]) - m1 - n * m2);
+      mine[e] = fmaf(gv, n, mine[e]);
+      mine[d + e] += gv;
+      mine[2 * d + e] += o;
+      dy32[row * d + e] = o;
+      dyc[row * d + e] = from_f<T>(o);
+    }
+  }
+  __syncthreads();
+  float* p = part + (long long)blockIdx.x * 3 * d;
+  for (int e = threadIdx.x; e < 3 * d; e += blockDim.x) {
+    float acc = 0.f;
+    for (int k = 0; k < warps; ++k) acc += sums_smem[k * 3 * d + e];
+    p[e] = acc;
+  }
+}
+
+// out[j] = sum over p of part[p, j], in a fixed order: a block takes 32
+// columns, warp k the rows k, k + 8, ..., and the eight warps' sums are added
+// in warp order
+__global__ void __launch_bounds__(256) part_sum_kernel(const float* __restrict__ part,
+                                                       float* __restrict__ out, int nparts, int n) {
+  __shared__ float acc[8][33];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, j = blockIdx.x * 32 + lane;
+  float s = 0.f;
+  if (j < n)
+    for (int p = warp; p < nparts; p += 8) s += part[(long long)p * n + j];
+  acc[warp][lane] = s;
+  __syncthreads();
+  if (warp == 0 && j < n) {
+    float t = 0.f;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) t += acc[k][lane];
+    out[j] = t;
+  }
+}
+
+template <typename T>
+cudaError_t ln_bwd(const void* yp, const void* gp, const void* lnp, void* dy32p, void* dycp,
+                   void* sumsp, void* partp, int rows, int d, int nblocks, float eps, cudaStream_t s) {
+  const float* y = static_cast<const float*>(yp);
+  const T* g = static_cast<const T*>(gp);
+  const T* ln = static_cast<const T*>(lnp);
+  float* dy32 = static_cast<float*>(dy32p);
+  T* dyc = static_cast<T*>(dycp);
+  float* part = static_cast<float*>(partp);
+  // every row's y and dy32 on 16 bytes, its g and dyc on 4 elements
+  const uintptr_t a16 = reinterpret_cast<uintptr_t>(y) | reinterpret_cast<uintptr_t>(dy32);
+  const uintptr_t aq = reinterpret_cast<uintptr_t>(g) | reinterpret_cast<uintptr_t>(dyc);
+  const bool vec = d % 4 == 0 && (a16 & 15) == 0 && (aq & (4 * sizeof(T) - 1)) == 0;
+  const int nch = (d + 127) / 128;
+#define LNB_VEC(N)                                                                                    \
+  if (nch <= N) {                                                                                     \
+    ln_bwd_vec_kernel<T, N><<<nblocks, LNB_WARPS * 32, 0, s>>>(y, g, ln, dy32, dyc, part, rows, d, eps); \
+    break;                                                                                            \
+  }
+  do {
+    if (vec) {
+      LNB_VEC(1) LNB_VEC(2) LNB_VEC(3) LNB_VEC(4) LNB_VEC(6)
+    }
+    // as many warps as their sums fit 200 KB of shared memory (4 at d 4096)
+    const int warps = std::min(LNB_WARPS, (200 * 1024) / (12 * d));
+    const int smem = warps * 3 * d * (int)sizeof(float);
+    cudaError_t err = cudaFuncSetAttribute(ln_bwd_any_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    ln_bwd_any_kernel<T><<<nblocks, warps * 32, smem, s>>>(y, g, ln, dy32, dyc, part, rows, d, eps);
+  } while (false);
+#undef LNB_VEC
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  part_sum_kernel<<<(3 * d + 31) / 32, 256, 0, s>>>(part, static_cast<float*>(sumsp), nblocks, 3 * d);
+  return cudaGetLastError();
 }
 
 // ---- column sums over rows ---------------------------------------------------
@@ -144,30 +345,16 @@ extern "C" int bert_gemm_bwd(const void* a, const void* b, void* out0, void* out
 
 // y (rows, d) f32, the sum the LayerNorm read; g (rows, d) and ln (2, d) in
 // `dtype`; dy32 (rows, d) f32 and dyc (rows, d) in `dtype`; sums (3, d) f32 =
-// [dscale; dbias; sum_rows(dy)]; part (ceil(rows / 32), 3, d) f32 scratch.
-// d <= 4096.
+// [dscale; dbias; sum_rows(dy)]; part (nblocks, 3, d) f32 scratch, nblocks the
+// grid (ops/fused_encoder.py::ln_bwd_blocks). d <= 4096.
 extern "C" int bert_ln_bwd(const void* y, const void* g, const void* ln, void* dy32, void* dyc,
-                           void* sums, void* part, int rows, int d, float eps, int dtype,
+                           void* sums, void* part, int rows, int d, int nblocks, float eps, int dtype,
                            void* stream) {
-  if (d > LNB_MAX_COLS * 256) return (int)cudaErrorInvalidValue;
+  if (d <= 0 || d > LNB_MAX_D || nblocks <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int blocks = (rows + LNB_ROWS - 1) / LNB_ROWS;
-  if (dtype == DT_F32)
-    ln_bwd_kernel<float><<<blocks, 256, 0, s>>>(
-        static_cast<const float*>(y), static_cast<const float*>(g), static_cast<const float*>(ln),
-        static_cast<float*>(dy32), static_cast<float*>(dyc), static_cast<float*>(part), rows, d, eps);
-  else if (dtype == DT_BF16)
-    ln_bwd_kernel<__nv_bfloat16><<<blocks, 256, 0, s>>>(
-        static_cast<const float*>(y), static_cast<const __nv_bfloat16*>(g),
-        static_cast<const __nv_bfloat16*>(ln), static_cast<float*>(dy32),
-        static_cast<__nv_bfloat16*>(dyc), static_cast<float*>(part), rows, d, eps);
-  else
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  column_sum_kernel<<<(3 * d + 255) / 256, 256, 0, s>>>(static_cast<const float*>(part),
-                                                        static_cast<float*>(sums), blocks, 3 * d);
-  return (int)cudaGetLastError();
+  if (dtype == DT_F32) return (int)ln_bwd<float>(y, g, ln, dy32, dyc, sums, part, rows, d, nblocks, eps, s);
+  if (dtype == DT_BF16) return (int)ln_bwd<__nv_bfloat16>(y, g, ln, dy32, dyc, sums, part, rows, d, nblocks, eps, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // out (n,) f32 = sum over rows of x (rows, n) in `dtype` (DT_F32 or DT_BF16),

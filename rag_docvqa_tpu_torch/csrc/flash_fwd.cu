@@ -199,45 +199,6 @@ constexpr int wgmma_smem_bytes() {
   return (DH / 64) * SUB * (1 + 2 * FST) + FST * WK + 1024;
 }
 
-// Two neighbouring bias values as they were loaded: they are turned into floats
-// where the scores use them, so the loads are not waited for where they start
-template <typename BT> struct BiasPair;
-template <> struct BiasPair<float> {
-  float2 v;
-  __device__ __forceinline__ void zero() { v = make_float2(0.f, 0.f); }
-  __device__ __forceinline__ void pair(const float* p) { v = *reinterpret_cast<const float2*>(p); }
-  __device__ __forceinline__ void one(const float* p, int e) { (e ? v.y : v.x) = *p; }
-  __device__ __forceinline__ float2 get(bool) const { return v; }
-};
-template <> struct BiasPair<__nv_bfloat16> {
-  uint32_t lo, hi;  // loaded as a pair: both in lo, the lower column in its low half; singly: one each
-  __device__ __forceinline__ void zero() { lo = hi = 0u; }
-  __device__ __forceinline__ void pair(const __nv_bfloat16* p) { lo = *reinterpret_cast<const uint32_t*>(p); }
-  __device__ __forceinline__ void one(const __nv_bfloat16* p, int e) {
-    (e ? hi : lo) = *reinterpret_cast<const uint16_t*>(p);
-  }
-  __device__ __forceinline__ float2 get(bool paired) const {
-    return make_float2(__uint_as_float(lo << 16), __uint_as_float(paired ? lo & 0xffff0000u : hi << 16));
-  }
-};
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&t);
-}
-__device__ __forceinline__ float exp2f_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
 template <typename BT, int DH, bool VEC>
 __global__ void __launch_bounds__(128, DH == 64 ? 3 : 2) flash_fwd_wgmma_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,

@@ -226,19 +226,6 @@ template <int DH> struct VitTile {
   static constexpr int SMEM_BIAS = SMEM_NO_BIAS + VQ * BIAS_LD;
 };
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&t);
-}
-__device__ __forceinline__ float exp2f_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
 // a / b correctly rounded, for 0 <= a <= 1 <= b (a probability over its row's
 // sum): with y = RN(1 / b) (rcp.rn), q = RN(a y), the residual a - b q exact
 // through an FMA, RN(q + (a - b q) y) is RN(a / b) wherever a / b is a normal
@@ -248,10 +235,6 @@ __device__ __forceinline__ float quad_max(float v) {
 __device__ __forceinline__ float div_by_sum(float a, float b, float y) {
   const float q = __fmul_rn(a, y);
   return fmaf(fmaf(-q, b, a), y, q);
-}
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 template <int DH, bool VEC, bool TWO_PASS>

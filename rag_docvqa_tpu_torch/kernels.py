@@ -76,7 +76,7 @@ _SIGNATURES = {
     "bert_gemm": [_P] * 5 + [_I] * 5 + [_P],
     "bert_layer_norm": [_P] * 3 + [_I, _I, _F, _I, _P],
     "bert_gemm_bwd": [_P] * 5 + [_I] * 6 + [_P],
-    "bert_ln_bwd": [_P] * 7 + [_I, _I, _F, _I, _P],
+    "bert_ln_bwd": [_P] * 7 + [_I, _I, _I, _F, _I, _P],
     "bert_col_sum": [_P] * 3 + [_I] * 3 + [_P],
     "vit_layer_norm": [_P] * 3 + [_I, _I, _F, _I, _P],
     "vit_gemm": [_P] * 6 + [_I] * 5 + [_P],

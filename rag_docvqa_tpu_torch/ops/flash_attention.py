@@ -222,7 +222,7 @@ def _launch_bwd(q, k, v, out, lse, do, key_mask, bias, scale, causal, mask_value
     dbias = scratch = None
     if bias is not None:
         dbias = torch.empty(bias.shape, dtype=torch.float32, device=q.device)
-        if not bias_batched:  # per-batch rows first, then a batch sum in order
+        if not bias_batched and q.dtype == torch.float32:  # the SIMT kernels' per-batch rows, then a batch sum
             scratch = torch.empty((B, H, Tq, Tk), dtype=torch.float32, device=q.device)
     dd = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
     ptr = lambda t: t.data_ptr() if t is not None else None

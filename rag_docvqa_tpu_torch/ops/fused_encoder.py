@@ -404,7 +404,7 @@ def gemm_bwd_reference(a, b, layout: str, epilogue: str, aux0=None, aux1=None, a
     raise ValueError(f"unknown epilogue {epilogue!r}")
 
 
-SM_COUNT = 132  # H100 SXM; only sizes the split below, any value is correct
+SM_COUNT = 132  # H100 SXM; only sizes the splits below, any value is correct
 
 
 TN_MIN_ROWS = 1024  # rows of a range: 16 of the bf16 kernel's K steps of 64, to amortise a block's prologue and epilogue
@@ -758,6 +758,18 @@ def layer_norm_bwd_reference(y: torch.Tensor, g: torch.Tensor, ln: torch.Tensor,
     return dy, dy.to(g.dtype), torch.stack([(g32 * n).sum(dim=0), g32.sum(dim=0)]), dy.sum(dim=0)
 
 
+LNB_WARPS = 8  # rows in flight a block of csrc/bert_layer_bwd.cu's LayerNorm backward, one a warp
+
+
+def ln_bwd_blocks(rows: int) -> int:
+    """The grid of the LayerNorm-backward kernel: a block for every
+    LNB_WARPS rows, at most two blocks for each of SM_COUNT SMs, each warp
+    looping over rows with the grid's stride. Its blocks' column sums are
+    added in block order, so the result depends on this number only in the
+    order of an f32 sum, and it is a function of the row count alone."""
+    return max(1, min(-(-rows // LNB_WARPS), 2 * SM_COUNT))
+
+
 def layer_norm_bwd(y: torch.Tensor, g: torch.Tensor, ln: torch.Tensor, eps: float):
     """LayerNorm backward over rows: y (R, d) f32 the sum the norm read,
     g (R, d) the cotangent at its output and ln (2, d), both in the compute
@@ -774,9 +786,10 @@ def layer_norm_bwd(y: torch.Tensor, g: torch.Tensor, ln: torch.Tensor, eps: floa
     dy32 = torch.empty_like(y)
     dyc = torch.empty_like(g)
     sums = torch.empty((3, d), dtype=torch.float32, device=y.device)
-    part = torch.empty(((R + 31) // 32, 3, d), dtype=torch.float32, device=y.device)
+    nblocks = ln_bwd_blocks(R)
+    part = torch.empty((nblocks, 3, d), dtype=torch.float32, device=y.device)
     err = kernels.library().bert_ln_bwd(y.data_ptr(), g.data_ptr(), ln.data_ptr(), dy32.data_ptr(), dyc.data_ptr(),
-                                        sums.data_ptr(), part.data_ptr(), R, d, float(eps), dtype,
+                                        sums.data_ptr(), part.data_ptr(), R, d, nblocks, float(eps), dtype,
                                         kernels.stream_ptr(y))
     kernels.check("bert_ln_bwd", err)
     kernels.LAUNCHES["bert_ln_bwd"] += 1

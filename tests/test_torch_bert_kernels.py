@@ -273,6 +273,42 @@ def test_gemm_bwd_pairs_and_operand_checks(pair):
         fe.gemm_bwd(a, b, "tn", "relu_bwd", f(M, N))
 
 
+@pytest.mark.parametrize("rows", [77, 1])
+def test_layer_norm_bwd_plain_matches_jax_ln_bwd(rows):
+    """The plain LayerNorm backward against the TPU kernels' `_ln_bwd` (with
+    `_ln_parts` for n and rstd) at bge-small's d 384, over a row count that is
+    not a multiple of the card kernel's eight rows a block: dy, and the
+    column sums of g * n and g (dln) and of dy."""
+    d = 384
+    rng = np.random.RandomState(rows)
+    y = (rng.randn(rows, d) * 3.0 + 0.5).astype(np.float32)
+    g = rng.randn(rows, d).astype(np.float32)
+    ln = np.stack([rng.rand(d) + 0.5, rng.randn(d)]).astype(np.float32)
+    n, rstd = j_feb._ln_parts(jnp.asarray(y), EPS)
+    want_dy, want_dw, want_db = j_feb._ln_bwd(jnp.asarray(g), n, rstd, jnp.asarray(ln[0]), d)
+    dy, dyc, dln, dsum = fe.layer_norm_bwd(torch.from_numpy(y), torch.from_numpy(g), torch.from_numpy(ln), EPS)
+    _close(dy, want_dy, 1e-5, "dy")
+    _close(dyc, want_dy, 1e-5, "dy cast")
+    _close(dln[0], np.asarray(want_dw)[0], 1e-5, "dw")
+    _close(dln[1], np.asarray(want_db)[0], 1e-5, "db")
+    _close(dsum, np.asarray(want_dy).sum(0), 1e-5, "sum_rows(dy)")
+
+
+def test_ln_bwd_blocks_rule():
+    """The grid of the card's LayerNorm backward (csrc/bert_layer_bwd.cu): a
+    block for every LNB_WARPS rows, at most two blocks for each of SM_COUNT
+    SMs, at least one; its blocks' sums are added in block order, so it must
+    be a function of the row count alone."""
+    W, S = fe.LNB_WARPS, fe.SM_COUNT
+    assert fe.ln_bwd_blocks(1) == 1 and fe.ln_bwd_blocks(77) == 10 and fe.ln_bwd_blocks(8 * W) == 8
+    assert fe.ln_bwd_blocks(16384) == 2 * S
+    for rows in (1, 7, 8, 9, 77, 1000, 2 * S * W - 1, 2 * S * W, 2 * S * W + 1, 16384, 61440):
+        nb = fe.ln_bwd_blocks(rows)
+        assert nb == fe.ln_bwd_blocks(rows) and 1 <= nb <= 2 * S
+        assert nb * W >= rows or nb == 2 * S  # every row has a warp in the first round, or the grid is full
+        assert (nb - 1) * W < rows  # no block without a row
+
+
 def test_layer_norm_bwd_and_col_sum_against_autograd():
     rng = np.random.RandomState(2)
     y = torch.from_numpy((rng.randn(11, 40) * 2 + 0.3).astype(np.float32)).requires_grad_()

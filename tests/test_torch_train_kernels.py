@@ -114,6 +114,43 @@ def test_flash_bwd_t5_mask_value_matches_softmax_vjp(name):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=2e-5, atol=2e-5, err_msg=name_)
 
 
+# the widths K6's bf16 kernels pad (dh 32 and 40 to 64, T not a multiple of their 64-row tiles): the contrastive
+# step's shape scaled down (bge-small's dh 32, T 64, -1e30, a ragged mask with one sequence that has no valid key,
+# which csrc/flash_bwd.cu runs in its one-pass kernel) and dh 40 at T 77 with a shared bias (the two passes)
+WIDTH_CASES = {
+    "contrastive_dh32_T64": dict(T=64, dh=32, lens=[64, 23, 0], bias=None, scale=32**-0.5),
+    "dh40_T77_shared_bias": dict(T=77, dh=40, lens=[77, 50, 9], bias="shared", scale=0.5),
+}
+
+
+@pytest.mark.parametrize("name", sorted(WIDTH_CASES))
+def test_flash_bwd_plain_matches_jax_vjp_at_padded_widths(name):
+    """mask value -1e30, against jax.vjp of the JAX flash_attention in
+    interpret mode (blocks of 32, so T 77 is padded by the JAX wrapper)."""
+    case = WIDTH_CASES[name]
+    B, H, T, dh = 3, 4, case["T"], case["dh"]
+    rng = np.random.RandomState(1)
+    q, k, v, g = (rng.randn(B, T, H, dh).astype(np.float32) for _ in range(4))
+    mask = np.arange(T)[None, :] < np.array(case["lens"])[:, None]
+    bias = rng.randn(1, H, T, T).astype(np.float32) if case["bias"] else None
+    got = _port_bwd(q, k, v, g, mask, bias, case["scale"], False, p_fa.NEG_INF)
+
+    def f(q_, k_, v_, b_):
+        return j_fa.flash_attention(q_, k_, v_, jnp.asarray(mask), b_, scale=case["scale"], causal=False,
+                                    block_q=32, block_k=32, interpret=True)
+
+    _, vjp = jax.vjp(f, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), None if bias is None else jnp.asarray(bias))
+    want = vjp(jnp.asarray(g))
+    for name_, a, b in zip(("dq", "dk", "dv", "dbias"), got, want):
+        if b is None:
+            assert a is None
+            continue
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=2e-5, atol=2e-5, err_msg=name_)
+    if case["lens"][-1] == 0:  # the sequence without a valid key: no gradient reaches its q, k or v
+        for a in got[:3]:
+            assert not a[2].any()
+
+
 def test_flash_autograd_function_runs_k6():
     """FlashAttention (K2 forward, K6 backward) gives the plain backward's
     gradients, the bias gradient cast to the bias dtype."""
