@@ -711,7 +711,8 @@ def check_kernels(checks: Checks, g: torch.Generator) -> None:
                            "residual": lambda: torch.addmm(aux, a, w.t())}.get(epi)  # relu: no single call
                 checks.timed("t5_gemm", f"{label} {tag}", lambda: fe.gemm(a, w, epi, aux),
                              lambda: fe.gemm_reference(a, w, epi, aux), library=library,
-                             io_bytes=nbytes(a, w, aux, got), ops=2.0 * M * N * K, ops_in=op_type(dtype))
+                             io_bytes=nbytes(a, w, aux, got), ops=2.0 * M * N * K, ops_in=op_type(dtype),
+                             device=True)
 
     # the bf16 GEMM's tails in M, N and K (K 72 is one full step of 64 and one of
     # 8; N 135 is odd, so the epilogue stores single elements), every epilogue,
@@ -1236,6 +1237,55 @@ def check_gemm_bwd_edges(checks: Checks, g: torch.Generator, bert: bool) -> None
                               twice=dtype == torch.bfloat16, splits=splits)
 
 
+def check_rms_bwd_edges(checks: Checks, dev, eps: float) -> None:
+    """t5_rms_bwd at the edges of its forms: 1 and 77 rows; widths in its
+    register buckets (768, 1024 in bf16), past them (1024 in f32, 4096: the
+    element-wise form), and no multiple of the 16-byte vector (40 in bf16,
+    100); every (x, weight) dtype pair; a second launch's bits. Inputs from a
+    generator of their own, so that later phases' data stay as they were."""
+    from rag_docvqa_tpu_torch.ops import fused_encoder as fe
+
+    eg = torch.Generator(device=dev).manual_seed(SEED + 11)
+    randn = lambda *s: torch.randn(s, generator=eg, device=dev)
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        for w_dtype, wtag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            for width in (40, 100, 768, 1024, 4096):
+                for rows in (1, 77):
+                    x, resid, dh = (randn(rows, width) * 3.0).to(dtype), randn(rows, width).to(dtype), randn(rows, width)
+                    w = (torch.rand(width, generator=eg, device=dev) + 0.5).to(w_dtype)
+                    got, want = fe.rms_norm_bwd(x, dh, w, resid, eps), fe.rms_norm_bwd_reference(x, dh, w, resid, eps)
+                    label = f"edge {rows}x{width} x {tag} w {wtag}"
+                    checks.compare("t5_rms_bwd", f"{label} dx", got[0], want[0], tol(dtype, want[0]))
+                    checks.compare("t5_rms_bwd", f"{label} dw", got[1], want[1], rel_tol(dtype, want[1]))
+                    again = fe.rms_norm_bwd(x, dh, w, resid, eps)
+                    if not (torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])):
+                        raise AssertionError(f"t5_rms_bwd {label}: a second launch on the same input gave other bits")
+
+
+def check_col_sum_edges(checks: Checks, dev) -> None:
+    """bert_col_sum at the edges of its forms: 1 and 77 rows, widths that are
+    16-byte chunks in both dtypes (768, 1024, 4096), in f32 only (100) and in
+    neither (40 in bf16; 41), a row that starts off a 16-byte boundary (a
+    column slice, contiguous again); a second launch's bits. Inputs from a
+    generator of their own."""
+    from rag_docvqa_tpu_torch.ops import fused_encoder as fe
+
+    eg = torch.Generator(device=dev).manual_seed(SEED + 12)
+    for dtype in (torch.float32, torch.bfloat16):
+        for rows in (1, 77):
+            for n in (40, 41, 100, 768, 1024, 4096):
+                x = torch.randn(rows, n, generator=eg, device=dev).to(dtype)
+                cases = [(x, f"edge {rows}x{n} {op_type(dtype)}")]
+                if n == 768:
+                    cases.append((torch.randn(rows * n + 1, generator=eg, device=dev).to(dtype)[1:].view(rows, n),
+                                  f"edge {rows}x{n} {op_type(dtype)} off 16 bytes"))
+                for xx, label in cases:
+                    got, want = fe.col_sum(xx), fe.col_sum_reference(xx)
+                    checks.compare("bert_col_sum", label, got, want, rel_tol(dtype, want))
+                    if not torch.equal(got, fe.col_sum(xx)):
+                        raise AssertionError(f"bert_col_sum {label}: a second launch on the same input gave other bits")
+
+
 def check_layer_bwd(checks: Checks, g: torch.Generator) -> None:
     """6b: the backward GEMM and norm kernels, K7 and K8 against their plain
     versions, and T5LayerTrain's whole-layer gradient against autograd."""
@@ -1251,6 +1301,7 @@ def check_layer_bwd(checks: Checks, g: torch.Generator) -> None:
     R = 8 * 512
     check_hgmma("t5_layer_bwd.cu")
     check_gemm_bwd_edges(checks, g, bert=False)
+    check_rms_bwd_edges(checks, dev, eps)
     for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         for (layout, epi, M, N, K), label in (
                 (("nt", "relu_bwd", 77, 96, 64), "ragged nt relu_bwd 77x96x64"),
@@ -1271,6 +1322,9 @@ def check_layer_bwd(checks: Checks, g: torch.Generator) -> None:
             checks.compare("t5_rms_bwd", f"{label} {tag} dx", got[0], want[0], tol(dtype, want[0]))
             checks.compare("t5_rms_bwd", f"{label} {tag} dw", got[1], want[1], rel_tol(dtype, want[1]))
             if rows == R and dtype == torch.bfloat16:
+                again = fe.rms_norm_bwd(x, dh, w, resid, eps)
+                if not (torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])):
+                    raise AssertionError(f"t5_rms_bwd {label} {tag}: a second launch on the same input gave other bits")
                 x32, w32 = x.float(), w.float()
 
                 def library():  # autograd of the one library RMSNorm call
@@ -1523,7 +1577,7 @@ def check_index_kernels(checks: Checks, g: torch.Generator) -> dict:
                 checks.timed("topk_fused", f"N{N} D{D} B{B} k{k} {tag}", lambda: topk.fused_topk(index, q, n_valid, k),
                              lambda: topk.fused_topk_reference(index, q, n_valid, k), library=library,
                              io_bytes=n_valid * D * elt + nbytes(q_in, vals, idx), ops=terms * 2.0 * n_valid * D * B,
-                             ops_in=ops_in)
+                             ops_in=ops_in, device=True)
                 seg, sup = topk.segment_max(index, q, n_valid, 8, 16)
                 checks.timed("topk_segmax", f"N{N} D{D} B{B} g8 sg16 {tag}",
                              lambda: topk.segment_max(index, q, n_valid, 8, 16),
@@ -1824,7 +1878,8 @@ def check_bert_kernels(checks: Checks, g: torch.Generator) -> None:
                 library = (lambda: torch.addmm(bias, a, w.t())) if epi == "bias" else None  # the others: no single call
                 checks.timed("bert_gemm", f"{label} {tag}", lambda: fe.gemm(a, w, epi, aux, bias),
                              lambda: fe.gemm_reference(a, w, epi, aux, bias), library=library,
-                             io_bytes=nbytes(a, w, bias, aux, got), ops=2.0 * M * N * K, ops_in=op_type(dtype))
+                             io_bytes=nbytes(a, w, bias, aux, got), ops=2.0 * M * N * K, ops_in=op_type(dtype),
+                             device=True)
             del a, w, aux, got, want
         for R, d in [(77, 64)] + [(B * T, d) for _, B, T, d, _, _ in BERT_SHAPES]:
             y, ln = randn(R, d) * 3.0 + 0.5, torch.stack([torch.rand(d, generator=g, device=dev) + 0.5, randn(d)]).to(dtype)
@@ -1836,7 +1891,7 @@ def check_bert_kernels(checks: Checks, g: torch.Generator) -> None:
                 checks.timed("bert_layer_norm", f"{R}x{d} {tag}", lambda: fe.layer_norm_rows(y, ln, 1e-12, dtype),
                              lambda: fe.layer_norm_reference(y, ln, 1e-12, dtype),
                              library=lambda: F.layer_norm(y, (d,), w32, b32, 1e-12).to(dtype),
-                             io_bytes=nbytes(y, ln, got), ops=8.0 * R * d)
+                             io_bytes=nbytes(y, ln, got), ops=8.0 * R * d, device=True)
         # K2 at the BERT shapes: no bias, scale dh^-0.5, mask value -1e30
         for label, B, T, d, H, _ in BERT_SHAPES:
             dh = d // H
@@ -2052,6 +2107,7 @@ def check_bert_bwd(checks: Checks, g: torch.Generator) -> float:
     R = B * T
     check_hgmma("bert_layer_bwd.cu")
     check_gemm_bwd_edges(checks, g, bert=True)
+    check_col_sum_edges(checks, dev)
     for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         timed = dtype == torch.bfloat16
         for (layout, epi, M, N, K), label in (
@@ -2104,8 +2160,11 @@ def check_bert_bwd(checks: Checks, g: torch.Generator) -> float:
             label = f"{rows}x{n} {op_type(in_dtype)}"
             checks.compare("bert_col_sum", label, got, want, rel_tol(in_dtype, want))
             if timed and rows == R:
+                if not torch.equal(got, fe.col_sum(x)):
+                    raise AssertionError(f"bert_col_sum {label}: a second launch on the same input gave other bits")
                 checks.timed("bert_col_sum", label, lambda: fe.col_sum(x), lambda: fe.col_sum_reference(x),
-                             library=lambda: x.sum(dim=0, dtype=torch.float32), io_bytes=nbytes(x, got), ops=1.0 * rows * n)
+                             library=lambda: x.sum(dim=0, dtype=torch.float32), library_is="x.sum(0, dtype=f32)",
+                             io_bytes=nbytes(x, got), ops=1.0 * rows * n, device=True)
 
         # the two halves at the step's shape
         l = {k: v.to(dtype) for k, v in random_bert_layer(g, d, dff).items()}
@@ -2317,7 +2376,7 @@ def check_vit_kernels(checks: Checks, g: torch.Generator) -> None:
                 checks.timed("vit_layer_norm", f"{rows}x{width} {tag}", lambda: fe.vit_layer_norm_rows(x, ln, 1e-12),
                              lambda: fe.vit_layer_norm_reference(x, ln, 1e-12),
                              library=lambda: F.layer_norm(x, (width,), ln[0], ln[1], 1e-12),
-                             io_bytes=nbytes(x, ln, got), ops=8.0 * rows * width)
+                             io_bytes=nbytes(x, ln, got), ops=8.0 * rows * width, device=True)
         for (M, N, K, epi, scaled), label in (((77, 100, 72, "bias", False), "ragged 77x100x72 bias"),
                                                ((77, 96, 64, "bias_gelu", False), "ragged 77x96x64 bias_gelu"),
                                                ((77, 96, 64, "bias_scale_residual", True), "ragged 77x96x64 bias_scale_residual"),
@@ -2334,7 +2393,8 @@ def check_vit_kernels(checks: Checks, g: torch.Generator) -> None:
                 library = (lambda: torch.addmm(bias, a, w.t())) if epi == "bias" else None  # the others: no single call
                 checks.timed("vit_gemm", f"{label} {tag}", lambda: fe.vit_gemm(a, w, epi, aux, bias, scale),
                              lambda: fe.gemm_reference(a, w, epi, aux, bias, scale), library=library,
-                             io_bytes=nbytes(a, w, bias, aux, scale, got), ops=2.0 * M * N * K, ops_in=op_type(dtype))
+                             io_bytes=nbytes(a, w, bias, aux, scale, got), ops=2.0 * M * N * K, ops_in=op_type(dtype),
+                             device=True)
             del a, w, aux, got, want
         # the attention: ragged small cases (dh 40 and 128, a row of no valid key, T no multiple of 4 or 8),
         # then the path's shape with and without the rel-pos bias

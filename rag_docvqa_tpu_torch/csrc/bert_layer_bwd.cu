@@ -251,26 +251,6 @@ __global__ void __launch_bounds__(LNB_WARPS * 32) ln_bwd_any_kernel(
   }
 }
 
-// out[j] = sum over p of part[p, j], in a fixed order: a block takes 32
-// columns, warp k the rows k, k + 8, ..., and the eight warps' sums are added
-// in warp order
-__global__ void __launch_bounds__(256) part_sum_kernel(const float* __restrict__ part,
-                                                       float* __restrict__ out, int nparts, int n) {
-  __shared__ float acc[8][33];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, j = blockIdx.x * 32 + lane;
-  float s = 0.f;
-  if (j < n)
-    for (int p = warp; p < nparts; p += 8) s += part[(long long)p * n + j];
-  acc[warp][lane] = s;
-  __syncthreads();
-  if (warp == 0 && j < n) {
-    float t = 0.f;
-#pragma unroll
-    for (int k = 0; k < 8; ++k) t += acc[k][lane];
-    out[j] = t;
-  }
-}
-
 template <typename T>
 cudaError_t ln_bwd(const void* yp, const void* gp, const void* lnp, void* dy32p, void* dycp,
                    void* sumsp, void* partp, int rows, int d, int nblocks, float eps, cudaStream_t s) {
@@ -304,22 +284,128 @@ cudaError_t ln_bwd(const void* yp, const void* gp, const void* lnp, void* dy32p,
 #undef LNB_VEC
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  part_sum_kernel<<<(3 * d + 31) / 32, 256, 0, s>>>(part, static_cast<float*>(sumsp), nblocks, 3 * d);
-  return cudaGetLastError();
+  return part_sum(part, sumsp, nblocks, 3 * d, s);
 }
 
 // ---- column sums over rows ---------------------------------------------------
-// part[c, j] = sum of x[r, j] over the rows of chunk c, in row order
-constexpr int CS_ROWS = 64;
+// out[j] = sum over rows of x[r, j] in f32: a bias gradient. Bound by memory:
+// x read once. The rows are cut into `nranges` ranges (ops/fused_encoder.py::
+// col_sum_ranges, a function of (rows, n) alone, sized so that the (strip,
+// range) blocks of one wave fill the card) and the columns into strips; a
+// block sums its strip over its range into one row of part (nranges, n), and
+// part_sum_kernel (gemm_bwd.cuh) adds the ranges in range order. Within a
+// range, warp k takes the k-th eighth of the rows, in row order, with CS_DEPTH
+// rows' loads in flight, and the warps are added in warp order: the same bits
+// on every launch, no atomics.
+constexpr int CS_WARPS = 8;
+constexpr int CS_DEPTH = 8;  // rows whose loads a warp has in flight before it adds them
+
+// the rows [x, y) that warp `warp` of this block sums: the warp-th eighth of
+// the block's row range blockIdx.y
+__device__ __forceinline__ int2 cs_warp_rows(int rows, int range_rows, int warp) {
+  const int r_end = min(rows, (int)blockIdx.y * range_rows + range_rows);
+  const int per_warp = (range_rows + CS_WARPS - 1) / CS_WARPS;
+  const int begin = min(r_end, (int)blockIdx.y * range_rows + warp * per_warp);
+  return make_int2(begin, min(r_end, begin + per_warp));
+}
+
+// n a multiple of VW = 16 / sizeof(T) and every row 16-byte aligned: a strip
+// is 32 * VW columns (256 bf16, 128 f32), lane l holding the VW columns of
+// the l-th 16-byte chunk, so each load of a warp is one contiguous 512 bytes
+template <typename T>
+__global__ void __launch_bounds__(CS_WARPS * 32) col_sum_vec_kernel(const T* __restrict__ x,
+                                                                    float* __restrict__ part, int rows, int n,
+                                                                    int range_rows) {
+  constexpr int VW = Vec16<T>::N;
+  __shared__ float comb[CS_WARPS][32 * VW];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int e0 = (blockIdx.x * 32 + lane) * VW;
+  const int2 wr = cs_warp_rows(rows, range_rows, warp);
+  const int w_begin = wr.x, w_end = wr.y;
+  float acc[VW];
+#pragma unroll
+  for (int i = 0; i < VW; ++i) acc[i] = 0.f;
+  if (e0 < n) {
+    const T* col = x + e0;
+    int r = w_begin;
+    for (; r + CS_DEPTH <= w_end; r += CS_DEPTH) {
+      uint4 v[CS_DEPTH];
+#pragma unroll
+      for (int u = 0; u < CS_DEPTH; ++u) v[u] = ldg16(reinterpret_cast<uintptr_t>(col + (long long)(r + u) * n));
+#pragma unroll
+      for (int u = 0; u < CS_DEPTH; ++u) {
+        float f[VW];
+        unpack16<T>(v[u], f);
+#pragma unroll
+        for (int i = 0; i < VW; ++i) acc[i] += f[i];
+      }
+    }
+    for (; r < w_end; ++r) {
+      float f[VW];
+      unpack16<T>(ldg16(reinterpret_cast<uintptr_t>(col + (long long)r * n)), f);
+#pragma unroll
+      for (int i = 0; i < VW; ++i) acc[i] += f[i];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < VW; ++i) comb[warp][lane * VW + i] = acc[i];
+  __syncthreads();
+  for (int c = threadIdx.x; c < 32 * VW; c += blockDim.x) {
+    const int j = blockIdx.x * 32 * VW + c;
+    if (j < n) {
+      float t = comb[0][c];
+#pragma unroll
+      for (int k = 1; k < CS_WARPS; ++k) t += comb[k][c];
+      part[(long long)blockIdx.y * n + j] = t;
+    }
+  }
+}
+
+// any n and alignment: a strip is 32 columns, lane l the l-th, element by element
+template <typename T>
+__global__ void __launch_bounds__(CS_WARPS * 32) col_sum_any_kernel(const T* __restrict__ x,
+                                                                    float* __restrict__ part, int rows, int n,
+                                                                    int range_rows) {
+  __shared__ float comb[CS_WARPS][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, j = blockIdx.x * 32 + lane;
+  const int2 wr = cs_warp_rows(rows, range_rows, warp);
+  const int w_begin = wr.x, w_end = wr.y;
+  float acc = 0.f;
+  if (j < n) {
+    int r = w_begin;
+    for (; r + CS_DEPTH <= w_end; r += CS_DEPTH) {
+      float v[CS_DEPTH];
+#pragma unroll
+      for (int u = 0; u < CS_DEPTH; ++u) v[u] = to_f(x[(long long)(r + u) * n + j]);
+#pragma unroll
+      for (int u = 0; u < CS_DEPTH; ++u) acc += v[u];
+    }
+    for (; r < w_end; ++r) acc += to_f(x[(long long)r * n + j]);
+  }
+  comb[warp][lane] = acc;
+  __syncthreads();
+  if (warp == 0 && j < n) {
+    float t = comb[0][lane];
+#pragma unroll
+    for (int k = 1; k < CS_WARPS; ++k) t += comb[k][lane];
+    part[(long long)blockIdx.y * n + j] = t;
+  }
+}
 
 template <typename T>
-__global__ void col_sum_part_kernel(const T* __restrict__ x, float* __restrict__ part, int rows, int n) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= n) return;
-  const int r0 = (int)blockIdx.y * CS_ROWS, r_end = min(rows, r0 + CS_ROWS);
-  float acc = 0.f;
-  for (int r = r0; r < r_end; ++r) acc += to_f(x[(long long)r * n + j]);
-  part[(long long)blockIdx.y * n + j] = acc;
+cudaError_t col_sum(const void* xp, void* out, void* partp, int rows, int n, int nranges, cudaStream_t s) {
+  const T* x = static_cast<const T*>(xp);
+  float* part = static_cast<float*>(partp);
+  constexpr int VW = Vec16<T>::N;
+  const int range_rows = std::max(1, (rows + nranges - 1) / nranges);
+  if (n % VW == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0)
+    col_sum_vec_kernel<T><<<dim3((n + 32 * VW - 1) / (32 * VW), nranges), CS_WARPS * 32, 0, s>>>(x, part, rows, n,
+                                                                                                range_rows);
+  else
+    col_sum_any_kernel<T><<<dim3((n + 31) / 32, nranges), CS_WARPS * 32, 0, s>>>(x, part, rows, n, range_rows);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return part_sum(part, out, nranges, n, s);
 }
 
 }  // namespace
@@ -358,24 +444,13 @@ extern "C" int bert_ln_bwd(const void* y, const void* g, const void* ln, void* d
 }
 
 // out (n,) f32 = sum over rows of x (rows, n) in `dtype` (DT_F32 or DT_BF16),
-// in two passes of fixed order; part (ceil(rows / 64), n) f32 scratch.
-extern "C" int bert_col_sum(const void* x, void* out, void* part, int rows, int n, int dtype,
+// in two passes of fixed order; part (nranges, n) f32 scratch, nranges the
+// row ranges (ops/fused_encoder.py::col_sum_ranges), 1 <= nranges <= 65535.
+extern "C" int bert_col_sum(const void* x, void* out, void* part, int rows, int n, int nranges, int dtype,
                             void* stream) {
+  if (n <= 0 || nranges <= 0 || nranges > 65535) return (int)cudaErrorInvalidValue;  // grid.y
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int chunks = (rows + CS_ROWS - 1) / CS_ROWS;
-  if (chunks > 65535) return (int)cudaErrorInvalidValue;  // grid.y
-  dim3 grid((n + 255) / 256, chunks);
-  if (dtype == DT_F32)
-    col_sum_part_kernel<float><<<grid, 256, 0, s>>>(static_cast<const float*>(x),
-                                                     static_cast<float*>(part), rows, n);
-  else if (dtype == DT_BF16)
-    col_sum_part_kernel<__nv_bfloat16><<<grid, 256, 0, s>>>(static_cast<const __nv_bfloat16*>(x),
-                                                             static_cast<float*>(part), rows, n);
-  else
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  column_sum_kernel<<<(n + 255) / 256, 256, 0, s>>>(static_cast<const float*>(part),
-                                                    static_cast<float*>(out), chunks, n);
-  return (int)cudaGetLastError();
+  if (dtype == DT_F32) return (int)col_sum<float>(x, out, part, rows, n, nranges, s);
+  if (dtype == DT_BF16) return (int)col_sum<__nv_bfloat16>(x, out, part, rows, n, nranges, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -1,7 +1,7 @@
 // The backward GEMM of the whole-layer kernels, one template for the T5
 // layer backward (t5_layer_bwd.cu, K7/K8) and the BERT layer backward
-// (bert_layer_bwd.cu, K10), and the fixed-order column sum both use for
-// the gradients that sum over rows.
+// (bert_layer_bwd.cu, K10), and the fixed-order sums of partial rows both
+// use for the gradients that sum over rows.
 //
 // What bounds it on the H100: operations. At the train step's shapes (4096 x
 // 3072 x 768 and the like) a product is hundreds of FLOP per byte, so only
@@ -438,6 +438,34 @@ __global__ void column_sum_kernel(const float* __restrict__ part, float* __restr
   float acc = 0.f;
   for (int p = 0; p < nparts; ++p) acc += part[(long long)p * d + i];
   out[i] = acc;
+}
+
+// out[j] = sum over p of part[p, j], in a fixed order: a block takes 32
+// columns, warp k the rows k, k + 8, ..., and the eight warps' sums are added
+// in warp order. The second pass of every row sum whose first pass leaves one
+// partial row a block (t5_rms_bwd, bert_ln_bwd, bert_col_sum): over a hundred
+// partial rows, eight warps share each column's adds, where column_sum_kernel
+// gives each column one thread that adds every partial in series.
+__global__ void __launch_bounds__(256) part_sum_kernel(const float* __restrict__ part,
+                                                       float* __restrict__ out, int nparts, int n) {
+  __shared__ float acc[8][33];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, j = blockIdx.x * 32 + lane;
+  float s = 0.f;
+  if (j < n)
+    for (int p = warp; p < nparts; p += 8) s += part[(long long)p * n + j];
+  acc[warp][lane] = s;
+  __syncthreads();
+  if (warp == 0 && j < n) {
+    float t = 0.f;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) t += acc[k][lane];
+    out[j] = t;
+  }
+}
+
+inline cudaError_t part_sum(const void* part, void* out, int nparts, int n, cudaStream_t s) {
+  part_sum_kernel<<<(n + 31) / 32, 256, 0, s>>>(static_cast<const float*>(part), static_cast<float*>(out), nparts, n);
+  return cudaGetLastError();
 }
 
 // A^T . B as f32 with the rows cut into `splits` ranges: the partial

@@ -47,53 +47,202 @@
 
 namespace {
 
-// ---- RMSNorm backward -------------------------------------------------------
+// ---- RMSNorm backward: one warp a row --------------------------------------
 // dx = rstd * dn - x * rstd^3 * sum(dn * x) / d with dn = dh * w, written as
-// cast(resid + dx); each block also sums dh * n (n = x * rstd) over its rows
-// into one row of dw_part. (fused_encoder_bwd.py::_rms_bwd)
-constexpr int RMS_ROWS = 32;  // rows per block
-constexpr int RMS_MAX_COLS = 16;  // per thread: d <= 16 * 256
+// cast(resid + dx), and dw = sum_rows(dh * n), n = x * rstd
+// (fused_encoder_bwd.py::_rms_bwd). Bound by memory: x, dh (f32) and resid
+// read once, dx written once. A warp takes a row and loops over rows with
+// the grid's stride (ops/fused_encoder.py::rms_bwd_blocks, a function of the
+// row count alone); both row sums are warp shuffles, with no block barrier.
+// The per-column sums dh * n accumulate in each lane's registers across the
+// warp's rows; the block adds its warps in warp order into one row of
+// `part` (nblocks, d), and part_sum_kernel (gemm_bwd.cuh) adds the blocks'
+// rows in a fixed order: no atomics, the same bits on every launch.
+constexpr int RMSB_WARPS = 8;      // warps (rows in flight) a block
+constexpr int RMSB_MAX_D = 4096;
 
-template <typename T, typename WT>
-__global__ void __launch_bounds__(256) rms_bwd_kernel(
+// d a multiple of VW = 16 / sizeof(T) and at most NCH * 32 * VW: lane l holds
+// the VW-column chunks l, l + 32, ... of its row as loaded, 16 bytes of x and
+// of resid and 16 (f32 x) or 32 (bf16 x) bytes of dh a chunk, so every load
+// of a warp is one contiguous run; the next row's loads are in flight while
+// the warp works on this one. The weight, widened to f32, is in shared memory.
+// The two rows' buffers take up to ~190 registers (bf16 d 1024), so one block
+// an SM (RMSB_WARPS rows and their successors in flight).
+template <typename T, typename WT, int NCH>
+__global__ void __launch_bounds__(RMSB_WARPS * 32, 1) rms_bwd_vec_kernel(
     const T* __restrict__ x, const float* __restrict__ dh, const WT* __restrict__ w,
-    const T* __restrict__ resid, T* __restrict__ dx, float* __restrict__ dw_part, int rows, int d,
-    float eps) {
-  __shared__ float scratch[32];
-  float dw[RMS_MAX_COLS];
+    const T* __restrict__ resid, T* __restrict__ dx, float* __restrict__ part, int rows, int d, float eps) {
+  constexpr int VW = Vec16<T>::N, DHV = VW / 4, NV = NCH * VW;
+  __shared__ float wsm[NV * 32];
+  __shared__ float comb[NV * 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int e = threadIdx.x; e < d; e += blockDim.x) wsm[e] = to_f(w[e]);
+  float pw[NV];
 #pragma unroll
-  for (int j = 0; j < RMS_MAX_COLS; ++j) dw[j] = 0.f;
-  const int r0 = (int)blockIdx.x * RMS_ROWS, r_end = min(rows, r0 + RMS_ROWS);
-  for (int row = r0; row < r_end; ++row) {
-    const T* xr = x + (long long)row * d;
-    const float* gr = dh + (long long)row * d;
-    float ss = 0.f, sdx = 0.f;
-    for (int i = threadIdx.x; i < d; i += 256) {
-      const float xv = to_f(xr[i]);
-      ss += xv * xv;
-      sdx += gr[i] * to_f(w[i]) * xv;
-    }
-    ss = block_reduce<false>(ss, scratch);
-    sdx = block_reduce<false>(sdx, scratch);
-    const float rstd = rsqrtf(ss / d + eps);
-    const float coef = rstd * rstd * rstd * (sdx * (1.f / d));
-    const T* rr = resid + (long long)row * d;
-    T* out = dx + (long long)row * d;
+  for (int i = 0; i < NV; ++i) pw[i] = 0.f;
+  __syncthreads();
+  const float inv_d = 1.f / d;
+  const long long stride = (long long)gridDim.x * RMSB_WARPS;
+  long long row = (long long)blockIdx.x * RMSB_WARPS + warp;
+  uint4 cx[NCH], cg[NCH][DHV], cr[NCH], nx[NCH], ng[NCH][DHV], nr[NCH];
+  auto load = [&](long long r, uint4(&qx)[NCH], uint4(&qg)[NCH][DHV], uint4(&qr)[NCH]) {
 #pragma unroll
-    for (int j = 0; j < RMS_MAX_COLS; ++j) {
-      const int i = threadIdx.x + 256 * j;
-      if (i < d) {
-        const float xv = to_f(xr[i]), g = gr[i];
-        dw[j] += g * (xv * rstd);
-        out[i] = from_f<T>(to_f(rr[i]) + (rstd * (g * to_f(w[i])) - xv * coef));
+    for (int c = 0; c < NCH; ++c) {
+      const int e0 = (c * 32 + lane) * VW;
+      if (e0 < d) {
+        qx[c] = ldg16(reinterpret_cast<uintptr_t>(x + r * d + e0));
+#pragma unroll
+        for (int k = 0; k < DHV; ++k) qg[c][k] = ldg16(reinterpret_cast<uintptr_t>(dh + r * d + e0 + 4 * k));
+        qr[c] = ldg16(reinterpret_cast<uintptr_t>(resid + r * d + e0));
       }
     }
-  }
+  };
+  if (row < rows) load(row, cx, cg, cr);
+  for (; row < rows; row += stride) {
+    if (row + stride < rows) load(row + stride, nx, ng, nr);
+    float ss = 0.f, sdx = 0.f;
 #pragma unroll
-  for (int j = 0; j < RMS_MAX_COLS; ++j) {
-    const int i = threadIdx.x + 256 * j;
-    if (i < d) dw_part[(long long)blockIdx.x * d + i] = dw[j];
+    for (int c = 0; c < NCH; ++c) {
+      const int e0 = (c * 32 + lane) * VW;
+      if (e0 < d) {
+        float xv[VW], gv[VW];
+        unpack16<T>(cx[c], xv);
+#pragma unroll
+        for (int k = 0; k < DHV; ++k) unpack16<float>(cg[c][k], gv + 4 * k);
+#pragma unroll
+        for (int i = 0; i < VW; ++i) {
+          ss = fmaf(xv[i], xv[i], ss);
+          sdx = fmaf(gv[i] * wsm[e0 + i], xv[i], sdx);
+        }
+      }
+    }
+    ss = warp_sum(ss);
+    sdx = warp_sum(sdx);
+    const float rstd = rsqrtf(ss / d + eps);
+    const float coef = rstd * rstd * rstd * (sdx * inv_d);
+    T* orow = dx + row * d;
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) {
+      const int e0 = (c * 32 + lane) * VW;
+      if (e0 < d) {
+        float xv[VW], gv[VW], o[VW];
+        unpack16<T>(cx[c], xv);
+#pragma unroll
+        for (int k = 0; k < DHV; ++k) unpack16<float>(cg[c][k], gv + 4 * k);
+        unpack16<T>(cr[c], o);
+#pragma unroll
+        for (int i = 0; i < VW; ++i) {
+          pw[c * VW + i] = fmaf(gv[i], xv[i] * rstd, pw[c * VW + i]);
+          o[i] = o[i] + (rstd * (gv[i] * wsm[e0 + i]) - xv[i] * coef);
+        }
+        *reinterpret_cast<uint4*>(orow + e0) = pack16(o, T());
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) {
+      cx[c] = nx[c];
+      cr[c] = nr[c];
+#pragma unroll
+      for (int k = 0; k < DHV; ++k) cg[c][k] = ng[c][k];
+    }
   }
+  // the block's warps, added in warp order
+  for (int k = 0; k < RMSB_WARPS; ++k) {
+    if (warp == k) {
+#pragma unroll
+      for (int c = 0; c < NCH; ++c) {
+        const int e0 = (c * 32 + lane) * VW;
+        if (e0 < d)
+#pragma unroll
+          for (int i = 0; i < VW; ++i) comb[e0 + i] = k ? comb[e0 + i] + pw[c * VW + i] : pw[c * VW + i];
+      }
+    }
+    __syncthreads();
+  }
+  float* p = part + (long long)blockIdx.x * d;
+  for (int e = threadIdx.x; e < d; e += blockDim.x) p[e] = comb[e];
+}
+
+// any d <= RMSB_MAX_D, any alignment: one warp a row, element by element (x
+// and dh read again from L1/L2 in the second pass), each warp's column sums
+// in its own row of dynamic shared memory [RMSB_WARPS][d]
+template <typename T, typename WT>
+__global__ void __launch_bounds__(RMSB_WARPS * 32) rms_bwd_any_kernel(
+    const T* __restrict__ x, const float* __restrict__ dh, const WT* __restrict__ w,
+    const T* __restrict__ resid, T* __restrict__ dx, float* __restrict__ part, int rows, int d, float eps) {
+  extern __shared__ float rms_sums_smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* mine = rms_sums_smem + warp * d;
+  for (int e = lane; e < d; e += 32) mine[e] = 0.f;
+  const float inv_d = 1.f / d;
+  for (long long row = (long long)blockIdx.x * RMSB_WARPS + warp; row < rows;
+       row += (long long)gridDim.x * RMSB_WARPS) {
+    const T* xr = x + row * d;
+    const float* gr = dh + row * d;
+    float ss = 0.f, sdx = 0.f;
+    for (int e = lane; e < d; e += 32) {
+      const float xv = to_f(xr[e]);
+      ss = fmaf(xv, xv, ss);
+      sdx = fmaf(gr[e] * to_f(w[e]), xv, sdx);
+    }
+    ss = warp_sum(ss);
+    sdx = warp_sum(sdx);
+    const float rstd = rsqrtf(ss / d + eps);
+    const float coef = rstd * rstd * rstd * (sdx * inv_d);
+    const T* rr = resid + row * d;
+    T* out = dx + row * d;
+    for (int e = lane; e < d; e += 32) {
+      const float xv = to_f(xr[e]), g = gr[e];
+      mine[e] = fmaf(g, xv * rstd, mine[e]);
+      out[e] = from_f<T>(to_f(rr[e]) + (rstd * (g * to_f(w[e])) - xv * coef));
+    }
+  }
+  __syncthreads();
+  float* p = part + (long long)blockIdx.x * d;
+  for (int e = threadIdx.x; e < d; e += blockDim.x) {
+    float acc = 0.f;
+    for (int k = 0; k < RMSB_WARPS; ++k) acc += rms_sums_smem[k * d + e];
+    p[e] = acc;
+  }
+}
+
+template <typename T, typename WT>
+cudaError_t rms_bwd(const void* xp, const void* dhp, const void* wp, const void* residp, void* dxp, void* dwp,
+                    void* partp, int rows, int d, int nblocks, float eps, cudaStream_t s) {
+  const T* x = static_cast<const T*>(xp);
+  const float* dh = static_cast<const float*>(dhp);
+  const WT* w = static_cast<const WT*>(wp);
+  const T* resid = static_cast<const T*>(residp);
+  T* dx = static_cast<T*>(dxp);
+  float* part = static_cast<float*>(partp);
+  constexpr int VW = Vec16<T>::N;
+  const uintptr_t a16 = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(dh) |
+                        reinterpret_cast<uintptr_t>(resid) | reinterpret_cast<uintptr_t>(dx);
+  const bool vec = d % VW == 0 && (a16 & 15) == 0;
+  const int nch = (d + 32 * VW - 1) / (32 * VW);
+#define RMSB_VEC(N)                                                                                        \
+  if (nch <= N) {                                                                                          \
+    rms_bwd_vec_kernel<T, WT, N><<<nblocks, RMSB_WARPS * 32, 0, s>>>(x, dh, w, resid, dx, part, rows, d, eps); \
+    break;                                                                                                 \
+  }
+  do {
+    // the register buckets: d <= 1024 in bf16, <= 768 in f32 (two rows of x, dh and resid a lane)
+    if (vec) {
+      if constexpr (sizeof(T) == 2) {
+        RMSB_VEC(1) RMSB_VEC(2) RMSB_VEC(3) RMSB_VEC(4)
+      } else {
+        RMSB_VEC(1) RMSB_VEC(2) RMSB_VEC(3) RMSB_VEC(4) RMSB_VEC(6)
+      }
+    }
+    const int smem = RMSB_WARPS * d * (int)sizeof(float);
+    cudaError_t err = cudaFuncSetAttribute(rms_bwd_any_kernel<T, WT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    rms_bwd_any_kernel<T, WT><<<nblocks, RMSB_WARPS * 32, smem, s>>>(x, dh, w, resid, dx, part, rows, d, eps);
+  } while (false);
+#undef RMSB_VEC
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return part_sum(part, dwp, nblocks, d, s);
 }
 
 }  // namespace
@@ -123,26 +272,18 @@ extern "C" int t5_gemm_bwd(const void* a, const void* b, void* out0, void* out1,
 }
 
 // x, resid, dx (rows, d) in `dtype`; dh (rows, d) f32; w (d,) in `w_dtype`;
-// dw (d,) f32; dw_part (ceil(rows / 32), d) f32 scratch. d <= 4096.
+// dw (d,) f32; dw_part (nblocks, d) f32 scratch, nblocks the grid
+// (ops/fused_encoder.py::rms_bwd_blocks). 0 < d <= 4096.
 extern "C" int t5_rms_bwd(const void* x, const void* dh, const void* w, const void* resid, void* dx,
-                          void* dw, void* dw_part, int rows, int d, float eps, int dtype, int w_dtype,
+                          void* dw, void* dw_part, int rows, int d, int nblocks, float eps, int dtype, int w_dtype,
                           void* stream) {
-  if (d > RMS_MAX_COLS * 256) return (int)cudaErrorInvalidValue;
+  if (d <= 0 || d > RMSB_MAX_D || nblocks <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int blocks = (rows + RMS_ROWS - 1) / RMS_ROWS;
-#define RMS_BWD(T, WT)                                                                      \
-  rms_bwd_kernel<T, WT><<<blocks, 256, 0, s>>>(                                            \
-      static_cast<const T*>(x), static_cast<const float*>(dh), static_cast<const WT*>(w), \
-      static_cast<const T*>(resid), static_cast<T*>(dx), static_cast<float*>(dw_part), rows, d, eps)
-  if (dtype == DT_F32 && w_dtype == DT_F32) RMS_BWD(float, float);
-  else if (dtype == DT_F32 && w_dtype == DT_BF16) RMS_BWD(float, __nv_bfloat16);
-  else if (dtype == DT_BF16 && w_dtype == DT_F32) RMS_BWD(__nv_bfloat16, float);
-  else if (dtype == DT_BF16 && w_dtype == DT_BF16) RMS_BWD(__nv_bfloat16, __nv_bfloat16);
-  else return (int)cudaErrorInvalidValue;
+#define RMS_BWD(T, WT) (int)rms_bwd<T, WT>(x, dh, w, resid, dx, dw, dw_part, rows, d, nblocks, eps, s)
+  if (dtype == DT_F32 && w_dtype == DT_F32) return RMS_BWD(float, float);
+  if (dtype == DT_F32 && w_dtype == DT_BF16) return RMS_BWD(float, __nv_bfloat16);
+  if (dtype == DT_BF16 && w_dtype == DT_F32) return RMS_BWD(__nv_bfloat16, float);
+  if (dtype == DT_BF16 && w_dtype == DT_BF16) return RMS_BWD(__nv_bfloat16, __nv_bfloat16);
 #undef RMS_BWD
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  column_sum_kernel<<<(d + 255) / 256, 256, 0, s>>>(static_cast<const float*>(dw_part),
-                                                    static_cast<float*>(dw), blocks, d);
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;
 }

@@ -68,7 +68,7 @@ _SIGNATURES = {
     "decode_cross_attention": [_P] * 8 + [_I] * 8 + [_P],
     "flash_bwd": [_P] * 14 + [_I] * 6 + [_LL] * 12 + [_I] * 3 + [_F, _I, _F, _P],
     "t5_gemm_bwd": [_P] * 7 + [_I] * 6 + [_P, _I, _P],
-    "t5_rms_bwd": [_P] * 7 + [_I, _I, _F, _I, _I, _P],
+    "t5_rms_bwd": [_P] * 7 + [_I, _I, _I, _F, _I, _I, _P],
     "topk_fused": [_P] * 6 + [_I] * 7 + [_P],
     "topk_segmax": [_P] * 4 + [_I] * 8 + [_P],
     "topk_segmax_int8": [_P] * 4 + [_I] * 5 + [_P],
@@ -77,7 +77,7 @@ _SIGNATURES = {
     "bert_layer_norm": [_P] * 3 + [_I, _I, _F, _I, _P],
     "bert_gemm_bwd": [_P] * 5 + [_I] * 6 + [_P],
     "bert_ln_bwd": [_P] * 7 + [_I, _I, _I, _F, _I, _P],
-    "bert_col_sum": [_P] * 3 + [_I] * 3 + [_P],
+    "bert_col_sum": [_P] * 3 + [_I] * 4 + [_P],
     "vit_layer_norm": [_P] * 3 + [_I, _I, _F, _I, _P],
     "vit_gemm": [_P] * 6 + [_I] * 5 + [_P],
     "vit_attention": [_P] * 4 + [_I] * 5 + [_F, _I, _P],

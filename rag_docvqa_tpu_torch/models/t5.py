@@ -293,9 +293,11 @@ def shift_tokens_right(labels: torch.Tensor, pad_id: int, decoder_start_token_id
 
 
 def lm_logits(params: T5Params, cfg: T5Config, hidden: torch.Tensor) -> torch.Tensor:
-    """Tied head: scale by d^-0.5, then the product with the shared table."""
+    """Tied head: scale by d^-0.5, then the product with the shared table.
+    The scale is rounded to hidden's dtype first, as JAX rounds a weak-typed
+    Python scalar (bf16: 768**-0.5 = 0.036084 becomes 0.036133)."""
     if cfg.tie_word_embeddings:
-        hidden = hidden * (cfg.d_model**-0.5)
+        hidden = hidden * torch.tensor(cfg.d_model**-0.5, dtype=hidden.dtype).item()
         return torch.matmul(hidden, params.shared.to(hidden.dtype).t())
     return dense(hidden, params.lm_head)
 

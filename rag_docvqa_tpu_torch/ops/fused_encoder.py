@@ -404,7 +404,7 @@ def gemm_bwd_reference(a, b, layout: str, epilogue: str, aux0=None, aux1=None, a
     raise ValueError(f"unknown epilogue {epilogue!r}")
 
 
-SM_COUNT = 132  # H100 SXM; only sizes the splits below, any value is correct
+SM_COUNT = 132  # H100 SXM; only sizes the grids and splits below, any value is correct
 
 
 TN_MIN_ROWS = 1024  # rows of a range: 16 of the bf16 kernel's K steps of 64, to amortise a block's prologue and epilogue
@@ -501,6 +501,19 @@ def rms_norm_bwd_reference(x, dh, weight, resid, eps: float):
     return (resid.float() + dx).to(x.dtype), (dh * (x32 * rstd)).sum(dim=0)
 
 
+RMSB_WARPS = 8  # rows in flight a block of csrc/t5_layer_bwd.cu's RMSNorm backward, one a warp
+
+
+def rms_bwd_blocks(rows: int) -> int:
+    """The grid of the RMSNorm-backward kernel: a block for every RMSB_WARPS
+    rows, at most one for each of SM_COUNT SMs (a block's two rows a warp in
+    registers leave room for one an SM), each warp looping over rows with the
+    grid's stride. Its blocks' column sums are added in block order, so the
+    result depends on this number only in the order of an f32 sum, and it is
+    a function of the row count alone."""
+    return max(1, min(-(-rows // RMSB_WARPS), SM_COUNT))
+
+
 def rms_norm_bwd(x: torch.Tensor, dh: torch.Tensor, weight: torch.Tensor, resid: torch.Tensor,
                  eps: float):
     """RMSNorm backward over rows: x and resid (R, d) in the compute dtype,
@@ -509,7 +522,7 @@ def rms_norm_bwd(x: torch.Tensor, dh: torch.Tensor, weight: torch.Tensor, resid:
     if not kernels.on_cuda(x, dh, weight, resid):
         return rms_norm_bwd_reference(x, dh, weight, resid, eps)
     R, d = x.shape
-    kernels.require(d <= 4096, f"rms_norm_bwd: width {d} > 4096")
+    kernels.require(0 < d <= 4096, f"rms_norm_bwd: width {d} not in 1..4096")
     kernels.require(dh.shape == x.shape and dh.dtype == torch.float32 and resid.shape == x.shape
                     and resid.dtype == x.dtype and weight.shape == (d,),
                     "rms_norm_bwd: dh f32 and resid like x (R, d), weight (d,)")
@@ -518,10 +531,11 @@ def rms_norm_bwd(x: torch.Tensor, dh: torch.Tensor, weight: torch.Tensor, resid:
     w_dtype = kernels.dtype_code(weight, (torch.float32, torch.bfloat16))
     dx = torch.empty_like(x)
     dw = torch.empty(d, dtype=torch.float32, device=x.device)
-    part = torch.empty(((R + 31) // 32, d), dtype=torch.float32, device=x.device)
+    nblocks = rms_bwd_blocks(R)
+    part = torch.empty((nblocks, d), dtype=torch.float32, device=x.device)
     err = kernels.library().t5_rms_bwd(
         x.data_ptr(), dh.data_ptr(), weight.data_ptr(), resid.data_ptr(), dx.data_ptr(), dw.data_ptr(),
-        part.data_ptr(), R, d, float(eps), dtype, w_dtype, kernels.stream_ptr(x))
+        part.data_ptr(), R, d, nblocks, float(eps), dtype, w_dtype, kernels.stream_ptr(x))
     kernels.check("t5_rms_bwd", err)
     kernels.LAUNCHES["t5_rms_bwd"] += 1
     return dx, dw
@@ -801,17 +815,32 @@ def col_sum_reference(x: torch.Tensor) -> torch.Tensor:
     return x.float().sum(dim=0)
 
 
+COL_SUM_STRIP = 128  # the columns of a warp's 16-byte loads over f32 rows
+
+
+def col_sum_ranges(rows: int, n: int) -> int:
+    """The row ranges of the column-sum kernel: enough (strip, range)
+    blocks of COL_SUM_STRIP columns for four on each of SM_COUNT SMs (bf16
+    strips are twice as wide, so about two), each range at least 64 rows
+    (eight a warp). The ranges are added in range order, so the result
+    depends on this number only in the order of an f32 sum, and it is a
+    function of (rows, n) alone."""
+    strips = -(-n // COL_SUM_STRIP)
+    return max(1, min(-(-4 * SM_COUNT // strips), -(-rows // 64)))
+
+
 def col_sum(x: torch.Tensor) -> torch.Tensor:
     """(n,) f32 = sum over the rows of x (R, n), f32 or bf16, in a fixed
     order: a bias gradient."""
     if not kernels.on_cuda(x):
         return col_sum_reference(x)
     R, n = x.shape
-    kernels.require(x.is_contiguous() and R <= 64 * 65535, "col_sum: need contiguous x of at most 4,194,240 rows")
+    kernels.require(x.is_contiguous() and n > 0, "col_sum: need contiguous x (R, n), n > 0")
     dtype = kernels.dtype_code(x, (torch.float32, torch.bfloat16))
     out = torch.empty(n, dtype=torch.float32, device=x.device)
-    part = torch.empty(((R + 63) // 64, n), dtype=torch.float32, device=x.device)
-    err = kernels.library().bert_col_sum(x.data_ptr(), out.data_ptr(), part.data_ptr(), R, n, dtype,
+    nranges = col_sum_ranges(R, n)
+    part = torch.empty((nranges, n), dtype=torch.float32, device=x.device)
+    err = kernels.library().bert_col_sum(x.data_ptr(), out.data_ptr(), part.data_ptr(), R, n, nranges, dtype,
                                          kernels.stream_ptr(x))
     kernels.check("bert_col_sum", err)
     kernels.LAUNCHES["bert_col_sum"] += 1

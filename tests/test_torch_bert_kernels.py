@@ -309,6 +309,41 @@ def test_ln_bwd_blocks_rule():
         assert (nb - 1) * W < rows  # no block without a row
 
 
+def test_col_sum_ranges_rule():
+    """The row ranges of the card's column sum (csrc/bert_layer_bwd.cu): enough
+    (strip, range) blocks of COL_SUM_STRIP columns for four an SM, each range
+    at least 64 rows, at least one; the kernel's ranges of ceil(rows / ranges)
+    rows tile [0, rows) in order (the last may be short or empty) and are added
+    in range order, so the number must be a function of (rows, n) alone."""
+    S, C = fe.SM_COUNT, fe.COL_SUM_STRIP
+    assert fe.col_sum_ranges(16384, 1152) == 59 and fe.col_sum_ranges(16384, 1536) == 44
+    assert fe.col_sum_ranges(1, 100) == 1 and fe.col_sum_ranges(77, 100) == 2 and fe.col_sum_ranges(0, 40) == 1
+    for rows in (1, 63, 64, 65, 77, 4096, 16384, 61440):
+        for n in (1, 40, 100, 384, 768, 1152, 1536, 4096):
+            nr = fe.col_sum_ranges(rows, n)
+            assert nr == fe.col_sum_ranges(rows, n) and nr >= 1
+            assert nr == 1 or (nr <= -(-4 * S // -(-n // C)) and -(-rows // nr) >= 32)
+            step = max(1, -(-rows // nr))
+            assert step * nr >= rows  # the ranges cover the rows
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_col_sum_plain_matches_f64_sums_at_ragged_width(dtype):
+    """The plain column sum (the bias gradients of K10) on bf16 and f32 rows at
+    a width that is no multiple of the card kernel's 16-byte chunks (100) and
+    a row count that is no multiple of its ranges: the f32 sums of the values
+    as given, against the same sums in f64."""
+    rng = np.random.RandomState(5)
+    x = torch.from_numpy(rng.randn(333, 100).astype(np.float32))
+    if dtype == "bf16":
+        x = x.bfloat16()
+    got = fe.col_sum(x)
+    want = x.double().sum(0)
+    assert got.dtype == torch.float32 and got.shape == (100,)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-4)
+    np.testing.assert_array_equal(got.numpy(), fe.col_sum_reference(x).numpy())
+
+
 def test_layer_norm_bwd_and_col_sum_against_autograd():
     rng = np.random.RandomState(2)
     y = torch.from_numpy((rng.randn(11, 40) * 2 + 0.3).astype(np.float32)).requires_grad_()

@@ -381,6 +381,50 @@ def test_rms_norm_bwd_matches_autograd():
     np.testing.assert_allclose(dw.numpy(), gw.numpy(), rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("rows", [1, 77])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_rms_norm_bwd_plain_matches_jax_rms_bwd(rows, dtype):
+    """The plain RMSNorm backward against the TPU kernels' `_rms_bwd` (with
+    `_rms_parts` for n and rstd) at t5-base's d 768, one row and a row count
+    that is not a multiple of the card kernel's eight rows a block: the
+    output cast(resid + dx) in x's dtype, as K7/K8 write dx1 and dx, and the
+    weight's f32 row sum. bf16 x, weight and resid are the same bf16 values
+    on both sides; the output is then one bf16 rounding apart at most."""
+    d, eps = 768, 1e-6
+    rng = np.random.RandomState(rows)
+    x = (rng.randn(rows, d) * 3.0).astype(np.float32)
+    w = (rng.rand(d) + 0.5).astype(np.float32)
+    resid = rng.randn(rows, d).astype(np.float32)
+    dh = rng.randn(rows, d).astype(np.float32)
+    cdt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    xt, wt, rt = _t(x).to(cdt), _t(w).to(cdt), _t(resid).to(cdt)
+    x32, w32, r32 = (jnp.asarray(t.float().numpy()) for t in (xt, wt, rt))
+    rstd, n = j_feb._rms_parts(x32, w32, eps)
+    want_dx, want_dw = j_feb._rms_bwd(jnp.asarray(dh), x32, n, rstd, w32, d)
+    want = (r32 + want_dx).astype(jnp.bfloat16 if dtype == "bf16" else jnp.float32)
+    got, dw = p_fe.rms_norm_bwd(xt, _t(dh), wt, rt, eps)
+    assert got.dtype == cdt and dw.dtype == torch.float32
+    want = np.asarray(want.astype(jnp.float32))
+    limit = 2e-2 * max(np.abs(want).max(), 1.0) if dtype == "bf16" else 1e-4
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=limit)
+    np.testing.assert_allclose(dw.numpy(), np.asarray(want_dw)[0], rtol=1e-5, atol=1e-4)
+
+
+def test_rms_bwd_blocks_rule():
+    """The grid of the card's RMSNorm backward (csrc/t5_layer_bwd.cu): a
+    block for every RMSB_WARPS rows, at most one for each of SM_COUNT SMs, at
+    least one; its blocks' sums are added in block order, so it must be a
+    function of the row count alone."""
+    W, S = p_fe.RMSB_WARPS, p_fe.SM_COUNT
+    assert p_fe.rms_bwd_blocks(0) == 1 and p_fe.rms_bwd_blocks(1) == 1 and p_fe.rms_bwd_blocks(77) == 10
+    assert p_fe.rms_bwd_blocks(4096) == S and p_fe.rms_bwd_blocks(S * W) == S
+    for rows in (1, 7, 8, 9, 77, 1000, S * W - 1, S * W, S * W + 1, 4096, 16384):
+        nb = p_fe.rms_bwd_blocks(rows)
+        assert nb == p_fe.rms_bwd_blocks(rows) and 1 <= nb <= S
+        assert nb * W >= rows or nb == S  # every row has a warp in the first round, or the grid is full
+        assert (nb - 1) * W < rows  # no block without a row
+
+
 def test_backward_wrappers_refuse_tensors_off_cpu_and_cuda():
     m = lambda *s: torch.zeros(*s, device="meta")
     with pytest.raises(ValueError):
