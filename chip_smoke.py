@@ -252,6 +252,7 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 F32_TOL = 1e-4
+F32_TILE_TOL = 1e-5  # K4/K5 on an f32 index against the plain f32 product: six exact bf16 products
 BF16_REL_TOL = 2e-2
 
 # NVIDIA's H100 SXM data sheet, dense rates: what `bound_ms` divides by
@@ -506,9 +507,10 @@ def check_launched(launches: dict, names, path: str) -> None:
 
 
 @functools.lru_cache(maxsize=1)
-def hgmma_counts() -> dict:
-    """HGMMA instructions per kernel function in the SASS of the built
-    library (`cuobjdump -sass`)."""
+def sass_counts() -> dict:
+    """Per kernel function of the built library (`cuobjdump -sass`), its
+    tensor-core product instructions by mnemonic (HGMMA: bf16 wgmma; IGMMA:
+    s8 wgmma; any other *GMMA as it is printed) and its IDP.4A (__dp4a)."""
     from rag_docvqa_tpu_torch import kernels
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -519,21 +521,38 @@ def hgmma_counts() -> dict:
     for line in sass.stdout.splitlines():
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
-            counts.setdefault(fn, 0)
-        elif fn is not None and "HGMMA" in line:
-            counts[fn] += 1
+            counts.setdefault(fn, {})
+        elif fn is not None:
+            for op in re.findall(r"\b([A-Z]+GMMA|IDP\.4A)\b", line):
+                counts[fn][op] = counts[fn].get(op, 0) + 1
     return counts
 
 
-def check_hgmma(source: str) -> None:
-    """Fails unless the built SASS of csrc/<source>.cu holds HGMMA (wgmma) instructions."""
+def check_hgmma(source: str, need=(), forbid=()) -> None:
+    """Fails unless the built SASS of csrc/<source>.cu holds wgmma products,
+    every instantiation of each kernel named in `need` ((kernel name,
+    mnemonic) pairs) holds that mnemonic, and none of each kernel named in
+    `forbid` does."""
     stem = source.removesuffix(".cu")
-    mine = {fn: n for fn, n in hgmma_counts().items() if f"_{stem}_cu_" in fn}
-    total = sum(mine.values())
-    log(f"  SASS of csrc/{source}: {total} HGMMA instructions in {sum(1 for n in mine.values() if n)} of its "
-        f"{len(mine)} kernels")
-    if total == 0:
-        raise AssertionError(f"csrc/{source}: no HGMMA in the built SASS; its bf16 kernels are not on wgmma")
+    mine = {fn: ops for fn, ops in sass_counts().items() if f"_{stem}_cu_" in fn}
+    gmma = {fn: sum(n for op, n in ops.items() if op.endswith("GMMA")) for fn, ops in mine.items()}
+    log(f"  SASS of csrc/{source}: {sum(gmma.values())} wgmma instructions in {sum(1 for n in gmma.values() if n)} of "
+        f"its {len(mine)} kernels")
+    if sum(gmma.values()) == 0:
+        raise AssertionError(f"csrc/{source}: no wgmma (*GMMA) in the built SASS; its kernels are not on wgmma")
+    for name in dict.fromkeys(n for n, _ in (*need, *forbid)):
+        fns = {fn: ops for fn, ops in mine.items() if name in fn}
+        if not fns:
+            raise AssertionError(f"csrc/{source}: no kernel {name} in the built SASS")
+        for fn, ops in fns.items():
+            tq = re.search(r"ILi(\d+)E", fn)  # the mangled template argument, the query tile
+            log(f"    {name}<{tq.group(1) if tq else ''}>: {dict(sorted(ops.items()))}")
+            for op in (op for n, op in need if n == name):
+                if ops.get(op, 0) == 0:
+                    raise AssertionError(f"csrc/{source}: {fn} holds no {op}")
+            for op in (op for n, op in forbid if n == name):
+                if ops.get(op, 0) != 0:
+                    raise AssertionError(f"csrc/{source}: {fn} holds {ops[op]} {op}, which it must not")
 
 
 class Checks:
@@ -1512,17 +1531,71 @@ def train(g: torch.Generator, steps: int = 8):
 INDEX_N, INDEX_D, INDEX_B, INDEX_K = 524288, 768, 256, 10  # the path's shape
 
 
+TOPK_KERNEL_NAMES = ("fused_topk_f32_kernel", "fused_topk_bf16_kernel", "topk_merge_kernel", "segmax_f32_kernel",
+                     "segmax_bf16_kernel", "segmax_int4_kernel", "supermax_kernel", "segmax_kernel")
+
+
+def check_route(call, want: set, what: str) -> None:
+    """Fails unless the kernels of csrc/topk_*.cu that one call enqueues (the
+    nodes of the CUDA graph captured from it, by kernel name) are exactly
+    `want`."""
+    got = set()
+    for node in graph_nodes(call):
+        name = next((n for n in TOPK_KERNEL_NAMES if n in node), None)
+        if name is not None:
+            got.add(name)
+        elif "topk" in node or "segmax" in node:
+            got.add(node)
+    log(f"  {what}: its top-k kernels {sorted(got)}")
+    if got != want:
+        raise AssertionError(f"{what} launched the top-k kernels {sorted(got)}, not {sorted(want)}")
+
+
 def check_index_kernels(checks: Checks, g: torch.Generator) -> dict:
     """7a: K4, K5, K11 and K12 against their plain versions; returns the
-    whole-function times on both sides of the batch crossover and, per float
-    case, K4's value error and its share of indices equal to the plain
-    version's."""
+    whole-function times on both sides of the batch crossover, the sweeps of
+    the tile plans (`ops/topk.py::_tile_plan`), the blocks an SM holds of each
+    kernel's forms and, per float case, K4's value error and its share of
+    indices equal to the plain version's."""
+    from rag_docvqa_tpu_torch import kernels
+    from rag_docvqa_tpu_torch.kernels import DTYPE_CODES
     from rag_docvqa_tpu_torch.ops import quant, topk
 
-    for source in ("topk_fused.cu", "topk_segmax.cu"):
-        check_hgmma(source)
+    check_hgmma("topk_fused.cu", need=(("fused_topk_f32_kernel", "HGMMA"), ("fused_topk_bf16_kernel", "HGMMA")))
+    check_hgmma("topk_segmax.cu", need=(("segmax_f32_kernel", "HGMMA"), ("segmax_bf16_kernel", "HGMMA"),
+                                        ("segmax_int4_kernel", "IGMMA")),
+                forbid=(("segmax_int4_kernel", "IDP.4A"),))
     dev = g.device
     whole = {"k4_against_plain": {}}
+
+    def sweep(label, plans, calls):
+        """Device ms of each call under each (B, query tile, row-block count)
+        plan, set by hand over the rule of ops/topk.py (`_tile_plan`)."""
+        runs, rule = {}, topk._tile_plan
+        try:
+            for b, tq, counts in plans:
+                for n_rb in counts:
+                    topk._tile_plan = lambda *_, plan=(tq, n_rb): plan
+                    runs[f"B{b} tq{tq} n_rb {n_rb}"] = {name: device_ms(lambda: fn(b)) for name, fn in calls.items()}
+        finally:
+            topk._tile_plan = rule
+        log(f"  {label} by query tile and row-block count (device ms): {runs}")
+        return runs
+
+    def rule_plans(entry, n_rows, batches, *args):
+        """What the rule gives at each batch size, from the kernel's occupancy."""
+        return {b: topk.kernel_plan(dev, n_rows, b, entry, *args) for b in batches}
+
+    # the blocks an SM holds of each form of each wgmma top-k kernel, as the runtime reports them
+    residency = {f"{entry} {args}": {tq: kernels.resident(entry, dev, tq, *args) for tq in topk._QUERY_TILES}
+                 for entry, args in (("topk_fused_resident", (DTYPE_CODES[torch.float32], 10)),
+                                     ("topk_fused_resident", (DTYPE_CODES[torch.bfloat16], 10)),
+                                     ("topk_segmax_resident", (DTYPE_CODES[torch.float32],)),
+                                     ("topk_segmax_resident", (DTYPE_CODES[torch.bfloat16],)),
+                                     ("topk_segmax_int4_resident", (16,)),
+                                     ("topk_segmax_int4_resident", (8,)))}
+    log(f"  blocks an SM holds, by query tile (runtime occupancy): {residency}")
+    whole["resident_blocks"] = residency
 
     def case(N, n_valid, D, B, k, label, dups=(), timed=False, int_kernels=True, dtypes=("f32", "bf16")):
         x = torch.randn((N, D), generator=g, device=dev)
@@ -1540,11 +1613,13 @@ def check_index_kernels(checks: Checks, g: torch.Generator) -> dict:
         for tag in dtypes:
             index = x if tag == "f32" else x.bfloat16()
             name = f"{label} {tag}"
+            # the f32 index's six exact products are held tighter than F32_TOL
+            limit = F32_TILE_TOL if tag == "f32" else F32_TOL
             scores = torch.where(valid_rows, q @ index.float().t(), topk.NEG_INF)  # the plain (B, N) matrix
             # ---- K4
             vals, idx = topk.fused_topk(index, q, n_valid, k)
             want_v, want_i = topk.fused_topk_reference(index, q, n_valid, k)
-            err_v = checks.compare("topk_fused", f"{name} values", vals, want_v, F32_TOL)
+            err_v = checks.compare("topk_fused", f"{name} values", vals, want_v, limit)
             live = want_v > topk.NEG_INF / 2
             if not bool(((idx >= 0) & (idx < max(n_valid, 1)))[live].all()):
                 raise AssertionError(f"topk_fused {name}: an index outside the valid rows")
@@ -1552,68 +1627,73 @@ def check_index_kernels(checks: Checks, g: torch.Generator) -> dict:
             if bool((srt[:, 1:] == srt[:, :-1]).any()):
                 raise AssertionError(f"topk_fused {name}: a row returned twice")
             checks.compare("topk_fused", f"{name} scores at returned rows",
-                           torch.where(live, scores.gather(1, idx.long()), vals), vals, F32_TOL)
+                           torch.where(live, scores.gather(1, idx.long()), vals), vals, limit)
             same = (idx == want_i)[live].float().mean().item() if bool(live.any()) else 1.0
             log(f"  {'topk_fused':24s} {name:44s} indices equal to the plain version's: {same:.6f}")
             whole["k4_against_plain"][name] = {"values_max_abs_err": err_v, "indices_equal_share": same}
+            if tag == "f32" and N == INDEX_N and not same >= 0.999:
+                raise AssertionError(f"topk_fused {name}: only {same} of the indices equal the plain version's")
             # ---- K5
             for group, sgroups in ((8, 16), (16, 1)):
                 seg, sup = topk.segment_max(index, q, n_valid, group, sgroups)
                 want_seg, want_sup = topk.segment_max_reference(index, q, n_valid, group, sgroups)
-                checks.compare("topk_segmax", f"{name} g{group} sg{sgroups} maxima", seg, want_seg, F32_TOL)
+                checks.compare("topk_segmax", f"{name} g{group} sg{sgroups} maxima", seg, want_seg, limit)
                 if sgroups > 1:
-                    checks.compare("topk_segmax", f"{name} g{group} sg{sgroups} supermaxima", sup, want_sup, F32_TOL)
+                    checks.compare("topk_segmax", f"{name} g{group} sg{sgroups} supermaxima", sup, want_sup, limit)
             # the whole two-phase function: its values are exact scores of the rows it returns
             tv, ti, tok = topk.cosine_topk_twophase(index, q, n_valid, k, tile_n=512 if N % 2048 else 2048)
-            checks.compare("topk_segmax", f"{name} two-phase values", tv, want_v, F32_TOL)
+            checks.compare("topk_segmax", f"{name} two-phase values", tv, want_v, limit)
             checks.compare("topk_segmax", f"{name} two-phase scores at returned rows",
-                           torch.where(tok, scores.gather(1, ti.long()), tv), tv, F32_TOL)
+                           torch.where(tok, scores.gather(1, ti.long()), tv), tv, limit)
+            if not timed and B == 3:  # the kernels one call runs, from its captured graph
+                k4, k5 = (("fused_topk_f32_kernel", "segmax_f32_kernel") if tag == "f32"
+                          else ("fused_topk_bf16_kernel", "segmax_bf16_kernel"))
+                check_route(lambda: topk.fused_topk(index, q, n_valid, k), {k4, "topk_merge_kernel"}, f"K4 {name}")
+                check_route(lambda: topk.segment_max(index, q, n_valid, 8, 16), {k5, "supermax_kernel"}, f"K5 {name}")
             if timed:
                 elt = index.element_size()
                 qd = q.to(index.dtype)
+                # torch.backends.cuda.matmul.allow_tf32 is False (phase 1): a strict f32 product on an f32 index
                 library = lambda: torch.matmul(qd, index.t()).topk(k)  # its tie order is not the contract
-                # a bf16 index's kernels read the query as three bf16 terms and make three products of each
-                q_in, terms, ops_in = (topk.split_bf16x3(q), 3, "bf16") if tag == "bf16" else (q, 1, "f32")
-                checks.timed("topk_fused", f"N{N} D{D} B{B} k{k} {tag}", lambda: topk.fused_topk(index, q, n_valid, k),
+                # both tiles read the query as three bf16 terms; the bf16 tile makes three products of each
+                # index element, the f32 tile six (its rows split into three terms)
+                q_in, terms = topk.split_bf16x3(q), (6 if tag == "f32" else 3)
+                label4, label5 = f"N{N} D{D} B{B} k{k} {tag}", f"N{N} D{D} B{B} g8 sg16 {tag}"
+                io4 = n_valid * D * elt + nbytes(q_in, vals, idx)
+                checks.timed("topk_fused", label4, lambda: topk.fused_topk(index, q, n_valid, k),
                              lambda: topk.fused_topk_reference(index, q, n_valid, k), library=library,
-                             io_bytes=n_valid * D * elt + nbytes(q_in, vals, idx), ops=terms * 2.0 * n_valid * D * B,
-                             ops_in=ops_in, device=True)
+                             io_bytes=io4, ops=terms * 2.0 * n_valid * D * B, ops_in="bf16", device=True)
                 seg, sup = topk.segment_max(index, q, n_valid, 8, 16)
-                checks.timed("topk_segmax", f"N{N} D{D} B{B} g8 sg16 {tag}",
-                             lambda: topk.segment_max(index, q, n_valid, 8, 16),
+                io5 = nbytes(index, q_in, seg, sup)
+                checks.timed("topk_segmax", label5, lambda: topk.segment_max(index, q, n_valid, 8, 16),
                              lambda: topk.segment_max_reference(index, q, n_valid, 8, 16), library=library,
-                             io_bytes=nbytes(index, q_in, seg, sup), ops=terms * flops, ops_in=ops_in)
+                             io_bytes=io5, ops=terms * flops, ops_in="bf16", device=True)
+                if tag == "f32":  # the bound of the SIMT f32 tile the wgmma tile replaced, for the record
+                    log(f"  the SIMT f32 tile's bound (ms): K4 {label4} {bound(io4, 2.0 * n_valid * D * B, 'f32')[0]}, "
+                        f"K5 {label5} {bound(io5, flops, 'f32')[0]}")
                 whole[f"B{B} {tag}"] = {
                     "fused_ms": time_ms(lambda: topk.cosine_topk_fused(index, q, n_valid, k)),
                     "twophase_ms": time_ms(lambda: topk.cosine_topk_twophase(index, q, n_valid, k)),
-                    "matmul_topk_ms": checks.times["topk_fused"][f"N{N} D{D} B{B} k{k} {tag}"]["library_ms"]}
+                    "matmul_topk_ms": checks.times["topk_fused"][label4]["library_ms"]}
                 log(f"  whole functions at {name}: {whole[f'B{B} {tag}']}")
                 if B == INDEX_B:  # the batch sweep across the crossover, on the same index
-                    sweep = {}
+                    batches = {}
                     for b in (8, 16, 32, 64, 256):
                         qb = q[:b]
-                        sweep[b] = {"k4_ms": time_ms(lambda: topk.fused_topk(index, qb, n_valid, k)),
-                                    "fused_ms": time_ms(lambda: topk.cosine_topk_fused(index, qb, n_valid, k)),
-                                    "twophase_ms": time_ms(lambda: topk.cosine_topk_twophase(index, qb, n_valid, k))}
-                    whole[f"sweep {tag}"] = sweep
-                    log(f"  K4 and the whole functions by batch at N{N} D{D} k{k} {tag}: {sweep}")
-                    # the number of runs K4 and K5 cut the tiles into (ops/topk.py::_row_blocks; the f32 K5 takes
-                    # one tile a block), set by hand
-                    runs, rule = {}, topk._row_blocks
-                    try:
-                        for b, counts in ((8, (264, 396, 586, 792)), (256, (66, 99, 133, 198))):
-                            qb = q[:b]
-                            for n_rb in counts:
-                                topk._row_blocks = lambda *_: n_rb
-                                row = {"k4_ms": time_ms(lambda: topk.fused_topk(index, qb, n_valid, k))}
-                                if tag == "bf16":
-                                    row["k5_ms"] = time_ms(lambda: topk.segment_max(index, qb, n_valid, 8, 16))
-                                runs[f"B{b} n_rb {n_rb}"] = row
-                    finally:
-                        topk._row_blocks = rule
-                    whole[f"row blocks {tag}"] = runs
-                    log(f"  K4 and K5 by row-block count at N{N} D{D} {tag} (the rule gives "
-                        f"{'586 at B 8, 133' if tag == 'f32' else '396 at B 8, 66'} at B 256): {runs}")
+                        batches[b] = {"k4_ms": time_ms(lambda: topk.fused_topk(index, qb, n_valid, k)),
+                                      "fused_ms": time_ms(lambda: topk.cosine_topk_fused(index, qb, n_valid, k)),
+                                      "twophase_ms": time_ms(lambda: topk.cosine_topk_twophase(index, qb, n_valid, k))}
+                    whole[f"sweep {tag}"] = batches
+                    log(f"  K4 and the whole functions by batch at N{N} D{D} k{k} {tag}: {batches}")
+                    plans = {"f32": ((8, 8, (132, 264, 396, 528)), (256, 128, (66, 132, 198)), (256, 64, (33, 66, 132))),
+                             "bf16": ((8, 8, (264, 396, 586, 792)), (256, 64, (66, 99, 133, 198)))}[tag]
+                    code = DTYPE_CODES[index.dtype]
+                    rules = {"k4": rule_plans("topk_fused_resident", N, (8, 256), code, k),
+                             "k5": rule_plans("topk_segmax_resident", N, (8, 256), code)}
+                    whole[f"row blocks {tag}"] = sweep(
+                        f"K4 and K5 at N{N} D{D} {tag} (the rule's (query tile, row blocks): {rules})", plans,
+                        {"k4_ms": lambda b: topk.fused_topk(index, q[:b], n_valid, k),
+                         "k5_ms": lambda b: topk.segment_max(index, q[:b], n_valid, 8, 16)})
             del scores, index
         if not int_kernels:
             return
@@ -1627,28 +1707,43 @@ def check_index_kernels(checks: Checks, g: torch.Generator) -> dict:
             rows, scale = build(x)
             got = segmax(rows, scale, q8, n_valid, 16)
             checks.compare(unit, f"{label} g16 maxima (exact)", got, segmax_ref(rows, scale, q8, n_valid, 16), 0.0)
+            if not timed:  # every other group the kernels take, each on its own path through K12's epilogue
+                for group in (1, 2, 8, 32, 128):
+                    checks.compare(unit, f"{label} g{group} maxima (exact)", segmax(rows, scale, q8, n_valid, group),
+                                   segmax_ref(rows, scale, q8, n_valid, group), 0.0)
+            if unit == "topk_segmax_int4" and not timed and B == 20:
+                check_route(lambda: segmax(rows, scale, q8, n_valid, 16), {"segmax_int4_kernel"}, f"K12 {label}")
             gv, gi, gok = two(rows, scale, q, n_valid, k, tile_n=512 if N % 2048 else 2048)
             wv, wi, wok = flat(rows, scale, q, n_valid, k)
             checks.compare(unit, f"{label} two-phase values against flat (exact)", gv, wv, 0.0)
             if not (torch.equal(gi[wok], wi[wok]) and torch.equal(gok, wok)):
                 raise AssertionError(f"{unit} {label}: two-phase indices differ from the flat function's")
             if timed:
-                extra = {}
-                if unit == "topk_segmax_int8" and B > 16:  # the library's int8 product alone, for scale
-                    extra["int_mm_ms"] = time_ms(lambda: torch._int_mm(q8, rows.t()))
-                    log(f"  {unit:24s} torch._int_mm of the same operands alone: {extra['int_mm_ms']:.4f} ms")
                 checks.timed(unit, f"N{N} D{D} B{B} g16", lambda: segmax(rows, scale, q8, n_valid, 16),
                              lambda: segmax_ref(rows, scale, q8, n_valid, 16),
-                             io_bytes=nbytes(rows, scale, q8, got), ops=flops, ops_in="int8")
-                checks.times[unit][f"N{N} D{D} B{B} g16"].update(extra)
+                             io_bytes=nbytes(rows, scale, q8, got), ops=flops, ops_in="int8", device=True)
+                if B > 16:  # no one call computes the maxima; for scale, the int8 product of the unpacked operands
+                    unpacked = rows if unit == "topk_segmax_int8" else torch.cat(quant.unpack_int4(rows), dim=1)
+                    int_mm = lambda: torch._int_mm(q8, unpacked.t())
+                    extra = {"int_mm_ms": time_ms(int_mm), "int_mm_device_ms": device_ms(int_mm)}
+                    checks.times[unit][f"N{N} D{D} B{B} g16"].update(extra)
+                    log(f"  {unit:24s} torch._int_mm of the unpacked operands alone (no scale, no maxima): {extra}")
+                    del unpacked
                 whole.setdefault(f"B{B} {unit[12:]}", {})["twophase_ms"] = time_ms(
                     lambda: two(rows, scale, q, n_valid, k))
+                if unit == "topk_segmax_int4":
+                    plans = ((8, 8, (132, 264, 396)),) if B <= 16 else ((B, 128, (132, 264)), (B, 64, (66, 132)))
+                    rule = rule_plans("topk_segmax_int4_resident", N, (8 if B <= 16 else B,), 16)
+                    whole[f"tile plans int4 B{B}"] = sweep(
+                        f"K12 at N{N} D{D} B{B} (the rule's (query tile, row blocks): {rule})", plans,
+                        {"k12_ms": lambda b: segmax(rows, scale, q8[:b], n_valid, 16)})
             del rows, scale
 
     dups = ((3, 7), (3, 130), (3, 1029))
-    for B in (3, 20):
+    for B in (3, 20, 130):
         case(1536, 1100, 64, B, 5, f"ragged N1536 valid1100 D64 B{B} k5", dups)
     case(1536, 0, 64, 20, 5, "ragged N1536 valid0 D64 B20 k5")
+    case(1536, 1100, 32, 20, 5, "ragged N1536 valid1100 D32 B20 k5", dups, dtypes=())
     case(1024, 1024, 32, 40, 48, "N1024 D32 B40 k48", dups[:2], int_kernels=False)
     N, D, k = INDEX_N, INDEX_D, INDEX_K
     case(N, N, D, INDEX_B, k, f"N{N} D{D} B{INDEX_B} k{k}", timed=True)

@@ -1,7 +1,7 @@
-"""Time the norm and reduction kernels of the train steps, and the
-flash-attention backward (K6), of one checkout of this repository on the
-card, so that two trees can be held side by side in one run on one card
-(run them A B B A):
+"""Time the norm and reduction kernels of the train steps, the
+flash-attention backward (K6) and the corpus-index kernels (K4, K5, K11,
+K12) of one checkout of this repository on the card, so that two trees can
+be held side by side in one run on one card (run them A B B A):
 
     python3 kernel_ab.py --tree /path/to/other/checkout --tag parent
     python3 kernel_ab.py --tree . --tag change
@@ -15,7 +15,13 @@ same function where the case has one (`library_device_ms`, the same in
 every tree), with the card's name and power limit. The cases: K6 at the
 train and the contrastive step's shapes, `bert_ln_bwd` 16384x384,
 `t5_rms_bwd` 4096x768, `bert_col_sum` 16384x1152 bf16 and 16384x1536 f32,
-`vit_layer_norm` 6304x768. Runs only on a CUDA device.
+`vit_layer_norm` 6304x768; over a 524,288 x 768 index, K4 on an f32 index
+at B 8 and B 256 and K5 (g8 sg16) at B 256, against `matmul`+`topk` in
+strict f32 (`torch.backends.cuda.matmul.allow_tf32 = False`), K4 and K5 on a
+bf16 index at B 256, K12 at B 8 and B 256 and K11 at B 256, against
+`torch._int_mm` of the unpacked int8 operands (no scale, no maxima; B > 16
+only, as `_int_mm` takes), and `ShardedIndex.query` over an f32 and an int4
+index at B 256. Runs only on a CUDA device.
 """
 
 from __future__ import annotations
@@ -44,6 +50,10 @@ def main() -> int:
     from rag_docvqa_tpu_torch import kernels
     from rag_docvqa_tpu_torch.ops import flash_attention as fa
     from rag_docvqa_tpu_torch.ops import fused_encoder as fe
+    from rag_docvqa_tpu_torch.ops import quant, topk
+    from rag_docvqa_tpu_torch.parallel import ShardedIndex
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the library's f32 product in strict f32
 
     kernels.library()
     dev = torch.device("cuda")
@@ -97,6 +107,41 @@ def main() -> int:
     lnv = torch.stack([torch.rand(d, generator=g, device=dev) + 0.5, randn(d)]).to(bf16)
     case("vit_layer_norm 6304x768 bf16", lambda: fe.vit_layer_norm_rows(xv, lnv, 1e-12),
          lambda: F.layer_norm(xv, (d,), lnv[0], lnv[1], 1e-12))
+
+    # the corpus index: N 524,288 x D 768, k 10 (chip_smoke.py phase 7a's shape)
+    N, D, k = 524288, 768, 10
+    x = topk.l2_normalize(randn(N, D))
+    q = topk.l2_normalize(randn(256, D))
+    for B in (8, 256):
+        qb = q[:B]
+        case(f"K4 f32 N{N} D{D} B{B} k{k}", lambda: topk.fused_topk(x, qb, N, k),
+             lambda: torch.matmul(qb, x.t()).topk(k))
+    case(f"K5 f32 N{N} D{D} B256 g8 sg16", lambda: topk.segment_max(x, q, N, 8, 16),
+         lambda: torch.matmul(q, x.t()).topk(k))
+    xb = x.bfloat16()  # a bf16 index: its tile is not this change's, so its times are the control
+    case(f"K4 bf16 N{N} D{D} B256 k{k}", lambda: topk.fused_topk(xb, q, N, k))
+    case(f"K5 bf16 N{N} D{D} B256 g8 sg16", lambda: topk.segment_max(xb, q, N, 8, 16))
+    del xb
+    q8, _ = quant.quantize_rows(q)
+    rows8, scale8 = quant.quantize_rows(x)
+    packed, scale4 = quant.quantize_rows_int4(x)
+    del x
+    unpacked = torch.cat(quant.unpack_int4(packed), dim=1)
+    for B in (8, 256):
+        qb = q8[:B]
+        case(f"K12 N{N} D{D} B{B} g16", lambda: quant.segment_max_int4(packed, scale4, qb, N, 16),
+             (lambda: torch._int_mm(qb, unpacked.t())) if B > 16 else None)
+    del packed, scale4, unpacked
+    case(f"K11 N{N} D{D} B256 g16", lambda: quant.segment_max_int8(rows8, scale8, q8, N, 16),
+         lambda: torch._int_mm(q8, rows8.t()))
+    del rows8, scale8
+    # end to end: `ShardedIndex.query` at B 256 as a user calls it (f32: K4 by the default kernel="merge";
+    # int4: K12 in the two-phase function), from raw rows
+    emb, queries = randn(N, D), randn(256, D)
+    for dtype in ("f32", "int4"):
+        index = ShardedIndex.build(emb, dtype=dtype)
+        case(f"ShardedIndex.query {dtype} N{N} D{D} B256 k{k}", lambda: index.query(queries, k))
+        del index
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)

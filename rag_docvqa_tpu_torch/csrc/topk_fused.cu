@@ -14,11 +14,12 @@
 // in which no score beats its query's k-th best.
 //
 // What bounds it on the H100: at B <= 16, where the dispatch uses it, the
-// one read of the index (bytes); at large B the rate of the score products
-// (operations): f32 FMA for an f32 index, the tensor cores for a bf16 one,
-// whose queries come as three exact bf16 terms (topk_common.cuh, Bf16Tile).
-// Rows at or beyond `n_valid` score NEG_INF and tiles wholly beyond it are
-// never read.
+// one read of the index (bytes); at large B the rate of the score products on
+// the tensor cores (topk_common.cuh): three bf16 products for a bf16 index,
+// whose queries come as three exact bf16 terms (Bf16Tile), six for an f32
+// index, whose rows are split into three exact bf16 terms as they are loaded
+// (F32Tile). Rows at or beyond `n_valid` score NEG_INF and tiles wholly
+// beyond it are never read.
 #include "topk_common.cuh"
 
 #include <climits>
@@ -96,43 +97,14 @@ __device__ __forceinline__ void write_candidates(const float* tv, const int* ti,
   }
 }
 
-// f32 index: the SIMT score tile
-template <typename Op, int QT>
-__global__ void __launch_bounds__(NT) fused_topk_kernel(
-    const typename Op::idx_t* __restrict__ index, int N, const uint32_t* __restrict__ qu, int B, int n_units,
-    int n_valid, int k, int n_rb, int nqb, float* __restrict__ cand_v, int* __restrict__ cand_i) {
-  using S = TileShape<QT>;
-  constexpr int TQ = S::TQ;
-  extern __shared__ __align__(16) uint32_t smem[];
-  const float* sc = reinterpret_cast<const float*>(smem);
-  float* tv = reinterpret_cast<float*>(smem + S::SMEM_UNITS);  // [TQ][k]
-  int* ti = reinterpret_cast<int*>(tv + TQ * k);               // [TQ][k]
-  const int tid = threadIdx.x;
-  const int qb = blockIdx.x % nqb, rb = blockIdx.x / nqb;
-  const int q0 = qb * TQ;
-
-  for (int t = tid; t < TQ * k; t += NT) { tv[t] = NEG_INF; ti[t] = 0; }
-  // (score_tile opens with a __syncthreads())
-
-  int t_first, t_end;
-  row_block_tiles(rb, n_rb, (N + TN - 1) / TN, t_first, t_end);
-  for (int tile = t_first; tile < t_end; ++tile) {
-    const int row0 = tile * TN;
-    if (row0 >= n_valid) break;  // nothing but padding from here on
-    score_tile<Op, QT>(index, n_units, N, qu, B, n_units, nullptr, n_valid, row0, q0, smem);
-    insert_tile<TQ, S::SC_STRIDE>(sc, tv, ti, k, row0, q0, B);
-  }
-  __syncthreads();
-  write_candidates(tv, ti, TQ, k, q0, B, rb, cand_v, cand_i);
-}
-
-// bf16 index: the wgmma score tile, fed with the three query terms (3, B, D);
-// the ring (the scores in one of its stages), then the lists in shared memory
-template <int TQ>
-__global__ void __launch_bounds__(NT, Bf16Tile<TQ>::BLOCKS_PER_SM) fused_topk_bf16_kernel(
-    const __nv_bfloat16* __restrict__ index, int N, const __nv_bfloat16* __restrict__ qt, int B, int D, int n_valid,
-    int k, int n_rb, int nqb, float* __restrict__ cand_v, int* __restrict__ cand_i) {
-  using T = Bf16Tile<TQ>;
+// The blocks of either wgmma tile: block (rb, qb) walks row block rb's tiles
+// against query block qb; the ring (the scores in one of its stages), then
+// the lists in shared memory
+template <typename T, int TQ>
+__device__ __forceinline__ void fused_topk_walk(const typename T::idx_t* __restrict__ index, int N,
+                                                const __nv_bfloat16* __restrict__ qt, int B, int D, int n_valid,
+                                                int k, int n_rb, int nqb, float* __restrict__ cand_v,
+                                                int* __restrict__ cand_i) {
   extern __shared__ __align__(16) uint8_t topk_smem[];
   const int qb = blockIdx.x % nqb, rb = blockIdx.x / nqb;
   const int q0 = qb * TQ;
@@ -151,6 +123,22 @@ __global__ void __launch_bounds__(NT, Bf16Tile<TQ>::BLOCKS_PER_SM) fused_topk_bf
   cp_async_wait<0>();
   __syncthreads();
   write_candidates(tv, ti, TQ, k, q0, B, rb, cand_v, cand_i);
+}
+
+// bf16 index: the shared-A tile with the three query terms
+template <int TQ>
+__global__ void __launch_bounds__(NT, Bf16Tile<TQ>::BLOCKS_PER_SM) fused_topk_bf16_kernel(
+    const __nv_bfloat16* __restrict__ index, int N, const __nv_bfloat16* __restrict__ qt, int B, int D, int n_valid,
+    int k, int n_rb, int nqb, float* __restrict__ cand_v, int* __restrict__ cand_i) {
+  fused_topk_walk<Bf16Tile<TQ>, TQ>(index, N, qt, B, D, n_valid, k, n_rb, nqb, cand_v, cand_i);
+}
+
+// f32 index: the rows split in registers, six products
+template <int TQ>
+__global__ void __launch_bounds__(NT, F32Tile<TQ>::BLOCKS_PER_SM) fused_topk_f32_kernel(
+    const float* __restrict__ index, int N, const __nv_bfloat16* __restrict__ qt, int B, int D, int n_valid, int k,
+    int n_rb, int nqb, float* __restrict__ cand_v, int* __restrict__ cand_i) {
+  fused_topk_walk<F32Tile<TQ>, TQ>(index, N, qt, B, D, n_valid, k, n_rb, nqb, cand_v, cand_i);
 }
 
 // one block per query: k rounds, each taking the best candidate that is
@@ -203,35 +191,20 @@ cudaError_t merge(const void* cand_v, const void* cand_i, void* out_v, void* out
   return cudaGetLastError();
 }
 
-template <typename Op, int QT>
-cudaError_t launch(const void* index, const void* q, void* cand_v, void* cand_i, void* out_v, void* out_i, int N,
-                   int D, int B, int n_valid, int k, int nrb, cudaStream_t stream) {
-  using S = TileShape<QT>;
-  const int nqb = (B + S::TQ - 1) / S::TQ;
-  const int smem = (S::SMEM_UNITS + 2 * S::TQ * k) * (int)sizeof(uint32_t);
-  auto kern = fused_topk_kernel<Op, QT>;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  kern<<<nqb * nrb, NT, smem, stream>>>(static_cast<const typename Op::idx_t*>(index), N,
-                                        static_cast<const uint32_t*>(q), B, D, n_valid, k, nrb, nqb,
-                                        static_cast<float*>(cand_v), static_cast<int*>(cand_i));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return merge(cand_v, cand_i, out_v, out_i, nrb, B, k, stream);
+// the tile's shared memory, then each query's running top-k (values, indices)
+template <typename Tile>
+int fused_smem(int tq, int k) {
+  return Tile::SMEM + 2 * tq * k * (int)sizeof(uint32_t);
 }
 
-template <int TQ>
-cudaError_t launch_bf16(const void* index, const void* qt, void* cand_v, void* cand_i, void* out_v, void* out_i,
-                        int N, int D, int B, int n_valid, int k, int nrb, cudaStream_t stream) {
-  using T = Bf16Tile<TQ>;
-  const int nqb = (B + TQ - 1) / TQ;
-  const int smem = T::SMEM + 2 * TQ * k * (int)sizeof(uint32_t);
-  auto kern = fused_topk_bf16_kernel<TQ>;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+template <typename Tile, typename Kernel>
+cudaError_t launch(Kernel kern, const void* index, const void* qt, void* cand_v, void* cand_i, void* out_v,
+                   void* out_i, int N, int D, int B, int n_valid, int k, int nrb, int tq, cudaStream_t stream) {
+  const int nqb = (B + tq - 1) / tq;
+  const int smem = fused_smem<Tile>(tq, k);
+  cudaError_t err = set_smem(kern, smem);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
-  if (err != cudaSuccess) return err;
-  kern<<<nqb * nrb, NT, smem, stream>>>(static_cast<const __nv_bfloat16*>(index), N,
+  kern<<<nqb * nrb, NT, smem, stream>>>(static_cast<const typename Tile::idx_t*>(index), N,
                                         static_cast<const __nv_bfloat16*>(qt), B, D, n_valid, k, nrb, nqb,
                                         static_cast<float*>(cand_v), static_cast<int*>(cand_i));
   err = cudaGetLastError();
@@ -241,23 +214,50 @@ cudaError_t launch_bf16(const void* index, const void* qt, void* cand_v, void* c
 
 }  // namespace
 
-// index (N, D) f32 or bf16 (`idx_dtype`); q (B, D) f32 unit rows for an f32
-// index, their three exact bf16 terms (3, B, D) for a bf16 one; cand_v /
+// index (N, D) f32 or bf16 (`idx_dtype`); qt (3, B, D) bf16, the three exact
+// terms of the f32 unit query rows (ops/topk.py::split_bf16x3); cand_v /
 // cand_i (n_row_blocks, B, k) scratch, one row of candidates for each of the
 // contiguous runs the ceil(N/128) tiles are cut into; out_v (B, k) f32, out_i
-// (B, k) i32. D % 16 == 0, 1 <= k <= 64, 0 <= n_valid <= N,
+// (B, k) i32; `query_tile` the queries a block takes (8, 16, 32, 64; 128 for an
+// f32 index). D % 16 == 0, 1 <= k <= 64, 0 <= n_valid <= N,
 // 1 <= n_row_blocks <= ceil(N/128).
-extern "C" int topk_fused(const void* index, const void* q, void* cand_v, void* cand_i, void* out_v, void* out_i,
-                          int N, int D, int B, int n_valid, int k, int n_row_blocks, int idx_dtype,
+extern "C" int topk_fused(const void* index, const void* qt, void* cand_v, void* cand_i, void* out_v, void* out_i,
+                          int N, int D, int B, int n_valid, int k, int n_row_blocks, int idx_dtype, int query_tile,
                           void* stream) {
   if (N <= 0 || B <= 0 || D <= 0 || D % 16 != 0 || k < 1 || k > 64 || n_valid < 0 || n_valid > N ||
       n_row_blocks < 1 || n_row_blocks > (N + TN - 1) / TN)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define ARGS index, q, cand_v, cand_i, out_v, out_i, N, D, B, n_valid, k, n_row_blocks, s
-  if (idx_dtype == DT_F32) return (int)(B <= 16 ? launch<OpF32, 1>(ARGS) : launch<OpF32, 4>(ARGS));
+#define ARGS index, qt, cand_v, cand_i, out_v, out_i, N, D, B, n_valid, k, n_row_blocks, query_tile, s
+  if (idx_dtype == DT_F32)
+    return (int)with_query_tile<128>(query_tile, [&](auto tq) {
+      constexpr int TQ = decltype(tq)::value;
+      return launch<F32Tile<TQ>>(fused_topk_f32_kernel<TQ>, ARGS);
+    });
   if (idx_dtype == DT_BF16)
-    return (int)by_query_tile(B, [&](auto tq) { return launch_bf16<decltype(tq)::value>(ARGS); });
+    return (int)with_query_tile<64>(query_tile, [&](auto tq) {
+      constexpr int TQ = decltype(tq)::value;
+      return launch<Bf16Tile<TQ>>(fused_topk_bf16_kernel<TQ>, ARGS);
+    });
 #undef ARGS
+  return (int)cudaErrorInvalidValue;
+}
+
+// Into *blocks, the blocks of K4's kernel for `idx_dtype` and `query_tile` an
+// SM holds at once with the shared memory a launch with this k takes; 0 where
+// the tile has no such form (ops/topk.py::_tile_plan sizes the grid by it).
+extern "C" int topk_fused_resident(int query_tile, int idx_dtype, int k, int* blocks) {
+  *blocks = 0;
+  if (k < 1 || k > 64) return (int)cudaErrorInvalidValue;
+  if (idx_dtype == DT_F32)
+    return (int)with_query_tile<128>(query_tile, [&](auto tq) {
+      constexpr int TQ = decltype(tq)::value;
+      return resident_blocks(fused_topk_f32_kernel<TQ>, fused_smem<F32Tile<TQ>>(TQ, k), blocks);
+    }, cudaSuccess);
+  if (idx_dtype == DT_BF16)
+    return (int)with_query_tile<64>(query_tile, [&](auto tq) {
+      constexpr int TQ = decltype(tq)::value;
+      return resident_blocks(fused_topk_bf16_kernel<TQ>, fused_smem<Bf16Tile<TQ>>(TQ, k), blocks);
+    }, cudaSuccess);
   return (int)cudaErrorInvalidValue;
 }

@@ -9,8 +9,9 @@ as `c_void_p`. Each C entry point returns `cudaGetLastError()` after its
 launch and `check` raises on anything but 0.
 
 `LAUNCHES` counts, per kernel, the launches made through the wrappers in
-`ops/`: each wrapper adds one where it launches, and nowhere else. It and
-the loaded library are this package's only module-level state.
+`ops/`: each wrapper adds one where it launches, and nowhere else. It, the
+loaded library and the answers `resident` keeps are this package's only
+module-level state.
 """
 
 from __future__ import annotations
@@ -69,10 +70,10 @@ _SIGNATURES = {
     "flash_bwd": [_P] * 14 + [_I] * 6 + [_LL] * 12 + [_I] * 3 + [_F, _I, _F, _P],
     "t5_gemm_bwd": [_P] * 7 + [_I] * 6 + [_P, _I, _P],
     "t5_rms_bwd": [_P] * 7 + [_I, _I, _I, _F, _I, _I, _P],
-    "topk_fused": [_P] * 6 + [_I] * 7 + [_P],
-    "topk_segmax": [_P] * 4 + [_I] * 8 + [_P],
+    "topk_fused": [_P] * 6 + [_I] * 8 + [_P],
+    "topk_segmax": [_P] * 4 + [_I] * 9 + [_P],
     "topk_segmax_int8": [_P] * 4 + [_I] * 5 + [_P],
-    "topk_segmax_int4": [_P] * 4 + [_I] * 5 + [_P],
+    "topk_segmax_int4": [_P] * 4 + [_I] * 7 + [_P],
     "bert_gemm": [_P] * 5 + [_I] * 5 + [_P],
     "bert_layer_norm": [_P] * 3 + [_I, _I, _F, _I, _P],
     "bert_gemm_bwd": [_P] * 5 + [_I] * 6 + [_P],
@@ -83,6 +84,14 @@ _SIGNATURES = {
     "vit_attention": [_P] * 4 + [_I] * 5 + [_F, _I, _P],
     "maxsim": [_P] * 6 + [_I] * 5 + [_P],
 }
+# occupancy queries (no launch, no counter): the blocks of a kernel an SM
+# holds at once, into the last pointer; asked through `resident`
+_QUERY_SIGNATURES = {
+    "topk_fused_resident": [_I] * 3 + [_P],
+    "topk_segmax_resident": [_I] * 2 + [_P],
+    "topk_segmax_int4_resident": [_I] * 2 + [_P],
+}
+_resident: Dict[tuple, int] = {}
 
 
 def reset_launch_counts() -> None:
@@ -147,7 +156,7 @@ def library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
+        for name, argtypes in {**_SIGNATURES, **_QUERY_SIGNATURES}.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
@@ -158,6 +167,23 @@ def library() -> ctypes.CDLL:
 def check(name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def resident(entry: str, device: torch.device, *args: int) -> int:
+    """What the occupancy query `entry` (a `*_resident` entry point) reports
+    for `args` on `device`: the blocks of one kernel an SM holds at once, 0
+    where the kernel has no such form. Asked once per device and arguments."""
+    key = (entry, device.index, args)
+    if key not in _resident:
+        blocks = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            check(entry, getattr(library(), entry)(*args, ctypes.byref(blocks)))
+        _resident[key] = blocks.value
+    return _resident[key]
+
+
+def sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def stream_ptr(t: torch.Tensor) -> int:

@@ -17,10 +17,11 @@ are normalized here and stay f32 whatever the index's dtype.
 On CUDA tensors the two kernel wrappers (`fused_topk`, `segment_max`)
 launch csrc/topk_fused.cu and csrc/topk_segmax.cu; on CPU tensors they run
 the plain versions beside them (`fused_topk_reference`,
-`segment_max_reference`). Phases 2 and 3 are torch ops on both. For a bf16
-index the kernels take the f32 query as three exact bf16 terms
-(`split_bf16x3`) and score on the tensor cores; the function they compute is
-the plain version's, f32 query and all.
+`segment_max_reference`). Phases 2 and 3 are torch ops on both. The kernels
+take the f32 query as three exact bf16 terms (`split_bf16x3`) and score on
+the tensor cores: three products against a bf16 index, six against an f32
+index, whose rows they split into three exact bf16 terms as they load them;
+the function they compute is the plain version's, f32 query and all.
 
 Tie order: `lax.top_k` breaks ties to the lowest index; `torch.topk`
 promises no order. Here the scores are sorted descending with a stable sort,
@@ -30,7 +31,7 @@ Indices come back int32 from the `cosine_topk_*` functions, as in JAX.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -39,30 +40,44 @@ from rag_docvqa_tpu_torch import kernels
 NEG_INF = -1e30
 
 # B <= this: the running-merge kernel (K4); above it the two-phase kernels.
-# The JAX package's value. On the H100 the two float indexes put the line in
-# different places (chip_smoke.py phase 7a times both functions at B 8, 16,
-# 32, 64 and 256; PERF.md has the times): on an f32 index the two-phase
-# function is ahead from B 8 up, on a bf16 index K4 is ahead up to B 64. One
-# line for both stays where the JAX package draws it.
+# The JAX package's value. On the H100 (chip_smoke.py phase 7a times both
+# functions at B 8, 16, 32, 64 and 256; PERF.md has the times) K4 is ahead up
+# to B 32 on an f32 index and up to B 64 on a bf16 one, the two-phase function
+# above. One line for both stays where the JAX package draws it.
 KERNEL_BATCH_CROSSOVER = 16
 
 _KERNEL_TILE = 128  # index rows per block tile in csrc/topk_common.cuh
 _FUSED_MAX_K = 64
+# the query tiles a wgmma tile may have a form for; the kernels' occupancy
+# queries say which forms each has, and how many blocks of each an SM holds
+_QUERY_TILES = (8, 16, 32, 64, 128)
 
 
-def _row_blocks(n_tiles: int, B: int, bf16: bool) -> int:
-    """Into how many contiguous runs of equal length (the last one shorter)
-    K4 and K5 on a bf16 index cut the index tiles; each run is walked by one
-    block per block of queries (16 at B <= 16, 64 above). The bf16 tile takes
-    one wave of the blocks the card holds at once (three an SM, two at 64
-    queries: 396 or 264 blocks in all), each walking its run to the end with
-    no tail of late blocks; the f32 tile keeps its runs of about
-    n_tiles * n_qb / 528 tiles. chip_smoke.py phase 7a sweeps the count;
-    PERF.md has the times."""
-    n_qb = -(-B // (16 if B <= 16 else 64))
-    if not bf16:
-        return -(-n_tiles // max(1, n_tiles * n_qb // 528))
-    return max(1, min(n_tiles, 132 * (2 if B > 32 else 3) // n_qb))
+def _tile_plan(n_tiles: int, B: int, resident: Dict[int, int], sms: int) -> Tuple[int, int]:
+    """(query tile, row blocks) of K4, K5 or K12 for B queries over n_tiles
+    index tiles. `resident` maps each query tile to the blocks of that form
+    of the kernel an SM holds at once (0: no such form), `sms` the card's SMs.
+
+    The query tile is the narrowest form that holds B, else the widest form
+    (128 on the f32 and int4 tiles, so that a B 256 batch reads the index
+    twice, not four times). The row blocks are contiguous runs of equal length
+    (the last one shorter) of the index tiles, each walked by one block per
+    block of queries: one wave of the blocks the card holds at once, each
+    walking its run to the end with no tail of late blocks. chip_smoke.py
+    phase 7a sweeps both; PERF.md has the times."""
+    forms = {tq: n for tq, n in resident.items() if n > 0}
+    kernels.require(bool(forms), f"no form of the kernel fits on an SM: {resident}")
+    tq = min((t for t in forms if t >= B), default=max(forms))
+    n_qb = -(-B // tq)
+    return tq, max(1, min(n_tiles, sms * forms[tq] // n_qb))
+
+
+def kernel_plan(device: torch.device, n_rows: int, B: int, entry: str, *args: int) -> Tuple[int, int]:
+    """`_tile_plan` for the kernel whose occupancy query is `entry` (asked
+    with each query tile, then `args`), over the ceil(n_rows / 128) tiles of
+    an index on `device`."""
+    resident = {tq: kernels.resident(entry, device, tq, *args) for tq in _QUERY_TILES}
+    return _tile_plan(-(-n_rows // _KERNEL_TILE), B, resident, kernels.sm_count(device))
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-8) -> torch.Tensor:
@@ -119,12 +134,6 @@ def split_bf16x3(q: torch.Tensor) -> torch.Tensor:
     return torch.stack((q0, q1, q2))
 
 
-def _kernel_query(index: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """The query operand of csrc/topk_*.cu: the f32 rows for an f32 index,
-    their three bf16 terms (3, B, D) for a bf16 one."""
-    return split_bf16x3(q) if index.dtype == torch.bfloat16 else q.contiguous()
-
-
 def _require_query(index: torch.Tensor, q: torch.Tensor) -> int:
     """The contract K4 and K5 share, held on both devices: f32 (B, D) unit
     rows against an f32 or bf16 (N, D) index, D % 16 == 0. Returns the
@@ -163,15 +172,15 @@ def fused_topk(index: torch.Tensor, q: torch.Tensor, n_valid: int, k: int):
     if not kernels.on_cuda(index, q):
         return fused_topk_reference(index, q, n_valid, k)
     _require_kernel_index(index)
-    q = _kernel_query(index, q)
-    n_rb = _row_blocks(-(-N // _KERNEL_TILE), B, index.dtype == torch.bfloat16)
+    qt = split_bf16x3(q)
+    tq, n_rb = kernel_plan(q.device, N, B, "topk_fused_resident", code, k)
     cand_v = torch.empty((n_rb, B, k), dtype=torch.float32, device=q.device)
     cand_i = torch.empty((n_rb, B, k), dtype=torch.int32, device=q.device)
     vals = torch.empty((B, k), dtype=torch.float32, device=q.device)
     idx = torch.empty((B, k), dtype=torch.int32, device=q.device)
     err = kernels.library().topk_fused(
-        index.data_ptr(), q.data_ptr(), cand_v.data_ptr(), cand_i.data_ptr(), vals.data_ptr(), idx.data_ptr(),
-        N, D, B, n_valid, k, n_rb, code, kernels.stream_ptr(q))
+        index.data_ptr(), qt.data_ptr(), cand_v.data_ptr(), cand_i.data_ptr(), vals.data_ptr(), idx.data_ptr(),
+        N, D, B, n_valid, k, n_rb, code, tq, kernels.stream_ptr(q))
     kernels.check("topk_fused", err)
     kernels.LAUNCHES["topk_fused"] += 1
     return vals, idx
@@ -231,14 +240,14 @@ def segment_max(index: torch.Tensor, q: torch.Tensor, n_valid: int, group: int, 
     if not kernels.on_cuda(index, q):
         return segment_max_reference(index, q, n_valid, group, sgroups)
     _require_kernel_index(index)
-    q = _kernel_query(index, q)
+    qt = split_bf16x3(q)
     S = N // group
-    n_rb = _row_blocks(-(-N // _KERNEL_TILE), B, True)  # the bf16 kernel's runs of tiles
+    tq, n_rb = kernel_plan(q.device, N, B, "topk_segmax_resident", code)
     segmax = torch.empty((B, S), dtype=torch.float32, device=q.device)
     supermax = torch.empty((B, S // sgroups), dtype=torch.float32, device=q.device) if sgroups > 1 else None
     err = kernels.library().topk_segmax(
-        index.data_ptr(), q.data_ptr(), segmax.data_ptr(), None if supermax is None else supermax.data_ptr(),
-        N, D, B, n_valid, group, sgroups, n_rb, code, kernels.stream_ptr(q))
+        index.data_ptr(), qt.data_ptr(), segmax.data_ptr(), None if supermax is None else supermax.data_ptr(),
+        N, D, B, n_valid, group, sgroups, n_rb, code, tq, kernels.stream_ptr(q))
     kernels.check("topk_segmax", err)
     kernels.LAUNCHES["topk_segmax"] += 1
     return segmax, supermax
