@@ -1532,23 +1532,25 @@ INDEX_N, INDEX_D, INDEX_B, INDEX_K = 524288, 768, 256, 10  # the path's shape
 
 
 TOPK_KERNEL_NAMES = ("fused_topk_f32_kernel", "fused_topk_bf16_kernel", "topk_merge_kernel", "segmax_f32_kernel",
-                     "segmax_bf16_kernel", "segmax_int4_kernel", "supermax_kernel", "segmax_kernel")
+                     "segmax_bf16_kernel", "segmax_int8_kernel", "segmax_int4_kernel", "supermax_kernel")
+MAXSIM_KERNEL_NAMES = ("maxsim_wgmma_kernel", "strip_sum_kernel")
 
 
-def check_route(call, want: set, what: str) -> None:
-    """Fails unless the kernels of csrc/topk_*.cu that one call enqueues (the
+def check_route(call, want: set, what: str, names=TOPK_KERNEL_NAMES, stems=("topk", "segmax")) -> None:
+    """Fails unless the kernels of csrc/topk_*.cu (or of the source whose
+    kernel `names` and name `stems` are given) that one call enqueues (the
     nodes of the CUDA graph captured from it, by kernel name) are exactly
     `want`."""
     got = set()
     for node in graph_nodes(call):
-        name = next((n for n in TOPK_KERNEL_NAMES if n in node), None)
+        name = next((n for n in names if n in node), None)
         if name is not None:
             got.add(name)
-        elif "topk" in node or "segmax" in node:
+        elif any(s in node for s in stems):
             got.add(node)
-    log(f"  {what}: its top-k kernels {sorted(got)}")
+    log(f"  {what}: its {stems[0]} kernels {sorted(got)}")
     if got != want:
-        raise AssertionError(f"{what} launched the top-k kernels {sorted(got)}, not {sorted(want)}")
+        raise AssertionError(f"{what} launched the {stems[0]} kernels {sorted(got)}, not {sorted(want)}")
 
 
 def check_index_kernels(checks: Checks, g: torch.Generator) -> dict:
@@ -1563,8 +1565,8 @@ def check_index_kernels(checks: Checks, g: torch.Generator) -> dict:
 
     check_hgmma("topk_fused.cu", need=(("fused_topk_f32_kernel", "HGMMA"), ("fused_topk_bf16_kernel", "HGMMA")))
     check_hgmma("topk_segmax.cu", need=(("segmax_f32_kernel", "HGMMA"), ("segmax_bf16_kernel", "HGMMA"),
-                                        ("segmax_int4_kernel", "IGMMA")),
-                forbid=(("segmax_int4_kernel", "IDP.4A"),))
+                                        ("segmax_int8_kernel", "IGMMA"), ("segmax_int4_kernel", "IGMMA")),
+                forbid=(("segmax_int8_kernel", "IDP.4A"), ("segmax_int4_kernel", "IDP.4A")))
     dev = g.device
     whole = {"k4_against_plain": {}}
 
@@ -1592,6 +1594,8 @@ def check_index_kernels(checks: Checks, g: torch.Generator) -> dict:
                                      ("topk_fused_resident", (DTYPE_CODES[torch.bfloat16], 10)),
                                      ("topk_segmax_resident", (DTYPE_CODES[torch.float32],)),
                                      ("topk_segmax_resident", (DTYPE_CODES[torch.bfloat16],)),
+                                     ("topk_segmax_int8_resident", (16,)),
+                                     ("topk_segmax_int8_resident", (8,)),
                                      ("topk_segmax_int4_resident", (16,)),
                                      ("topk_segmax_int4_resident", (8,)))}
     log(f"  blocks an SM holds, by query tile (runtime occupancy): {residency}")
@@ -1711,8 +1715,9 @@ def check_index_kernels(checks: Checks, g: torch.Generator) -> dict:
                 for group in (1, 2, 8, 32, 128):
                     checks.compare(unit, f"{label} g{group} maxima (exact)", segmax(rows, scale, q8, n_valid, group),
                                    segmax_ref(rows, scale, q8, n_valid, group), 0.0)
-            if unit == "topk_segmax_int4" and not timed and B == 20:
-                check_route(lambda: segmax(rows, scale, q8, n_valid, 16), {"segmax_int4_kernel"}, f"K12 {label}")
+            if not timed and B == 20:  # the int8 or int4 tile kernel, and nothing else
+                kern = "segmax_int8_kernel" if unit == "topk_segmax_int8" else "segmax_int4_kernel"
+                check_route(lambda: segmax(rows, scale, q8, n_valid, 16), {kern}, f"{unit} {label}")
             gv, gi, gok = two(rows, scale, q, n_valid, k, tile_n=512 if N % 2048 else 2048)
             wv, wi, wok = flat(rows, scale, q, n_valid, k)
             checks.compare(unit, f"{label} two-phase values against flat (exact)", gv, wv, 0.0)
@@ -1731,12 +1736,13 @@ def check_index_kernels(checks: Checks, g: torch.Generator) -> dict:
                     del unpacked
                 whole.setdefault(f"B{B} {unit[12:]}", {})["twophase_ms"] = time_ms(
                     lambda: two(rows, scale, q, n_valid, k))
-                if unit == "topk_segmax_int4":
-                    plans = ((8, 8, (132, 264, 396)),) if B <= 16 else ((B, 128, (132, 264)), (B, 64, (66, 132)))
-                    rule = rule_plans("topk_segmax_int4_resident", N, (8 if B <= 16 else B,), 16)
-                    whole[f"tile plans int4 B{B}"] = sweep(
-                        f"K12 at N{N} D{D} B{B} (the rule's (query tile, row blocks): {rule})", plans,
-                        {"k12_ms": lambda b: segmax(rows, scale, q8[:b], n_valid, 16)})
+                # both integer tiles' plans, K11 on I8Tile as K12 on I4Tile
+                kname = "K11" if unit == "topk_segmax_int8" else "K12"
+                plans = ((8, 8, (132, 264, 396)),) if B <= 16 else ((B, 128, (132, 264)), (B, 64, (66, 132)))
+                rule = rule_plans(f"{unit}_resident", N, (8 if B <= 16 else B,), 16)
+                whole[f"tile plans {unit[12:]} B{B}"] = sweep(
+                    f"{kname} at N{N} D{D} B{B} (the rule's (query tile, row blocks): {rule})", plans,
+                    {f"{kname.lower()}_ms": lambda b: segmax(rows, scale, q8[:b], n_valid, 16)})
             del rows, scale
 
     dups = ((3, 7), (3, 130), (3, 1029))
@@ -2838,7 +2844,7 @@ def check_p2s_kernels(checks: Checks, g: torch.Generator) -> None:
             del l, x, got, want
     torch.cuda.empty_cache()
 
-    # K15: small ragged cases (one query and batched, Tq and Tp no multiples of the 64-wide tile, D no multiple
+    # K15: small ragged cases (one query and batched, Tq and Tp no multiples of the 128-wide tiles, D no multiple
     # of 16, masks, a patch set of no valid token), then the engine's shapes
     q, p = randn(70, 40), randn(5, 77, 40)
     pm = torch.rand((5, 77), generator=g, device=dev) < 0.7
@@ -2848,6 +2854,24 @@ def check_p2s_kernels(checks: Checks, g: torch.Generator) -> None:
     if got[3].item() != 0.0:
         raise AssertionError("maxsim: a patch set with no valid token must score 0")
     checks.compare("maxsim", "ragged one query, no masks", li.late_interaction(q, p), li.late_interaction_reference(q, p), F32_TOL)
+    check_route(lambda: li.late_interaction(q, p, patch_mask=pm), {"maxsim_wgmma_kernel"}, "K15 Tq70 Tp77 D40",
+                MAXSIM_KERNEL_NAMES, ("maxsim", "strip_sum"))
+    # more query tokens than a block takes (two strips, summed in order), patch sets of three row tiles, a query
+    # tile of 8: on their own generator, so that the later phases' data do not move
+    g15 = torch.Generator(device=dev).manual_seed(SEED + 15)
+    for Bc, mc, Tq, Tp, dd in ((2, 3, 200, 300, 96), (1, 7, 5, 129, d)):
+        q = torch.randn((Bc, Tq, dd), generator=g15, device=dev)
+        p = torch.randn((Bc, mc, Tp, dd), generator=g15, device=dev)
+        qm = (torch.rand((Bc, Tq), generator=g15, device=dev) < 0.8).float()
+        pm = torch.rand((Bc, mc, Tp), generator=g15, device=dev) < 0.5
+        pm[:, -1] = False
+        got, want = li.late_interaction(q, p, qm, pm), li.late_interaction_reference(q, p, qm, pm)
+        checks.compare("maxsim", f"ragged B{Bc} mc{mc} Tq{Tq} Tp{Tp} D{dd}", got, want, F32_TOL)
+        if got[:, -1].abs().max().item() != 0.0:
+            raise AssertionError("maxsim: a patch set with no valid token must score 0")
+        check_route(lambda: li.late_interaction(q, p, qm, pm),
+                    {"maxsim_wgmma_kernel", *(("strip_sum_kernel",) if Tq > 128 else ())}, f"K15 Tq{Tq} Tp{Tp}",
+                    MAXSIM_KERNEL_NAMES, ("maxsim", "strip_sum"))
     for B, mc in ((8, 16), (32, 16)):
         Tq = Tp = 128
         q, p = randn(B, Tq, d), randn(B, mc, Tp, d)
@@ -2858,9 +2882,23 @@ def check_p2s_kernels(checks: Checks, g: torch.Generator) -> None:
         checks.compare("maxsim", f"B{B} mc{mc} Tq{Tq} Tp{Tp} D{d} f32", got, want, F32_TOL)
         if got[:, 12:].abs().max().item() != 0.0:
             raise AssertionError("maxsim: padded chunk slots must score 0")
-        checks.timed("maxsim", f"B{B} mc{mc} Tq{Tq} Tp{Tp} D{d} f32", lambda: li.late_interaction(q, p, qm, pm),
-                     lambda: li.late_interaction_reference(q, p, qm, pm), io_bytes=nbytes(q, p, qm, pm, got),
-                     ops=2.0 * B * mc * Tq * Tp * d)
+        # the kernel's wrapper on rows already normalised (the TPU kernel's inputs), bound by its six bf16
+        # products; then the C call alone on inputs prepared as the wrapper prepares them, and `late_interaction`,
+        # the engine's call, with its f32 normalisation
+        label = f"B{B} mc{mc} Tq{Tq} Tp{Tp} D{d} f32"
+        qn, pn = li._normalize(q), li._normalize(p)
+        io = nbytes(qn, pn, qm, pm, got)
+        checks.timed("maxsim", label, lambda: li.maxsim(qn, pn, qm, pm), lambda: li.maxsim_reference(qn, pn, qm, pm),
+                     io_bytes=io, ops=6 * 2.0 * B * mc * Tq * Tp * d, ops_in="bf16", device=True)
+        launch, _ = li.maxsim_launch(qn, pn, qm, pm)
+        whole = lambda: li.late_interaction(q, p, qm, pm)
+        extra = {"kernel_device_ms": device_ms(launch), "late_interaction_ms": time_ms(whole),
+                 "late_interaction_device_ms": device_ms(whole)}
+        checks.times["maxsim"][label].update(extra)
+        log(f"  {'maxsim':24s} {label}: the C call alone, and late_interaction with its normalisation: {extra}; "
+            f"the SIMT f32 tile's bound {bound(io, 2.0 * B * mc * Tq * Tp * d, 'f32')[0]:.4f} ms")
+        if B == 8:
+            check_route(launch, {"maxsim_wgmma_kernel"}, f"K15 {label}", MAXSIM_KERNEL_NAMES, ("maxsim", "strip_sum"))
     # K3 over the longer caches of these paths: Te 709 (VT5 + visual tokens), 1024 and 2048, int8, each timed
     # over 12 distinct layer caches
     for Te in (709, 1024, 2048):
@@ -3114,6 +3152,13 @@ def serve_p2s(g: torch.Generator):
     build_ms = (time.perf_counter() - t0) * 1e3
     questions, doc_ids = [d.question for d in docs32], list(range(32))
     engine.inference_indexed(questions, doc_ids, index)  # warmup
+    # the gather of the batch's resident patch embeddings that the indexed MaxSim reads (engine/rag_pix2struct.py
+    # `_indexed_retrieve_pack`), beside phase 9d's kernel time at B 32
+    docs_t = torch.arange(32, device=index.emb.device)
+    gather_ms = device_ms(lambda: index.emb[docs_t])
+    log(f"  the indexed batch's gather index.emb[doc_ids]: {gather_ms:.4f} ms on the device for "
+        f"{nbytes(index.emb[docs_t]) / 1e6:.1f} MB")
+    summary["indexed_gather_device_ms"] = gather_ms
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     out = engine.inference_indexed(questions, doc_ids, index)

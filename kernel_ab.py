@@ -1,7 +1,7 @@
 """Time the norm and reduction kernels of the train steps, the
-flash-attention backward (K6) and the corpus-index kernels (K4, K5, K11,
-K12) of one checkout of this repository on the card, so that two trees can
-be held side by side in one run on one card (run them A B B A):
+flash-attention backward (K6), the corpus-index kernels (K4, K5, K11, K12)
+and MaxSim (K15) of one checkout of this repository on the card, so that two
+trees can be held side by side in one run on one card (run them A B B A):
 
     python3 kernel_ab.py --tree /path/to/other/checkout --tag parent
     python3 kernel_ab.py --tree . --tag change
@@ -18,10 +18,14 @@ train and the contrastive step's shapes, `bert_ln_bwd` 16384x384,
 `vit_layer_norm` 6304x768; over a 524,288 x 768 index, K4 on an f32 index
 at B 8 and B 256 and K5 (g8 sg16) at B 256, against `matmul`+`topk` in
 strict f32 (`torch.backends.cuda.matmul.allow_tf32 = False`), K4 and K5 on a
-bf16 index at B 256, K12 at B 8 and B 256 and K11 at B 256, against
-`torch._int_mm` of the unpacked int8 operands (no scale, no maxima; B > 16
-only, as `_int_mm` takes), and `ShardedIndex.query` over an f32 and an int4
-index at B 256. Runs only on a CUDA device.
+bf16 index at B 256, K12 and K11 at B 8 and B 256, against `torch._int_mm`
+of the (unpacked) int8 operands (no scale, no maxima; B > 16 only, as
+`_int_mm` takes), and `ShardedIndex.query` over an f32 and an int4 index at
+B 256; K15 at Pix2Struct's shapes (Tq = Tp = 128, D 768, 16 patch sets a
+batch row, B 8 and B 32): the kernel alone (one call of the tree's C entry
+point on normalised rows, its inputs prepared beforehand as its wrapper
+prepares them) and `late_interaction` as the engine calls it, with its f32
+normalisation. Runs only on a CUDA device.
 """
 
 from __future__ import annotations
@@ -36,6 +40,24 @@ import torch
 import torch.nn.functional as F
 
 from chip_smoke import device_ms, time_ms
+
+
+def maxsim_alone(li, kernels, q, p, qw, pm):
+    """One call of the tree's MaxSim C entry point on normalised rows, with its
+    inputs prepared as its wrapper prepares them: `maxsim_launch` where the
+    tree has it, else the SIMT kernel's arguments (the f32 query, strips of 64
+    query tokens)."""
+    if hasattr(li, "maxsim_launch"):
+        return li.maxsim_launch(q, p, qw, pm)[0]
+    B, Tq, D = q.shape
+    N, Tp = p.shape[1], p.shape[2]
+    pmb = (pm != 0).contiguous()
+    out = torch.empty((B, N), dtype=torch.float32, device=q.device)
+    strips = -(-Tq // 64)
+    part = torch.empty((B, N, strips), dtype=torch.float32, device=q.device) if strips > 1 else None
+    return lambda: kernels.check("maxsim", kernels.library().maxsim(
+        q.data_ptr(), p.data_ptr(), qw.data_ptr(), pmb.data_ptr(), out.data_ptr(),
+        None if part is None else part.data_ptr(), B, N, Tq, Tp, D, kernels.stream_ptr(q)))
 
 
 def main() -> int:
@@ -132,8 +154,10 @@ def main() -> int:
         case(f"K12 N{N} D{D} B{B} g16", lambda: quant.segment_max_int4(packed, scale4, qb, N, 16),
              (lambda: torch._int_mm(qb, unpacked.t())) if B > 16 else None)
     del packed, scale4, unpacked
-    case(f"K11 N{N} D{D} B256 g16", lambda: quant.segment_max_int8(rows8, scale8, q8, N, 16),
-         lambda: torch._int_mm(q8, rows8.t()))
+    for B in (8, 256):
+        qb = q8[:B]
+        case(f"K11 N{N} D{D} B{B} g16", lambda: quant.segment_max_int8(rows8, scale8, qb, N, 16),
+             (lambda: torch._int_mm(qb, rows8.t())) if B > 16 else None)
     del rows8, scale8
     # end to end: `ShardedIndex.query` at B 256 as a user calls it (f32: K4 by the default kernel="merge";
     # int4: K12 in the two-phase function), from raw rows
@@ -142,6 +166,20 @@ def main() -> int:
         index = ShardedIndex.build(emb, dtype=dtype)
         case(f"ShardedIndex.query {dtype} N{N} D{D} B256 k{k}", lambda: index.query(queries, k))
         del index
+
+    # K15 at the Pix2Struct retrieve's shapes: ragged query and patch masks, the last 4 of 16 sets padding
+    from rag_docvqa_tpu_torch.ops import late_interaction as li
+    T, d, mc = 128, 768, 16
+    for B in (8, 32):
+        q, p = randn(B, T, d), randn(B, mc, T, d)
+        lens = lambda *s: torch.randint(1, T + 1, s, generator=g, device=dev)
+        qm = (torch.arange(T, device=dev) < lens(B, 1)).float()
+        pm = (torch.arange(T, device=dev) < lens(B, mc, 1)).float()
+        pm[:, 12:] = 0.0
+        qn, pn = li._normalize(q), li._normalize(p)
+        case(f"K15 kernel alone B{B} x {mc} Tq{T} Tp{T} D{d}", maxsim_alone(li, kernels, qn, pn, qm, pm))
+        case(f"K15 late_interaction B{B} x {mc} Tq{T} Tp{T} D{d}", lambda: li.late_interaction(q, p, qm, pm))
+        del q, p, qn, pn
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)

@@ -10,96 +10,107 @@
 // rag_docvqa_tpu/ops/late_interaction.py, called from
 // `late_interaction_pallas`, in the batched form the engine uses
 // (`late_interaction`). Like it, the (B, N, Tq, Tp) similarity tensor never
-// reaches device memory: one block per (patch set, batch row, 64 query
-// tokens) walks its (64, Tp) strip in 64 x 64 tiles, keeps each query token's
-// running maximum in registers and reduces the masked maxima to one number;
-// with more than 64 query tokens a second kernel adds the strips' numbers.
+// reaches device memory.
 //
-// What bounds it on the H100: arithmetic. A patch set is 2*Tq*Tp*D FLOPs
-// (25 MFLOP at Tq = Tp = 128, D = 768) against Tp*D*4 bytes (0.4 MB) of its
-// own, 64 FLOP/byte in f32 against a ridge of 20, and the products must stay
-// f32: the engine ranks chunks by differences of 1e-3 in these sums. The tile
-// loop is the SIMT GEMM's (gemm_fwd.cuh), 4 x 4 outputs per thread. Cutting
-// the query tokens over the grid doubles the blocks at Tq 128 (256 blocks of
-// 8 warps for B 8 x 16 sets: two a SM, where one leaves the SM waiting on
-// its loads). The per-token maxima and the strips are summed in a fixed
-// order, so a score does not depend on timing.
-#include "common.cuh"
+// The products must stay f32: the engine ranks chunks by differences of 1e-3
+// in these sums, and one bf16 product of an f32 row is off by ~2^-9 of it. So
+// the products are those of the f32 corpus-index tile (topk_common.cuh,
+// `F32Tile`) on the tensor cores: a patch set's rows are A, 128 a tile (64 a
+// warpgroup), split in registers into three exact bf16 terms; the query tokens
+// are B, as their three exact bf16 terms (ops/topk.py::split_bf16x3, made once
+// a call); the six products x_i q_j with i + j <= 2 of each 64-deep step go
+// into a fresh f32 accumulator that is added into the score in registers.
+// Block (n, b, z) takes set n of batch row b against query tokens [z TQ,
+// z TQ + TQ) of that row and walks the set's rows in tiles of 128, the ring
+// running on across them; rows past Tp are zero-filled and masked, never read
+// from the next set. Each tile's masked maxima per query token are taken in
+// registers (a thread's two rows), by shuffles across a warp's 16 rows, and
+// kept per warp in shared memory; at the end the eight warps' maxima of each
+// token are combined and the weighted terms summed in a fixed order, and above
+// TQ tokens a second kernel adds the strips' sums in order, so a score does
+// not depend on timing.
+//
+// What bounds it on the H100: the six bf16 products (2 * 6 * Tq * Tp * D a
+// set; at Tq = Tp = 128, D 768, B 8 x 16 sets 0.0195 ms at 989 TFLOP/s), and
+// beside them the L2 reads of the query terms, which every set of a batch row
+// reads again (1.5x the bytes of its own f32 rows at Tq = Tp).
+#include "topk_common.cuh"
 
 namespace {
 
-constexpr int TM = 64, TN = 64, TK = 16;
-constexpr float MASKED = -1e30f;
+using topk::F32Tile;
+using topk::NT;
+using topk::TN;
 
-__global__ void __launch_bounds__(256) maxsim_kernel(
-    const float* __restrict__ q, const float* __restrict__ p, const float* __restrict__ qw,
-    const uint8_t* __restrict__ pmask, float* __restrict__ out, int N, int Tq, int Tp, int D) {
-  __shared__ float Qs[TK][TM + 4];
-  __shared__ float Ps[TK][TN + 4];
-  __shared__ float terms[TM];
-  const int n = blockIdx.x, b = blockIdx.y, m0 = blockIdx.z * TM;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const float* qb = q + (long long)b * Tq * D;
-  const float* pb = p + ((long long)b * N + n) * Tp * D;
-  const float* wb = qw != nullptr ? qw + (long long)b * Tq : nullptr;
-  const uint8_t* mb = pmask != nullptr ? pmask + ((long long)b * N + n) * Tp : nullptr;
-  float best[4];
+constexpr float MASKED = -1e30f;
+constexpr int WARPS = NT / 32;
+
+template <int TQ>
+__global__ void __launch_bounds__(NT, F32Tile<TQ>::BLOCKS_PER_SM) maxsim_wgmma_kernel(
+    const float* __restrict__ p, const __nv_bfloat16* __restrict__ qt, const float* __restrict__ qw,
+    const uint8_t* __restrict__ pmask, float* __restrict__ out, int B, int N, int Tq, int Tp, int D) {
+  extern __shared__ __align__(16) uint8_t maxsim_smem[];
+  const int n = blockIdx.x, b = blockIdx.y, z = blockIdx.z;
+  const long long set = (long long)b * N + n;
+  const int n_tiles = (Tp + TN - 1) / TN;
+  // the query terms as (3, B * Tq, D): the block's columns are rows b Tq + z TQ ...; those past
+  // the batch row's Tq tokens (the next row's, or zeros past B * Tq) are scored and not used
+  F32Tile<TQ> tile(maxsim_smem, p + set * Tp * D, Tp, D, qt, B * Tq, b * Tq + z * TQ, 0, n_tiles);
+  float* best = reinterpret_cast<float*>(tile.tail());  // [WARPS][TQ]: each warp's running maxima
+  float* terms = best + WARPS * TQ;                     // [TQ]
+  const uint8_t* mb = pmask != nullptr ? pmask + set * Tp : nullptr;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, t = lane & 3;
+  const int r0 = (tid >> 7) * 64 + (warp & 3) * 16 + (lane >> 2);
+  for (int i = tid; i < WARPS * TQ; i += NT) best[i] = MASKED;  // (before any update: products open with a barrier)
+  for (int tt = 0; tt < n_tiles; ++tt) {
+    float sum[TQ / 2];
+    tile.products(sum);
+    bool valid[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) best[i] = MASKED;
-  for (int n0 = 0; n0 < Tp; n0 += TN) {
-    float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    for (int k0 = 0; k0 < D; k0 += TK) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int e = tid + i * 256, row = e / TK, c = e % TK, gk = k0 + c;
-        Qs[c][row] = (m0 + row < Tq && gk < D) ? qb[(long long)(m0 + row) * D + gk] : 0.f;
-        Ps[c][row] = (n0 + row < Tp && gk < D) ? pb[(long long)(n0 + row) * D + gk] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < TK; ++kk) {
-        float a[4], w[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = Qs[kk][ty * 4 + i];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) w[j] = Ps[kk][tx * 4 + j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] += a[i] * w[j];
-      }
-      __syncthreads();
+    for (int h = 0; h < 2; ++h) {
+      const int row = tt * TN + r0 + 8 * h;
+      valid[h] = row < Tp && (mb == nullptr || mb[row] != 0);
     }
-    // this tile's masked maxima per query row
+    // the accumulator layout of hopper.cuh: this thread holds rows r0, r0 + 8 of
+    // columns 8 j + 2 t + {0, 1}; a warp's 16 rows are lanes 4, 8, 16 apart
+    float v[TQ / 4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gp = n0 + tx * 4 + j;
-      const bool ok = gp < Tp && (mb == nullptr || mb[gp] != 0);
+    for (int j = 0; j < TQ / 8; ++j)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) best[i] = fmaxf(best[i], ok ? acc[i][j] : MASKED);
+      for (int e = 0; e < 2; ++e)
+        v[2 * j + e] = fmaxf(valid[0] ? sum[4 * j + e] : MASKED, valid[1] ? sum[4 * j + 2 + e] : MASKED);
+#pragma unroll
+    for (int i = 0; i < TQ / 4; ++i) {
+      v[i] = fmaxf(v[i], __shfl_xor_sync(0xffffffffu, v[i], 4));
+      v[i] = fmaxf(v[i], __shfl_xor_sync(0xffffffffu, v[i], 8));
+      v[i] = fmaxf(v[i], __shfl_xor_sync(0xffffffffu, v[i], 16));
+    }
+    if (lane < 4) {  // one lane of each column quad owns the warp's maxima of its columns
+#pragma unroll
+      for (int j = 0; j < TQ / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float* m = best + warp * TQ + 8 * j + 2 * t + e;
+          *m = fmaxf(*m, v[2 * j + e]);
+        }
     }
   }
-  // a query row's 16 threads (tx) are 16 neighbouring lanes of one warp
+  __syncthreads();
+  if (tid < TQ) {
+    float m = best[tid];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float v = best[i];
-    for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-    const int gq = m0 + ty * 4 + i;
-    if (tx == 0) {
-      const float w = gq < Tq ? (wb != nullptr ? wb[gq] : 1.f) : 0.f;
-      terms[ty * 4 + i] = (gq < Tq && v > -1e29f) ? v * w : 0.f;
-    }
+    for (int w = 1; w < WARPS; ++w) m = fmaxf(m, best[w * TQ + tid]);
+    const int gq = z * TQ + tid;
+    const bool live = gq < Tq && m > -1e29f;
+    terms[tid] = live ? m * (qw != nullptr ? qw[(long long)b * Tq + gq] : 1.f) : 0.f;
   }
   __syncthreads();
   if (tid == 0) {
     float total = 0.f;
-    for (int i = 0; i < TM; ++i) total += terms[i];
-    out[((long long)b * N + n) * gridDim.z + blockIdx.z] = total;
+    for (int i = 0; i < TQ; ++i) total += terms[i];
+    out[set * gridDim.z + z] = total;
   }
+  cp_async_wait<0>();
 }
 
 // out[i] = part[i][0] + part[i][1] + ... in that order
@@ -113,21 +124,33 @@ __global__ void strip_sum_kernel(const float* __restrict__ part, float* __restri
 
 }  // namespace
 
-// q (B, Tq, D) and p (B, N, Tp, D) f32 contiguous, rows already normalised;
+// qt (3, B * Tq, D) bf16, the three exact terms of the normalised f32 query
+// tokens (B, Tq, D); p (B, N, Tp, D) f32 contiguous, rows already normalised;
 // qw (B, Tq) f32 weights of the query tokens (its mask) or null for ones;
-// pmask (B, N, Tp) uint8 or null for all valid; out (B, N) f32; part
-// (B, N, ceil(Tq / 64)) f32 scratch, unused (may be null) when Tq <= 64.
-extern "C" int maxsim(const void* q, const void* p, const void* qw, const void* pmask, void* out,
-                      void* part, int B, int N, int Tq, int Tp, int D, void* stream) {
-  const int Z = (Tq + TM - 1) / TM;
-  if (B <= 0 || N <= 0 || Tq <= 0 || B > 65535 || Z > 65535) return (int)cudaErrorInvalidValue;
+// pmask (B, N, Tp) uint8 or null for all valid; out (B, N) f32; `query_tile`
+// the query tokens a block takes (8 ... 128); part (B, N, ceil(Tq /
+// query_tile)) f32 scratch, unused (may be null) when Tq <= query_tile.
+// D % 16 == 0.
+extern "C" int maxsim(const void* qt, const void* p, const void* qw, const void* pmask, void* out, void* part, int B,
+                      int N, int Tq, int Tp, int D, int query_tile, void* stream) {
+  if (B <= 0 || N <= 0 || Tq <= 0 || Tp < 0 || D <= 0 || D % 16 != 0 || B > 65535 || query_tile <= 0)
+    return (int)cudaErrorInvalidValue;
+  const int Z = (Tq + query_tile - 1) / query_tile;
+  if (Z > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  maxsim_kernel<<<dim3(N, B, Z), 256, 0, s>>>(
-      static_cast<const float*>(q), static_cast<const float*>(p), static_cast<const float*>(qw),
-      static_cast<const uint8_t*>(pmask), static_cast<float*>(Z == 1 ? out : part), N, Tq, Tp, D);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = topk::with_query_tile<128>(query_tile, [&](auto tq) {
+    constexpr int TQ = decltype(tq)::value;
+    const int smem = F32Tile<TQ>::SMEM + (WARPS + 1) * TQ * (int)sizeof(float);
+    auto kern = maxsim_wgmma_kernel<TQ>;
+    cudaError_t e = topk::set_smem(kern, smem);
+    if (e != cudaSuccess) return e;
+    kern<<<dim3(N, B, Z), NT, smem, s>>>(static_cast<const float*>(p), static_cast<const __nv_bfloat16*>(qt),
+                                         static_cast<const float*>(qw), static_cast<const uint8_t*>(pmask),
+                                         static_cast<float*>(Z == 1 ? out : part), B, N, Tq, Tp, D);
+    return cudaGetLastError();
+  });
   if (err != cudaSuccess || Z == 1) return (int)err;
-  strip_sum_kernel<<<(B * N + 255) / 256, 256, 0, s>>>(static_cast<const float*>(part),
-                                                      static_cast<float*>(out), B * N, Z);
+  strip_sum_kernel<<<(B * N + 255) / 256, 256, 0, s>>>(static_cast<const float*>(part), static_cast<float*>(out),
+                                                      B * N, Z);
   return (int)cudaGetLastError();
 }

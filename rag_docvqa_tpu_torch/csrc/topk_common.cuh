@@ -1,26 +1,19 @@
-// The score tiles shared by the corpus-index kernels (K4, K5, K11, K12):
-// scores[r][b] = <index row r, query b> for a tile of TN index rows and TQ
-// queries, with the rows at or beyond `n_valid` set to NEG_INF. They replace
-// the scoring of the TPU kernels `_fused_kernel` and `_segmax_kernel`
-// (rag_docvqa_tpu/ops/topk.py) and `_segmax_int8_kernel`,
-// `_segmax_int4_kernel` (rag_docvqa_tpu/ops/quant.py). Three forms:
+// The score tiles shared by the corpus-index kernels (K4, K5, K11, K12) and
+// MaxSim (K15): scores[r][b] = <index row r, query b> for a tile of TN index
+// rows and TQ queries, with the rows at or beyond `n_valid` set to NEG_INF.
+// They replace the scoring of the TPU kernels `_fused_kernel` and
+// `_segmax_kernel` (rag_docvqa_tpu/ops/topk.py) and `_segmax_int8_kernel`,
+// `_segmax_int4_kernel` (rag_docvqa_tpu/ops/quant.py); maxsim.cu takes
+// `F32Tile` for its patch rows against the query tokens.
 //
-// `score_tile` (int8 index, K11): SIMT. The contraction runs over 32-bit
-// "units" of four int8 elements, taken by one __dp4a into an int32
-// (order-free and exact). 256 threads, each 8 rows x QT queries of
-// accumulators; index and query tiles are staged k-major in shared memory,
-// BK units a step, double buffered through registers. What bounds it is the
-// dp4a rate at large B and, at small B, the latency of a loop that crosses
-// two barriers every 16 units.
-//
-// The wgmma tiles (bf16 and f32 indexes, K4 and K5; int4 index, K12): the
-// tensor cores, each warpgroup owning 64 of the tile's 128 index rows (wgmma's
-// M side, A), the queries its N side (B, K-major from 128-byte-swizzled shared
-// tiles, hopper.cuh). Steps along D come through a ring of stages filled by
-// 16-byte cp.async; the ring runs on across the tiles a block walks
-// (`RingWalk`), so the next tile's first steps load while this one's scores
-// are consumed. Elements past D are zero-filled and steps wholly past it
-// skipped. The float tiles' scores take the stage the last step read.
+// All four run on the tensor cores (wgmma), each warpgroup owning 64 of the
+// tile's 128 index rows (wgmma's M side, A), the queries its N side (B,
+// K-major from 128-byte-swizzled shared tiles, hopper.cuh). Steps along D come
+// through a ring of stages filled by 16-byte cp.async; the ring runs on across
+// the tiles a block walks (`RingWalk`), so the next tile's first steps load
+// while this one's scores are consumed. Elements past D are zero-filled and
+// steps wholly past it skipped. The float tiles' scores take the stage the
+// last step read.
 //
 // `Bf16Tile` (bf16 index): the f32 unit query is split exactly into three bf16
 // terms, q = q0 + q1 + q2 (ops/topk.py::split_bf16x3: the two residues are
@@ -40,7 +33,7 @@
 // The six products x_i q_j with i + j <= 2 (x0q0, x0q1, x1q0, x0q2, x1q1,
 // x2q0) go from registers (wgmma's A-from-registers form) into a fresh f32
 // accumulator each 64-deep step, which is added into the score in registers
-// (the tensor cores truncate as they accumulate: `score` says why); the three
+// (the tensor cores truncate as they accumulate: `products` says why); the three
 // left out are below 2^-24 of |x_d q_d| each, f32's own rounding. Six bf16
 // products at 989 TFLOP/s are ~2.5x the 67 TFLOP/s of f32 FMA. TQ up to 128
 // (m64n128k16), so that at B 256 the f32 index (twice the bf16 bytes) is read
@@ -59,6 +52,14 @@
 // takes the maxima of `group` rows in registers and shuffles (a warp's 16 rows
 // are one group at group 16), staged for 16-byte stores. What bounds it: the
 // one read of the packed index at B <= 16 (bytes), the int8 products at B 256.
+//
+// `I8Tile` (int8 index, K11): the rows come into the ring as they are stored,
+// 128 bytes of D a row a step, as the bf16 tiles' 64 elements, so that A and
+// the query q8 (B) are the 128-byte-swizzled K-major tiles of hopper.cuh; each
+// 32-byte sub-step is one s8 wgmma with both operands read by descriptor from
+// shared memory (no unpack, so no A fragment in registers), into an exact
+// int32 accumulator. Its epilogue is K12's. What bounds it: the one read of the
+// index at B <= 16 (bytes, twice K12's), the int8 products at B 256.
 #pragma once
 
 #include <type_traits>
@@ -69,139 +70,12 @@ namespace topk {
 
 constexpr int NT = 256;  // threads per block
 constexpr int TN = 128;  // index rows per tile
-constexpr int BK = 16;   // units of the contraction per step (the SIMT tile)
 constexpr float NEG_INF = -1e30f;
 
 // (score, index) order of every selection here: score descending, then
 // index ascending -- the tie rule of lax.top_k and of `_topk_merge`.
 __device__ __forceinline__ bool better(float v, int i, float w, int j) {
   return v > w || (v == w && i < j);
-}
-
-// ---- the SIMT tile of the int8 index (K11): four int8 units a __dp4a ----
-struct OpI8 {
-  using idx_t = int8_t;
-  using acc_t = int;
-  static __device__ __forceinline__ void load_idx(const int8_t* row, int u0, int, uint32_t (&u)[4]) {
-    const uint4 v = *reinterpret_cast<const uint4*>(row + 4 * u0);
-    u[0] = v.x; u[1] = v.y; u[2] = v.z; u[3] = v.w;
-  }
-  static __device__ __forceinline__ void mad(int& c, uint32_t a, uint32_t b) {
-    c = __dp4a(static_cast<int>(a), static_cast<int>(b), c);
-  }
-  // int32 dot times the row's scale; the query's scale is applied outside
-  static __device__ __forceinline__ float score(int c, const float* scale, int row) {
-    return static_cast<float>(c) * scale[row];
-  }
-};
-
-template <int QT>
-struct TileShape {
-  static constexpr int TQ = 16 * QT;
-  static constexpr int STAGE_UNITS = 2 * BK * (TN + TQ);
-  static constexpr int SC_STRIDE = TQ + 1;
-  static constexpr int SC_UNITS = TN * SC_STRIDE;
-  static constexpr int SMEM_UNITS = STAGE_UNITS > SC_UNITS ? STAGE_UNITS : SC_UNITS;
-};
-
-// Scores of index rows [row0, row0+TN) against queries [q0, q0+TQ) into
-// smem as float sc[r * SC_STRIDE + q]. `index` rows are `ld` elements of
-// idx_t apart; `qu` is the query matrix as (B, n_units) 32-bit units. Every
-// thread of the block calls it; it begins and ends with a __syncthreads().
-template <typename Op, int QT>
-__device__ __forceinline__ void score_tile(const typename Op::idx_t* __restrict__ index, long long ld, int N,
-                                           const uint32_t* __restrict__ qu, int B, int n_units,
-                                           const float* __restrict__ scale, int n_valid, int row0, int q0,
-                                           uint32_t* smem) {
-  using S = TileShape<QT>;
-  constexpr int TQ = S::TQ;
-  uint32_t* As = smem;                 // [2][BK][TN]
-  uint32_t* Bs = smem + 2 * BK * TN;   // [2][BK][TQ]
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-
-  typename Op::acc_t acc[8][QT];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < QT; ++j) acc[i][j] = 0;
-
-  uint32_t ra[2][4], rb[4];
-  auto load_g = [&](int kt) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int v = tid + i * NT;
-      const int gr = row0 + (v >> 2), u0 = kt * BK + (v & 3) * 4;
-      if (gr < N && u0 < n_units) {
-        Op::load_idx(index + gr * ld, u0, n_units, ra[i]);
-      } else {
-        ra[i][0] = ra[i][1] = ra[i][2] = ra[i][3] = 0u;
-      }
-    }
-    if (tid < TQ * 4) {
-      const int gb = q0 + (tid >> 2), u0 = kt * BK + (tid & 3) * 4;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (gb < B && u0 < n_units) v = *reinterpret_cast<const uint4*>(qu + (long long)gb * n_units + u0);
-      rb[0] = v.x; rb[1] = v.y; rb[2] = v.z; rb[3] = v.w;
-    }
-  };
-  auto store_s = [&](int buf) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int v = tid + i * NT;
-      const int r = v >> 2, kk = (v & 3) * 4;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) As[(buf * BK + kk + j) * TN + r] = ra[i][j];
-    }
-    if (tid < TQ * 4) {
-      const int qq = tid >> 2, kk = (tid & 3) * 4;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) Bs[(buf * BK + kk + j) * TQ + qq] = rb[j];
-    }
-  };
-
-  __syncthreads();  // the caller may still be reading the last tile's scores
-  const int nk = (n_units + BK - 1) / BK;
-  load_g(0);
-  store_s(0);
-  __syncthreads();
-  for (int kt = 0; kt < nk; ++kt) {
-    if (kt + 1 < nk) load_g(kt + 1);
-    const uint32_t* a = As + (kt & 1) * BK * TN;
-    const uint32_t* b = Bs + (kt & 1) * BK * TQ;
-#pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      uint32_t af[8], bf[QT];
-      const uint4 a0 = *reinterpret_cast<const uint4*>(a + k * TN + ty * 4);
-      const uint4 a1 = *reinterpret_cast<const uint4*>(a + k * TN + 64 + ty * 4);
-      af[0] = a0.x; af[1] = a0.y; af[2] = a0.z; af[3] = a0.w;
-      af[4] = a1.x; af[5] = a1.y; af[6] = a1.z; af[7] = a1.w;
-      if constexpr (QT == 4) {
-        const uint4 b0 = *reinterpret_cast<const uint4*>(b + k * TQ + tx * 4);
-        bf[0] = b0.x; bf[1] = b0.y; bf[2] = b0.z; bf[3] = b0.w;
-      } else {
-#pragma unroll
-        for (int j = 0; j < QT; ++j) bf[j] = b[k * TQ + tx * QT + j];
-      }
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < QT; ++j) Op::mad(acc[i][j], af[i], bf[j]);
-    }
-    if (kt + 1 < nk) store_s((kt + 1) & 1);
-    __syncthreads();
-  }
-
-  // the staging buffers are free now: the scores take their place
-  float* sc = reinterpret_cast<float*>(smem);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = (i < 4 ? 0 : 64) + ty * 4 + (i & 3);
-    const int gr = row0 + r;
-#pragma unroll
-    for (int j = 0; j < QT; ++j)
-      sc[r * S::SC_STRIDE + tx * QT + j] = gr < n_valid ? Op::score(acc[i][j], scale, gr) : NEG_INF;
-  }
-  __syncthreads();
 }
 
 // ---- the wgmma tiles -------------------------------------------------------
@@ -258,8 +132,8 @@ cudaError_t resident_blocks(Kernel kern, int smem, int* blocks) {
 }
 
 // The counters of a block's walk over the steps of its tiles [t_first,
-// t_end), KT steps a tile, through a ring of GST stages (F32Tile, I4Tile;
-// Bf16Tile keeps its own): the copies run GST - 1 steps ahead of the products
+// t_end), KT steps a tile, through a ring of GST stages (F32Tile, I4Tile,
+// I8Tile; Bf16Tile keeps its own): the copies run GST - 1 steps ahead of the products
 // in one flat order over the tiles, so the products of tile t issue the copies
 // of tile t + 1's first steps.
 template <int GST>
@@ -330,7 +204,7 @@ __device__ __forceinline__ void load_query_terms(const __nv_bfloat16* qt, int B,
 
 // The wgmma tiles share one use: every thread of the block constructs one for
 // its tiles [t_first, t_end) against queries [q0, q0 + TQ) and calls `score`
-// (or, K12, `products`) for t_first, t_first + 1, ... in turn. `score` begins
+// (or `products`: K11, K12, K15) for t_first, t_first + 1, ... in turn. `score` begins
 // with a barrier before it writes the scores and ends with one after. The
 // scores go to the stage the tile's last step read, which no copy refills
 // before the next `score` has passed its first barrier.
@@ -548,10 +422,12 @@ struct F32Tile {
   // sum they lose nothing that shows), x0 q0 last, and the step's sum is added
   // into `sum` by an f32 add that rounds to nearest: 4 truncated additions a
   // step, not 24 in a row into the whole score (which moved K4's scores by
-  // up to ~1e-6 and swapped a near tie in 80 ranks).
-  __device__ __forceinline__ void score(int row0, int n_valid) {
+  // up to ~1e-6 and swapped a near tie in 80 ranks). The scores of the tile (the
+  // next one in the walk) go into sum, in the accumulator layout of hopper.cuh;
+  // returns the stage its last step read.
+  __device__ __forceinline__ int products(float (&sum)[TQ / 2]) {
     const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31, warp = (tid >> 5) & 3;
-    float sum[TQ / 2], acc[TQ / 2];
+    float acc[TQ / 2];
 #pragma unroll
     for (int i = 0; i < TQ / 2; ++i) sum[i] = 0.f;
     // this thread's fragment rows R and R + 8 (1024 bytes on, the same chunk
@@ -610,7 +486,13 @@ struct F32Tile {
         for (int term = 0; term < 3; ++term) fence_regs(x[kk][term]);
       last = stage;
     }
-    sc = reinterpret_cast<float*>(ring_ptr + last * STAGE);
+    return last;
+  }
+
+  // the tile at row0 (the next one in the walk) into sc
+  __device__ __forceinline__ void score(int row0, int n_valid) {
+    float sum[TQ / 2];
+    sc = reinterpret_cast<float*>(ring_ptr + products(sum) * STAGE);
     __syncthreads();  // both warpgroups' products have read that stage
     store_scores<TQ, SC_STRIDE>(sum, sc, row0, n_valid);
     __syncthreads();
@@ -756,6 +638,96 @@ struct I4Tile {
         fence_regs(lo[p]);
         fence_regs(hi[p]);
       }
+    }
+  }
+};
+
+// int8 index (N, D), q8 (B, D) int8 (K11). A stage: 128 index rows x 128 bytes
+// of D, then TQ query rows x 128 bytes, both swizzled as the bf16 tiles' (the
+// 16-byte chunk c of row r at c ^ (r % 8)), so a warpgroup's 64 rows and the
+// queries are read by wgmma_desc, 32 bytes on for each s8 sub-step.
+template <int TQ>
+struct I8Tile {
+  static_assert(TQ == 8 || TQ == 16 || TQ == 32 || TQ == 64 || TQ == 128, "the wgmma forms of hopper.cuh");
+  // two blocks an SM, as I4Tile; a stage of 64 or 128 queries (24, 32 KB) takes
+  // three stages for two blocks to fit
+  static constexpr int GST = TQ >= 64 ? 3 : 4;
+  static constexpr int BLOCKS_PER_SM = 2;
+  static constexpr int AHEAD = GST - 1;
+  static constexpr int A_BYTES = TN * 128;
+  static constexpr int STAGE = A_BYTES + TQ * 128;
+  static constexpr int SMEM = 1024 + GST * STAGE;
+
+  const int8_t* index;
+  const int8_t* q8;
+  int N, D, B, q0;
+  uint32_t ring;
+  uint8_t* ring_ptr;
+  RingWalk<GST> walk;
+
+  __device__ __forceinline__ I8Tile(uint8_t* smem, const int8_t* index_, int N_, int D_, const int8_t* q8_, int B_,
+                                    int q0_, int t_first, int t_end)
+      : index(index_), q8(q8_), N(N_), D(D_), B(B_), q0(q0_), walk((D_ + 127) / 128, t_first, t_end) {
+    const uint32_t raw = smem_u32(smem);
+    ring = (raw + 1023u) & ~1023u;
+    ring_ptr = smem + (ring - raw);
+#pragma unroll
+    for (int s = 0; s < AHEAD; ++s) issue();
+  }
+
+  __device__ __forceinline__ uint8_t* tail() const { return ring_ptr + GST * STAGE; }
+
+  // step kt (128 bytes of D) of the tile at row0 into stage `st`: 8 threads on
+  // a 128-byte row, rows 32 apart for each thread (so its chunk's swizzled
+  // place is the same in each); rows past N or B and bytes past D zero-filled
+  __device__ __forceinline__ void load(int row0, int kt, int st) {
+    const int tid = threadIdx.x, r = tid >> 3, ch = tid & 7;
+    const int k = kt * 128 + ch * 16;
+    const bool kin = k < D;
+    const uint32_t dst = ring + st * STAGE + swz_off(r, ch);
+#pragma unroll
+    for (int i = 0; i < TN / 32; ++i) {
+      const int row = row0 + r + 32 * i;
+      const bool in = kin && row < N;
+      cp_async16(dst + i * 32 * 128, in ? index + (long long)row * D + k : index, in);
+    }
+#pragma unroll
+    for (int i = 0; i < (TQ + 31) / 32; ++i) {
+      const int R = r + 32 * i;
+      if (R < TQ) {
+        const int b = q0 + R;
+        const bool in = kin && b < B;
+        cp_async16(dst + A_BYTES + i * 32 * 128, in ? q8 + (long long)b * D + k : q8, in);
+      }
+    }
+  }
+
+  __device__ __forceinline__ void issue() {
+    int row0, kt, st;
+    if (walk.next_load(row0, kt, st)) load(row0, kt, st);
+    cp_async_commit();
+  }
+
+  // the int32 dots of the tile (the next one in the walk) into acc, in the
+  // accumulator layout of hopper.cuh
+  __device__ __forceinline__ void products(int (&acc)[TQ / 2]) {
+    const int wg = threadIdx.x >> 7;
+    for (int kt = 0; kt < walk.KT; ++kt) {
+      cp_async_wait<AHEAD - 1>();  // this thread's copies of this step have landed
+      fence_async_shared();
+      // everyone's have; every warp is done with the last step's products
+      __syncthreads();
+      issue();  // into the stage those products read
+      const uint32_t st = ring + walk.next_stage() * STAGE;
+      const uint32_t sa = st + wg * (64 * 128), sb = st + A_BYTES;
+      wgmma_fence();  // the accumulators were last written outside wgmma (the epilogue, or zeros)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        if (kt * 128 + kk * 32 < D)  // sub-steps past D hold zeros; the tile's first starts acc
+          wgmma_s8_ss<TQ>(acc, wgmma_desc(sa + kk * 32), wgmma_desc(sb + kk * 32), kt + kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
     }
   }
 };

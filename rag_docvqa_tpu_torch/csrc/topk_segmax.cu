@@ -18,16 +18,18 @@
 // into three exact bf16 terms in registers, six products (F32Tile); one thread
 // per (query, segment) then takes the maximum of `group` rows from the tile
 // in shared memory, consecutive threads on consecutive segments, so the
-// stores run along S. K12 (I4Tile) unpacks the nibbles in registers and makes
-// two s8 products a 32-byte step into an exact int32; the epilogue converts
-// once and multiplies by the row's scale (no rounding before that product, so
-// the maxima equal the plain version's bit for bit), takes the maxima of up
-// to 16 rows with lane shuffles, and stores 16 bytes a thread where a tile's
-// segments allow. K11 keeps the SIMT tile: four int8 products per __dp4a.
+// stores run along S. K11 and K12 are one walk over an integer tile: K11
+// (I8Tile) reads int8 rows and the query by descriptor, one s8 product a
+// 32-byte sub-step; K12 (I4Tile) unpacks the nibbles in registers and makes
+// two s8 products a 32-byte step; both into an exact int32. Their epilogue
+// converts once and multiplies by the row's scale (no rounding before that
+// product, so the maxima equal the plain version's bit for bit), takes the
+// maxima of up to 16 rows with lane shuffles, and stores 16 bytes a thread
+// where a tile's segments allow.
 //
 // What bounds them on the H100 at B 256: operations (the tensor-core rates of
-// the three or six bf16 products and of the int8 products; the dp4a rate),
-// not the one read of the index; at B <= 16 the bytes.
+// the three or six bf16 products and of the int8 products), not the one read
+// of the index; at B <= 16 the bytes.
 #include "topk_common.cuh"
 
 namespace {
@@ -53,19 +55,6 @@ __device__ __forceinline__ void tile_segmax(const float* sc, int row0, int q0, i
       for (int j = 0; j < group; ++j) m = fmaxf(m, sc[(seg * group + j) * SC_STRIDE + qq]);
     segmax[(long long)b * n_seg_total + gs] = m;
   }
-}
-
-// int8 index (K11): one SIMT tile a block
-template <typename Op, int QT>
-__global__ void __launch_bounds__(NT) segmax_kernel(
-    const typename Op::idx_t* __restrict__ index, long long ld, int N, const uint32_t* __restrict__ qu, int B,
-    int n_units, const float* __restrict__ scale, int n_valid, int group, int nqb, float* __restrict__ segmax) {
-  using S = TileShape<QT>;
-  extern __shared__ __align__(16) uint32_t smem[];
-  const int qb = blockIdx.x % nqb, tile = blockIdx.x / nqb;
-  const int row0 = tile * TN, q0 = qb * S::TQ;
-  score_tile<Op, QT>(index, ld, N, qu, B, n_units, scale, n_valid, row0, q0, smem);
-  tile_segmax<S::TQ, S::SC_STRIDE>(reinterpret_cast<const float*>(smem), row0, q0, B, N, group, segmax);
 }
 
 // the float wgmma tiles (K5) over a contiguous run of tiles
@@ -150,7 +139,8 @@ __device__ __forceinline__ void warp_max16(const int (&acc)[TQ / 2], const float
   }
 }
 
-// K12: the int4 wgmma tile over a contiguous run of tiles. Its epilogue works
+// K11 and K12: an integer wgmma tile (I8Tile, I4Tile) over a contiguous run of
+// tiles, `rows` the int8 or the packed int4 index. The epilogue works
 // on the accumulators where they are: thread (warp w, lane l) of warpgroup wg
 // holds rows r0 = 64 wg + 16 w + l / 4 and r0 + 8 of columns 8 j + 2 (l % 4) +
 // {0, 1}, so a warp's 16 rows are lanes l ^ 4, l ^ 8, l ^ 16 apart. For a group
@@ -160,17 +150,18 @@ __device__ __forceinline__ void warp_max16(const int (&acc)[TQ / 2], const float
 // warp converged), into part[query][TN / 16]; a segment is group / 16 parts,
 // stored 16 bytes a thread where a tile's segments of a query allow. Smaller
 // groups take the scores through shared memory and `tile_segmax`.
-template <int TQ>
-__global__ void __launch_bounds__(NT, I4Tile<TQ>::BLOCKS_PER_SM) segmax_int4_kernel(
-    const int8_t* __restrict__ packed, int N, const int8_t* __restrict__ q8, int B, int D,
-    const float* __restrict__ scale, int n_valid, int group, int n_rb, int nqb, float* __restrict__ segmax) {
+template <typename Tile, int TQ>
+__device__ __forceinline__ void segmax_int_walk(const int8_t* __restrict__ rows, int N,
+                                                const int8_t* __restrict__ q8, int B, int D,
+                                                const float* __restrict__ scale, int n_valid, int group, int n_rb,
+                                                int nqb, float* __restrict__ segmax) {
   extern __shared__ __align__(16) uint8_t topk_smem[];
   const int qb = blockIdx.x % nqb, rb = blockIdx.x / nqb;
   const int q0 = qb * TQ;
   int t_first, t_end;
   row_block_tiles(rb, n_rb, (N + TN - 1) / TN, t_first, t_end);
   const int t_scored = min(t_end, (n_valid + TN - 1) / TN);
-  I4Tile<TQ> tile(topk_smem, packed, N, D, q8, B, q0, t_first, t_scored);
+  Tile tile(topk_smem, rows, N, D, q8, B, q0, t_first, t_scored);
   float* part = reinterpret_cast<float*>(tile.tail());  // [TQ][TN / 16], or the scores [TN][TQ + 1] below group 16
   const int tid = threadIdx.x;
   const int r0 = (tid >> 7) * 64 + ((tid >> 5) & 3) * 16 + ((tid & 31) >> 2);
@@ -227,6 +218,20 @@ __global__ void __launch_bounds__(NT, I4Tile<TQ>::BLOCKS_PER_SM) segmax_int4_ker
   cp_async_wait<0>();
 }
 
+template <int TQ>
+__global__ void __launch_bounds__(NT, I8Tile<TQ>::BLOCKS_PER_SM) segmax_int8_kernel(
+    const int8_t* __restrict__ index, int N, const int8_t* __restrict__ q8, int B, int D,
+    const float* __restrict__ scale, int n_valid, int group, int n_rb, int nqb, float* __restrict__ segmax) {
+  segmax_int_walk<I8Tile<TQ>, TQ>(index, N, q8, B, D, scale, n_valid, group, n_rb, nqb, segmax);
+}
+
+template <int TQ>
+__global__ void __launch_bounds__(NT, I4Tile<TQ>::BLOCKS_PER_SM) segmax_int4_kernel(
+    const int8_t* __restrict__ packed, int N, const int8_t* __restrict__ q8, int B, int D,
+    const float* __restrict__ scale, int n_valid, int group, int n_rb, int nqb, float* __restrict__ segmax) {
+  segmax_int_walk<I4Tile<TQ>, TQ>(packed, N, q8, B, D, scale, n_valid, group, n_rb, nqb, segmax);
+}
+
 // supermax[b][s2] = max of segmax[b][s2*sgroups .. +sgroups)
 __global__ void supermax_kernel(const float* __restrict__ segmax, long long S, int sgroups, long long total,
                                 float* __restrict__ supermax) {
@@ -241,22 +246,6 @@ __global__ void supermax_kernel(const float* __restrict__ segmax, long long S, i
   }
 }
 
-template <typename Op, int QT>
-cudaError_t launch(const void* index, long long ld, const void* q, int n_units, const void* scale, void* segmax,
-                   int N, int B, int n_valid, int group, cudaStream_t stream) {
-  using S = TileShape<QT>;
-  const int nqb = (B + S::TQ - 1) / S::TQ;
-  const int ntiles = (N + TN - 1) / TN;
-  const int smem = S::SMEM_UNITS * (int)sizeof(uint32_t);
-  auto kern = segmax_kernel<Op, QT>;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  kern<<<(unsigned)((long long)nqb * ntiles), NT, smem, stream>>>(
-      static_cast<const typename Op::idx_t*>(index), ld, N, static_cast<const uint32_t*>(q), B, n_units,
-      static_cast<const float*>(scale), n_valid, group, nqb, static_cast<float*>(segmax));
-  return cudaGetLastError();
-}
-
 template <typename Tile, typename Kernel>
 cudaError_t launch_float(Kernel kern, const void* index, const void* qt, void* segmax, int N, int D, int B,
                          int n_valid, int group, int nrb, int tq, cudaStream_t stream) {
@@ -269,21 +258,20 @@ cudaError_t launch_float(Kernel kern, const void* index, const void* qt, void* s
   return cudaGetLastError();
 }
 
-// K12's shared memory: the tile's, then the scores (group < 16) or the parts
-template <int TQ>
-int int4_smem(int group) {
-  return I4Tile<TQ>::SMEM + (group < 16 ? TN * (TQ + 1) : TQ * (TN / 16)) * (int)sizeof(float);
+// K11's and K12's shared memory: the tile's, then the scores (group < 16) or the parts
+template <typename Tile, int TQ>
+int int_smem(int group) {
+  return Tile::SMEM + (group < 16 ? TN * (TQ + 1) : TQ * (TN / 16)) * (int)sizeof(float);
 }
 
-template <int TQ>
-cudaError_t launch_int4(const void* packed, const void* q8, const void* scale, void* segmax, int N, int D, int B,
-                        int n_valid, int group, int nrb, cudaStream_t stream) {
+template <typename Tile, int TQ, typename Kernel>
+cudaError_t launch_int(Kernel kern, const void* rows, const void* q8, const void* scale, void* segmax, int N, int D,
+                       int B, int n_valid, int group, int nrb, cudaStream_t stream) {
   const int nqb = (B + TQ - 1) / TQ;
-  const int smem = int4_smem<TQ>(group);
-  auto kern = segmax_int4_kernel<TQ>;
+  const int smem = int_smem<Tile, TQ>(group);
   cudaError_t err = set_smem(kern, smem);
   if (err != cudaSuccess) return err;
-  kern<<<nqb * nrb, NT, smem, stream>>>(static_cast<const int8_t*>(packed), N, static_cast<const int8_t*>(q8), B, D,
+  kern<<<nqb * nrb, NT, smem, stream>>>(static_cast<const int8_t*>(rows), N, static_cast<const int8_t*>(q8), B, D,
                                         static_cast<const float*>(scale), n_valid, group, nrb, nqb,
                                         static_cast<float*>(segmax));
   return cudaGetLastError();
@@ -333,14 +321,19 @@ extern "C" int topk_segmax(const void* index, const void* qt, void* segmax, void
 }
 
 // K11. index (N, D) int8, q8 (B, D) int8, scale (N) f32; segmax (B, N/group)
-// f32 = max over the group of float(int32 dot) * scale[row]. D % 16 == 0.
+// f32 = max over the group of float(int32 dot) * scale[row]. D % 16 == 0; the
+// blocks walk n_row_blocks runs of tiles against `query_tile` (8 ... 128)
+// queries each.
 extern "C" int topk_segmax_int8(const void* index, const void* q8, const void* scale, void* segmax, int N, int D,
-                                int B, int n_valid, int group, void* stream) {
-  if (bad_shape(N, B, D, 16, n_valid, group)) return (int)cudaErrorInvalidValue;
+                                int B, int n_valid, int group, int n_row_blocks, int query_tile, void* stream) {
+  if (bad_shape(N, B, D, 16, n_valid, group) || n_row_blocks < 1 || n_row_blocks > (N + TN - 1) / TN)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define ARGS index, D, q8, D / 4, scale, segmax, N, B, n_valid, group, s
-  return (int)(B <= 16 ? launch<OpI8, 1>(ARGS) : launch<OpI8, 4>(ARGS));
-#undef ARGS
+  return (int)with_query_tile<128>(query_tile, [&](auto tq) {
+    constexpr int TQ = decltype(tq)::value;
+    return launch_int<I8Tile<TQ>, TQ>(segmax_int8_kernel<TQ>, index, q8, scale, segmax, N, D, B, n_valid, group,
+                                      n_row_blocks, s);
+  });
 }
 
 // K12. packed (N, D/2) int8 nibble pairs (element d with element d + D/2),
@@ -352,7 +345,9 @@ extern "C" int topk_segmax_int4(const void* packed, const void* q8, const void* 
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)with_query_tile<128>(query_tile, [&](auto tq) {
-    return launch_int4<decltype(tq)::value>(packed, q8, scale, segmax, N, D, B, n_valid, group, n_row_blocks, s);
+    constexpr int TQ = decltype(tq)::value;
+    return launch_int<I4Tile<TQ>, TQ>(segmax_int4_kernel<TQ>, packed, q8, scale, segmax, N, D, B, n_valid, group,
+                                      n_row_blocks, s);
   });
 }
 
@@ -374,13 +369,23 @@ extern "C" int topk_segmax_resident(int query_tile, int idx_dtype, int* blocks) 
   return (int)cudaErrorInvalidValue;
 }
 
-// Into *blocks, the blocks of K12's kernel for `query_tile` an SM holds at once
-// with the shared memory a launch with `group` takes; 0 where it has no such form.
+// Into *blocks, the blocks of K11's (K12's) kernel for `query_tile` an SM holds
+// at once with the shared memory a launch with `group` takes; 0 where it has no
+// such form.
+extern "C" int topk_segmax_int8_resident(int query_tile, int group, int* blocks) {
+  *blocks = 0;
+  if (group < 1 || TN % group != 0) return (int)cudaErrorInvalidValue;
+  return (int)with_query_tile<128>(query_tile, [&](auto tq) {
+    constexpr int TQ = decltype(tq)::value;
+    return resident_blocks(segmax_int8_kernel<TQ>, int_smem<I8Tile<TQ>, TQ>(group), blocks);
+  }, cudaSuccess);
+}
+
 extern "C" int topk_segmax_int4_resident(int query_tile, int group, int* blocks) {
   *blocks = 0;
   if (group < 1 || TN % group != 0) return (int)cudaErrorInvalidValue;
   return (int)with_query_tile<128>(query_tile, [&](auto tq) {
     constexpr int TQ = decltype(tq)::value;
-    return resident_blocks(segmax_int4_kernel<TQ>, int4_smem<TQ>(group), blocks);
+    return resident_blocks(segmax_int4_kernel<TQ>, int_smem<I4Tile<TQ>, TQ>(group), blocks);
   }, cudaSuccess);
 }

@@ -72,7 +72,7 @@ _SIGNATURES = {
     "t5_rms_bwd": [_P] * 7 + [_I, _I, _I, _F, _I, _I, _P],
     "topk_fused": [_P] * 6 + [_I] * 8 + [_P],
     "topk_segmax": [_P] * 4 + [_I] * 9 + [_P],
-    "topk_segmax_int8": [_P] * 4 + [_I] * 5 + [_P],
+    "topk_segmax_int8": [_P] * 4 + [_I] * 7 + [_P],
     "topk_segmax_int4": [_P] * 4 + [_I] * 7 + [_P],
     "bert_gemm": [_P] * 5 + [_I] * 5 + [_P],
     "bert_layer_norm": [_P] * 3 + [_I, _I, _F, _I, _P],
@@ -82,13 +82,14 @@ _SIGNATURES = {
     "vit_layer_norm": [_P] * 3 + [_I, _I, _F, _I, _P],
     "vit_gemm": [_P] * 6 + [_I] * 5 + [_P],
     "vit_attention": [_P] * 4 + [_I] * 5 + [_F, _I, _P],
-    "maxsim": [_P] * 6 + [_I] * 5 + [_P],
+    "maxsim": [_P] * 6 + [_I] * 6 + [_P],
 }
 # occupancy queries (no launch, no counter): the blocks of a kernel an SM
 # holds at once, into the last pointer; asked through `resident`
 _QUERY_SIGNATURES = {
     "topk_fused_resident": [_I] * 3 + [_P],
     "topk_segmax_resident": [_I] * 2 + [_P],
+    "topk_segmax_int8_resident": [_I] * 2 + [_P],
     "topk_segmax_int4_resident": [_I] * 2 + [_P],
 }
 _resident: Dict[tuple, int] = {}

@@ -11,12 +11,11 @@ the flat and the two-phase functions agree bit for bit.
 Kernels: `segment_max_int8` (K11) and `segment_max_int4` (K12) launch
 csrc/topk_segmax.cu on CUDA tensors and run the plain versions beside them
 (`segment_max_int8_reference`, `segment_max_int4_reference`) on CPU
-tensors. K12 unpacks the nibbles in registers and multiplies on the tensor
-cores (int8 wgmma, exact int32 sums); K11 takes four int8 products a
-`__dp4a`. The flat functions and phase 3 run the integer dots as f32 matrix
-products: every partial sum is an integer below 2**24 while
-127 * 127 * D < 2**24, so they are exact in any order; `_require_exact`
-holds that bound.
+tensors. Both multiply on the tensor cores (int8 wgmma, exact int32 sums),
+K12 after unpacking the nibbles in registers. The flat functions and phase
+3 run the integer dots as f32 matrix products: every partial sum is an
+integer below 2**24 while 127 * 127 * D < 2**24, so they are exact in any
+order; `_require_exact` holds that bound.
 
 The refined int4 tier (`cosine_topk_int4_refined`,
 `refined_query_batches`) keeps only the int4 stream on the device, takes the
@@ -135,20 +134,21 @@ def segment_max_int8_reference(index_q: torch.Tensor, index_scale: torch.Tensor,
 
 
 def _launch_segmax_quant(name: str, index: torch.Tensor, index_scale: torch.Tensor, q8: torch.Tensor, n_valid: int,
-                         group: int, d_mult: int, plan: Tuple[int, ...]) -> torch.Tensor:
-    """K11 or K12. `plan`: the C arguments after the group, K12's (row
-    blocks, query tile); K11's kernel takes none."""
+                         group: int, d_mult: int) -> torch.Tensor:
+    """K11 or K12: the kernel `name`, its grid planned from its occupancy
+    query `name`_resident at this group (`topk.kernel_plan`)."""
     N = index.shape[0]
     B, D = q8.shape
-    require_segmax_shapes(N, D, d_mult, n_valid, group)
+    require_segmax_shapes(N, D, d_mult, n_valid, group)  # before the plan asks the kernel's occupancy at this group
     kernels.require(index.dtype == torch.int8 and q8.dtype == torch.int8, "index and q8 must be int8")
     kernels.require(index_scale.dtype == torch.float32 and index_scale.numel() == N, "index_scale must be f32 (N, 1)")
     q8, index_scale = q8.contiguous(), index_scale.contiguous()
     kernels.require(index.is_contiguous() and index.data_ptr() % 16 == 0 and q8.data_ptr() % 16 == 0,
                     "index and q8 must be contiguous and 16-byte aligned (the kernels copy rows 16 bytes at a time)")
+    tq, n_rb = topk.kernel_plan(q8.device, N, B, f"{name}_resident", group)
     segmax = torch.empty((B, N // group), dtype=torch.float32, device=q8.device)
     err = getattr(kernels.library(), name)(
-        index.data_ptr(), q8.data_ptr(), index_scale.data_ptr(), segmax.data_ptr(), N, D, B, n_valid, group, *plan,
+        index.data_ptr(), q8.data_ptr(), index_scale.data_ptr(), segmax.data_ptr(), N, D, B, n_valid, group, n_rb, tq,
         kernels.stream_ptr(q8))
     kernels.check(name, err)
     kernels.LAUNCHES[name] += 1
@@ -160,7 +160,7 @@ def segment_max_int8(index_q, index_scale, q8, n_valid: int, group: int) -> torc
     if not kernels.on_cuda(index_q, index_scale, q8):
         return segment_max_int8_reference(index_q, index_scale, q8, n_valid, group)
     kernels.require(index_q.shape[1] == q8.shape[1], "index_q and q8 must share D")
-    return _launch_segmax_quant("topk_segmax_int8", index_q, index_scale, q8, n_valid, group, 16, plan=())
+    return _launch_segmax_quant("topk_segmax_int8", index_q, index_scale, q8, n_valid, group, 16)
 
 
 def _rescore_quant(acc: torch.Tensor, qs: torch.Tensor, index_scale: torch.Tensor, flat_idx: torch.Tensor,
@@ -294,10 +294,7 @@ def segment_max_int4(index_p, index_scale, q8, n_valid: int, group: int) -> torc
     if not kernels.on_cuda(index_p, index_scale, q8):
         return segment_max_int4_reference(index_p, index_scale, q8, n_valid, group)
     kernels.require(2 * index_p.shape[1] == q8.shape[1], "index_p must be (N, D/2) for q8 (B, D)")
-    N, (B, D) = index_p.shape[0], q8.shape
-    require_segmax_shapes(N, D, 32, n_valid, group)  # before the plan asks the kernel's occupancy at this group
-    tq, n_rb = topk.kernel_plan(q8.device, N, B, "topk_segmax_int4_resident", group)
-    return _launch_segmax_quant("topk_segmax_int4", index_p, index_scale, q8, n_valid, group, 32, plan=(n_rb, tq))
+    return _launch_segmax_quant("topk_segmax_int4", index_p, index_scale, q8, n_valid, group, 32)
 
 
 def cosine_topk_int4_twophase(

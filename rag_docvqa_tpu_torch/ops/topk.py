@@ -54,12 +54,12 @@ _QUERY_TILES = (8, 16, 32, 64, 128)
 
 
 def _tile_plan(n_tiles: int, B: int, resident: Dict[int, int], sms: int) -> Tuple[int, int]:
-    """(query tile, row blocks) of K4, K5 or K12 for B queries over n_tiles
+    """(query tile, row blocks) of K4, K5, K11 or K12 for B queries over n_tiles
     index tiles. `resident` maps each query tile to the blocks of that form
     of the kernel an SM holds at once (0: no such form), `sms` the card's SMs.
 
     The query tile is the narrowest form that holds B, else the widest form
-    (128 on the f32 and int4 tiles, so that a B 256 batch reads the index
+    (128 on the f32, int8 and int4 tiles, so that a B 256 batch reads the index
     twice, not four times). The row blocks are contiguous runs of equal length
     (the last one shorter) of the index tiles, each walked by one block per
     block of queries: one wave of the blocks the card holds at once, each

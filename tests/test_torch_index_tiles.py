@@ -10,6 +10,10 @@ exact references, and the launch plan the wrappers hand them.
     after, and the step's sum added into the score in f32: within 2^-22 of
     sum |x_d q_d| of the float64 product, where one bf16 product is not, nor
     the same six products truncated into one accumulator across all of D;
+  * MaxSim (K15) is that arithmetic with the patch rows as x and the query
+    tokens as q, then the masked maximum of each token and the weighted sum
+    in f32: each token's maximum within 2^-22 of the largest sum |q_d p_d| of
+    the f64 one, where one bf16 product is not;
   * K12 unpacks four packed int4 bytes a 32-bit word with byte permutes
     (`prmt` with sign replication) and bit selects: equal to `unpack_int4` of
     both packages for every byte value;
@@ -117,6 +121,74 @@ def test_one_accumulator_across_d_misses_the_limit():
     assert float(ratio.max()) > 4.0 and float((ratio > 1.0).double().mean()) > 0.25
 
 
+def _patch_set(tq: int, tp: int, d: int, seed: int):
+    """Normalised query tokens (tq, d) and patch rows (tp, d), f32, D
+    zero-padded to a multiple of 16 as `maxsim_launch` pads it, a patch mask
+    with about a third of the rows masked, and query weights in [0, 1]."""
+    rng = np.random.RandomState(seed)
+    q, p = rng.randn(tq, d).astype(np.float32), rng.randn(tp, d).astype(np.float32)
+    p[: tp // 8] *= 1e-3
+    p[: tp // 8, rng.randint(0, d, tp // 8)] = 1.0  # rows with one dominant entry
+    pad = -d % 16
+    q, p = (torch.nn.functional.pad(p_topk.l2_normalize(torch.from_numpy(x)), (0, pad)) for x in (q, p))
+    mask = torch.from_numpy(rng.rand(tp) < 0.7)
+    weight = torch.from_numpy(rng.rand(tq).astype(np.float32))
+    return q, p, mask, weight
+
+
+def _maxsim_model(q, p, mask, weight, products):
+    """K15's arithmetic for one patch set: the f32 tile's scores of the
+    patch rows against the query tokens (`_tile_scores`), masked rows at
+    -1e30, each token's maximum, 0 where no row is valid, times its weight,
+    summed in f32 in token order. Returns (maxima (tq,), score)."""
+    s = torch.where(mask[None, :], _tile_scores(p, q, products), torch.tensor(-1e30))
+    m = s.amax(dim=1)
+    terms = torch.where(m > -1e29, m * weight, torch.zeros(()))
+    total = torch.zeros((), dtype=torch.float32)
+    for t in terms:
+        total = total + t
+    return m, total
+
+
+def _maxsim_exact(q, p, mask, weight):
+    """float64 MaxSim of one set, each token's limit (2^-22 of the largest
+    sum |q_d p_d| over the valid rows) and the score's limit (the tokens'
+    limits weighted, and the f32 rounding of the weighted sum)."""
+    sims = q.double() @ p.double().t()
+    bound = 2.0 ** -22 * (q.double().abs() @ p.double().abs().t())
+    sims = torch.where(mask[None, :], sims, torch.tensor(float("-inf"), dtype=torch.float64))
+    m = sims.amax(dim=1)
+    lim = torch.where(mask[None, :], bound, torch.zeros_like(bound)).amax(dim=1)
+    live = torch.isfinite(m)
+    terms = torch.where(live, m, torch.zeros_like(m)) * weight.double()
+    score_lim = float((lim * weight.double()).sum() + (len(terms) + 1) * 2.0 ** -24 * terms.abs().sum())
+    return m, lim, terms.sum(), score_lim
+
+
+@pytest.mark.parametrize("tq,tp,d", [(70, 77, 40), (128, 128, 768), (8, 200, 64)])
+def test_maxsim_six_products_within_f32_rounding(tq, tp, d):
+    """The MaxSim kernel's arithmetic (csrc/maxsim.cu on `F32Tile`): every
+    token's maximum within its limit of the float64 one, the score within
+    the weighted limits, and a set with no valid row scoring exactly 0."""
+    q, p, mask, weight = _patch_set(tq, tp, d, 7 + tq + d)
+    m, score = _maxsim_model(q, p, mask, weight, SIX)
+    want_m, lim, want, score_lim = _maxsim_exact(q, p, mask, weight)
+    assert bool(((m.double() - want_m).abs() <= lim).all()), float(((m.double() - want_m).abs() / lim).max())
+    assert abs(float(score) - float(want)) <= score_lim
+    none = torch.zeros(tp, dtype=torch.bool)
+    assert float(_maxsim_model(q, p, none, weight, SIX)[1]) == 0.0
+
+
+def test_maxsim_one_bf16_product_misses_the_limit():
+    """One bf16 product of the f32 rows and tokens (x0 q0) misses the limit
+    of most tokens by far: the test above tells the two apart."""
+    q, p, mask, weight = _patch_set(128, 128, 768, 7 + 128 + 768)
+    m, _ = _maxsim_model(q, p, mask, weight, ONE)
+    want_m, lim, _, _ = _maxsim_exact(q, p, mask, weight)
+    ratio = (m.double() - want_m).abs() / lim
+    assert float(ratio.max()) > 16.0 and float((ratio > 1.0).double().mean()) > 0.5
+
+
 def _prmt_sign(w: torch.Tensor) -> torch.Tensor:
     """`prmt.b32 w, 0, 0xBA98`: each byte replaced by its sign bit spread
     over the byte (int64 holding uint32 words)."""
@@ -159,11 +231,12 @@ def test_int4_word_unpack_equals_unpack_int4():
 # queries report them on an H100 (0: no form for that query tile)
 RESIDENT = {"bf16": {8: 3, 16: 3, 32: 3, 64: 2, 128: 0},
             "f32": {8: 2, 16: 2, 32: 2, 64: 1, 128: 1},
+            "int8": {8: 3, 16: 3, 32: 2, 64: 2, 128: 2},
             "int4": {8: 2, 16: 2, 32: 2, 64: 2, 128: 2}}
 SMS = 132
 
 
-@pytest.mark.parametrize("tile", ["bf16", "f32", "int4"])
+@pytest.mark.parametrize("tile", ["bf16", "f32", "int8", "int4"])
 @pytest.mark.parametrize("B", [1, 8, 9, 16, 20, 64, 65, 130, 256])
 def test_tile_plan_is_one_wave(tile, B):
     """The query tile is a form the kernel has, holds B up to its widest
@@ -277,17 +350,39 @@ def test_float_launch_arguments(monkeypatch, dtype):
 @pytest.mark.parametrize("B", [8, 256])
 def test_int4_launch_arguments(monkeypatch, B):
     """K12 asks its occupancy at the group and passes its row blocks and
-    query tile after the group; K11 keeps its arguments."""
+    query tile after the group."""
     rec, asked = _stand_in(monkeypatch, "int4")
     N, D = 2048, 64
     packed = torch.zeros((N, D // 2), dtype=torch.int8)
     scale = torch.ones((N, 1))
     q8 = torch.zeros((B, D), dtype=torch.int8)
     p_quant.segment_max_int4(packed, scale, q8, N, 32)
-    p_quant.segment_max_int8(torch.zeros((N, D), dtype=torch.int8), scale, q8, N, 16)
     assert asked == [("topk_segmax_int4_resident", (tq, 32)) for tq in p_topk._QUERY_TILES]
     tq, n_rb = p_topk._tile_plan(N // 128, B, RESIDENT["int4"], SMS)
-    (i4, a4), (i8, a8) = rec.calls
+    ((i4, a4),) = rec.calls
     assert i4 == "topk_segmax_int4" and len(a4) == len(kernels._SIGNATURES[i4])
     assert a4[4:11] == (N, D, B, N, 32, n_rb, tq)
-    assert i8 == "topk_segmax_int8" and len(a8) == len(kernels._SIGNATURES[i8]) and a8[4:9] == (N, D, B, N, 16)
+    assert kernels.LAUNCHES["topk_segmax_int4"] == 1
+
+
+@pytest.mark.parametrize("B", [8, 256])
+def test_int8_launch_arguments(monkeypatch, B):
+    """K11 asks its own kernel's occupancy at the group and passes its row
+    blocks and query tile after the group, as K12 does; it takes D % 16 == 0
+    (48 here, which K12's D % 32 would refuse) and refuses D 40."""
+    rec, asked = _stand_in(monkeypatch, "int8")
+    N, D = 2048, 48
+    scale = torch.ones((N, 1))
+    q8 = torch.zeros((B, D), dtype=torch.int8)
+    p_quant.segment_max_int8(torch.zeros((N, D), dtype=torch.int8), scale, q8, N - 7, 16)
+    assert asked == [("topk_segmax_int8_resident", (tq, 16)) for tq in p_topk._QUERY_TILES]
+    assert all(len(a) + 1 == len(kernels._QUERY_SIGNATURES[n]) for n, a in asked)
+    tq, n_rb = p_topk._tile_plan(N // 128, B, RESIDENT["int8"], SMS)
+    ((name, args),) = rec.calls
+    assert name == "topk_segmax_int8" and len(args) == len(kernels._SIGNATURES[name])
+    assert args[4:11] == (N, D, B, N - 7, 16, n_rb, tq)
+    assert kernels.LAUNCHES["topk_segmax_int8"] == 1
+    with pytest.raises(ValueError):
+        p_quant.segment_max_int8(torch.zeros((N, 40), dtype=torch.int8), scale, torch.zeros((B, 40), dtype=torch.int8),
+                                 N, 16)
+    assert len(rec.calls) == 1
