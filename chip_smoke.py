@@ -49,6 +49,22 @@ Nine phases; any failure raises and the script exits non-zero:
      that every kernel of the serving path was launched and that every
      confidence is finite; counts the CUDA kernels and copies of one decode
      step in a profiler trace, K3's among them;
+     b. (its own generator) each of the ten page-retrieval strategies serves
+        one warmup and one counted batch of 32 through the same engine
+        configuration (chunk_num 10, per_chunk_seq_len 256): the per-chunk
+        strategies encode 320 rows of T 256 and the page-row ones 320 rows
+        of T 512, decoding at B 320; every strategy launches K1's parts, K2
+        and K3, its confidences are finite and in [0, 1] (0 is a product of
+        15 near-uniform maxima that underflowed), its ms and stages are
+        printed; the valid keys of the assembled rows are counted (none
+        without one). Then K1 (the whole layer), K2 with the shared bias and
+        K3 (12 int8 caches of Te 256 and 512, a bf16 one beside SDPA) at
+        those shapes against their plain versions, timed by events and on
+        the device, with K3's split per Te from one call's CUDA graph; the
+        eval CLI in this process (`rag_docvqa_tpu_torch.eval`, t5-base f32,
+        64 documents, maxconf, compute_stats; its summary keys); and four
+        train steps with the NAC term at 6d's shapes (its 16-token decode
+        through K3): the NAC loss finite and falling;
   6. the training path, outside inference mode:
      a. the flash backward (K6) against its plain version on small ragged
         shapes (shared, per-batch and no bias; causal; GQA; mask values
@@ -207,7 +223,8 @@ The line before the last is a JSON object with every kernel's launches in
 its path's run (phase 5 for serving, 6d for training, 7b-c for the index,
 8c for the BERT forward kernels, 8f for the backward ones, 9c for K14, 9f for
 K15, K1 without a bias and K13; every path's counts of every kernel under
-"launches_by_path"),
+"launches_by_path", each strategy of 5b as "serve_<strategy>" and its NAC
+steps as "train_nac"),
 its worst error over its own checks, and, at its path's shape, its time,
 the plain version's, the time of one PyTorch call that computes the same
 function where there is one ("library_ms", else null; timed here, used
@@ -219,8 +236,10 @@ and times under "t5_layer", K7's and K8's under "t5_ffn_bwd" and
 "t5_attn_bwd", the train steps under "train_step", the whole K9 layer
 under "bert_layer", K10's halves under "bert_ffn_bwd" and "bert_attn_bwd",
 paths 1-3 of phase 8 under "embed_index", "rerank_serve" and
-"contrastive_step", the whole K14 layer under "vit_layer", and the two visual
-paths under "visual_serve" and "p2s_serve". "t5_layer_nobias" (K1 without a
+"contrastive_step", the whole K14 layer under "vit_layer", the two visual
+paths under "visual_serve" and "p2s_serve", phase 5b's batches, rows, K3
+splits and eval summary under "strategies" and its NAC steps under
+"nac_train_step". "t5_layer_nobias" (K1 without a
 bias) and "t5_layer_qtiled" (K13) are whole layers outside the kernel list,
 each with its error, its times and the launches of its parts (t5_rms_norm,
 t5_gemm and flash_fwd); that each served tower ran exactly those is
@@ -616,6 +635,55 @@ class Checks:
 # --------------------------------------------------------------------------- #
 # phase 3: each kernel against its plain version
 # --------------------------------------------------------------------------- #
+def flash_case(checks: Checks, g: torch.Generator, B, T, H, Hkv, dh, dtype, bias_kind, causal, scale, mask_value,
+               lens, label, timed=False, Tk=None, twice=False, device=False):
+    """K2 against its plain version: out, lse of the rows with a valid key,
+    the lse contract of the others; `twice` launches again and wants the
+    same bits. T queries, Tk keys (T when None); bias_kind None, "shared",
+    "batched" (in q's dtype; bf16 for bf16) or "batched f32"; `device` adds
+    the device times of the kernel and of SDPA to a timed case."""
+    import torch.nn.functional as F
+
+    from rag_docvqa_tpu_torch.ops import flash_attention as fa
+
+    dev = g.device
+    randn = lambda *s: torch.randn(s, generator=g, device=dev)
+    Tk = T if Tk is None else Tk
+    q = randn(B, T, H, dh).to(dtype)
+    k, v = randn(B, Tk, Hkv, dh).to(dtype), randn(B, Tk, Hkv, dh).to(dtype)
+    mask = torch.arange(Tk, device=dev)[None, :] < torch.tensor(lens, device=dev)[:, None]
+    bias = None
+    if bias_kind:
+        bias = randn(1 if bias_kind == "shared" else B, H, T, Tk)
+        if dtype == torch.bfloat16 and bias_kind != "batched f32":
+            bias = bias.bfloat16()
+    run = lambda: fa.flash_attention_fwd(q, k, v, mask, bias, scale, causal, mask_value)
+    got, glse = run()
+    want, wlse = fa.flash_attention_reference(q, k, v, mask, bias, scale, causal, mask_value)
+    checks.compare("flash_fwd", f"{label} out", got, want, tol(dtype, want))
+    alive = wlse > mask_value / 2  # rows with a valid key; the out check covers the rest
+    # lse is f32 in both; its bf16 limit scales with the bf16 inputs' scores
+    checks.compare("flash_fwd", f"{label} lse", glse[alive], wlse[alive], tol(dtype, wlse[alive]))
+    dead = glse[~alive]  # no valid key: -1e30 under the flash mask value, the uniform row's lse under -1e9
+    if not bool((dead <= mask_value / 2).all() if mask_value == fa.NEG_INF else torch.isfinite(dead).all()):
+        raise AssertionError(f"flash_fwd {label}: lse of a row with no valid key is {dead.max().item()}")
+    if twice:
+        again, alse = run()
+        if not (torch.equal(got, again) and torch.equal(glse, alse)):
+            raise AssertionError(f"flash_fwd {label}: a second launch on the same input gave other bits")
+    if timed:
+        # the one library call: SDPA with the bias and the key mask summed
+        # into one additive (B, H, T, T) mask beforehand (the kernel
+        # streams the shared bias instead); it returns no lse
+        add = (bias.float() + torch.where(mask, 0.0, mask_value)[:, None, None, :]).to(dtype)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        checks.timed("flash_fwd", label, run,
+                     lambda: fa.flash_attention_reference(q, k, v, mask, bias, scale, causal, mask_value),
+                     library=lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=add, scale=scale),
+                     io_bytes=nbytes(q, k, v, mask, bias, got, glse), ops=4.0 * B * H * T * T * dh,
+                     ops_in=op_type(dtype), device=device)
+
+
 def check_kernels(checks: Checks, g: torch.Generator) -> None:
     import torch.nn.functional as F
 
@@ -628,67 +696,26 @@ def check_kernels(checks: Checks, g: torch.Generator) -> None:
     randn = lambda *s: torch.randn(s, generator=g, device=dev)
 
     # ---- K2 flash attention ----
-    def flash_case(B, T, H, Hkv, dh, dtype, bias_kind, causal, scale, mask_value, lens, label, timed=False, Tk=None,
-                   twice=False):
-        """K2 against its plain version: out, lse of the rows with a valid key,
-        the lse contract of the others; `twice` launches again and wants the
-        same bits. T queries, Tk keys (T when None); bias_kind None, "shared",
-        "batched" (in q's dtype; bf16 for bf16) or "batched f32"."""
-        Tk = T if Tk is None else Tk
-        q = randn(B, T, H, dh).to(dtype)
-        k, v = randn(B, Tk, Hkv, dh).to(dtype), randn(B, Tk, Hkv, dh).to(dtype)
-        mask = torch.arange(Tk, device=dev)[None, :] < torch.tensor(lens, device=dev)[:, None]
-        bias = None
-        if bias_kind:
-            bias = randn(1 if bias_kind == "shared" else B, H, T, Tk)
-            if dtype == torch.bfloat16 and bias_kind != "batched f32":
-                bias = bias.bfloat16()
-        run = lambda: fa.flash_attention_fwd(q, k, v, mask, bias, scale, causal, mask_value)
-        got, glse = run()
-        want, wlse = fa.flash_attention_reference(q, k, v, mask, bias, scale, causal, mask_value)
-        checks.compare("flash_fwd", f"{label} out", got, want, tol(dtype, want))
-        alive = wlse > mask_value / 2  # rows with a valid key; the out check covers the rest
-        # lse is f32 in both; its bf16 limit scales with the bf16 inputs' scores
-        checks.compare("flash_fwd", f"{label} lse", glse[alive], wlse[alive], tol(dtype, wlse[alive]))
-        dead = glse[~alive]  # no valid key: -1e30 under the flash mask value, the uniform row's lse under -1e9
-        if not bool((dead <= mask_value / 2).all() if mask_value == fa.NEG_INF else torch.isfinite(dead).all()):
-            raise AssertionError(f"flash_fwd {label}: lse of a row with no valid key is {dead.max().item()}")
-        if twice:
-            again, alse = run()
-            if not (torch.equal(got, again) and torch.equal(glse, alse)):
-                raise AssertionError(f"flash_fwd {label}: a second launch on the same input gave other bits")
-        if timed:
-            # the one library call: SDPA with the bias and the key mask summed
-            # into one additive (B, H, T, T) mask beforehand (the kernel
-            # streams the shared bias instead); it returns no lse
-            add = (bias.float() + torch.where(mask, 0.0, mask_value)[:, None, None, :]).to(dtype)
-            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            checks.timed("flash_fwd", label, run,
-                         lambda: fa.flash_attention_reference(q, k, v, mask, bias, scale, causal, mask_value),
-                         library=lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=add, scale=scale),
-                         io_bytes=nbytes(q, k, v, mask, bias, got, glse), ops=4.0 * B * H * T * T * dh,
-                         ops_in=op_type(dtype))
-
     # bf16, on the edges of the tensor-core kernel's 64 x 64 tiles
     bf16, t5_mask = torch.bfloat16, fe.T5_MASK_VALUE
     for T in (63, 64, 65, 129):
         for dh in (40, 64):
-            flash_case(3, T, 4, 4, dh, bf16, "shared", False, dh ** -0.5, t5_mask, [T, T // 2, 1],
+            flash_case(checks, g, 3, T, 4, 4, dh, bf16, "shared", False, dh ** -0.5, t5_mask, [T, T // 2, 1],
                        f"edge T{T} dh{dh} shared bias bf16", twice=True)
-    flash_case(3, 129, 8, 2, 64, bf16, None, True, 0.125, fa.NEG_INF, [129, 70, 0], "edge T129 causal gqa bf16", twice=True)
-    flash_case(3, 65, 4, 4, 64, bf16, "batched f32", False, 0.125, fa.NEG_INF, [129, 64, 5],
+    flash_case(checks, g, 3, 129, 8, 2, 64, bf16, None, True, 0.125, fa.NEG_INF, [129, 70, 0], "edge T129 causal gqa bf16", twice=True)
+    flash_case(checks, g, 3, 65, 4, 4, 64, bf16, "batched f32", False, 0.125, fa.NEG_INF, [129, 64, 5],
                "edge Tq65 Tk129 f32 batched bias bf16", Tk=129, twice=True)
-    flash_case(2, 129, 4, 2, 40, bf16, "shared", True, 40 ** -0.5, fa.NEG_INF, [65, 33],
+    flash_case(checks, g, 2, 129, 4, 2, 40, bf16, "shared", True, 40 ** -0.5, fa.NEG_INF, [65, 33],
                "edge Tq129 Tk65 causal gqa dh40 bf16", Tk=65, twice=True)
-    flash_case(2, 64, 4, 4, 64, bf16, "shared", False, 0.125, fa.NEG_INF, [64, 0], "edge no valid key -1e30 bf16", twice=True)
-    flash_case(2, 65, 4, 4, 64, bf16, "shared", False, 0.125, t5_mask, [65, 0], "edge no valid key -1e9 bf16", twice=True)
-    flash_case(2, 65, 4, 4, 20, bf16, "shared", False, 20 ** -0.5, fa.NEG_INF, [65, 40],
+    flash_case(checks, g, 2, 64, 4, 4, 64, bf16, "shared", False, 0.125, fa.NEG_INF, [64, 0], "edge no valid key -1e30 bf16", twice=True)
+    flash_case(checks, g, 2, 65, 4, 4, 64, bf16, "shared", False, 0.125, t5_mask, [65, 0], "edge no valid key -1e9 bf16", twice=True)
+    flash_case(checks, g, 2, 65, 4, 4, 20, bf16, "shared", False, 20 ** -0.5, fa.NEG_INF, [65, 40],
                "edge dh20 (rows not 16-byte aligned) bf16", twice=True)
 
     for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-        flash_case(3, 77, 4, 2, 40, dtype, "batched", True, 0.5, fa.NEG_INF, [77, 50, 0], f"ragged gqa causal {tag}")
-        flash_case(3, 77, 4, 4, 128, dtype, "shared", False, 1.0, fe.T5_MASK_VALUE, [77, 30, 0], f"ragged dh128 t5-mask {tag}")
-        flash_case(32, 512, 12, 12, 64, dtype, "shared", False, 1.0, fe.T5_MASK_VALUE,
+        flash_case(checks, g, 3, 77, 4, 2, 40, dtype, "batched", True, 0.5, fa.NEG_INF, [77, 50, 0], f"ragged gqa causal {tag}")
+        flash_case(checks, g, 3, 77, 4, 4, 128, dtype, "shared", False, 1.0, fe.T5_MASK_VALUE, [77, 30, 0], f"ragged dh128 t5-mask {tag}")
+        flash_case(checks, g, 32, 512, 12, 12, 64, dtype, "shared", False, 1.0, fe.T5_MASK_VALUE,
                    [512 - 13 * i for i in range(32)], f"B32 H12 T512 dk64 shared bias {tag}", timed=dtype == torch.bfloat16)
 
     # ---- K1 parts and the whole layer ----
@@ -1028,6 +1055,230 @@ def decode_step_kernels(params, cfg, g: torch.Generator) -> None:
     k3 = sum(1 for n in names if "decode_attn_split_kernel" in n or "combine_kernel" in n)
     log(f"  one decode step (B {B}, Te {Te}, {cfg.num_decoder_layers} layers, bf16, int8 cache, K3 on): {len(names)} "
         f"CUDA kernels and copies, {k3} of them K3's")
+
+
+# --------------------------------------------------------------------------- #
+# phase 5b: the other nine strategies, the eval entry point and the NAC
+# --------------------------------------------------------------------------- #
+STRATEGY_B, STRATEGY_K = 32, 10  # the served batch and chunk_num: B * K = 320 per-chunk or page rows
+
+
+def serve_strategies(g: torch.Generator):
+    """5b: every strategy serves one warmup and one counted batch of 32 through
+    RAGVT5Engine.inference with phase 5's configuration (configs/RAGVT5.yml
+    widths, chunk_num 10, per_chunk_seq_len 256, max_source_length 512, bf16,
+    int8 cross cache, K3 on, 16 new tokens); the counts are set to 0 just
+    before each counted batch and read just after."""
+    from rag_docvqa_tpu_torch import kernels
+    from rag_docvqa_tpu_torch.data.contract import Caps, to_device
+    from rag_docvqa_tpu_torch.data.ingest import DocVQAIngestor
+    from rag_docvqa_tpu_torch.data.synthetic import make_corpus
+    from rag_docvqa_tpu_torch.data.tokenizer import HashTokenizer
+    from rag_docvqa_tpu_torch.engine.rag_vt5 import STRATEGIES, RAGConfig, RAGVT5Engine, retrieve
+    from rag_docvqa_tpu_torch.models import t5 as t5m
+    from rag_docvqa_tpu_torch.models import vt5 as vt5m
+    from rag_docvqa_tpu_torch.ops.chunking import ChunkSpec
+    from rag_docvqa_tpu_torch.ops.gather import AssembleConfig, assemble_page_rows, assemble_per_chunk
+
+    tok = HashTokenizer(32128)
+    ingestor = DocVQAIngestor(tok, ChunkSpec(chunk_size=60, overlap=10), Caps())
+    docs = make_corpus(2 * STRATEGY_B, n_pages=8, words_per_page=120, seed=SEED + 5)
+    ingestor.caps = ingestor.plan_caps(docs)
+    batches = [ingestor.ingest(docs[i:i + STRATEGY_B]) for i in (0, STRATEGY_B)]
+    vt5_cfg = vt5m.VT5Config(t5=t5m.T5Config(decode_kv_int8=True, fused_decode_attn=True))
+    params = vt5m.init_vt5_params(g, vt5_cfg).to(torch.bfloat16)
+
+    # the valid keys of the rows K1 and K2 get: no row may reach them without one
+    batch = to_device(batches[1][0], g.device)
+    ret = retrieve(params.t5.shared, batch, k=STRATEGY_K)
+    per_chunk = assemble_per_chunk(batch, ret.top_k_idx, ret.top_k_valid, AssembleConfig(), seq_len=256)[0]
+    page_rows = assemble_page_rows(batch, ret.top_k_page, ret.top_k_valid, AssembleConfig(max_source_length=512))
+    lens = {}
+    for name, gen in (("per-chunk", per_chunk), ("page", page_rows)):
+        n = gen.attention_mask.sum(dim=1)
+        lens[name] = {"rows": int(n.numel()), "T": int(gen.attention_mask.shape[1]), "min": int(n.min()),
+                      "median": float(n.float().median()), "max": int(n.max())}
+        log(f"  {name} rows: {n.numel()} of T {gen.attention_mask.shape[1]}, valid keys min {int(n.min())}, median "
+            f"{float(n.float().median()):.0f}, max {int(n.max())}")
+        if int(n.min()) < 1:
+            raise AssertionError(f"a {name} row reaches the encoder with no valid key")
+
+    launches, rows = {}, {}
+    for strategy in STRATEGIES:
+        engine = RAGVT5Engine(RAGConfig(page_retrieval=strategy, chunk_num=STRATEGY_K, include_surroundings=0,
+                                        max_source_length=512, per_chunk_seq_len=256, max_new_tokens=16),
+                              vt5_cfg, params, tok)
+        engine.inference(*batches[0])  # warmup, not counted
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = engine.inference(*batches[1])
+        wall = (time.perf_counter() - t0) * 1e3
+        launches[strategy] = dict(kernels.LAUNCHES)
+        check_launched(launches[strategy], SERVE_KERNELS, f"{strategy} serving")
+        # a product of 15 maxima of a near-uniform softmax over 32,128 words (random weights) can
+        # underflow f32 to 0: finite and inside [0, 1] is the check
+        confs = [c for x in out["confidences"] for c in (x if isinstance(x, list) else [x]) if c is not None]
+        if len(out["pred_answers"]) != STRATEGY_B or not confs or \
+                not all(math.isfinite(c) and 0.0 <= c <= 1.0 + 1e-6 for c in confs):
+            raise AssertionError(f"{strategy}: bad answers or confidences {out['confidences']}")
+        t = out["timings"]
+        rows[strategy] = {"ms": wall, "retrieve_assemble_ms": t["retrieve_assemble_s"] * 1e3,
+                          "encode_ms": t["encode_s"] * 1e3, "decode_ms": t["decode_s"] * 1e3,
+                          "confidences": len(confs), "zero_confidences": sum(c == 0.0 for c in confs),
+                          "launches": {k: launches[strategy][k] for k in SERVE_KERNELS}}
+        log(f"  {strategy:15s} {wall:8.1f} ms a batch of {STRATEGY_B}: retrieve+assemble "
+            f"{rows[strategy]['retrieve_assemble_ms']:.2f}, encode {rows[strategy]['encode_ms']:.2f}, decode "
+            f"{rows[strategy]['decode_ms']:.2f} ms; {len(confs)} confidences ({rows[strategy]['zero_confidences']} "
+            f"underflowed to 0); launches {rows[strategy]['launches']}")
+    return launches, {"strategies": rows, "rows": lens}
+
+
+def t5_layer_case(checks: Checks, g: torch.Generator, B: int, T: int, label: str) -> None:
+    """The whole K1 layer (t5_rms_norm, t5_gemm, K2 with the shared bias) at
+    t5-base width in bf16 against the plain layer, rows of 1 to T valid
+    keys, timed beside the plain layer (and on the device) with the sum of
+    its parts' bounds."""
+    from rag_docvqa_tpu_torch.models import t5 as t5m
+    from rag_docvqa_tpu_torch.ops import flash_attention as fa
+    from rag_docvqa_tpu_torch.ops import fused_encoder as fe
+
+    dev = g.device
+    cfg = t5m.T5Config()
+    params = t5m.init_t5_params(g, t5m.T5Config(num_encoder_layers=1, num_decoder_layers=1))
+    l = {k: v.bfloat16() for k, v in fe.fuse_t5_blocks(params.encoder.layers, False)[0].items()}
+    pos = torch.arange(T)
+    bias = t5m.relative_bias(params.encoder.rel_bias, pos, pos, True, cfg)[0].to(torch.bfloat16).contiguous()
+    mask = torch.arange(T, device=dev)[None, :] < (1 + (torch.arange(B, device=dev) * 97) % T)[:, None]
+    x = torch.randn((B, T, cfg.d_model), generator=g, device=dev).bfloat16()
+    kw = dict(num_heads=cfg.num_heads, eps=cfg.layer_norm_eps, gated=False)
+    got = fe.fused_t5_layer_parts(x, mask, bias, l, **kw)
+    want = fe.t5_layer_reference(x, mask, bias, l, **kw)
+    checks.compare("t5_layer", label, got, want, tol(torch.bfloat16, want))
+    del got, want
+    pb = PartsBound()
+    fe._t5_layer(x, mask, bias, l, cfg.num_heads, cfg.layer_norm_eps, False, pb.wrap(fe.rms_norm_rows),
+                 pb.wrap(fe.gemm), pb.wrap(fa.flash_attention_fwd))
+    checks.timed("t5_layer", label, lambda: fe.fused_t5_layer_parts(x, mask, bias, l, **kw),
+                 lambda: fe.t5_layer_reference(x, mask, bias, l, **kw), iters=3, parts_bound=pb, device=True)
+
+
+def check_strategy_kernels(checks: Checks, g: torch.Generator) -> dict:
+    """K1, K2 and K3 at the shapes the per-chunk and page-row strategies give
+    them: 320 rows of T 256 and of T 512, and a decode at B 320 over int8
+    cross caches of Te 256 and 512; each against its plain version, timed
+    beside it and its library call (SDPA for K2, and for K3 on a bf16 cache),
+    with the device time."""
+    from rag_docvqa_tpu_torch.ops import decode_attention as da
+    from rag_docvqa_tpu_torch.ops import fused_encoder as fe
+
+    B = STRATEGY_B * STRATEGY_K
+    for T in (256, 512):
+        t5_layer_case(checks, g, B, T, f"B{B} T{T} t5-base bf16")
+        torch.cuda.empty_cache()
+        flash_case(checks, g, B, T, 12, 12, 64, torch.bfloat16, "shared", False, 1.0, fe.T5_MASK_VALUE,
+                   [1 + (i * 97) % T for i in range(B)], f"B{B} H12 T{T} dk64 shared bias bf16", timed=True,
+                   device=True)
+        torch.cuda.empty_cache()
+    splits = {}
+    for Te, kv_dtype, tag in ((256, torch.int8, "int8"), (256, torch.bfloat16, "bf16"), (512, torch.int8, "int8")):
+        layers = [decode_inputs(g, B, 12, 64, Te, kv_dtype) for _ in range(12)]
+        L = layers[0]
+        args = (L["k2"], L["v2"], L["m"], L["ks"], L["vs"])
+        for q_dtype in (torch.float32, torch.bfloat16):
+            q = L["q"].to(q_dtype)
+            checks.compare("decode_cross_attention", f"B{B} H12 dk64 Te{Te} {tag} cache, {str(q_dtype)[6:]} q",
+                           da.fused_cross_attention(q, *args), da.cross_attention_reference(q, *args), F32_TOL)
+        time_decode_layers(checks, f"B{B} H12 dk64 Te{Te} {tag} cache", layers, library=kv_dtype == torch.bfloat16)
+        split = da.split_len(B, 12, Te, L["k2"].element_size(), torch.cuda.get_device_properties(0).multi_processor_count)
+        q = L["q"].bfloat16()
+        nodes = graph_nodes(lambda: da.fused_cross_attention(q, *args, out_dtype=torch.bfloat16))
+        splits[f"Te{Te} {tag}"] = {"split_keys": split, "splits": -(-Te // split), "graph_nodes": nodes}
+        log(f"  decode_cross_attention   B{B} Te{Te} {tag} cache: the wrapper splits the cache into {-(-Te // split)} "
+            f"of {split} keys; one call's graph: {nodes}")
+        del layers, L, args, q
+        torch.cuda.empty_cache()
+    return splits
+
+
+def eval_cli() -> dict:
+    """The port's eval entry point, in this process, at t5-base width
+    (configs/RAGVT5.yml, f32 weights as the CLI builds them) over 64 synthetic
+    documents with maxconf and the ingest statistics; 16 new tokens."""
+    from rag_docvqa_tpu_torch import eval as port_eval
+
+    t0 = time.perf_counter()
+    summary = port_eval.main(["-m", os.path.join(REPO, "configs/RAGVT5.yml"),
+                              "-d", os.path.join(REPO, "configs/Synthetic.yml"), "page_retrieval=maxconf",
+                              "compute_stats=true", "n_val_docs=64", "max_new_tokens=16"])
+    wall = time.perf_counter() - t0
+    keys = {"accuracy", "anls", "retrieval_precision", "chunk_score", "n_samples", "page_retrieval", "wall_time"}
+    if len(summary) != 1 or set(summary[0]) != keys or summary[0]["n_samples"] != 64 or \
+            summary[0]["page_retrieval"] != "maxconf" or not 0.0 <= summary[0]["retrieval_precision"] <= 1.0:
+        raise AssertionError(f"eval CLI summary: {summary}")
+    log(f"  eval CLI: {summary[0]} ({wall:.1f} s in all)")
+    return dict(summary[0], total_s=wall)
+
+
+def train_nac(g: torch.Generator, steps: int = 4):
+    """5b: t5-base VT5 train steps with the NAC term at phase 6d's shapes (B 8,
+    8 pages x 120 words, bf16 compute, f32 masters), its greedy decode of 16
+    tokens over an int8 cross cache through K3; on one repeated batch, the
+    losses finite and the NAC loss falling. Only the NAC trains here, on the
+    frozen generator (lr 2e-4, the yml's, after one warmup step: the last loss
+    comes after two updates): trained jointly, the generator's first updates
+    change its decoded answers, the NAC's inputs, and the NAC loss rose at
+    the fourth step at lr 2e-4 and 1e-3 alike. 6d trains the generator."""
+    from rag_docvqa_tpu_torch import kernels
+    from rag_docvqa_tpu_torch.data.contract import Caps, to_device
+    from rag_docvqa_tpu_torch.data.ingest import DocVQAIngestor
+    from rag_docvqa_tpu_torch.data.synthetic import make_corpus
+    from rag_docvqa_tpu_torch.data.tokenizer import HashTokenizer
+    from rag_docvqa_tpu_torch.engine.rag_vt5 import RAGConfig
+    from rag_docvqa_tpu_torch.models import t5 as t5m
+    from rag_docvqa_tpu_torch.models import vt5 as vt5m
+    from rag_docvqa_tpu_torch.models.nac import NACConfig, init_nac_params
+    from rag_docvqa_tpu_torch.ops.chunking import ChunkSpec
+    from rag_docvqa_tpu_torch.training.optimizer import build_optimizer, trainable_mask
+    from rag_docvqa_tpu_torch.training.train_step import TrainState, make_train_step
+
+    dev = g.device
+    ingestor = DocVQAIngestor(HashTokenizer(32128), ChunkSpec(chunk_size=60, overlap=10), Caps())
+    docs = make_corpus(8, n_pages=8, words_per_page=120, seed=SEED + 6)
+    ingestor.caps = ingestor.plan_caps(docs)
+    batch, aux = ingestor.ingest(docs)
+    batch = to_device(batch, dev)
+    labels = torch.from_numpy(ingestor.answer_labels(aux["answers"], max_len=32, seed=SEED)).to(dev)
+    nac_labels = torch.tensor([1.0, 0.0] * 4, device=dev)  # half of them marked not answerable
+    vt5_cfg = vt5m.VT5Config(t5=t5m.T5Config(decode_kv_int8=True, fused_decode_attn=True))
+    params = vt5m.init_vt5_params(g, vt5_cfg)  # f32 masters
+    params.nac = init_nac_params(g, NACConfig(emb_dim=768))
+    rag = RAGConfig(page_retrieval="concat", chunk_num=10, include_surroundings=0, max_source_length=512)
+    opt = build_optimizer(lr=2e-4, warmup_steps=1, total_steps=10 * steps,
+                          mask=trainable_mask(params, ("nac",)))
+    state = TrainState.create(params, opt)
+    step = make_train_step(vt5_cfg, rag, opt, bf16_compute=True, use_nac=True)
+    kernels.reset_launch_counts()
+    rows = []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch, labels, nac_labels)
+        torch.cuda.synchronize()
+        rows.append({k: m[k].item() for k in ("loss", "nac_loss", "nac_accuracy", "grad_norm", "grad_norm/nac")})
+        rows[-1]["wall_ms"] = (time.perf_counter() - t0) * 1e3
+        log(f"  step {i + 1}: loss {rows[-1]['loss']:.4f}, nac_loss {rows[-1]['nac_loss']:.4f}, nac_accuracy "
+            f"{rows[-1]['nac_accuracy']:.3f}, grad norm of the NAC {rows[-1]['grad_norm/nac']:.4f}, "
+            f"{rows[-1]['wall_ms']:.1f} ms")
+    launches = dict(kernels.LAUNCHES)
+    log(f"  launches in the {steps} NAC train steps: {launches}")
+    check_launched(launches, SERVE_KERNELS, "NAC training")  # the forward's K1 parts and K2, the decode's K3
+    if not all(math.isfinite(r["loss"]) and math.isfinite(r["nac_loss"]) for r in rows):
+        raise AssertionError("non-finite loss or NAC loss")
+    if not rows[-1]["nac_loss"] < rows[0]["nac_loss"]:
+        raise AssertionError(f"the NAC loss did not fall on the repeated batch: {[r['nac_loss'] for r in rows]}")
+    return launches, {"steps": rows, "ms": sum(r["wall_ms"] for r in rows[1:]) / (steps - 1),
+                      "case": "t5-base VT5 B8 T512 bf16 compute + NAC (16-token decode, int8 cache, K3)"}
 
 
 # --------------------------------------------------------------------------- #
@@ -3245,7 +3496,25 @@ def main() -> int:
                 log("phase 5: RAGVT5Engine.inference, concat, bf16 weights, int8 cross cache, decode kernel on")
                 launches = serve(g)
                 path_launches["serve"] = dict(launches)
+                torch.cuda.empty_cache()
+                # phase 5b draws from its own generator: the later phases' data stay as they were
+                g5 = torch.Generator(device="cuda").manual_seed(SEED + 5)
+                log(f"phase 5b: the ten strategies through RAGVT5Engine.inference, B {STRATEGY_B}, chunk_num "
+                    f"{STRATEGY_K}, bf16, int8 cross cache, decode kernel on; card and power limit: {card}")
+                strategy_launches, strategies = serve_strategies(g5)
+                path_launches.update({f"serve_{k}": v for k, v in strategy_launches.items()})
+                torch.cuda.empty_cache()
+                log("phase 5b: K1, K2 and K3 at the per-chunk and page-row shapes")
+                strategies["decode_splits"] = check_strategy_kernels(checks, g5)
+                torch.cuda.empty_cache()
+                log("phase 5b: the eval entry point, t5-base f32, 64 documents, maxconf, compute_stats")
+                strategies["eval_cli"] = eval_cli()
     torch.cuda.empty_cache()
+    if want("5"):
+        log("phase 5b: t5-base VT5 train steps with the NAC term, bf16 compute, f32 masters")
+        nac_launches, nac_summary = train_nac(g5)
+        path_launches["train_nac"] = nac_launches
+        torch.cuda.empty_cache()
     if want("6"):
         log("phase 6a: the flash backward (K6) against its plain version")
         check_flash_bwd(checks, g)
@@ -3349,6 +3618,9 @@ def main() -> int:
         "t5_ffn_bwd": {"max_abs_err": checks.err["t5_ffn_bwd"], **times("t5_ffn_bwd", "B8 T512 t5-base bf16")},
         "t5_attn_bwd": {"max_abs_err": checks.err["t5_attn_bwd"], **times("t5_attn_bwd", "B8 T512 t5-base bf16")},
         "t5_layer_train": {"max_abs_err": checks.err["t5_layer_train"]},
+        # phase 5b: the ten strategies' batches, the rows they encode, K3's splits at B 320, the eval CLI
+        "strategies": strategies,
+        "nac_train_step": nac_summary,
         "encoder_grad_max_rel_err": encoder_grad,
         "train_step": train_summary,
         "index": index_summary,

@@ -8,7 +8,11 @@ against. The hot ops are hand-written CUDA kernels for Hopper (sm_90a) in
 version beside its wrapper, which runs on CPU tensors.
 
 This package imports torch and never jax or flax. Ported so far: RAG-VT5
-serving with the `concat` and `oracle` strategies (engine/rag_vt5.py).
+serving with all ten page-retrieval strategies, the reranker, the
+not-answerable classifier and the visual branch (engine/rag_vt5.py), its
+training (training/, train.py), evaluation (eval.py) and contrastive
+fine-tune (train_cl.py), the corpus index (parallel/index.py, precompute.py)
+and RAG-Pix2Struct (engine/rag_pix2struct.py).
 """
 
 __version__ = "0.1.0"

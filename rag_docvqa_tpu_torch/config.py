@@ -5,16 +5,19 @@ Counterpart of the VT5 and Pix2Struct parts of `rag_docvqa_tpu/config.py`:
 `training_parameters` and the CLI overrides in that order, as there, and the
 `build_*` helpers map the flat dict onto `RAGConfig`, `VT5Config` (with the
 `use_visual` and `visual_*` keys of the DiT tower), `Pix2StructConfig`,
-`ChunkSpec` and `Caps`; `build_reranker` is the BERT branch of the JAX one,
+`ChunkSpec` and `Caps`; `expand_sweep` expands list-valued keys into the
+cross product of runs; `build_reranker` is the BERT branch of the JAX one,
 and `build_engine` the VT5 and Pix2Struct branches of the JAX model registry
-with its `rerank` key.
+with its `rerank` key and the not-answerable classifier
+(`use_not_answerable_classifier`, `not_answerable_threshold`).
 PyYAML is imported only by `load_yaml`, so the rest of the port runs where
 it is not installed.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import itertools
+from typing import Any, Dict, Iterator, Optional, Sequence
 
 from rag_docvqa_tpu_torch.ops.chunking import ChunkSpec
 from rag_docvqa_tpu_torch.data.contract import Caps
@@ -64,6 +67,19 @@ def check_config(config: Dict[str, Any]) -> None:
                          '"custom" are allowed.')
 
 
+def expand_sweep(config: Dict[str, Any], sweep_keys: Optional[Sequence[str]] = None) -> Iterator[Dict[str, Any]]:
+    """One config per combination of the list-valued keys (those in
+    `sweep_keys` when given), in `itertools.product` order."""
+    keys = [k for k, v in config.items() if isinstance(v, list) and (sweep_keys is None or k in sweep_keys)]
+    if not keys:
+        yield dict(config)
+        return
+    for combo in itertools.product(*(config[k] for k in keys)):
+        out = dict(config)
+        out.update(dict(zip(keys, combo)))
+        yield out
+
+
 def _scalar(v):
     if isinstance(v, (list, tuple)):
         return v[0] if v else 0
@@ -77,7 +93,9 @@ def build_rag_config(c: Dict[str, Any]) -> RAGConfig:
         include_surroundings=_scalar(c.get("include_surroundings", 0)),
         sep_token_id=c.get("sep_token_id", 0) if c.get("add_sep_token", False) else 0,
         max_source_length=c.get("max_source_length", 512),
+        per_chunk_seq_len=c.get("per_chunk_seq_len", 256),
         max_new_tokens=c.get("max_new_tokens", 100),
+        embed_backend=c.get("embed_model", "VT5"),
         use_visual=bool(c.get("use_visual", False)),
         reorder_chunks=bool(c.get("reorder_chunks", False)),
     )
@@ -194,7 +212,10 @@ def build_engine(c: Dict[str, Any], params, tokenizer):
     """The engine of a config: RAG-Pix2Struct for `model_name: Pix2Struct`
     (params a `P2SParams`), else RAG-VT5 (params a `VT5Params`), with the
     rerank stage when `rerank` is set (its weights on the parameters' device,
-    in their dtype)."""
+    in their dtype) and the not-answerable classifier when
+    `use_not_answerable_classifier` is: the parameters' own `nac`, else one
+    initialised from `seed` + 1 (on their device, in their dtype), at
+    `not_answerable_threshold`."""
     from rag_docvqa_tpu_torch.engine.rag_vt5 import RAGVT5Engine
 
     name = str(c.get("model_name", "VT5")).lower()
@@ -213,15 +234,23 @@ def build_engine(c: Dict[str, Any], params, tokenizer):
     if name not in ("vt5", "ragvt5", "rag-vt5"):
         raise NotImplementedError(f"engine {name!r}: the port has RAG-VT5 and RAG-Pix2Struct; Hi-VT5 waits in "
                                   "ROADMAP Queue 1 item 12, the causal-LM engines in item 15")
-    if c.get("use_not_answerable_classifier", False):
-        raise NotImplementedError("the not-answerable classifier waits for ROADMAP Queue 1 item 8")
-    reranker = None
+    shared = params.t5.shared
+    reranker = nac = None
     if c.get("rerank", False):
-        shared = params.t5.shared
         reranker = build_reranker(c, tokenizer, seed=c.get("seed", 0), device=shared.device)
         reranker.params.to(shared.dtype)
+    if c.get("use_not_answerable_classifier", False):
+        nac_params = params.nac
+        if nac_params is None:
+            import torch
+
+            from rag_docvqa_tpu_torch.models.nac import NACConfig, init_nac_params
+
+            g = torch.Generator(device=shared.device).manual_seed(c.get("seed", 0) + 1)
+            nac_params = init_nac_params(g, NACConfig(emb_dim=c.get("d_model", 768))).to(shared.dtype)
+        nac = (nac_params, float(c.get("not_answerable_threshold", 0.5)))
     return RAGVT5Engine(build_rag_config(c), build_vt5_config(c, tokenizer.vocab_size), params, tokenizer,
-                        reranker=reranker)
+                        reranker=reranker, nac=nac)
 
 
 def load_tokenizer(spec: Optional[str] = None) -> BaseTokenizer:

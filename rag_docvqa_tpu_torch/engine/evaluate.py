@@ -6,8 +6,11 @@ without jax: batches are ingested and copied to the engine's device on a
 background thread (`data/prefetch.py`) while the engine answers the
 previous one, and scored with this package's own copy of the `Evaluator`
 (`metrics/`, plain Python). MMLongBench-typed scoring runs when the documents carry an
-answer format, as there. The mesh (data-parallel) path and the ingest
-statistics wait for ROADMAP Queue 1 items 17 and 8.
+answer format, as there. With `compute_stats` the chunk distributions of
+every ingested batch (`utils_stats.collect_ingest_stats`, on the host copy
+before it goes to the device) are merged in batch order into
+"retrieval_stats" and "retrieval_stats_examples". The mesh (data-parallel)
+path waits for ROADMAP Queue 1 item 17.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from rag_docvqa_tpu_torch.metrics import Evaluator
 from rag_docvqa_tpu_torch.data.contract import RawDocument, to_device
 from rag_docvqa_tpu_torch.data.ingest import DocVQAIngestor
 from rag_docvqa_tpu_torch.data.prefetch import map_prefetch
+from rag_docvqa_tpu_torch.utils_stats import StatsCollector, collect_ingest_stats
 
 
 def evaluate(
@@ -33,9 +37,11 @@ def evaluate(
     batch_size: int = 8,
     save_path: Optional[str] = None,
     save_continuously: bool = False,
+    compute_stats: bool = False,
     prefetch_depth: int = 2,
 ) -> Dict[str, Any]:
     evaluator = evaluator or Evaluator()
+    stats = StatsCollector(compute_examples=True) if compute_stats else None
     mmlb = bool(docs) and bool(getattr(docs[0], "extra", {}).get("answer_format"))
     mmlb_samples: List[Dict[str, Any]] = []
     total_acc: List[float] = []
@@ -50,11 +56,14 @@ def evaluate(
         chunk = list(docs[start : start + batch_size])
         t0 = time.time()
         batch, aux = ingestor.ingest(chunk)
-        return chunk, to_device(batch, engine.device), aux, time.time() - t0
+        batch_stats = collect_ingest_stats(batch, aux) if compute_stats else None
+        return chunk, to_device(batch, engine.device), aux, time.time() - t0, batch_stats
 
-    for chunk, batch, aux, ingest_t in map_prefetch(_ingest_one, range(0, len(docs), batch_size),
-                                                    depth=prefetch_depth):
+    for chunk, batch, aux, ingest_t, batch_stats in map_prefetch(_ingest_one, range(0, len(docs), batch_size),
+                                                                 depth=prefetch_depth):
         load_time += ingest_t
+        if stats is not None:
+            stats.merge(batch_stats)
         t0 = time.time()
         out = engine.inference(batch, aux)
         step_total = time.time() - t0
@@ -111,6 +120,9 @@ def evaluate(
                       load_time, retrieval_time, generation_time)
     result["scores_by_samples"] = scores_by_samples
     result["pred_answers"] = all_answers
+    if stats is not None:
+        result["retrieval_stats"] = stats.summary()
+        result["retrieval_stats_examples"] = stats.stats_examples
     if mmlb:
         from rag_docvqa_tpu_torch.metrics.mmlongbench import eval_acc_and_f1, show_results
 

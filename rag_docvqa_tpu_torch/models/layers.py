@@ -1,6 +1,7 @@
 """Shared building blocks: norms, dense, init.
 
-Counterpart of `rag_docvqa_tpu/models/layers.py`. Dense weights use the
+Counterpart of `rag_docvqa_tpu/models/layers.py` (`rms_norm`, `layer_norm`,
+`dense`, `mlp_relu_stack`, `normal_init`). Dense weights use the
 `nn.Linear` layout (out, in); `params.from_jax` transposes the JAX (in, out)
 kernels into it.
 """
@@ -41,6 +42,18 @@ def dense(
     if bias is not None:
         y = y + bias.to(x.dtype)
     return y
+
+
+def mlp_relu_stack(layers, x: torch.Tensor) -> torch.Tensor:
+    """The reference's generic MLP: `dense` through each of `layers` (modules
+    with `weight` (out, in) and `bias`), ReLU between them, none after the
+    last."""
+    n = len(layers)
+    for i, layer in enumerate(layers):
+        x = dense(x, layer.weight, layer.bias)
+        if i < n - 1:
+            x = torch.relu(x)
+    return x
 
 
 def normal_init(generator: torch.Generator, shape, stddev: float) -> torch.Tensor:

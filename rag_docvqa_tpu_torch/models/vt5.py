@@ -64,12 +64,13 @@ class VT5Params(nn.Module):
     def __init__(self, t5: t5m.T5Params, spatial: SpatialEmbeddings,
                  layout_emb: Optional[torch.Tensor] = None,
                  layout_scale: Optional[torch.Tensor] = None,
-                 visual: Optional[VisualParams] = None):
+                 visual: Optional[VisualParams] = None, nac: Optional[nn.Module] = None):
         super().__init__()
         self.t5, self.spatial = t5, spatial
         self.layout_emb = None if layout_emb is None else frozen(layout_emb)
         self.layout_scale = None if layout_scale is None else frozen(layout_scale)
         self.visual = visual
+        self.nac = nac  # models/nac.py NACParams, when the model carries the not-answerable classifier
 
 
 def init_vt5_params(generator: torch.Generator, cfg: VT5Config) -> VT5Params:

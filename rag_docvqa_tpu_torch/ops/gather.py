@@ -1,9 +1,12 @@
 """Assembly of generator inputs from retrieval output, on the device.
 
-Counterpart of `rag_docvqa_tpu/ops/gather.py` for the concat strategy:
-`compute_ownership`, `group_boxes`, `_ordered_slots`, `_flatten_tokens`,
-`_flatten_tokens_src` and `assemble_concat`. The per-chunk and per-page assemblies wait for the
-slice of the other strategies.
+Counterpart of `rag_docvqa_tpu/ops/gather.py`: `compute_ownership`,
+`group_boxes`, `_ordered_slots`, `_flatten_tokens`, `_flatten_tokens_src`,
+`assemble_concat` (concat, oracle), `assemble_per_chunk` (one row per
+retrieved chunk: maxconf, anyconf, anyconforacle) and `assemble_page_rows`
+(whole-page rows from the raw words: maxconfpage, anyconfpage, majorpage,
+weightmajorpage). The per-chunk and page rows reuse one sample's payload for
+its K rows inside `_flatten_tokens_src`; no (B, K, W, TW) tensor is made.
 
 Semantics ("slot" = word occurrence, see data/contract.py):
 
@@ -23,6 +26,7 @@ more are masked out first; and the slot argsort is asked to be stable.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Tuple
 
@@ -220,3 +224,60 @@ def assemble_concat(
         batch.prompt_tokens, batch.prompt_len, cfg,
     )
     return gen, owner
+
+
+def _prompt_rows(batch: ChunkedBatch, K: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each sample's prompt and its length, repeated for its K rows."""
+    return batch.prompt_tokens.repeat_interleave(K, dim=0), batch.prompt_len.repeat_interleave(K, dim=0)
+
+
+def assemble_per_chunk(
+    batch: ChunkedBatch,
+    top_k_idx: torch.Tensor,  # (B, K)
+    top_k_valid: torch.Tensor,  # (B, K)
+    cfg: AssembleConfig,
+    seq_len: int = 256,
+) -> Tuple[GeneratorInputs, torch.Tensor, torch.Tensor]:
+    """Per-chunk strategies: one generator row of `seq_len` per (sample,
+    rank), row b * K + r holding the slots rank r owns, in page order.
+    Returns (inputs with B * K rows, owner, row_valid (B, K)); a rank that
+    owns no slot is invalid."""
+    B, K = top_k_idx.shape
+    W = batch.slot_mask.shape[1]
+    dev = top_k_idx.device
+    owner = compute_ownership(batch, top_k_idx, top_k_valid, cfg.include_surroundings)
+    onehot = owner[:, None, :] == torch.arange(K, device=dev)[None, :, None]  # (B, K, W)
+    g = torch.arange(W, device=dev)[None, None, :]
+    order = torch.argsort(torch.where(onehot, g, W), dim=2, stable=True)  # the rank's slots first, in page order
+    n_sel = onehot.sum(dim=2)  # (B, K)
+    # only the (B, K, W) ntok are put in order; the payloads stay (B, W, ...)
+    sel_ntok = torch.gather(batch.slot_ntok[:, None, :].expand(B, K, W), 2, order)
+    sel_ntok = torch.where(g < n_sel[:, :, None], sel_ntok, 0)
+    prompt, plen = _prompt_rows(batch, K)
+    gen = _flatten_tokens_src(order.reshape(B * K, W), sel_ntok.reshape(B * K, W), batch.slot_tokens,
+                              (batch.slot_box * 1000).to(torch.int64), batch.slot_label, prompt, plen,
+                              dataclasses.replace(cfg, max_source_length=seq_len, sep_token_id=0))
+    return gen, owner, (n_sel > 0) & top_k_valid
+
+
+def assemble_page_rows(
+    batch: ChunkedBatch,
+    pages: torch.Tensor,  # (B, K) page index of each output row
+    row_valid: torch.Tensor,  # (B, K)
+    cfg: AssembleConfig,
+) -> GeneratorInputs:
+    """Whole-page generator rows from the raw words, in their page order (no
+    chunk duplication): row b * K + r holds page pages[b, r] of sample b, or
+    the prompt alone where row_valid is False. K is 1 (majorpage) or the
+    top-k (maxconfpage, anyconfpage)."""
+    B, K = pages.shape
+    R = batch.raw_mask.shape[1]
+    lo = _take(batch.page_raw_start, pages)
+    hi = _take(batch.page_raw_end, pages)
+    g = torch.arange(R, device=pages.device)[None, None, :]
+    in_win = (g >= lo[:, :, None]) & (g < hi[:, :, None]) & row_valid[:, :, None]  # (B, K, R)
+    ntok = torch.where(in_win, batch.raw_ntok[:, None, :], 0)
+    prompt, plen = _prompt_rows(batch, K)
+    identity = torch.arange(R, device=pages.device)[None, :].expand(B * K, R)
+    return _flatten_tokens_src(identity, ntok.reshape(B * K, R), batch.raw_tokens,
+                               (batch.raw_box * 1000).to(torch.int64), batch.raw_label, prompt, plen, cfg)

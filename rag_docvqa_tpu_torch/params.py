@@ -6,8 +6,10 @@ axis, here they are one module per layer; the rel-pos tables are
 (buckets, H) in both. `from_jax` takes a tree of numpy arrays (or anything
 `np.asarray` reads) as `init_vt5_params` or `init_t5_params` build it;
 `to_jax` gives back the part of that tree the port holds (the `visual`
-subtree, ViT and matcher, included; not the LayoutT5 head, which is not
-ported yet). `vit_from_jax` / `vit_to_jax` convert a ViT / BEiT tree
+subtree, ViT and matcher, and the `nac` subtree, the not-answerable
+classifier's `mlp` list of {"kernel", "bias"}, included; not the LayoutT5
+head, which is not ported yet). `nac_from_jax` / `nac_to_jax` convert the
+`nac` subtree alone. `vit_from_jax` / `vit_to_jax` convert a ViT / BEiT tree
 (`init_vit_params` or `convert_vit_state_dict`), `p2s_from_jax` /
 `p2s_to_jax` a Pix2Struct tree (`init_p2s_params` or
 `convert_p2s_state_dict`): the stacked vision tower and the decoder-only T5.
@@ -26,6 +28,7 @@ import torch
 
 from rag_docvqa_tpu_torch.models.bert import BertLayer, BertParams
 from rag_docvqa_tpu_torch.models.embeddings import SpatialEmbeddings
+from rag_docvqa_tpu_torch.models.nac import NACLayer, NACParams
 from rag_docvqa_tpu_torch.models.pix2struct import P2SParams, P2SVision
 from rag_docvqa_tpu_torch.models.t5 import (
     T5Attention,
@@ -108,7 +111,13 @@ def from_jax(tree: Tree, device="cpu") -> Union[VT5Params, T5Params]:
         m = tree["visual"]["matcher"]
         visual = VisualParams(vit_from_jax(tree["visual"]["vit"], device), _dense(m["kernel"], device),
                               _t(m["bias"], device))
-    return VT5Params(t5_from_jax(tree["t5"], device), spatial, layout_emb, layout_scale, visual=visual)
+    nac = nac_from_jax(tree["nac"], device) if "nac" in tree else None
+    return VT5Params(t5_from_jax(tree["t5"], device), spatial, layout_emb, layout_scale, visual=visual, nac=nac)
+
+
+def nac_from_jax(tree: Tree, device="cpu") -> NACParams:
+    """A JAX NAC tree ({"mlp": [{"kernel", "bias"}, ...]}) -> NACParams."""
+    return NACParams([NACLayer(_dense(l["kernel"], device), _t(l["bias"], device)) for l in tree["mlp"]])
 
 
 # --------------------------------------------------------------------------- #
@@ -178,7 +187,13 @@ def to_jax(p: Union[VT5Params, T5Params]) -> Tree:
     if p.visual is not None:
         tree["visual"] = {"vit": vit_to_jax(p.visual.vit),
                           "matcher": {"kernel": _np(p.visual.matcher_w).T, "bias": _np(p.visual.matcher_b)}}
+    if p.nac is not None:
+        tree["nac"] = nac_to_jax(p.nac)
     return tree
+
+
+def nac_to_jax(p: NACParams) -> Tree:
+    return {"mlp": [{"kernel": _np(l.weight).T, "bias": _np(l.bias)} for l in p.mlp]}
 
 
 # --------------------------------------------------------------------------- #

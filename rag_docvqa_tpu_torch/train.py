@@ -63,6 +63,25 @@ def resolve_device(name: str):
     return torch.device(name)
 
 
+def init_params(config, vt5_cfg, device, ckpt=None):
+    """VT5 weights: random from the config's seed, with the not-answerable
+    classifier (from seed + 1) when the config uses one; the latest step of
+    a checkpoint directory this trainer wrote overlays them."""
+    import torch
+
+    from rag_docvqa_tpu_torch.models import vt5 as vt5m
+    from rag_docvqa_tpu_torch.models.nac import NACConfig, init_nac_params
+    from rag_docvqa_tpu_torch.training.checkpoint import CheckpointManager
+
+    params = vt5m.init_vt5_params(torch.Generator(device=device).manual_seed(config["seed"]), vt5_cfg)
+    if config.get("use_not_answerable_classifier", False):
+        params.nac = init_nac_params(torch.Generator(device=device).manual_seed(config["seed"] + 1),
+                                     NACConfig(emb_dim=vt5_cfg.t5.d_model))
+    if ckpt:
+        CheckpointManager(ckpt).restore_params(params)
+    return params
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description="rag_docvqa_tpu_torch training")
     parser.add_argument("-m", "--model", required=True, help="model config yml")
@@ -74,13 +93,9 @@ def main(argv=None):
     parser.add_argument("overrides", nargs="*", help="key=value config overrides")
     args = parser.parse_args(argv)
 
-    import torch
-
     from rag_docvqa_tpu_torch.config import (build_caps, build_chunk_spec, build_rag_config, build_vt5_config,
                                              load_config, load_tokenizer)
     from rag_docvqa_tpu_torch.data.ingest import DocVQAIngestor
-    from rag_docvqa_tpu_torch.models import vt5 as vt5m
-    from rag_docvqa_tpu_torch.training.checkpoint import CheckpointManager
     from rag_docvqa_tpu_torch.training.logger import RunLogger
     from rag_docvqa_tpu_torch.training.trainer import TrainLoopConfig, Trainer
 
@@ -95,9 +110,7 @@ def main(argv=None):
     ingestor = DocVQAIngestor(tokenizer, build_chunk_spec(config), build_caps(config))
     rag_cfg = build_rag_config(config)
     vt5_cfg = build_vt5_config(config, tokenizer.vocab_size)
-    params = vt5m.init_vt5_params(torch.Generator(device=device).manual_seed(config["seed"]), vt5_cfg)
-    if args.ckpt:
-        CheckpointManager(args.ckpt).restore_params(params)
+    params = init_params(config, vt5_cfg, device, args.ckpt)
     loop_cfg = TrainLoopConfig(
         epochs=config.get("train_epochs", 10),
         batch_size=config.get("batch_size", 8),
@@ -111,6 +124,8 @@ def main(argv=None):
         remat=config.get("remat", False),
         use_nac=bool(config.get("use_not_answerable_classifier", False)
                      and config.get("train_not_answerable_classifier", True)),
+        nac_loss_weight=float(config.get("nac_loss_weight", 1.0)),
+        nac_threshold=float(config.get("not_answerable_threshold", 0.5)),
     )
     logger = RunLogger(name=config.get("experiment_name"), config=config, use_wandb=config.get("use_wandb", False),
                        log_dir=config.get("save_dir"))

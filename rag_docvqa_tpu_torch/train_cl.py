@@ -1,9 +1,15 @@
 """Contrastive retriever fine-tuning CLI of the PyTorch port.
 
+    python -m rag_docvqa_tpu_torch.train_cl mine -m configs/VT5_tiny.yml -d configs/Synthetic.yml \
+        --pairs pairs.jsonl [--split train] [--anls-threshold 0.8] [k=v ...] [--device cuda|cpu]
     python -m rag_docvqa_tpu_torch.train_cl train -m configs/VT5_tiny.yml --pairs pairs.jsonl \
         [--out DIR] [--loss mnrl|clip] [k=v ...] [--device cuda|cpu]
 
-The `train` command of the root `train_cl.py`: fine-tunes the VT5
+The two commands of the root `train_cl.py`. `mine` runs the `anyconf`
+strategy (one answer per retrieved chunk) over the synthetic corpus's split
+and writes the (question, chunk text) pairs whose chunk's own answer scores
+ANLS above the threshold as JSONL lines {"anchor", "positive"}, then prints
+one JSON line with the counts. `train` fine-tunes the VT5
 shared-table embedder on the (anchor, positive) pairs of a JSONL file with
 MultipleNegativesRankingLoss (in-batch InfoNCE at scale 20) or the symmetric
 CLIP-style loss, prints one JSON line with the first and last epoch loss, and
@@ -12,8 +18,6 @@ with --out saves the tuned table with the port's `CheckpointManager` (one
 `--device` takes the place of `--platform`; the default is cuda, and without
 a CUDA device the CLI raises unless `--device cpu` is given.
 
-The `mine` command needs one answer per retrieved chunk, the `anyconf`
-strategy, which the port's engine does not have yet: it raises.
 """
 
 from __future__ import annotations
@@ -45,10 +49,6 @@ def main(argv=None):
         p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     args = parser.parse_args(argv)
 
-    if args.cmd == "mine":
-        raise NotImplementedError("mining positives needs the anyconf strategy of the engine "
-                                  "(ROADMAP Queue 1 item 8)")
-
     import torch
     from torch import nn
 
@@ -62,10 +62,31 @@ def main(argv=None):
     from rag_docvqa_tpu_torch.training.train_step import TrainState
 
     device = resolve_device(args.device)
-    config = load_config(model=args.model, overrides=parse_overrides(args.overrides))
+    config = load_config(model=args.model, dataset=getattr(args, "dataset", None),
+                         overrides=parse_overrides(args.overrides))
     tokenizer = load_tokenizer(config.get("tokenizer"))
     vt5_cfg = build_vt5_config(config, tokenizer.vocab_size)
     params = vt5m.init_vt5_params(torch.Generator(device=device).manual_seed(config["seed"]), vt5_cfg)
+
+    if args.cmd == "mine":
+        import dataclasses
+
+        from rag_docvqa_tpu_torch.config import build_caps, build_chunk_spec, build_rag_config
+        from rag_docvqa_tpu_torch.data.ingest import DocVQAIngestor
+        from rag_docvqa_tpu_torch.engine.rag_vt5 import RAGVT5Engine
+        from rag_docvqa_tpu_torch.train import build_docs
+        from rag_docvqa_tpu_torch.training.contrastive import mine_positive_pairs, save_pairs
+
+        # anyconf answers once per retrieved chunk: the mining signal
+        rag_cfg = dataclasses.replace(build_rag_config(config), page_retrieval="anyconf")
+        engine = RAGVT5Engine(rag_cfg, vt5_cfg, params, tokenizer)
+        ingestor = DocVQAIngestor(tokenizer, build_chunk_spec(config), build_caps(config))
+        docs = build_docs(config, args.split)
+        pairs = mine_positive_pairs(engine, docs, ingestor, anls_threshold=args.anls_threshold,
+                                    batch_size=config.get("batch_size", 8))
+        save_pairs(args.pairs, pairs)
+        print(json.dumps({"n_pairs": len(pairs), "n_docs": len(docs), "out": args.pairs}))
+        return pairs
 
     pairs = load_pairs(args.pairs)
     cl_cfg = ContrastiveConfig(

@@ -5,8 +5,8 @@ Counterpart of `rag_docvqa_tpu/training/contrastive.py`:
   * Positive mining (`mine_positive_pairs`): run per-chunk inference, keep
     retrieved chunks whose own answer reaches ANLS > 0.8 as (question, chunk)
     pairs; pairs persist as JSONL (`save_pairs`, `load_pairs`). It takes any
-    engine whose result carries one answer per retrieved chunk (the `anyconf`
-    strategy, ROADMAP Queue 1 item 8).
+    engine whose result carries one answer per retrieved chunk (the
+    `anyconf` strategy; `python -m rag_docvqa_tpu_torch.train_cl mine`).
   * Losses: `multiple_negatives_ranking_loss`, in-batch InfoNCE over cosine
     similarities at scale 20, and `clip_style_loss`, the symmetric variant at
     temperature 0.07.

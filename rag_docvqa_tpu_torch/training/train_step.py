@@ -5,8 +5,13 @@ Counterpart of `rag_docvqa_tpu/training/train_step.py` (`TrainState`,
 `make_train_step`) on one device. Retrieval and assembly run without
 gradient, as the JAX step stops the gradient at the retrieval table; the
 encoder's backward is the hand-written K7/K8 pair (`models/t5.py::encode`
-with train=True). The NAC term, remat and the Hi-VT5 step are not ported
-yet and raise.
+with train=True). With `use_nac` the step adds the not-answerable
+classifier's weighted BCE: a greedy decode of `nac_decode_len` tokens
+through the frozen parameters (no gradient; K3 on the card where
+`fused_decode_attn` is set) gives the predicted answers, and the NAC sees
+their embeddings beside the generator input's, so that only the NAC MLP
+receives this term's gradient. Remat and the Hi-VT5 step are not ported yet
+and raise.
 
 bf16_compute is the JAX mixed precision: f32 master weights, and inside
 the loss a bf16 copy of every floating parameter made by a differentiable
@@ -25,6 +30,8 @@ from torch import nn
 from rag_docvqa_tpu_torch.data.contract import ChunkedBatch, to_device
 from rag_docvqa_tpu_torch.engine.rag_vt5 import RAGConfig, retrieve
 from rag_docvqa_tpu_torch.models import vt5 as vt5m
+from rag_docvqa_tpu_torch.models.embeddings import spatial_embed
+from rag_docvqa_tpu_torch.models.nac import nac_bce_loss, nac_prob
 from rag_docvqa_tpu_torch.ops.gather import assemble_concat
 from rag_docvqa_tpu_torch.training.optimizer import Optimizer, global_norm
 
@@ -51,22 +58,27 @@ def cast_params(module: nn.Module, dtype: torch.dtype) -> nn.Module:
 
 
 def make_train_step(vt5_cfg: vt5m.VT5Config, rag_cfg: RAGConfig, opt: Optimizer, bf16_compute: bool = False,
-                    use_nac: bool = False, remat=False) -> Callable[..., Tuple[TrainState, Dict[str, torch.Tensor]]]:
-    """Returns step(state, batch, labels, mark=None) -> (state, metrics).
+                    use_nac: bool = False, nac_loss_weight: float = 1.0, nac_pos_weight: float = 1.0,
+                    nac_decode_len: int = 16, remat=False
+                    ) -> Callable[..., Tuple[TrainState, Dict[str, torch.Tensor]]]:
+    """Returns step(state, batch, labels, nac_labels=None, mark=None) ->
+    (state, metrics).
 
     batch is a `ChunkedBatch` (numpy, or tensors on the parameters'
-    device); labels (B, Td) int with -100 padding. metrics: "loss",
-    "grad_norm" (all trainable gradients) and "grad_norm/<root>" for each
-    trainable root, 0-d tensors. `mark(name)`, when given, is called after
-    "forward", "backward" and "update", for timing."""
-    if use_nac:
-        raise NotImplementedError("the NAC loss term waits for ROADMAP Queue 1 item 8")
+    device); labels (B, Td) int with -100 padding; with `use_nac`,
+    nac_labels (B,) float, 1 for a not-answerable sample, and the
+    parameters carry `nac`. metrics: "loss", "grad_norm" (all trainable
+    gradients) and "grad_norm/<root>" for each trainable root, with
+    `use_nac` "nac_loss" and "nac_accuracy" too, 0-d tensors. `mark(name)`,
+    when given, is called after "forward", "backward" and "update", for
+    timing."""
     if remat:
         raise NotImplementedError("remat waits in ROADMAP Queue 1 item 11")
     acfg = rag_cfg.assemble()
     oracle = rag_cfg.page_retrieval == "oracle"
 
-    def step(state: TrainState, batch: ChunkedBatch, labels, mark: Optional[Callable[[str], None]] = None):
+    def step(state: TrainState, batch: ChunkedBatch, labels, nac_labels=None,
+             mark: Optional[Callable[[str], None]] = None):
         mark = mark or (lambda name: None)
         params = state.params
         dev = params.t5.shared.device
@@ -79,10 +91,24 @@ def make_train_step(vt5_cfg: vt5m.VT5Config, rag_cfg: RAGConfig, opt: Optimizer,
             ret = retrieve(p.t5.shared, batch, k=rag_cfg.chunk_num, oracle=oracle)
             gen, _ = assemble_concat(batch, ret.top_k_idx, ret.top_k_valid, acfg)
         loss, _ = vt5m.forward_train(p, vt5_cfg, gen, labels)
+        aux = {}
+        if use_nac:
+            t5c = vt5_cfg.t5
+            with torch.no_grad():
+                tokens, _ = vt5m.generate(p, vt5_cfg, gen, max_new_tokens=nac_decode_len)
+                shared = p.t5.shared
+                input_emb = shared[gen.input_ids] + spatial_embed(p.spatial, vt5_cfg.spatial, gen.input_boxes)
+                ans_emb, ans_mask = shared[tokens], (tokens != t5c.pad_id) & (tokens != t5c.eos_id)
+            probs = nac_prob(p.nac, input_emb, ans_emb, input_mask=gen.attention_mask, answer_mask=ans_mask)
+            nac_labels = torch.as_tensor(nac_labels, device=dev).float()
+            aux["nac_loss"] = nac_bce_loss(probs, nac_labels, pos_weight=nac_pos_weight)
+            loss = loss + nac_loss_weight * aux["nac_loss"]
+            aux["nac_accuracy"] = ((probs > 0.5) == (nac_labels > 0.5)).float().mean()
         mark("forward")
         grads = dict(zip(trainable, torch.autograd.grad(loss, list(trainable.values()))))
         mark("backward")
-        metrics = {"loss": loss.detach(), "grad_norm": global_norm(list(grads.values()))}
+        metrics = {"loss": loss.detach(), "grad_norm": global_norm(list(grads.values())),
+                   **{k: v.detach() for k, v in aux.items()}}
         for root in dict.fromkeys(n.split(".")[0] for n in grads):
             metrics[f"grad_norm/{root}"] = global_norm([g for n, g in grads.items() if n.split(".")[0] == root])
         opt.update(trainable, grads, state.opt_state)

@@ -6,9 +6,12 @@ Counterpart of `rag_docvqa_tpu/training/trainer.py` (`TrainLoopConfig`,
 background thread, the train step (loss, clip, AdamW, linear schedule),
 logging every `log_every` steps, then evaluation and the best-checkpoint
 bookkeeping. bf16 compute defaults to on for a CUDA device and off for
-the CPU, as the JAX default does for a TPU and the CPU. NAC, remat and
-Hi-VT5 training are not ported yet and raise (ROADMAP Queue 1 items 8, 11
-and 12).
+the CPU, as the JAX default does for a TPU and the CPU. With `use_nac` the
+step adds the not-answerable classifier's BCE (its labels: the batch's
+"not-answerable" answer types), "nac" trains beside the configured roots
+(initialised from `seed` + 1 where the parameters carry none), and the
+evaluation engine blanks answers at `nac_threshold`. Remat and Hi-VT5
+training are not ported yet and raise (ROADMAP Queue 1 items 11 and 12).
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from rag_docvqa_tpu_torch.data.prefetch import map_prefetch
 from rag_docvqa_tpu_torch.engine.evaluate import evaluate
 from rag_docvqa_tpu_torch.engine.rag_vt5 import RAGConfig, RAGVT5Engine
 from rag_docvqa_tpu_torch.models import vt5 as vt5m
+from rag_docvqa_tpu_torch.models.nac import NACConfig, init_nac_params
 from rag_docvqa_tpu_torch.training.checkpoint import CheckpointManager
 from rag_docvqa_tpu_torch.training.optimizer import build_optimizer, trainable_mask
 from rag_docvqa_tpu_torch.training.train_step import TrainState, make_train_step
@@ -49,7 +53,10 @@ class TrainLoopConfig:
     seed: int = 42
     log_every: int = 10
     train_metrics_every: int = 0  # train-batch accuracy/ANLS every N batches (0 = off)
-    use_nac: bool = False  # not ported: raises
+    use_nac: bool = False  # the not-answerable classifier's BCE term
+    nac_loss_weight: float = 1.0
+    nac_pos_weight: float = 1.0
+    nac_threshold: float = 0.5  # the evaluation engine's blanking threshold
     remat: Any = False  # not ported: raises
     bf16_compute: Optional[bool] = None  # None: on for CUDA, off for the CPU
     prefetch_depth: int = 2
@@ -81,16 +88,25 @@ class Trainer:
         if self.opt is not None:
             return
         c = self.cfg
+        trainable = tuple(c.trainable)
+        if c.use_nac:
+            if self.params.nac is None:
+                g = torch.Generator(device=self.device).manual_seed(c.seed + 1)
+                self.params.nac = init_nac_params(g, NACConfig(emb_dim=self.vt5_cfg.t5.d_model))
+            if "nac" not in trainable:
+                trainable = trainable + ("nac",)
         self.opt = build_optimizer(lr=c.lr, warmup_steps=c.warmup_steps,
                                    total_steps=max(total_steps, c.warmup_steps + 1), clip_norm=c.clip_norm,
-                                   weight_decay=c.weight_decay, mask=trainable_mask(self.params, tuple(c.trainable)))
+                                   weight_decay=c.weight_decay, mask=trainable_mask(self.params, trainable))
         self.state = TrainState.create(self.params, self.opt)
         bf16 = c.bf16_compute if c.bf16_compute is not None else self.device.type == "cuda"
         self.step_fn = make_train_step(self.vt5_cfg, self.rag_cfg, self.opt, bf16_compute=bf16,
-                                       use_nac=c.use_nac, remat=c.remat)
+                                       use_nac=c.use_nac, nac_loss_weight=c.nac_loss_weight,
+                                       nac_pos_weight=c.nac_pos_weight, remat=c.remat)
 
     def engine(self) -> RAGVT5Engine:
-        return RAGVT5Engine(self.rag_cfg, self.vt5_cfg, self.params, self.tokenizer)
+        nac = (self.params.nac, self.cfg.nac_threshold) if self.cfg.use_nac and self.params.nac is not None else None
+        return RAGVT5Engine(self.rag_cfg, self.vt5_cfg, self.params, self.tokenizer, nac=nac)
 
     def _evaluate(self, docs: Sequence[RawDocument]) -> Dict[str, Any]:
         return evaluate(self.engine(), docs, self.ingestor, self.evaluator, batch_size=self.cfg.eval_batch_size,
@@ -129,11 +145,17 @@ class Trainer:
                 if item is None:
                     continue
                 docs, batch, labels, aux = item
-                self.state, metrics = self.step_fn(self.state, batch, labels)
+                nac_labels = None
+                if cfg.use_nac:  # the not-answerable ground truth
+                    nac_labels = torch.tensor([t == "not-answerable" for t in aux["answer_types"]],
+                                              dtype=torch.float32, device=self.device)
+                self.state, metrics = self.step_fn(self.state, batch, labels, nac_labels)
                 losses.append(float(metrics["loss"]))
                 if len(losses) % cfg.log_every == 0:
-                    self._log({"epoch": epoch, "step": self.state.step, "loss": losses[-1],
-                               "grad_norm": float(metrics["grad_norm"])})
+                    logd = {"epoch": epoch, "step": self.state.step, "loss": losses[-1],
+                            "grad_norm": float(metrics["grad_norm"])}
+                    logd.update({k: float(metrics[k]) for k in ("nac_loss", "nac_accuracy") if k in metrics})
+                    self._log(logd)
                 if cfg.train_metrics_every and len(losses) % cfg.train_metrics_every == 0:
                     out = self.engine().inference(batch, aux)
                     m = self.evaluator.get_metrics(aux["answers"], out["pred_answers"], aux.get("answer_types"))

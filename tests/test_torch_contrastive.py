@@ -238,11 +238,54 @@ def test_train_cl_cli_runs_without_jax(tmp_path):
     assert blob["step"] == 3 and blob["params"]["shared"].shape == (32128, 32)
 
 
-def test_train_cl_cli_refuses_what_is_not_ported(monkeypatch):
+def test_train_cl_cli_refuses_what_is_not_ported(monkeypatch, tmp_path, capsys):
+    """`mine` runs on the CPU when asked for it (it needs the anyconf
+    strategy, which the engine has), and `train` without a card raises."""
     from rag_docvqa_tpu_torch import train_cl
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        train_cl.main(["mine", "-m", "configs/VT5_tiny.yml", "-d", "configs/Synthetic.yml", "--pairs", "x.jsonl"])
+    out = tmp_path / "pairs.jsonl"
+    pairs = train_cl.main(["mine", "-m", "configs/VT5_tiny.yml", "-d", "configs/Synthetic.yml", "--pairs", str(out),
+                           "--anls-threshold", "-1", "n_train_docs=4", "--device", "cpu"])
+    assert pairs and p_cl.load_pairs(str(out)) == [tuple(p) for p in pairs]
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert res == {"n_pairs": len(pairs), "n_docs": 4, "out": str(out)}
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):
+        train_cl.main(["mine", "-m", "configs/VT5_tiny.yml", "-d", "configs/Synthetic.yml", "--pairs", str(out)])
+    with pytest.raises(RuntimeError, match="--device cpu"):
         train_cl.main(["train", "-m", "configs/VT5_tiny.yml", "--pairs", "x.jsonl"])
+
+
+@pytest.mark.parametrize("threshold", ["0.8", "-1"])
+def test_train_cl_mine_matches_jax(threshold, tmp_path, monkeypatch):
+    """`train_cl mine` against the root `train_cl.py mine --platform cpu` on
+    the same weights (the root CLI's own seeded init, with a bf16-exact
+    encoder rel-pos table, carried over by `params.from_jax`): the same pairs
+    in the same order and the same file. At threshold -1 every valid chunk of
+    every anyconf row is a pair, so the retrieval, the per-chunk assembly and
+    the texts are compared; at 0.8 the answers of random weights score
+    below it on both sides."""
+    import train_cl as root_train_cl
+    from rag_docvqa_tpu.models import vt5 as j_vt5
+    from rag_docvqa_tpu_torch import train_cl
+    from rag_docvqa_tpu_torch.models import vt5 as p_vt5
+
+    trees = []
+    j_init = j_vt5.init_vt5_params
+
+    def rounded(key, cfg):
+        tree = jax.tree.map(np.asarray, j_init(key, cfg))
+        rb = tree["t5"]["encoder"]["rel_bias"]
+        tree["t5"]["encoder"]["rel_bias"] = np.asarray(torch.from_numpy(np.array(rb)).bfloat16().float())
+        trees.append(tree)
+        return jax.tree.map(jnp.asarray, tree)
+
+    monkeypatch.setattr(j_vt5, "init_vt5_params", rounded)
+    monkeypatch.setattr(p_vt5, "init_vt5_params", lambda g, cfg: p_params.from_jax(trees[0]))
+    common = ["mine", "-m", "configs/VT5_tiny.yml", "-d", "configs/Synthetic.yml", "--anls-threshold", threshold,
+              "n_train_docs=6"]
+    want = root_train_cl.main(common + ["--pairs", str(tmp_path / "jax.jsonl"), "--platform", "cpu"])
+    got = train_cl.main(common + ["--pairs", str(tmp_path / "port.jsonl"), "--device", "cpu"])
+    assert [tuple(p) for p in got] == [tuple(p) for p in want]
+    assert (tmp_path / "port.jsonl").read_text() == (tmp_path / "jax.jsonl").read_text()
+    assert (len(got) > 6) if threshold == "-1" else (got == [])

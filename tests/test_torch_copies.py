@@ -2,8 +2,9 @@
 originals in the JAX package so they cannot drift unnoticed: the chunker
 (`ops/chunking.py`) on seeded pages, the metrics (`metrics/`) on a few
 strings, `convert_bert_state_dict` (numpy only, but in a module of the
-JAX package that imports jax) on seeded state dicts, and the image patch
-math (`ops/patches.py`) on seeded page images. Everything here is integer,
+JAX package that imports jax) on seeded state dicts, the image patch
+math (`ops/patches.py`) on seeded page images, and the ingest statistics
+(`utils_stats.py`) on a seeded batch. Everything here is integer,
 string, copying or identical numpy work on the host: equal exactly."""
 
 import dataclasses
@@ -241,3 +242,30 @@ def test_render_text_fallback_without_pil(monkeypatch):
     got, want = p_patches.render_text("what is item 3?"), j_patches.render_text("what is item 3?")
     _same(got, want)
     assert got.shape == (16, 16, 3) and got[4, 0, 0] == ord("w")
+
+
+def test_utils_stats_copy_matches_original():
+    """`utils_stats.py`: the same source below its docstring, and the same
+    distributions and examples of a seeded ingested batch and top-k."""
+    import inspect
+
+    from rag_docvqa_tpu import utils_stats as j_stats
+    from rag_docvqa_tpu.data import DocVQAIngestor as JIngestor
+    from rag_docvqa_tpu.data import HashTokenizer as JHashTokenizer
+    from rag_docvqa_tpu.data.contract import RetrievalResult as JRetrievalResult
+    from rag_docvqa_tpu.data.synthetic import make_corpus
+    from rag_docvqa_tpu_torch import utils_stats as p_stats
+
+    body = lambda m: inspect.getsource(m).split("from __future__ import annotations", 1)[1]
+    assert body(p_stats) == body(j_stats)
+    batch, aux = JIngestor(JHashTokenizer(4096), j_chunking.ChunkSpec(chunk_size=12, overlap=2)).ingest(
+        make_corpus(4, n_pages=3, words_per_page=40, seed=2))
+    got, want = p_stats.collect_ingest_stats(batch, aux), j_stats.collect_ingest_stats(batch, aux)
+    assert got.summary() == want.summary() and got.stats_examples == want.stats_examples
+    rng = np.random.RandomState(0)
+    labels, valid = rng.randint(0, 6, (4, 5)), rng.rand(4, 5) > 0.3
+    ret = JRetrievalResult(top_k_idx=None, top_k_valid=valid, top_k_score=None, top_k_page=None, top_k_label=labels,
+                           top_k_box=None, similarities=None)
+    names = {0: "text", 1: "title", 2: "list"}
+    assert (p_stats.collect_topk_label_stats(ret, names).summary()
+            == j_stats.collect_topk_label_stats(ret, names).summary())

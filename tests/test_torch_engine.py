@@ -69,25 +69,120 @@ def weights():
     return jcfg, tree, pcfg, p_params.from_jax(tree)
 
 
-@pytest.mark.parametrize("strategy", ["concat", "oracle"])
-def test_engine_matches_jax(weights, strategy):
+def _capture_rows(monkeypatch):
+    """Wraps both engines' encode-and-decode step to keep, per call, the
+    generator rows it was given and the decoded ids and confidences of every
+    row."""
+    jseen, pseen = [], []
+    j_inner = j_rag.generate_device
+
+    def j_wrapped(params, cfg, gen, max_new_tokens, visual=None):
+        tokens, conf = j_inner(params, cfg, gen, max_new_tokens, visual=visual)
+        jseen.append(dict(gen=jax.tree.map(np.asarray, gen), tokens=np.asarray(tokens), conf=np.asarray(conf)))
+        return tokens, conf
+
+    p_inner = RAGVT5Engine._generate
+
+    def p_wrapped(self, gen, visual=None):
+        tokens, conf, t_enc, t_dec = p_inner(self, gen, visual)
+        pseen.append(dict(gen={k: np.asarray(v) for k, v in vars(gen).items()}, tokens=tokens,
+                          conf=conf.cpu().numpy()))
+        return tokens, conf, t_enc, t_dec
+
+    monkeypatch.setattr(j_rag, "generate_device", j_wrapped)
+    monkeypatch.setattr(RAGVT5Engine, "_generate", p_wrapped)
+    return jseen, pseen
+
+
+def _near_tie(values, rel=1e-5) -> bool:
+    """Whether the two largest of `values` lie within `rel` of the largest."""
+    top = np.sort(np.asarray(values, np.float64))[::-1]
+    return len(top) > 1 and top[0] - top[1] <= rel * abs(top[0])
+
+
+def _check_choice(strategy, got, want, jrows, jb):
+    """maxconf, maxconfpage and weightmajorpage choose one row or page by a
+    float: where the top two are more than 1e-5 (relative) apart the port's
+    answer and page must be JAX's; closer than that, its answer (or page)
+    one of JAX's tied candidates'."""
+    B = len(want["pred_answers"])
+    K = RAG_KW["chunk_num"]
+    for b in range(B):
+        if strategy in ("maxconf", "maxconfpage"):
+            conf = jrows["conf"].reshape(B, K)[b]
+            if strategy == "maxconf":
+                valid = np.asarray(want["_row_valid"])[b]
+            else:
+                valid = np.asarray(want["_top_k_valid"])[b]
+            rows = np.where(valid)[0]
+            if len(rows) and _near_tie(conf[rows]):
+                tied = [r for r in rows if conf[r] >= conf[rows].max() * (1 - 1e-5)]
+                assert got["pred_answers"][b] in [want["_row_answers"][b * K + r] for r in tied], b
+                continue
+        elif strategy == "weightmajorpage":
+            w = np.where(want["_top_k_valid"][b], want["retrieval"]["similarities"][b], 0.0).astype(np.float64)
+            votes = np.zeros(jb.page_slot_start.shape[1])
+            np.add.at(votes, np.asarray(want["_top_k_page"])[b], w)
+            if _near_tie(votes):
+                tied = np.where(votes >= votes.max() - 1e-5 * abs(votes.max()))[0].tolist()
+                assert got["pred_answer_pages"][b] in tied, b
+                continue
+        assert got["pred_answers"][b] == want["pred_answers"][b], (strategy, b)
+        assert got["pred_answer_pages"][b] == want["pred_answer_pages"][b], (strategy, b)
+
+
+@pytest.mark.parametrize("strategy", j_rag.STRATEGIES)
+def test_engine_matches_jax(weights, strategy, monkeypatch):
+    """Every strategy on the same ingested batch and weights: the generator
+    rows (ids, boxes, labels, mask) of the concat, per-chunk, page-row and
+    full-document assembly exactly, each row's decoded ids exactly and its
+    confidence to 1e-4, then the answers, pages and retrieval details."""
     jcfg, tree, pcfg, port = weights
-    jdocs = j_make_corpus(3, n_pages=3, words_per_page=40, seed=5)
-    pdocs = make_corpus(3, n_pages=3, words_per_page=40, seed=5)
-    jtok, ptok = JHashTokenizer(4096), HashTokenizer(4096)
-    jb, jaux = JIngestor(jtok, SPEC, JCaps(**CAPS)).ingest(jdocs)
-    pb, paux = DocVQAIngestor(ptok, SPEC, Caps(**CAPS)).ingest(pdocs)
-    want = JEngine(JRAGConfig(page_retrieval=strategy, **RAG_KW), jcfg, jax.tree.map(jax.numpy.asarray, tree),
-                   jtok).inference(jb, jaux)
+    assert p_rag.STRATEGIES == j_rag.STRATEGIES
+    jtok, ptok, jb, jaux, pb, paux = _ingested()
+    jseen, pseen = _capture_rows(monkeypatch)
+    jeng = JEngine(JRAGConfig(page_retrieval=strategy, **RAG_KW), jcfg, jax.tree.map(jax.numpy.asarray, tree), jtok)
+    want = jeng.inference(jb, jaux)
     got = RAGVT5Engine(RAGConfig(page_retrieval=strategy, **RAG_KW), pcfg, port, ptok).inference(pb, paux)
-    assert got["pred_answers"] == want["pred_answers"]
-    assert got["pred_answer_pages"] == want["pred_answer_pages"]
-    np.testing.assert_allclose(got["confidences"], want["confidences"], rtol=1e-4)
+    assert len(jseen) == len(pseen) == 1
+    jr, pr = jseen[0], pseen[0]
+    n_rows = {"maxconf": 3 * 3, "anyconf": 3 * 3, "anyconforacle": 3 * 3, "maxconfpage": 3 * 3,
+              "anyconfpage": 3 * 3}.get(strategy, 3)
+    seq = 256 if strategy in ("maxconf", "anyconf", "anyconforacle") else RAG_KW["max_source_length"]
+    assert pr["gen"]["input_ids"].shape == (n_rows, seq)
+    for k in ("input_ids", "input_boxes", "input_labels", "attention_mask"):
+        np.testing.assert_array_equal(pr["gen"][k], getattr(jr["gen"], k), err_msg=k)
+    np.testing.assert_array_equal(pr["tokens"], jr["tokens"])
+    np.testing.assert_allclose(pr["conf"], jr["conf"], rtol=1e-4)
+
+    if strategy in ("maxconf", "maxconfpage", "weightmajorpage"):
+        jret = jeng.retrieve(jb)
+        want["_top_k_valid"], want["_top_k_page"] = np.asarray(jret.top_k_valid), np.asarray(jret.top_k_page)
+        if strategy == "maxconf":
+            from rag_docvqa_tpu.ops.gather import assemble_per_chunk as j_per_chunk
+
+            want["_row_valid"] = np.asarray(j_per_chunk(jb, jret.top_k_idx, jret.top_k_valid, jeng.cfg.assemble(),
+                                                        seq_len=256)[2])
+        want["_row_answers"] = jeng._decode(jr["tokens"])
+        _check_choice(strategy, got, want, jr, jb)
+    else:
+        assert got["pred_answers"] == want["pred_answers"]
+        assert got["pred_answer_pages"] == want["pred_answer_pages"]
+    # a tied choice (within 1e-5) moves the confidence by less than this too
+    if strategy.startswith("any"):
+        for g, w in zip(got["confidences"], want["confidences"]):
+            assert (g is None) == (w is None)
+            if g is not None:
+                np.testing.assert_allclose(g, w, rtol=1e-4)
+    else:
+        np.testing.assert_allclose(got["confidences"], want["confidences"], rtol=1e-4)
     r, w = got["retrieval"], want["retrieval"]
-    np.testing.assert_allclose(r["similarities"], w["similarities"], rtol=1e-5, atol=1e-5)
-    assert r["top_k_layout_labels"] == w["top_k_layout_labels"]
-    np.testing.assert_array_equal(r["boxes"], np.asarray(w["boxes"]))
-    assert r["text"] == w["text"]
+    assert r.keys() == w.keys()
+    if strategy != "none":
+        np.testing.assert_allclose(r["similarities"], w["similarities"], rtol=1e-5, atol=1e-5)
+        assert r["top_k_layout_labels"] == w["top_k_layout_labels"]
+        np.testing.assert_array_equal(r["boxes"], np.asarray(w["boxes"]))
+        assert r["text"] == w["text"]
     assert set(got["timings"]) == {"retrieve_assemble_s", "encode_s", "decode_s"}
 
 
@@ -166,12 +261,6 @@ def test_retrieval_time_ends_before_assembly(weights, monkeypatch):
     assert r["generation_time"] >= t["encode_s"] + t["decode_s"]
 
 
-def test_engine_refuses_unported_strategies(weights):
-    _, _, pcfg, port = weights
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        RAGVT5Engine(RAGConfig(page_retrieval="maxconf"), pcfg, port, HashTokenizer(4096))
-
-
 def test_evaluate_matches_jax(weights, tmp_path):
     """The port's `evaluate` against the JAX one: 5 documents in batches of
     2 (a ragged last batch), the same summary, per-sample scores and saved
@@ -227,6 +316,8 @@ JAX_FREE = textwrap.dedent("""
     import rag_docvqa_tpu_torch.metrics.evaluator, rag_docvqa_tpu_torch.metrics.mmlongbench
     import rag_docvqa_tpu_torch.models.bert, rag_docvqa_tpu_torch.models.embedder, rag_docvqa_tpu_torch.engine.reranker
     import rag_docvqa_tpu_torch.training.contrastive, rag_docvqa_tpu_torch.train_cl, rag_docvqa_tpu_torch.kernels
+    import rag_docvqa_tpu_torch.models.nac, rag_docvqa_tpu_torch.eval, rag_docvqa_tpu_torch.utils_stats
+    import rag_docvqa_tpu_torch.profiling
     import pkgutil, importlib, rag_docvqa_tpu_torch
     for mod in pkgutil.walk_packages(rag_docvqa_tpu_torch.__path__, "rag_docvqa_tpu_torch."):
         importlib.import_module(mod.name)   # whatever a later slice adds is covered too
@@ -242,6 +333,16 @@ JAX_FREE = textwrap.dedent("""
     out = RAGVT5Engine(RAGConfig(chunk_num=3, max_source_length=160, max_new_tokens=4), cfg, params,
                        tok).inference(batch, aux)
     score = sum(anls(a[0], p) for a, p in zip(aux["answers"], out["pred_answers"]))
+    # the other strategies on the same batch: per-chunk rows, page rows, the vote, the whole document
+    served = {}
+    for strategy in ("maxconf", "anyconf", "maxconfpage", "weightmajorpage", "none"):
+        o = RAGVT5Engine(RAGConfig(page_retrieval=strategy, chunk_num=3, max_source_length=160, max_new_tokens=4,
+                                   per_chunk_seq_len=64), cfg, params, tok).inference(batch, aux)
+        served[strategy] = len(o["pred_answers"])
+    # the eval entry point on the CPU
+    from rag_docvqa_tpu_torch import eval as port_eval
+    summary = port_eval.main(["-m", "configs/VT5_tiny.yml", "-d", "configs/Synthetic.yml", "--device", "cpu",
+                              "page_retrieval=anyconf", "compute_stats=true", "n_val_docs=2"])[0]
     # nothing of jax, flax, optax or orbax was imported
     assert not any(m.split(".")[0] in ("jax", "flax", "jaxlib", "optax", "orbax")
                    for m in sys.modules if sys.modules[m] is not None)
@@ -279,7 +380,7 @@ JAX_FREE = textwrap.dedent("""
     assert not any(m.split(".")[0] in ("jax", "flax", "jaxlib", "optax", "orbax")
                    for m in sys.modules if sys.modules[m] is not None)
     print(json.dumps({"n": len(out["pred_answers"]), "conf": out["confidences"], "anls": score, "agree": agree,
-                      "kept": kept, "cl_losses": losses}))
+                      "kept": kept, "cl_losses": losses, "served": served, "eval": summary}))
 """)
 
 
@@ -291,6 +392,8 @@ def test_port_runs_without_jax_or_flax():
     assert res["agree"]["f32"] == 1.0 and res["agree"]["int4_refine"] >= 0.9 and res["agree"]["int8"] >= 0.8
     assert all(1 <= k <= 2 for k in res["kept"]) and len(res["kept"]) == 2
     assert all(np.isfinite(res["cl_losses"])) and res["cl_losses"][1] < res["cl_losses"][0]
+    assert res["served"] == {"maxconf": 2, "anyconf": 2, "maxconfpage": 2, "weightmajorpage": 2, "none": 2}
+    assert res["eval"]["n_samples"] == 2 and res["eval"]["page_retrieval"] == "anyconf"
 
 
 def test_chip_smoke_refuses_without_gpu(tmp_path):

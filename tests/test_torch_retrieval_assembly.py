@@ -156,3 +156,84 @@ def test_assemble_concat_exact(surround, sep, max_len):
         np.testing.assert_array_equal(getattr(gp, name).numpy(), np.asarray(getattr(gj, name)), err_msg=name)
     np.testing.assert_array_equal(p_gather.group_boxes(pbd, op, K).numpy(),
                                   np.asarray(j_gather.group_boxes(_jbatch(jb), oj, K)))
+
+
+def _topk_sets(jb, K, seed):
+    """Seeded top-k sets: distinct chunks, a few invalid ranks, and the last
+    sample with no valid rank at all."""
+    rng = np.random.RandomState(seed)
+    B = jb.chunk_mask.shape[0]
+    idx = np.stack([rng.permutation(np.flatnonzero(jb.chunk_mask[b]))[:K] for b in range(B)]).astype(np.int32)
+    valid = rng.rand(B, K) > 0.2
+    valid[0, 0] = True
+    valid[-1] = False
+    return idx, valid
+
+
+def _same_rows(gp, gj):
+    for name in ("input_ids", "input_boxes", "input_labels", "attention_mask"):
+        np.testing.assert_array_equal(getattr(gp, name).numpy(), np.asarray(getattr(gj, name)), err_msg=name)
+
+
+@pytest.mark.parametrize("K", [1, 3])
+@pytest.mark.parametrize("surround,seq_len", [(0, 96), (2, 96), (2, 24)])
+def test_assemble_per_chunk_exact(K, surround, seq_len):
+    """One row per (sample, rank) of `seq_len` (24 truncates, keeping the
+    EOS), the rank's own slots after first-cover ownership, exactly."""
+    jb, _, pb, _ = _batches(n_docs=4, seed=13)
+    idx, valid = _topk_sets(jb, K, seed=K + surround)
+    jcfg = j_gather.AssembleConfig(max_source_length=160, include_surroundings=surround, sep_token_id=7)
+    pcfg = p_gather.AssembleConfig(max_source_length=160, include_surroundings=surround, sep_token_id=7)
+    gj, oj, vj = j_gather.assemble_per_chunk(_jbatch(jb), jnp.asarray(idx), jnp.asarray(valid), jcfg, seq_len=seq_len)
+    gp, op, vp = p_gather.assemble_per_chunk(to_device(pb, "cpu"), torch.from_numpy(idx).long(),
+                                             torch.from_numpy(valid), pcfg, seq_len=seq_len)
+    assert gp.input_ids.shape == (4 * K, seq_len)
+    _same_rows(gp, gj)
+    np.testing.assert_array_equal(op.numpy(), np.asarray(oj))
+    np.testing.assert_array_equal(vp.numpy(), np.asarray(vj))
+    assert not vp[-1].any() and vp.any()
+
+
+@pytest.mark.parametrize("K", [1, 3])
+@pytest.mark.parametrize("surround", [0, 2])
+def test_assemble_page_rows_exact(K, surround):
+    """Whole-page rows from the raw words, one per (sample, rank), an invalid
+    rank's row the prompt alone; the pages of the top-k, exactly."""
+    jb, _, pb, _ = _batches(n_docs=4, seed=17)
+    idx, valid = _topk_sets(jb, K, seed=10 + K)
+    pages = jb.chunk_page[np.arange(idx.shape[0])[:, None], idx]
+    jcfg = j_gather.AssembleConfig(max_source_length=160, include_surroundings=surround)
+    pcfg = p_gather.AssembleConfig(max_source_length=160, include_surroundings=surround)
+    gj = j_gather.assemble_page_rows(_jbatch(jb), jnp.asarray(pages), jnp.asarray(valid), jcfg)
+    gp = p_gather.assemble_page_rows(to_device(pb, "cpu"), torch.from_numpy(pages).long(), torch.from_numpy(valid),
+                                     pcfg)
+    assert gp.input_ids.shape == (4 * K, 160)
+    _same_rows(gp, gj)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_majority_page_and_full_document_match_jax(weighted):
+    """The (weighted) page vote, with ranks of one page, negative weights and
+    a sample with no valid rank (page 0), and the no-retrieval row of every
+    raw word of the document."""
+    from rag_docvqa_tpu.engine import rag_vt5 as j_rag
+    from rag_docvqa_tpu_torch.engine import rag_vt5 as p_rag
+
+    jb, _, pb, _ = _batches(n_docs=5, seed=19)
+    idx, valid = _topk_sets(jb, 6, seed=3)
+    B, K = idx.shape
+    rows = np.arange(B)[:, None]
+    rng = np.random.RandomState(4)
+    fields = dict(top_k_idx=idx, top_k_valid=valid, top_k_score=rng.randn(B, K).astype(np.float32),
+                  top_k_page=jb.chunk_page[rows, idx], top_k_label=jb.chunk_label[rows, idx],
+                  top_k_box=jb.chunk_box[rows, idx], similarities=rng.rand(B, jb.chunk_mask.shape[1]).astype(np.float32))
+    P = jb.page_slot_start.shape[1]
+    want = j_rag.majority_page_device(JRetrievalResult(**{k: jnp.asarray(v) for k, v in fields.items()}),
+                                      weighted=weighted, n_pages=P)
+    tfields = {k: torch.from_numpy(v) for k, v in fields.items()}
+    got = p_rag.majority_page(RetrievalResult(**tfields), weighted, P)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert int(got[-1]) == 0
+    cfg = p_gather.AssembleConfig(max_source_length=200)
+    _same_rows(p_rag._assemble_full_doc(to_device(pb, "cpu"), cfg),
+               j_rag._assemble_full_doc(_jbatch(jb), j_gather.AssembleConfig(max_source_length=200)))
