@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's RAG-VT5 serving and training paths, its corpus
-index, its BERT family and its visual paths (the DiT branch of RAG-VT5,
-RAG-Pix2Struct) once on one CUDA card.
+index, its BERT family, its visual paths (the DiT branch of RAG-VT5,
+RAG-Pix2Struct) and Hi-VT5 once on one CUDA card.
 
     python3 chip_smoke.py            # every phase, the report and the result line
-    python3 chip_smoke.py 9          # phases 1-2 and the named ones (3-9) alone, for work on them: no report
+    python3 chip_smoke.py 10         # phases 1-2 and the named ones (3-10) alone, for work on them: no report
 
-Nine phases; any failure raises and the script exits non-zero:
+Ten phases; any failure raises and the script exits non-zero:
 
   1. a CUDA device is required; prints the card's name and power limit and
      turns TF32 off, so f32 products are full f32;
@@ -217,14 +217,53 @@ Nine phases; any failure raises and the script exits non-zero:
         generator row runs K13; before them one bf16 `vision_encode` at T 128,
         1024 and 2048 with its launches counted; every kernel of each run
         launched, each tower's launches exactly its layers' (one K2 a layer), tokens
-        decoded, confidences finite in [0, 1], pages in range.
+        decoded, confidences finite in [0, 1], pages in range;
+ 10. Hi-VT5 (`models/hivt5.py`, `HiVT5Engine`) at the JAX bench's Hi-VT5 row
+     (t5-base, 8 page slots of 10 page tokens + 512 text tokens, B 16, 16
+     new tokens; half the documents have 3-7 pages, so padded page rows with
+     no valid key exist), on its own generator:
+     a. the full-width f32 `encode_document` of 2 documents of 4 and 2 pages
+        in 4 slots through the kernels against the plain layer (<= 1e-4,
+        finite, the padded slots' rows zero); K1 (the whole layer) and K2
+        at the 128 page rows of T 522 and, with the visual tokens (valid
+        on the pages with a render), T 719, bf16, rows with no valid key
+        (finite); K3 at B 16 over the 80-key
+        document (12 int8 and 12 bf16 caches, SDPA beside the bf16 one); K14
+        at B 128 renders of T 197; each against its plain version, timed by
+        events and on the device;
+     b. `config.build_engine` -> `HiVT5Engine.inference`, bf16, int8 cross
+        cache, K3 on: a warmup and two counted batches of 16, each exactly
+        24 `t5_rms_norm`, 48 `t5_gemm`, 12 `flash_fwd` and 192 K3 launches,
+        confidences finite in [0, 1], every predicted page below its
+        document's page count; ms per batch (encode with the page head,
+        decode) and documents per second;
+     c. the same with the per-page visual branch (ViT-base, 256 x 192
+        renders from a seed resized on the host to 224 px; one document
+        without renders, one with every second page missing): K14's launches
+        as well, the host resize time, the render validity, and the
+        imageless document's embedding equal to the text-only one;
+     d. K6, K7 and K8 at the 128 page rows of T 522, bf16, rows with no
+        valid key, each against its plain version (finite) and timed; the
+        full-width f32 `forward_train` of 10a's documents, its losses and
+        every gradient root through the kernels against autograd of the
+        plain layer (<= 1e-4 of each gradient's largest value; the
+        encoder's rel-pos table, through the bf16 bias, 2e-2); then six
+        `make_hivt5_train_step` steps, bf16 compute on f32 masters, B 16 x 8
+        page slots, 16-token labels, one repeated batch: K6, K7 and K8
+        launched, the total loss and `ret_loss` fall; forward, backward and
+        update ms by CUDA events, the peak memory;
+     e. `attention_viz` on 10b's batch (page relevance sums to 1 over the
+        valid pages, 0 on the padded slots); the train and eval entry points
+        on configs/HiVT5_tiny.yml on the card, and the eval entry point from
+        the trained checkpoint on the card and on the CPU (equal metrics).
 
 The line before the last is a JSON object with every kernel's launches in
 its path's run (phase 5 for serving, 6d for training, 7b-c for the index,
 8c for the BERT forward kernels, 8f for the backward ones, 9c for K14, 9f for
 K15, K1 without a bias and K13; every path's counts of every kernel under
 "launches_by_path", each strategy of 5b as "serve_<strategy>" and its NAC
-steps as "train_nac"),
+steps as "train_nac", phase 10's paths as "hivt5_serve",
+"hivt5_visual_serve" and "hivt5_train"),
 its worst error over its own checks, and, at its path's shape, its time,
 the plain version's, the time of one PyTorch call that computes the same
 function where there is one ("library_ms", else null; timed here, used
@@ -239,7 +278,8 @@ paths 1-3 of phase 8 under "embed_index", "rerank_serve" and
 "contrastive_step", the whole K14 layer under "vit_layer", the two visual
 paths under "visual_serve" and "p2s_serve", phase 5b's batches, rows, K3
 splits and eval summary under "strategies" and its NAC steps under
-"nac_train_step". "t5_layer_nobias" (K1 without a
+"nac_train_step", phase 10's batches, train steps, attention maps and
+CLIs under "hivt5". "t5_layer_nobias" (K1 without a
 bias) and "t5_layer_qtiled" (K13) are whole layers outside the kernel list,
 each with its error, its times and the launches of its parts (t5_rms_norm,
 t5_gemm and flash_fwd); that each served tower ran exactly those is
@@ -635,11 +675,20 @@ class Checks:
 # --------------------------------------------------------------------------- #
 # phase 3: each kernel against its plain version
 # --------------------------------------------------------------------------- #
+def key_mask(lens, Tk: int, dev) -> torch.Tensor:
+    """(B, Tk) bool: `lens` itself when it is a mask, else each row's first
+    lens[b] keys."""
+    if isinstance(lens, torch.Tensor) and lens.dtype == torch.bool:
+        return lens
+    return torch.arange(Tk, device=dev)[None, :] < torch.as_tensor(lens, device=dev)[:, None]
+
+
 def flash_case(checks: Checks, g: torch.Generator, B, T, H, Hkv, dh, dtype, bias_kind, causal, scale, mask_value,
                lens, label, timed=False, Tk=None, twice=False, device=False):
     """K2 against its plain version: out, lse of the rows with a valid key,
     the lse contract of the others; `twice` launches again and wants the
-    same bits. T queries, Tk keys (T when None); bias_kind None, "shared",
+    same bits. T queries, Tk keys (T when None); `lens` each row's count of
+    valid keys (a prefix), or the (B, Tk) bool key mask; bias_kind None, "shared",
     "batched" (in q's dtype; bf16 for bf16) or "batched f32"; `device` adds
     the device times of the kernel and of SDPA to a timed case."""
     import torch.nn.functional as F
@@ -651,7 +700,7 @@ def flash_case(checks: Checks, g: torch.Generator, B, T, H, Hkv, dh, dtype, bias
     Tk = T if Tk is None else Tk
     q = randn(B, T, H, dh).to(dtype)
     k, v = randn(B, Tk, Hkv, dh).to(dtype), randn(B, Tk, Hkv, dh).to(dtype)
-    mask = torch.arange(Tk, device=dev)[None, :] < torch.tensor(lens, device=dev)[:, None]
+    mask = key_mask(lens, Tk, dev)
     bias = None
     if bias_kind:
         bias = randn(1 if bias_kind == "shared" else B, H, T, Tk)
@@ -1363,6 +1412,48 @@ def kernel_names(fn) -> str:
     return "; ".join(f"{n[:60]} {t:.1f} us" for n, t in times[:4] if t > 0)
 
 
+def flash_bwd_case(checks: Checks, gen: torch.Generator, B, T, H, Hkv, dh, dtype, bias_kind, causal, scale,
+                   mask_value, lens, label, timed=False) -> None:
+    """K6 against its plain version, both from the same forward; `lens` as
+    flash_case takes it. `timed`: a second launch must give the same bits,
+    and the kernel is timed beside SDPA's backward."""
+    from rag_docvqa_tpu_torch.ops import flash_attention as fa
+
+    dev = gen.device
+    randn = lambda *s: torch.randn(s, generator=gen, device=dev)
+    q, do = randn(B, T, H, dh).to(dtype), randn(B, T, H, dh).to(dtype)
+    k, v = randn(B, T, Hkv, dh).to(dtype), randn(B, T, Hkv, dh).to(dtype)
+    mask = key_mask(lens, T, dev)
+    bias = None
+    if bias_kind:
+        bias = randn(B if bias_kind == "per-batch" else 1, H, T, T).to(
+            torch.bfloat16 if dtype == torch.bfloat16 else torch.float32)
+    args = (mask, bias, scale, causal, mask_value)
+    out, lse = fa.flash_attention_reference(q, k, v, *args)
+    out = out.contiguous()  # as K2 returns it: the kernel's wrapper would copy a strided one
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, *args)
+    want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, *args)
+    for name, a, b in zip(("dq", "dk", "dv", "dbias"), got, want):
+        if b is not None:
+            checks.compare("flash_bwd", f"{label} {name}", a, b, rel_tol(dtype, b))
+    if not timed:
+        return
+    again = fa.flash_attention_bwd(q, k, v, out, lse, do, *args)
+    if not all(a is None or torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"flash_bwd {label}: a second launch on the same input gave other bits")
+    library = sdpa_bwd_library(q, k, v, do, mask, bias, scale, mask_value)
+    backend = kernel_names(library)
+    log(f"  flash_bwd library at {label}: {backend}")
+    # the function's five products of 2*T*T*dh each per head (S, dP, dV, dK, dQ; the kernel's dQ pass
+    # recomputes S and dP, seven in all)
+    checks.timed("flash_bwd", label, lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, *args),
+                 lambda: fa.flash_attention_bwd_reference(q, k, v, out, lse, do, *args), library=library,
+                 library_is="autograd.grad through F.scaled_dot_product_attention (dq, dk, dv"
+                            + (", the bias summed over the batch" if bias is not None else "") + "): " + backend,
+                 io_bytes=nbytes(q, k, v, out, lse, do, mask, bias, *got), ops=10.0 * B * H * T * T * dh,
+                 ops_in=op_type(dtype), device=True)
+
+
 def check_flash_bwd(checks: Checks, g: torch.Generator) -> None:
     """6a: K6 against its plain version, both from the same forward; its two
     timed shapes (the train step's and the contrastive step's) beside the
@@ -1373,39 +1464,8 @@ def check_flash_bwd(checks: Checks, g: torch.Generator) -> None:
     dev = g.device
     check_hgmma("flash_bwd.cu")
 
-    def case(B, T, H, Hkv, dh, dtype, bias_kind, causal, scale, mask_value, lens, label, timed=False, gen=g):
-        randn = lambda *s: torch.randn(s, generator=gen, device=dev)
-        q, do = randn(B, T, H, dh).to(dtype), randn(B, T, H, dh).to(dtype)
-        k, v = randn(B, T, Hkv, dh).to(dtype), randn(B, T, Hkv, dh).to(dtype)
-        mask = torch.arange(T, device=dev)[None, :] < torch.as_tensor(lens, device=dev)[:, None]
-        bias = None
-        if bias_kind:
-            bias = randn(B if bias_kind == "per-batch" else 1, H, T, T).to(
-                torch.bfloat16 if dtype == torch.bfloat16 else torch.float32)
-        args = (mask, bias, scale, causal, mask_value)
-        out, lse = fa.flash_attention_reference(q, k, v, *args)
-        out = out.contiguous()  # as K2 returns it: the kernel's wrapper would copy a strided one
-        got = fa.flash_attention_bwd(q, k, v, out, lse, do, *args)
-        want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, *args)
-        for name, a, b in zip(("dq", "dk", "dv", "dbias"), got, want):
-            if b is not None:
-                checks.compare("flash_bwd", f"{label} {name}", a, b, rel_tol(dtype, b))
-        if not timed:
-            return
-        again = fa.flash_attention_bwd(q, k, v, out, lse, do, *args)
-        if not all(a is None or torch.equal(a, b) for a, b in zip(got, again)):
-            raise AssertionError(f"flash_bwd {label}: a second launch on the same input gave other bits")
-        library = sdpa_bwd_library(q, k, v, do, mask, bias, scale, mask_value)
-        backend = kernel_names(library)
-        log(f"  flash_bwd library at {label}: {backend}")
-        # the function's five products of 2*T*T*dh each per head (S, dP, dV, dK, dQ; the kernel's dQ pass
-        # recomputes S and dP, seven in all)
-        checks.timed("flash_bwd", label, lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, *args),
-                     lambda: fa.flash_attention_bwd_reference(q, k, v, out, lse, do, *args), library=library,
-                     library_is="autograd.grad through F.scaled_dot_product_attention (dq, dk, dv"
-                                + (", the bias summed over the batch" if bias is not None else "") + "): " + backend,
-                     io_bytes=nbytes(q, k, v, out, lse, do, mask, bias, *got), ops=10.0 * B * H * T * T * dh,
-                     ops_in=op_type(dtype), device=True)
+    def case(*args, gen=g, **kw):
+        flash_bwd_case(checks, gen, *args, **kw)
 
     t5m = fe.T5_MASK_VALUE
     # the cases added after the first five draw from their own generator, so that every later phase's data
@@ -3455,6 +3515,566 @@ def serve_p2s(g: torch.Generator):
     return launches, indexed_launches, page_launches, summary
 
 
+# --------------------------------------------------------------------------- #
+# phase 10: Hi-VT5
+# --------------------------------------------------------------------------- #
+# the JAX bench's Hi-VT5 row (bench.py:547-583): t5-base, 8 page slots of 10
+# page tokens and 512 text tokens, B 16, 16 new tokens; half the documents
+# have 3-7 pages here (the bench's all have 8), so padded page rows exist
+HI_B, HI_P, HI_K, HI_T = 16, 8, 10, 512
+HI_PAGES = tuple(8 if i % 2 == 0 else 3 + (i // 2) % 5 for i in range(HI_B))
+HI_ROWS, HI_TE = HI_B * HI_P, HI_P * HI_K  # 128 page rows a batch; the decoder's 80 keys
+HIVT5_SERVE_LAUNCHES = {"t5_rms_norm": 24, "t5_gemm": 48, "flash_fwd": 12, "decode_cross_attention": 192}
+
+
+def hivt5_documents(seed: int, n_docs: int = HI_B):
+    """Synthetic documents of HI_PAGES pages x 120 words, from a seed."""
+    import random
+
+    from rag_docvqa_tpu_torch.data.synthetic import make_document
+
+    rng = random.Random(seed)
+    return [make_document(rng, n_pages=HI_PAGES[i % HI_B], words_per_page=120, question_id=i) for i in range(n_docs)]
+
+
+def hivt5_row_mask(g: torch.Generator, T: int, visual: bool) -> torch.Tensor:
+    """(128, T) key masks as `encode_document` gives them: the 10 page tokens,
+    120-450 text tokens, with `visual` the 197 visual tokens of pages with a
+    render (every second page of the short documents has none), and the rows
+    of a document's padded page slots with no valid key."""
+    dev = g.device
+    ids = torch.arange(T, device=dev)[None, :]
+    text = HI_K + torch.randint(120, 451, (HI_ROWS, 1), generator=g, device=dev)
+    mask = ids < text
+    if visual:
+        image = torch.tensor([p % 2 == 0 or HI_PAGES[b] == HI_P for b in range(HI_B) for p in range(HI_P)],
+                             device=dev)[:, None]
+        mask = mask | ((ids >= HI_K + HI_T) & image)
+    real = torch.tensor([p < HI_PAGES[b] for b in range(HI_B) for p in range(HI_P)], device=dev)[:, None]
+    return mask & real
+
+
+def hivt5_small_batch(g: torch.Generator):
+    """B 2 synthetic documents of 4 and 2 pages in 4 page slots of T 522 at
+    t5-base, random f32 weights from `g`: (cfg, params, the batch on the
+    card, 16-token answer labels)."""
+    import random
+
+    from rag_docvqa_tpu_torch.data.synthetic import make_document
+    from rag_docvqa_tpu_torch.data.contract import Caps, to_device
+    from rag_docvqa_tpu_torch.data.ingest import DocVQAIngestor
+    from rag_docvqa_tpu_torch.data.tokenizer import HashTokenizer
+    from rag_docvqa_tpu_torch.models import hivt5 as hm
+    from rag_docvqa_tpu_torch.ops.chunking import ChunkSpec
+
+    rng = random.Random(SEED + 10)
+    docs = [make_document(rng, n_pages=n, words_per_page=120) for n in (4, 2)]
+    ingestor = DocVQAIngestor(HashTokenizer(32128), ChunkSpec(chunk_size=60, overlap=10), Caps(max_pages=4))
+    batch, aux = ingestor.ingest(docs)
+    labels = torch.from_numpy(ingestor.answer_labels(aux["answers"], max_len=16, seed=SEED)).to(g.device)
+    cfg = hm.HiVT5Config(max_doc_pages=4, page_tokens=HI_K, page_seq_len=HI_T)
+    return cfg, hm.init_hivt5_params(g, cfg), to_device(batch, g.device), labels
+
+
+def check_hivt5_encode(g: torch.Generator) -> float:
+    """10a, first part: the full-width f32 `encode_document` of B 2 documents
+    of 4 and 2 pages in 4 slots through the kernels against the same with the
+    plain layer; F32_TOL, finite, and the padded slots' rows exactly zero."""
+    from rag_docvqa_tpu_torch.models import hivt5 as hm
+    from rag_docvqa_tpu_torch.models import t5 as t5m
+    from rag_docvqa_tpu_torch.ops import fused_encoder as fe
+
+    cfg, params, batch, _ = hivt5_small_batch(g)
+    t0 = time.perf_counter()
+    got, mask = hm.encode_document(params, cfg, batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    kernel_layer = t5m.fused_t5_layer_parts
+    t5m.fused_t5_layer_parts = fe.t5_layer_reference  # the same encode through the plain layer
+    try:
+        want, want_mask = hm.encode_document(params, cfg, batch)
+    finally:
+        t5m.fused_t5_layer_parts = kernel_layer
+    err = (got - want).abs().max().item()
+    log(f"  encode_document f32 t5-base, B2 x 4 page slots (4 and 2 pages), 8 rows of T {HI_K + HI_T}: kernels vs "
+        f"plain layer max_abs_err {err:.3e} (limit {F32_TOL:.0e}), max|ref| {want.abs().max().item():.3g}, "
+        f"{ms:.1f} ms")
+    if not (torch.equal(mask, want_mask) and mask.sum(1).tolist() == [4 * HI_K, 2 * HI_K]):
+        raise AssertionError(f"encode_document: doc_mask {mask.sum(1).tolist()}")
+    if not (torch.isfinite(got).all() and err <= F32_TOL and not got[~mask].any()):
+        raise AssertionError(f"encode_document: error {err}, or non-finite values, or non-zero padded rows")
+    return err
+
+
+def check_hivt5_kernels(checks: Checks, g: torch.Generator) -> None:
+    """10a: K1 (the whole layer) and K2 at the page rows' shapes, B 128 of T
+    522 (10 page tokens + 512) and T 719 (+ 197 visual tokens, valid on the
+    pages with a render), bf16, rows of padded page slots with no valid key; K3 at B 16 over the 80-key document
+    embedding (12 int8 and 12 bf16 caches; SDPA beside the bf16 one); K14 at
+    B 128 renders of T 197. Each against its plain version, timed beside it
+    and its library call, with the device time."""
+    import torch.nn.functional as F
+
+    from rag_docvqa_tpu_torch.models import t5 as t5m
+    from rag_docvqa_tpu_torch.ops import decode_attention as da
+    from rag_docvqa_tpu_torch.ops import flash_attention as fa
+    from rag_docvqa_tpu_torch.ops import fused_encoder as fe
+
+    dev = g.device
+    cfg = t5m.T5Config()
+    params = t5m.init_t5_params(g, t5m.T5Config(num_encoder_layers=1, num_decoder_layers=1))
+    layer = {k: v.bfloat16() for k, v in fe.fuse_t5_blocks(params.encoder.layers, False)[0].items()}
+    kw = dict(num_heads=cfg.num_heads, eps=cfg.layer_norm_eps, gated=False)
+    for T, visual in ((HI_K + HI_T, False), (HI_K + HI_T + VIT_T, True)):
+        label = f"B{HI_ROWS} T{T} t5-base bf16, {HI_ROWS - sum(HI_PAGES)} rows with no valid key"
+        pos = torch.arange(T)
+        bias = t5m.relative_bias(params.encoder.rel_bias, pos, pos, True, cfg)[0].to(torch.bfloat16).contiguous()
+        mask = hivt5_row_mask(g, T, visual)
+        x = torch.randn((HI_ROWS, T, cfg.d_model), generator=g, device=dev).bfloat16()
+        got, want = fe.fused_t5_layer_parts(x, mask, bias, layer, **kw), fe.t5_layer_reference(x, mask, bias, layer, **kw)
+        if not torch.isfinite(got[~mask.any(1)]).all():
+            raise AssertionError(f"t5_layer {label}: a row with no valid key is not finite")
+        checks.compare("t5_layer", label, got, want, tol(torch.bfloat16, want))
+        del got, want
+        pb = PartsBound()
+        fe._t5_layer(x, mask, bias, layer, cfg.num_heads, cfg.layer_norm_eps, False, pb.wrap(fe.rms_norm_rows),
+                     pb.wrap(fe.gemm), pb.wrap(fa.flash_attention_fwd))
+        checks.timed("t5_layer", label, lambda: fe.fused_t5_layer_parts(x, mask, bias, layer, **kw),
+                     lambda: fe.t5_layer_reference(x, mask, bias, layer, **kw), iters=3, parts_bound=pb, device=True)
+        del x, mask
+        torch.cuda.empty_cache()
+        keys = "the visual keys of pages with a render, " if visual else ""
+        flash_case(checks, g, HI_ROWS, T, 12, 12, 64, torch.bfloat16, "shared", False, 1.0, fe.T5_MASK_VALUE,
+                   hivt5_row_mask(g, T, visual), f"B{HI_ROWS} H12 T{T} dk64 shared bias bf16, {keys}rows with no "
+                   "valid key", timed=True, device=True)
+        torch.cuda.empty_cache()
+
+    lens = [HI_K * n for n in HI_PAGES]
+    for kv_dtype, tag in ((torch.int8, "int8"), (torch.bfloat16, "bf16")):
+        layers = [decode_inputs(g, HI_B, 12, 64, HI_TE, kv_dtype, lens) for _ in range(12)]
+        L = layers[0]
+        args = (L["k2"], L["v2"], L["m"], L["ks"], L["vs"])
+        for q_dtype in (torch.float32, torch.bfloat16):
+            q = L["q"].to(q_dtype)
+            checks.compare("decode_cross_attention", f"B{HI_B} H12 dk64 Te{HI_TE} {tag} cache, {str(q_dtype)[6:]} q",
+                           da.fused_cross_attention(q, *args), da.cross_attention_reference(q, *args), F32_TOL)
+        time_decode_layers(checks, f"B{HI_B} H12 dk64 Te{HI_TE} {tag} cache", layers, library=kv_dtype == torch.bfloat16)
+        del layers, L, args
+
+    # K14 at the per-page renders' batch: 16 documents x 8 page slots of 224 px
+    B, T, d, H, dff = HI_ROWS, VIT_T, VIT_D, VIT_H, VIT_MLP
+    l = cast_layer(random_vit_layer(g, d, dff, H, T, False, False), torch.bfloat16)
+    x, mask = torch.randn((B, T, d), generator=g, device=dev).bfloat16(), torch.ones((B, T), dtype=torch.bool, device=dev)
+    vkw = dict(num_heads=H, eps=1e-12)
+    got, want = fe.fused_vit_layer_parts(x, mask, l, **vkw), fe.vit_layer_reference(x, mask, l, **vkw)
+    label = f"vit B{B} T{T} ViT-base bf16"
+    checks.compare("vit_layer", label, got, want, tol(torch.bfloat16, want))
+    checks.timed("vit_layer", label, lambda: fe.fused_vit_layer_parts(x, mask, l, **vkw),
+                 lambda: fe.vit_layer_reference(x, mask, l, **vkw), iters=3, device=True,
+                 io_bytes=nbytes(x, mask, got, *l.values()),
+                 ops=2.0 * B * T * (4 * d * d + 2 * d * dff) + 4.0 * B * H * T * T * (d // H), ops_in="bf16")
+    qkv = torch.randn((B, T, 3, H, d // H), generator=g, device=dev).bfloat16()
+    scale = (d // H) ** -0.5
+    got, want = fe.vit_attention(qkv, mask, None, scale), fe.vit_attention_reference(qkv, mask, None, scale)
+    label = f"B{B} H{H} T{T} dh{d // H} bf16"
+    checks.compare("vit_attention", label, got, want, tol(torch.bfloat16, want))
+    qt, kt, vt = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    checks.timed("vit_attention", label, lambda: fe.vit_attention(qkv, mask, None, scale),
+                 lambda: fe.vit_attention_reference(qkv, mask, None, scale),
+                 library=lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale),
+                 io_bytes=nbytes(qkv, mask, got), ops=4.0 * B * H * T * T * (d // H), ops_in="bf16", device=True)
+    del x, got, want, qkv, l
+    torch.cuda.empty_cache()
+
+
+def check_hivt5_train_kernels(checks: Checks, g: torch.Generator) -> None:
+    """10d, first part: the training kernels at the path's shapes, B 128 page
+    rows of T 522, bf16, the key masks `hivt5_row_mask` gives (rows of padded
+    page slots with no valid key). K6 with the shared bf16 bias and the -1e9
+    mask, timed beside SDPA's backward; K7 (`t5_ffn_bwd`) and K8
+    (`t5_attn_bwd`) at t5-base, timed, each against the same function on the
+    plain parts (K7's ReLU taking the kernel's decisions, as in 6b). Every
+    gradient, those of the rows with no valid key included, must be finite
+    and within `rel_tol`."""
+    from rag_docvqa_tpu_torch.models import t5 as t5m
+    from rag_docvqa_tpu_torch.models.layers import rms_norm
+    from rag_docvqa_tpu_torch.ops import flash_attention as fa
+    from rag_docvqa_tpu_torch.ops import fused_encoder as fe
+
+    dev, bf16 = g.device, torch.bfloat16
+    cfg = t5m.T5Config()
+    d, H, eps, T = cfg.d_model, cfg.num_heads, cfg.layer_norm_eps, HI_K + HI_T
+    label = f"B{HI_ROWS} T{T} t5-base bf16, {HI_ROWS - sum(HI_PAGES)} rows with no valid key"
+    mask = hivt5_row_mask(g, T, False)
+    flash_bwd_case(checks, g, HI_ROWS, T, H, H, 64, bf16, "shared", False, 1.0, fe.T5_MASK_VALUE, mask,
+                   f"B{HI_ROWS} H12 T{T} dk64 shared bias t5-mask bf16, {HI_ROWS - sum(HI_PAGES)} rows with no "
+                   "valid key", timed=True)
+    torch.cuda.empty_cache()
+
+    params = t5m.init_t5_params(g, t5m.T5Config(num_encoder_layers=1, num_decoder_layers=1))
+    layer = {k: v.detach().to(bf16) for k, v in fe.fuse_t5_blocks(params.encoder.layers, False)[0].items()}
+    layer["ln0"] = (torch.rand(d, generator=g, device=dev) + 0.5).to(bf16)
+    layer["ln1"] = (torch.rand(d, generator=g, device=dev) + 0.5).to(bf16)
+    pos = torch.arange(T)
+    bias = t5m.relative_bias(params.encoder.rel_bias, pos, pos, True, cfg)[0].to(bf16).contiguous()
+    x, x1, dy = (torch.randn((HI_ROWS, T, d), generator=g, device=dev).to(bf16) for _ in range(3))
+    ffn = (x1, dy, layer["ln1"], (layer["wi"], layer["wof"]))
+    got = fe.t5_ffn_bwd(*ffn, eps=eps, gated=False)
+    relu = MaskedRelu(kernel_relu_masks([x1], [layer["ln1"]], [layer["wi"]], eps))
+    want = fe._ffn_bwd(*ffn, eps, False, rms_norm, fe.gemm_reference, relu.gemm_bwd, fe.rms_norm_bwd_reference)
+    log(f"  ReLU signs where the plain f32 GEMM and the kernel differ, K7 at {label}: {relu.flips}")
+    for name, a, b in zip(("dx1", "dln1", "dwi", "dwof"), (got[0], got[1], *got[2]), (want[0], want[1], *want[2])):
+        checks.compare("t5_ffn_bwd", f"{label} {name}", a, b, rel_tol(bf16, b))
+    del got, want, relu
+    torch.cuda.empty_cache()
+    att = (x, dy, mask, bias, layer["wqkv"], layer["wo"], layer["ln0"])
+    got, want = fe.t5_attn_bwd(*att, num_heads=H, eps=eps), fe.t5_attn_bwd_reference(*att, num_heads=H, eps=eps)
+    for name, a, b in zip(("dx", "dln0", "dwqkv", "dwo", "dbias"), got, want):
+        checks.compare("t5_attn_bwd", f"{label} {name}", a, b, rel_tol(bf16, b))
+    del got, want
+    torch.cuda.empty_cache()
+    ffn_pb, att_pb = PartsBound(), PartsBound()
+    fe._ffn_bwd(*ffn, eps, False, *map(ffn_pb.wrap, (fe.rms_norm_rows, fe.gemm, fe.gemm_bwd, fe.rms_norm_bwd)))
+    fe._attn_bwd(*att, H, eps, *map(att_pb.wrap, (fe.rms_norm_rows, fe.gemm, fa.flash_attention_fwd,
+                                                  fa.flash_attention_bwd, fe.gemm_bwd, fe.rms_norm_bwd)))
+    checks.timed("t5_ffn_bwd", label, lambda: fe.t5_ffn_bwd(*ffn, eps=eps, gated=False),
+                 lambda: fe.t5_ffn_bwd_reference(*ffn, eps=eps, gated=False), iters=3, parts_bound=ffn_pb)
+    checks.timed("t5_attn_bwd", label, lambda: fe.t5_attn_bwd(*att, num_heads=H, eps=eps),
+                 lambda: fe.t5_attn_bwd_reference(*att, num_heads=H, eps=eps), iters=3, parts_bound=att_pb)
+    del x, x1, dy, ffn, att
+    torch.cuda.empty_cache()
+
+
+class KernelReluDecisions:
+    """Wraps `t5_layer_train`: each call also records, in call order, the
+    ReLU decisions the kernels' backward takes in that layer
+    (`kernel_relu_masks` on the layer's own x1, from the same kernels'
+    forward on the same input), so that the plain pass can take them."""
+
+    def __init__(self, layer_train):
+        self.layer_train, self.masks = layer_train, []
+
+    def __call__(self, x, key_mask, bias, l, *, num_heads: int, eps: float, gated: bool):
+        from rag_docvqa_tpu_torch.ops import fused_encoder as fe
+
+        with torch.no_grad():
+            ld = {k: v.detach() for k, v in l.items()}
+            _, x1 = fe.fused_t5_layer_parts(x.detach().contiguous(), key_mask, bias.detach(), ld, num_heads=num_heads,
+                                            eps=eps, gated=gated, save_x1=True)
+            self.masks += kernel_relu_masks([x1], [ld["ln1"]], [ld["wi"]], eps)
+        return self.layer_train(x, key_mask, bias, l, num_heads=num_heads, eps=eps, gated=gated)
+
+
+def check_hivt5_grad(g: torch.Generator) -> dict:
+    """10d, second part: the full-width f32 Hi-VT5 loss and its gradient.
+    `forward_train` of B 2 documents of 4 and 2 pages in 4 slots (2 page rows
+    with no valid key) and 16-token labels, through the kernels
+    (`t5_layer_train`: the K1 parts forward, K7 and K8 with K6 backward),
+    against autograd of the same with the plain layer in its place, whose
+    ReLU takes the kernels' decisions (`KernelReluDecisions`, as 6c). The
+    losses within F32_TOL; every gradient root (the T5 with both rel-pos
+    tables, the spatial embeddings, `page_emb`, `page_head`) finite and
+    within F32_TOL of its largest value; the encoder's rel-pos table, whose
+    gradient comes through the bf16 bias in both, within BF16_REL_TOL."""
+    from rag_docvqa_tpu_torch.models import hivt5 as hm
+    from rag_docvqa_tpu_torch.models import t5 as t5m
+    from rag_docvqa_tpu_torch.models.layers import rms_norm
+    from rag_docvqa_tpu_torch.ops import flash_attention as fa
+    from rag_docvqa_tpu_torch.ops import fused_encoder as fe
+
+    cfg, params, batch, labels = hivt5_small_batch(g)
+    params.requires_grad_(True)
+    names, ins = zip(*params.named_parameters())
+    kernel_layer = t5m.t5_layer_train
+    record = KernelReluDecisions(kernel_layer)
+    relu = MaskedRelu(record.masks)  # consumed by the plain pass, after the kernel pass has filled it
+
+    def plain_layer(x, key_mask, bias, l, *, num_heads, eps, gated):
+        return fe._t5_layer(x, key_mask, bias, l, num_heads, eps, gated, rms_norm, relu.gemm,
+                            fa.flash_attention_reference)
+
+    results = []
+    for layer in (record, plain_layer):
+        t5m.t5_layer_train = layer
+        try:
+            loss, parts = hm.forward_train(params, cfg, batch, labels)
+            results.append((loss, parts, torch.autograd.grad(loss, ins, allow_unused=True)))
+        finally:
+            t5m.t5_layer_train = kernel_layer
+    (loss, parts, got), (want_loss, want_parts, want) = results
+    log(f"  ReLU signs where the plain f32 GEMM and the kernels differ, {cfg.t5.num_encoder_layers} layers: "
+        f"{relu.flips}")
+    losses = {k: (parts[k].item(), want_parts[k].item()) for k in ("lm_loss", "ret_loss")}
+    losses["loss"] = (loss.item(), want_loss.item())
+    log(f"  forward_train f32 t5-base, B2 x 4 page slots (4 and 2 pages), kernels vs plain layer: "
+        + ", ".join(f"{k} {a:.6f} / {b:.6f}" for k, (a, b) in losses.items()))
+    for k, (a, b) in losses.items():
+        if not (math.isfinite(a) and abs(a - b) <= F32_TOL * max(1.0, abs(b))):
+            raise AssertionError(f"Hi-VT5 forward_train {k}: {a} through the kernels, {b} through the plain layer")
+    rels = {}
+    for name, a, b in zip(names, got, want):
+        if (a is None) != (b is None):
+            raise AssertionError(f"Hi-VT5 gradient {name}: reached in one path only")
+        if a is not None:
+            rel = ((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+            rels[name] = rel if torch.isfinite(a).all() else math.inf
+    limit = lambda name: BF16_REL_TOL if name == "t5.encoder.rel_bias" else F32_TOL
+    ranked = sorted(rels, key=lambda n: -rels[n] / limit(n))
+    log(f"  forward_train gradient, {len(rels)} roots, of each its largest value: "
+        + "; ".join(f"d{n} {rels[n]:.3e} (limit {limit(n):.0e})"
+                    for n in dict.fromkeys(ranked[:5] + ["t5.encoder.rel_bias", "page_emb", "page_head.weight"])))
+    bad = [n for n in ranked if not rels[n] <= limit(n)]
+    if bad:
+        raise AssertionError(f"Hi-VT5 gradient: {bad} above their limits, or not finite")
+    worst_name = max((n for n in rels if limit(n) == F32_TOL), key=rels.get)
+    worst, n = rels[worst_name], len(rels)
+    params.requires_grad_(False)
+    return {"grad_roots": n, "grad_worst_rel_err": worst, "grad_worst": worst_name, "relu_flips": relu.flips,
+            "loss_err": max(abs(a - b) for a, b in losses.values())}
+
+
+def hivt5_engine(g: torch.Generator, use_visual: bool):
+    """`config.build_engine` -> HiVT5Engine at t5-base (the keys of
+    configs/HiVT5_tiny.yml at the bench row's sizes), bf16 weights, an int8
+    cross cache and K3 on (no config key sets `fused_decode_attn`: it is put
+    on the built config, as phase 5 builds its T5Config)."""
+    from dataclasses import replace
+
+    from rag_docvqa_tpu_torch import config as pconfig
+    from rag_docvqa_tpu_torch.data.tokenizer import HashTokenizer
+    from rag_docvqa_tpu_torch.models import hivt5 as hm
+
+    c = {"model_name": "Hi-VT5", "page_tokens": HI_K, "max_pages": HI_P, "max_text_tokens": HI_T,
+         "max_new_tokens": 16, "decode_kv_int8": True, "dropout_rate": 0.0, "use_visual": use_visual}
+    tok = HashTokenizer(32128)
+    cfg = pconfig.build_hivt5_config(c, tok.vocab_size)
+    params = hm.init_hivt5_params(g, cfg).to(torch.bfloat16)
+    engine = pconfig.build_engine(c, params, tok)
+    engine.cfg = replace(engine.cfg, t5=replace(engine.cfg.t5, fused_decode_attn=True))
+    return engine, tok
+
+
+def serve_hivt5(g: torch.Generator, use_visual: bool):
+    """10b (10c with `use_visual`): three batches of 16 documents through
+    `HiVT5Engine.inference`, the first a warmup; the launches of the two
+    counted batches exactly HIVT5_SERVE_LAUNCHES each (with the visual
+    branch also K14's); every confidence finite in [0, 1] and every page
+    below its document's page count. With `use_visual`, 256 x 192 renders
+    from a seed, none for the first document and every second page of the
+    third, whose masks are checked; the first document's embedding must equal
+    the text-only one."""
+    import numpy as np
+
+    from rag_docvqa_tpu_torch import kernels
+    from rag_docvqa_tpu_torch.data.contract import Caps, to_device
+    from rag_docvqa_tpu_torch.data.ingest import DocVQAIngestor
+    from rag_docvqa_tpu_torch.models import hivt5 as hm
+    from rag_docvqa_tpu_torch.ops.chunking import ChunkSpec
+
+    engine, tok = hivt5_engine(g, use_visual)
+    ingestor = DocVQAIngestor(tok, ChunkSpec(chunk_size=60, overlap=10), Caps(max_pages=HI_P))
+    docs = hivt5_documents(SEED + 10 + use_visual, 3 * HI_B)
+    if use_visual:
+        rng = np.random.RandomState(SEED + 11)
+        for i, doc in enumerate(docs):
+            doc.images = [None if (i % HI_B == 2 and p % 2) else rng.randint(0, 255, (256, 192, 3), dtype=np.uint8)
+                          for p in range(len(doc.words))]
+            if i % HI_B == 0:
+                doc.images = None
+    t0 = time.perf_counter()
+    batches = []
+    for i in range(0, 3 * HI_B, HI_B):
+        batch, aux = ingestor.ingest(docs[i:i + HI_B])
+        aux["images"] = [d.images for d in docs[i:i + HI_B]]
+        batches.append((batch, aux))
+    log(f"  host ingest of 3 x {HI_B} docs ({min(HI_PAGES)}-{HI_P} pages x 120 words): "
+        f"{time.perf_counter() - t0:.3f} s")
+    engine.inference(*batches[0])  # warmup, not counted
+    torch.cuda.synchronize()
+
+    kernels.reset_launch_counts()
+    results = []
+    for batch, aux in batches[1:]:
+        t0 = time.perf_counter()
+        out = engine.inference(batch, aux)
+        results.append((out, aux, (time.perf_counter() - t0) * 1e3))
+    launches = dict(kernels.LAUNCHES)
+
+    rows = []
+    for i, (out, aux, wall) in enumerate(results):
+        conf, t = out["confidences"], out["timings"]
+        if len(out["pred_answers"]) != HI_B or not all(math.isfinite(c) and 0.0 <= c <= 1.0 + 1e-6 for c in conf):
+            raise AssertionError(f"Hi-VT5 batch {i}: bad answers or confidences {conf}")
+        if not all(0 <= p < n for p, n in zip(out["pred_answer_pages"], HI_PAGES)):
+            raise AssertionError(f"Hi-VT5 batch {i}: a page outside its document: {out['pred_answer_pages']}")
+        row = {"wall_ms": wall, "encode_ms": t["encode_s"] * 1e3, "decode_ms": t["decode_s"] * 1e3}
+        if use_visual:
+            row.update(visual_host_ms=t["visual_host_s"] * 1e3, visual_ms=t["visual_s"] * 1e3)
+        rows.append(row)
+        log(f"  batch {i}: {wall:.1f} ms wall ({HI_B / wall * 1e3:.1f} documents/s); encode (with the page head"
+            + (f"; host resize {row['visual_host_ms']:.1f} ms, visual branch {row['visual_ms']:.1f} ms" if use_visual
+               else "") + f") {row['encode_ms']:.2f} ms, decode {row['decode_ms']:.2f} ms; pages "
+            f"{out['pred_answer_pages']}")
+    log(f"  launches in the two counted batches: {launches}")
+    want = dict(HIVT5_SERVE_LAUNCHES)
+    if use_visual:
+        want.update({"vit_layer_norm": 24, "vit_gemm": 48, "vit_attention": 12})
+    for name, n in want.items():
+        if launches[name] != 2 * n:
+            raise AssertionError(f"Hi-VT5 serving launched {name} {launches[name]} times, not 2 x {n}")
+
+    if use_visual:  # imageless pages are masked: the first document has no render at all
+        batch, aux = batches[1]
+        tb = to_device(batch, g.device)
+        with torch.inference_mode():
+            pv, pvalid = engine._page_visual(tb, aux)
+            want_valid = np.array([[p < len(d.words) and d.images is not None and d.images[p] is not None
+                                    for p in range(HI_P)] for d in docs[HI_B:2 * HI_B]])
+            if not (pvalid.cpu().numpy() == want_valid).all():
+                raise AssertionError("Hi-VT5 visual branch: the render validity is not the documents' renders")
+            mixed, _ = hm.encode_document(engine.params, engine.cfg, tb, pv, pvalid)
+            plain, _ = hm.encode_document(engine.params, engine.cfg, tb)
+        err = (mixed[0] - plain[0]).abs().max().item()
+        log(f"  the imageless document's embedding with and without the visual branch: max_abs_err {err:.3e} "
+            f"(limit {tol(torch.bfloat16, plain[0]):.1e}); {int(pvalid.sum())} of {HI_ROWS} page slots have a render")
+        if not (err <= tol(torch.bfloat16, plain[0]) and not torch.allclose(mixed[1], plain[1])):
+            raise AssertionError(f"Hi-VT5 visual branch: imageless pages not masked ({err})")
+    mean = lambda key: sum(r[key] for r in rows) / len(rows)
+    summary = {k: mean(k) for k in rows[0]}
+    summary.update(docs_per_s=HI_B / summary["wall_ms"] * 1e3, batches=rows,
+                   case=f"t5-base Hi-VT5 B{HI_B} x {HI_P} page slots ({HI_PAGES} pages), {HI_ROWS} rows of T "
+                        f"{HI_K + HI_T + (VIT_T if use_visual else 0)}, bf16, int8 cache, K3 on, 16 new tokens")
+    labels = torch.from_numpy(ingestor.answer_labels(batches[1][1]["answers"], max_len=16, seed=SEED))
+    return launches, summary, engine, (batches[1][0], labels.to(engine.device))
+
+
+def hivt5_attention_viz(engine, served) -> dict:
+    """10e, first part: `attention_viz` on a served batch (bf16), its answer
+    labels as the decoder input: page relevance sums to 1 over the valid
+    pages (1e-3) and is 0 on the padded slots."""
+    from rag_docvqa_tpu_torch.data.contract import to_device
+    from rag_docvqa_tpu_torch.models import hivt5 as hm
+
+    batch, labels = served
+    with torch.inference_mode():
+        out = hm.attention_viz(engine.params, engine.cfg, to_device(batch, engine.device), labels)
+    rel = out["page_relevance"]
+    valid = torch.arange(HI_P, device=rel.device)[None, :] < torch.tensor(HI_PAGES, device=rel.device)[:, None]
+    total = rel.sum(1)
+    t5c = engine.cfg.t5
+    ok = (torch.isfinite(out["cross_attn"]).all()
+          and out["cross_attn"].shape == (t5c.num_decoder_layers, HI_B, t5c.num_heads, 16, HI_TE)
+          and (total - 1).abs().max().item() <= 1e-3 and not rel[~valid].any())
+    log(f"  attention_viz: cross_attn {tuple(out['cross_attn'].shape)}, page relevance sums "
+        f"{total.min().item():.6f}-{total.max().item():.6f}, 0 on the {int((~valid).sum())} padded slots: {ok}")
+    if not ok:
+        raise AssertionError("attention_viz: page relevance does not sum to 1 over valid pages or is not 0 elsewhere")
+    return {"relevance_sum_min": total.min().item(), "relevance_sum_max": total.max().item()}
+
+
+def train_hivt5(g: torch.Generator, steps: int = 6):
+    """10d, last part: `make_hivt5_train_step` at t5-base, bf16 compute on f32 masters, B
+    16 x 8 page slots (128 rows of T 522), 16-token labels, one batch
+    repeated; K6, K7 and K8 launched; the total loss and `ret_loss` fall;
+    forward, backward and update ms by CUDA events; the peak memory."""
+    from rag_docvqa_tpu_torch import kernels
+    from rag_docvqa_tpu_torch.data.contract import Caps, to_device
+    from rag_docvqa_tpu_torch.data.ingest import DocVQAIngestor
+    from rag_docvqa_tpu_torch.data.tokenizer import HashTokenizer
+    from rag_docvqa_tpu_torch.models import hivt5 as hm
+    from rag_docvqa_tpu_torch.ops.chunking import ChunkSpec
+    from rag_docvqa_tpu_torch.training.optimizer import build_optimizer, trainable_mask
+    from rag_docvqa_tpu_torch.training.train_step import TrainState, make_hivt5_train_step
+
+    dev = g.device
+    ingestor = DocVQAIngestor(HashTokenizer(32128), ChunkSpec(chunk_size=60, overlap=10), Caps(max_pages=HI_P))
+    batch, aux = ingestor.ingest(hivt5_documents(SEED + 12))
+    batch = to_device(batch, dev)
+    labels = torch.from_numpy(ingestor.answer_labels(aux["answers"], max_len=16, seed=SEED)).to(dev)
+    cfg = hm.HiVT5Config(max_doc_pages=HI_P, page_tokens=HI_K, page_seq_len=HI_T)
+    params = hm.init_hivt5_params(g, cfg)  # f32 masters
+    # the bench row's schedule (lr 1e-4, 10 warmup steps of 1000): at 6d's 2e-4 after 2 warmup steps the
+    # page head overshoots on the repeated batch and ret_loss rises (2.60, 2.60, 3.39, 5.35, 5.74, 4.34 on an
+    # NVIDIA H100 80GB HBM3 at 700 W)
+    opt = build_optimizer(lr=1e-4, warmup_steps=10, total_steps=1000,
+                          mask=trainable_mask(params, ("t5", "spatial", "page_emb", "page_head")))
+    state = TrainState.create(params, opt)
+    step = make_hivt5_train_step(cfg, opt, bf16_compute=True)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    rows = []
+    for i in range(steps):
+        ev = {n: torch.cuda.Event(enable_timing=True) for n in ("start", "forward", "backward", "update")}
+        t0 = time.perf_counter()
+        ev["start"].record()
+        state, m = step(state, batch, labels, mark=lambda n: ev[n].record())
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        row = {k: m[k].item() for k in ("loss", "lm_loss", "ret_loss", "grad_norm")}
+        row.update(wall_ms=wall, forward_ms=ev["start"].elapsed_time(ev["forward"]),
+                   backward_ms=ev["forward"].elapsed_time(ev["backward"]),
+                   update_ms=ev["backward"].elapsed_time(ev["update"]))
+        rows.append(row)
+        log(f"  step {i + 1}: loss {row['loss']:.4f} (lm {row['lm_loss']:.4f}, ret {row['ret_loss']:.4f}), grad norm "
+            f"{row['grad_norm']:.3f}, {wall:.1f} ms (forward {row['forward_ms']:.1f}, backward "
+            f"{row['backward_ms']:.1f}, update {row['update_ms']:.1f})")
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  launches in the {steps} steps: {launches}; peak memory {peak:.2f} GiB")
+    check_launched(launches, TRAIN_KERNELS, "Hi-VT5 training")
+    if not all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in rows):
+        raise AssertionError("Hi-VT5 training: non-finite loss or grad norm")
+    for k in ("loss", "ret_loss"):
+        if not rows[-1][k] < rows[0][k]:
+            raise AssertionError(f"Hi-VT5 training: {k} did not fall on the repeated batch: {[r[k] for r in rows]}")
+    steady = rows[1:]
+    mean = lambda k: sum(r[k] for r in steady) / len(steady)
+    summary = {"ms": mean("wall_ms"), "forward_ms": mean("forward_ms"), "backward_ms": mean("backward_ms"),
+               "update_ms": mean("update_ms"), "peak_memory_gib": peak,
+               "losses": [r["loss"] for r in rows], "ret_losses": [r["ret_loss"] for r in rows],
+               "case": f"t5-base Hi-VT5 B{HI_B} x {HI_P} page slots, {HI_ROWS} rows of T {HI_K + HI_T}, 16-token "
+                       f"labels, bf16 compute, mean of steps 2-{steps}"}
+    log(f"  mean of steps 2-{steps}: {summary['ms']:.1f} ms per step (forward {summary['forward_ms']:.1f}, backward "
+        f"{summary['backward_ms']:.1f}, update {summary['update_ms']:.1f}); peak {peak:.2f} GiB")
+    del state, params
+    return launches, summary
+
+
+def hivt5_clis() -> dict:
+    """10e, second part: the port's train and eval entry points on
+    configs/HiVT5_tiny.yml on the card (f32 weights, bf16 compute in the
+    step), in this process; then the eval entry point from the trained
+    checkpoint on the card and on the CPU, whose summaries must agree."""
+    import contextlib
+    import io
+    import tempfile
+
+    from rag_docvqa_tpu_torch import eval as port_eval
+    from rag_docvqa_tpu_torch import train as port_train
+
+    model, data = os.path.join(REPO, "configs/HiVT5_tiny.yml"), os.path.join(REPO, "configs/Synthetic.yml")
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as printed:
+            result = port_train.main(["-m", model, "-d", data, "--no-eval-start", f"save_dir={tmp}"])
+        train_s = time.perf_counter() - t0
+        losses = [h["train_loss"] for h in result["history"]]
+        epochs = [line for line in printed.getvalue().splitlines() if "train_loss=" in line]
+        log(f"  train CLI: {epochs} ({train_s:.1f} s)")
+        t0 = time.perf_counter()
+        card = port_eval.main(["-m", model, "-d", data, "--ckpt", tmp])[0]
+        eval_s = time.perf_counter() - t0
+        cpu = port_eval.main(["-m", model, "-d", data, "--ckpt", tmp, "--device", "cpu"])[0]
+    log(f"  eval CLI from its checkpoint: card {card} ({eval_s:.1f} s); CPU {cpu}")
+    if not (all(math.isfinite(x) for x in losses) and card["n_samples"] == cpu["n_samples"] > 0):
+        raise AssertionError(f"Hi-VT5 CLIs: losses {losses}, summaries {card} {cpu}")
+    for k in ("accuracy", "anls", "retrieval_precision"):
+        if abs(card[k] - cpu[k]) > 1e-6:
+            raise AssertionError(f"Hi-VT5 eval CLI: {k} {card[k]} on the card, {cpu[k]} on the CPU")
+    return {"train_losses": losses, "train_s": train_s, "eval": card, "eval_s": eval_s}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -3479,8 +4099,8 @@ def main() -> int:
     g = torch.Generator(device="cuda").manual_seed(SEED)
     checks = Checks()
     only = set(sys.argv[1:])  # e.g. `chip_smoke.py 8`: that phase alone, for work on it; no report
-    if only - {"3", "4", "5", "6", "7", "8", "9"}:
-        raise SystemExit(f"usage: chip_smoke.py [phase ...], phases 3-9; got {sorted(only)}")
+    if only - {"3", "4", "5", "6", "7", "8", "9", "10"}:
+        raise SystemExit(f"usage: chip_smoke.py [phase ...], phases 3-10; got {sorted(only)}")
     want = lambda phase: not only or phase in only
     launches, path_launches = {}, {}
     if want("3") or want("4") or want("5"):
@@ -3596,6 +4216,40 @@ def main() -> int:
         for path, counts in (("serve_visual", visual_launches), ("p2s", p2s_launches), ("p2s_page", p2s_page_launches)):
             launches.update({k: counts[k] for k in KERNELS if KERNELS[k][2] == path})
         torch.cuda.empty_cache()
+    if want("10"):
+        g10 = torch.Generator(device="cuda").manual_seed(SEED + 10)  # its own data: the other phases' stay
+        with torch.inference_mode():
+            log("phase 10a: Hi-VT5: the full-width f32 encode_document, then K1, K2, K3 and K14 at its shapes")
+            hivt5 = {"encode_f32_max_abs_err": check_hivt5_encode(g10)}
+            torch.cuda.empty_cache()
+            check_hivt5_kernels(checks, g10)
+            torch.cuda.empty_cache()
+        log(f"phase 10b: HiVT5Engine.inference from build_engine, t5-base, B {HI_B} x {HI_P} page slots, bf16, int8 "
+            f"cross cache, K3 on; card and power limit: {card}")
+        hivt5_launches, hivt5["serve"], engine, served = serve_hivt5(g10, use_visual=False)
+        log("phase 10e: attention_viz on the served batch")
+        hivt5["attention_viz"] = hivt5_attention_viz(engine, served)
+        del engine, served
+        torch.cuda.empty_cache()
+        log(f"phase 10c: the same with the per-page visual branch (ViT-base, 224 px renders from a seed); card and "
+            f"power limit: {card}")
+        hivt5_visual_launches, hivt5["visual_serve"], engine, _ = serve_hivt5(g10, use_visual=True)
+        del engine
+        torch.cuda.empty_cache()
+        log(f"phase 10d: K6, K7 and K8 at B {HI_ROWS} T {HI_K + HI_T} against their plain versions; the full-width "
+            "f32 forward_train gradient against the plain layer's")
+        g13 = torch.Generator(device="cuda").manual_seed(SEED + 13)  # its own data: the train steps' stay
+        check_hivt5_train_kernels(checks, g13)
+        hivt5["train_grad_f32"] = check_hivt5_grad(g13)
+        torch.cuda.empty_cache()
+        log(f"phase 10d: make_hivt5_train_step, t5-base, B {HI_B} x {HI_P} page slots, bf16 compute, f32 masters")
+        hivt5_train_launches, hivt5["train_step"] = train_hivt5(g10)
+        torch.cuda.empty_cache()
+        log("phase 10e: the train and eval entry points on configs/HiVT5_tiny.yml")
+        hivt5["clis"] = hivt5_clis()
+        path_launches.update(hivt5_serve=hivt5_launches, hivt5_visual_serve=hivt5_visual_launches,
+                             hivt5_train=hivt5_train_launches)
+        torch.cuda.empty_cache()
     if only:
         print(json.dumps({"ok": True, "phases": sorted(only), "card": card}), flush=True)
         return 0
@@ -3615,8 +4269,10 @@ def main() -> int:
         "t5_layer": {"max_abs_err": checks.err["t5_layer"], **times("t5_layer", "B32 T512 t5-base bf16"),
                      "cases": checks.times["t5_layer"]},
         # K7 and K8 compose from gemm_bwd, rms_bwd and (K8) the K1 parts and K6
-        "t5_ffn_bwd": {"max_abs_err": checks.err["t5_ffn_bwd"], **times("t5_ffn_bwd", "B8 T512 t5-base bf16")},
-        "t5_attn_bwd": {"max_abs_err": checks.err["t5_attn_bwd"], **times("t5_attn_bwd", "B8 T512 t5-base bf16")},
+        "t5_ffn_bwd": {"max_abs_err": checks.err["t5_ffn_bwd"], **times("t5_ffn_bwd", "B8 T512 t5-base bf16"),
+                       "cases": checks.times["t5_ffn_bwd"]},
+        "t5_attn_bwd": {"max_abs_err": checks.err["t5_attn_bwd"], **times("t5_attn_bwd", "B8 T512 t5-base bf16"),
+                        "cases": checks.times["t5_attn_bwd"]},
         "t5_layer_train": {"max_abs_err": checks.err["t5_layer_train"]},
         # phase 5b: the ten strategies' batches, the rows they encode, K3's splits at B 320, the eval CLI
         "strategies": strategies,
@@ -3651,6 +4307,8 @@ def main() -> int:
                             "parts_launched": {k: p2s_page_launches[k] for k in TOWER_KERNELS}},
         "visual_serve": visual_summary,
         "p2s_serve": p2s_summary,
+        # phase 10: Hi-VT5 served with and without the per-page visual branch, trained, its attention maps, its CLIs
+        "hivt5": hivt5,
         # every kernel's launches in each path's run, counts set to 0 just before it
         "launches_by_path": path_launches,
         "card": card,

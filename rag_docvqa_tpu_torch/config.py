@@ -1,15 +1,17 @@
 """Layered YAML configs -> the port's config dataclasses.
 
-Counterpart of the VT5 and Pix2Struct parts of `rag_docvqa_tpu/config.py`:
-`load_config` merges the dataset config, the model config, its
-`training_parameters` and the CLI overrides in that order, as there, and the
-`build_*` helpers map the flat dict onto `RAGConfig`, `VT5Config` (with the
-`use_visual` and `visual_*` keys of the DiT tower), `Pix2StructConfig`,
-`ChunkSpec` and `Caps`; `expand_sweep` expands list-valued keys into the
-cross product of runs; `build_reranker` is the BERT branch of the JAX one,
-and `build_engine` the VT5 and Pix2Struct branches of the JAX model registry
-with its `rerank` key and the not-answerable classifier
-(`use_not_answerable_classifier`, `not_answerable_threshold`).
+Counterpart of the VT5, Hi-VT5 and Pix2Struct parts of
+`rag_docvqa_tpu/config.py`: `load_config` merges the dataset config, the
+model config, its `training_parameters` and the CLI overrides in that order,
+as there, and the `build_*` helpers map the flat dict onto `RAGConfig`,
+`VT5Config` (with the `use_visual` and `visual_*` keys of the DiT tower),
+`HiVT5Config`, `Pix2StructConfig`, `ChunkSpec` and `Caps`; `expand_sweep`
+expands list-valued keys into the cross product of runs; `build_reranker` is
+the BERT branch of the JAX one (random weights, or a local weight
+directory), `build_engine` the VT5, Hi-VT5 and Pix2Struct branches of the
+JAX model registry with its `rerank` key and the not-answerable classifier
+(`use_not_answerable_classifier`, `not_answerable_threshold`), and
+`load_tokenizer` the hash, byte and local Hugging Face tokenizers.
 PyYAML is imported only by `load_yaml`, so the rest of the port runs where
 it is not installed.
 """
@@ -21,7 +23,7 @@ from typing import Any, Dict, Iterator, Optional, Sequence
 
 from rag_docvqa_tpu_torch.ops.chunking import ChunkSpec
 from rag_docvqa_tpu_torch.data.contract import Caps
-from rag_docvqa_tpu_torch.data.tokenizer import BaseTokenizer, HashTokenizer
+from rag_docvqa_tpu_torch.data.tokenizer import BaseTokenizer, ByteTokenizer, HashTokenizer, HFTokenizer
 from rag_docvqa_tpu_torch.engine.rag_vt5 import STRATEGIES, RAGConfig
 from rag_docvqa_tpu_torch.models import t5 as t5m
 from rag_docvqa_tpu_torch.models import vt5 as vt5m
@@ -142,6 +144,32 @@ def build_p2s_config(c: Dict[str, Any], vocab_size: int):
     )
 
 
+def build_hivt5_config(c: Dict[str, Any], vocab_size: int):
+    """Hi-VT5: the VT5 T5 and spatial widths, `page_tokens`, `max_pages` page
+    slots, `max_text_tokens` (else `max_source_length`) a page, and the
+    per-page ViT of the `visual_*` keys."""
+    from rag_docvqa_tpu_torch.models import hivt5 as hivt5m
+
+    base = build_vt5_config(c, vocab_size)
+    return hivt5m.HiVT5Config(
+        t5=base.t5,
+        spatial=base.spatial,
+        page_tokens=c.get("page_tokens", 10),
+        max_doc_pages=c.get("max_pages", 20) or 20,
+        page_seq_len=c.get("max_text_tokens", c.get("max_source_length", 512)),
+        retrieval_loss_weight=c.get("retrieval_loss_weight", 0.25),
+        use_visual=bool(c.get("use_visual", False)),
+        vit=ViTConfig(
+            hidden_size=c.get("visual_hidden_size", 768),
+            num_layers=c.get("visual_num_layers", 12),
+            num_heads=c.get("visual_num_heads", 12),
+            mlp_dim=c.get("visual_mlp_dim", 3072),
+            patch_size=c.get("visual_patch_size", 16),
+            image_size=c.get("visual_image_size", 224),
+        ),
+    )
+
+
 def build_chunk_spec(c: Dict[str, Any]) -> ChunkSpec:
     return ChunkSpec(
         chunk_size=c.get("chunk_size", 60),
@@ -168,9 +196,11 @@ def build_reranker(c: Dict[str, Any], tokenizer, seed: int = 0, device="cuda"):
     """The cross-encoder reranker of a config: the `rerank_*` keys and the
     `reranker_*` widths (the JAX defaults), vocabulary the tokenizer's, random
     weights from `seed` on `device`: the card by default, as the CLIs, which
-    raises without one; the CPU only when asked for. A weight name with
-    "gemma" selects the LLM pair reranker, which is not ported; converted
-    weight directories wait for the port of models/loader.py."""
+    raises without one; the CPU only when asked for. `reranker_weights`
+    naming a local directory loads its Hugging Face BERT / XLM-R weights
+    (models/loader.py, then `convert_bert_state_dict`) in place of the
+    random ones. A weight name with "gemma" selects the LLM pair reranker,
+    which is not ported."""
     import torch
 
     from rag_docvqa_tpu_torch.engine.reranker import Reranker, RerankerConfig
@@ -188,11 +218,6 @@ def build_reranker(c: Dict[str, Any], tokenizer, seed: int = 0, device="cuda"):
     if "gemma" in weights.lower():
         raise NotImplementedError("the LLM pair reranker (FlagLLMReranker) waits for the causal-LM slice "
                                   "(ROADMAP Queue 1 item 15)")
-    import os
-
-    if weights and os.path.isdir(weights):
-        raise NotImplementedError("converted reranker weights wait for the port of models/loader.py "
-                                  "(ROADMAP Queue 1 item 18)")
     bert_cfg = BertConfig(
         vocab_size=tokenizer.vocab_size,
         hidden_size=c.get("reranker_d_model", 64),
@@ -204,13 +229,25 @@ def build_reranker(c: Dict[str, Any], tokenizer, seed: int = 0, device="cuda"):
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError('build_reranker: no CUDA device found; the reranker is built on the GPU by default, '
                            'pass device="cpu" to build it on the CPU')
+    import os
+
+    if weights and os.path.isdir(weights):
+        from rag_docvqa_tpu_torch.models.bert import convert_bert_state_dict
+        from rag_docvqa_tpu_torch.models.loader import read_state_dict
+        from rag_docvqa_tpu_torch.params import bert_from_jax
+
+        sd = read_state_dict(weights)
+        # a sequence-classification checkpoint nests its encoder under the model's name
+        prefix = next((p for p in ("roberta.", "bert.") if any(k.startswith(p) for k in sd)), "")
+        return Reranker(rcfg, bert_cfg, bert_from_jax(convert_bert_state_dict(sd, bert_cfg, prefix), device))
     params = init_bert_params(torch.Generator(device=device).manual_seed(seed), bert_cfg)
     return Reranker(rcfg, bert_cfg, params)
 
 
 def build_engine(c: Dict[str, Any], params, tokenizer):
-    """The engine of a config: RAG-Pix2Struct for `model_name: Pix2Struct`
-    (params a `P2SParams`), else RAG-VT5 (params a `VT5Params`), with the
+    """The engine of a config: Hi-VT5 for `model_name: Hi-VT5` (params a
+    `HiVT5Params`), RAG-Pix2Struct for `model_name: Pix2Struct` (params a
+    `P2SParams`), else RAG-VT5 (params a `VT5Params`), with the
     rerank stage when `rerank` is set (its weights on the parameters' device,
     in their dtype) and the not-answerable classifier when
     `use_not_answerable_classifier` is: the parameters' own `nac`, else one
@@ -219,6 +256,11 @@ def build_engine(c: Dict[str, Any], params, tokenizer):
     from rag_docvqa_tpu_torch.engine.rag_vt5 import RAGVT5Engine
 
     name = str(c.get("model_name", "VT5")).lower()
+    if name in ("hi-vt5", "hivt5"):
+        from rag_docvqa_tpu_torch.engine.hivt5_engine import HiVT5Engine
+
+        return HiVT5Engine(build_hivt5_config(c, tokenizer.vocab_size), params, tokenizer,
+                           max_new_tokens=c.get("max_new_tokens", 32))
     if name in ("pix2struct", "ragpix2struct"):
         from rag_docvqa_tpu_torch.engine.rag_pix2struct import P2SRAGConfig, RAGPix2StructEngine
 
@@ -232,8 +274,8 @@ def build_engine(c: Dict[str, Any], params, tokenizer):
             ),
             build_p2s_config(c, tokenizer.vocab_size), params, tokenizer)
     if name not in ("vt5", "ragvt5", "rag-vt5"):
-        raise NotImplementedError(f"engine {name!r}: the port has RAG-VT5 and RAG-Pix2Struct; Hi-VT5 waits in "
-                                  "ROADMAP Queue 1 item 12, the causal-LM engines in item 15")
+        raise NotImplementedError(f"engine {name!r}: the port has RAG-VT5, Hi-VT5 and RAG-Pix2Struct; the "
+                                  "causal-LM engines wait in ROADMAP Queue 1 item 15")
     shared = params.t5.shared
     reranker = nac = None
     if c.get("rerank", False):
@@ -254,10 +296,13 @@ def build_engine(c: Dict[str, Any], params, tokenizer):
 
 
 def load_tokenizer(spec: Optional[str] = None) -> BaseTokenizer:
-    """None or "hash" -> HashTokenizer(); "hash:N" sets its vocabulary size."""
+    """None or "hash" -> HashTokenizer() ("hash:N" sets its vocabulary size),
+    "byte" -> ByteTokenizer(), anything else a local Hugging Face tokenizer
+    directory (HFTokenizer)."""
     if spec is None or spec == "hash":
         return HashTokenizer()
     if spec.startswith("hash:"):
         return HashTokenizer(vocab_size=int(spec.split(":", 1)[1]))
-    raise NotImplementedError(f"tokenizer {spec!r}: the port has the hash tokenizer only "
-                              "(ROADMAP Queue 1 item 18)")
+    if spec == "byte":
+        return ByteTokenizer()
+    return HFTokenizer(spec)

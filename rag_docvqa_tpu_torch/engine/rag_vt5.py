@@ -174,6 +174,21 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def decode_answers(tokenizer, t5_cfg, tokens: np.ndarray) -> List[str]:
+    """(N, T) decoded ids -> N answer strings: each row up to its EOS,
+    pads dropped."""
+    out = []
+    for row in tokens:
+        ids = []
+        for t in row:
+            if t == t5_cfg.eos_id:
+                break
+            if t != t5_cfg.pad_id:
+                ids.append(int(t))
+        out.append(tokenizer.decode(ids))
+    return out
+
+
 class RAGVT5Engine:
     """Host-facing engine: owns the parameters and the tokenizer."""
 
@@ -339,17 +354,7 @@ class RAGVT5Engine:
         return update_results(probs.float().cpu().numpy(), answers, confs, threshold)
 
     def _decode(self, tokens: np.ndarray) -> List[str]:
-        t5c = self.vt5_cfg.t5
-        out = []
-        for row in tokens:
-            ids = []
-            for t in row:
-                if t == t5c.eos_id:
-                    break
-                if t != t5c.pad_id:
-                    ids.append(int(t))
-            out.append(self.tokenizer.decode(ids))
-        return out
+        return decode_answers(self.tokenizer, self.vt5_cfg.t5, tokens)
 
     def _select_rows(self, tokens: np.ndarray, conf: torch.Tensor, row_valid: torch.Tensor, B: int, K: int,
                      keep_all: bool):

@@ -1,9 +1,9 @@
 """Spatial (2-D box) embeddings for VT5.
 
 Counterpart of `rag_docvqa_tpu/models/embeddings.py` (`SpatialConfig`,
-`init_spatial_params`, `spatial_embed`): x/y tables over bucketed
-coordinates summed over (x0, y0, x1, y1), LayerNorm(eps=1e-12), then one
-linear "matcher". Dropout is an inference no-op and is left out.
+`init_spatial_params`, `spatial_embed`, `get_visual_boxes`): x/y tables
+over bucketed coordinates summed over (x0, y0, x1, y1), LayerNorm(eps=1e-12),
+then one linear "matcher". Dropout is an inference no-op and is left out.
 """
 
 from __future__ import annotations
@@ -56,3 +56,12 @@ def spatial_embed(p: SpatialEmbeddings, cfg: SpatialConfig, bbox: torch.Tensor) 
     emb = p.x_emb[bbox[..., 0]] + p.y_emb[bbox[..., 1]] + p.x_emb[bbox[..., 2]] + p.y_emb[bbox[..., 3]]
     emb = layer_norm(emb, p.ln_w, p.ln_b, cfg.layer_norm_eps)
     return dense(emb, p.matcher_w, p.matcher_b)
+
+
+def get_visual_boxes(num_pages: int = 1, scale: float = 1.0, grid: int = 14, device=None) -> torch.Tensor:
+    """(num_pages, 1 + grid * grid, 4) f32 boxes of the visual tokens: the CLS
+    box [0, 0, 1, 1], then the grid's cells in row-major order, times `scale`."""
+    cells = [[0.0, 0.0, 1.0, 1.0]] + [[x / grid, y / grid, (x + 1) / grid, (y + 1) / grid]
+                                      for y in range(grid) for x in range(grid)]
+    boxes = torch.tensor(cells, dtype=torch.float32, device=device)[None].repeat(num_pages, 1, 1)
+    return boxes * scale

@@ -8,7 +8,8 @@ per-layer tensors; dense weights are (out, in). They are created frozen
 (no gradient); a trainer turns `requires_grad` on where it trains. Attention
 has no 1/sqrt(d_k) scale, as in T5.
 
-`encode(..., train=True)` runs every layer through `T5LayerTrain`, the
+`decode_train(..., return_cross_attn=True)` also returns every layer's
+cross-attention probabilities. `encode(..., train=True)` runs every layer through `T5LayerTrain`, the
 layer-level autograd Function whose backward is K7 then K8 (the JAX
 `encode(fused="train")`); gradients reach every encoder weight, the input
 embeddings and, through the bf16 cast and the bucket gather, the rel-pos
@@ -212,10 +213,11 @@ def _split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
     return x.view(x.shape[0], x.shape[1], n_heads, -1)
 
 
-def _attend(q, k, v, bias, mask):
+def _attend(q, k, v, bias, mask, return_probs: bool = False):
     """q (B, Tq, H, dk), k/v (B, Tk, H, dk), bias (1|B, H, Tq, Tk), mask
     broadcastable to (B, H, Tq, Tk) -> (B, Tq, H*dk) in q's dtype: f32
-    scores, masked at -1e9, probabilities cast to q's dtype."""
+    scores, masked at -1e9, probabilities cast to q's dtype. With
+    return_probs, also those (B, H, Tq, Tk) probabilities."""
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
     if bias is not None:
         scores = scores + bias.float()
@@ -223,7 +225,8 @@ def _attend(q, k, v, bias, mask):
         scores = torch.where(mask, scores, MASKED)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bhqk,bkhd->bqhd", probs.float(), v.float()).to(q.dtype)
-    return out.reshape(out.shape[0], out.shape[1], -1)
+    out = out.reshape(out.shape[0], out.shape[1], -1)
+    return (out, probs) if return_probs else out
 
 
 def _ffn(p: T5FFN, cfg: T5Config, x: torch.Tensor) -> torch.Tensor:
@@ -257,10 +260,12 @@ def encode(params: T5Params, cfg: T5Config, inputs_embeds: torch.Tensor,
 # decoder, teacher-forced
 # --------------------------------------------------------------------------- #
 def decode_train(params: T5Params, cfg: T5Config, decoder_input_ids: torch.Tensor,
-                 encoder_hidden: torch.Tensor, encoder_mask: torch.Tensor) -> torch.Tensor:
+                 encoder_hidden: torch.Tensor, encoder_mask: torch.Tensor, return_cross_attn: bool = False):
     """Full-sequence decoder forward: causal self-attention with the
     decoder's rel-pos bias, masked cross-attention over the encoder output,
-    the FFN; returns (B, Td, V) logits."""
+    the FFN; returns (B, Td, V) logits. With return_cross_attn, also the
+    cross-attention probabilities of every layer, (L, B, H, Td, Te) in the
+    activations' dtype (Hi-VT5's `attention_viz` maps them back to pages)."""
     dec = params.decoder
     H = cfg.num_heads
     Td = decoder_input_ids.shape[1]
@@ -269,6 +274,7 @@ def decode_train(params: T5Params, cfg: T5Config, decoder_input_ids: torch.Tenso
     bias = relative_bias(dec.rel_bias, pos, pos, bidirectional=False, cfg=cfg)
     causal = (pos[None, :] <= pos[:, None]).to(x.device)[None, None]
     cross_mask = encoder_mask[:, None, None, :]
+    cross = []
     for layer in dec.layers:
         sa, ca = layer.self_attn, layer.cross_attn
         h = rms_norm(x, layer.ln0, cfg.layer_norm_eps)
@@ -277,11 +283,15 @@ def decode_train(params: T5Params, cfg: T5Config, decoder_input_ids: torch.Tenso
         h = rms_norm(x, layer.ln1, cfg.layer_norm_eps)
         q = _split_heads(dense(h, ca.q), H)
         k, v = (_split_heads(dense(encoder_hidden, w), H) for w in (ca.k, ca.v))
-        x = x + dense(_attend(q, k, v, None, cross_mask), ca.o)
+        attended, probs = _attend(q, k, v, None, cross_mask, return_probs=True)
+        x = x + dense(attended, ca.o)
+        if return_cross_attn:
+            cross.append(probs)
         h = rms_norm(x, layer.ln2, cfg.layer_norm_eps)
         x = x + _ffn(layer.ffn, cfg, h)
     x = rms_norm(x, dec.final_ln, cfg.layer_norm_eps)
-    return lm_logits(params, cfg, x)
+    logits = lm_logits(params, cfg, x)
+    return (logits, torch.stack(cross)) if return_cross_attn else logits
 
 
 def shift_tokens_right(labels: torch.Tensor, pad_id: int, decoder_start_token_id: int) -> torch.Tensor:

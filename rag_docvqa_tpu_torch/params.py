@@ -13,6 +13,9 @@ head, which is not ported yet). `nac_from_jax` / `nac_to_jax` convert the
 (`init_vit_params` or `convert_vit_state_dict`), `p2s_from_jax` /
 `p2s_to_jax` a Pix2Struct tree (`init_p2s_params` or
 `convert_p2s_state_dict`): the stacked vision tower and the decoder-only T5.
+`hivt5_from_jax` / `hivt5_to_jax` a Hi-VT5 tree (`init_hivt5_params` or
+`load_hivt5_params`): the T5, the spatial embeddings, `page_emb`,
+`page_head` and, when present, the `visual` tower and matcher.
 `index_from_numpy` carries a JAX `ShardedIndex`'s arrays into the port's.
 `bert_from_jax` / `bert_to_jax` do the same for a BERT tree (`init_bert_params`
 or `convert_bert_state_dict`): stacked (L, in, out) kernels <-> per-layer
@@ -28,6 +31,7 @@ import torch
 
 from rag_docvqa_tpu_torch.models.bert import BertLayer, BertParams
 from rag_docvqa_tpu_torch.models.embeddings import SpatialEmbeddings
+from rag_docvqa_tpu_torch.models.hivt5 import HiVT5Params, PageHead
 from rag_docvqa_tpu_torch.models.nac import NACLayer, NACParams
 from rag_docvqa_tpu_torch.models.pix2struct import P2SParams, P2SVision
 from rag_docvqa_tpu_torch.models.t5 import (
@@ -99,20 +103,34 @@ def from_jax(tree: Tree, device="cpu") -> Union[VT5Params, T5Params]:
     `device`; cast with `.to(dtype)` afterwards."""
     if "t5" not in tree:
         return t5_from_jax(tree, device)
-    sp = tree["spatial"]
-    spatial = SpatialEmbeddings(
-        _t(sp["x_emb"], device), _t(sp["y_emb"], device), _t(sp["ln_w"], device),
-        _t(sp["ln_b"], device), _dense(sp["matcher"]["kernel"], device),
-        _t(sp["matcher"]["bias"], device))
     layout_emb = _t(tree["layout_emb"], device) if "layout_emb" in tree else None
     layout_scale = _t(tree["layout_scale"], device) if "layout_scale" in tree else None
-    visual = None
-    if "visual" in tree:
-        m = tree["visual"]["matcher"]
-        visual = VisualParams(vit_from_jax(tree["visual"]["vit"], device), _dense(m["kernel"], device),
-                              _t(m["bias"], device))
     nac = nac_from_jax(tree["nac"], device) if "nac" in tree else None
-    return VT5Params(t5_from_jax(tree["t5"], device), spatial, layout_emb, layout_scale, visual=visual, nac=nac)
+    return VT5Params(t5_from_jax(tree["t5"], device), _spatial_from_jax(tree["spatial"], device), layout_emb,
+                     layout_scale, visual=_visual_from_jax(tree, device), nac=nac)
+
+
+def _spatial_from_jax(sp: Tree, device) -> SpatialEmbeddings:
+    return SpatialEmbeddings(_t(sp["x_emb"], device), _t(sp["y_emb"], device), _t(sp["ln_w"], device),
+                             _t(sp["ln_b"], device), _dense(sp["matcher"]["kernel"], device),
+                             _t(sp["matcher"]["bias"], device))
+
+
+def _visual_from_jax(tree: Tree, device) -> Optional[VisualParams]:
+    if "visual" not in tree:
+        return None
+    m = tree["visual"]["matcher"]
+    return VisualParams(vit_from_jax(tree["visual"]["vit"], device), _dense(m["kernel"], device),
+                        _t(m["bias"], device))
+
+
+def hivt5_from_jax(tree: Tree, device="cpu") -> HiVT5Params:
+    """A JAX Hi-VT5 tree ({"t5", "spatial", "page_emb", "page_head"[,
+    "visual"]}) -> HiVT5Params: f32 tensors on `device`."""
+    head = tree["page_head"]
+    return HiVT5Params(t5_from_jax(tree["t5"], device), _spatial_from_jax(tree["spatial"], device),
+                       _t(tree["page_emb"], device), PageHead(_dense(head["kernel"], device), _t(head["bias"], device)),
+                       _visual_from_jax(tree, device))
 
 
 def nac_from_jax(tree: Tree, device="cpu") -> NACParams:
@@ -172,6 +190,18 @@ def to_jax(p: Union[VT5Params, T5Params]) -> Tree:
     """The inverse of `from_jax`: a tree of f32 numpy arrays."""
     if isinstance(p, T5Params):
         return t5_to_jax(p)
+    tree = _text_tree(p)
+    if p.layout_emb is not None:
+        tree["layout_emb"] = _np(p.layout_emb)
+    if p.layout_scale is not None:
+        tree["layout_scale"] = _np(p.layout_scale)
+    if p.nac is not None:
+        tree["nac"] = nac_to_jax(p.nac)
+    return tree
+
+
+def _text_tree(p: Union[VT5Params, HiVT5Params]) -> Tree:
+    """The "t5", "spatial" and (when present) "visual" subtrees."""
     sp = p.spatial
     tree: Tree = {
         "t5": t5_to_jax(p.t5),
@@ -180,15 +210,17 @@ def to_jax(p: Union[VT5Params, T5Params]) -> Tree:
             "matcher": {"kernel": _np(sp.matcher_w).T, "bias": _np(sp.matcher_b)},
         },
     }
-    if p.layout_emb is not None:
-        tree["layout_emb"] = _np(p.layout_emb)
-    if p.layout_scale is not None:
-        tree["layout_scale"] = _np(p.layout_scale)
     if p.visual is not None:
         tree["visual"] = {"vit": vit_to_jax(p.visual.vit),
                           "matcher": {"kernel": _np(p.visual.matcher_w).T, "bias": _np(p.visual.matcher_b)}}
-    if p.nac is not None:
-        tree["nac"] = nac_to_jax(p.nac)
+    return tree
+
+
+def hivt5_to_jax(p: HiVT5Params) -> Tree:
+    """The inverse of `hivt5_from_jax`: a tree of f32 numpy arrays."""
+    tree = _text_tree(p)
+    tree["page_emb"] = _np(p.page_emb)
+    tree["page_head"] = {"kernel": _np(p.page_head.weight).T, "bias": _np(p.page_head.bias)}
     return tree
 
 

@@ -1,17 +1,17 @@
-"""The VT5 train step: retrieve -> assemble -> teacher-forced loss ->
-backward -> update.
+"""The VT5 train step (retrieve -> assemble -> teacher-forced loss ->
+backward -> update) and the Hi-VT5 one.
 
 Counterpart of `rag_docvqa_tpu/training/train_step.py` (`TrainState`,
-`make_train_step`) on one device. Retrieval and assembly run without
-gradient, as the JAX step stops the gradient at the retrieval table; the
-encoder's backward is the hand-written K7/K8 pair (`models/t5.py::encode`
-with train=True). With `use_nac` the step adds the not-answerable
-classifier's weighted BCE: a greedy decode of `nac_decode_len` tokens
-through the frozen parameters (no gradient; K3 on the card where
-`fused_decode_attn` is set) gives the predicted answers, and the NAC sees
-their embeddings beside the generator input's, so that only the NAC MLP
-receives this term's gradient. Remat and the Hi-VT5 step are not ported yet
-and raise.
+`make_train_step`, `make_hivt5_train_step`) on one device. Retrieval and
+assembly run without gradient, as the JAX step stops the gradient at the
+retrieval table; the encoder's backward is the hand-written K7/K8 pair
+(`models/t5.py::encode` with train=True). With `use_nac` the step adds the
+not-answerable classifier's weighted BCE: a greedy decode of
+`nac_decode_len` tokens through the frozen parameters (no gradient; K3 on
+the card where `fused_decode_attn` is set) gives the predicted answers, and
+the NAC sees their embeddings beside the generator input's, so that only the
+NAC MLP receives this term's gradient. `make_hivt5_train_step` is the Hi-VT5
+step (LM and page cross-entropy). Remat is not ported yet and raises.
 
 bf16_compute is the JAX mixed precision: f32 master weights, and inside
 the loss a bf16 copy of every floating parameter made by a differentiable
@@ -29,6 +29,7 @@ from torch import nn
 
 from rag_docvqa_tpu_torch.data.contract import ChunkedBatch, to_device
 from rag_docvqa_tpu_torch.engine.rag_vt5 import RAGConfig, retrieve
+from rag_docvqa_tpu_torch.models import hivt5 as hivt5m
 from rag_docvqa_tpu_torch.models import vt5 as vt5m
 from rag_docvqa_tpu_torch.models.embeddings import spatial_embed
 from rag_docvqa_tpu_torch.models.nac import nac_bce_loss, nac_prob
@@ -105,18 +106,50 @@ def make_train_step(vt5_cfg: vt5m.VT5Config, rag_cfg: RAGConfig, opt: Optimizer,
             loss = loss + nac_loss_weight * aux["nac_loss"]
             aux["nac_accuracy"] = ((probs > 0.5) == (nac_labels > 0.5)).float().mean()
         mark("forward")
-        grads = dict(zip(trainable, torch.autograd.grad(loss, list(trainable.values()))))
-        mark("backward")
-        metrics = {"loss": loss.detach(), "grad_norm": global_norm(list(grads.values())),
-                   **{k: v.detach() for k, v in aux.items()}}
-        for root in dict.fromkeys(n.split(".")[0] for n in grads):
-            metrics[f"grad_norm/{root}"] = global_norm([g for n, g in grads.items() if n.split(".")[0] == root])
-        opt.update(trainable, grads, state.opt_state)
-        mark("update")
-        return TrainState(params, state.opt_state, state.step + 1), metrics
+        return _backward_update(state, opt, trainable, loss, aux, mark)
 
     return step
 
 
-def make_hivt5_train_step(*args, **kwargs):
-    raise NotImplementedError("the Hi-VT5 train step waits for ROADMAP Queue 1 item 12")
+def _backward_update(state: TrainState, opt: Optimizer, trainable: Dict[str, torch.Tensor], loss: torch.Tensor,
+                     aux: Dict[str, torch.Tensor], mark: Callable[[str], None]
+                     ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    """The gradients of the trainable parameters, the metrics ("loss", the
+    `aux` scalars, "grad_norm" and "grad_norm/<root>") and the update."""
+    grads = dict(zip(trainable, torch.autograd.grad(loss, list(trainable.values()))))
+    mark("backward")
+    metrics = {"loss": loss.detach(), "grad_norm": global_norm(list(grads.values())),
+               **{k: v.detach() for k, v in aux.items()}}
+    for root in dict.fromkeys(n.split(".")[0] for n in grads):
+        metrics[f"grad_norm/{root}"] = global_norm([g for n, g in grads.items() if n.split(".")[0] == root])
+    opt.update(trainable, grads, state.opt_state)
+    mark("update")
+    return TrainState(state.params, state.opt_state, state.step + 1), metrics
+
+
+def make_hivt5_train_step(hivt5_cfg, opt: Optimizer, remat=False, bf16_compute: bool = False
+                          ) -> Callable[..., Tuple[TrainState, Dict[str, torch.Tensor]]]:
+    """The Hi-VT5 step: returns step(state, batch, labels, mark=None) ->
+    (state, metrics), the loss the LM cross-entropy plus
+    retrieval_loss_weight times the page cross-entropy
+    (`models/hivt5.py::forward_train`: the pages-in-batch encode through
+    K7/K8 with K6, on B*P rows). metrics: "loss", "lm_loss", "ret_loss",
+    "grad_norm" and "grad_norm/<root>", 0-d tensors; `mark` as in
+    `make_train_step`. bf16_compute as there."""
+    if remat:
+        raise NotImplementedError("remat waits in ROADMAP Queue 1 item 11")
+
+    def step(state: TrainState, batch: ChunkedBatch, labels, mark: Optional[Callable[[str], None]] = None):
+        mark = mark or (lambda name: None)
+        params = state.params
+        dev = params.t5.shared.device
+        if not isinstance(batch.chunk_mask, torch.Tensor):
+            batch = to_device(batch, dev)
+        labels = torch.as_tensor(labels, device=dev).long()
+        trainable = opt.trainable(params)
+        p = cast_params(params, torch.bfloat16) if bf16_compute else params
+        loss, aux = hivt5m.forward_train(p, hivt5_cfg, batch, labels)
+        mark("forward")
+        return _backward_update(state, opt, trainable, loss, {k: aux[k] for k in ("lm_loss", "ret_loss")}, mark)
+
+    return step

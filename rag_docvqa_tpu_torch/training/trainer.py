@@ -10,8 +10,11 @@ the CPU, as the JAX default does for a TPU and the CPU. With `use_nac` the
 step adds the not-answerable classifier's BCE (its labels: the batch's
 "not-answerable" answer types), "nac" trains beside the configured roots
 (initialised from `seed` + 1 where the parameters carry none), and the
-evaluation engine blanks answers at `nac_threshold`. Remat and Hi-VT5
-training are not ported yet and raise (ROADMAP Queue 1 items 11 and 12).
+evaluation engine blanks answers at `nac_threshold`. With `hivt5_cfg` the
+loop trains Hi-VT5 (`make_hivt5_train_step`: LM and page cross-entropy), its
+`page_emb` and `page_head` beside the configured roots, and evaluates
+through `HiVT5Engine`; the not-answerable term is VT5's only, as in JAX.
+Remat is not ported yet and raises (ROADMAP Queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -29,12 +32,13 @@ from rag_docvqa_tpu_torch.data.contract import RawDocument, to_device
 from rag_docvqa_tpu_torch.data.ingest import DocVQAIngestor
 from rag_docvqa_tpu_torch.data.prefetch import map_prefetch
 from rag_docvqa_tpu_torch.engine.evaluate import evaluate
+from rag_docvqa_tpu_torch.engine.hivt5_engine import HiVT5Engine
 from rag_docvqa_tpu_torch.engine.rag_vt5 import RAGConfig, RAGVT5Engine
 from rag_docvqa_tpu_torch.models import vt5 as vt5m
 from rag_docvqa_tpu_torch.models.nac import NACConfig, init_nac_params
 from rag_docvqa_tpu_torch.training.checkpoint import CheckpointManager
 from rag_docvqa_tpu_torch.training.optimizer import build_optimizer, trainable_mask
-from rag_docvqa_tpu_torch.training.train_step import TrainState, make_train_step
+from rag_docvqa_tpu_torch.training.train_step import TrainState, make_hivt5_train_step, make_train_step
 
 
 @dataclass
@@ -63,12 +67,13 @@ class TrainLoopConfig:
 
 
 class Trainer:
-    def __init__(self, vt5_cfg: vt5m.VT5Config, rag_cfg: RAGConfig, params: vt5m.VT5Params, tokenizer,
+    def __init__(self, vt5_cfg: Optional[vt5m.VT5Config], rag_cfg: RAGConfig, params, tokenizer,
                  ingestor: DocVQAIngestor, loop_cfg: Optional[TrainLoopConfig] = None, logger=None,
                  hivt5_cfg=None):
-        if hivt5_cfg is not None:
-            raise NotImplementedError("Hi-VT5 training waits for ROADMAP Queue 1 item 12")
+        """`params` a VT5Params, or with `hivt5_cfg` (a HiVT5Config; then
+        `vt5_cfg` may be None) a HiVT5Params."""
         self.vt5_cfg = vt5_cfg
+        self.hivt5_cfg = hivt5_cfg
         self.rag_cfg = rag_cfg
         self.tokenizer = tokenizer
         self.ingestor = ingestor
@@ -89,7 +94,9 @@ class Trainer:
             return
         c = self.cfg
         trainable = tuple(c.trainable)
-        if c.use_nac:
+        if self.hivt5_cfg is not None:
+            trainable = trainable + tuple(k for k in ("page_emb", "page_head") if k not in trainable)
+        elif c.use_nac:
             if self.params.nac is None:
                 g = torch.Generator(device=self.device).manual_seed(c.seed + 1)
                 self.params.nac = init_nac_params(g, NACConfig(emb_dim=self.vt5_cfg.t5.d_model))
@@ -100,11 +107,16 @@ class Trainer:
                                    weight_decay=c.weight_decay, mask=trainable_mask(self.params, trainable))
         self.state = TrainState.create(self.params, self.opt)
         bf16 = c.bf16_compute if c.bf16_compute is not None else self.device.type == "cuda"
+        if self.hivt5_cfg is not None:
+            self.step_fn = make_hivt5_train_step(self.hivt5_cfg, self.opt, remat=c.remat, bf16_compute=bf16)
+            return
         self.step_fn = make_train_step(self.vt5_cfg, self.rag_cfg, self.opt, bf16_compute=bf16,
                                        use_nac=c.use_nac, nac_loss_weight=c.nac_loss_weight,
                                        nac_pos_weight=c.nac_pos_weight, remat=c.remat)
 
-    def engine(self) -> RAGVT5Engine:
+    def engine(self):
+        if self.hivt5_cfg is not None:
+            return HiVT5Engine(self.hivt5_cfg, self.params, self.tokenizer, max_new_tokens=self.cfg.answer_max_len)
         nac = (self.params.nac, self.cfg.nac_threshold) if self.cfg.use_nac and self.params.nac is not None else None
         return RAGVT5Engine(self.rag_cfg, self.vt5_cfg, self.params, self.tokenizer, nac=nac)
 
@@ -145,16 +157,17 @@ class Trainer:
                 if item is None:
                     continue
                 docs, batch, labels, aux = item
-                nac_labels = None
-                if cfg.use_nac:  # the not-answerable ground truth
-                    nac_labels = torch.tensor([t == "not-answerable" for t in aux["answer_types"]],
-                                              dtype=torch.float32, device=self.device)
-                self.state, metrics = self.step_fn(self.state, batch, labels, nac_labels)
+                step_args = [self.state, batch, labels]
+                if cfg.use_nac and self.hivt5_cfg is None:  # the not-answerable ground truth
+                    step_args.append(torch.tensor([t == "not-answerable" for t in aux["answer_types"]],
+                                                  dtype=torch.float32, device=self.device))
+                self.state, metrics = self.step_fn(*step_args)
                 losses.append(float(metrics["loss"]))
                 if len(losses) % cfg.log_every == 0:
                     logd = {"epoch": epoch, "step": self.state.step, "loss": losses[-1],
                             "grad_norm": float(metrics["grad_norm"])}
-                    logd.update({k: float(metrics[k]) for k in ("nac_loss", "nac_accuracy") if k in metrics})
+                    logd.update({k: float(metrics[k]) for k in ("nac_loss", "nac_accuracy", "lm_loss", "ret_loss")
+                                 if k in metrics})
                     self._log(logd)
                 if cfg.train_metrics_every and len(losses) % cfg.train_metrics_every == 0:
                     out = self.engine().inference(batch, aux)

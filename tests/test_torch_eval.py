@@ -136,10 +136,10 @@ def test_config_sweep_and_rag_keys_match_jax():
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--hf-weights", "x"], "item 18a"),
+    (["-d", "configs/MP-DocVQA.yml"], "item 18a"),
     (["--ingest-workers", "2"], "item 18a"),
     (["--data-parallel"], "item 17"),
-    (["-m", "configs/HiVT5_tiny.yml"], "item 12"),
+    (["-m", "configs/HiVT5_tiny.yml", "synthetic_images=true"], "item 18a"),
     (["-m", "configs/Qwen_tiny.yml"], "item 15"),
     (["-m", "configs/Pix2Struct_tiny.yml"], "item 18a"),
 ])

@@ -221,8 +221,8 @@ def test_build_reranker_and_engine_from_config(world):
     out = engine.inference(world["pb_np"], world["paux"])
     assert len(out["pred_answers"]) == 3 and all(1 <= len(p) <= 4 for p in out["pred_answer_pages"])
     assert p_config.build_engine(dict(c, rerank=False), params, world["ptok"]).reranker is None
-    with pytest.raises(NotImplementedError, match="Queue 1 item"):
-        p_config.build_engine(dict(c, model_name="Hi-VT5"), params, world["ptok"])
+    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
+        p_config.build_engine(dict(c, model_name="Qwen"), params, world["ptok"])
 
 
 def test_build_reranker_defaults_to_the_card(world, monkeypatch):
