@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's RAG-VT5 serving and training paths, its corpus
 index, its BERT family, its visual paths (the DiT branch of RAG-VT5,
-RAG-Pix2Struct) and Hi-VT5 once on one CUDA card.
+RAG-Pix2Struct), Hi-VT5, the VT5 family's other training forms and the
+documents from local files once on one CUDA card.
 
     python3 chip_smoke.py            # every phase, the report and the result line
-    python3 chip_smoke.py 10         # phases 1-2 and the named ones (3-10) alone, for work on them: no report
+    python3 chip_smoke.py 11         # phases 1-2 and the named ones (3-11) alone, for work on them: no report
 
-Ten phases; any failure raises and the script exits non-zero:
+Eleven phases; any failure raises and the script exits non-zero:
 
   1. a CUDA device is required; prints the card's name and power limit and
      turns TF32 off, so f32 products are full f32;
@@ -256,6 +257,37 @@ Ten phases; any failure raises and the script exits non-zero:
         valid pages, 0 on the padded slots); the train and eval entry points
         on configs/HiVT5_tiny.yml on the card, and the eval entry point from
         the trained checkpoint on the card and on the CPU (equal metrics).
+ 11. the VT5 family's training forms and documents from local files, on its
+     own generator:
+     a. K6, K7 and K8 against their plain versions, each timed on the device
+        (K6 beside autograd through SDPA): gated (K7's dwi0 and dwi1) and
+        without a bias at pix2struct-base, B 8 x 1024 patches ending in
+        padding; with the shared bf16 T5 bias at t5-base, B 8, T 709 (512
+        text + 197 visual tokens) and the visual key mask; K2, K6 and K3 in
+        f32 at the answer-quality model's d_kv 16;
+     b. the full-width f32 gradients of Pix2Struct `forward_train`
+        (pix2struct-base, 2 rows of 1024 patches) and of VT5 `forward_train`
+        (t5-base, ViT-base visual tokens, layout labels embedded and the
+        LayoutT5 head) through the kernels against the plain layer's
+        (`grad_against_plain`, as 10d);
+     c. bf16 compute on f32 masters: six VT5 steps with the layout head on
+        6d's batch (lr 1e-4, 10 warmup steps; the loss falls), one VT5
+        forward and backward at T 709 with visual tokens from
+        `visual_features`, one Pix2Struct forward and backward at B 8 x 1024
+        patches (one K6 a tower layer), each timed with its peak memory;
+     d. `remat` False, "layer" and True on 10d's Hi-VT5 batch and 6d's VT5
+        batch, three steps each: losses and grad norms within REMAT_TOL of
+        the plain step's, ms per step, peak memory;
+     e. which of Pillow, `datasets`, pdfminer and pdf2image the machine has;
+        an MP-DocVQA directory of 32 questions with seeded page images under a
+        temporary directory; the eval entry point over it at t5-base f32 with
+        in-process ingest and with two ingest workers (equal summaries);
+        Hi-VT5 with the ViT-base page branch and RAG-Pix2Struct from the page
+        images; `MPIngestor.ingest` with 1, 2 and 4 workers against the
+        single-process ingest on phase 5's corpus, pages a second;
+     f. tests/test_torch_e2e_answer_quality.py's two cases on the card (f32,
+        decode through K3): ANLS 1.0 and the planted answers, Hi-VT5's page
+        head on the planted page.
 
 The line before the last is a JSON object with every kernel's launches in
 its path's run (phase 5 for serving, 6d for training, 7b-c for the index,
@@ -263,7 +295,9 @@ its path's run (phase 5 for serving, 6d for training, 7b-c for the index,
 K15, K1 without a bias and K13; every path's counts of every kernel under
 "launches_by_path", each strategy of 5b as "serve_<strategy>" and its NAC
 steps as "train_nac", phase 10's paths as "hivt5_serve",
-"hivt5_visual_serve" and "hivt5_train"),
+"hivt5_visual_serve" and "hivt5_train", phase 11's as "train_layout",
+"train_visual", "p2s_train", "<model>_remat_<mode>", "eval_mp_docvqa_workers_<n>",
+"hivt5_page_images", "p2s_page_images" and "answer_quality_<model>"),
 its worst error over its own checks, and, at its path's shape, its time,
 the plain version's, the time of one PyTorch call that computes the same
 function where there is one ("library_ms", else null; timed here, used
@@ -279,7 +313,8 @@ paths 1-3 of phase 8 under "embed_index", "rerank_serve" and
 paths under "visual_serve" and "p2s_serve", phase 5b's batches, rows, K3
 splits and eval summary under "strategies" and its NAC steps under
 "nac_train_step", phase 10's batches, train steps, attention maps and
-CLIs under "hivt5". "t5_layer_nobias" (K1 without a
+CLIs under "hivt5", phase 11's gradients, steps, remat runs, local-file
+runs and answer quality under "train_forms". "t5_layer_nobias" (K1 without a
 bias) and "t5_layer_qtiled" (K13) are whole layers outside the kernel list,
 each with its error, its times and the launches of its parts (t5_rms_norm,
 t5_gemm and flash_fwd); that each served tower ran exactly those is
@@ -3691,58 +3726,19 @@ def check_hivt5_train_kernels(checks: Checks, g: torch.Generator) -> None:
     """10d, first part: the training kernels at the path's shapes, B 128 page
     rows of T 522, bf16, the key masks `hivt5_row_mask` gives (rows of padded
     page slots with no valid key). K6 with the shared bf16 bias and the -1e9
-    mask, timed beside SDPA's backward; K7 (`t5_ffn_bwd`) and K8
-    (`t5_attn_bwd`) at t5-base, timed, each against the same function on the
-    plain parts (K7's ReLU taking the kernel's decisions, as in 6b). Every
-    gradient, those of the rows with no valid key included, must be finite
-    and within `rel_tol`."""
-    from rag_docvqa_tpu_torch.models import t5 as t5m
-    from rag_docvqa_tpu_torch.models.layers import rms_norm
-    from rag_docvqa_tpu_torch.ops import flash_attention as fa
+    mask, timed beside SDPA's backward; K7 and K8 at t5-base
+    (`layer_bwd_cases`), timed. Every gradient, those of the rows with no
+    valid key included, must be finite and within `rel_tol`."""
     from rag_docvqa_tpu_torch.ops import fused_encoder as fe
 
-    dev, bf16 = g.device, torch.bfloat16
-    cfg = t5m.T5Config()
-    d, H, eps, T = cfg.d_model, cfg.num_heads, cfg.layer_norm_eps, HI_K + HI_T
+    T = HI_K + HI_T
     label = f"B{HI_ROWS} T{T} t5-base bf16, {HI_ROWS - sum(HI_PAGES)} rows with no valid key"
     mask = hivt5_row_mask(g, T, False)
-    flash_bwd_case(checks, g, HI_ROWS, T, H, H, 64, bf16, "shared", False, 1.0, fe.T5_MASK_VALUE, mask,
+    flash_bwd_case(checks, g, HI_ROWS, T, 12, 12, 64, torch.bfloat16, "shared", False, 1.0, fe.T5_MASK_VALUE, mask,
                    f"B{HI_ROWS} H12 T{T} dk64 shared bias t5-mask bf16, {HI_ROWS - sum(HI_PAGES)} rows with no "
                    "valid key", timed=True)
     torch.cuda.empty_cache()
-
-    params = t5m.init_t5_params(g, t5m.T5Config(num_encoder_layers=1, num_decoder_layers=1))
-    layer = {k: v.detach().to(bf16) for k, v in fe.fuse_t5_blocks(params.encoder.layers, False)[0].items()}
-    layer["ln0"] = (torch.rand(d, generator=g, device=dev) + 0.5).to(bf16)
-    layer["ln1"] = (torch.rand(d, generator=g, device=dev) + 0.5).to(bf16)
-    pos = torch.arange(T)
-    bias = t5m.relative_bias(params.encoder.rel_bias, pos, pos, True, cfg)[0].to(bf16).contiguous()
-    x, x1, dy = (torch.randn((HI_ROWS, T, d), generator=g, device=dev).to(bf16) for _ in range(3))
-    ffn = (x1, dy, layer["ln1"], (layer["wi"], layer["wof"]))
-    got = fe.t5_ffn_bwd(*ffn, eps=eps, gated=False)
-    relu = MaskedRelu(kernel_relu_masks([x1], [layer["ln1"]], [layer["wi"]], eps))
-    want = fe._ffn_bwd(*ffn, eps, False, rms_norm, fe.gemm_reference, relu.gemm_bwd, fe.rms_norm_bwd_reference)
-    log(f"  ReLU signs where the plain f32 GEMM and the kernel differ, K7 at {label}: {relu.flips}")
-    for name, a, b in zip(("dx1", "dln1", "dwi", "dwof"), (got[0], got[1], *got[2]), (want[0], want[1], *want[2])):
-        checks.compare("t5_ffn_bwd", f"{label} {name}", a, b, rel_tol(bf16, b))
-    del got, want, relu
-    torch.cuda.empty_cache()
-    att = (x, dy, mask, bias, layer["wqkv"], layer["wo"], layer["ln0"])
-    got, want = fe.t5_attn_bwd(*att, num_heads=H, eps=eps), fe.t5_attn_bwd_reference(*att, num_heads=H, eps=eps)
-    for name, a, b in zip(("dx", "dln0", "dwqkv", "dwo", "dbias"), got, want):
-        checks.compare("t5_attn_bwd", f"{label} {name}", a, b, rel_tol(bf16, b))
-    del got, want
-    torch.cuda.empty_cache()
-    ffn_pb, att_pb = PartsBound(), PartsBound()
-    fe._ffn_bwd(*ffn, eps, False, *map(ffn_pb.wrap, (fe.rms_norm_rows, fe.gemm, fe.gemm_bwd, fe.rms_norm_bwd)))
-    fe._attn_bwd(*att, H, eps, *map(att_pb.wrap, (fe.rms_norm_rows, fe.gemm, fa.flash_attention_fwd,
-                                                  fa.flash_attention_bwd, fe.gemm_bwd, fe.rms_norm_bwd)))
-    checks.timed("t5_ffn_bwd", label, lambda: fe.t5_ffn_bwd(*ffn, eps=eps, gated=False),
-                 lambda: fe.t5_ffn_bwd_reference(*ffn, eps=eps, gated=False), iters=3, parts_bound=ffn_pb)
-    checks.timed("t5_attn_bwd", label, lambda: fe.t5_attn_bwd(*att, num_heads=H, eps=eps),
-                 lambda: fe.t5_attn_bwd_reference(*att, num_heads=H, eps=eps), iters=3, parts_bound=att_pb)
-    del x, x1, dy, ffn, att
-    torch.cuda.empty_cache()
+    t5_base_layer_bwd(checks, g, label, HI_ROWS, T, mask, iters=3, device=False)
 
 
 class KernelReluDecisions:
@@ -3766,71 +3762,22 @@ class KernelReluDecisions:
 
 
 def check_hivt5_grad(g: torch.Generator) -> dict:
-    """10d, second part: the full-width f32 Hi-VT5 loss and its gradient.
-    `forward_train` of B 2 documents of 4 and 2 pages in 4 slots (2 page rows
-    with no valid key) and 16-token labels, through the kernels
-    (`t5_layer_train`: the K1 parts forward, K7 and K8 with K6 backward),
-    against autograd of the same with the plain layer in its place, whose
-    ReLU takes the kernels' decisions (`KernelReluDecisions`, as 6c). The
-    losses within F32_TOL; every gradient root (the T5 with both rel-pos
-    tables, the spatial embeddings, `page_emb`, `page_head`) finite and
-    within F32_TOL of its largest value; the encoder's rel-pos table, whose
-    gradient comes through the bf16 bias in both, within BF16_REL_TOL."""
+    """10d, second part: the full-width f32 Hi-VT5 loss and its gradient
+    (`grad_against_plain`): `forward_train` of B 2 documents of 4 and 2 pages
+    in 4 slots (2 page rows with no valid key) and 16-token labels; the
+    losses, and every gradient root (the T5 with both rel-pos tables, the
+    spatial embeddings, `page_emb`, `page_head`)."""
     from rag_docvqa_tpu_torch.models import hivt5 as hm
     from rag_docvqa_tpu_torch.models import t5 as t5m
-    from rag_docvqa_tpu_torch.models.layers import rms_norm
-    from rag_docvqa_tpu_torch.ops import flash_attention as fa
-    from rag_docvqa_tpu_torch.ops import fused_encoder as fe
 
     cfg, params, batch, labels = hivt5_small_batch(g)
-    params.requires_grad_(True)
-    names, ins = zip(*params.named_parameters())
-    kernel_layer = t5m.t5_layer_train
-    record = KernelReluDecisions(kernel_layer)
-    relu = MaskedRelu(record.masks)  # consumed by the plain pass, after the kernel pass has filled it
 
-    def plain_layer(x, key_mask, bias, l, *, num_heads, eps, gated):
-        return fe._t5_layer(x, key_mask, bias, l, num_heads, eps, gated, rms_norm, relu.gemm,
-                            fa.flash_attention_reference)
+    def loss_fn(p):
+        loss, parts = hm.forward_train(p, cfg, batch, labels)
+        return loss, {k: parts[k] for k in ("lm_loss", "ret_loss")}
 
-    results = []
-    for layer in (record, plain_layer):
-        t5m.t5_layer_train = layer
-        try:
-            loss, parts = hm.forward_train(params, cfg, batch, labels)
-            results.append((loss, parts, torch.autograd.grad(loss, ins, allow_unused=True)))
-        finally:
-            t5m.t5_layer_train = kernel_layer
-    (loss, parts, got), (want_loss, want_parts, want) = results
-    log(f"  ReLU signs where the plain f32 GEMM and the kernels differ, {cfg.t5.num_encoder_layers} layers: "
-        f"{relu.flips}")
-    losses = {k: (parts[k].item(), want_parts[k].item()) for k in ("lm_loss", "ret_loss")}
-    losses["loss"] = (loss.item(), want_loss.item())
-    log(f"  forward_train f32 t5-base, B2 x 4 page slots (4 and 2 pages), kernels vs plain layer: "
-        + ", ".join(f"{k} {a:.6f} / {b:.6f}" for k, (a, b) in losses.items()))
-    for k, (a, b) in losses.items():
-        if not (math.isfinite(a) and abs(a - b) <= F32_TOL * max(1.0, abs(b))):
-            raise AssertionError(f"Hi-VT5 forward_train {k}: {a} through the kernels, {b} through the plain layer")
-    rels = {}
-    for name, a, b in zip(names, got, want):
-        if (a is None) != (b is None):
-            raise AssertionError(f"Hi-VT5 gradient {name}: reached in one path only")
-        if a is not None:
-            rel = ((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
-            rels[name] = rel if torch.isfinite(a).all() else math.inf
-    limit = lambda name: BF16_REL_TOL if name == "t5.encoder.rel_bias" else F32_TOL
-    ranked = sorted(rels, key=lambda n: -rels[n] / limit(n))
-    log(f"  forward_train gradient, {len(rels)} roots, of each its largest value: "
-        + "; ".join(f"d{n} {rels[n]:.3e} (limit {limit(n):.0e})"
-                    for n in dict.fromkeys(ranked[:5] + ["t5.encoder.rel_bias", "page_emb", "page_head.weight"])))
-    bad = [n for n in ranked if not rels[n] <= limit(n)]
-    if bad:
-        raise AssertionError(f"Hi-VT5 gradient: {bad} above their limits, or not finite")
-    worst_name = max((n for n in rels if limit(n) == F32_TOL), key=rels.get)
-    worst, n = rels[worst_name], len(rels)
-    params.requires_grad_(False)
-    return {"grad_roots": n, "grad_worst_rel_err": worst, "grad_worst": worst_name, "relu_flips": relu.flips,
-            "loss_err": max(abs(a - b) for a, b in losses.values())}
+    return grad_against_plain(f"Hi-VT5 forward_train f32 t5-base, B2 x 4 page slots (4 and 2 pages)", params, loss_fn,
+                              t5m, gated=False)
 
 
 def hivt5_engine(g: torch.Generator, use_visual: bool):
@@ -4075,6 +4022,678 @@ def hivt5_clis() -> dict:
     return {"train_losses": losses, "train_s": train_s, "eval": card, "eval_s": eval_s}
 
 
+# --------------------------------------------------------------------------- #
+# phase 11: the VT5 family's training forms; documents from local files
+# --------------------------------------------------------------------------- #
+P2S_B, P2S_N = 8, 1024  # pix2struct-base rows at the generator's 1024-patch budget
+P2S_VALID = (1024,) * 6 + (700, 333)  # the last rows end in padded patches
+VIS_B, VIS_T = 8, 512 + VIT_T  # t5-base with the ViT-base visual tokens: T 709 = 11 * 64 + 5
+AQ_B, AQ_T, AQ_H, AQ_DK = 8, 128, 4, 16  # the answer-quality model's encoder rows (tests/test_torch_e2e_...)
+REMAT_MODES = (False, "layer", True)
+REMAT_TOL = 1e-4  # relative, on each step's loss and grad norm against the plain step (see remat_runs)
+
+
+def p2s_patch_mask(dev) -> torch.Tensor:
+    return torch.arange(P2S_N, device=dev)[None, :] < torch.tensor(P2S_VALID, device=dev)[:, None]
+
+
+def visual_key_mask(dev) -> torch.Tensor:
+    """(8, 709): ragged text (512 - 37 b tokens), then 197 visual tokens,
+    valid but on every third row (a page without a render)."""
+    ids = torch.arange(VIS_T, device=dev)[None, :]
+    text = torch.tensor([512 - 37 * b for b in range(VIS_B)], device=dev)[:, None]
+    render = torch.tensor([b % 3 != 2 for b in range(VIS_B)], device=dev)[:, None]
+    return (ids < text) | ((ids >= 512) & render)
+
+
+def layer_bwd_cases(checks: Checks, label: str, x, x1, dy, mask, bias, l, H: int, eps: float, gated: bool,
+                    iters: int = 5, device: bool = True) -> None:
+    """K7 (`t5_ffn_bwd`) and K8 (`t5_attn_bwd`) against the same functions on
+    the plain parts (K7's ReLU taking the kernel's decisions, as 6b), within
+    `rel_tol`, then timed (`device`: also on the device) beside their parts'
+    bounds."""
+    from rag_docvqa_tpu_torch.models.layers import rms_norm
+    from rag_docvqa_tpu_torch.ops import flash_attention as fa
+    from rag_docvqa_tpu_torch.ops import fused_encoder as fe
+
+    dt = x.dtype
+    ffn = (x1, dy, l["ln1"], tuple(l[k] for k in fe.layer_keys(gated)[4:]))
+    got = fe.t5_ffn_bwd(*ffn, eps=eps, gated=gated)
+    if gated:  # no step in GELU: the plain version as it is
+        want, names = fe.t5_ffn_bwd_reference(*ffn, eps=eps, gated=True), ("dx1", "dln1", "dwi0", "dwi1", "dwo")
+    else:
+        relu = MaskedRelu(kernel_relu_masks([x1], [l["ln1"]], [l["wi"]], eps))
+        want = fe._ffn_bwd(*ffn, eps, False, rms_norm, fe.gemm_reference, relu.gemm_bwd, fe.rms_norm_bwd_reference)
+        names = ("dx1", "dln1", "dwi", "dwo")
+        log(f"  ReLU signs where the plain f32 GEMM and the kernel differ, K7 at {label}: {relu.flips}")
+    for name, a, b in zip(names, (got[0], got[1], *got[2]), (want[0], want[1], *want[2])):
+        checks.compare("t5_ffn_bwd", f"{label} {name}", a, b, rel_tol(dt, b))
+    del got, want
+    att = (x, dy, mask, bias, l["wqkv"], l["wo"], l["ln0"])
+    got, want = fe.t5_attn_bwd(*att, num_heads=H, eps=eps), fe.t5_attn_bwd_reference(*att, num_heads=H, eps=eps)
+    if (got[4] is None) != (bias is None):
+        raise AssertionError(f"t5_attn_bwd {label}: a bias gradient without a bias, or none with one")
+    for name, a, b in zip(("dx", "dln0", "dwqkv", "dwo", "dbias"), got, want):
+        if b is not None:
+            checks.compare("t5_attn_bwd", f"{label} {name}", a, b, rel_tol(dt, b))
+    del got, want
+    torch.cuda.empty_cache()
+    ffn_pb, att_pb = PartsBound(), PartsBound()
+    fe._ffn_bwd(*ffn, eps, gated, *map(ffn_pb.wrap, (fe.rms_norm_rows, fe.gemm, fe.gemm_bwd, fe.rms_norm_bwd)))
+    fe._attn_bwd(*att, H, eps, *map(att_pb.wrap, (fe.rms_norm_rows, fe.gemm, fa.flash_attention_fwd,
+                                                  fa.flash_attention_bwd, fe.gemm_bwd, fe.rms_norm_bwd)))
+    checks.timed("t5_ffn_bwd", label, lambda: fe.t5_ffn_bwd(*ffn, eps=eps, gated=gated),
+                 lambda: fe.t5_ffn_bwd_reference(*ffn, eps=eps, gated=gated), iters=iters, parts_bound=ffn_pb,
+                 device=device)
+    checks.timed("t5_attn_bwd", label, lambda: fe.t5_attn_bwd(*att, num_heads=H, eps=eps),
+                 lambda: fe.t5_attn_bwd_reference(*att, num_heads=H, eps=eps), iters=iters, parts_bound=att_pb,
+                 device=device)
+    torch.cuda.empty_cache()
+
+
+def t5_base_layer_bwd(checks: Checks, g: torch.Generator, label: str, B: int, T: int, mask, **kw) -> None:
+    """`layer_bwd_cases` for one t5-base layer (random weights, norms in
+    [0.5, 1.5)) with the shared bf16 rel-pos bias `encode` makes, at B x T,
+    bf16."""
+    from rag_docvqa_tpu_torch.models import t5 as t5m
+    from rag_docvqa_tpu_torch.ops import fused_encoder as fe
+
+    dev, bf16 = g.device, torch.bfloat16
+    cfg = t5m.T5Config()
+    params = t5m.init_t5_params(g, t5m.T5Config(num_encoder_layers=1, num_decoder_layers=1))
+    l = {k: v.detach().to(bf16) for k, v in fe.fuse_t5_blocks(params.encoder.layers, False)[0].items()}
+    l["ln0"] = (torch.rand(cfg.d_model, generator=g, device=dev) + 0.5).to(bf16)
+    l["ln1"] = (torch.rand(cfg.d_model, generator=g, device=dev) + 0.5).to(bf16)
+    pos = torch.arange(T)
+    bias = t5m.relative_bias(params.encoder.rel_bias, pos, pos, True, cfg)[0].to(bf16).contiguous()
+    x, x1, dy = (torch.randn((B, T, cfg.d_model), generator=g, device=dev).to(bf16) for _ in range(3))
+    layer_bwd_cases(checks, label, x, x1, dy, mask, bias, l, cfg.num_heads, cfg.layer_norm_eps, gated=False, **kw)
+
+
+def check_train_form_kernels(checks: Checks, g: torch.Generator) -> None:
+    """11a: K6, K7 and K8 in the forms and at the shapes this phase's paths
+    give them, each against its plain version and timed on the device (K6
+    beside autograd through SDPA with the same mask): the gated, bias-free
+    layer of the pix2struct-base tower (d 768, 12 heads, gated d_ff 2048) at
+    B 8 x 1024 patches whose last rows end in padding; t5-base with the shared
+    bf16 rel-pos bias at T 709 (512 text + 197 visual tokens; the last 64-row
+    tile holds 5) with the visual key mask; and the f32 SIMT forms of K2, K3
+    and K6 at the answer-quality model's d_kv 16."""
+    from rag_docvqa_tpu_torch.ops import decode_attention as da
+    from rag_docvqa_tpu_torch.ops import fused_encoder as fe
+
+    dev, bf16, f32 = g.device, torch.bfloat16, torch.float32
+    randn = lambda *s: torch.randn(s, generator=g, device=dev).to(bf16)
+    H, eps = 12, 1e-6
+
+    # pix2struct-base: the gated tower layer without a bias
+    mask = p2s_patch_mask(dev)
+    tag = f"B{P2S_B} T{P2S_N} pix2struct-base gated bf16, padded patches"
+    flash_bwd_case(checks, g, P2S_B, P2S_N, H, H, 64, bf16, None, False, 1.0, fe.T5_MASK_VALUE, mask,
+                   f"B{P2S_B} H12 T{P2S_N} dk64 no bias t5-mask bf16, padded patches", timed=True)
+    l = cast_layer(random_t5_layer(g, 768, 768, 2048, True, 64), bf16)
+    layer_bwd_cases(checks, tag, randn(P2S_B, P2S_N, 768), randn(P2S_B, P2S_N, 768), randn(P2S_B, P2S_N, 768),
+                    mask, None, l, H, eps, gated=True)
+
+    # t5-base at the visual branch's length with the shared bf16 bias
+    mask = visual_key_mask(dev)
+    tag = f"B{VIS_B} T{VIS_T} t5-base bf16, visual key mask"
+    flash_bwd_case(checks, g, VIS_B, VIS_T, H, H, 64, bf16, "shared", False, 1.0, fe.T5_MASK_VALUE, mask,
+                   f"B{VIS_B} H12 T{VIS_T} dk64 shared bias t5-mask bf16, visual key mask", timed=True)
+    t5_base_layer_bwd(checks, g, tag, VIS_B, VIS_T, mask)
+
+    # the answer-quality model, f32: K2 and K6 on their SIMT kernels, K3 over an f32 cache, at d_kv 16
+    lens = [AQ_T - 9 * b for b in range(AQ_B)]
+    tag = f"B{AQ_B} H{AQ_H} T{AQ_T} dk{AQ_DK} shared bias t5-mask f32 (answer-quality model)"
+    flash_case(checks, g, AQ_B, AQ_T, AQ_H, AQ_H, AQ_DK, f32, "shared", False, 1.0, fe.T5_MASK_VALUE, lens, tag,
+               twice=True)
+    flash_bwd_case(checks, g, AQ_B, AQ_T, AQ_H, AQ_H, AQ_DK, f32, "shared", False, 1.0, fe.T5_MASK_VALUE, lens, tag)
+    L = decode_inputs(g, AQ_B, AQ_H, AQ_DK, AQ_T, f32, lens)
+    args = (L["k2"], L["v2"], L["m"], L["ks"], L["vs"])
+    checks.compare("decode_cross_attention", f"B{AQ_B} H{AQ_H} dk{AQ_DK} Te{AQ_T} f32 cache, f32 q (answer-quality "
+                   "model)", da.fused_cross_attention(L["q"], *args), da.cross_attention_reference(L["q"], *args),
+                   F32_TOL)
+    torch.cuda.empty_cache()
+
+
+def grad_against_plain(what: str, params, loss_fn, module, gated: bool, exempt=("t5.encoder.rel_bias",)) -> dict:
+    """The full-width f32 loss of `loss_fn(params)` -> (loss, {name: part})
+    and its gradient through the kernels' layer (`module.t5_layer_train`:
+    the K1 parts forward, K7 and K8 with K6 backward) against autograd of the
+    same with the plain layer in its place, whose ReLU takes the kernels'
+    decisions (`KernelReluDecisions`, as 6c; a gated layer has no step). The
+    losses within F32_TOL; every gradient root that either pass reaches
+    finite and within F32_TOL of its largest value, the roots in `exempt`
+    (a rel-pos table, whose gradient comes through the bf16 bias in both)
+    within BF16_REL_TOL."""
+    from rag_docvqa_tpu_torch.models.layers import rms_norm
+    from rag_docvqa_tpu_torch.ops import flash_attention as fa
+    from rag_docvqa_tpu_torch.ops import fused_encoder as fe
+
+    params.requires_grad_(True)
+    names, ins = zip(*params.named_parameters())
+    kernel_layer = module.t5_layer_train
+    record = kernel_layer if gated else KernelReluDecisions(kernel_layer)
+    relu = MaskedRelu([] if gated else record.masks)  # consumed by the plain pass, after the kernel pass filled it
+
+    def plain_layer(x, key_mask, bias, l, *, num_heads, eps, gated):
+        return fe._t5_layer(x, key_mask, bias, l, num_heads, eps, gated, rms_norm, relu.gemm,
+                            fa.flash_attention_reference)
+
+    results = []
+    t0 = time.perf_counter()
+    for layer in (record, plain_layer):
+        module.t5_layer_train = layer
+        try:
+            loss, parts = loss_fn(params)
+            results.append((loss, parts, torch.autograd.grad(loss, ins, allow_unused=True)))
+        finally:
+            module.t5_layer_train = kernel_layer
+        if len(results) == 1:
+            torch.cuda.synchronize()
+            kernel_ms = (time.perf_counter() - t0) * 1e3
+    (loss, parts, got), (want_loss, want_parts, want) = results
+    log(f"  ReLU signs where the plain f32 GEMM and the kernels differ, {what}: {relu.flips}")
+    losses = {k: (parts[k].item(), want_parts[k].item()) for k in parts}
+    losses["loss"] = (loss.item(), want_loss.item())
+    log(f"  {what}, kernels vs plain layer: " + ", ".join(f"{k} {a:.6f} / {b:.6f}" for k, (a, b) in losses.items()))
+    for k, (a, b) in losses.items():
+        if not (math.isfinite(a) and abs(a - b) <= F32_TOL * max(1.0, abs(b))):
+            raise AssertionError(f"{what} {k}: {a} through the kernels, {b} through the plain layer")
+    rels = {}
+    for name, a, b in zip(names, got, want):
+        if (a is None) != (b is None):
+            raise AssertionError(f"{what} gradient {name}: reached in one path only")
+        if a is not None:
+            rel = ((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+            rels[name] = rel if torch.isfinite(a).all() else math.inf
+    limit = lambda name: BF16_REL_TOL if name in exempt else F32_TOL
+    ranked = sorted(rels, key=lambda n: -rels[n] / limit(n))
+    log(f"  {what} gradient, {len(rels)} roots, of each its largest value: "
+        + "; ".join(f"d{n} {rels[n]:.3e} (limit {limit(n):.0e})" for n in ranked[:6]))
+    bad = [n for n in ranked if not rels[n] <= limit(n)]
+    if bad:
+        raise AssertionError(f"{what} gradient: {bad} above their limits, or not finite")
+    worst_name = max((n for n in rels if limit(n) == F32_TOL), key=rels.get)
+    params.requires_grad_(False)
+    return {"grad_roots": len(rels), "grad_worst_rel_err": rels[worst_name], "grad_worst": worst_name,
+            "relu_flips": relu.flips, "loss_err": max(abs(a - b) for a, b in losses.values()),
+            "kernel_pass_ms": kernel_ms}
+
+
+def random_gen_inputs(g: torch.Generator, B: int, S: int, lens, n_labels: int):
+    """GeneratorInputs as `assemble_concat` gives them: token ids, [0, 1000]
+    boxes, layout labels below `n_labels`, a key mask of `lens` text tokens a
+    row."""
+    from rag_docvqa_tpu_torch.data.contract import GeneratorInputs
+
+    dev = g.device
+    ri = lambda lo, hi, *s: torch.randint(lo, hi, s, generator=g, device=dev)
+    return GeneratorInputs(input_ids=ri(3, 32128, B, S), input_boxes=ri(0, 1000, B, S, 4),
+                           input_labels=ri(0, n_labels, B, S),
+                           attention_mask=torch.arange(S, device=dev)[None, :] < torch.tensor(lens, device=dev)[:, None])
+
+
+def random_patches(g: torch.Generator, B: int, N: int, valid) -> tuple:
+    """(B, N, 2 + 768) flattened patches (1-based row and column ids on a
+    32-wide grid, normalized pixels) and their (B, N) mask of `valid` patches
+    a row; padded patches are zero, as `extract_flattened_patches` pads."""
+    dev = g.device
+    ids = torch.arange(N, device=dev)
+    x = torch.randn((B, N, 770), generator=g, device=dev)
+    x[:, :, 0], x[:, :, 1] = (1 + ids // 32).float(), (1 + ids % 32).float()
+    mask = ids[None, :] < torch.tensor(valid, device=dev)[:, None]
+    return x * mask[..., None], mask
+
+
+def labels_of(g: torch.Generator, B: int, vocab: int, ends) -> torch.Tensor:
+    """(B, 16) answer labels, -100 after each row's end (an EOS, 1, before it)."""
+    dev = g.device
+    labels = torch.randint(2, vocab, (B, 16), generator=g, device=dev)
+    pos = torch.arange(16, device=dev)[None, :]
+    ends = torch.tensor(ends, device=dev)[:, None]
+    return torch.where(pos == ends, 1, torch.where(pos > ends, -100, labels))
+
+
+def check_train_form_grads(g: torch.Generator) -> dict:
+    """11b: the full-width f32 gradient checks of `grad_against_plain`:
+    Pix2Struct `forward_train` at pix2struct-base on 2 rows of 1024 patches
+    (one ending in 324 padded ones), and VT5 `forward_train` at t5-base with
+    the layout labels embedded and the LayoutT5 head, B 2 of 512 text tokens
+    and 197 ViT-base visual tokens (`visual_features`: K14, outside
+    autograd, as JAX takes them precomputed; the second row's masked)."""
+    from rag_docvqa_tpu_torch.models import pix2struct as p2s
+    from rag_docvqa_tpu_torch.models import t5 as t5m
+    from rag_docvqa_tpu_torch.models import vt5 as vt5m
+
+    out = {}
+    cfg = p2s.Pix2StructConfig()
+    params = p2s.init_p2s_params(g, cfg)
+    patches, mask = random_patches(g, 2, P2S_N, (P2S_N, 700))
+    labels = labels_of(g, 2, cfg.text.vocab_size, (15, 6))
+    out["p2s"] = grad_against_plain(
+        f"Pix2Struct forward_train f32 pix2struct-base, 2 rows of {P2S_N} patches", params,
+        lambda p: (p2s.forward_train(p, cfg, patches, mask, labels)[0], {}), p2s, gated=True, exempt=())
+    del params
+    torch.cuda.empty_cache()
+
+    cfg = vt5m.VT5Config(use_visual=True, use_layout_labels="Embed")
+    params = vt5m.init_vt5_params(g, cfg)
+    gen = random_gen_inputs(g, 2, 512, (512, 300), cfg.n_layout_labels)
+    with torch.no_grad():
+        visual = vt5m.visual_features(params, cfg, torch.randn((2, 224, 224, 3), generator=g, device=g.device))
+    visual_mask = torch.tensor([[True], [False]], device=g.device).expand(2, visual.shape[1])
+    labels = labels_of(g, 2, 32128, (15, 9))
+    out["vt5_visual_layout"] = grad_against_plain(
+        f"VT5 forward_train f32 t5-base, T {512 + visual.shape[1]} with ViT-base visual tokens, layout head", params,
+        lambda p: (vt5m.forward_train(p, cfg, gen, labels, visual, visual_mask)[0], {}), t5m, gated=False)
+    del params, visual
+    torch.cuda.empty_cache()
+    return out
+
+
+def timed_steps(fn, steps: int) -> list:
+    """CUDA-event ms of `steps` calls of fn(mark) -> metrics, each split into
+    forward, backward and update at the marks fn makes."""
+    rows = []
+    for _ in range(steps):
+        ev = {n: torch.cuda.Event(enable_timing=True) for n in ("start", "forward", "backward", "update")}
+        t0 = time.perf_counter()
+        ev["start"].record()
+        m = fn(lambda n: ev[n].record())
+        torch.cuda.synchronize()
+        row = {k: v.item() for k, v in m.items() if not k.startswith("grad_norm/")}
+        row.update(wall_ms=(time.perf_counter() - t0) * 1e3, forward_ms=ev["start"].elapsed_time(ev["forward"]),
+                   backward_ms=ev["forward"].elapsed_time(ev["backward"]),
+                   update_ms=ev["backward"].elapsed_time(ev["update"]))
+        rows.append(row)
+    return rows
+
+
+def vt5_train_batch(g: torch.Generator):
+    """6d's batch: 8 synthetic documents of 8 pages x 120 words at the
+    configs/RAGVT5.yml values, ingested and on the card, 32-token labels."""
+    from rag_docvqa_tpu_torch.data.contract import Caps, to_device
+    from rag_docvqa_tpu_torch.data.ingest import DocVQAIngestor
+    from rag_docvqa_tpu_torch.data.synthetic import make_corpus
+    from rag_docvqa_tpu_torch.data.tokenizer import HashTokenizer
+    from rag_docvqa_tpu_torch.ops.chunking import ChunkSpec
+
+    ingestor = DocVQAIngestor(HashTokenizer(32128), ChunkSpec(chunk_size=60, overlap=10), Caps())
+    docs = make_corpus(8, n_pages=8, words_per_page=120, seed=SEED)
+    ingestor.caps = ingestor.plan_caps(docs)
+    batch, aux = ingestor.ingest(docs)
+    labels = torch.from_numpy(ingestor.answer_labels(aux["answers"], max_len=32, seed=SEED)).to(g.device)
+    return to_device(batch, g.device), labels
+
+
+def hivt5_train_batch(g: torch.Generator):
+    """10d's batch: B 16 x 8 page slots of 10 + 512 tokens, 16-token labels."""
+    from rag_docvqa_tpu_torch.data.contract import Caps, to_device
+    from rag_docvqa_tpu_torch.data.ingest import DocVQAIngestor
+    from rag_docvqa_tpu_torch.data.tokenizer import HashTokenizer
+    from rag_docvqa_tpu_torch.ops.chunking import ChunkSpec
+
+    ingestor = DocVQAIngestor(HashTokenizer(32128), ChunkSpec(chunk_size=60, overlap=10), Caps(max_pages=HI_P))
+    batch, aux = ingestor.ingest(hivt5_documents(SEED + 12))
+    labels = torch.from_numpy(ingestor.answer_labels(aux["answers"], max_len=16, seed=SEED)).to(g.device)
+    return to_device(batch, g.device), labels
+
+
+def train_forms_bf16(g: torch.Generator) -> tuple:
+    """11c: bf16 compute on f32 masters. Six `make_train_step` steps of VT5
+    with the layout labels embedded and the LayoutT5 head on 6d's repeated
+    batch, at 10d's schedule (lr 1e-4, 10 warmup steps): finite, the loss
+    falls. One forward and backward of VT5 `forward_train` at T 709 (512 text
+    tokens and 197 visual tokens from `visual_features`, outside autograd),
+    B 8; one of Pix2Struct `forward_train` at pix2struct-base, B 8 x 1024
+    patches; each timed by CUDA events with its peak memory. Returns (the
+    launches of each path, the summary)."""
+    from rag_docvqa_tpu_torch import kernels
+    from rag_docvqa_tpu_torch.engine.rag_vt5 import RAGConfig
+    from rag_docvqa_tpu_torch.models import pix2struct as p2s
+    from rag_docvqa_tpu_torch.models import vt5 as vt5m
+    from rag_docvqa_tpu_torch.training.optimizer import build_optimizer, trainable_mask
+    from rag_docvqa_tpu_torch.training.train_step import TrainState, cast_params, make_train_step
+
+    launches, summary = {}, {}
+    batch, labels = vt5_train_batch(g)
+    cfg = vt5m.VT5Config(use_layout_labels="Embed")
+    params = vt5m.init_vt5_params(g, cfg)
+    opt = build_optimizer(lr=1e-4, warmup_steps=10, total_steps=1000,
+                          mask=trainable_mask(params, ("t5", "spatial", "layout_emb", "layout_scale", "layout_head")))
+    state = TrainState.create(params, opt)
+    step = make_train_step(cfg, RAGConfig(page_retrieval="concat", chunk_num=10, include_surroundings=0,
+                                          max_source_length=512), opt, bf16_compute=True)
+    kernels.reset_launch_counts()
+    holder = [state]
+
+    def one(mark):
+        holder[0], m = step(holder[0], batch, labels, mark=mark)
+        return m
+
+    rows = timed_steps(one, 6)
+    launches["train_layout"] = dict(kernels.LAUNCHES)
+    check_launched(launches["train_layout"], TRAIN_KERNELS, "VT5 training with the LayoutT5 head")
+    losses = [r["loss"] for r in rows]
+    log(f"  VT5 with the layout head, B 8 T 512, bf16 compute: losses {[round(x, 4) for x in losses]}, "
+        f"{sum(r['wall_ms'] for r in rows[1:]) / 5:.1f} ms a step (mean of steps 2-6)")
+    if not (all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in rows) and losses[-1] < losses[0]):
+        raise AssertionError(f"VT5 training with the layout head: the loss did not fall, or is not finite: {losses}")
+    summary["train_layout"] = {"losses": losses, "ms": sum(r["wall_ms"] for r in rows[1:]) / 5,
+                               "backward_ms": sum(r["backward_ms"] for r in rows[1:]) / 5,
+                               "case": "t5-base VT5 B8 T512, use_layout_labels Embed + LayoutT5 head, bf16 compute"}
+    del state, holder, params, batch
+    torch.cuda.empty_cache()
+
+    def fwd_bwd(tag, params, loss_fn, iters=3):
+        """Forward and backward of loss_fn(p) on the bf16 copy p of `params`,
+        the gradient to the f32 masters: ms by events (mean of `iters` after
+        one), peak memory, launches."""
+        params.requires_grad_(True)
+        ins = [p for p in params.parameters()]
+
+        def run():
+            p = cast_params(params, torch.bfloat16)
+            loss = loss_fn(p)
+            grads = torch.autograd.grad(loss, ins, allow_unused=True)
+            return loss, grads
+
+        loss, grads = run()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            loss, grads = run()
+        end.record()
+        torch.cuda.synchronize()
+        counts = {k: v // iters for k, v in kernels.LAUNCHES.items()}
+        finite = all(gr is None or torch.isfinite(gr).all() for gr in grads) and math.isfinite(loss.item())
+        row = {"ms": start.elapsed_time(end) / iters, "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "loss": loss.item(), "case": tag}
+        log(f"  {tag}: forward + backward {row['ms']:.1f} ms, peak {row['peak_memory_gib']:.2f} GiB, loss "
+            f"{row['loss']:.4f}; launches a pass {counts}")
+        if not finite:
+            raise AssertionError(f"{tag}: a non-finite loss or gradient")
+        params.requires_grad_(False)
+        return counts, row
+
+    cfg = vt5m.VT5Config(use_visual=True)
+    params = vt5m.init_vt5_params(g, cfg)
+    gen = random_gen_inputs(g, VIS_B, 512, [512 - 37 * b for b in range(VIS_B)], cfg.n_layout_labels)
+    with torch.no_grad():
+        visual = vt5m.visual_features(cast_params(params, torch.bfloat16), cfg,
+                                      torch.randn((VIS_B, 224, 224, 3), generator=g, device=g.device))
+    visual_mask = visual_key_mask(g.device)[:, 512:]
+    labels = labels_of(g, VIS_B, 32128, [15 - b for b in range(VIS_B)])
+    launches["train_visual"], summary["train_visual"] = fwd_bwd(
+        f"VT5 forward_train t5-base B{VIS_B} T{VIS_T} (ViT-base visual tokens), bf16 compute", params,
+        lambda p: vt5m.forward_train(p, cfg, gen, labels, visual, visual_mask)[0])
+    check_launched(launches["train_visual"], TRAIN_KERNELS, "VT5 training with visual tokens")
+    del params, visual
+    torch.cuda.empty_cache()
+
+    cfg = p2s.Pix2StructConfig()
+    params = p2s.init_p2s_params(g, cfg)
+    patches, mask = random_patches(g, P2S_B, P2S_N, P2S_VALID)
+    labels = labels_of(g, P2S_B, cfg.text.vocab_size, [15 - b for b in range(P2S_B)])
+    launches["p2s_train"], summary["p2s_train"] = fwd_bwd(
+        f"Pix2Struct forward_train pix2struct-base B{P2S_B} x {P2S_N} patches, bf16 compute", params,
+        lambda p: p2s.forward_train(p, cfg, patches, mask, labels)[0])
+    check_launched(launches["p2s_train"], TRAIN_KERNELS, "Pix2Struct training")
+    if launches["p2s_train"]["flash_bwd"] != cfg.vision.num_layers:
+        raise AssertionError(f"Pix2Struct training: {launches['p2s_train']['flash_bwd']} K6 launches, not one a layer")
+    del params
+    torch.cuda.empty_cache()
+    return launches, summary
+
+
+def remat_runs(g: torch.Generator) -> tuple:
+    """11d: `remat` False, "layer" and True on 10d's Hi-VT5 batch (B 16 x 8
+    page slots, t5-base; the JAX bench trains this row with "layer") and on
+    6d's VT5 batch, three bf16-compute steps each from the same f32 masters:
+    the losses and grad norms within REMAT_TOL (relative) of the plain
+    step's, the first loss equal bit for bit (its forward is the same
+    launches on the same inputs), ms per step and peak memory
+    (`max_memory_allocated`). The kernels give the same bits on a second
+    launch (6a, 6b), so a recomputed layer takes the first pass's ReLU
+    decisions; REMAT_TOL leaves room only for a library reduction whose order
+    may change between the passes (a wrong gradient moves the grad norm by
+    whole per cent). Returns (launches by run, summary)."""
+    from rag_docvqa_tpu_torch import kernels
+    from rag_docvqa_tpu_torch.engine.rag_vt5 import RAGConfig
+    from rag_docvqa_tpu_torch.models import hivt5 as hm
+    from rag_docvqa_tpu_torch.models import vt5 as vt5m
+    from rag_docvqa_tpu_torch.training.optimizer import build_optimizer, trainable_mask
+    from rag_docvqa_tpu_torch.training.train_step import TrainState, make_hivt5_train_step, make_train_step
+
+    launches, summary = {}, {}
+    hcfg = hm.HiVT5Config(max_doc_pages=HI_P, page_tokens=HI_K, page_seq_len=HI_T)
+    vcfg = vt5m.VT5Config()
+    rag = RAGConfig(page_retrieval="concat", chunk_num=10, include_surroundings=0, max_source_length=512)
+    for model, cfg, batch_fn, roots in (
+            ("hivt5", hcfg, hivt5_train_batch, ("t5", "spatial", "page_emb", "page_head")),
+            ("vt5", vcfg, vt5_train_batch, ("t5", "spatial"))):
+        batch, labels = batch_fn(g)
+        runs = {}
+        for remat in REMAT_MODES:
+            # the same f32 masters for every mode, drawn anew so that no second copy adds to the peak
+            init = hm.init_hivt5_params if model == "hivt5" else vt5m.init_vt5_params
+            params = init(torch.Generator(device=g.device).manual_seed(SEED + 111), cfg)
+            opt = build_optimizer(lr=1e-4, warmup_steps=10, total_steps=1000, mask=trainable_mask(params, roots))
+            holder = [TrainState.create(params, opt)]
+            step = (make_hivt5_train_step(cfg, opt, remat=remat, bf16_compute=True) if model == "hivt5" else
+                    make_train_step(cfg, rag, opt, bf16_compute=True, remat=remat))
+
+            def one(mark):
+                holder[0], m = step(holder[0], batch, labels, mark=mark)
+                return m
+
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launch_counts()
+            rows = timed_steps(one, 3)
+            name = f"{model}_remat_{str(remat).lower()}"
+            launches[name] = dict(kernels.LAUNCHES)
+            runs[str(remat)] = {"losses": [r["loss"] for r in rows], "grad_norms": [r["grad_norm"] for r in rows],
+                                "ms": sum(r["wall_ms"] for r in rows[1:]) / 2,
+                                "backward_ms": sum(r["backward_ms"] for r in rows[1:]) / 2,
+                                "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
+            log(f"  {model} remat={remat!r}: losses {runs[str(remat)]['losses']}, grad norms "
+                f"{[round(x, 5) for x in runs[str(remat)]['grad_norms']]}, {runs[str(remat)]['ms']:.1f} ms a step "
+                f"(backward {runs[str(remat)]['backward_ms']:.1f}), peak {runs[str(remat)]['peak_memory_gib']:.2f} GiB")
+            check_launched(launches[name], TRAIN_KERNELS, f"{model} training with remat={remat!r}")
+            del holder, params, opt, step
+        plain = runs["False"]
+        for mode, run in runs.items():
+            diffs = [abs(a - b) / max(abs(b), 1e-30) for k in ("losses", "grad_norms") for a, b in zip(run[k], plain[k])]
+            run["max_rel_diff"] = max(diffs)
+            run["bit_equal"] = run["losses"] == plain["losses"] and run["grad_norms"] == plain["grad_norms"]
+            if not (run["losses"][0] == plain["losses"][0] and run["max_rel_diff"] <= REMAT_TOL):
+                raise AssertionError(f"{model} remat={mode}: losses {run['losses']} and grad norms "
+                                     f"{run['grad_norms']} against the plain step's {plain['losses']} "
+                                     f"{plain['grad_norms']} (limit {REMAT_TOL})")
+        summary[model] = runs
+        del batch
+        torch.cuda.empty_cache()
+    return launches, summary
+
+
+def write_mp_docvqa(root: str, n_docs: int = 6, n_pages=(2, 3), words: int = 40, images: bool = True,
+                    seed: int = 0):
+    """An MP-DocVQA directory in the reference layout: imdb_dir/imdb_val.npy
+    (a header, then a record a question with question_id, question, answers,
+    answer_page_idx, imdb_doc_pages, image_name, ocr_tokens and
+    ocr_normalized_boxes) and, with `images` (needs Pillow),
+    images_dir/<image_name>.jpg holding seeded (48, 40, 3) pages as PNG bytes;
+    from the synthetic planted-fact corpus, its documents cycling through
+    `n_pages` pages of `words` words. Returns (imdb_dir, images_dir)."""
+    import numpy as np
+
+    from rag_docvqa_tpu_torch.data.synthetic import make_corpus
+
+    imdb, image_dir = os.path.join(root, "imdb"), os.path.join(root, "images")
+    os.makedirs(imdb)
+    os.makedirs(image_dir)
+    rng = np.random.RandomState(seed)
+    records = [{"dataset_version": "fixture"}]
+    for i, d in enumerate(make_corpus(n_docs, n_pages=max(n_pages), words_per_page=words, seed=seed)):
+        n = n_pages[i % len(n_pages)]
+        names = [f"doc{i}_p{p}" for p in range(n)]
+        if images:
+            from PIL import Image
+
+            for name in names:
+                Image.fromarray(rng.randint(0, 256, (48, 40, 3)).astype(np.uint8)).save(
+                    os.path.join(image_dir, f"{name}.jpg"), "PNG")
+        records.append({"question_id": 1000 + i, "question": d.question, "answers": list(d.answers),
+                        "answer_page_idx": min(d.answer_page_idx, n - 1), "imdb_doc_pages": n, "image_id": f"doc{i}",
+                        "image_name": names, "ocr_tokens": [list(d.words[p]) for p in range(n)],
+                        "ocr_normalized_boxes": [np.asarray(d.boxes[p], np.float32) for p in range(n)]})
+    np.save(os.path.join(imdb, "imdb_val.npy"), np.asarray(records, dtype=object), allow_pickle=True)
+    return imdb, image_dir
+
+
+def local_files() -> tuple:
+    """11e: documents from local files. Which of Pillow, `datasets`,
+    pdfminer and pdf2image this machine has; an MP-DocVQA directory of 32
+    questions (3-4 pages of 120 words, seeded page images where Pillow is)
+    under a temporary directory; the eval entry point over it on the card
+    at t5-base f32 (configs/RAGVT5.yml, concat, 16 new tokens) with in-process
+    ingest and with two ingest workers, whose summaries must be equal; Hi-VT5
+    (configs/HiVT5_tiny.yml) with the per-page ViT-base branch and
+    RAG-Pix2Struct (configs/Pix2Struct_tiny.yml) from the page images (from
+    the synthetic corpus's seeded images where Pillow is missing); then
+    `MPIngestor.ingest` with 1, 2 and 4 workers against the single-process
+    ingestor on phase 5's corpus (32 documents x 8 pages x 120 words), pages
+    a second, median of 5 rounds taken in turns after a warmup. Returns
+    (launches, summary)."""
+    import contextlib
+    import importlib.util
+    import io
+    import statistics
+    import tempfile
+
+    import numpy as np
+
+    from rag_docvqa_tpu_torch import eval as port_eval
+    from rag_docvqa_tpu_torch import kernels
+    from rag_docvqa_tpu_torch.data.contract import Caps
+    from rag_docvqa_tpu_torch.data.ingest import DocVQAIngestor
+    from rag_docvqa_tpu_torch.data.ingest_mp import MPIngestor
+    from rag_docvqa_tpu_torch.data.synthetic import make_corpus
+    from rag_docvqa_tpu_torch.data.tokenizer import HashTokenizer
+    from rag_docvqa_tpu_torch.ops.chunking import ChunkSpec
+
+    summary = {"packages": {name: importlib.util.find_spec(mod) is not None
+                            for name, mod in (("Pillow", "PIL"), ("datasets", "datasets"), ("pdfminer", "pdfminer"),
+                                              ("pdf2image", "pdf2image"))}}
+    log(f"  optional packages on this machine: {summary['packages']}")
+    pillow = summary["packages"]["Pillow"]
+    launches = {}
+    cfgs = lambda name: os.path.join(REPO, "configs", name)
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
+        imdb, images = write_mp_docvqa(tmp, n_docs=32, n_pages=(3, 4), words=120, images=pillow)
+        data = ["-d", cfgs("MP-DocVQA.yml"), f"imdb_dir={imdb}", f"images_dir={images}",
+                f"use_images={str(pillow).lower()}"]
+        runs = {}
+        for workers in (0, 2):
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                s = port_eval.main(["-m", cfgs("RAGVT5.yml"), *data, "max_new_tokens=16", "--ingest-workers",
+                                    str(workers)])[0]
+            runs[workers] = dict(s, total_s=time.perf_counter() - t0)
+            launches[f"eval_mp_docvqa_workers_{workers}"] = dict(kernels.LAUNCHES)
+            log(f"  eval CLI on the MP-DocVQA directory, --ingest-workers {workers}: {runs[workers]}")
+        strip = lambda s: {k: v for k, v in s.items() if k not in ("wall_time", "total_s")}
+        if strip(runs[0]) != strip(runs[2]) or runs[0]["n_samples"] != 32:
+            raise AssertionError(f"eval CLI on local files: {runs[0]} in-process, {runs[2]} with 2 ingest workers")
+        check_launched(launches["eval_mp_docvqa_workers_2"], ("t5_rms_norm", "t5_gemm", "flash_fwd"),
+                       "MP-DocVQA evaluation")
+        summary["eval_mp_docvqa"] = runs
+        image_data = data if pillow else ["-d", cfgs("Synthetic.yml"), "synthetic_images=true", "n_val_docs=32"]
+        for name, model, extra, need in (("hivt5_page_images", "HiVT5_tiny.yml", ["use_visual=true"],
+                                          ("t5_rms_norm", "t5_gemm", "flash_fwd") + VIT_KERNELS),
+                                         ("p2s_page_images", "Pix2Struct_tiny.yml", [], P2S_KERNELS[:4])):
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                s = port_eval.main(["-m", cfgs(model), *image_data, *extra])[0]
+            launches[name] = dict(kernels.LAUNCHES)
+            summary[name] = dict(s, total_s=time.perf_counter() - t0)
+            log(f"  eval CLI, {model} from the page images ({'MP-DocVQA files' if pillow else 'synthetic'}): "
+                f"{summary[name]}; launches {launches[name]}")
+            if s["n_samples"] != 32 or not 0.0 <= s["retrieval_precision"] <= 1.0:
+                raise AssertionError(f"eval CLI {model} from the page images: {s}")
+            check_launched(launches[name], need, f"{model} from page images")
+
+    tok = HashTokenizer(32128)
+    spec = ChunkSpec(chunk_size=60, overlap=10)
+    docs = make_corpus(32, n_pages=8, words_per_page=120, seed=SEED)
+    single = DocVQAIngestor(tok, spec, Caps())
+    caps = single.plan_caps(docs)
+    single.caps = caps
+    want, _ = single.ingest(docs)
+
+    pools = {f"workers_{w}": MPIngestor(tok, spec, caps, num_workers=w) for w in (1, 2, 4)}
+    try:
+        ingest = {"single_process": single.ingest, **{k: p.ingest for k, p in pools.items()}}
+        for name, fn in ingest.items():  # starts the workers and warms every word-matrix cache
+            got, _ = fn(docs)
+            if not all(np.array_equal(getattr(got, f), getattr(want, f)) for f in want.__dataclass_fields__):
+                raise AssertionError(f"MPIngestor {name}: arrays differ from the single-process ingest")
+        times = {name: [] for name in ingest}
+        for _ in range(5):  # in turns, so that the host's other load falls on every mode alike
+            for name, fn in ingest.items():
+                t0 = time.perf_counter()
+                fn(docs)
+                times[name].append(time.perf_counter() - t0)
+    finally:
+        for p in pools.values():
+            p.close()
+    pages = sum(len(d.words) for d in docs)
+    rates = {name: pages / statistics.median(t) for name, t in times.items()}
+    summary["ingest_pages_per_s"] = rates
+    log(f"  host ingest of 32 documents x 8 pages x 120 words, pages a second (median of 5 rounds in turns; 1 worker "
+        f"is the in-process path, as in JAX): {({k: round(v, 1) for k, v in rates.items()})}; {os.cpu_count()} host "
+        "cores")
+    return launches, summary
+
+
+def answer_quality() -> tuple:
+    """11f: the two cases of tests/test_torch_e2e_answer_quality.py on the
+    card, f32, decode through K3 (as the cases set it): the tiny VT5 after 500 steps and the tiny
+    Hi-VT5 after 800 answer every planted question (ANLS 1.0; Hi-VT5's page
+    head finds the planted page). Returns (launches, summary)."""
+    import importlib.util
+
+    from rag_docvqa_tpu_torch import kernels
+
+    spec = importlib.util.spec_from_file_location(
+        "port_answer_quality", os.path.join(REPO, "tests", "test_torch_e2e_answer_quality.py"))
+    cases = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cases)
+    launches, summary = {}, {}
+    for name, fn in (("answer_quality_vt5", cases.vt5_case), ("answer_quality_hivt5", cases.hivt5_case)):
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = fn("cuda")
+        res["total_s"] = time.perf_counter() - t0
+        launches[name] = dict(kernels.LAUNCHES)
+        summary[name] = {k: v for k, v in res.items() if k not in ("answers", "planted")}
+        log(f"  {name}: {summary[name]}; launches {launches[name]}")
+        check_launched(launches[name], TRAIN_KERNELS + ("decode_cross_attention",), name)
+        if not (res["anls"] == 1.0 and res["answers"] == res["planted"] and res.get("retrieval_precision", 1.0) == 1.0):
+            raise AssertionError(f"{name}: ANLS {res['anls']}, retrieval {res.get('retrieval_precision')}, answers "
+                                 f"{res['answers']} against {res['planted']}")
+    return launches, summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -4099,8 +4718,8 @@ def main() -> int:
     g = torch.Generator(device="cuda").manual_seed(SEED)
     checks = Checks()
     only = set(sys.argv[1:])  # e.g. `chip_smoke.py 8`: that phase alone, for work on it; no report
-    if only - {"3", "4", "5", "6", "7", "8", "9", "10"}:
-        raise SystemExit(f"usage: chip_smoke.py [phase ...], phases 3-10; got {sorted(only)}")
+    if only - {"3", "4", "5", "6", "7", "8", "9", "10", "11"}:
+        raise SystemExit(f"usage: chip_smoke.py [phase ...], phases 3-11; got {sorted(only)}")
     want = lambda phase: not only or phase in only
     launches, path_launches = {}, {}
     if want("3") or want("4") or want("5"):
@@ -4250,6 +4869,29 @@ def main() -> int:
         path_launches.update(hivt5_serve=hivt5_launches, hivt5_visual_serve=hivt5_visual_launches,
                              hivt5_train=hivt5_train_launches)
         torch.cuda.empty_cache()
+    if want("11"):
+        g11 = torch.Generator(device="cuda").manual_seed(SEED + 11)  # its own data: the other phases' stay
+        forms = {}
+        log("phase 11a: K6, K7 and K8 gated and bias-free at pix2struct-base (B 8 x 1024 patches) and with the T5 bias "
+            f"at T {VIS_T}; K2, K3 and K6 in f32 at d_kv 16")
+        check_train_form_kernels(checks, g11)
+        torch.cuda.empty_cache()
+        log("phase 11b: full-width f32 gradients of Pix2Struct and VT5 (visual tokens, layout head) forward_train")
+        forms["grad_f32"] = check_train_form_grads(g11)
+        log(f"phase 11c: bf16 compute on f32 masters: VT5 with the layout head, VT5 at T {VIS_T}, Pix2Struct; card "
+            f"and power limit: {card}")
+        form_launches, forms["bf16"] = train_forms_bf16(g11)
+        log(f"phase 11d: remat False, 'layer' and True on 10d's Hi-VT5 batch and 6d's VT5 batch; card and power "
+            f"limit: {card}")
+        remat_launches, forms["remat"] = remat_runs(g11)
+        log(f"phase 11e: documents from local files, the eval entry point with ingest workers, MPIngestor; card and "
+            f"power limit: {card}")
+        file_launches, forms["local_files"] = local_files()
+        log("phase 11f: the answer-quality cases on the card")
+        quality_launches, forms["answer_quality"] = answer_quality()
+        for counts in (form_launches, remat_launches, file_launches, quality_launches):
+            path_launches.update(counts)
+        torch.cuda.empty_cache()
     if only:
         print(json.dumps({"ok": True, "phases": sorted(only), "card": card}), flush=True)
         return 0
@@ -4309,6 +4951,8 @@ def main() -> int:
         "p2s_serve": p2s_summary,
         # phase 10: Hi-VT5 served with and without the per-page visual branch, trained, its attention maps, its CLIs
         "hivt5": hivt5,
+        # phase 11: the VT5 family's training forms, remat, documents from local files, answer quality
+        "train_forms": forms,
         # every kernel's launches in each path's run, counts set to 0 just before it
         "launches_by_path": path_launches,
         "card": card,

@@ -9,6 +9,10 @@ Coordinate systems are those of the JAX package: *word slots* are, per
 document, every chunk's words in chunk order (overlap duplicates included),
 so a page's slots are contiguous and surrounding-word expansion and dedup are
 index-interval computations.
+
+The module imports torch only inside `to_device`, so the host data layer
+(`data/contract.py`, `ingest.py`, `tokenizer.py`, `datasets.py`) loads
+without it: `data/ingest_mp.py`'s spawned workers never import torch.
 """
 
 from __future__ import annotations
@@ -18,7 +22,6 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
-import torch
 
 
 @dataclass
@@ -103,6 +106,8 @@ class ChunkedBatch:
 def to_device(batch: ChunkedBatch, device) -> ChunkedBatch:
     """numpy `ChunkedBatch` -> the same batch as tensors on `device`
     (integers as int64, floats as float32, masks as bool)."""
+    import torch
+
     out = {}
     for f in dataclasses.fields(batch):
         a = np.asarray(getattr(batch, f.name))

@@ -70,7 +70,7 @@ class HashTokenizer(BaseTokenizer):
 
     Words map to 1-3 subword ids via a stable blake2 hash of (word, piece_idx);
     the instance memoizes a reverse map so decode() recovers words it has
-    seen in this process."""
+    seen in this process, or that `load_vocab` read from a file."""
 
     def __init__(self, vocab_size: int = 32128, max_pieces: int = 3) -> None:
         self.vocab_size = vocab_size
@@ -94,6 +94,25 @@ class HashTokenizer(BaseTokenizer):
             self._reverse[tuple(ids)] = word
             self._word_cache[word] = ids
         return ids
+
+    def save_vocab(self, path: str) -> None:
+        """Writes the reverse map (JSON, one [word, [ids...]] pair per word
+        seen), so that another process can decode; the file is the JAX
+        package's."""
+        import json
+
+        with open(path, "w") as f:
+            json.dump([[w, ids] for w, ids in self._word_cache.items()], f)
+
+    def load_vocab(self, path: str) -> None:
+        """Merges a reverse map `save_vocab` wrote (ids are hash-stable, so
+        entries from any process agree; a collision keeps the loaded word)."""
+        import json
+
+        with open(path) as f:
+            for word, ids in json.load(f):
+                self._word_cache[word] = list(ids)
+                self._reverse[tuple(ids)] = word
 
     def decode(self, ids: Sequence[int]) -> str:
         ids = [i for i in ids if i >= self._first_content_id]

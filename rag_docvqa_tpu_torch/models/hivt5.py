@@ -41,7 +41,7 @@ from rag_docvqa_tpu_torch.models.embeddings import (
     init_spatial_params,
     spatial_embed,
 )
-from rag_docvqa_tpu_torch.models.layers import dense, frozen, normal_init
+from rag_docvqa_tpu_torch.models.layers import dense, frozen, masked_cross_entropy, normal_init
 from rag_docvqa_tpu_torch.models.vit import ViTConfig, init_vit_params, vit_encode
 from rag_docvqa_tpu_torch.models.vt5 import VisualParams
 from rag_docvqa_tpu_torch.ops.decode import greedy_decode
@@ -174,10 +174,7 @@ def forward_train(params: HiVT5Params, cfg: HiVT5Config, batch: ChunkedBatch, la
     doc_emb, doc_mask = encode_document(params, cfg, batch, page_visual, page_visual_valid, train=True)
     dec_in = t5m.shift_tokens_right(labels, cfg.t5.pad_id, cfg.t5.decoder_start_token_id)
     logits = t5m.decode_train(params.t5, cfg.t5, dec_in, doc_emb, doc_mask)
-    valid = labels != -100
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    nll = -torch.gather(logp, -1, torch.where(valid, labels, 0)[..., None])[..., 0]
-    lm_loss = (nll * valid).sum() / valid.sum().clamp(min=1)
+    lm_loss = masked_cross_entropy(logits, labels, labels != -100)
 
     ret_logits = page_retrieval_logits(params, cfg, doc_emb)
     masked = torch.where(_page_valid(cfg, batch), ret_logits, t5m.MASKED)

@@ -1,7 +1,8 @@
 """Shared building blocks: norms, dense, init.
 
 Counterpart of `rag_docvqa_tpu/models/layers.py` (`rms_norm`, `layer_norm`,
-`dense`, `mlp_relu_stack`, `normal_init`). Dense weights use the
+`dense`, `mlp_relu_stack`, `normal_init`) and the masked cross-entropy the
+training losses share. Dense weights use the
 `nn.Linear` layout (out, in); `params.from_jax` transposes the JAX (in, out)
 kernels into it.
 """
@@ -54,6 +55,14 @@ def mlp_relu_stack(layers, x: torch.Tensor) -> torch.Tensor:
         if i < n - 1:
             x = torch.relu(x)
     return x
+
+
+def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy in f32 over the `valid` positions (a zero loss when
+    none is): the teacher-forced losses' `sum(nll * valid) / max(sum(valid), 1)`."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, torch.where(valid, labels, 0)[..., None])[..., 0]
+    return (nll * valid).sum() / valid.sum().clamp(min=1)
 
 
 def normal_init(generator: torch.Generator, shape, stddev: float) -> torch.Tensor:

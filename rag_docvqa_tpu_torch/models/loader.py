@@ -192,8 +192,8 @@ def convert_vt5_checkpoint(sd: Dict[str, np.ndarray], cfg) -> Dict[str, Any]:
 
 def load_vt5_params(path: str, cfg, params_like=None):
     """Read and convert a VT5 / T5 checkpoint; overlay it onto `params_like`
-    (VT5Params) so the parts it lacks keep their initialisation. The
-    module keeps no LayoutT5 head, which the port does not hold yet."""
+    (VT5Params) so the parts it lacks keep their initialisation (a
+    LayoutT5 checkpoint's layout head lands in `layout_head`)."""
     return _overlay(params_like, convert_vt5_checkpoint(read_state_dict(path), cfg))
 
 

@@ -3,9 +3,9 @@
 Counterpart of `rag_docvqa_tpu/models/pix2struct.py`: `P2SVisionConfig` and
 `Pix2StructConfig` (the same fields, but for the vision tower's `flash_encoder`
 switch: the tower has one route here), `init_p2s_params`, `vision_encode`,
-`generate` and `convert_p2s_state_dict` (numpy only; kept as this package's
-own copy). The vision encoder takes flattened patches whose first two
-columns are 1-based (row, col) ids (ops/patches.py):
+`generate`, `forward_train` and `convert_p2s_state_dict` (numpy only; kept
+as this package's own copy). The vision encoder takes flattened patches
+whose first two columns are 1-based (row, col) ids (ops/patches.py):
 
   x = patch_projection(patches) + row_emb[row] + col_emb[col]
   layers: pre-RMSNorm attention without scaling or bias, pre-RMSNorm
@@ -24,7 +24,15 @@ plain version. There is no `fused=` switch, no `flash_encoder` route and no
 padding of the patch axis to a multiple of 8. Masked keys score -1e9 in
 both, so a patch set with no valid token (a padded chunk slot) attends
 uniformly, as in the TPU layer kernels; such rows are masked downstream by
-`chunk_valid`. `forward_train` waits in ROADMAP Queue 1 item 14.
+`chunk_valid`.
+
+`forward_train` is the teacher-forced loss. Its tower runs every layer
+through the hand-written layer backward (`t5_layer_train` with no bias:
+K1's bias-free form with `save_x1` forward, K7 with the gated FFN, K8 and K6
+without a bias), at every row length: K13 has no backward, so a training
+row above QTILED_ABOVE patches takes the same path. JAX trains the tower
+through its plain blocks, a softmax that masks at -1e9, which is the value
+K1 and K8 use. The decoder is `t5.decode_train`.
 """
 
 from __future__ import annotations
@@ -37,9 +45,10 @@ import torch
 from torch import nn
 
 from rag_docvqa_tpu_torch.models import t5 as t5m
-from rag_docvqa_tpu_torch.models.layers import dense, frozen, normal_init, rms_norm
+from rag_docvqa_tpu_torch.models.layers import dense, frozen, masked_cross_entropy, normal_init, rms_norm
 from rag_docvqa_tpu_torch.ops.decode import greedy_decode
-from rag_docvqa_tpu_torch.ops.fused_encoder import fuse_t5_blocks, fused_t5_layer_parts, fused_t5_layer_qtiled
+from rag_docvqa_tpu_torch.ops.fused_encoder import (fuse_t5_blocks, fused_t5_layer_parts, fused_t5_layer_qtiled,
+                                                    t5_layer_train)
 
 QTILED_ABOVE = 1024  # patches per row above which the layer is K13 (the TPU pickers' line at this width)
 
@@ -108,19 +117,24 @@ def init_p2s_params(generator: torch.Generator, cfg: Pix2StructConfig) -> P2SPar
 
 
 def vision_encode(params: P2SParams, cfg: Pix2StructConfig, flattened_patches: torch.Tensor,
-                  attention_mask: torch.Tensor) -> torch.Tensor:
+                  attention_mask: torch.Tensor, train: bool = False) -> torch.Tensor:
     """flattened_patches (B, N, 2 + patch_dim) with the (row, col) ids in
     the first two columns, attention_mask (B, N) bool or 0/1 -> (B, N, d) in
     the parameters' dtype (the patches are cast to it before the
-    projection)."""
+    projection). With train, differentiable through the hand-written layer
+    backward at any N."""
     v, p = cfg.vision, params.vision
     rows = flattened_patches[:, :, 0].to(torch.int64).clamp(0, v.max_rows - 1)
     cols = flattened_patches[:, :, 1].to(torch.int64).clamp(0, v.max_cols - 1)
     x = dense(flattened_patches[:, :, 2:].to(p.patch_w.dtype), p.patch_w, p.patch_b)
     x = x + p.row_emb[rows] + p.col_emb[cols]
     key_mask = attention_mask.to(torch.bool)
-    layer_fn = fused_t5_layer_qtiled if x.shape[1] > QTILED_ABOVE else \
-        lambda x, m, l, **kw: fused_t5_layer_parts(x, m, None, l, **kw)
+    if train:
+        layer_fn = lambda x, m, l, **kw: t5_layer_train(x, m, None, l, **kw)
+    elif x.shape[1] > QTILED_ABOVE:
+        layer_fn = fused_t5_layer_qtiled
+    else:
+        layer_fn = lambda x, m, l, **kw: fused_t5_layer_parts(x, m, None, l, **kw)
     for l in fuse_t5_blocks(p.layers, True):
         x = layer_fn(x, key_mask, l, num_heads=v.num_heads, eps=v.layer_norm_eps, gated=True)
     return rms_norm(x, p.final_ln, v.layer_norm_eps)
@@ -132,6 +146,17 @@ def generate(params: P2SParams, cfg: Pix2StructConfig, flattened_patches: torch.
     confidence) with the VT5 confidence product."""
     enc = vision_encode(params, cfg, flattened_patches, attention_mask)
     return greedy_decode(params.text, cfg.text, enc, attention_mask.to(torch.bool), max_new_tokens)
+
+
+def forward_train(params: P2SParams, cfg: Pix2StructConfig, flattened_patches: torch.Tensor,
+                  attention_mask: torch.Tensor, labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """labels (B, Td) with -100 where ignored -> (scalar mean CE over the
+    other positions, (B, Td, V) logits): the tower through the layer
+    backward, then the teacher-forced decoder over its output."""
+    enc = vision_encode(params, cfg, flattened_patches, attention_mask, train=True)
+    dec_in = t5m.shift_tokens_right(labels, cfg.text.pad_id, cfg.text.decoder_start_token_id)
+    logits = t5m.decode_train(params.text, cfg.text, dec_in, enc, attention_mask.to(torch.bool))
+    return masked_cross_entropy(logits, labels, labels != -100), logits
 
 
 def convert_p2s_state_dict(sd: Dict[str, Any], cfg: Pix2StructConfig) -> Dict[str, Any]:

@@ -14,6 +14,11 @@ layer-level autograd Function whose backward is K7 then K8 (the JAX
 `encode(fused="train")`); gradients reach every encoder weight, the input
 embeddings and, through the bf16 cast and the bucket gather, the rel-pos
 table. `decode_train` is plain torch, as the JAX package leaves it to XLA.
+With `remat_layers` (the train step's `remat="layer"`), each encoder layer
+of a train encode and each decoder layer of `decode_train` runs under
+`torch.utils.checkpoint` (non-reentrant): the backward recomputes the
+layer's forward from its input, so a layer keeps only its input between the
+passes (the JAX `jax.checkpoint` of each scanned layer).
 
 The encoder has one path: every layer through K1 (ops/fused_encoder.py,
 whose attention is K2's kernel), with the rel-pos bias cast to bf16 even
@@ -60,7 +65,7 @@ class T5Config:
     decoder_start_token_id: int = 0
     flash_encoder: bool = False  # no effect here: encode always runs K1 (and K2 inside it)
     decode_kv_int8: bool = False  # int8 cross-KV cache, channel scales
-    remat_layers: bool = False  # training only; no effect here
+    remat_layers: bool = False  # training: checkpoint each encoder and decoder layer
     # cross-attention of each decode step through K3 (ops/decode_attention.py)
     # over the packed cache. The TPU package also required 128-aligned dims
     # and a VMEM budget; on the card the option alone decides.
@@ -249,11 +254,21 @@ def encode(params: T5Params, cfg: T5Config, inputs_embeds: torch.Tensor,
     pos = torch.arange(T)
     bias = relative_bias(enc.rel_bias, pos, pos, bidirectional=True, cfg=cfg)[0].to(torch.bfloat16).contiguous()
     layer_fn = t5_layer_train if train else fused_t5_layer_parts
+    if train and cfg.remat_layers:
+        layer_fn = _checkpointed(layer_fn)
     x = inputs_embeds
     for l in fuse_t5_blocks(enc.layers, cfg.gated_ffn):
         x = layer_fn(x, attention_mask, bias, l, num_heads=cfg.num_heads, eps=cfg.layer_norm_eps,
                      gated=cfg.gated_ffn)
     return rms_norm(x, enc.final_ln, cfg.layer_norm_eps)
+
+
+def _checkpointed(fn):
+    """`fn` under a non-reentrant `torch.utils.checkpoint`: its backward
+    recomputes its forward instead of keeping what the forward saved."""
+    from torch.utils.checkpoint import checkpoint
+
+    return lambda *args, **kw: checkpoint(fn, *args, use_reentrant=False, **kw)
 
 
 # --------------------------------------------------------------------------- #
@@ -267,31 +282,37 @@ def decode_train(params: T5Params, cfg: T5Config, decoder_input_ids: torch.Tenso
     cross-attention probabilities of every layer, (L, B, H, Td, Te) in the
     activations' dtype (Hi-VT5's `attention_viz` maps them back to pages)."""
     dec = params.decoder
-    H = cfg.num_heads
     Td = decoder_input_ids.shape[1]
     x = params.shared[decoder_input_ids]
     pos = torch.arange(Td)
     bias = relative_bias(dec.rel_bias, pos, pos, bidirectional=False, cfg=cfg)
     causal = (pos[None, :] <= pos[:, None]).to(x.device)[None, None]
     cross_mask = encoder_mask[:, None, None, :]
+    block = _checkpointed(_decoder_layer) if cfg.remat_layers and not return_cross_attn else _decoder_layer
     cross = []
     for layer in dec.layers:
-        sa, ca = layer.self_attn, layer.cross_attn
-        h = rms_norm(x, layer.ln0, cfg.layer_norm_eps)
-        q, k, v = (_split_heads(dense(h, w), H) for w in (sa.q, sa.k, sa.v))
-        x = x + dense(_attend(q, k, v, bias, causal), sa.o)
-        h = rms_norm(x, layer.ln1, cfg.layer_norm_eps)
-        q = _split_heads(dense(h, ca.q), H)
-        k, v = (_split_heads(dense(encoder_hidden, w), H) for w in (ca.k, ca.v))
-        attended, probs = _attend(q, k, v, None, cross_mask, return_probs=True)
-        x = x + dense(attended, ca.o)
+        x, probs = block(x, layer, cfg, bias, causal, encoder_hidden, cross_mask)
         if return_cross_attn:
             cross.append(probs)
-        h = rms_norm(x, layer.ln2, cfg.layer_norm_eps)
-        x = x + _ffn(layer.ffn, cfg, h)
     x = rms_norm(x, dec.final_ln, cfg.layer_norm_eps)
     logits = lm_logits(params, cfg, x)
     return (logits, torch.stack(cross)) if return_cross_attn else logits
+
+
+def _decoder_layer(x, layer: T5DecoderLayer, cfg: T5Config, bias, causal, encoder_hidden, cross_mask):
+    """One teacher-forced decoder layer: (x, its cross-attention probabilities)."""
+    H = cfg.num_heads
+    sa, ca = layer.self_attn, layer.cross_attn
+    h = rms_norm(x, layer.ln0, cfg.layer_norm_eps)
+    q, k, v = (_split_heads(dense(h, w), H) for w in (sa.q, sa.k, sa.v))
+    x = x + dense(_attend(q, k, v, bias, causal), sa.o)
+    h = rms_norm(x, layer.ln1, cfg.layer_norm_eps)
+    q = _split_heads(dense(h, ca.q), H)
+    k, v = (_split_heads(dense(encoder_hidden, w), H) for w in (ca.k, ca.v))
+    attended, probs = _attend(q, k, v, None, cross_mask, return_probs=True)
+    x = x + dense(attended, ca.o)
+    h = rms_norm(x, layer.ln2, cfg.layer_norm_eps)
+    return x + _ffn(layer.ffn, cfg, h), probs
 
 
 def shift_tokens_right(labels: torch.Tensor, pad_id: int, decoder_start_token_id: int) -> torch.Tensor:

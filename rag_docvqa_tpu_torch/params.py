@@ -43,7 +43,7 @@ from rag_docvqa_tpu_torch.models.t5 import (
     T5Stack,
 )
 from rag_docvqa_tpu_torch.models.vit import ViTLayer, ViTParams
-from rag_docvqa_tpu_torch.models.vt5 import VisualParams, VT5Params
+from rag_docvqa_tpu_torch.models.vt5 import LayoutHead, VisualParams, VT5Params
 from rag_docvqa_tpu_torch.parallel.index import ShardedIndex
 
 Tree = Dict[str, Any]
@@ -106,8 +106,13 @@ def from_jax(tree: Tree, device="cpu") -> Union[VT5Params, T5Params]:
     layout_emb = _t(tree["layout_emb"], device) if "layout_emb" in tree else None
     layout_scale = _t(tree["layout_scale"], device) if "layout_scale" in tree else None
     nac = nac_from_jax(tree["nac"], device) if "nac" in tree else None
+    head = None
+    if "layout_head" in tree:
+        h = tree["layout_head"]
+        head = LayoutHead(_t(h["ln_w"], device), _t(h["ln_b"], device), _dense(h["kernel"], device),
+                          _t(h["bias"], device))
     return VT5Params(t5_from_jax(tree["t5"], device), _spatial_from_jax(tree["spatial"], device), layout_emb,
-                     layout_scale, visual=_visual_from_jax(tree, device), nac=nac)
+                     layout_scale, visual=_visual_from_jax(tree, device), nac=nac, layout_head=head)
 
 
 def _spatial_from_jax(sp: Tree, device) -> SpatialEmbeddings:
@@ -197,6 +202,10 @@ def to_jax(p: Union[VT5Params, T5Params]) -> Tree:
         tree["layout_scale"] = _np(p.layout_scale)
     if p.nac is not None:
         tree["nac"] = nac_to_jax(p.nac)
+    if p.layout_head is not None:
+        h = p.layout_head
+        tree["layout_head"] = {"ln_w": _np(h.ln_w), "ln_b": _np(h.ln_b), "kernel": _np(h.weight).T,
+                               "bias": _np(h.bias)}
     return tree
 
 

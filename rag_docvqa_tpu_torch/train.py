@@ -9,11 +9,14 @@ the latest) step of a checkpoint directory this trainer wrote (`--ckpt`) or
 else by a local Hugging Face weight directory converted by
 `models/loader.py` (`--hf-weights`; its tokenizer and its config.json's
 widths become the config's defaults), the synthetic planted-fact corpus,
-then `Trainer.fit` with per-epoch evaluation; `model_name: Hi-VT5` trains
-Hi-VT5 (configs/HiVT5_tiny.yml). `--device` takes the place of
-`--platform`; the default is cuda, and without a CUDA device the CLI raises
-unless `--device cpu` is given. The dataset loaders and the synthetic page
-images are not ported yet and raise (ROADMAP Queue 1 item 18a).
+the documents of `build_docs` (the synthetic planted-fact corpus with, for
+`synthetic_images`, seeded page images drawn as the root `train.py` draws
+them, or a dataset from local files through `data/datasets.py`), then
+`Trainer.fit` with per-epoch evaluation; `model_name: Hi-VT5` trains
+Hi-VT5 (configs/HiVT5_tiny.yml); `remat` (False, True or "layer") is
+passed to the train step. `--device` takes the place of `--platform`; the
+default is cuda, and without a CUDA device the CLI raises unless `--device
+cpu` is given.
 """
 
 from __future__ import annotations
@@ -42,17 +45,30 @@ def parse_overrides(pairs):
 
 
 def build_docs(config, split):
-    if config.get("dataset_name") != "Synthetic":
-        raise NotImplementedError("the port reads the synthetic corpus only; the dataset loaders wait for "
-                                  "ROADMAP Queue 1 item 18a")
-    if config.get("synthetic_images"):
-        raise NotImplementedError("the seeded page images of the synthetic corpus wait for ROADMAP Queue 1 item 18a "
-                                  "(and training with visual tokens for item 13)")
-    from rag_docvqa_tpu_torch.data.synthetic import make_corpus
+    """The documents of a split: the synthetic corpus (`dataset_name:
+    Synthetic`; train from seed 0, the other splits from seed 1) with, when
+    `synthetic_images` is set, one seeded (size, size, 3) uint8 page image a
+    page, drawn from `np.random.RandomState(0 | 1)` in document and page
+    order (`synthetic_image_size`, default 256): the root `train.py`'s
+    images bit for bit. Any other `dataset_name` loads through
+    `data/datasets.py::build_dataset` from local files."""
+    if config.get("dataset_name") == "Synthetic":
+        import numpy as np
 
-    n = config.get("n_train_docs", 64) if split == "train" else config.get("n_val_docs", 16)
-    return make_corpus(n, n_pages=config.get("n_pages", 4), words_per_page=config.get("words_per_page", 120),
-                       seed=0 if split == "train" else 1)
+        from rag_docvqa_tpu_torch.data.synthetic import make_corpus
+
+        n = config.get("n_train_docs", 64) if split == "train" else config.get("n_val_docs", 16)
+        docs = make_corpus(n, n_pages=config.get("n_pages", 4), words_per_page=config.get("words_per_page", 120),
+                           seed=0 if split == "train" else 1)
+        if config.get("synthetic_images"):
+            rng = np.random.RandomState(0 if split == "train" else 1)
+            size = config.get("synthetic_image_size", 256)
+            for d in docs:
+                d.images = [rng.randint(0, 255, (size, size, 3)).astype(np.uint8) for _ in d.words]
+        return docs
+    from rag_docvqa_tpu_torch.data.datasets import build_dataset
+
+    return list(build_dataset(config, split))
 
 
 def resolve_device(name: str):
@@ -100,11 +116,12 @@ def hf_defaults(config) -> None:
 
 
 def init_params(config, model_cfg, device, kind: str = "vt5"):
-    """The weights of a `kind` model ("vt5" or "hivt5"): random from the
-    config's seed (VT5 with the not-answerable classifier, from seed + 1,
-    when the config uses one), then overlaid by the best (else the latest)
-    step of the checkpoint directory `ckpt` this trainer wrote, or else by
-    the local Hugging Face weights `hf_weights` (models/loader.py)."""
+    """The weights of a `kind` model ("vt5", "hivt5" or "pix2struct"):
+    random from the config's seed (VT5 with the not-answerable classifier,
+    from seed + 1, when the config uses one), then overlaid by the best (else
+    the latest) step of the checkpoint directory `ckpt` this trainer wrote,
+    or else by the local Hugging Face weights `hf_weights`
+    (models/loader.py)."""
     import torch
 
     from rag_docvqa_tpu_torch.models import loader
@@ -114,6 +131,10 @@ def init_params(config, model_cfg, device, kind: str = "vt5"):
         from rag_docvqa_tpu_torch.models import hivt5 as hivt5m
 
         params = hivt5m.init_hivt5_params(g, model_cfg)
+    elif kind == "pix2struct":
+        from rag_docvqa_tpu_torch.models import pix2struct as p2s
+
+        params = p2s.init_p2s_params(g, model_cfg)
     else:
         from rag_docvqa_tpu_torch.models import vt5 as vt5m
         from rag_docvqa_tpu_torch.models.nac import NACConfig, init_nac_params

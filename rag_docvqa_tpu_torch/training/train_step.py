@@ -11,7 +11,21 @@ not-answerable classifier's weighted BCE: a greedy decode of
 the card where `fused_decode_attn` is set) gives the predicted answers, and
 the NAC sees their embeddings beside the generator input's, so that only the
 NAC MLP receives this term's gradient. `make_hivt5_train_step` is the Hi-VT5
-step (LM and page cross-entropy). Remat is not ported yet and raises.
+step (LM and page cross-entropy).
+
+`remat` trades recomputation for activation memory, with the JAX values:
+"layer" checkpoints each encoder layer (around `T5LayerTrain`, whose own
+backward already recomputes the attention and keeps only the layer's input
+and x1) and each decoder layer (`T5Config.remat_layers`); True checkpoints
+the whole loss forward. JAX's True keeps the outputs of the matrix products
+(`dots_with_no_batch_dims_saveable`); the port's keeps the outputs of the
+matrix products PyTorch runs (aten `mm`/`addmm`: the decoder's projections
+and FFN, the heads) and recomputes the rest. The encoder layers' kernels
+are ctypes launches inside an autograd Function that no such policy sees,
+so their forward is run again in the backward, as a whole layer. Any other
+value raises ValueError. Either way the loss and the gradients are those of
+the plain step: every kernel gives the same bits on a second launch, so the
+recomputed ReLU decisions are the first pass's.
 
 bf16_compute is the JAX mixed precision: f32 master weights, and inside
 the loss a bf16 copy of every floating parameter made by a differentiable
@@ -73,8 +87,8 @@ def make_train_step(vt5_cfg: vt5m.VT5Config, rag_cfg: RAGConfig, opt: Optimizer,
     `use_nac` "nac_loss" and "nac_accuracy" too, 0-d tensors. `mark(name)`,
     when given, is called after "forward", "backward" and "update", for
     timing."""
-    if remat:
-        raise NotImplementedError("remat waits in ROADMAP Queue 1 item 11")
+    vt5_cfg, whole = _remat_config(vt5_cfg, remat)
+    fwd = _checkpoint_products(vt5m.forward_train) if whole else vt5m.forward_train
     acfg = rag_cfg.assemble()
     oracle = rag_cfg.page_retrieval == "oracle"
 
@@ -91,7 +105,7 @@ def make_train_step(vt5_cfg: vt5m.VT5Config, rag_cfg: RAGConfig, opt: Optimizer,
         with torch.no_grad():
             ret = retrieve(p.t5.shared, batch, k=rag_cfg.chunk_num, oracle=oracle)
             gen, _ = assemble_concat(batch, ret.top_k_idx, ret.top_k_valid, acfg)
-        loss, _ = vt5m.forward_train(p, vt5_cfg, gen, labels)
+        loss, _ = fwd(p, vt5_cfg, gen, labels)
         aux = {}
         if use_nac:
             t5c = vt5_cfg.t5
@@ -109,6 +123,35 @@ def make_train_step(vt5_cfg: vt5m.VT5Config, rag_cfg: RAGConfig, opt: Optimizer,
         return _backward_update(state, opt, trainable, loss, aux, mark)
 
     return step
+
+
+def _remat_config(cfg, remat):
+    """(cfg, whole forward?) for a `remat` value: "layer" sets the T5
+    config's `remat_layers`; True asks for the whole-forward checkpoint."""
+    import dataclasses
+
+    if remat == "layer":
+        return dataclasses.replace(cfg, t5=dataclasses.replace(cfg.t5, remat_layers=True)), False
+    if remat not in (False, True):
+        raise ValueError(f"remat must be False, True, or 'layer'; got {remat!r}")
+    return cfg, bool(remat)
+
+
+_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _checkpoint_products(fn):
+    """`fn` under a non-reentrant selective checkpoint that keeps the
+    outputs of aten `mm` and `addmm` and recomputes everything else."""
+    import functools
+
+    from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
+
+    def policy(ctx, op, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if op in _PRODUCTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+    context = functools.partial(create_selective_checkpoint_contexts, policy)
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False, context_fn=context)
 
 
 def _backward_update(state: TrainState, opt: Optimizer, trainable: Dict[str, torch.Tensor], loss: torch.Tensor,
@@ -134,10 +177,10 @@ def make_hivt5_train_step(hivt5_cfg, opt: Optimizer, remat=False, bf16_compute: 
     retrieval_loss_weight times the page cross-entropy
     (`models/hivt5.py::forward_train`: the pages-in-batch encode through
     K7/K8 with K6, on B*P rows). metrics: "loss", "lm_loss", "ret_loss",
-    "grad_norm" and "grad_norm/<root>", 0-d tensors; `mark` as in
-    `make_train_step`. bf16_compute as there."""
-    if remat:
-        raise NotImplementedError("remat waits in ROADMAP Queue 1 item 11")
+    "grad_norm" and "grad_norm/<root>", 0-d tensors; `mark` and `remat`
+    as in `make_train_step`. bf16_compute as there."""
+    hivt5_cfg, whole = _remat_config(hivt5_cfg, remat)
+    fwd = _checkpoint_products(hivt5m.forward_train) if whole else hivt5m.forward_train
 
     def step(state: TrainState, batch: ChunkedBatch, labels, mark: Optional[Callable[[str], None]] = None):
         mark = mark or (lambda name: None)
@@ -148,7 +191,7 @@ def make_hivt5_train_step(hivt5_cfg, opt: Optimizer, remat=False, bf16_compute: 
         labels = torch.as_tensor(labels, device=dev).long()
         trainable = opt.trainable(params)
         p = cast_params(params, torch.bfloat16) if bf16_compute else params
-        loss, aux = hivt5m.forward_train(p, hivt5_cfg, batch, labels)
+        loss, aux = fwd(p, hivt5_cfg, batch, labels)
         mark("forward")
         return _backward_update(state, opt, trainable, loss, {k: aux[k] for k in ("lm_loss", "ret_loss")}, mark)
 

@@ -14,7 +14,7 @@ evaluation engine blanks answers at `nac_threshold`. With `hivt5_cfg` the
 loop trains Hi-VT5 (`make_hivt5_train_step`: LM and page cross-entropy), its
 `page_emb` and `page_head` beside the configured roots, and evaluates
 through `HiVT5Engine`; the not-answerable term is VT5's only, as in JAX.
-Remat is not ported yet and raises (ROADMAP Queue 1 item 11).
+`remat` (False, True or "layer") goes to the train step.
 """
 
 from __future__ import annotations
@@ -61,7 +61,7 @@ class TrainLoopConfig:
     nac_loss_weight: float = 1.0
     nac_pos_weight: float = 1.0
     nac_threshold: float = 0.5  # the evaluation engine's blanking threshold
-    remat: Any = False  # not ported: raises
+    remat: Any = False  # False | True (the whole forward) | "layer" (each layer)
     bf16_compute: Optional[bool] = None  # None: on for CUDA, off for the CPU
     prefetch_depth: int = 2
 

@@ -3,8 +3,9 @@ originals in the JAX package so they cannot drift unnoticed: the chunker
 (`ops/chunking.py`) on seeded pages, the metrics (`metrics/`) on a few
 strings, `convert_bert_state_dict` (numpy only, but in a module of the
 JAX package that imports jax) on seeded state dicts, the image patch
-math (`ops/patches.py`) on seeded page images, and the ingest statistics
-(`utils_stats.py`) on a seeded batch. Everything here is integer,
+math (`ops/patches.py`) on seeded page images, the ingest statistics
+(`utils_stats.py`) on a seeded batch, and the S2 chunker (`ops/s2chunker.py`)
+on the cases of `tests/test_s2chunker.py`. Everything here is integer,
 string, copying or identical numpy work on the host: equal exactly."""
 
 import dataclasses
@@ -269,3 +270,38 @@ def test_utils_stats_copy_matches_original():
     names = {0: "text", 1: "title", 2: "list"}
     assert (p_stats.collect_topk_label_stats(ret, names).summary()
             == j_stats.collect_topk_label_stats(ret, names).summary())
+
+
+def _s2_boxes():
+    rng = np.random.RandomState(0)
+    left, right = rng.rand(6, 2) * 0.1, rng.rand(6, 2) * 0.1 + 0.9
+    return np.concatenate([np.concatenate([c, c + 0.05], axis=1) for c in (left, right)])
+
+
+# the six cases of tests/test_s2chunker.py, each a function of the module under test
+S2_CASES = {
+    "affinity": lambda m: (m.region_affinity(np.asarray([[0, 0, 0.1, 0.1], [0.0, 0.05, 0.1, 0.15], [0.9, 0.9, 1.0, 1.0]])),
+                           m.region_affinity(np.asarray([[0, 0, 0.1, 0.1], [0.0, 0.05, 0.1, 0.15],
+                                                         [0.9, 0.9, 1.0, 1.0]]),
+                                             np.asarray([[1.0, 0.0], [1.0, 0.0], [0.0, 1.0]]))),
+    "cluster_groups": lambda m: m.cluster_regions(_s2_boxes(), cfg=m.S2Config(max_clusters=4, use_semantics=False)),
+    "cluster_tiny": lambda m: (m.cluster_regions([]), m.cluster_regions([[0, 0, 1, 1]]),
+                               m.cluster_regions([[0, 0, 1, 1], [0, 0, 1, 1]])),
+    "kmeans_silhouette": lambda m: (m.kmeans(np.concatenate([np.zeros((5, 2)), np.ones((5, 2))]), 2, seed=0),
+                                    m.silhouette_score(np.concatenate([np.zeros((5, 2)), np.ones((5, 2))]),
+                                                       np.asarray([0] * 5 + [1] * 5)),
+                                    m.silhouette_score(np.concatenate([np.zeros((5, 2)), np.ones((5, 2))]),
+                                                       np.zeros(10, np.int32))),
+    "spectral_embedding": lambda m: m.spectral_embedding(np.eye(6) * 0 + 0.5, 2),
+    "split_oversized": lambda m: (m.split_oversized_clusters(np.zeros(5, np.int32), [40] * 5, max_tokens=100),
+                                  m.split_oversized_clusters(np.zeros(5, np.int32), [40] * 5, 0)),
+}
+
+
+@pytest.mark.parametrize("case", S2_CASES)
+def test_s2chunker_copy_matches_original(case):
+    from rag_docvqa_tpu.ops import s2chunker as j_s2
+    from rag_docvqa_tpu_torch.ops import s2chunker as p_s2
+
+    _same(S2_CASES[case](p_s2), S2_CASES[case](j_s2))
+    assert dataclasses.asdict(p_s2.S2Config()) == dataclasses.asdict(j_s2.S2Config())

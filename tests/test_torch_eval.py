@@ -17,6 +17,7 @@ import torch
 
 from rag_docvqa_tpu import config as j_config
 from rag_docvqa_tpu.models import vt5 as j_vt5
+from chip_smoke import write_mp_docvqa  # the MP-DocVQA directory phase 11e serves from
 from rag_docvqa_tpu_torch import config as p_config
 from rag_docvqa_tpu_torch import params as p_params
 from rag_docvqa_tpu_torch.training.checkpoint import CheckpointManager
@@ -27,32 +28,40 @@ torch.set_num_threads(2)
 MODEL, DATA = "configs/VT5_tiny.yml", "configs/Synthetic.yml"
 
 
-def _root_then_port(tmp_path, monkeypatch, capsys, args, overrides):
-    """Runs the root eval, keeps the weights its seeded init made, writes them
-    as a checkpoint of the port's trainer and runs the port's eval from it.
+def _root_then_port(tmp_path, monkeypatch, capsys, args, overrides, model=MODEL, data=DATA, kind="vt5",
+                    port_args=()):
+    """Runs the root eval, keeps the weights its seeded init made (`kind`:
+    vt5, hivt5 or pix2struct), writes them as a checkpoint of the port's
+    trainer and runs the port's eval from it (with `port_args` besides).
     Returns both lists of summaries and both printed lines."""
     import eval as root_eval
+    from rag_docvqa_tpu.models import hivt5 as j_hivt5
+    from rag_docvqa_tpu.models import pix2struct as j_p2s
     from rag_docvqa_tpu_torch import eval as p_eval
 
+    module, name, convert = {"vt5": (j_vt5, "init_vt5_params", p_params.from_jax),
+                             "hivt5": (j_hivt5, "init_hivt5_params", p_params.hivt5_from_jax),
+                             "pix2struct": (j_p2s, "init_p2s_params", p_params.p2s_from_jax)}[kind]
     trees = []
-    j_init = j_vt5.init_vt5_params
+    j_init = getattr(module, name)
 
     def rounded(key, cfg):
-        tree = jax.tree.map(np.asarray, j_init(key, cfg))
-        rb = tree["t5"]["encoder"]["rel_bias"]
-        tree["t5"]["encoder"]["rel_bias"] = np.asarray(torch.from_numpy(np.array(rb)).bfloat16().float())
+        tree = jax.tree.map(np.array, j_init(key, cfg))
+        if "t5" in tree:  # the port's encoder takes its rel-pos bias in bf16
+            rb = tree["t5"]["encoder"]["rel_bias"]
+            tree["t5"]["encoder"]["rel_bias"] = np.asarray(torch.from_numpy(np.array(rb)).bfloat16().float())
         trees.append(tree)
         return jax.tree.map(jnp.asarray, tree)
 
-    monkeypatch.setattr(j_vt5, "init_vt5_params", rounded)
-    want = root_eval.main(["-m", MODEL, "-d", DATA, "--platform", "cpu",
+    monkeypatch.setattr(module, name, rounded)
+    want = root_eval.main(["-m", model, "-d", data, "--platform", "cpu",
                            "--save-path", str(tmp_path / "jax.json")] + args + overrides)
     jlines = capsys.readouterr().out.strip().splitlines()
     ckpt = tmp_path / "ckpt"
-    port = p_params.from_jax(trees[0])
+    port = convert(trees[0])
     CheckpointManager(str(ckpt)).save(0, TrainState(params=port, opt_state={}, step=0))
-    got = p_eval.main(["-m", MODEL, "-d", DATA, "--device", "cpu", "--ckpt", str(ckpt),
-                       "--save-path", str(tmp_path / "port.json")] + args + overrides)
+    got = p_eval.main(["-m", model, "-d", data, "--device", "cpu", "--ckpt", str(ckpt),
+                       "--save-path", str(tmp_path / "port.json")] + args + list(port_args) + overrides)
     plines = capsys.readouterr().out.strip().splitlines()
     return want, got, jlines, plines
 
@@ -82,6 +91,87 @@ def test_eval_cli_matches_root_eval(strategy, tmp_path, monkeypatch, capsys):
         g = saved["scores_by_samples"][qid]
         for k in ("pred_answer", "pred_answer_pages", "accuracy", "anls", "retrieval_precision", "chunk_score"):
             assert g[k] == w[k], (qid, k)
+
+
+def _same_saved(tmp_path):
+    saved, jsaved = (json.loads((tmp_path / f"{n}.json").read_text()) for n in ("port", "jax"))
+    assert saved["scores_by_samples"].keys() == jsaved["scores_by_samples"].keys()
+    for qid, w in jsaved["scores_by_samples"].items():
+        g = saved["scores_by_samples"][qid]
+        for k in ("pred_answer", "pred_answer_pages", "accuracy", "anls", "retrieval_precision", "chunk_score"):
+            assert g[k] == w[k], (qid, k)
+
+
+@pytest.mark.parametrize("workers", [0, 2])
+def test_eval_cli_reads_a_local_mp_docvqa_directory(workers, tmp_path, monkeypatch, capsys):
+    """`-d configs/MP-DocVQA.yml imdb_dir=... images_dir=... use_images=true`
+    against the root eval (in-process ingest) on the same files: the port's
+    summary and per-sample scores equal with in-process ingest and with two
+    ingest workers (`MPIngestor`, closed at the end of the run)."""
+    imdb, images = write_mp_docvqa(str(tmp_path / "mp"))
+    overrides = [f"imdb_dir={imdb}", f"images_dir={images}", "use_images=true", "page_retrieval=maxconf"]
+    want, got, jlines, plines = _root_then_port(tmp_path, monkeypatch, capsys, [], overrides,
+                                                data="configs/MP-DocVQA.yml",
+                                                port_args=["--ingest-workers", str(workers)])
+    assert len(want) == len(got) == 1 and got[0]["n_samples"] == 6
+    _same_summary(got[0], want[0])
+    _same_summary(json.loads(plines[-1]), json.loads(jlines[-1]))
+    _same_saved(tmp_path)
+
+
+def test_build_docs_matches_root_train(tmp_path):
+    """The port's `train.build_docs` against the root `train.py`'s: the
+    synthetic corpus with seeded page images (the same uint8 arrays, bit for
+    bit, for both splits) and an MP-DocVQA directory through the loaders."""
+    import train as root_train
+    from rag_docvqa_tpu_torch import train as p_train
+
+    imdb, images = write_mp_docvqa(str(tmp_path / "mp"))
+    configs = [{"dataset_name": "Synthetic", "n_train_docs": 3, "n_val_docs": 2, "n_pages": 3, "words_per_page": 20,
+                "synthetic_images": True, "synthetic_image_size": 32},
+               {"dataset_name": "Synthetic", "n_val_docs": 2, "n_pages": 2, "words_per_page": 20,
+                "synthetic_images": True},
+               {"dataset_name": "MP-DocVQA", "imdb_dir": imdb, "images_dir": images, "use_images": True,
+                "page_retrieval": "custom", "max_pages": 2}]
+    for config in configs:
+        for split in ("train", "val") if config["dataset_name"] == "Synthetic" else ("val",):
+            got, want = p_train.build_docs(dict(config), split), root_train.build_docs(dict(config), split)
+            assert len(got) == len(want) > 0
+            for g, w in zip(got, want):
+                for f in ("question", "words", "answers", "answer_page_idx", "question_id"):
+                    assert getattr(g, f) == getattr(w, f), f
+                for a, b in zip(g.boxes, w.boxes):
+                    np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+                assert len(g.images) == len(g.words) == len(w.images)
+                for a, b in zip(g.images, w.images):
+                    assert a.dtype == b.dtype == np.uint8
+                    np.testing.assert_array_equal(a, b)
+    size = p_train.build_docs(dict(configs[1]), "val")[0].images[0].shape
+    assert size == (256, 256, 3)
+
+
+def test_eval_cli_pix2struct_matches_root_eval(tmp_path, monkeypatch, capsys):
+    """configs/Pix2Struct_tiny.yml (the synthetic corpus's seeded page
+    images, RAG-Pix2Struct) against the root eval on the root CLI's weights."""
+    want, got, jlines, plines = _root_then_port(tmp_path, monkeypatch, capsys, [],
+                                                ["n_val_docs=3", "n_pages=2", "batch_size=2"],
+                                                model="configs/Pix2Struct_tiny.yml", kind="pix2struct")
+    assert len(want) == len(got) == 1 and got[0]["n_samples"] == 3
+    _same_summary(got[0], want[0])
+    _same_saved(tmp_path)
+
+
+def test_eval_cli_hivt5_page_images_match_root_eval(tmp_path, monkeypatch, capsys):
+    """configs/HiVT5_tiny.yml with `synthetic_images` and the per-page visual
+    branch (a 2-layer ViT on 32 px renders) against the root eval."""
+    overrides = ["n_val_docs=3", "synthetic_images=true", "synthetic_image_size=48", "use_visual=true",
+                 "visual_hidden_size=16", "visual_num_layers=1", "visual_num_heads=2", "visual_mlp_dim=32",
+                 "visual_patch_size=8", "visual_image_size=32"]
+    want, got, jlines, plines = _root_then_port(tmp_path, monkeypatch, capsys, [], overrides,
+                                                model="configs/HiVT5_tiny.yml", kind="hivt5")
+    assert len(want) == len(got) == 1 and got[0]["n_samples"] == 3
+    _same_summary(got[0], want[0])
+    _same_saved(tmp_path)
 
 
 def test_eval_cli_sweep_matches_root_eval(tmp_path, monkeypatch, capsys):
@@ -136,12 +226,8 @@ def test_config_sweep_and_rag_keys_match_jax():
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["-d", "configs/MP-DocVQA.yml"], "item 18a"),
-    (["--ingest-workers", "2"], "item 18a"),
     (["--data-parallel"], "item 17"),
-    (["-m", "configs/HiVT5_tiny.yml", "synthetic_images=true"], "item 18a"),
     (["-m", "configs/Qwen_tiny.yml"], "item 15"),
-    (["-m", "configs/Pix2Struct_tiny.yml"], "item 18a"),
 ])
 def test_eval_cli_refuses_what_is_not_ported(argv, match):
     from rag_docvqa_tpu_torch import eval as p_eval

@@ -225,9 +225,29 @@ def test_train_step_trains_page_prediction_as_jax(world):
     np.testing.assert_array_equal(pred, want)
 
 
-def test_train_step_refuses_remat(world):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        make_hivt5_train_step(world["pcfg"], None, remat="layer")
+@pytest.mark.parametrize("remat", [True, "layer"])
+def test_train_step_remat_matches_plain(world, remat):
+    """`remat="layer"` (each encoder layer around `T5LayerTrain`, each decoder
+    layer) and `remat=True` (the whole forward) give the plain step's
+    losses, grad norms and updated parameters exactly over three steps
+    (`tests/test_training.py::test_hivt5_remat_layer_matches_plain`); any
+    other value raises, as in JAX."""
+    kw = dict(lr=3e-3, warmup_steps=0, total_steps=100, weight_decay=0.0)
+    states, steps = [], []
+    for r in (False, remat):
+        port = p_params.hivt5_from_jax(world["tree"])
+        opt = build_optimizer(**kw, mask=trainable_mask(port, ("t5", "spatial", "page_emb", "page_head")))
+        states.append(TrainState.create(port, opt))
+        steps.append(make_hivt5_train_step(world["pcfg"], opt, remat=r))
+    for i in range(3):
+        (s1, m1), (s2, m2) = (step(state, world["pb_np"], world["labels"]) for step, state in zip(steps, states))
+        states = [s1, s2]
+        for k in m1:
+            assert m1[k].item() == m2[k].item(), (k, i)
+    for (n, a), (_, b) in zip(states[0].params.named_parameters(), states[1].params.named_parameters()):
+        assert torch.equal(a, b), n
+    with pytest.raises(ValueError, match="remat must be False, True, or 'layer'"):
+        make_hivt5_train_step(world["pcfg"], None, remat="pages")
 
 
 @pytest.mark.parametrize("fused_decode", [False, True])

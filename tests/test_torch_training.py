@@ -167,14 +167,6 @@ def test_decode_train_and_shift_match_jax():
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
 
 
-def test_forward_train_refuses_layout_head():
-    _, pcfg = _configs()
-    from dataclasses import replace
-
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        p_vt5.forward_train(None, replace(pcfg, use_layout_labels="Embed"), None, None)
-
-
 def test_checkpoints_keep_the_best_three(tmp_path):
     _, pcfg = _configs()
     params = p_vt5.init_vt5_params(torch.Generator().manual_seed(0), pcfg)
