@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's RAG-VT5 serving and training paths, its corpus
 index, its BERT family, its visual paths (the DiT branch of RAG-VT5,
-RAG-Pix2Struct), Hi-VT5, the VT5 family's other training forms and the
-documents from local files once on one CUDA card.
+RAG-Pix2Struct), Hi-VT5, the VT5 family's other training forms, the
+documents from local files, the layout detectors and the apps once on one
+CUDA card.
 
     python3 chip_smoke.py            # every phase, the report and the result line
-    python3 chip_smoke.py 11         # phases 1-2 and the named ones (3-11) alone, for work on them: no report
+    python3 chip_smoke.py 12         # phases 1-2 and the named ones (3-12) alone, for work on them: no report
 
-Eleven phases; any failure raises and the script exits non-zero:
+Twelve phases; any failure raises and the script exits non-zero:
 
   1. a CUDA device is required; prints the card's name and power limit and
      turns TF32 off, so f32 products are full f32;
@@ -288,6 +289,41 @@ Eleven phases; any failure raises and the script exits non-zero:
      f. tests/test_torch_e2e_answer_quality.py's two cases on the card (f32,
         decode through K3): ANLS 1.0 and the planted answers, Hi-VT5's page
         head on the planted page.
+ 12. the layout detectors, layout-guided serving, the transfer and the apps,
+     on its own generator:
+     a. the DiT detector (`models/layout_seg.py`) at DiT-base width, B 16
+        seeded banded pages, f32 with TF32 off: its logits through K14
+        against the same model through K14's plain version (`rel_tol`), the
+        class maps equal above a 1e-3 top-two margin (the flips counted),
+        K14's launches in one detector batch exactly 24 `vit_layer_norm`, 48
+        `vit_gemm`, 12 `vit_attention`; the BEiT layer and its attention at
+        B 16 T 197 in f32 and bf16 against their plain versions, timed on
+        the device beside SDPA; the backbone, the head and the detector per
+        page, and the head and detector with cuDNN's TF32 on;
+     b. YOLO (`models/yolo.py`) at `YOLOConfig()` (width 32, 1024 px), B 4
+        pages, f32: raw outputs, boxes and scores on the card against the
+        port's CPU run on the same parameters; ms a page, the boxes over
+        `conf_thresh` (0 with seeded weights), the drift with TF32 on;
+     c. an MP-DocVQA directory of 32 questions with banded page images
+        through `precompute layouts` on the card (DIT at DiT-base, YOLO at its
+        defaults), pages/s; the DIT file read back by
+        `use_precomputed_layouts`; the eval entry point with it (t5-base f32);
+        the layout-chunked documents through `RAGVT5Engine.inference` at
+        phase 5's settings (K1-K3); the words chunked with and without the
+        layouts (must differ); RAG-Pix2Struct `chunk_mode: layout` through
+        the eval entry point (K15) and its image chunks with and without;
+     d. `device_put_batch` against `to_device` on phase 5's batch of 32:
+        every field equal with its dtype, bytes and ms (median of 20, events
+        and host clock), the host scan and the queued call; `evaluate` over
+        64 documents copying with each (A B B A): equal answers and
+        confidences;
+     e. `demo --serve` on 127.0.0.1 (t5-base, its decode switched to an int8
+        cross cache and K3 as phase 5 sets it): one /sample and one /ask
+        over a socket, the /ask through K1-K3 with its overlay PNGs; then
+        `noise_experiment` over 8 documents;
+     f. K2, K6 and K3 in f32 at the answer-quality model's d_kv 16 (B 8 H 4
+        T 128 with the shared bias; Te 128), timed on the device beside SDPA
+        in f32 (the backward through autograd).
 
 The line before the last is a JSON object with every kernel's launches in
 its path's run (phase 5 for serving, 6d for training, 7b-c for the index,
@@ -297,7 +333,10 @@ K15, K1 without a bias and K13; every path's counts of every kernel under
 steps as "train_nac", phase 10's paths as "hivt5_serve",
 "hivt5_visual_serve" and "hivt5_train", phase 11's as "train_layout",
 "train_visual", "p2s_train", "<model>_remat_<mode>", "eval_mp_docvqa_workers_<n>",
-"hivt5_page_images", "p2s_page_images" and "answer_quality_<model>"),
+"hivt5_page_images", "p2s_page_images" and "answer_quality_<model>", phase
+12's as "dit_detector", "yolo_detector", "precompute_layouts_<detector>",
+"eval_layouts_vt5", "serve_layouts", "p2s_layouts", "transfer_evaluate",
+"demo_ask" and "noise_experiment"),
 its worst error over its own checks, and, at its path's shape, its time,
 the plain version's, the time of one PyTorch call that computes the same
 function where there is one ("library_ms", else null; timed here, used
@@ -314,7 +353,8 @@ paths under "visual_serve" and "p2s_serve", phase 5b's batches, rows, K3
 splits and eval summary under "strategies" and its NAC steps under
 "nac_train_step", phase 10's batches, train steps, attention maps and
 CLIs under "hivt5", phase 11's gradients, steps, remat runs, local-file
-runs and answer quality under "train_forms". "t5_layer_nobias" (K1 without a
+runs and answer quality under "train_forms", phase 12's detectors,
+layout-guided runs, transfer and apps under "layouts". "t5_layer_nobias" (K1 without a
 bias) and "t5_layer_qtiled" (K13) are whole layers outside the kernel list,
 each with its error, its times and the launches of its parts (t5_rms_norm,
 t5_gemm and flash_fwd); that each served tower ran exactly those is
@@ -329,6 +369,7 @@ metrics (metrics/) and image patch math (ops/patches.py).
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import itertools
 import json
@@ -912,27 +953,28 @@ def decode_inputs(g: torch.Generator, B: int, H: int, dk: int, Te: int, kv_dtype
     return dict(q=q, k2=k2, v2=v2, m=m, ks=ks, vs=vs, k=k, v=v)
 
 
-def time_decode_layers(checks: Checks, label: str, layers: list, library: bool = False) -> None:
+def time_decode_layers(checks: Checks, label: str, layers: list, library: bool = False,
+                       dtype: torch.dtype = torch.bfloat16) -> None:
     """Times K3 as a decode step runs it, the next of 12 distinct layer caches
     each call (back-to-back calls on one int8 cache would read the 50 MB L2,
-    not device memory), by events and on the device; bf16 query and output,
-    as decode_step asks for under bf16 weights. `library`: SDPA with a query
-    length of 1 over the same 12 unpacked bf16 caches."""
+    not device memory), by events and on the device; query and output in
+    `dtype`, bf16 as decode_step asks for under bf16 weights. `library`: SDPA
+    with a query length of 1 over the same 12 unpacked caches."""
     import torch.nn.functional as F
 
     from rag_docvqa_tpu_torch.ops import decode_attention as da
 
-    qs = [L["q"].bfloat16() for L in layers]
+    qs = [L["q"].to(dtype) for L in layers]
     cycle = lambda: itertools.cycle(zip(qs, layers))
     it, pit, lit = cycle(), cycle(), cycle()
 
     def run():
         q, L = next(it)
-        return da.fused_cross_attention(q, L["k2"], L["v2"], L["m"], L["ks"], L["vs"], out_dtype=torch.bfloat16)
+        return da.fused_cross_attention(q, L["k2"], L["v2"], L["m"], L["ks"], L["vs"], out_dtype=dtype)
 
     def plain():
         q, L = next(pit)
-        return da.cross_attention_reference(q, L["k2"], L["v2"], L["m"], L["ks"], L["vs"], torch.bfloat16)
+        return da.cross_attention_reference(q, L["k2"], L["v2"], L["m"], L["ks"], L["vs"], dtype)
 
     def sdpa():
         q, L = next(lit)
@@ -943,8 +985,8 @@ def time_decode_layers(checks: Checks, label: str, layers: list, library: bool =
     B, H, dk = L["q"].shape
     Te = L["k2"].shape[2]
     checks.timed("decode_cross_attention", label, run, plain, iters=24, library=sdpa if library else None,
-                 library_is="SDPA, query length 1, bf16 math" if library else "",
-                 io_bytes=nbytes(qs[0], L["k2"], L["v2"], L["m"], L["ks"], L["vs"]) + B * H * dk * 2,
+                 library_is=f"SDPA, query length 1, {op_type(dtype)} math" if library else "",
+                 io_bytes=nbytes(qs[0], L["k2"], L["v2"], L["m"], L["ks"], L["vs"]) + B * H * dk * qs[0].element_size(),
                  ops=4.0 * B * H * Te * dk, device=True)
 
 
@@ -4523,12 +4565,14 @@ def remat_runs(g: torch.Generator) -> tuple:
 
 
 def write_mp_docvqa(root: str, n_docs: int = 6, n_pages=(2, 3), words: int = 40, images: bool = True,
-                    seed: int = 0):
+                    seed: int = 0, bands: bool = False):
     """An MP-DocVQA directory in the reference layout: imdb_dir/imdb_val.npy
     (a header, then a record a question with question_id, question, answers,
     answer_page_idx, imdb_doc_pages, image_name, ocr_tokens and
     ocr_normalized_boxes) and, with `images` (needs Pillow),
-    images_dir/<image_name>.jpg holding seeded (48, 40, 3) pages as PNG bytes;
+    images_dir/<image_name>.jpg holding seeded (48, 40, 3) pages as PNG bytes
+    (with `bands`, (160, 128, 3) pages, white above a seeded row and one
+    seeded dark colour below it: regions a layout detector can tell apart);
     from the synthetic planted-fact corpus, its documents cycling through
     `n_pages` pages of `words` words. Returns (imdb_dir, images_dir)."""
     import numpy as np
@@ -4547,8 +4591,8 @@ def write_mp_docvqa(root: str, n_docs: int = 6, n_pages=(2, 3), words: int = 40,
             from PIL import Image
 
             for name in names:
-                Image.fromarray(rng.randint(0, 256, (48, 40, 3)).astype(np.uint8)).save(
-                    os.path.join(image_dir, f"{name}.jpg"), "PNG")
+                page = banded_page(rng, 160, 128) if bands else rng.randint(0, 256, (48, 40, 3)).astype(np.uint8)
+                Image.fromarray(page).save(os.path.join(image_dir, f"{name}.jpg"), "PNG")
         records.append({"question_id": 1000 + i, "question": d.question, "answers": list(d.answers),
                         "answer_page_idx": min(d.answer_page_idx, n - 1), "imdb_doc_pages": n, "image_id": f"doc{i}",
                         "image_name": names, "ocr_tokens": [list(d.words[p]) for p in range(n)],
@@ -4694,6 +4738,745 @@ def answer_quality() -> tuple:
     return launches, summary
 
 
+# --------------------------------------------------------------------------- #
+# phase 12: the layout detectors, precompute layouts, layout-guided serving, the transfer, the apps
+# --------------------------------------------------------------------------- #
+DIT_B = 16  # pages a DiT forward (`precompute layouts` batches as many)
+YOLO_B = 4
+DIT_MARGIN = 1e-3  # class-map pixels whose top-two logit margin exceeds this must agree
+DIT_ARGS = ["layout_d_model=768", "layout_num_layers=12", "layout_num_heads=12", "layout_mlp_dim=3072",
+            "layout_image_size=224", "layout_out_indices=[3,5,7,11]"]  # root precompute.py:106-113 at DiT-base
+YOLO_ARGS = ["layout_width=32", "layout_image_size=1024"]  # YOLOConfig()'s widths through the CLI's keys
+# Pix2StructConfig()'s widths (pix2struct-base: d 768, d_kv 64, 12 heads, d_ff 2048, 12 vision and 12 decoder
+# layers) through the eval CLI's keys, with phase 9f's k and new tokens
+P2S_BASE_ARGS = ["d_model=768", "d_kv=64", "num_heads=12", "d_ff=2048", "num_layers=12", "chunk_num=10",
+                 "max_new_tokens=16"]
+
+
+def banded_page(rng, h: int, w: int):
+    """A uint8 page from `rng` (a numpy RandomState): white above a row drawn
+    from [h/4, 3h/4) and one dark colour below it, regions a layout detector
+    can tell apart (write_mp_docvqa's `bands`)."""
+    import numpy as np
+
+    page = np.full((h, w, 3), 255, np.uint8)
+    page[rng.randint(h // 4, 3 * h // 4):] = rng.randint(0, 80, 3)
+    return page
+
+
+def banded_pages(seed: int, n: int, h: int = 256, w: int = 192) -> list:
+    """`n` banded pages from a seed."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    return [banded_page(rng, h, w) for _ in range(n)]
+
+
+@contextlib.contextmanager
+def plain_vit_layers():
+    """`vit_encode` through K14's plain version (the layer function
+    models/vit.py calls, swapped for `vit_layer_reference`), on the card."""
+    from rag_docvqa_tpu_torch.models import vit
+    from rag_docvqa_tpu_torch.ops import fused_encoder as fe
+
+    saved = vit.fused_vit_layer_parts
+    vit.fused_vit_layer_parts = fe.vit_layer_reference
+    try:
+        yield
+    finally:
+        vit.fused_vit_layer_parts = saved
+
+
+def dit_base(g: torch.Generator):
+    """The DiT detector at DiT-base width (`BeitSegConfig()`'s ViT: d 768, 12
+    layers and heads, mlp 3072, 224 px; BEiT, no absolute positions, a rel-pos
+    bias a layer, layer-scale 0.1, no final LayerNorm; out_indices (3, 5, 7,
+    11), 12 labels) from the seed, its rel-pos tables N(0, 0.5^2), its
+    attention and MLP biases N(0, 0.1^2) and its BatchNorm statistics random,
+    so that neither the bias path nor inference-mode BN is an identity."""
+    from rag_docvqa_tpu_torch.models.conv import BatchNorm
+    from rag_docvqa_tpu_torch.models.layout_seg import BeitSegConfig, init_beit_seg_params
+    from rag_docvqa_tpu_torch.models.vit import ViTConfig
+
+    cfg = BeitSegConfig(vit=ViTConfig(arch="beit", use_abs_pos=False, use_rel_pos_bias=True, layer_scale_init=0.1,
+                                      use_final_layernorm=False))
+    params = init_beit_seg_params(g, cfg)
+    for layer in params.backbone.layers:
+        layer.rel_bias_table.normal_(0.0, 0.5, generator=g)
+        for name in ("q_b", "v_b", "o_b", "fc1_b", "fc2_b"):
+            getattr(layer, name).normal_(0.0, 0.1, generator=g)
+    for m in params.modules():
+        if isinstance(m, BatchNorm):
+            m.mean.normal_(0.0, 0.5, generator=g)
+            m.var.uniform_(0.5, 2.0, generator=g)
+    return cfg, params
+
+
+def host_ms(fn, n: int = 3) -> float:
+    """Median host-clock ms of `n` calls of `fn`, each ended by a synchronize."""
+    import statistics
+
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def check_dit(checks: Checks, g: torch.Generator) -> tuple:
+    """12a: the DiT detector at full width, B 16 pages, f32 with TF32 off: its
+    logits through K14 against the same model through K14's plain version,
+    within `rel_tol`; the class maps equal on every pixel whose top-two margin
+    exceeds DIT_MARGIN (the flips elsewhere counted); K14's launches in one
+    detector batch exactly 12 layers' (24 vit_layer_norm, 48 vit_gemm, 12
+    vit_attention); the BEiT layer and its attention at B 16 T 197 in f32 and
+    bf16 against their plain versions, timed on the device beside SDPA; the
+    backbone, the head and the whole detector (host resize, forward, boxes)
+    per page. Returns (launches, summary)."""
+    import torch.nn.functional as F
+
+    from rag_docvqa_tpu_torch import kernels
+    from rag_docvqa_tpu_torch.models import layout_seg as seg
+    from rag_docvqa_tpu_torch.models.vit import vit_encode
+    from rag_docvqa_tpu_torch.ops import fused_encoder as fe
+
+    dev, f32 = g.device, torch.float32
+    cfg, params = dit_base(g)
+    pages = banded_pages(SEED + 12, DIT_B)
+    pix = seg.dit_pixels(pages, cfg.vit.image_size, dev)
+    summary = {}
+    with torch.inference_mode():
+        got = seg.beit_segment_logits(params, cfg, pix)
+        with plain_vit_layers():
+            want = seg.beit_segment_logits(params, cfg, pix)
+        checks.compare("dit_detector", f"logits B{DIT_B} DiT-base f32 through K14", got, want, rel_tol(f32, want))
+        up = lambda x: seg._resize(x.permute(0, 3, 1, 2), cfg.vit.image_size, cfg.vit.image_size)
+        gmap, wlog = up(got).argmax(1), up(want)
+        top2 = wlog.topk(2, dim=1).values
+        clear = (top2[:, 0] - top2[:, 1]) > DIT_MARGIN
+        flips = gmap != wlog.argmax(1)
+        summary["class_map"] = {"pixels": flips.numel(), "flipped": int(flips.sum()),
+                                "flipped_above_margin": int(flips[clear].sum()), "margin": DIT_MARGIN,
+                                "classes": sorted(torch.unique(gmap).tolist())}
+        log(f"  DiT class maps, {DIT_B} pages x 224^2: {summary['class_map']}")
+        if summary["class_map"]["flipped_above_margin"]:
+            raise AssertionError(f"DiT class maps: {summary['class_map']}")
+        del want, wlog
+
+        det = seg.make_dit_detector(params, cfg)
+        det.batch(pages)  # warmup
+        kernels.reset_launch_counts()
+        found = det.batch(pages)
+        launches = dict(kernels.LAUNCHES)
+        want_launches = {"vit_layer_norm": 24, "vit_gemm": 48, "vit_attention": 12}
+        if {k: launches[k] for k in VIT_KERNELS} != want_launches or sum(launches.values()) != 84:
+            raise AssertionError(f"one DiT batch launched {launches}, not K14's {want_launches}")
+        summary["boxes_per_page"] = [len(b) for b, _ in found]
+        log(f"  DiT detector, one batch of {DIT_B}: launches {launches}; boxes per page {summary['boxes_per_page']}")
+
+        # K14 at the detector's shape: the BEiT layer (rel-pos bias, layer-scale) and its attention
+        B, T, d, H, dff = DIT_B, VIT_T, VIT_D, VIT_H, VIT_MLP
+        layer = random_vit_layer(g, d, dff, H, T, True, True)
+        mask = torch.ones((B, T), dtype=torch.bool, device=dev)
+        vkw = dict(num_heads=H, eps=1e-12)
+        scale = (d // H) ** -0.5
+        for dtype, tag in ((f32, "f32"), (torch.bfloat16, "bf16")):
+            l = cast_layer(layer, dtype)
+            x = torch.randn((B, T, d), generator=g, device=dev).to(dtype)
+            out, ref = fe.fused_vit_layer_parts(x, mask, l, **vkw), fe.vit_layer_reference(x, mask, l, **vkw)
+            label = f"beit B{B} T{T} ViT-base {tag} (DiT detector)"
+            checks.compare("vit_layer", label, out, ref, tol(dtype, ref))
+            checks.timed("vit_layer", label, lambda: fe.fused_vit_layer_parts(x, mask, l, **vkw),
+                         lambda: fe.vit_layer_reference(x, mask, l, **vkw), iters=5, device=True,
+                         io_bytes=nbytes(x, mask, out, *l.values()),
+                         ops=2.0 * B * T * (4 * d * d + 2 * d * dff) + 4.0 * B * H * T * T * (d // H),
+                         ops_in=op_type(dtype))
+            qkv = torch.randn((B, T, 3, H, d // H), generator=g, device=dev).to(dtype)
+            bias = l["bias"]
+            out, ref = fe.vit_attention(qkv, mask, bias, scale), fe.vit_attention_reference(qkv, mask, bias, scale)
+            label = f"B{B} H{H} T{T} dh{d // H} bias {tag} (DiT detector)"
+            checks.compare("vit_attention", label, out, ref, tol(dtype, ref))
+            qt, kt, vt = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+            add = bias[None, :, :, :T].to(dtype)
+            checks.timed("vit_attention", label, lambda: fe.vit_attention(qkv, mask, bias, scale),
+                         lambda: fe.vit_attention_reference(qkv, mask, bias, scale),
+                         library=lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=add, scale=scale),
+                         library_is="SDPA, the rel-pos bias as an additive mask",
+                         io_bytes=nbytes(qkv, mask, bias, out), ops=4.0 * B * H * T * T * (d // H),
+                         ops_in=op_type(dtype), device=True)
+            del l, x, out, ref, qkv
+        torch.cuda.empty_cache()
+
+        _, per_layer = vit_encode(params.backbone, cfg.vit, pix, return_hidden_states=True)
+        summary["backbone_ms"] = time_ms(lambda: vit_encode(params.backbone, cfg.vit, pix, return_hidden_states=True),
+                                         iters=5)
+        summary["head_ms"] = time_ms(lambda: seg.beit_seg_head(params, cfg, per_layer), iters=5)
+        summary["head_device_ms"] = device_ms(lambda: seg.beit_seg_head(params, cfg, per_layer), iters=5)
+        with plain_vit_layers():
+            summary["backbone_plain_ms"] = time_ms(
+                lambda: vit_encode(params.backbone, cfg.vit, pix, return_hidden_states=True), iters=3)
+        summary["detector_ms_per_page"] = host_ms(lambda: det.batch(pages)) / DIT_B
+        # PyTorch's default for convolutions, which the CLIs keep: cuDNN's TF32 on (this script turns it off)
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            tf32 = seg.beit_segment_logits(params, cfg, pix)
+            summary["tf32"] = {"head_ms": time_ms(lambda: seg.beit_seg_head(params, cfg, per_layer), iters=5),
+                               "detector_ms_per_page": host_ms(lambda: det.batch(pages)) / DIT_B,
+                               "logits_drift": (tf32 - got).abs().max().item(),
+                               "class_map_flips": int((up(tf32).argmax(1) != gmap).sum()),
+                               "same_boxes": det.batch(pages) == found}
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+    log(f"  DiT detector B{DIT_B} f32: backbone {summary['backbone_ms']:.3f} ms (12 K14 layers; plain "
+        f"{summary['backbone_plain_ms']:.3f}), head {summary['head_ms']:.3f} ms (device {summary['head_device_ms']:.3f}), "
+        f"the whole detector {summary['detector_ms_per_page']:.3f} ms a page (host resize, forward, boxes); with "
+        f"cuDNN's TF32 on: {summary['tf32']}")
+    return launches, summary
+
+
+def live_yolo(g: torch.Generator, params, cfg, pix) -> None:
+    """Make the seeded YOLO's outputs depend on its input, in place, so that
+    a comparison of two runs can fail. The seeded output convs are N(0,
+    0.01^2) over a class bias of -4.59, which leave the raw outputs the bias
+    and little else; here they are N(0, 1/fan_in) with N(0, 1) biases. Every
+    BatchNorm gets a scale U[0.5, 1), a shift N(0, 0.5^2), and statistics
+    that divide its input on `pix` by the input's root mean square, so each
+    layer's output stays O(1) through the depth. (Subtracting the mean too
+    cancels the pages' constant regions and magnifies a rounding a
+    hundredfold; scales up to 1.5 magnify it 2.4 times more. With these, at
+    width 16 and 512 px on the CPU, the f32 forward is within 5.4e-5 of
+    float64's and one with kernels rounded to 10 bits 0.09 off, outputs up
+    to 6.4.)"""
+    from rag_docvqa_tpu_torch.models import yolo
+    from rag_docvqa_tpu_torch.models.conv import BatchNorm
+
+    with torch.no_grad():
+        for m in params.modules():
+            if isinstance(m, BatchNorm):
+                m.w.uniform_(0.5, 1.0, generator=g)
+                m.b.normal_(0.0, 0.5, generator=g)
+        for hp in params.head:
+            for name in ("reg_out", "cls_out"):
+                hp[name].weight.normal_(0.0, hp[name].weight[0].numel() ** -0.5, generator=g)
+                hp[name].bias.normal_(0.0, 1.0, generator=g)
+        saved = yolo.batch_norm
+
+        def calibrate(x, bn, eps):
+            bn.mean.zero_()
+            bn.var.copy_(x.float().pow(2).mean((0, 2, 3)))
+            return saved(x, bn, eps)
+
+        yolo.batch_norm = calibrate
+        try:
+            yolo.yolo_forward(params, cfg, pix)
+        finally:
+            yolo.batch_norm = saved
+
+
+def check_yolo(g: torch.Generator) -> tuple:
+    """12b: YOLO at `YOLOConfig()` (width 32, depth 1, 1024 px, 10 classes),
+    B 4 pages, f32, cuDNN TF32 off. The seeded weights: ms a page and the
+    candidates over `conf_thresh` (none). The same network made
+    input-dependent (`live_yolo`): `yolo_forward`'s raw outputs and
+    `yolo_detect` on the card against the port's CPU run on the same
+    parameters (raw outputs within `rel_tol`, boxes and scores within F32_TOL,
+    classes equal where the top two class scores differ by more than
+    F32_TOL); then with cuDNN's TF32 on, whose drift of the raw outputs must
+    exceed that limit, the control that the comparison can fail. Returns
+    (launches, summary)."""
+    import copy
+
+    from rag_docvqa_tpu_torch import kernels
+    from rag_docvqa_tpu_torch.models import yolo
+
+    cfg = yolo.YOLOConfig()
+    params = yolo.init_yolo_params(g, cfg)
+    pix = yolo.yolo_pixels(banded_pages(SEED + 13, YOLO_B, 512, 384), cfg.image_size, g.device)
+    summary = {}
+    with torch.inference_mode():
+        kernels.reset_launch_counts()
+        seeded = yolo.yolo_detect(params, cfg, pix)
+        launches = dict(kernels.LAUNCHES)
+        summary["over_conf_thresh"] = int((seeded[1] >= cfg.conf_thresh).sum())
+        summary["ms_per_page"] = time_ms(lambda: yolo.yolo_detect(params, cfg, pix), iters=5) / YOLO_B
+        summary["device_ms_per_page"] = device_ms(lambda: yolo.yolo_detect(params, cfg, pix), iters=5) / YOLO_B
+    live_yolo(g, params, cfg, pix)
+    cpu_params, cpu_pix = copy.deepcopy(params).cpu(), pix.cpu()
+    with torch.inference_mode():
+        got, raw = yolo.yolo_detect(params, cfg, pix), yolo.yolo_forward(params, cfg, pix)
+        t0 = time.perf_counter()
+        want, raw_cpu = yolo.yolo_detect(cpu_params, cfg, cpu_pix), yolo.yolo_forward(cpu_params, cfg, cpu_pix)
+        summary["cpu_s"] = time.perf_counter() - t0
+        errs, limits = {}, {}
+        for i, ((reg, cls), (creg, ccls)) in enumerate(zip(raw, raw_cpu)):
+            for name, a, b in ((f"reg/{cfg.strides[i]}", reg, creg), (f"cls/{cfg.strides[i]}", cls, ccls)):
+                errs[name], limits[name] = (a.cpu() - b).abs().max().item(), rel_tol(torch.float32, b)
+                if not errs[name] <= limits[name]:
+                    raise AssertionError(f"YOLO raw {name}: card against CPU {errs[name]} (limit {limits[name]})")
+        for name, a, b in (("boxes", got[0], want[0]), ("scores", got[1], want[1])):
+            errs[name] = (a.cpu() - b).abs().max().item()
+            if not errs[name] <= F32_TOL:
+                raise AssertionError(f"YOLO {name}: card against CPU {errs[name]}")
+        probs = torch.cat([torch.sigmoid(c.float()).reshape(YOLO_B, -1, cfg.num_classes) for _, c in raw_cpu], 1)
+        top2 = probs.topk(2, dim=-1).values
+        clear = (top2[..., 0] - top2[..., 1]) > F32_TOL
+        differ = got[2].cpu() != want[2]
+        summary["live"] = {"max_abs_err_vs_cpu": errs, "limits": limits,
+                           "raw_max_abs": max(b.abs().max().item() for pair in raw_cpu for b in pair),
+                           "between_pages": min((b[0] - b[1]).abs().max().item() for pair in raw_cpu for b in pair),
+                           "classes_differing": {"all": int(differ.sum()), "above_margin": int(differ[clear].sum())},
+                           "over_conf_thresh": int((got[1] >= cfg.conf_thresh).sum())}
+        if summary["live"]["classes_differing"]["above_margin"]:
+            raise AssertionError(f"YOLO classes: {summary['live']['classes_differing']}")
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            tf32, raw_tf32 = yolo.yolo_detect(params, cfg, pix), yolo.yolo_forward(params, cfg, pix)
+            summary["tf32_ms_per_page"] = time_ms(lambda: yolo.yolo_detect(params, cfg, pix), iters=5) / YOLO_B
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+        drift = {f"{kind}/{cfg.strides[i]}": (a - b).abs().max().item()
+                 for i, (pt, pf) in enumerate(zip(raw_tf32, raw)) for kind, a, b in zip(("reg", "cls"), pt, pf)}
+        summary["tf32_drift"] = {"raw": drift, "boxes": (tf32[0] - got[0]).abs().max().item(),
+                                 "scores": (tf32[1] - got[1]).abs().max().item(),
+                                 "classes_differing": int((tf32[2] != got[2]).sum())}
+    log(f"  YOLO B{YOLO_B} 1024 px f32, seeded: {summary['ms_per_page']:.3f} ms a page (device "
+        f"{summary['device_ms_per_page']:.3f}; cuDNN TF32 on: {summary['tf32_ms_per_page']:.3f}), "
+        f"{summary['over_conf_thresh']} candidates over conf_thresh {cfg.conf_thresh}; launches "
+        f"{sum(launches.values())} (no kernel of the port)")
+    log(f"  YOLO made input-dependent, card against the CPU (CPU run {summary['cpu_s']:.1f} s): {summary['live']}; "
+        f"cuDNN TF32 on, drift {summary['tf32_drift']}")
+    if not any(drift[k] > limits[k] for k in drift):
+        raise AssertionError(f"YOLO with cuDNN's TF32 drifts {drift}, within the f32 limits {limits}: the "
+                             "card-against-CPU check cannot tell a 10-bit-mantissa path from f32")
+    return launches, summary
+
+
+@contextlib.contextmanager
+def stage_times(targets):
+    """For the duration, the host-clock seconds spent in each (module, name,
+    stage, kind) target are summed into the dict yielded under `stage`: a
+    "call" is timed from call to return ("sync" ends it with a synchronize,
+    so that the device's work lands in its stage), an "iter" (a generator
+    function) inside each step of the iteration."""
+    import collections
+
+    times = collections.defaultdict(float)
+
+    def call(fn, stage, sync):
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            if sync:
+                torch.cuda.synchronize()
+            times[stage] += time.perf_counter() - t0
+            return out
+        return timed
+
+    def steps(fn, stage):
+        def timed(*a, **k):
+            it = fn(*a, **k)
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    item = next(it)
+                except StopIteration:
+                    return
+                finally:
+                    times[stage] += time.perf_counter() - t0
+                yield item
+        return timed
+
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _, _ in targets]
+    for (mod, name, stage, kind), (_, _, fn) in zip(targets, saved):
+        setattr(mod, name, steps(fn, stage) if kind == "iter" else call(fn, stage, kind == "sync"))
+    try:
+        yield times
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def layouts_end_to_end(g: torch.Generator) -> tuple:
+    """12c: an MP-DocVQA directory of 32 questions (3-4 pages x 120 words,
+    seeded banded pages: `write_mp_docvqa(bands=True)`) through `precompute
+    layouts` on the card, DIT at DiT-base width and YOLO at its defaults,
+    pages/s, its window split by stage (reading and decoding the pages, the
+    host resize and copy, the forward, the boxes, the file); the DIT file
+    read back through `use_precomputed_layouts`; the eval entry point
+    (t5-base f32, concat, 16 new tokens) with the layouts;
+    the same documents and layouts through `RAGVT5Engine.inference` at phase
+    5's settings (bf16, int8 cross cache, K3) for K1-K3; the chunking with
+    and without the layouts (the words chunked must differ); RAG-Pix2Struct's
+    image chunks with and without the layouts, and RAG-Pix2Struct at
+    pix2struct-base width (f32, k 10, 16 new tokens) with `chunk_mode:
+    layout` through the eval entry point: K15, and every encode a bias-free
+    tower. Returns (launches, summary)."""
+    import contextlib
+    import io
+    import tempfile
+    import types
+    from dataclasses import replace
+
+    import numpy as np
+
+    from rag_docvqa_tpu_torch import eval as port_eval
+    from rag_docvqa_tpu_torch import kernels
+    from rag_docvqa_tpu_torch import precompute as port_pre
+    from rag_docvqa_tpu_torch.config import build_caps, build_chunk_spec, build_p2s_config, load_config
+    from rag_docvqa_tpu_torch.data.datasets import build_dataset
+    from rag_docvqa_tpu_torch.data.ingest import DocVQAIngestor
+    from rag_docvqa_tpu_torch.data.tokenizer import HashTokenizer
+    from rag_docvqa_tpu_torch.engine.rag_pix2struct import P2SRAGConfig, RAGPix2StructEngine
+    from rag_docvqa_tpu_torch.engine.rag_vt5 import RAGConfig, RAGVT5Engine
+    from rag_docvqa_tpu_torch.models import layout as layout_post
+    from rag_docvqa_tpu_torch.models import layout_seg as seg
+    from rag_docvqa_tpu_torch.models import pix2struct as p2s
+    from rag_docvqa_tpu_torch.models import t5 as t5m
+    from rag_docvqa_tpu_torch.models import vt5 as vt5m
+    from rag_docvqa_tpu_torch.models import yolo
+    from rag_docvqa_tpu_torch.train import parse_overrides
+
+    cfgs = lambda name: os.path.join(REPO, "configs", name)
+    launches, summary = {}, {}
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
+        imdb, images = write_mp_docvqa(tmp, n_docs=32, n_pages=(3, 4), words=120, bands=True)
+        data = [f"imdb_dir={imdb}", f"images_dir={images}", "use_images=true"]
+        paths = {}
+        for det, extra in (("DIT", DIT_ARGS), ("YOLO", YOLO_ARGS)):
+            paths[det] = os.path.join(tmp, f"layouts_{det}.npz")
+            argv = ["layouts", "-m", cfgs("RAGVT5.yml"), "-d", cfgs("MP-DocVQA.yml"), "--detector", det,
+                    "--out", paths[det], *data, *extra]
+            with contextlib.redirect_stdout(io.StringIO()):
+                port_pre.main(argv)  # warmup: the first forwards pick cuDNN's algorithms
+            targets = [(port_pre, "layout_pages", "read_pages", "iter"), (np, "savez_compressed", "write", "call")]
+            targets += ([(seg, "dit_pixels", "resize_copy", "sync"), (seg, "segment_map", "forward", "sync"),
+                         (layout_post, "segmentation_to_layout", "boxes", "call"),
+                         (layout_post, "filter_detections_dit", "boxes", "call")] if det == "DIT" else
+                        [(yolo, "yolo_pixels", "resize_copy", "sync"), (yolo, "yolo_detect", "forward", "sync"),
+                         (layout_post, "filter_detections_yolo", "boxes", "call")])
+            kernels.reset_launch_counts()
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out), stage_times(targets) as stages:
+                port_pre.main(argv)
+            line = json.loads(out.getvalue().strip().splitlines()[-1])
+            launches[f"precompute_layouts_{det.lower()}"] = dict(kernels.LAUNCHES)
+            z = np.load(paths[det], allow_pickle=True)
+            found = [len(z[k].item()["boxes"]) for k in z.files]
+            window_ms = line["n_pages"] / line["pages_per_sec"] * 1e3  # the CLI's own window, from its line
+            split = {k: v * 1e3 / line["n_pages"] for k, v in stages.items()}
+            split["other"] = window_ms / line["n_pages"] - sum(split.values())
+            summary[f"precompute_{det.lower()}"] = dict(line, total_s=time.perf_counter() - t0,
+                                                        pages_with_boxes=sum(1 for n in found if n),
+                                                        boxes=sum(found), ms_per_page_by_stage=split)
+            log(f"  precompute layouts --detector {det}: {summary[f'precompute_{det.lower()}']}; launches "
+                f"{launches[f'precompute_layouts_{det.lower()}']}")
+            if line["n_pages"] != 112 or len(z.files) != 112:
+                raise AssertionError(f"precompute layouts {det}: {line}, {len(z.files)} keys")
+        check_launched(launches["precompute_layouts_dit"], VIT_KERNELS, "precompute layouts (DIT)")
+
+        lay = ["use_precomputed_layouts=true", f"precomputed_layouts_path={paths['DIT']}"]
+        config = load_config(model=cfgs("RAGVT5.yml"), dataset=cfgs("MP-DocVQA.yml"), overrides=dict(
+            imdb_dir=imdb, images_dir=images, use_images=True))
+        plain_docs = list(build_dataset(dict(config), "val"))
+        docs = list(build_dataset(dict(config, use_precomputed_layouts=True,
+                                       precomputed_layouts_path=paths["DIT"]), "val"))
+        z = np.load(paths["DIT"], allow_pickle=True)
+        names = [list(r["image_name"]) for r in np.load(os.path.join(imdb, "imdb_val.npy"), allow_pickle=True)[1:]]
+        if [d.layout for d in docs] != [[z[n].item() for n in ns] for ns in names]:
+            raise AssertionError("use_precomputed_layouts: the documents' layouts are not the file's entries")
+        tok = HashTokenizer(32128)
+        ingestor = DocVQAIngestor(tok, build_chunk_spec(config), build_caps(config))
+        ingestor.caps = ingestor.plan_caps(docs + plain_docs)
+        (with_b, with_aux), (without_b, _) = ingestor.ingest(docs), ingestor.ingest(plain_docs)
+        counts = {"chunks_with_layouts": int(with_b.chunk_mask.sum()), "chunks_without": int(without_b.chunk_mask.sum()),
+                  "words_chunked_with_layouts": int(with_b.slot_mask.sum()),
+                  "words_chunked_without": int(without_b.slot_mask.sum())}
+        summary["vt5_chunking"] = counts
+        log(f"  RAG-VT5 chunking of the 32 documents with and without the DIT layouts: {counts}")
+        if counts["words_chunked_with_layouts"] == counts["words_chunked_without"]:
+            raise AssertionError(f"the DIT layouts did not reach the chunking: {counts}")
+
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            s = port_eval.main(["-m", cfgs("RAGVT5.yml"), "-d", cfgs("MP-DocVQA.yml"), *data, *lay,
+                                "max_new_tokens=16"])[0]
+        launches["eval_layouts_vt5"] = dict(kernels.LAUNCHES)
+        summary["eval_vt5"] = dict(s, total_s=time.perf_counter() - t0)
+        log(f"  eval CLI, t5-base f32 concat with the DIT layouts: {summary['eval_vt5']}")
+        if s["n_samples"] != 32:
+            raise AssertionError(f"eval CLI with layouts: {s}")
+        check_launched(launches["eval_layouts_vt5"], TOWER_KERNELS, "eval CLI with layouts")
+
+        vt5_cfg = vt5m.VT5Config(t5=t5m.T5Config(decode_kv_int8=True, fused_decode_attn=True))
+        engine = RAGVT5Engine(RAGConfig(page_retrieval="concat", chunk_num=10, max_source_length=512,
+                                        max_new_tokens=16), vt5_cfg, vt5m.init_vt5_params(g, vt5_cfg).to(torch.bfloat16),
+                              tok)
+        with torch.inference_mode():
+            engine.inference(with_b, with_aux)  # warmup
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            out = engine.inference(with_b, with_aux)
+            summary["serve_bf16_ms"] = (time.perf_counter() - t0) * 1e3
+        launches["serve_layouts"] = dict(kernels.LAUNCHES)
+        log(f"  RAGVT5Engine.inference on the 32 layout-chunked documents, bf16, int8 cross cache, K3: "
+            f"{summary['serve_bf16_ms']:.1f} ms; launches {launches['serve_layouts']}")
+        check_launched(launches["serve_layouts"], SERVE_KERNELS, "layout-chunked serving")
+        if not all(math.isfinite(c) for c in out["confidences"]):
+            raise AssertionError("layout-chunked serving: a confidence is not finite")
+
+        chunk = lambda mode, layouts: sum(
+            len(RAGPix2StructEngine._chunk_pages(types.SimpleNamespace(cfg=P2SRAGConfig(chunk_mode=mode)), d.images,
+                                                 d.layout if layouts else None)[0]) for d in docs)
+        summary["p2s_chunks"] = {"layout": chunk("layout", True), "horizontal": chunk("horizontal", False)}
+        log(f"  RAG-Pix2Struct image chunks of the 32 documents, layout mode and the grid mode: {summary['p2s_chunks']}")
+        if summary["p2s_chunks"]["layout"] == summary["p2s_chunks"]["horizontal"]:
+            raise AssertionError(f"the DIT layouts did not reach RAG-Pix2Struct's chunking: {summary['p2s_chunks']}")
+        p2s_argv = ["-m", cfgs("Pix2Struct_tiny.yml"), "-d", cfgs("MP-DocVQA.yml"), *data, *lay, "chunk_mode=layout",
+                    *P2S_BASE_ARGS]
+        base, built = p2s.Pix2StructConfig(), build_p2s_config(load_config(
+            model=cfgs("Pix2Struct_tiny.yml"), overrides=parse_overrides(P2S_BASE_ARGS)), 32128)
+        if built.vision != base.vision or replace(built.text, vocab_size=base.text.vocab_size,
+                                                  dropout_rate=base.text.dropout_rate) != base.text:
+            raise AssertionError(f"the eval CLI's Pix2Struct at {P2S_BASE_ARGS} is {built}, not {base}")
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            s = port_eval.main(p2s_argv)[0]
+        launches["p2s_layouts"] = dict(kernels.LAUNCHES)
+        summary["eval_p2s_layout"] = dict(s, total_s=time.perf_counter() - t0)
+        log(f"  eval CLI, RAG-Pix2Struct at pix2struct-base width, f32, chunk_mode layout with the DIT layouts: "
+            f"{summary['eval_p2s_layout']}; launches {launches['p2s_layouts']}")
+        if s["n_samples"] != 32:
+            raise AssertionError(f"RAG-Pix2Struct with layouts: {s}")
+        check_launched(launches["p2s_layouts"], P2S_KERNELS[:4], "RAG-Pix2Struct in layout mode")
+        L, encodes = base.vision.num_layers, launches["p2s_layouts"]["flash_fwd"] // base.vision.num_layers
+        if encodes < 8:  # 4 batches of 8 questions, each a retrieve encode and a generator encode
+            raise AssertionError(f"RAG-Pix2Struct in layout mode: {encodes} encodes")
+        check_tower_route(launches["p2s_layouts"], L, encodes, "RAG-Pix2Struct at pix2struct-base in layout mode")
+    return launches, summary
+
+
+def check_transfer(g: torch.Generator) -> tuple:
+    """12d: phase 5's batch of 32 (8 pages x 120 words, configs/RAGVT5.yml's
+    chunking) through `device_put_batch` and `to_device`: every field equal
+    bit for bit with its dtype (the queued form too); the bytes each moves and
+    its ms, the median of 20 after a warmup, by CUDA events and by the host
+    clock; then `evaluate` over 64 documents with phase 5's engine (bf16, int8
+    cross cache, K3) copying with each: the same answers and confidences.
+    Returns (launches, summary)."""
+    import statistics
+
+    import numpy as np
+
+    from rag_docvqa_tpu_torch import kernels
+    from rag_docvqa_tpu_torch.data import contract
+    from rag_docvqa_tpu_torch.data.contract import Caps
+    from rag_docvqa_tpu_torch.data.ingest import DocVQAIngestor
+    from rag_docvqa_tpu_torch.data.synthetic import make_corpus
+    from rag_docvqa_tpu_torch.data.tokenizer import HashTokenizer
+    from rag_docvqa_tpu_torch.data.transfer import device_put_batch, device_put_batch_async, narrow_tokens
+    from rag_docvqa_tpu_torch.engine import evaluate as ev
+    from rag_docvqa_tpu_torch.engine.rag_vt5 import RAGConfig, RAGVT5Engine
+    from rag_docvqa_tpu_torch.models import t5 as t5m
+    from rag_docvqa_tpu_torch.models import vt5 as vt5m
+    from rag_docvqa_tpu_torch.ops.chunking import ChunkSpec
+
+    dev, vocab = g.device, 32128
+    tok = HashTokenizer(vocab)
+    ingestor = DocVQAIngestor(tok, ChunkSpec(chunk_size=60, overlap=10), Caps())
+    docs = make_corpus(64, n_pages=8, words_per_page=120, seed=SEED)
+    ingestor.caps = ingestor.plan_caps(docs)
+    batch, _ = ingestor.ingest(docs[:32])
+    want = contract.to_device(batch, dev)
+    for name, got in (("device_put_batch", device_put_batch(batch, vocab, dev)),
+                      ("device_put_batch_async", device_put_batch_async(batch, vocab, dev).wait())):
+        for f in want.__dataclass_fields__:
+            a, b = getattr(got, f), getattr(want, f)
+            if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
+                raise AssertionError(f"{name}: field {f} differs from to_device's ({a.dtype}, {b.dtype})")
+    to_bytes = sum(np.asarray(getattr(batch, f)).size * (8 if np.asarray(getattr(batch, f)).dtype.kind in "iu"
+                                                            else np.asarray(getattr(batch, f)).itemsize)
+                   for f in batch.__dataclass_fields__)
+    summary = {"to_device_bytes": to_bytes, "device_put_batch_bytes": device_put_batch_async(batch, vocab, dev).nbytes}
+
+    def timed(fn):
+        fn()
+        torch.cuda.synchronize()
+        ev_ms, host = [], []
+        for _ in range(20):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            host.append((time.perf_counter() - t0) * 1e3)
+            ev_ms.append(start.elapsed_time(end))
+        return {"events_ms": statistics.median(ev_ms), "host_ms": statistics.median(host)}
+
+    summary["to_device"] = timed(lambda: contract.to_device(batch, dev))
+    summary["device_put_batch"] = timed(lambda: device_put_batch(batch, vocab, dev))
+    # where device_put_batch's host time goes: the range scan, and the whole queued call (scan, packing into
+    # the pinned buffer, the copy and the widening queued) before any wait
+    def host_only(fn):
+        times = []
+        for _ in range(20):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            del out
+        return statistics.median(times)
+
+    summary["device_put_batch"]["narrow_scan_host_ms"] = host_only(lambda: narrow_tokens(batch, vocab))
+    summary["device_put_batch"]["queue_host_ms"] = host_only(lambda: device_put_batch_async(batch, vocab, dev))
+    log(f"  transfer of one batch of 32 (8 pages x 120 words): {summary}")
+
+    vt5_cfg = vt5m.VT5Config(t5=t5m.T5Config(decode_kv_int8=True, fused_decode_attn=True))
+    engine = RAGVT5Engine(RAGConfig(page_retrieval="concat", chunk_num=10, max_source_length=512, max_new_tokens=16),
+                          vt5_cfg, vt5m.init_vt5_params(g, vt5_cfg).to(torch.bfloat16), tok)
+
+    class ToDevice:  # to_device in device_put_batch_async's place
+        def __init__(self, b, _vocab, device):
+            self.batch = contract.to_device(b, device)
+
+        def wait(self):
+            return self.batch
+
+    saved = ev.device_put_batch_async
+
+    def run(copy):  # evaluate over the 64 documents copying with `copy`: (result, s)
+        ev.device_put_batch_async = copy
+        try:
+            t0 = time.perf_counter()
+            return ev.evaluate(engine, docs, ingestor, batch_size=32), time.perf_counter() - t0
+        finally:
+            ev.device_put_batch_async = saved
+
+    with torch.inference_mode():
+        ev.evaluate(engine, docs[:32], ingestor, batch_size=32)  # warmup
+        kernels.reset_launch_counts()
+        got, t_put = run(saved)
+        launches = dict(kernels.LAUNCHES)
+        ref, t_to = run(ToDevice)  # A B B A
+        summary["evaluate_to_device_s"] = [t_to, run(ToDevice)[1]]
+        summary["evaluate_s"] = [t_put, run(saved)[1]]
+    conf = lambda r: [s["pred_answer_conf"] for s in r["scores_by_samples"].values()]
+    summary["confidence_max_abs_diff"] = max(abs(a - b) for a, b in zip(conf(got), conf(ref)))
+    log(f"  evaluate over 64 documents, bf16, int8 cross cache, K3 (A B B A): {summary['evaluate_s']} s with "
+        f"device_put_batch, {summary['evaluate_to_device_s']} s with to_device; answers equal: "
+        f"{got['pred_answers'] == ref['pred_answers']}, confidences within {summary['confidence_max_abs_diff']:.2e}")
+    if got["pred_answers"] != ref["pred_answers"] or summary["confidence_max_abs_diff"] != 0.0:
+        raise AssertionError("evaluate: the answers or confidences differ between the two copies")
+    check_launched(launches, SERVE_KERNELS, "evaluate with device_put_batch")
+    return launches, summary
+
+
+def apps(g: torch.Generator) -> tuple:
+    """12e: `demo --serve` on 127.0.0.1 on the card (t5-base from
+    configs/RAGVT5.yml, 16 new tokens, the engine's decode switched to an
+    int8 cross cache and K3 as phase 5 sets it: the CLI has no key for
+    either): one /sample and one /ask round trip over a socket, the /ask
+    through K1-K3 with its overlay PNGs; then `noise_experiment` over 8
+    documents (noise 0 and 3 pages, seeds 0 and 1). Both timed. Returns
+    (launches, summary)."""
+    import base64
+    import contextlib
+    import dataclasses
+    import io
+    import threading
+    import types
+    import urllib.request
+
+    from rag_docvqa_tpu_torch import demo as port_demo
+    from rag_docvqa_tpu_torch import kernels
+    from rag_docvqa_tpu_torch import noise_experiment as port_noise
+
+    cfgs = lambda name: os.path.join(REPO, "configs", name)
+    launches, summary = {}, {}
+    session = port_demo.build_session(types.SimpleNamespace(
+        model=cfgs("RAGVT5.yml"), dataset=cfgs("Synthetic.yml"), pdf=None, doc=0, device="cuda",
+        overrides=["n_val_docs=4", "max_new_tokens=16", "decode_kv_int8=true"]))
+    engine = session._engine
+    engine.vt5_cfg = dataclasses.replace(engine.vt5_cfg, t5=dataclasses.replace(engine.vt5_cfg.t5,
+                                                                                 fused_decode_attn=True))
+    httpd = port_demo.make_server(session, 0, "127.0.0.1")
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        ask = lambda: json.loads(urllib.request.urlopen(urllib.request.Request(
+            f"{base}/ask", data=json.dumps({"question": "what is the total?", "doc": 1}).encode(),
+            headers={"Content-Type": "application/json"}), timeout=300).read())
+        ask()  # warmup
+        t0 = time.perf_counter()
+        sample = json.loads(urllib.request.urlopen(f"{base}/sample?idx=1&layout=1&chunks=1", timeout=300).read())
+        summary["sample_ms"] = (time.perf_counter() - t0) * 1e3
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        answer = ask()
+        summary["ask_ms"] = (time.perf_counter() - t0) * 1e3
+        launches["demo_ask"] = dict(kernels.LAUNCHES)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.join(timeout=30)
+    pngs = answer.get("viz_png_b64", [])
+    summary.update(pages=sample["num_pages"], overlays=len(pngs), chunks=len(answer["chunks"]),
+                   answer=answer["answer"], confidence=answer["confidence"])
+    log(f"  demo --serve on 127.0.0.1: /sample {summary['sample_ms']:.1f} ms, /ask {summary['ask_ms']:.1f} ms "
+        f"({summary['chunks']} chunks, {summary['overlays']} overlay PNGs); launches {launches['demo_ask']}")
+    if not (sample["idx"] == 1 and len(sample["pages_png_b64"]) == sample["num_pages"] == len(pngs) and
+            all(base64.b64decode(b)[:8] == b"\x89PNG\r\n\x1a\n" for b in pngs + sample["pages_png_b64"]) and
+            answer["chunks"] and math.isfinite(answer["confidence"])):
+        raise AssertionError(f"demo round trip: {summary}")
+    check_launched(launches["demo_ask"], SERVE_KERNELS, "demo /ask")
+
+    kernels.reset_launch_counts()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        res = port_noise.main(["-m", cfgs("RAGVT5.yml"), "-d", cfgs("Synthetic.yml"), "n_val_docs=8",
+                               "max_new_tokens=16", "--noise-pages", "0", "3", "--seeds", "0", "1"])
+    summary["noise_experiment_s"] = time.perf_counter() - t0
+    launches["noise_experiment"] = dict(kernels.LAUNCHES)
+    lines = [json.loads(x) for x in out.getvalue().strip().splitlines()]
+    summary["noise_experiment"] = lines
+    log(f"  noise_experiment, 8 documents, noise 0 and 3 pages, seeds 0 and 1: {summary['noise_experiment_s']:.1f} s; "
+        f"{lines}")
+    if [x["noise_pages"] for x in lines] != [0, 3] or set(res) != {0, 3}:
+        raise AssertionError(f"noise_experiment: {lines}")
+    check_launched(launches["noise_experiment"], TOWER_KERNELS, "noise_experiment")
+    return launches, summary
+
+
+def check_dkv16(checks: Checks, g: torch.Generator) -> None:
+    """12f: the answer-quality model's f32 shapes (11a's), timed: K2 and K6
+    at B 8 H 4 T 128 d_kv 16 with the shared bias, each beside SDPA in f32
+    (the backward through autograd), and K3 over 12 f32 caches of Te 128
+    beside SDPA with a query length of 1, by events and on the device."""
+    from rag_docvqa_tpu_torch.ops import fused_encoder as fe
+
+    f32 = torch.float32
+    lens = [AQ_T - 9 * b for b in range(AQ_B)]
+    tag = f"B{AQ_B} H{AQ_H} T{AQ_T} dk{AQ_DK} shared bias t5-mask f32 (answer-quality model)"
+    flash_case(checks, g, AQ_B, AQ_T, AQ_H, AQ_H, AQ_DK, f32, "shared", False, 1.0, fe.T5_MASK_VALUE, lens, tag,
+               timed=True, device=True)
+    flash_bwd_case(checks, g, AQ_B, AQ_T, AQ_H, AQ_H, AQ_DK, f32, "shared", False, 1.0, fe.T5_MASK_VALUE, lens, tag,
+                   timed=True)
+    layers = [decode_inputs(g, AQ_B, AQ_H, AQ_DK, AQ_T, f32, lens) for _ in range(12)]
+    time_decode_layers(checks, f"B{AQ_B} H{AQ_H} dk{AQ_DK} Te{AQ_T} f32 cache (answer-quality model)", layers,
+                       library=True, dtype=f32)
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -4718,8 +5501,8 @@ def main() -> int:
     g = torch.Generator(device="cuda").manual_seed(SEED)
     checks = Checks()
     only = set(sys.argv[1:])  # e.g. `chip_smoke.py 8`: that phase alone, for work on it; no report
-    if only - {"3", "4", "5", "6", "7", "8", "9", "10", "11"}:
-        raise SystemExit(f"usage: chip_smoke.py [phase ...], phases 3-11; got {sorted(only)}")
+    if only - {"3", "4", "5", "6", "7", "8", "9", "10", "11", "12"}:
+        raise SystemExit(f"usage: chip_smoke.py [phase ...], phases 3-12; got {sorted(only)}")
     want = lambda phase: not only or phase in only
     launches, path_launches = {}, {}
     if want("3") or want("4") or want("5"):
@@ -4892,6 +5675,32 @@ def main() -> int:
         for counts in (form_launches, remat_launches, file_launches, quality_launches):
             path_launches.update(counts)
         torch.cuda.empty_cache()
+    if want("12"):
+        g12 = torch.Generator(device="cuda").manual_seed(SEED + 12)  # its own data: the other phases' stay
+        layouts = {}
+        log(f"phase 12a: the DiT layout detector at DiT-base width, B {DIT_B} pages, f32 (TF32 off); K14 at B {DIT_B} "
+            f"T {VIT_T} in f32 and bf16; card and power limit: {card}")
+        dit_launches, layouts["dit"] = check_dit(checks, g12)
+        torch.cuda.empty_cache()
+        log(f"phase 12b: YOLO at YOLOConfig() (width 32, 1024 px), B {YOLO_B} pages, f32, against the CPU; cuDNN TF32 "
+            "on and off")
+        yolo_launches, layouts["yolo"] = check_yolo(g12)
+        torch.cuda.empty_cache()
+        log(f"phase 12c: precompute layouts -> use_precomputed_layouts -> RAG-VT5 and RAG-Pix2Struct on an MP-DocVQA "
+            f"directory of page images; card and power limit: {card}")
+        e2e_launches, layouts["end_to_end"] = layouts_end_to_end(g12)
+        torch.cuda.empty_cache()
+        log("phase 12d: device_put_batch against to_device on phase 5's batch of 32; evaluate with each")
+        transfer_launches, layouts["transfer"] = check_transfer(g12)
+        torch.cuda.empty_cache()
+        log("phase 12e: demo --serve on 127.0.0.1 and noise_experiment on the card")
+        app_launches, layouts["apps"] = apps(g12)
+        torch.cuda.empty_cache()
+        log("phase 12f: K2, K6 and K3 in f32 at d_kv 16, timed beside SDPA")
+        check_dkv16(checks, g12)
+        path_launches.update(dit_detector=dit_launches, yolo_detector=yolo_launches, transfer_evaluate=transfer_launches,
+                             **e2e_launches, **app_launches)
+        torch.cuda.empty_cache()
     if only:
         print(json.dumps({"ok": True, "phases": sorted(only), "card": card}), flush=True)
         return 0
@@ -4953,6 +5762,8 @@ def main() -> int:
         "hivt5": hivt5,
         # phase 11: the VT5 family's training forms, remat, documents from local files, answer quality
         "train_forms": forms,
+        # phase 12: the layout detectors, precompute layouts through layout-guided serving, the transfer, the apps
+        "layouts": layouts,
         # every kernel's launches in each path's run, counts set to 0 just before it
         "launches_by_path": path_launches,
         "card": card,

@@ -14,7 +14,9 @@ pages), the Hugging Face `datasets` for DUDE's cache, pdfminer for
 MMLongBench-Doc's PDFs (`data/pdf.py`). Unlike the JAX loader, a missing
 Pillow raises instead of leaving every page without an image; a missing or
 unreadable image file still gives that page None, as there. Layouts come from
-`precomputed_layouts_path` .npz files keyed by image name.
+`precomputed_layouts_path` .npz files keyed by image name, which the port's
+`precompute layouts` writes (`document_pages` gives a document's image
+names beside it).
 """
 
 from __future__ import annotations
@@ -132,12 +134,18 @@ class MPDocVQADataset(BaseDataset):
     def __len__(self) -> int:
         return len(self.imdb)
 
+    @staticmethod
+    def image_name(record: Dict, p: int) -> str:
+        """The image name of page p: the key of its image file and of its
+        layout in a `precompute layouts` .npz."""
+        return record["image_name"][p] if isinstance(record["image_name"], (list, np.ndarray)) else record["image_name"]
+
     def _page(self, record: Dict, p: int) -> Tuple[List[str], List[List[float]], Optional[np.ndarray], Optional[Dict]]:
         words = [w.lower() for w in record["ocr_tokens"][p]]
         boxes = [list(map(float, b)) for b in record["ocr_normalized_boxes"][p]]
         image = None
         layout = None
-        name = record["image_name"][p] if isinstance(record["image_name"], (list, np.ndarray)) else record["image_name"]
+        name = self.image_name(record, p)
         if self.use_images and self.images_dir:
             image = _load_image(os.path.join(self.images_dir, f"{name}.jpg"))
         if self.layout_info is not None:
@@ -159,6 +167,12 @@ class MPDocVQADataset(BaseDataset):
         return first, last
 
     def __getitem__(self, idx: int) -> RawDocument:
+        return self.document_pages(idx)[0]
+
+    def document_pages(self, idx: int) -> Tuple[RawDocument, List[str]]:
+        """Document idx and the image names of its pages, in page order: the
+        page range is drawn once, so the names match the document's pages
+        in every view (the `custom` window is random)."""
         record = self.imdb[idx]
         answers = list(set(a.lower() for a in record.get("answers", [""])))
         answer_page_idx = record.get("answer_page_idx", 0) or 0
@@ -190,14 +204,14 @@ class MPDocVQADataset(BaseDataset):
             question_id=record["question_id"],
             images=images if self.use_images else None,
             layout=layouts if self.layout_info is not None else None,
-        )
+        ), [self.image_name(record, p) for p in page_range]
 
 
 # --------------------------------------------------------------------------- #
 # SP-DocVQA (single page, SP_DocVQA.py)
 # --------------------------------------------------------------------------- #
 class SPDocVQADataset(MPDocVQADataset):
-    def __getitem__(self, idx: int) -> RawDocument:
+    def document_pages(self, idx: int) -> Tuple[RawDocument, List[str]]:
         record = self.imdb[idx]
         words = [[w.lower() for w in record["ocr_tokens"]]]
         boxes = [[list(map(float, b)) for b in record["ocr_normalized_boxes"]]]
@@ -212,7 +226,7 @@ class SPDocVQADataset(MPDocVQADataset):
             answer_page_idx=0,
             question_id=record["question_id"],
             images=images,
-        )
+        ), [record["image_name"]]
 
 
 # --------------------------------------------------------------------------- #

@@ -2,9 +2,13 @@
 precision and chunk score over a document set.
 
 The single-device path of `rag_docvqa_tpu/engine/evaluate.py::evaluate`,
-without jax: batches are ingested and copied to the engine's device on a
-background thread (`data/prefetch.py`) while the engine answers the
-previous one, and scored with this package's own copy of the `Evaluator`
+without jax: batches are ingested on a background thread
+(`data/prefetch.py`) while the engine answers the previous one; that thread
+also queues each batch's copy to the engine's device
+(`data/transfer.py::device_put_batch_async`: token ids as int16 when the
+tokenizer's vocabulary allows, one pinned non-blocking copy on a stream of
+its own), and the loop waits for the copy on its own stream before the
+engine reads the batch. Batches are scored with this package's own copy of the `Evaluator`
 (`metrics/`, plain Python). MMLongBench-typed scoring runs when the documents carry an
 answer format, as there. With `compute_stats` the chunk distributions of
 every ingested batch (`utils_stats.collect_ingest_stats`, on the host copy
@@ -23,9 +27,10 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 
 from rag_docvqa_tpu_torch.metrics import Evaluator
-from rag_docvqa_tpu_torch.data.contract import RawDocument, to_device
+from rag_docvqa_tpu_torch.data.contract import RawDocument
 from rag_docvqa_tpu_torch.data.ingest import DocVQAIngestor
 from rag_docvqa_tpu_torch.data.prefetch import map_prefetch
+from rag_docvqa_tpu_torch.data.transfer import device_put_batch_async
 from rag_docvqa_tpu_torch.utils_stats import StatsCollector, collect_ingest_stats
 
 
@@ -51,16 +56,18 @@ def evaluate(
     scores_by_samples: Dict[Any, Dict[str, Any]] = {}
     load_time = retrieval_time = generation_time = 0.0
     all_answers: List[Any] = []
+    vocab = getattr(ingestor.tokenizer, "vocab_size", 1 << 30)
 
     def _ingest_one(start: int):
         chunk = list(docs[start : start + batch_size])
         t0 = time.time()
         batch, aux = ingestor.ingest(chunk)
         batch_stats = collect_ingest_stats(batch, aux) if compute_stats else None
-        return chunk, to_device(batch, engine.device), aux, time.time() - t0, batch_stats
+        return chunk, device_put_batch_async(batch, vocab, engine.device), aux, time.time() - t0, batch_stats
 
-    for chunk, batch, aux, ingest_t, batch_stats in map_prefetch(_ingest_one, range(0, len(docs), batch_size),
-                                                                 depth=prefetch_depth):
+    for chunk, pending, aux, ingest_t, batch_stats in map_prefetch(_ingest_one, range(0, len(docs), batch_size),
+                                                                   depth=prefetch_depth):
+        batch = pending.wait()
         load_time += ingest_t
         if stats is not None:
             stats.merge(batch_stats)

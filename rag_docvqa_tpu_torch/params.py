@@ -17,6 +17,10 @@ head, which is not ported yet). `nac_from_jax` / `nac_to_jax` convert the
 `load_hivt5_params`): the T5, the spatial embeddings, `page_emb`,
 `page_head` and, when present, the `visual` tower and matcher.
 `index_from_numpy` carries a JAX `ShardedIndex`'s arrays into the port's.
+`layout_seg_from_jax` and `yolo_from_jax` convert the layout detectors' trees
+(`init_beit_seg_params` / `convert_beit_seg_state_dict`, `init_yolo_params` /
+`convert_yolo_state_dict`): HWIO conv kernels -> (out, in, kh, kw),
+(kh, kw, in, out) transposed-conv kernels -> (in, out, kh, kw).
 `bert_from_jax` / `bert_to_jax` do the same for a BERT tree (`init_bert_params`
 or `convert_bert_state_dict`): stacked (L, in, out) kernels <-> per-layer
 (out, in), the biases, the two LayerNorm pairs and the classifier head.
@@ -30,8 +34,10 @@ import numpy as np
 import torch
 
 from rag_docvqa_tpu_torch.models.bert import BertLayer, BertParams
+from rag_docvqa_tpu_torch.models.conv import BatchNorm, Conv, ConvBN
 from rag_docvqa_tpu_torch.models.embeddings import SpatialEmbeddings
 from rag_docvqa_tpu_torch.models.hivt5 import HiVT5Params, PageHead
+from rag_docvqa_tpu_torch.models.layout_seg import BeitSegParams
 from rag_docvqa_tpu_torch.models.nac import NACLayer, NACParams
 from rag_docvqa_tpu_torch.models.pix2struct import P2SParams, P2SVision
 from rag_docvqa_tpu_torch.models.t5 import (
@@ -44,6 +50,7 @@ from rag_docvqa_tpu_torch.models.t5 import (
 )
 from rag_docvqa_tpu_torch.models.vit import ViTLayer, ViTParams
 from rag_docvqa_tpu_torch.models.vt5 import LayoutHead, VisualParams, VT5Params
+from rag_docvqa_tpu_torch.models.yolo import C2f, YOLOParams
 from rag_docvqa_tpu_torch.parallel.index import ShardedIndex
 
 Tree = Dict[str, Any]
@@ -280,6 +287,51 @@ def vit_to_jax(p: ViTParams) -> Tree:
     if p.pos_embed is not None:
         tree["pos_embed"] = _np(p.pos_embed)
     return tree
+
+
+# --------------------------------------------------------------------------- #
+# the layout detectors
+# --------------------------------------------------------------------------- #
+def _conv_from_jax(p: Tree, device, deconv: bool = False) -> Conv:
+    k = np.asarray(p["kernel"], np.float32)
+    w = k.transpose(2, 3, 0, 1) if deconv else k.transpose(3, 2, 0, 1)
+    return Conv(_t(w, device), _t(p["bias"], device) if "bias" in p else None)
+
+
+def _conv_bn_from_jax(p: Tree, device) -> ConvBN:
+    bn = p["bn"]
+    return ConvBN(_conv_from_jax(p["conv"], device), BatchNorm(*(_t(bn[k], device) for k in ("w", "b", "mean", "var"))))
+
+
+def layout_seg_from_jax(tree: Tree, device="cpu") -> BeitSegParams:
+    """A JAX BEiT segmentation tree -> BeitSegParams: f32 tensors on `device`."""
+    cb = lambda p: _conv_bn_from_jax(p, device)
+    deconv = lambda p: _conv_from_jax(p, device, deconv=True)
+    f1 = tree["fpn1"]
+    bn = f1["bn"]
+    return BeitSegParams(
+        vit_from_jax(tree["backbone"], device),
+        {"deconv1": deconv(f1["deconv1"]), "bn": BatchNorm(*(_t(bn[k], device) for k in ("w", "b", "mean", "var"))),
+         "deconv2": deconv(f1["deconv2"])},
+        {"deconv1": deconv(tree["fpn2"]["deconv1"])},
+        [cb(p) for p in tree["psp"]], cb(tree["bottleneck"]), [cb(p) for p in tree["laterals"]],
+        [cb(p) for p in tree["fpn_convs"]], cb(tree["fpn_bottleneck"]), _conv_from_jax(tree["classifier"], device))
+
+
+def yolo_from_jax(tree: Tree, device="cpu") -> YOLOParams:
+    """A JAX YOLO tree -> YOLOParams: f32 tensors on `device`."""
+    cb = lambda p: _conv_bn_from_jax(p, device)
+
+    def part(name, p):
+        if name == "head":
+            return [{k: (_conv_from_jax(v, device) if k.endswith("_out") else cb(v)) for k, v in h.items()} for h in p]
+        if name == "sppf":
+            return {k: cb(v) for k, v in p.items()}
+        if "m" in p:  # a C2f
+            return C2f(cb(p["cv1"]), cb(p["cv2"]), [{k: cb(v) for k, v in m.items()} for m in p["m"]])
+        return cb(p)
+
+    return YOLOParams(**{name: part(name, p) for name, p in tree.items()})
 
 
 # --------------------------------------------------------------------------- #

@@ -1,5 +1,5 @@
 """Offline precompute of the PyTorch port: corpus chunk-embedding index
-build + query.
+build + query, and page layouts.
 
     # build an index over a dataset (the synthetic corpus needs no data files)
     python -m rag_docvqa_tpu_torch.precompute index -m configs/VT5_tiny.yml \\
@@ -10,21 +10,45 @@ build + query.
         -m configs/VT5_tiny.yml -q "what is the total?" --k 5 \\
         [--index-dtype f32|bf16|int8|int4] [--refine] [--device cuda|cpu]
 
-The `index` and `query` commands of the root `precompute.py` with its
-arguments; `--device` takes the place of `--platform`, the default is cuda,
-and without a CUDA device the CLI raises unless `--device cpu` is given.
-`index` embeds every chunk with the VT5 table embedder and writes an `.npz`
-with that CLI's keys (`embeddings`, `meta`), so either CLI reads the
-other's file. `query` keeps the index resident on the device in the chosen
-precision (`parallel/index.py`) and prints one JSON line per rank. The
-`layouts` command waits for the layout detectors.
+    # detect every page's layout regions into an .npz the datasets read
+    python -m rag_docvqa_tpu_torch.precompute layouts -m configs/VT5_tiny.yml \
+        -d <dataset.yml with page images> --detector DIT|YOLO \
+        [--weights detector.safetensors] --out layouts.npz [--device cuda|cpu]
+
+The commands of the root `precompute.py` with its arguments; `--device` takes
+the place of `--platform`, the default is cuda, and without a CUDA device the
+CLI raises unless `--device cpu` is given. `index` embeds every chunk with
+the VT5 table embedder and writes an `.npz` with that CLI's keys
+(`embeddings`, `meta`), so either CLI reads the other's file. `query` keeps
+the index resident on the device in the chosen precision
+(`parallel/index.py`) and prints one JSON line per rank. `layouts` runs the
+DiT segmentation detector (`models/layout_seg.py`, its backbone through K14)
+or the YOLO detector (`models/yolo.py`) over every page image of the split,
+sized by the config keys of the root CLI (`layout_d_model`,
+`layout_num_layers`, `layout_num_heads`, `layout_mlp_dim`,
+`layout_image_size`, `layout_out_indices`; `layout_width`, `layout_depth`),
+from seeded weights or a local checkpoint (`--weights`, read by
+`models/loader.py`), and writes {boxes, labels} per page. Unlike the root
+CLI, which keys a page "<question_id>_p<page>" where MP-DocVQA reads it by
+image name (ROADMAP Queue 3, F8), pages of a dataset with image names
+(`document_pages`) are keyed by image name, so `use_precomputed_layouts`
+reads the file back; pages of the synthetic corpus, which has none, keep the
+root CLI's keys. Pages are read as the detector needs them and go through
+it in batches of `LAYOUT_BATCH`; a page that several questions share is
+detected once, so `n_pages` counts distinct pages where the dataset has
+image names (the root CLI counts a page for every question). The line
+printed is the root CLI's, and `pages_per_sec` covers reading and decoding
+the pages, detecting them and writing the file.
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import time
+
+LAYOUT_BATCH = 16  # pages a detector forward
 
 
 def _setup(args, dataset=None):
@@ -107,6 +131,93 @@ def cmd_index(args):
     }))
 
 
+def layout_detector(config, name: str, weights, device):
+    """The DiT or YOLO detector callable of the root CLI's configuration
+    (`make_dit_detector` / `make_yolo_detector`), on `device`."""
+    import torch
+
+    from rag_docvqa_tpu_torch import params as P
+
+    gen = torch.Generator(device=device).manual_seed(config["seed"])
+    if weights:
+        from rag_docvqa_tpu_torch.models.loader import read_state_dict
+    if name == "DIT":
+        from rag_docvqa_tpu_torch.models.layout_seg import (
+            BeitSegConfig, convert_beit_seg_state_dict, init_beit_seg_params, make_dit_detector,
+        )
+        from rag_docvqa_tpu_torch.models.vit import ViTConfig
+
+        cfg = BeitSegConfig(
+            vit=ViTConfig(hidden_size=config.get("layout_d_model", 32),
+                          num_layers=config.get("layout_num_layers", 5),
+                          num_heads=config.get("layout_num_heads", 4),
+                          mlp_dim=config.get("layout_mlp_dim", 64),
+                          patch_size=16, image_size=config.get("layout_image_size", 224),
+                          arch="beit", use_abs_pos=False, use_rel_pos_bias=True,
+                          layer_scale_init=0.1, use_final_layernorm=False),
+            out_indices=tuple(config.get("layout_out_indices", (2, 3, 4, 5))),
+        )
+        params = (P.layout_seg_from_jax(convert_beit_seg_state_dict(read_state_dict(weights), cfg), device)
+                  if weights else init_beit_seg_params(gen, cfg))
+        return make_dit_detector(params, cfg)
+    from rag_docvqa_tpu_torch.models.yolo import YOLOConfig, convert_yolo_state_dict, init_yolo_params, make_yolo_detector
+
+    cfg = YOLOConfig(width=config.get("layout_width", 16), depth=config.get("layout_depth", 1),
+                     image_size=config.get("layout_image_size", 256))
+    params = (P.yolo_from_jax(convert_yolo_state_dict(read_state_dict(weights), cfg), device)
+              if weights else init_yolo_params(gen, cfg))
+    return make_yolo_detector(params, cfg)
+
+
+def layout_pages(config, split):
+    """(key, page image) for every distinct page with an image of the split,
+    in document and page order, each document read when the one before is
+    used up: keyed by image name where the dataset has them
+    (`document_pages`; a page that several questions share comes once), else
+    "<question_id>_p<page>"."""
+    import numpy as np
+
+    from rag_docvqa_tpu_torch.data.datasets import build_dataset
+    from rag_docvqa_tpu_torch.train import build_docs
+
+    ds = None if config.get("dataset_name") == "Synthetic" else build_dataset(config, split)
+    if hasattr(ds, "document_pages"):
+        named = (ds.document_pages(i) for i in range(len(ds)))
+    else:
+        named = ((d, [f"{d.question_id}_p{p}" for p in range(len(d.words))])
+                 for d in (build_docs(config, split) if ds is None else ds))
+    seen = set()
+    for doc, names in named:
+        for name, img in zip(names, doc.images or ()):
+            if img is not None and name not in seen:
+                seen.add(name)
+                yield name, np.asarray(img)
+
+
+def cmd_layouts(args):
+    """Detect every page's layout regions into one .npz of {boxes, labels}
+    per page key (see the module docstring)."""
+    import numpy as np
+
+    from rag_docvqa_tpu_torch.config import load_config
+    from rag_docvqa_tpu_torch.train import parse_overrides, resolve_device
+
+    device = resolve_device(args.device)
+    config = load_config(model=args.model, dataset=args.dataset, overrides=parse_overrides(args.overrides))
+    detector = layout_detector(config, args.detector, args.weights, device)
+    pages = layout_pages(config, args.split)
+    out: dict = {}
+    t0 = time.time()
+    while chunk := list(itertools.islice(pages, LAYOUT_BATCH)):
+        for (key, _), (boxes, labels) in zip(chunk, detector.batch([img for _, img in chunk])):
+            out[key] = np.asarray({"boxes": boxes, "labels": labels}, dtype=object)
+    np.savez_compressed(args.out, **out)
+    print(json.dumps({
+        "n_pages": len(out), "detector": args.detector,
+        "pages_per_sec": round(len(out) / max(time.time() - t0, 1e-9), 2), "out": args.out,
+    }))
+
+
 def cmd_query(args):
     import numpy as np
     import torch
@@ -144,6 +255,15 @@ def main(argv=None):
     p_index.add_argument("--out", required=True)
     p_index.add_argument("overrides", nargs="*")
 
+    p_lay = sub.add_parser("layouts")
+    p_lay.add_argument("-m", "--model", required=True)
+    p_lay.add_argument("-d", "--dataset", required=True)
+    p_lay.add_argument("--split", default="val")
+    p_lay.add_argument("--detector", choices=("DIT", "YOLO"), default="DIT")
+    p_lay.add_argument("--weights", default=None, help="local checkpoint (safetensors, .bin or a directory) to convert")
+    p_lay.add_argument("--out", required=True)
+    p_lay.add_argument("overrides", nargs="*")
+
     p_query = sub.add_parser("query")
     p_query.add_argument("--index", required=True)
     p_query.add_argument("-m", "--model", required=True)
@@ -159,14 +279,11 @@ def main(argv=None):
                               "becomes shortlist recall instead of quantized ordering")
     p_query.add_argument("overrides", nargs="*")
 
-    for p in (p_index, p_query):
+    for p in (p_index, p_query, p_lay):
         p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
 
     args = parser.parse_args(argv)
-    if args.cmd == "index":
-        cmd_index(args)
-    else:
-        cmd_query(args)
+    {"index": cmd_index, "layouts": cmd_layouts, "query": cmd_query}[args.cmd](args)
 
 
 if __name__ == "__main__":

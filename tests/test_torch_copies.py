@@ -9,6 +9,7 @@ on the cases of `tests/test_s2chunker.py`. Everything here is integer,
 string, copying or identical numpy work on the host: equal exactly."""
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -305,3 +306,102 @@ def test_s2chunker_copy_matches_original(case):
 
     _same(S2_CASES[case](p_s2), S2_CASES[case](j_s2))
     assert dataclasses.asdict(p_s2.S2Config()) == dataclasses.asdict(j_s2.S2Config())
+
+
+def _layout_mask():
+    m = np.zeros((10, 12), bool)
+    m[1:4, 1:5] = True
+    m[6:9, 7:11] = True
+    d = np.zeros((4, 4), bool)
+    d[0, 0] = d[1, 1] = True  # 8-connected: one component
+    return m, d
+
+
+def _layout_seg():
+    seg = np.zeros((20, 20), np.int32)
+    seg[2:8, 2:18] = 10  # Text
+    seg[12:18, 2:9] = 9  # Table
+    seg[0, 19] = 4  # a component under min_component
+    return seg
+
+
+# the seven numpy cases of tests/test_layout.py, each through both copies
+LAYOUT_CASES = {
+    "nms_keeps_biggest": lambda m: (m.non_maximum_suppression([[0, 0, 10, 10], [1, 1, 9, 9], [20, 20, 25, 25]], 0.5),
+                                    m.non_maximum_suppression([]),
+                                    m.compute_iou([0, 0, 2, 2], np.asarray([[1, 1, 3, 3], [5, 5, 6, 6]], float))),
+    "mask_to_boxes_components": lambda m: sorted(m.mask_to_boxes(_layout_mask()[0])) + m.mask_to_boxes(np.zeros((3, 3))),
+    "mask_to_boxes_diagonal_connectivity": lambda m: m.mask_to_boxes(_layout_mask()[1]),
+    "segmentation_to_layout": lambda m: (m.segmentation_to_layout(_layout_seg()),
+                                         m.segmentation_to_layout(_layout_seg(), min_component=1)),
+    "filter_dit_remap_and_containment": lambda m: [
+        m.filter_detections_dit([[0, 0, 100, 100], [10, 10, 90, 90], [0, 0, 5, 5]], [10, 9, 0], (100, 100),
+                                condition=cond) for cond in ("or", "and", "small", "overlap")],
+    "filter_yolo": lambda m: m.filter_detections_yolo(
+        [[0, 0, 0.5, 0.5], [0.01, 0.01, 0.49, 0.49], [0.6, 0.6, 0.9, 0.9]], [1, 2, 8], iou_threshold=0.5),
+    "layout_provider_precomputed": lambda m: (
+        m.LayoutProvider(precomputed={"img0": {"boxes": [[0, 0, 1, 1]], "labels": [1]}}).batch_forward(
+            [[None, None]], keys=[["img0", "missing"]]),
+        m.LayoutProvider(detector=lambda img: ([[0.0, 0.0, 1.0, 1.0]], [int(img.sum()) % 4])).page_layout(
+            image=np.ones((2, 2))),
+        m.get_layout_model_map(), m.DIT_LABEL_MAP, m.YOLO_LABEL_MAP),
+}
+
+
+@pytest.mark.parametrize("case", LAYOUT_CASES)
+def test_layout_copy_matches_original(case):
+    from rag_docvqa_tpu.models import layout as j_layout
+    from rag_docvqa_tpu_torch.models import layout as p_layout
+
+    _same(LAYOUT_CASES[case](p_layout), LAYOUT_CASES[case](j_layout))
+
+
+def test_load_precomputed_layouts_copy_matches_original(tmp_path):
+    from rag_docvqa_tpu.models import layout as j_layout
+    from rag_docvqa_tpu_torch.models import layout as p_layout
+
+    np.savez_compressed(tmp_path / "l.npz", doc0_p0=np.asarray({"boxes": [[0.0, 0.1, 0.5, 0.6]], "labels": [1]},
+                                                              dtype=object),
+                        doc0_p1=np.asarray({"boxes": [], "labels": [], "clusters": []}, dtype=object))
+    _same(p_layout.load_precomputed_layouts(str(tmp_path / "l.npz")),
+          j_layout.load_precomputed_layouts(str(tmp_path / "l.npz")))
+
+
+def test_utils_viz_copy_matches_original(tmp_path):
+    """The overlay case of tests/test_engine_visual.py:55 through both copies:
+    every pixel equal, the PNG bytes equal, the page and patch overlays of a
+    seeded two-page document equal."""
+    from types import SimpleNamespace
+
+    from rag_docvqa_tpu import utils_viz as j_viz
+    from rag_docvqa_tpu_torch import utils_viz as p_viz
+
+    img = np.full((100, 80, 3), 255, np.uint8)
+    kw = dict(chunk_boxes=[[0.1, 0.1, 0.5, 0.3]], retrieved_boxes=[[0.2, 0.5, 0.9, 0.9]],
+              layout={"boxes": [[0.0, 0.0, 1.0, 0.45]]})
+    np.testing.assert_array_equal(p_viz.render_page_overlay(img, **kw), j_viz.render_page_overlay(img, **kw))
+    np.testing.assert_array_equal(p_viz.render_page_overlay(None, **kw), j_viz.render_page_overlay(None, **kw))
+    assert (img == 255).all()
+    for color in ("LAYOUT_COLOR", "CHUNK_COLOR", "RETRIEVED_COLOR"):
+        assert getattr(p_viz, color) == getattr(j_viz, color)
+    a, b = img.copy(), img.copy()
+    p_viz.draw_box(a, [-5, 3, 200, 40], (1, 2, 3), 4)
+    j_viz.draw_box(b, [-5, 3, 200, 40], (1, 2, 3), 4)
+    np.testing.assert_array_equal(a, b)
+
+    rng = np.random.RandomState(0)
+    images = [rng.randint(0, 255, (120, 100, 3), np.uint8) for _ in range(2)]
+    doc = SimpleNamespace(words=[["a"] * 3, ["b"] * 2], images=images,
+                          layout=[{"boxes": [[0.1, 0.1, 0.6, 0.5]], "labels": [1]}, None])
+    batch = SimpleNamespace(chunk_box=np.asarray([[[0.1, 0.2, 0.4, 0.3], [0.5, 0.5, 0.9, 0.8], [0, 0, 1, 1]]],
+                                                 np.float32),
+                            chunk_page=np.asarray([[0, 1, 0]]), chunk_mask=np.asarray([[True, True, False]]))
+    result = {"retrieval": {"boxes": np.asarray([[[0.5, 0.5, 0.9, 0.8], [0.1, 0.2, 0.4, 0.3]]])},
+              "pred_answer_pages": [[1, 0]]}
+    steps = {"coords": [(0, 0), (1, 0), (0, 1)], "xyxy": [[0, 0, 50, 40], [10, 10, 60, 90], [50, 40, 100, 120]]}
+    for name, fn in (("page", lambda m, d: m.save_step_overlays(doc, batch, result, str(d))),
+                     ("patch", lambda m, d: m.save_patch_overlays(images, steps, str(d), retrieved=(2,)))):
+        got, want = fn(p_viz, tmp_path / f"p_{name}"), fn(j_viz, tmp_path / f"j_{name}")
+        assert [os.path.basename(p) for p in got] == [os.path.basename(p) for p in want]
+        for p, q in zip(got, want):
+            assert open(p, "rb").read() == open(q, "rb").read(), name

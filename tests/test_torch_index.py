@@ -361,6 +361,15 @@ def test_train_cli_needs_a_gpu_unless_asked_for_the_cpu():
     assert proc.returncode != 0 and "--device cpu" in proc.stderr and "epoch=" not in proc.stdout
 
 
-def test_cli_has_no_layouts_command():
+def test_cli_has_no_layouts_command(tmp_path):
+    """The name is kept from when the `layouts` command waited for the
+    layout detectors. It exists now (tests/test_torch_precompute_layouts.py
+    holds it against the root CLI): a detector name the root CLI refuses is
+    refused, and without a card the default device raises, naming
+    `--device cpu`, instead of writing a file on the CPU."""
     with pytest.raises(SystemExit):
-        p_precompute.main(["layouts", "-m", MODEL, "-d", DATASET, "--out", "x"])
+        p_precompute.main(["layouts", "-m", MODEL, "-d", DATASET, "--detector", "RCNN", "--out", "x"])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            p_precompute.main(["layouts", "-m", MODEL, "-d", DATASET, "--out", str(tmp_path / "x.npz")])
+        assert not (tmp_path / "x.npz").exists()
