@@ -438,6 +438,9 @@ KERNELS = {
                       "serve_visual", "B32 H12 T197 dh64 bias bf16"),
     "maxsim": ("rag_docvqa_tpu_torch/csrc/maxsim.cu", "rag_docvqa_tpu/ops/late_interaction.py:56",
                "p2s", "B8 mc16 Tq128 Tp128 D768 f32"),
+    # K2's 256-wide form (its launches are also counted under flash_fwd): the Gemma LLM reranker's attention
+    "flash_fwd_dh256": ("rag_docvqa_tpu_torch/csrc/flash_fwd.cu", "rag_docvqa_tpu/ops/flash_attention.py:277",
+                        "llm_rerank_serve", "Gemma reranker B320 H8 Hkv1 T192 dh256 causal ragged bf16"),
 }
 # the kernels each path launches
 SERVE_KERNELS = ("t5_rms_norm", "t5_gemm", "flash_fwd", "decode_cross_attention")
@@ -5477,6 +5480,599 @@ def check_dkv16(checks: Checks, g: torch.Generator) -> None:
     torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------------------- #
+# phase 13: the causal-LM family (Qwen2.5-VL-7B RAG serving, the Gemma LLM
+# reranker on K2's dh-256 form, the Qwen2.5-VL tower, LoRA SFT on K2/K6)
+# --------------------------------------------------------------------------- #
+# Qwen2.5-VL-7B's language model (bench.py:803-806) and its vision tower; the
+# Gemma-2b backbone of bge-reranker-v2-gemma as the config keys of build_reranker
+QWEN7B = dict(vocab_size=152064, d_model=3584, num_layers=28, num_heads=28, num_kv_heads=4, d_ff=18944,
+              tie_word_embeddings=False)
+QWEN7B_VISION = dict(hidden_size=1280, intermediate_size=3420, num_heads=16, depth=32, out_hidden_size=3584,
+                     window_size=112, fullatt_block_indexes=(7, 15, 23, 31), image_size=112)
+GEMMA_RERANK = {"reranker_weights": "BAAI/bge-reranker-v2-gemma", "reranker_d_model": 2048,
+                "reranker_num_layers": 18, "reranker_num_heads": 8, "reranker_num_kv_heads": 1,
+                "reranker_head_dim": 256, "reranker_d_ff": 16384,
+                "rerank_pair_len": 192, "rerank_filter_tresh": 0.4}
+GEMMA_VOCAB = 256000
+QW_B, QW_DOCS_PAGES, QW_WORDS = 8, 8, 120  # bench.py:779-787's documents
+LORA_B, LORA_T = 4, 512 + 24  # max_prompt_tokens + answer_max_tokens
+CAUSAL_LM_KERNELS = ("flash_fwd",)
+LORA_KERNELS = ("flash_fwd", "flash_bwd")
+QWEN_CLI_CONF_RTOL = 1e-4  # 13g: a confidence on the card against the CPU's, f32 on both
+
+
+def causal_pairs(lens, T: int) -> int:
+    """(query, key) pairs a causal pass with right-padded keys needs: every
+    query row t takes the keys k <= t that are valid (k < len)."""
+    return sum(min(t + 1, int(n)) for n in lens for t in range(T))
+
+
+def causal_mask_bool(lens, T: int, dev) -> torch.Tensor:
+    """(B, 1, T, T) bool: key k for query t when k <= t and k < len."""
+    km = key_mask(lens, T, dev)
+    tri = torch.ones(T, T, dtype=torch.bool, device=dev).tril()
+    return tri[None, None] & km[:, None, None, :]
+
+
+def causal_flash_case(checks: Checks, g: torch.Generator, unit: str, B, T, H, Hkv, dh, dtype, lens, label,
+                      timed=False) -> None:
+    """K2 causal GQA with a right-padded key mask against its plain version
+    (out and lse of every row: each has key 0), a second launch's bits;
+    `timed`: beside SDPA with `enable_gqa` and the combined causal and
+    padding mask, the bound counting the pairs this data needs. `unit`
+    names the form (flash_fwd, or flash_fwd_dh256 above dh 128)."""
+    import torch.nn.functional as F
+
+    from rag_docvqa_tpu_torch.ops import flash_attention as fa
+
+    dev = g.device
+    randn = lambda *s: torch.randn(s, generator=g, device=dev)
+    q, k, v = randn(B, T, H, dh).to(dtype), randn(B, T, Hkv, dh).to(dtype), randn(B, T, Hkv, dh).to(dtype)
+    mask, scale = key_mask(lens, T, dev), dh**-0.5
+    run = lambda: fa.flash_attention_fwd(q, k, v, mask, None, scale, True)
+    got, glse = run()
+    want, wlse = fa.flash_attention_reference(q, k, v, mask, None, scale, True)
+    checks.compare(unit, f"{label} out", got, want, tol(dtype, want))
+    checks.compare(unit, f"{label} lse", glse, wlse, tol(dtype, wlse))
+    again, alse = run()
+    if not (torch.equal(got, again) and torch.equal(glse, alse)):
+        raise AssertionError(f"{unit} {label}: a second launch on the same input gave other bits")
+    if timed:
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        attn = causal_mask_bool(lens, T, dev)
+        checks.timed(unit, label, run, lambda: fa.flash_attention_reference(q, k, v, mask, None, scale, True),
+                     library=lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=attn, scale=scale,
+                                                                    enable_gqa=True),
+                     library_is="F.scaled_dot_product_attention, enable_gqa, the causal and padding mask as one "
+                                "bool (B, 1, T, T) mask",
+                     io_bytes=nbytes(q, k, v, mask, got, glse), ops=4.0 * H * dh * causal_pairs(lens, T),
+                     ops_in=op_type(dtype), device=True)
+
+
+def causal_flash_bwd_case(checks: Checks, g: torch.Generator, B, T, H, Hkv, dh, dtype, lens, label,
+                          timed=False) -> None:
+    """K6 causal GQA against its plain version from the same forward; `timed`:
+    a second launch's bits, beside autograd through SDPA (enable_gqa, the
+    combined bool mask), the bound counting the needed pairs."""
+    import torch.nn.functional as F
+
+    from rag_docvqa_tpu_torch.ops import flash_attention as fa
+
+    dev = g.device
+    randn = lambda *s: torch.randn(s, generator=g, device=dev)
+    q, do = randn(B, T, H, dh).to(dtype), randn(B, T, H, dh).to(dtype)
+    k, v = randn(B, T, Hkv, dh).to(dtype), randn(B, T, Hkv, dh).to(dtype)
+    mask, scale = key_mask(lens, T, dev), dh**-0.5
+    args = (mask, None, scale, True)
+    out, lse = fa.flash_attention_reference(q, k, v, *args)
+    out = out.contiguous()
+    bwd = lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, *args)
+    got = bwd()
+    want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, *args)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        checks.compare("flash_bwd", f"{label} {name}", a, b, rel_tol(dtype, b))
+    if not timed:
+        return
+    if not all(torch.equal(a, b) for a, b in zip(got[:3], bwd()[:3])):
+        raise AssertionError(f"flash_bwd {label}: a second launch on the same input gave other bits")
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=causal_mask_bool(lens, T, dev), scale=scale,
+                                       enable_gqa=True)
+    library = lambda: torch.autograd.grad(o, (qt, kt, vt), do.transpose(1, 2), retain_graph=True)
+    backend = kernel_names(library)
+    checks.timed("flash_bwd", label, bwd, lambda: fa.flash_attention_bwd_reference(q, k, v, out, lse, do, *args),
+                 library=library, library_is="autograd.grad through F.scaled_dot_product_attention (enable_gqa, "
+                                             "the bool causal and padding mask): " + backend,
+                 io_bytes=nbytes(q, k, v, out, lse, do, mask, *got[:3]), ops=10.0 * H * dh * causal_pairs(lens, T),
+                 ops_in=op_type(dtype), device=True)
+
+
+def check_causal_kernels(checks: Checks, g: torch.Generator) -> None:
+    """13a: K2 causal GQA at the Qwen2.5-VL-7B prefill shape (B 8 H 28 Hkv 4
+    T 512 dh 128, ragged right-padded prompts), K2 at dh 256 (the Gemma
+    reranker's B 320 H 8 Hkv 1 T 192, ragged pair lengths, bf16 and f32, and
+    its tile edges), K6 causal GQA at the LoRA shape (B 4 H 28 Hkv 4 T 536),
+    each against its plain version; the path shapes timed beside SDPA."""
+    bf, f32 = torch.bfloat16, torch.float32
+    prompt_lens = [512 - 37 * i for i in range(QW_B)]
+    causal_flash_case(checks, g, "flash_fwd", QW_B, 512, 28, 4, 128, bf, prompt_lens,
+                      "Qwen2.5-7B prefill B8 H28 Hkv4 T512 dh128 causal ragged bf16", timed=True)
+    causal_flash_case(checks, g, "flash_fwd", 2, 512, 28, 4, 128, f32, prompt_lens[:2],
+                      "Qwen2.5-7B prefill B2 H28 Hkv4 T512 dh128 causal ragged f32")
+    pair_lens = [192 - (i * 37) % 120 for i in range(320)]
+    for dtype, tag in ((bf, "bf16"), (f32, "f32")):
+        causal_flash_case(checks, g, "flash_fwd_dh256", 320, 192, 8, 1, 256, dtype, pair_lens,
+                          f"Gemma reranker B320 H8 Hkv1 T192 dh256 causal ragged {tag}", timed=True)
+        for B, T, H, Hkv, dh in ((3, 63, 8, 1, 256), (3, 65, 8, 2, 256), (2, 129, 8, 1, 200), (2, 129, 4, 2, 256)):
+            causal_flash_case(checks, g, "flash_fwd_dh256", B, T, H, Hkv, dh, dtype, [T - 17 * i for i in range(B)],
+                              f"edge B{B} T{T} H{H} Hkv{Hkv} dh{dh} causal {tag}")
+    lora_lens = [LORA_T - 23 * i for i in range(LORA_B)]
+    causal_flash_bwd_case(checks, g, LORA_B, LORA_T, 28, 4, 128, bf, lora_lens,
+                          f"LoRA B{LORA_B} H28 Hkv4 T{LORA_T} dh128 causal ragged bf16", timed=True)
+    causal_flash_bwd_case(checks, g, 2, LORA_T, 28, 4, 128, f32, lora_lens[:2],
+                          f"LoRA B2 H28 Hkv4 T{LORA_T} dh128 causal ragged f32")
+    torch.cuda.empty_cache()
+
+
+class plain_attention:
+    """Within it, models/causal_lm.py's causal attention is the plain
+    `attention_reference` instead of K2/K6 (autograd through plain torch)."""
+
+    def __enter__(self):
+        from rag_docvqa_tpu_torch.models import causal_lm as clm
+        from rag_docvqa_tpu_torch.ops import flash_attention as fa
+
+        self.saved = clm.flash_attention
+        clm.flash_attention = lambda q, k, v, key_mask=None, causal=False, scale=1.0: fa.attention_reference(
+            q, k, v, key_mask=key_mask, causal=causal, scale=scale)
+
+    def __exit__(self, *exc):
+        from rag_docvqa_tpu_torch.models import causal_lm as clm
+
+        clm.flash_attention = self.saved
+
+
+def check_causal_stack(g: torch.Generator) -> dict:
+    """13b: the full-width f32 `forward_hidden` at 4 layers of the 7B widths
+    and 2 of the Gemma widths (depth cut), through K2 against the plain
+    attention on the card, at the valid positions (a padded row attends to
+    key 0 in both, but is not compared); then the f32 LoRA gradient at 2
+    layers of the 7B widths, through K2/K6 against autograd through the plain
+    attention, with nonzero b factors."""
+    from rag_docvqa_tpu_torch.models import causal_lm as clm
+    from rag_docvqa_tpu_torch.models.lora import init_lora, merge_lora
+
+    dev = g.device
+    out = {}
+    for name, cfg, L, B, T in (("qwen2.5-7b", clm.CausalLMConfig(**{**QWEN7B, "num_layers": 4}), 4, 2, 512),
+                               ("gemma-2b", clm.CausalLMConfig(vocab_size=GEMMA_VOCAB, d_model=2048, num_layers=2,
+                                                               num_heads=8, num_kv_heads=1, d_ff=16384,
+                                                               rope_theta=1e4, qkv_bias=False, arch="gemma",
+                                                               head_dim_override=256), 2, 16, 192)):
+        params = clm.init_causal_lm_params(g, cfg)
+        ids = torch.randint(3, cfg.vocab_size, (B, T), generator=g, device=dev)
+        mask = key_mask([T - (i * 53) % (T // 2) for i in range(B)], T, dev)
+        with torch.no_grad():
+            got = clm.forward_hidden(params, cfg, ids, mask)
+            with plain_attention():
+                want = clm.forward_hidden(params, cfg, ids, mask)
+        torch.cuda.synchronize()
+        err = (got - want).abs()[mask].max().item()
+        limit = rel_tol(torch.float32, want[mask])
+        log(f"  forward_hidden f32 {name} {L} layers B{B} T{T}: max abs err {err:.3e} at valid positions "
+            f"(limit {limit:.1e}, max|ref| {want[mask].abs().max().item():.3g})")
+        if not err <= limit:
+            raise AssertionError(f"forward_hidden {name}: {err} above {limit}")
+        out[f"forward_hidden_{name}_max_abs_err"] = err
+        del params, got, want
+        torch.cuda.empty_cache()
+    cfg = clm.CausalLMConfig(**{**QWEN7B, "num_layers": 2})
+    params = clm.init_causal_lm_params(g, cfg)
+    lora = init_lora(g, params, rank=8)
+    with torch.no_grad():
+        for p in lora.parameters():
+            if p.abs().max() == 0:
+                p.copy_(torch.randn(p.shape, generator=g, device=dev) * 0.01)
+    B, T = 2, 256
+    ids = torch.randint(3, cfg.vocab_size, (B, T), generator=g, device=dev)
+    mask = key_mask([T, T - 61], T, dev)
+    labels = torch.where(mask, ids, -100)
+    labels[:, :100] = -100
+    grads = []
+    for plain in (False, True):
+        ctx = plain_attention() if plain else contextlib.nullcontext()
+        with ctx:
+            loss = clm.sft_loss(merge_lora(params, lora), cfg, ids, mask, labels)
+            grads.append(torch.autograd.grad(loss, list(lora.parameters())))
+    worst = 0.0
+    for a, b in zip(*grads):
+        err, limit = (a - b).abs().max().item(), rel_tol(torch.float32, b)
+        worst = max(worst, err / limit)
+        if not err <= limit:
+            raise AssertionError(f"LoRA gradient through K2/K6: {err} above {limit}")
+    log(f"  LoRA gradient f32, 7B widths 2 layers B{B} T{T}: worst error {worst:.3f} of its limit over "
+        f"{len(grads[0])} adapter tensors")
+    out["lora_grad_worst_share_of_limit"] = worst
+    del params, lora, grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def qwen_documents(seed: int, n: int, images: bool = False):
+    """bench.py:779-787's documents: n x 8 pages x 120 words, with one
+    seeded 256 x 256 page image a page when asked for."""
+    import numpy as np
+
+    from rag_docvqa_tpu_torch.data.synthetic import make_corpus
+
+    docs = make_corpus(n, n_pages=QW_DOCS_PAGES, words_per_page=QW_WORDS, seed=seed)
+    if images:
+        rng = np.random.RandomState(seed)
+        for d in docs:
+            d.images = [rng.randint(0, 255, (256, 256, 3)).astype(np.uint8) for _ in d.words]
+    return docs
+
+
+def weight_bytes(params) -> int:
+    return sum(t.numel() * t.element_size() for t in params.state_dict().values())
+
+
+def serve_qwen(g: torch.Generator):
+    """13c and 13d: Qwen2.5-VL-7B's language model in bf16 from
+    `build_engine`; two served batches of 8 documents (stages, decode ms a
+    step, the weight-read rate, K2 launches: 28 a batch); `generate` at B 32
+    Tp 512 and 64 new tokens; the visual path with the Qwen2.5-VL-7B tower
+    (112-px crops, 4 a sample) and once with the stand-in tower through K14.
+    Returns (launches by path, summary, and for 13f the bf16 params, the
+    tokenizer and the ingestor)."""
+    from rag_docvqa_tpu_torch import kernels
+    from rag_docvqa_tpu_torch.config import build_engine
+    from rag_docvqa_tpu_torch.data.contract import Caps
+    from rag_docvqa_tpu_torch.data.ingest import DocVQAIngestor
+    from rag_docvqa_tpu_torch.data.tokenizer import HashTokenizer
+    from rag_docvqa_tpu_torch.engine.rag_qwen import QwenRAGConfig, RAGQwenEngine
+    from rag_docvqa_tpu_torch.models import causal_lm as clm
+    from rag_docvqa_tpu_torch.ops.chunking import ChunkSpec
+
+    dev = g.device
+    tok = HashTokenizer(vocab_size=QWEN7B["vocab_size"])
+    # the untied head comes from the parameters, not from a config key
+    config = {"model_name": "Qwen", **{k: v for k, v in QWEN7B.items() if k not in ("vocab_size", "tie_word_embeddings")}}
+    t0 = time.perf_counter()
+    params = clm.init_causal_lm_params(g, clm.CausalLMConfig(**QWEN7B), dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    wbytes = weight_bytes(params)
+    log(f"  Qwen2.5-7B bf16 weights: {wbytes / 1e9:.2f} GB, made in {time.perf_counter() - t0:.1f} s")
+    engine = build_engine(config, params, tok)
+    assert isinstance(engine, RAGQwenEngine) and engine.cfg == QwenRAGConfig() and engine.lm_cfg == \
+        clm.CausalLMConfig(**QWEN7B), (engine.cfg, engine.lm_cfg)
+    ingestor = DocVQAIngestor(tok, ChunkSpec(chunk_size=60, overlap=10), Caps(max_pages=8, max_chunks=32,
+                                                                               max_slots=2048))
+    batches = [ingestor.ingest(qwen_documents(SEED + 13 + i, QW_B)) for i in range(3)]
+    engine.inference(*batches[0])  # warmup, not counted
+    torch.cuda.synchronize()
+    summary, launches = {"weights_gb": wbytes / 1e9}, {}
+    kernels.reset_launch_counts()
+    rows = []
+    for batch, aux in batches[1:]:
+        t0 = time.perf_counter()
+        out = engine.inference(batch, aux)
+        wall = time.perf_counter() - t0
+        conf = out["confidences"]
+        # random weights over a 152,064-token vocabulary: a product of 15 max-probabilities may underflow to 0
+        if len(out["pred_answers"]) != QW_B or not all(math.isfinite(c) and 0.0 <= c <= 1.0 + 1e-6 for c in conf):
+            raise AssertionError(f"Qwen serving: bad answers or confidences {conf}")
+        t = {k: v * 1e3 for k, v in out["timings"].items()}
+        step_ms = t["decode_s"] / (engine.cfg.max_new_tokens - 1)
+        rows.append({"wall_ms": wall * 1e3, **{k.replace("_s", "_ms"): v for k, v in t.items()},
+                     "decode_step_ms": step_ms, "weight_read_tb_per_s": wbytes / (step_ms / 1e3) / 1e12})
+        log(f"  batch of {QW_B}: {wall * 1e3:.1f} ms wall; " + ", ".join(f"{k} {v:.2f} ms" for k, v in t.items())
+            + f"; decode {step_ms:.2f} ms a step, weights read at {rows[-1]['weight_read_tb_per_s']:.3f} TB/s "
+              f"(of 3.35)")
+    launches["qwen_serve"] = dict(kernels.LAUNCHES)
+    check_launched(launches["qwen_serve"], CAUSAL_LM_KERNELS, "Qwen serving")
+    if launches["qwen_serve"]["flash_fwd"] != 28 * 2:
+        raise AssertionError(f"Qwen serving launched K2 {launches['qwen_serve']['flash_fwd']} times, not 28 x 2")
+    summary["serve"] = {"batches": rows, "k2_launches_per_batch": launches["qwen_serve"]["flash_fwd"] / 2,
+                        "ms_per_batch": sum(r["wall_ms"] for r in rows) / len(rows)}
+    # the decode step's launches, from its CUDA graph
+    lm_cfg = engine.lm_cfg
+    ids = torch.randint(3, 152000, (QW_B, 512), generator=g, device=dev)
+    am = torch.ones_like(ids, dtype=torch.bool)
+    with torch.inference_mode():
+        _, cache = clm.prefill(params, lm_cfg, ids, am, 512 + 16)
+        tok0 = torch.zeros(QW_B, dtype=torch.long, device=dev)
+        step_mask = torch.ones(QW_B, 512 + 16, dtype=torch.bool, device=dev)
+        pos = torch.full((QW_B,), 512, dtype=torch.long, device=dev)
+        nodes = graph_nodes(lambda: clm.decode_step(params, lm_cfg, cache, tok0, 512, step_mask, rope_pos=pos))
+    summary["decode_step_graph_nodes"] = len(nodes)
+    log(f"  one decode step at B{QW_B} launches {len(nodes)} kernels (its CUDA graph's nodes)")
+    del cache
+    # generate at B 32 x Tp 512, 64 new tokens; then the int8 tree at B 8 below (13c)
+    gen = {}
+    for B in (32,):
+        ids = torch.randint(3, 152000, (B, 512), generator=g, device=dev)
+        am = torch.ones_like(ids, dtype=torch.bool)
+        with torch.inference_mode():
+            clm.generate(params, lm_cfg, ids, am, 64)
+            tm = {}
+            clm.generate(params, lm_cfg, ids, am, 64, timings=tm)
+        step_ms = tm["decode_s"] * 1e3 / 63
+        gen[f"bf16_B{B}"] = {"prefill_ms": tm["prefill_s"] * 1e3, "decode_step_ms": step_ms,
+                             "prefill_tokens_per_s": B * 512 / tm["prefill_s"],
+                             "weight_read_tb_per_s": wbytes / (step_ms / 1e3) / 1e12}
+        log(f"  generate bf16 B{B} Tp512 +64: prefill {tm['prefill_s'] * 1e3:.1f} ms, decode {step_ms:.2f} ms a "
+            f"step ({gen[f'bf16_B{B}']['weight_read_tb_per_s']:.3f} TB/s of weights)")
+    # 13d: the visual path, Qwen2.5-VL-7B's tower, f32 (the tower computes in the pixels' dtype, as in JAX)
+    from rag_docvqa_tpu_torch.models import qwen25_vision as q25
+    from rag_docvqa_tpu_torch.models import qwen_vision as qv
+    from rag_docvqa_tpu_torch.models.vit import ViTConfig
+
+    vcfg = q25.Qwen25VisionConfig(**QWEN7B_VISION)
+    vparams = q25.init_qwen25_vision_params(g, vcfg)
+    vis_engine = RAGQwenEngine(QwenRAGConfig(use_visual=True, max_crops=4), lm_cfg, params, tok, vision_cfg=vcfg,
+                               vision_params=vparams)
+    vis_batches = [ingestor.ingest(qwen_documents(SEED + 130 + i, QW_B, images=True)) for i in range(2)]
+    vis_engine.inference(*vis_batches[0])
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = vis_engine.inference(*vis_batches[1])
+    wall = time.perf_counter() - t0
+    launches["qwen_visual_serve"] = dict(kernels.LAUNCHES)
+    check_launched(launches["qwen_visual_serve"], CAUSAL_LM_KERNELS, "Qwen visual serving")
+    px = torch.randn(QW_B * 4, 112, 112, 3, generator=g, device=dev)
+    with torch.inference_mode():
+        tower_ms = time_ms(lambda: q25.encode_image(vparams, vcfg, px), iters=3, warmup=1)
+    t = {k: v * 1e3 for k, v in out["timings"].items()}
+    summary["visual_serve"] = {"wall_ms": wall * 1e3, **{k.replace("_s", "_ms"): v for k, v in t.items()},
+                               "tower_ms_32_crops": tower_ms}
+    log(f"  visual batch of {QW_B} (4 crops of 112 px a sample, Qwen2.5-VL-7B tower f32): {wall * 1e3:.1f} ms; "
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in t.items()) + f"; the tower alone on 32 crops {tower_ms:.2f} ms")
+    del vparams, vis_engine
+    scfg = qv.QwenVisionConfig(vit=ViTConfig(), out_dim=QWEN7B["d_model"])
+    sparams = qv.init_qwen_vision_params(g, scfg).to(torch.bfloat16)
+    stand_in = RAGQwenEngine(QwenRAGConfig(use_visual=True, max_crops=4), lm_cfg, params, tok, vision_cfg=scfg,
+                             vision_params=sparams)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = stand_in.inference(*vis_batches[1])
+    launches["qwen_stand_in_tower_serve"] = dict(kernels.LAUNCHES)
+    check_launched(launches["qwen_stand_in_tower_serve"], CAUSAL_LM_KERNELS + VIT_KERNELS, "stand-in tower serving")
+    summary["stand_in_tower_serve_ms"] = (time.perf_counter() - t0) * 1e3
+    log(f"  the stand-in tower (ViT-base 224 px through K14, bf16): {summary['stand_in_tower_serve_ms']:.1f} ms a "
+        f"batch; launches {launches['qwen_stand_in_tower_serve']}")
+    del sparams, stand_in
+    summary["generate"] = gen
+    torch.cuda.empty_cache()
+    return launches, summary, params, tok, ingestor
+
+
+def generate_int8(g: torch.Generator) -> dict:
+    """13c, last part: `generate` at B 8 Tp 512 and 64 new tokens on
+    `init_causal_lm_params_int8` weights at the 7B widths (bench.py:793-820);
+    the int8 tree serves `generate` only, as in JAX."""
+    from rag_docvqa_tpu_torch.models import causal_lm as clm
+
+    cfg = clm.CausalLMConfig(**QWEN7B)
+    params = clm.init_causal_lm_params_int8(g, cfg)
+    wbytes = weight_bytes(params)
+    ids = torch.randint(3, 152000, (QW_B, 512), generator=g, device=g.device)
+    am = torch.ones_like(ids, dtype=torch.bool)
+    with torch.inference_mode():
+        tokens, conf = clm.generate(params, cfg, ids, am, 64)
+        tm = {}
+        clm.generate(params, cfg, ids, am, 64, timings=tm)
+    if not bool(torch.isfinite(conf).all()) or tokens.shape != (QW_B, 64):
+        raise AssertionError(f"int8 generate: tokens {tuple(tokens.shape)}, confidences {conf.tolist()}")
+    step_ms = tm["decode_s"] * 1e3 / 63
+    log(f"  generate int8 weights ({wbytes / 1e9:.2f} GB) B{QW_B} Tp512 +64: prefill {tm['prefill_s'] * 1e3:.1f} ms, "
+        f"decode {step_ms:.2f} ms a step ({wbytes / (step_ms / 1e3) / 1e12:.3f} TB/s of int8 weights)")
+    del params
+    torch.cuda.empty_cache()
+    return {"weights_gb": wbytes / 1e9, "prefill_ms": tm["prefill_s"] * 1e3, "decode_step_ms": step_ms,
+            "weight_read_tb_per_s": wbytes / (step_ms / 1e3) / 1e12}
+
+
+def lora_sft(g: torch.Generator, params, tok, ingestor, steps: int = 8):
+    """13f: LoRA SFT at the 7B widths: the bf16 base frozen, f32 adapters of
+    rank 8 on q and v, B 4 x T 536 from `build_sft_batch`, lr 1e-4, 8 steps on
+    the one batch; the loss must fall. Step time split into the forward
+    (through K2), the backward (through K6) and the update; peak memory;
+    K2 and K6 launches (28 each a step)."""
+    from rag_docvqa_tpu_torch import kernels
+    from rag_docvqa_tpu_torch.engine.rag_qwen import QwenRAGConfig, RAGQwenEngine
+    from rag_docvqa_tpu_torch.models import causal_lm as clm
+    from rag_docvqa_tpu_torch.models.lora import init_lora, lora_param_count, merge_lora
+    from rag_docvqa_tpu_torch.training.optimizer import Optimizer
+
+    import numpy as np
+
+    cfg = clm.CausalLMConfig(**QWEN7B)
+    engine = RAGQwenEngine(QwenRAGConfig(), cfg, params, tok, embed_shared=params.embed)
+    ids, mask, labels = engine.build_sft_batch(*ingestor.ingest(qwen_documents(SEED + 139, LORA_B)), seed=0)
+    if ids.shape != (LORA_B, LORA_T):
+        raise AssertionError(f"SFT batch {tuple(ids.shape)}, want ({LORA_B}, {LORA_T})")
+    lora = init_lora(g, params, rank=8)
+    opt = Optimizer(lr=1e-4, clip_norm=None, weight_decay=0.0, constant_lr=True)
+    state = opt.init(lora)
+    named = dict(lora.named_parameters())
+    losses, rows = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(steps):
+        if i == 1:
+            kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss = clm.sft_loss(merge_lora(params, lora), cfg, ids, mask, labels)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        grads = dict(zip(named, torch.autograd.grad(loss, list(named.values()))))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        opt.update(named, grads, state)
+        losses.append(loss.item())
+        t3 = time.perf_counter()
+        rows.append({"forward_ms": (t1 - t0) * 1e3, "backward_ms": (t2 - t1) * 1e3, "update_ms": (t3 - t2) * 1e3})
+        if i == 1:
+            launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  LoRA SFT 7B bf16 base, r8 q/v ({lora_param_count(lora)} adapter values), B{LORA_B} T{LORA_T}: losses "
+        f"{[round(x, 4) for x in losses]}; step (after the first) forward {np.mean([r['forward_ms'] for r in rows[1:]]):.1f} "
+        f"ms, backward {np.mean([r['backward_ms'] for r in rows[1:]]):.1f} ms, update "
+        f"{np.mean([r['update_ms'] for r in rows[1:]]):.2f} ms; peak {peak:.2f} GiB; one step's launches {launches}")
+    check_launched(launches, LORA_KERNELS, "LoRA SFT")
+    if launches["flash_fwd"] != 28 or launches["flash_bwd"] != 28:
+        raise AssertionError(f"a LoRA step launched K2 {launches['flash_fwd']} and K6 {launches['flash_bwd']} times, "
+                             "not 28 each")
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        raise AssertionError(f"LoRA SFT loss did not fall: {losses}")
+    del lora, state, grads
+    torch.cuda.empty_cache()
+    return launches, {"losses": losses, "steps": rows, "peak_gib": peak}
+
+
+def serve_llm_reranked(g: torch.Generator):
+    """13e: RAGVT5Engine.inference (phase 5's t5-base bf16 engine, B 32) with
+    `build_reranker`'s gemma branch at bge-reranker-v2-gemma's Gemma-2b
+    widths (vocabulary 256,000 from its tokenizer) in bf16: 320 pairs of
+    T 192 a batch, 18 K2 launches at dh 256."""
+    from rag_docvqa_tpu_torch import kernels
+    from rag_docvqa_tpu_torch.config import build_reranker
+    from rag_docvqa_tpu_torch.data.contract import Caps
+    from rag_docvqa_tpu_torch.data.ingest import DocVQAIngestor
+    from rag_docvqa_tpu_torch.data.synthetic import make_corpus
+    from rag_docvqa_tpu_torch.data.tokenizer import HashTokenizer
+    from rag_docvqa_tpu_torch.engine.rag_vt5 import RAGConfig, RAGVT5Engine
+    from rag_docvqa_tpu_torch.engine.reranker import FlagLLMReranker
+    from rag_docvqa_tpu_torch.models import t5 as t5m
+    from rag_docvqa_tpu_torch.models import vt5 as vt5m
+    from rag_docvqa_tpu_torch.ops.chunking import ChunkSpec
+
+    tok = HashTokenizer(32128)
+    ingestor = DocVQAIngestor(tok, ChunkSpec(chunk_size=60, overlap=10), Caps())
+    docs = make_corpus(96, n_pages=8, words_per_page=120, seed=SEED + 13)
+    ingestor.caps = ingestor.plan_caps(docs)
+    batches = [ingestor.ingest(docs[i:i + 32]) for i in range(0, 96, 32)]
+    vt5_cfg = vt5m.VT5Config(t5=t5m.T5Config(decode_kv_int8=True, fused_decode_attn=True))
+    params = vt5m.init_vt5_params(g, vt5_cfg).to(torch.bfloat16)
+    t0 = time.perf_counter()
+    reranker = build_reranker(GEMMA_RERANK, HashTokenizer(GEMMA_VOCAB), seed=SEED + 13, device="cuda")
+    reranker.params.to(torch.bfloat16)
+    torch.cuda.synchronize()
+    assert isinstance(reranker, FlagLLMReranker) and reranker.lm_cfg.head_dim == 256, reranker
+    log(f"  Gemma-2b reranker weights {weight_bytes(reranker.params) / 1e9:.2f} GB bf16, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    rcfg = reranker.cfg
+    engine = RAGVT5Engine(RAGConfig(page_retrieval="concat", chunk_num=10, include_surroundings=0,
+                                    max_source_length=512, max_new_tokens=16), vt5_cfg, params, tok, reranker=reranker)
+    engine.inference(*batches[0])
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    results = []
+    for batch, aux in batches[1:]:
+        t0 = time.perf_counter()
+        out = engine.inference(batch, aux)
+        results.append((out, (time.perf_counter() - t0) * 1e3))
+    launches = dict(kernels.LAUNCHES)
+    dh256 = kernels.FORM_LAUNCHES["flash_fwd_dh256"]
+    rows = []
+    for i, (out, wall) in enumerate(results):
+        sims = torch.as_tensor(out["retrieval"]["similarities"])
+        for b, pages in enumerate(out["pred_answer_pages"]):
+            n, s = len(pages), sims[b]
+            if not (rcfg.min_chunk_num <= n <= rcfg.max_chunk_num and bool(torch.isfinite(s[:n]).all())
+                    and bool((s[:n - 1] >= s[1:n]).all()) and bool((s[:n] >= 0).all()) and bool((s[:n] <= 1).all())):
+                raise AssertionError(f"LLM-reranked batch {i} doc {b}: {n} valid ranks with scores {s.tolist()}")
+        rows.append({"wall_ms": wall, "rerank_ms": out["retrieval"]["rerank_time"] * 1e3})
+        log(f"  batch {i}: {wall:.1f} ms wall, the Gemma reranker (320 pairs x T192, 18 layers) "
+            f"{rows[-1]['rerank_ms']:.2f} ms; ranks kept {min(len(p) for p in out['pred_answer_pages'])}.."
+            f"{max(len(p) for p in out['pred_answer_pages'])}")
+    log(f"  launches in the two LLM-reranked batches: {launches}; K2 at dh 256: {dh256}")
+    check_launched(launches, SERVE_KERNELS, "LLM-reranked serving")
+    if dh256 != 18 * 2:
+        raise AssertionError(f"the Gemma reranker launched K2 at dh 256 {dh256} times, not 18 x 2")
+    launches["flash_fwd_dh256"] = dh256
+    del reranker, engine, params
+    torch.cuda.empty_cache()
+    return launches, {"ms_per_batch": sum(r["wall_ms"] for r in rows) / len(rows),
+                      "rerank_ms_per_batch": sum(r["rerank_ms"] for r in rows) / len(rows), "batches": rows,
+                      "k2_dh256_launches_per_batch": dh256 / 2}
+
+
+def qwen_clis() -> dict:
+    """13g: the port's train_lora and eval entry points on
+    configs/Qwen_tiny.yml on the card. The eval CLI runs on the card and on
+    the CPU from the same (seeded) weights with the byte tokenizer (which
+    decodes the generated ids into the answer), and each sample's predicted
+    answer and pages must be equal on both, its confidence within
+    QWEN_CLI_CONF_RTOL (f32 on both devices: the card's K2 and f32 GEMMs
+    without TF32 against the CPU's plain attention and GEMMs)."""
+    import contextlib
+    import io
+
+    from rag_docvqa_tpu_torch import eval as port_eval
+    from rag_docvqa_tpu_torch import kernels
+    from rag_docvqa_tpu_torch import train_lora as port_lora
+
+    import tempfile
+
+    from rag_docvqa_tpu_torch.config import build_qwen_config, load_config, load_tokenizer
+    from rag_docvqa_tpu_torch.train import init_params
+    from rag_docvqa_tpu_torch.training.checkpoint import CheckpointManager
+    from rag_docvqa_tpu_torch.training.train_step import TrainState
+
+    model, data = os.path.join(REPO, "configs/Qwen_tiny.yml"), os.path.join(REPO, "configs/Synthetic.yml")
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        port_lora.main(["-m", model, "-d", data])
+    lora_s = time.perf_counter() - t0
+    lora_launches = dict(kernels.LAUNCHES)
+    line = [x for x in printed.getvalue().splitlines() if "sft_loss=" in x]
+    log(f"  train_lora CLI: {line} ({lora_s:.1f} s); launches {lora_launches}")
+    check_launched(lora_launches, LORA_KERNELS, "train_lora CLI")
+    # the same weights on both devices: the config's seeded init on the CPU, as a checkpoint of the port's trainer;
+    # the byte tokenizer decodes the ids that the LM chose into the answer (the hash tokenizer gives "" for them)
+    config = load_config(model=model, dataset=data, overrides={"tokenizer": "byte"})
+    weights = init_params(config, build_qwen_config(config, load_tokenizer(config.get("tokenizer")).vocab_size),
+                          torch.device("cpu"), kind="qwen")
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp, \
+            contextlib.redirect_stdout(io.StringIO()):
+        CheckpointManager(tmp).save(0, TrainState(params=weights, opt_state={}, step=0))
+        card_path, cpu_path = os.path.join(tmp, "card.json"), os.path.join(tmp, "cpu.json")
+        t0 = time.perf_counter()
+        card = port_eval.main(["-m", model, "-d", data, "--ckpt", tmp, "--save-path", card_path, "tokenizer=byte"])[0]
+        eval_s = time.perf_counter() - t0
+        cpu = port_eval.main(["-m", model, "-d", data, "--ckpt", tmp, "--device", "cpu", "--save-path", cpu_path,
+                              "tokenizer=byte"])[0]
+        samples = []
+        for path in (card_path, cpu_path):
+            with open(path) as f:
+                samples.append(json.load(f)["scores_by_samples"])
+    log(f"  eval CLI: card {card} ({eval_s:.1f} s); CPU {cpu}")
+    on_card, on_cpu = samples
+    if not (line and card["n_samples"] == cpu["n_samples"] == len(on_card) > 0 and on_card.keys() == on_cpu.keys()):
+        raise AssertionError(f"Qwen CLIs: {line}, {card}, {cpu}")
+    conf_err = 0.0
+    for qid, a in on_card.items():
+        b = on_cpu[qid]
+        if (a["pred_answer"], a["pred_answer_pages"]) != (b["pred_answer"], b["pred_answer_pages"]):
+            raise AssertionError(f"Qwen eval CLI, sample {qid}: {a['pred_answer']!r} page {a['pred_answer_pages']} "
+                                 f"on the card, {b['pred_answer']!r} page {b['pred_answer_pages']} on the CPU")
+        conf_err = max(conf_err, abs(a["pred_answer_conf"] - b["pred_answer_conf"])
+                                 / max(abs(b["pred_answer_conf"]), 1e-30))
+    log(f"  eval CLI: {len(on_card)} answers and pages equal on card and CPU; confidences within {conf_err:.2e} "
+        f"relative (limit {QWEN_CLI_CONF_RTOL:.0e})")
+    if not conf_err <= QWEN_CLI_CONF_RTOL:
+        raise AssertionError(f"Qwen eval CLI: confidences {conf_err:.2e} apart relative on card and CPU")
+    return {"train_lora": line[0], "train_lora_s": lora_s, "eval": card, "eval_s": eval_s,
+            "eval_answers_compared": len(on_card), "eval_conf_max_rel_diff": conf_err,
+            "train_lora_launches": lora_launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -5501,8 +6097,8 @@ def main() -> int:
     g = torch.Generator(device="cuda").manual_seed(SEED)
     checks = Checks()
     only = set(sys.argv[1:])  # e.g. `chip_smoke.py 8`: that phase alone, for work on it; no report
-    if only - {"3", "4", "5", "6", "7", "8", "9", "10", "11", "12"}:
-        raise SystemExit(f"usage: chip_smoke.py [phase ...], phases 3-12; got {sorted(only)}")
+    if only - {"3", "4", "5", "6", "7", "8", "9", "10", "11", "12", "13"}:
+        raise SystemExit(f"usage: chip_smoke.py [phase ...], phases 3-13; got {sorted(only)}")
     want = lambda phase: not only or phase in only
     launches, path_launches = {}, {}
     if want("3") or want("4") or want("5"):
@@ -5701,6 +6297,33 @@ def main() -> int:
         path_launches.update(dit_detector=dit_launches, yolo_detector=yolo_launches, transfer_evaluate=transfer_launches,
                              **e2e_launches, **app_launches)
         torch.cuda.empty_cache()
+    if want("13"):
+        g13 = torch.Generator(device="cuda").manual_seed(SEED + 13)  # its own data: the other phases' stay
+        causal = {}
+        log("phase 13a: K2 causal GQA at the Qwen2.5-7B prefill shape, K2 at dh 256 (the Gemma reranker; bf16, f32, "
+            f"tile edges), K6 causal GQA at the LoRA shape, against their plain versions; card and power limit: {card}")
+        check_causal_kernels(checks, g13)
+        log("phase 13b: full-width f32 forward_hidden (7B widths 4 layers, Gemma-2b widths 2 layers) through K2 against "
+            "the plain attention; the f32 LoRA gradient through K2/K6 against autograd through the plain attention")
+        causal["stack_f32"] = check_causal_stack(g13)
+        log(f"phase 13c: RAGQwenEngine.inference from build_engine at Qwen2.5-VL-7B's language-model widths, bf16, B "
+            f"{QW_B} x {QW_DOCS_PAGES} pages; generate B 32; 13d: the visual path; card and power limit: {card}")
+        qwen_launches, causal["qwen"], q7, q7_tok, q7_ingestor = serve_qwen(g13)
+        log(f"phase 13f: LoRA SFT at the 7B widths, bf16 base, r 8 on q and v, B {LORA_B} x T {LORA_T}, 8 steps; card "
+            f"and power limit: {card}")
+        lora_launches, causal["lora_sft"] = lora_sft(g13, q7, q7_tok, q7_ingestor)
+        del q7
+        torch.cuda.empty_cache()
+        log("phase 13c: generate B 8 on init_causal_lm_params_int8 weights at the 7B widths")
+        causal["qwen"]["generate"]["int8_B8"] = generate_int8(g13)
+        log(f"phase 13e: RAGVT5Engine.inference with the Gemma LLM reranker (build_reranker, bge-reranker-v2-gemma "
+            f"widths), bf16, B 32; card and power limit: {card}")
+        llm_rerank_launches, causal["llm_rerank_serve"] = serve_llm_reranked(g13)
+        launches["flash_fwd_dh256"] = llm_rerank_launches["flash_fwd_dh256"]
+        log("phase 13g: the train_lora and eval entry points on configs/Qwen_tiny.yml")
+        causal["clis"] = qwen_clis()
+        path_launches.update(lora_sft=lora_launches, llm_rerank_serve=llm_rerank_launches, **qwen_launches)
+        torch.cuda.empty_cache()
     if only:
         print(json.dumps({"ok": True, "phases": sorted(only), "card": card}), flush=True)
         return 0
@@ -5764,6 +6387,9 @@ def main() -> int:
         "train_forms": forms,
         # phase 12: the layout detectors, precompute layouts through layout-guided serving, the transfer, the apps
         "layouts": layouts,
+        # phase 13: the causal-LM family: f32 stacks and the LoRA gradient, Qwen2.5-VL-7B serving, the visual path,
+        # generate (bf16, int8), LoRA SFT, the Gemma LLM reranker, the CLIs
+        "causal_lm": causal,
         # every kernel's launches in each path's run, counts set to 0 just before it
         "launches_by_path": path_launches,
         "card": card,

@@ -25,7 +25,12 @@ B 256; K15 at Pix2Struct's shapes (Tq = Tp = 128, D 768, 16 patch sets a
 batch row, B 8 and B 32): the kernel alone (one call of the tree's C entry
 point on normalised rows, its inputs prepared beforehand as its wrapper
 prepares them) and `late_interaction` as the engine calls it, with its f32
-normalisation. Runs only on a CUDA device.
+normalisation. `--group flash_fwd` times only K2's forward in f32 at the
+Gemma reranker's shape (B 320, 8 heads on 1 KV head, T 192, dh 256, causal,
+ragged pairs), at t5-base's (B 8, H 12, T 512, dh 64, a shared bias) and at
+the answer-quality model's (B 8, H 4, T 128, dh 16, a shared bias), with
+bf16 at dh 256 as the control, against SDPA on the same inputs. Runs only on
+a CUDA device.
 """
 
 from __future__ import annotations
@@ -64,6 +69,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=os.path.dirname(os.path.abspath(__file__)))
     ap.add_argument("--tag", default="")
+    ap.add_argument("--group", choices=("all", "flash_fwd"), default="all")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
@@ -97,6 +103,35 @@ def main() -> int:
         out, lse = fa.flash_attention_reference(q, k, v, *a)
         out = out.contiguous()  # as K2 returns it: the wrapper would copy a strided one
         case(label, lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, *a))
+
+    def flash_fwd(label, B, T, H, Hkv, dh, lens, shared_bias, scale, causal, dtype):
+        q = randn(B, T, H, dh).to(dtype)
+        k, v = randn(B, T, Hkv, dh).to(dtype), randn(B, T, Hkv, dh).to(dtype)
+        mask = torch.arange(T, device=dev)[None, :] < torch.as_tensor(lens, device=dev)[:, None]
+        bias = randn(1, H, T, T).to(dtype) if shared_bias else None
+        allowed = mask[:, None, None, :]
+        if causal:
+            allowed = allowed & torch.ones(T, T, dtype=torch.bool, device=dev).tril()
+        # SDPA: one mask with the bias added where it is given, else the bool mask
+        sdpa_mask = (bias + torch.where(allowed, 0.0, fe.T5_MASK_VALUE).to(dtype)) if shared_bias else allowed
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        case(label, lambda: fa.flash_attention_fwd(q, k, v, mask, bias, scale, causal),
+             lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=sdpa_mask, scale=scale,
+                                                    enable_gqa=Hkv != H))
+
+    f32 = torch.float32
+    gemma_lens = [192 - (i * 37) % 150 for i in range(320)]
+    flash_fwd("flash_fwd B320 H8 Hkv1 T192 dh256 causal ragged f32", 320, 192, 8, 1, 256, gemma_lens, False,
+              256**-0.5, True, f32)
+    flash_fwd("flash_fwd B320 H8 Hkv1 T192 dh256 causal ragged bf16 (control)", 320, 192, 8, 1, 256, gemma_lens,
+              False, 256**-0.5, True, bf16)
+    flash_fwd("flash_fwd B8 H12 T512 dk64 shared bias f32", 8, 512, 12, 12, 64, [512 - 40 * i for i in range(8)],
+              True, 1.0, False, f32)
+    flash_fwd("flash_fwd B8 H4 T128 dk16 shared bias f32", 8, 128, 4, 4, 16, [128 - 9 * i for i in range(8)],
+              True, 1.0, False, f32)
+    if args.group == "flash_fwd":
+        print(json.dumps({"tag": args.tag, "tree": args.tree, "card": _card(), "cases": rows}), flush=True)
+        return 0
 
     flash("flash_bwd B8 H12 T512 dk64 shared bias t5-mask bf16", 8, 512, 12, 64, [512 - 40 * i for i in range(8)],
           True, 1.0, fe.T5_MASK_VALUE)
@@ -181,10 +216,14 @@ def main() -> int:
         case(f"K15 late_interaction B{B} x {mc} Tq{T} Tp{T} D{d}", lambda: li.late_interaction(q, p, qm, pm))
         del q, p, qn, pn
 
+    print(json.dumps({"tag": args.tag, "tree": args.tree, "card": _card(), "cases": rows}), flush=True)
+    return 0
+
+
+def _card() -> str:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
-    print(json.dumps({"tag": args.tag, "tree": args.tree, "card": smi.stdout.strip(), "cases": rows}), flush=True)
-    return 0
+    return smi.stdout.strip()
 
 
 if __name__ == "__main__":

@@ -14,8 +14,13 @@ training with visual tokens, the LayoutT5 head and remat (training/,
 train.py), evaluation (eval.py) and contrastive fine-tune (train_cl.py), the
 corpus index (parallel/index.py, precompute.py), RAG-Pix2Struct and its
 training loss (engine/rag_pix2struct.py, models/pix2struct.py), Hi-VT5
-(models/hivt5.py), checkpoints from local files (models/loader.py) and the
-datasets, page images and multi-process ingest from local files (data/).
+(models/hivt5.py), checkpoints from local files (models/loader.py), the
+datasets, page images and multi-process ingest from local files (data/), the
+layout detectors, and the causal-LM family: RAG with a Qwen2-family
+generator and either Qwen vision tower (engine/rag_qwen.py,
+models/causal_lm.py, models/qwen25_vision.py, models/qwen_vision.py), the
+Gemma LLM pair reranker (engine/reranker.py) and LoRA SFT (models/lora.py,
+train_lora.py).
 """
 
 __version__ = "0.1.0"

@@ -5,11 +5,12 @@ Counterpart of the VT5, Hi-VT5 and Pix2Struct parts of
 model config, its `training_parameters` and the CLI overrides in that order,
 as there, and the `build_*` helpers map the flat dict onto `RAGConfig`,
 `VT5Config` (with the `use_visual` and `visual_*` keys of the DiT tower),
-`HiVT5Config`, `Pix2StructConfig`, `ChunkSpec` and `Caps`; `expand_sweep`
-expands list-valued keys into the cross product of runs; `build_reranker` is
-the BERT branch of the JAX one (random weights, or a local weight
-directory), `build_engine` the VT5, Hi-VT5 and Pix2Struct branches of the
-JAX model registry with its `rerank` key and the not-answerable classifier
+`HiVT5Config`, `Pix2StructConfig`, `CausalLMConfig` (`build_qwen_config`),
+`ChunkSpec` and `Caps`; `expand_sweep` expands list-valued keys into the
+cross product of runs; `build_reranker` is the JAX one, the BERT
+cross-encoder and the "gemma" LLM pair reranker (random weights, or a local
+weight directory), `build_engine` the VT5, Hi-VT5, Pix2Struct and Qwen
+branches of the JAX model registry with its `rerank` key and the not-answerable classifier
 (`use_not_answerable_classifier`, `not_answerable_threshold`), and
 `load_tokenizer` the hash, byte and local Hugging Face tokenizers.
 PyYAML is imported only by `load_yaml`, so the rest of the port runs where
@@ -18,6 +19,7 @@ it is not installed.
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 from typing import Any, Dict, Iterator, Optional, Sequence
 
@@ -193,17 +195,21 @@ def build_caps(c: Dict[str, Any]) -> Caps:
 
 
 def build_reranker(c: Dict[str, Any], tokenizer, seed: int = 0, device="cuda"):
-    """The cross-encoder reranker of a config: the `rerank_*` keys and the
-    `reranker_*` widths (the JAX defaults), vocabulary the tokenizer's, random
-    weights from `seed` on `device`: the card by default, as the CLIs, which
-    raises without one; the CPU only when asked for. `reranker_weights`
-    naming a local directory loads its Hugging Face BERT / XLM-R weights
-    (models/loader.py, then `convert_bert_state_dict`) in place of the
-    random ones. A weight name with "gemma" selects the LLM pair reranker,
-    which is not ported."""
+    """The reranker of a config: the `rerank_*` keys and the `reranker_*`
+    widths (the JAX defaults), vocabulary the tokenizer's, random weights
+    from `seed` on `device`: the card by default, as the CLIs, which raises
+    without one; the CPU only when asked for. A weight name with "gemma"
+    selects the LLM pair reranker (`FlagLLMReranker`, a Gemma-arch causal LM
+    of the `reranker_*` widths with `reranker_num_kv_heads` and
+    `reranker_head_dim`; a local directory of that name loads its Hugging Face
+    Gemma weights, its config.json giving the widths); any other name the
+    BERT / XLM-R cross-encoder, whose local weight directory is read
+    likewise (models/loader.py, then `convert_bert_state_dict`)."""
+    import os
+
     import torch
 
-    from rag_docvqa_tpu_torch.engine.reranker import Reranker, RerankerConfig
+    from rag_docvqa_tpu_torch.engine.reranker import FlagLLMReranker, Reranker, RerankerConfig
     from rag_docvqa_tpu_torch.models.bert import BertConfig, init_bert_params
 
     rcfg = RerankerConfig(
@@ -215,9 +221,37 @@ def build_reranker(c: Dict[str, Any], tokenizer, seed: int = 0, device="cuda"):
         include_surroundings=_scalar(c.get("include_surroundings", 0)),
     )
     weights = str(c.get("reranker_weights", "") or "")
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError('build_reranker: no CUDA device found; the reranker is built on the GPU by default, '
+                           'pass device="cpu" to build it on the CPU')
     if "gemma" in weights.lower():
-        raise NotImplementedError("the LLM pair reranker (FlagLLMReranker) waits for the causal-LM slice "
-                                  "(ROADMAP Queue 1 item 15)")
+        from rag_docvqa_tpu_torch.models import causal_lm as clm
+        from rag_docvqa_tpu_torch.params import causal_lm_from_jax
+
+        lm_cfg = clm.CausalLMConfig(
+            vocab_size=tokenizer.vocab_size,
+            d_model=c.get("reranker_d_model", 64),
+            num_layers=c.get("reranker_num_layers", 2),
+            num_heads=c.get("reranker_num_heads", 4),
+            num_kv_heads=c.get("reranker_num_kv_heads", 1),
+            d_ff=c.get("reranker_d_ff", 128),
+            qkv_bias=False,
+            arch="gemma",
+            head_dim_override=c.get("reranker_head_dim", 0),
+        )
+        if os.path.isdir(weights):
+            import json
+
+            from rag_docvqa_tpu_torch.models.loader import read_state_dict
+
+            cfg_path = os.path.join(weights, "config.json")
+            if os.path.exists(cfg_path):
+                with open(cfg_path) as f:
+                    lm_cfg = clm.gemma_config_from_hf(json.load(f))
+            params = causal_lm_from_jax(clm.convert_gemma_state_dict(read_state_dict(weights), lm_cfg), device)
+        else:
+            params = clm.init_causal_lm_params(torch.Generator(device=device).manual_seed(seed), lm_cfg)
+        return FlagLLMReranker(rcfg, lm_cfg, params, tokenizer)
     bert_cfg = BertConfig(
         vocab_size=tokenizer.vocab_size,
         hidden_size=c.get("reranker_d_model", 64),
@@ -226,11 +260,6 @@ def build_reranker(c: Dict[str, Any], tokenizer, seed: int = 0, device="cuda"):
         intermediate_size=c.get("reranker_d_ff", 128),
         num_labels=1,
     )
-    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError('build_reranker: no CUDA device found; the reranker is built on the GPU by default, '
-                           'pass device="cpu" to build it on the CPU')
-    import os
-
     if weights and os.path.isdir(weights):
         from rag_docvqa_tpu_torch.models.bert import convert_bert_state_dict
         from rag_docvqa_tpu_torch.models.loader import read_state_dict
@@ -244,10 +273,30 @@ def build_reranker(c: Dict[str, Any], tokenizer, seed: int = 0, device="cuda"):
     return Reranker(rcfg, bert_cfg, params)
 
 
+QWEN_MODELS = ("qwen", "qwen2", "qwen2.5-vl", "ragqwen")
+
+
+def build_qwen_config(c: Dict[str, Any], vocab_size: int):
+    """The Qwen engine's causal LM from the JAX keys (`d_model`,
+    `num_layers`, `num_heads`, `num_kv_heads`, `d_ff`); the rest at the
+    CausalLMConfig defaults (tied head, rope theta 1e6)."""
+    from rag_docvqa_tpu_torch.models.causal_lm import CausalLMConfig
+
+    return CausalLMConfig(
+        vocab_size=vocab_size,
+        d_model=c.get("d_model", 1024),
+        num_layers=c.get("num_layers", 12),
+        num_heads=c.get("num_heads", 16),
+        num_kv_heads=c.get("num_kv_heads", 4),
+        d_ff=c.get("d_ff", 2816),
+    )
+
+
 def build_engine(c: Dict[str, Any], params, tokenizer):
     """The engine of a config: Hi-VT5 for `model_name: Hi-VT5` (params a
     `HiVT5Params`), RAG-Pix2Struct for `model_name: Pix2Struct` (params a
-    `P2SParams`), else RAG-VT5 (params a `VT5Params`), with the
+    `P2SParams`), RAG-Qwen for `model_name: Qwen` (params a `CausalLMParams`;
+    `use_visual` raises, see below), else RAG-VT5 (params a `VT5Params`), with the
     rerank stage when `rerank` is set (its weights on the parameters' device,
     in their dtype) and the not-answerable classifier when
     `use_not_answerable_classifier` is: the parameters' own `nac`, else one
@@ -273,9 +322,30 @@ def build_engine(c: Dict[str, Any], params, tokenizer):
                 use_rag=c.get("page_retrieval", "concat") != "none",
             ),
             build_p2s_config(c, tokenizer.vocab_size), params, tokenizer)
+    if name in QWEN_MODELS:
+        from rag_docvqa_tpu_torch.engine.rag_qwen import QwenRAGConfig, RAGQwenEngine
+
+        use_visual = bool(c.get("use_visual", False))
+        if use_visual:
+            # F10 (ROADMAP Queue 3): the JAX branch calls build_qwen_vision_config, which the JAX package
+            # defines nowhere, so it raises NameError there; RAGQwenEngine takes a tower's config directly
+            raise NotImplementedError("use_visual for the Qwen engine: the JAX build_engine calls "
+                                      "build_qwen_vision_config, which is defined nowhere (F10); pass the tower's "
+                                      "config and weights to RAGQwenEngine directly")
+        return RAGQwenEngine(
+            QwenRAGConfig(
+                chunk_num=c.get("chunk_num", 10),
+                include_surroundings=_scalar(c.get("include_surroundings", 0)),
+                max_prompt_tokens=c.get("max_prompt_tokens", c.get("max_source_length", 512)),
+                max_new_tokens=c.get("max_new_tokens", 16),
+                use_visual=use_visual,
+                max_crops=c.get("max_crops", 4),
+            ),
+            # the head is tied or not as the parameters are (an untied tree carries `lm_head`)
+            dataclasses.replace(build_qwen_config(c, tokenizer.vocab_size), tie_word_embeddings=params.lm_head is None),
+            params, tokenizer)
     if name not in ("vt5", "ragvt5", "rag-vt5"):
-        raise NotImplementedError(f"engine {name!r}: the port has RAG-VT5, Hi-VT5 and RAG-Pix2Struct; the "
-                                  "causal-LM engines wait in ROADMAP Queue 1 item 15")
+        raise NotImplementedError(f"engine {name!r}: the port has RAG-VT5, Hi-VT5, RAG-Pix2Struct and RAG-Qwen")
     shared = params.t5.shared
     reranker = nac = None
     if c.get("rerank", False):

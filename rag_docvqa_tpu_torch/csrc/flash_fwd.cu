@@ -31,11 +31,17 @@
 // rescale of O by alpha. K/V tiles of 64 keys come through a ring of FST
 // stages filled by 16-byte cp.async, two tiles in flight while one is
 // worked on; rows past Tk and columns past dh are zero-filled, so any dh <=
-// 128 runs in the 64- or 128-wide instantiation. Inputs whose rows are not
+// 256 runs in the 64-, 128- or 256-wide instantiation. Inputs whose rows are not
 // 16-byte aligned (dh % 8 != 0, odd strides) fill the same tiles with plain
 // loads. A tile's key-mask bytes are folded with the Tk bound into one code
 // per key in shared memory. Three blocks fit an SM (57 KB each at dh 64), so
 // one block's softmax overlaps another's products.
+// dh 256 (the Gemma rerankers, TPU block sizing at flash_attention.py:976-1016
+// of the JAX package): the same kernel with four 64-column tiles across dh.
+// Its ring takes 230,592 bytes of shared memory, just under the 232,448 one
+// block may opt into, so one block an SM; launch bounds (128, 1) let its O
+// accumulator (64 x 256 f32: 128 registers a thread) sit in registers beside S
+// and P.
 // Cast points, as the TPU kernel's: f32 scores, p rounded to bf16 before p @ v,
 // the row sum l over the unrounded p, f32 accumulation, the division by
 // max(l, 1e-30) last. exp(x - m) is ex2.approx.ftz of (x - m) * log2 e, the
@@ -43,10 +49,14 @@
 //
 // f32 rows (flash_fwd_kernel) keep the exact SIMT design, since the tensor
 // cores have no exact f32 product: one block per (32-query tile, head, batch
-// row); 128 threads, four per query row. Key/value tiles of 64 rows are staged
-// in shared memory as f32; each thread keeps 16 scores and dh/4 output columns
-// in registers and the row's running max and sum are combined across its four
-// threads with warp shuffles; expf.
+// row); 128 threads, four per query row. Key/value tiles of 64 rows (32 at
+// dh 256) are staged in shared memory as f32; each thread keeps 16 (8) scores
+// and dh/4 output columns, as groups of four neighbours, in registers, and
+// reads Q, K and V from shared memory four floats at a time; the row's running
+// max and sum are combined across its four threads with warp shuffles; expf.
+// Every sum runs in the order of a one-float-at-a-time loop. At dh 256 (dh
+// 129-256 padded to it) a block takes 103,552 bytes of shared memory, so two
+// blocks fit an SM, and each thread 64 accumulators.
 //
 // Neither uses atomics: the same input gives the same bits on every run.
 #include "hopper.cuh"
@@ -54,14 +64,22 @@
 namespace {
 
 constexpr int BQ = 32;   // query rows per block
-constexpr int BKT = 64;  // keys per tile
 constexpr int NT = 128;  // threads per block, four per query row
 constexpr float NEG_INF = -1e30f;
 constexpr float EXCLUDED = -3.402823466e38f;  // key past Tk: never weighted
 
+// keys per tile: 64, and 32 at dh 256, so that two blocks fit an SM there
+template <int DH>
+__host__ __device__ constexpr int bkt() { return DH > 128 ? 32 : 64; }
+// row stride of the Q and K tiles: 16-byte aligned for float4 reads, and
+// 4 banks apart, so the four keys (and the eight query rows) a warp reads at
+// one d lie in distinct banks
+template <int DH>
+__host__ __device__ constexpr int kstride() { return DH + 4; }
+
 template <int DH>
 constexpr int smem_floats() {
-  return BQ * (DH + 1) + BKT * (DH + 1) + BKT * DH + BQ * (BKT + 1);
+  return BQ * kstride<DH>() + bkt<DH>() * kstride<DH>() + bkt<DH>() * DH + BQ * (bkt<DH>() + 1);
 }
 
 template <typename T, typename BT, int DH>
@@ -73,11 +91,12 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
     long long q_sb, long long q_st, long long k_sb, long long k_st,
     long long v_sb, long long v_st, int bias_batched,
     float scale, int causal, float mask_value) {
-  extern __shared__ float smem[];
-  float* Qs = smem;                   // [BQ][DH + 1]
-  float* Ks = Qs + BQ * (DH + 1);     // [BKT][DH + 1]
-  float* Vs = Ks + BKT * (DH + 1);    // [BKT][DH]
-  float* Ps = Vs + BKT * DH;          // [BQ][BKT + 1]
+  constexpr int BKT = bkt<DH>(), KS = kstride<DH>();
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;              // [BQ][KS]
+  float* Ks = Qs + BQ * KS;      // [BKT][KS]
+  float* Vs = Ks + BKT * KS;     // [BKT][DH]
+  float* Ps = Vs + BKT * DH;     // [BQ][BKT + 1]
 
   const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (H / Hkv);
@@ -93,14 +112,14 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
 
   for (int i = tid; i < BQ * DH; i += NT) {
     const int rr = i / DH, d = i % DH, gq = q0 + rr;
-    Qs[rr * (DH + 1) + d] = (gq < Tq && d < dh) ? to_f(qb[gq * q_st + d]) : 0.f;
+    Qs[rr * KS + d] = (gq < Tq && d < dh) ? to_f(qb[gq * q_st + d]) : 0.f;
   }
 
-  constexpr int NC = BKT / 4;  // scores per thread per tile
-  constexpr int ND = DH / 4;   // output columns per thread
-  float acc[ND];
+  constexpr int NC = BKT / 4;   // scores per thread per tile: keys sub + 4j
+  constexpr int NG = DH / 16;   // output column groups per thread: columns 16g + 4 sub .. + 3
+  float4 acc[NG];
 #pragma unroll
-  for (int j = 0; j < ND; ++j) acc[j] = 0.f;
+  for (int j = 0; j < NG; ++j) acc[j] = make_float4(0.f, 0.f, 0.f, 0.f);
   float m = EXCLUDED, l = 0.f;
 
   const BT* bias_row = nullptr;
@@ -115,18 +134,26 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
     for (int i = tid; i < BKT * DH; i += NT) {
       const int c = i / DH, d = i % DH, gk = k0 + c;
       const bool in = gk < Tk && d < dh;
-      Ks[c * (DH + 1) + d] = in ? to_f(kb[gk * k_st + d]) : 0.f;
+      Ks[c * KS + d] = in ? to_f(kb[gk * k_st + d]) : 0.f;
       Vs[c * DH + d] = in ? to_f(vb[gk * v_st + d]) : 0.f;
     }
     __syncthreads();
 
+    // q . k over d in order, four columns a float4 read
     float s[NC];
 #pragma unroll
     for (int j = 0; j < NC; ++j) s[j] = 0.f;
-    for (int d = 0; d < DH; ++d) {
-      const float qd = Qs[r * (DH + 1) + d];
+    const float4* qr = reinterpret_cast<const float4*>(Qs + r * KS);
+    for (int d4 = 0; d4 < DH / 4; ++d4) {
+      const float4 qd = qr[d4];
 #pragma unroll
-      for (int j = 0; j < NC; ++j) s[j] += qd * Ks[(sub + 4 * j) * (DH + 1) + d];
+      for (int j = 0; j < NC; ++j) {
+        const float4 kd = reinterpret_cast<const float4*>(Ks + (sub + 4 * j) * KS)[d4];
+        s[j] += qd.x * kd.x;
+        s[j] += qd.y * kd.y;
+        s[j] += qd.z * kd.z;
+        s[j] += qd.w * kd.w;
+      }
     }
 
     float tmax = EXCLUDED;
@@ -165,11 +192,23 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
     __syncwarp();  // the row's four threads (one warp) wrote Ps
 
 #pragma unroll
-    for (int j = 0; j < ND; ++j) acc[j] *= alpha;
+    for (int j = 0; j < NG; ++j) {
+      acc[j].x *= alpha;
+      acc[j].y *= alpha;
+      acc[j].z *= alpha;
+      acc[j].w *= alpha;
+    }
     for (int c = 0; c < BKT; ++c) {
       const float p = Ps[r * (BKT + 1) + c];
+      const float4* vr = reinterpret_cast<const float4*>(Vs + c * DH) + sub;
 #pragma unroll
-      for (int j = 0; j < ND; ++j) acc[j] += p * Vs[c * DH + sub + 4 * j];
+      for (int j = 0; j < NG; ++j) {
+        const float4 vd = vr[4 * j];
+        acc[j].x += p * vd.x;
+        acc[j].y += p * vd.y;
+        acc[j].z += p * vd.z;
+        acc[j].w += p * vd.w;
+      }
     }
   }
 
@@ -177,9 +216,12 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
     const float denom = fmaxf(l, 1e-30f);
     T* orow = out + (((long long)b * Tq + qrow) * H + h) * dh;
 #pragma unroll
-    for (int j = 0; j < ND; ++j) {
-      const int d = sub + 4 * j;
-      if (d < dh) orow[d] = from_f<T>(acc[j] / denom);
+    for (int j = 0; j < NG; ++j) {
+      const int d = 16 * j + 4 * sub;
+      const float o[4] = {acc[j].x, acc[j].y, acc[j].z, acc[j].w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (d + e < dh) orow[d + e] = from_f<T>(o[e] / denom);
     }
     if (lse != nullptr && sub == 0)
       lse[((long long)b * H + h) * Tq + qrow] = m > NEG_INF * 0.5f ? m + logf(denom) : NEG_INF;
@@ -200,7 +242,7 @@ constexpr int wgmma_smem_bytes() {
 }
 
 template <typename BT, int DH, bool VEC>
-__global__ void __launch_bounds__(128, DH == 64 ? 3 : 2) flash_fwd_wgmma_kernel(
+__global__ void __launch_bounds__(128, DH == 64 ? 3 : (DH == 128 ? 2 : 1)) flash_fwd_wgmma_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const uint8_t* __restrict__ mask,
     const BT* __restrict__ bias, __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
@@ -231,11 +273,14 @@ __global__ void __launch_bounds__(128, DH == 64 ? 3 : 2) flash_fwd_wgmma_kernel(
 
   // 64 rows of `src` from row r0 into NS swizzled tiles at `off` past the
   // base; rows past `rows` and columns past dh are zeros. VEC: 16-byte
-  // cp.async, DH / 8 neighbouring threads on one row; a thread's chunk and its
-  // row modulo 8 are the same in every pass, so its swizzled offset is too.
+  // cp.async, DH / 8 neighbouring threads on one row. Up to dh 128 a pass
+  // covers a multiple of 8 rows, so a thread's chunk and its row modulo 8 are
+  // the same in every pass, and so is its swizzled offset; at dh 256 a pass
+  // covers 4 rows, and the swizzle alternates between two offsets.
   constexpr int CPR = DH / 8, RPP = 128 / CPR;  // chunks a row, rows a pass
   const int ld_c = tid % CPR, ld_r = tid / CPR;
   const uint32_t ld_off = (ld_c >> 3) * SUB + swz_off(ld_r, ld_c & 7);
+  const uint32_t ld_off_odd = (ld_c >> 3) * SUB + swz_off(ld_r + RPP, ld_c & 7) - RPP * 128;
   const bool ld_col = ld_c * 8 < dh;
   auto load_rows = [&](uint32_t off, const bf16* src, long long st, int r0, int rows) {
     if (VEC) {
@@ -243,7 +288,8 @@ __global__ void __launch_bounds__(128, DH == 64 ? 3 : 2) flash_fwd_wgmma_kernel(
 #pragma unroll
       for (int pass = 0; pass < 64 / RPP; ++pass) {
         const bool in = ld_col && r0 + ld_r + pass * RPP < rows;
-        cp_async16(base + off + ld_off + pass * RPP * 128, in ? p + (long long)pass * RPP * st : src, in);
+        const uint32_t o = (RPP % 8 == 0 || pass % 2 == 0) ? ld_off : ld_off_odd;
+        cp_async16(base + off + o + pass * RPP * 128, in ? p + (long long)pass * RPP * st : src, in);
       }
     } else {
       for (int i = tid; i < 64 * DH; i += 128) {
@@ -504,6 +550,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* mask
   auto kern = flash_fwd_kernel<T, BT, DH>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
+  // all of the SM's shared memory, so that two dh-256 blocks (103,552 bytes each) are resident
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
   dim3 grid((Tq + BQ - 1) / BQ, H, B);
   kern<<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
@@ -521,16 +570,17 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* mask
 #define FLASH_ARGS q, k, v, mask, bias, out, lse, B, H, Hkv, Tq, Tk, dh, q_sb, q_st, \
                    k_sb, k_st, v_sb, v_st, bias_batched, scale, causal, mask_value, s
 
-// f32 rows: the SIMT kernel, dh padded to 32, 64 or 128
+// f32 rows: the SIMT kernel, dh padded to 32, 64, 128 or 256
 template <typename BT>
 cudaError_t launch_f32(FLASH_PARAMS) {
   if (dh <= 32) return launch<float, BT, 32>(FLASH_ARGS);
   if (dh <= 64) return launch<float, BT, 64>(FLASH_ARGS);
   if (dh <= 128) return launch<float, BT, 128>(FLASH_ARGS);
+  if (dh <= 256) return launch<float, BT, 256>(FLASH_ARGS);
   return cudaErrorInvalidValue;
 }
 
-// bf16 rows: the wgmma kernel, dh padded to 64 or 128; 16-byte copies where
+// bf16 rows: the wgmma kernel, dh padded to 64, 128 or 256; 16-byte copies where
 // every row of q, k and v starts on a 16-byte boundary, plain loads elsewhere
 template <typename BT>
 cudaError_t launch_bf16(FLASH_PARAMS) {
@@ -539,6 +589,7 @@ cudaError_t launch_bf16(FLASH_PARAMS) {
                    v_sb % 8 == 0 && v_st % 8 == 0 && aligned(q) && aligned(k) && aligned(v);
   if (dh <= 64) return vec ? launch_wgmma<BT, 64, true>(FLASH_ARGS) : launch_wgmma<BT, 64, false>(FLASH_ARGS);
   if (dh <= 128) return vec ? launch_wgmma<BT, 128, true>(FLASH_ARGS) : launch_wgmma<BT, 128, false>(FLASH_ARGS);
+  if (dh <= 256) return vec ? launch_wgmma<BT, 256, true>(FLASH_ARGS) : launch_wgmma<BT, 256, false>(FLASH_ARGS);
   return cudaErrorInvalidValue;
 }
 

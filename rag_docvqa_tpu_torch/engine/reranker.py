@@ -15,9 +15,16 @@ two are identical at include_surroundings=0.
 
 The sort is `torch.sort(descending=True, stable=True)` on the scores, which
 keeps equal scores in rank order as `jnp.argsort(-x, stable=True)` does
-(tests/test_torch_reranker.py holds ties and invalid ranks against it). The
-LLM pair reranker (`FlagLLMReranker`) waits for the causal-LM slice
-(ROADMAP Queue 1 item 15).
+(tests/test_torch_reranker.py holds ties and invalid ranks against it).
+
+The LLM pair reranker: `build_llm_pair_tokens` lays out prefix ++ question
+++ mid ++ chunk ++ instruction suffix for each pair (the bge-reranker-v2-gemma
+prompt), `FlagLLMReranker` scores a pair by the causal LM's yes-token logit
+at the pair's last position (sigmoid-normalised, so `filter_thresh` keeps its
+[0, 1] meaning) and `_llm_pair_yes_logits` dots the final hidden state with
+the yes column of the head alone, never forming the (N, T, V) logits. The
+LM's attention is K2 (with a Gemma backbone: dh 256, MQA), under
+`torch.no_grad()`: scoring is inference only.
 """
 
 from __future__ import annotations
@@ -168,3 +175,95 @@ class Reranker:
         scores = cross_encoder_score(self.params, self.bert_cfg, ids, mask).float().reshape(B, K)
         perm, new_valid, sorted_scores = rerank_select(scores, ret.top_k_valid, self.cfg)
         return apply_rerank(ret, perm, new_valid, sorted_scores)
+
+
+# --------------------------------------------------------------------------- #
+# the LLM (Gemma-style) pair reranker
+# --------------------------------------------------------------------------- #
+def build_llm_pair_tokens(batch: ChunkedBatch, top_k_idx: torch.Tensor, prefix: torch.Tensor, mid: torch.Tensor,
+                          suffix: torch.Tensor, cfg: RerankerConfig
+                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(B*K, pair_len) ids laid out prefix ++ q ++ mid ++ chunk ++ suffix, the
+    mask, and each row's last valid position (where the yes logit is read).
+    The question's budget keeps every segment in the row whatever the
+    tokenizer; the chunk is clamped to leave room for the suffix."""
+    B, K = top_k_idx.shape
+    LQ = batch.q_tokens.shape[1]
+    LE = batch.chunk_emb_tokens.shape[2]
+    T = cfg.pair_len
+    n_prefix, n_mid, n_suffix = len(prefix), len(mid), len(suffix)
+    if n_prefix + 1 + n_mid + n_suffix >= T:
+        raise ValueError(f"pair_len={T} cannot fit prefix({n_prefix}) + question(>=1) + mid({n_mid}) + "
+                         f"suffix({n_suffix}); raise RerankerConfig.pair_len")
+    dev = top_k_idx.device
+    q_budget = T - n_prefix - n_mid - n_suffix - 1
+    q_len = batch.q_mask.sum(dim=1).clamp(max=min(cfg.question_len, q_budget))  # (B,)
+    gather_idx = top_k_idx[:, :, None].expand(B, K, LE)
+    chunk_tokens = torch.gather(batch.chunk_emb_tokens, 1, gather_idx)
+    chunk_len = torch.gather(batch.chunk_emb_mask, 1, gather_idx).sum(dim=2)
+
+    pos = torch.arange(T, device=dev)[None, None, :]
+    b_q = n_prefix
+    b_mid = b_q + q_len[:, None, None]
+    b_chunk = b_mid + n_mid
+    b_suf = (b_chunk + chunk_len[:, :, None]).clamp(max=T - n_suffix)
+    last = b_suf + n_suffix - 1  # (B, K, 1)
+
+    q_tok = _take(batch.q_tokens[:, None, :], (pos - b_q).clamp(0, LQ - 1))
+    c_tok = _take(chunk_tokens, (pos - b_chunk).clamp(0, LE - 1))
+    p_tok = prefix.to(dev)[pos.clamp(0, n_prefix - 1)]
+    m_tok = mid.to(dev)[(pos - b_mid).clamp(0, n_mid - 1)]
+    s_tok = suffix.to(dev)[(pos - b_suf).clamp(0, n_suffix - 1)]
+    zero = torch.zeros((), dtype=q_tok.dtype, device=dev)
+    ids = torch.where(pos < b_q, p_tok.to(q_tok.dtype),
+                      torch.where(pos < b_mid, q_tok,
+                                  torch.where(pos < b_chunk, m_tok.to(q_tok.dtype),
+                                              torch.where(pos < b_suf, c_tok,
+                                                          torch.where(pos <= last, s_tok.to(q_tok.dtype), zero)))))
+    ids = ids.expand(B, K, T)
+    mask = (pos <= last).expand(B, K, T)
+    return (ids.reshape(B * K, T).to(torch.int32), mask.reshape(B * K, T),
+            last.expand(B, K, 1).reshape(B * K).to(torch.int32))
+
+
+LLM_RERANK_PROMPT = ("Given a query A and a passage B, determine whether the passage contains an answer to the "
+                     "query by providing a prediction of either 'Yes' or 'No'.")
+
+
+class FlagLLMReranker:
+    """LLM pair reranker: a (query, passage) pair scores the causal LM's
+    yes-token logit at the pair's last position (the bge-reranker-v2-gemma
+    scheme); `normalize` passes it through a sigmoid. `build_reranker`
+    selects it when "gemma" is in the reranker weight name."""
+
+    def __init__(self, cfg: RerankerConfig, lm_cfg, params, tokenizer, yes_token: str = "Yes",
+                 normalize: bool = True):
+        self.cfg = cfg
+        self.lm_cfg = lm_cfg
+        self.params = params  # models.causal_lm.CausalLMParams
+        self.normalize = normalize
+        self.yes_id = tokenizer.encode(yes_token)[0]
+        as_ids = lambda text: torch.tensor(tokenizer.encode(text), dtype=torch.int64)
+        self._prefix, self._mid, self._suffix = as_ids("A:"), as_ids("B:"), as_ids(LLM_RERANK_PROMPT)
+
+    def __call__(self, batch: ChunkedBatch, ret: RetrievalResult) -> RetrievalResult:
+        B, K = ret.top_k_idx.shape
+        ids, mask, last = build_llm_pair_tokens(batch, ret.top_k_idx, self._prefix, self._mid, self._suffix, self.cfg)
+        scores = _llm_pair_yes_logits(self.params, self.lm_cfg, ids, mask, last, self.yes_id).reshape(B, K)
+        if self.normalize:
+            scores = torch.sigmoid(scores)
+        perm, new_valid, sorted_scores = rerank_select(scores, ret.top_k_valid, self.cfg)
+        return apply_rerank(ret, perm, new_valid, sorted_scores)
+
+
+@torch.no_grad()
+def _llm_pair_yes_logits(params, lm_cfg, ids: torch.Tensor, mask: torch.Tensor, last: torch.Tensor,
+                         yes_id: int) -> torch.Tensor:
+    """The yes-token logit (f32) at each row's last position: the final
+    hidden state dotted with the yes column of the LM head alone."""
+    from rag_docvqa_tpu_torch.models import causal_lm
+
+    h = causal_lm.forward_hidden(params, lm_cfg, ids, mask)
+    h_last = h[torch.arange(ids.shape[0], device=ids.device), last.long()]
+    w = params.embed[yes_id] if lm_cfg.tie_word_embeddings else params.lm_head[yes_id]
+    return (h_last @ w.to(h_last.dtype)).float()

@@ -4,8 +4,9 @@
         [k=v ...] [--split val] [--ckpt DIR] [--hf-weights DIR] [--save-path FILE] [--sweep] [--device cuda|cpu]
 
 The CLI of the root `eval.py` for RAG-VT5, Hi-VT5 (`model_name: Hi-VT5`,
-configs/HiVT5_tiny.yml) and RAG-Pix2Struct (`model_name: Pix2Struct`,
-configs/Pix2Struct_tiny.yml): layered YAML configs and key=value overrides,
+configs/HiVT5_tiny.yml), RAG-Pix2Struct (`model_name: Pix2Struct`,
+configs/Pix2Struct_tiny.yml) and RAG-Qwen (`model_name: Qwen`,
+configs/Qwen_tiny.yml: the causal LM of `build_qwen_config`): layered YAML configs and key=value overrides,
 random weights from the config's seed (with the not-answerable classifier
 from seed + 1 when `use_not_answerable_classifier` is set), overlaid by the
 best (else the latest) step of a checkpoint directory the port's trainer
@@ -27,8 +28,7 @@ list-valued keys into the cross product of configs.
 
 `--device` takes the place of `--platform`; the default is cuda, and without
 a CUDA device the CLI raises unless `--device cpu` is given. Not ported yet,
-and raising: data-parallel evaluation (ROADMAP Queue 1 item 17) and the
-causal-LM engines (item 15).
+and raising: data-parallel evaluation (ROADMAP Queue 1 item 17).
 """
 
 from __future__ import annotations
@@ -60,9 +60,9 @@ def main(argv=None):
     if args.data_parallel:
         raise NotImplementedError("data-parallel evaluation waits for ROADMAP Queue 1 item 17")
 
-    from rag_docvqa_tpu_torch.config import (build_caps, build_chunk_spec, build_engine, build_hivt5_config,
-                                             build_p2s_config, build_vt5_config, expand_sweep, load_config,
-                                             load_tokenizer)
+    from rag_docvqa_tpu_torch.config import (QWEN_MODELS, build_caps, build_chunk_spec, build_engine,
+                                             build_hivt5_config, build_p2s_config, build_qwen_config,
+                                             build_vt5_config, expand_sweep, load_config, load_tokenizer)
     from rag_docvqa_tpu_torch.data.ingest import DocVQAIngestor
     from rag_docvqa_tpu_torch.engine.evaluate import evaluate
     from rag_docvqa_tpu_torch.metrics import Evaluator
@@ -78,8 +78,6 @@ def main(argv=None):
     results = []
     for run_idx, config in enumerate(configs):
         model_name = str(config.get("model_name", "VT5")).lower()
-        if model_name in ("qwen", "qwen2", "qwen2.5-vl", "ragqwen"):
-            raise NotImplementedError("the causal-LM engines wait for ROADMAP Queue 1 item 15")
         hf_defaults(config)
         tokenizer = load_tokenizer(config.get("tokenizer"))
         if args.ingest_workers > 0:
@@ -96,6 +94,8 @@ def main(argv=None):
             params = init_params(config, build_hivt5_config(config, tokenizer.vocab_size), device, kind="hivt5")
         elif model_name in ("pix2struct", "ragpix2struct"):
             params = init_params(config, build_p2s_config(config, tokenizer.vocab_size), device, kind="pix2struct")
+        elif model_name in QWEN_MODELS:
+            params = init_params(config, build_qwen_config(config, tokenizer.vocab_size), device, kind="qwen")
         else:
             params = init_params(config, build_vt5_config(config, tokenizer.vocab_size), device)
         engine = build_engine(config, params, tokenizer)

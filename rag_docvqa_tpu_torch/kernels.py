@@ -9,8 +9,10 @@ as `c_void_p`. Each C entry point returns `cudaGetLastError()` after its
 launch and `check` raises on anything but 0.
 
 `LAUNCHES` counts, per kernel, the launches made through the wrappers in
-`ops/`: each wrapper adds one where it launches, and nowhere else. It, the
-loaded library and the answers `resident` keeps are this package's only
+`ops/`: each wrapper adds one where it launches, and nowhere else;
+`FORM_LAUNCHES` counts, at the same places, the launches of a kernel's
+form that a path must be shown to reach (K2 at dh 256). They, the loaded
+library and the answers `resident` keeps are this package's only
 module-level state.
 """
 
@@ -55,6 +57,10 @@ LAUNCHES: Dict[str, int] = {
     "vit_attention": 0,    # K14 attention, csrc/vit_layer.cu
     "maxsim": 0,           # K15, csrc/maxsim.cu
 }
+# launches of one form of a kernel, counted besides the kernel's own count
+FORM_LAUNCHES: Dict[str, int] = {
+    "flash_fwd_dh256": 0,  # K2 at a head dim above 128 (the 256-wide instantiation)
+}
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -96,8 +102,9 @@ _resident: Dict[tuple, int] = {}
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, FORM_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def _sources():

@@ -6,7 +6,7 @@ Counterpart of `rag_docvqa_tpu/models/loader.py` (`read_state_dict`,
 `load_hivt5_params`, `load_params_for`). A checkpoint is read into a
 `{name: np.ndarray}` state dict and converted into the JAX package's tree of
 numpy arrays, which is merged over the tree of `params_like` (a port module:
-`VT5Params`, `HiVT5Params` or `P2SParams`) so that the parts the checkpoint
+`VT5Params`, `HiVT5Params`, `P2SParams` or `CausalLMParams`) so that the parts the checkpoint
 lacks keep their initialisation, as a non-strict `load_state_dict` does; the
 result is a module of `params_like`'s kind on its device in its dtype.
 Without `params_like` the converted tree itself is returned, as in JAX.
@@ -126,9 +126,13 @@ def _overlay(params_like, converted: Dict[str, Any]):
     if params_like is None:
         return converted
     from rag_docvqa_tpu_torch import params as P
+    from rag_docvqa_tpu_torch.models.causal_lm import CausalLMParams
     from rag_docvqa_tpu_torch.models.hivt5 import HiVT5Params
     from rag_docvqa_tpu_torch.models.pix2struct import P2SParams
 
+    if isinstance(params_like, CausalLMParams):
+        return P.causal_lm_from_jax(_merge(P.causal_lm_to_jax(params_like), converted),
+                                    params_like.device).to(params_like.embed.dtype)
     if isinstance(params_like, HiVT5Params):
         to_tree, from_tree, shared = P.hivt5_to_jax, P.hivt5_from_jax, params_like.t5.shared
     elif isinstance(params_like, P2SParams):
@@ -220,10 +224,10 @@ def load_hivt5_params(path: str, cfg, params_like=None):
 
 
 def load_params_for(kind: str, path: str, cfg, params_like=None):
-    """Checkpoint load by model kind: vt5 | hivt5 | pix2struct. A directory
+    """Checkpoint load by model kind: vt5 | hivt5 | pix2struct | qwen (an HF
+    Qwen2ForCausalLM directory, `convert_qwen2_state_dict`). A directory
     the port's trainer wrote (it holds `checkpoints.json`) is read by
-    `load_checkpoint_params` into `params_like` whatever the kind. The
-    causal-LM (qwen) weights wait for their model."""
+    `load_checkpoint_params` into `params_like` whatever the kind."""
     if os.path.isfile(os.path.join(path, "checkpoints.json")):
         return load_checkpoint_params(path, params_like)
     kind = kind.lower()
@@ -236,7 +240,9 @@ def load_params_for(kind: str, path: str, cfg, params_like=None):
 
         return _overlay(params_like, convert_p2s_state_dict(read_state_dict(path), cfg))
     if kind.startswith("qwen"):
-        raise NotImplementedError("causal-LM checkpoints wait for the causal-LM slice (ROADMAP Queue 1 item 15)")
+        from rag_docvqa_tpu_torch.models.causal_lm import convert_qwen2_state_dict
+
+        return _overlay(params_like, convert_qwen2_state_dict(read_state_dict(path), cfg))
     raise ValueError(f"unknown checkpoint kind: {kind}")
 
 

@@ -19,6 +19,11 @@ bias and per batch for a (B, H, Tq, Tk) one. `FlashAttention` is the
 `torch.autograd.Function` whose forward is K2 and whose backward is K6, the
 counterpart of the JAX `_flash_core` custom VJP.
 
+K2 takes head dims up to 256 (`MAX_HEAD_DIM`; the LLM reranker's Gemma
+backbone has dh 256), K6 up to 128 (`MAX_BWD_HEAD_DIM`). A K2 launch at a
+head dim above 128 counts under `kernels.FORM_LAUNCHES["flash_fwd_dh256"]`
+as well as "flash_fwd".
+
 On CUDA tensors the wrappers launch csrc/flash_fwd.cu and csrc/flash_bwd.cu;
 on CPU tensors they run `flash_attention_reference` and
 `flash_attention_bwd_reference`, the kernels' plain versions.
@@ -33,7 +38,8 @@ import torch
 from rag_docvqa_tpu_torch import kernels
 
 NEG_INF = -1e30
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256  # K2: 64-, 128- and 256-wide instantiations (dh 256: the Gemma rerankers)
+MAX_BWD_HEAD_DIM = 128  # K6: 64- and 128-wide
 
 
 def _valid_mask(key_mask, B, Tq, Tk, causal, device):
@@ -97,12 +103,13 @@ def _check_heads_contiguous(name, t, dh):
                     f"{name}: heads and dh must be contiguous, strides {t.stride()}")
 
 
-def _check_inputs(q, k, v, key_mask, bias):
-    """The checks both kernels make on their shared inputs; returns
-    (dtype code, bias_batched, bias dtype code)."""
+def _check_inputs(q, k, v, key_mask, bias, max_dh=MAX_HEAD_DIM):
+    """The checks both kernels make on their shared inputs (`max_dh` the
+    kernel's widest head); returns (dtype code, bias_batched, bias dtype
+    code)."""
     B, Tq, H, dh = q.shape
     Tk, Hkv = k.shape[1], k.shape[2]
-    kernels.require(dh <= MAX_HEAD_DIM, f"head dim {dh} > {MAX_HEAD_DIM}")
+    kernels.require(dh <= max_dh, f"head dim {dh} > {max_dh}")
     kernels.require(H % Hkv == 0, f"query heads {H} not a multiple of kv heads {Hkv}")
     kernels.require(k.shape == v.shape and k.shape[0] == B and k.shape[3] == dh,
                     f"k {tuple(k.shape)} / v {tuple(v.shape)} do not fit q {tuple(q.shape)}")
@@ -137,6 +144,8 @@ def _launch(q, k, v, key_mask, bias, scale, causal, mask_value):
         kernels.stream_ptr(q))
     kernels.check("flash_fwd", err)
     kernels.LAUNCHES["flash_fwd"] += 1
+    if dh > 128:
+        kernels.FORM_LAUNCHES["flash_fwd_dh256"] += 1
     return out, lse
 
 
@@ -210,7 +219,7 @@ def flash_attention_bwd_reference(q, k, v, out, lse, do, key_mask=None, bias=Non
 def _launch_bwd(q, k, v, out, lse, do, key_mask, bias, scale, causal, mask_value, grads):
     B, Tq, H, dh = q.shape
     Tk, Hkv = k.shape[1], k.shape[2]
-    dtype, bias_batched, bias_dtype = _check_inputs(q, k, v, key_mask, bias)
+    dtype, bias_batched, bias_dtype = _check_inputs(q, k, v, key_mask, bias, MAX_BWD_HEAD_DIM)
     kernels.require(out.dtype == do.dtype == q.dtype and out.shape == do.shape == q.shape
                     and out.is_contiguous() and do.is_contiguous(), "out and do must be contiguous and like q")
     kernels.require(lse.shape == (B, H, Tq) and lse.dtype == torch.float32 and lse.is_contiguous(),

@@ -24,6 +24,13 @@ head, which is not ported yet). `nac_from_jax` / `nac_to_jax` convert the
 `bert_from_jax` / `bert_to_jax` do the same for a BERT tree (`init_bert_params`
 or `convert_bert_state_dict`): stacked (L, in, out) kernels <-> per-layer
 (out, in), the biases, the two LayerNorm pairs and the classifier head.
+`causal_lm_from_jax` / `causal_lm_to_jax` convert a causal-LM tree
+(`init_causal_lm_params`, `quantize_weights_int8`,
+`init_causal_lm_params_int8` or `convert_qwen2_state_dict`): stacked
+kernels, biases, `{"q8", "scale"}` int8 dicts, a tied or untied head; they
+keep each array's dtype (f32, bf16, int8). `qwen25_vision_from_jax` /
+`qwen25_vision_to_jax` and `qwen_vision_from_jax` convert the two Qwen
+vision towers, `lora_from_jax` / `lora_to_jax` a LoRA adapter tree.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ import numpy as np
 import torch
 
 from rag_docvqa_tpu_torch.models.bert import BertLayer, BertParams
+from rag_docvqa_tpu_torch.models.causal_lm import PROJ_NAMES, CausalLMLayer, CausalLMParams, Proj
 from rag_docvqa_tpu_torch.models.conv import BatchNorm, Conv, ConvBN
 from rag_docvqa_tpu_torch.models.embeddings import SpatialEmbeddings
 from rag_docvqa_tpu_torch.models.hivt5 import HiVT5Params, PageHead
@@ -424,3 +432,141 @@ def index_from_numpy(embeddings, scales=None, *, n_valid: int, dtype: str = "f32
     emb = emb.to(torch.bfloat16 if dtype == "bf16" else torch.float32)
     return ShardedIndex(embeddings=emb, n_valid=int(n_valid), n_shards=n_shards, tile_n=tile_n,
                         use_kernel=use_kernel, kernel=kernel)
+
+
+# --------------------------------------------------------------------------- #
+# the causal LM, its vision towers and LoRA adapters (dtypes kept)
+# --------------------------------------------------------------------------- #
+def _keep(a, device) -> torch.Tensor:
+    """An array as a tensor of its own dtype (numpy's bfloat16 included)."""
+    arr = np.asarray(a)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(np.ascontiguousarray(arr).view(np.uint16).copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(arr)).to(device)
+
+
+def _keep_np(t: torch.Tensor) -> np.ndarray:
+    """A tensor as numpy: int8 kept, floats as f32 (bf16 values exactly)."""
+    t = t.detach().cpu()
+    return t.numpy() if t.dtype == torch.int8 else t.float().numpy()
+
+
+def _proj_from_jax(p: Tree, l: int, device) -> Proj:
+    bias = _keep(p["bias"][l], device) if "bias" in p else None
+    k = p["kernel"]
+    if isinstance(k, dict):  # int8: q8 (L, in, out), scale (L, 1, out)
+        return Proj(bias=bias, q8=_keep(np.asarray(k["q8"][l]).T, device),
+                    scale=_keep(np.asarray(k["scale"][l])[0], device))
+    return Proj(_keep(np.asarray(k[l]).T, device), bias)
+
+
+def causal_lm_from_jax(tree: Tree, device="cpu") -> CausalLMParams:
+    """A JAX causal-LM tree -> CausalLMParams, each array in its own dtype."""
+    b = tree["blocks"]
+    layers = [CausalLMLayer(_keep(b["ln0"][l], device), *(_proj_from_jax(b[n], l, device) for n in ("q", "k", "v", "o")),
+                            _keep(b["ln1"][l], device),
+                            *(_proj_from_jax(b[n], l, device) for n in ("gate", "up", "down")))
+              for l in range(len(b["ln0"]))]
+    e = tree["embed"]
+    embed, embed_scale = ((_keep(e["q8"], device), _keep(np.asarray(e["scale"])[:, 0], device))
+                          if isinstance(e, dict) else (_keep(e, device), None))
+    head = head_scale = None
+    if "lm_head" in tree:
+        h = tree["lm_head"]
+        if isinstance(h, dict):  # q8 (d, V), scale (1, V)
+            head, head_scale = _keep(np.asarray(h["q8"]).T, device), _keep(np.asarray(h["scale"])[0], device)
+        else:
+            head = _keep(np.asarray(h).T, device)
+    return CausalLMParams(embed, layers, _keep(tree["final_ln"], device), head, embed_scale, head_scale)
+
+
+def _proj_to_jax(layers, name: str) -> Tree:
+    ps = [getattr(L, name) for L in layers]
+    if ps[0].q8 is not None:
+        out: Tree = {"kernel": {"q8": np.stack([_keep_np(p.q8).T for p in ps]),
+                                "scale": np.stack([_keep_np(p.scale)[None, :] for p in ps])}}
+    else:
+        out = {"kernel": np.stack([_keep_np(p.weight).T for p in ps])}
+    if ps[0].bias is not None:
+        out["bias"] = np.stack([_keep_np(p.bias) for p in ps])
+    return out
+
+
+def causal_lm_to_jax(p: CausalLMParams) -> Tree:
+    """The inverse of `causal_lm_from_jax`: numpy arrays, floats as f32
+    (bf16 values exactly), int8 as int8."""
+    layers = list(p.layers)
+    blocks: Tree = {n: _proj_to_jax(layers, n) for n in PROJ_NAMES}
+    blocks["ln0"] = np.stack([_keep_np(L.ln0) for L in layers])
+    blocks["ln1"] = np.stack([_keep_np(L.ln1) for L in layers])
+    tree: Tree = {"blocks": blocks, "final_ln": _keep_np(p.final_ln)}
+    if p.embed_scale is not None:
+        tree["embed"] = {"q8": _keep_np(p.embed), "scale": _keep_np(p.embed_scale)[:, None]}
+    else:
+        tree["embed"] = _keep_np(p.embed)
+    if p.lm_head is not None:
+        tree["lm_head"] = ({"q8": _keep_np(p.lm_head).T, "scale": _keep_np(p.lm_head_scale)[None, :]}
+                           if p.lm_head_scale is not None else _keep_np(p.lm_head).T)
+    return tree
+
+
+_Q25_LINEAR = ("qkv", "proj", "gate", "up", "down")
+
+
+def qwen25_vision_from_jax(tree: Tree, device="cpu"):
+    """A JAX Qwen2.5-VL tower tree (`init_qwen25_vision_params` or
+    `convert_qwen25_vision_state_dict`) -> Qwen25VisionParams, f32."""
+    from rag_docvqa_tpu_torch.models.qwen25_vision import Qwen25VisionLayer, Qwen25VisionParams
+
+    b = tree["blocks"]
+    layers = []
+    for l in range(len(b["ln1"])):
+        t = {"ln1": _t(b["ln1"][l], device), "ln2": _t(b["ln2"][l], device)}
+        for n in _Q25_LINEAR:
+            t[f"{n}_w"], t[f"{n}_b"] = _dense(b[n]["kernel"][l], device), _t(b[n]["bias"][l], device)
+        layers.append(Qwen25VisionLayer(**t))
+    m = tree["merger"]
+    return Qwen25VisionParams(_dense(tree["patch_embed"]["kernel"], device), layers, _t(m["ln_q"], device),
+                              _dense(m["fc1"]["kernel"], device), _t(m["fc1"]["bias"], device),
+                              _dense(m["fc2"]["kernel"], device), _t(m["fc2"]["bias"], device))
+
+
+def qwen25_vision_to_jax(p) -> Tree:
+    """The inverse of `qwen25_vision_from_jax`: f32 numpy arrays."""
+    layers = list(p.layers)
+    blocks: Tree = {n: _stack(layers, lambda L: _np(getattr(L, n))) for n in ("ln1", "ln2")}
+    for n in _Q25_LINEAR:
+        blocks[n] = {"kernel": _stack(layers, lambda L: _np(getattr(L, f"{n}_w")).T),
+                     "bias": _stack(layers, lambda L: _np(getattr(L, f"{n}_b")))}
+    return {"patch_embed": {"kernel": _np(p.patch_w).T}, "blocks": blocks,
+            "merger": {"ln_q": _np(p.ln_q), "fc1": {"kernel": _np(p.fc1_w).T, "bias": _np(p.fc1_b)},
+                       "fc2": {"kernel": _np(p.fc2_w).T, "bias": _np(p.fc2_b)}}}
+
+
+def qwen_vision_from_jax(tree: Tree, device="cpu"):
+    """A JAX stand-in tower tree (`init_qwen_vision_params`: the ViT and the
+    merger) -> QwenVisionParams, f32."""
+    from rag_docvqa_tpu_torch.models.qwen_vision import QwenVisionParams
+
+    m = tree["merger"]
+    return QwenVisionParams(vit_from_jax(tree["vit"], device), _t(m["ln_w"], device), _t(m["ln_b"], device),
+                            _dense(m["fc1"]["kernel"], device), _t(m["fc1"]["bias"], device),
+                            _dense(m["fc2"]["kernel"], device), _t(m["fc2"]["bias"], device))
+
+
+def lora_from_jax(tree: Tree, device="cpu"):
+    """A JAX adapter tree ({"blocks": {target: {"a" (L, in, r), "b" (L, r,
+    out)}}}) -> LoRAParams, f32."""
+    from rag_docvqa_tpu_torch.models.lora import LoRAPair, LoRAParams
+
+    b = tree["blocks"]
+    L = len(next(iter(b.values()))["a"])
+    return LoRAParams([{n: LoRAPair(_t(b[n]["a"][l], device), _t(b[n]["b"][l], device)) for n in b}
+                       for l in range(L)])
+
+
+def lora_to_jax(p) -> Tree:
+    """The inverse of `lora_from_jax`: f32 numpy arrays."""
+    layers = list(p.layers)
+    return {"blocks": {n: {f: _stack(layers, lambda L: _np(getattr(L[n], f))) for f in ("a", "b")}
+                       for n in layers[0]}}

@@ -108,6 +108,7 @@ def hf_defaults(config) -> None:
         "d_ff": text.get("d_ff", text.get("intermediate_size")),
         "num_layers": text.get("num_layers", text.get("num_hidden_layers")),
         "num_decoder_layers": text.get("num_decoder_layers", text.get("num_layers", text.get("num_hidden_layers"))),
+        "num_kv_heads": text.get("num_key_value_heads"),
     }
     config.update({k: v for k, v in dims.items() if v is not None})
     vocab = hf.get("vocab_size", hf.get("text_config", {}).get("vocab_size"))
@@ -116,8 +117,8 @@ def hf_defaults(config) -> None:
 
 
 def init_params(config, model_cfg, device, kind: str = "vt5"):
-    """The weights of a `kind` model ("vt5", "hivt5" or "pix2struct"):
-    random from the config's seed (VT5 with the not-answerable classifier,
+    """The weights of a `kind` model ("vt5", "hivt5", "pix2struct" or "qwen",
+    the causal LM): random from the config's seed (VT5 with the not-answerable classifier,
     from seed + 1, when the config uses one), then overlaid by the best (else
     the latest) step of the checkpoint directory `ckpt` this trainer wrote,
     or else by the local Hugging Face weights `hf_weights`
@@ -135,6 +136,10 @@ def init_params(config, model_cfg, device, kind: str = "vt5"):
         from rag_docvqa_tpu_torch.models import pix2struct as p2s
 
         params = p2s.init_p2s_params(g, model_cfg)
+    elif kind == "qwen":
+        from rag_docvqa_tpu_torch.models import causal_lm as clm
+
+        params = clm.init_causal_lm_params(g, model_cfg)
     else:
         from rag_docvqa_tpu_torch.models import vt5 as vt5m
         from rag_docvqa_tpu_torch.models.nac import NACConfig, init_nac_params

@@ -227,7 +227,8 @@ def test_config_sweep_and_rag_keys_match_jax():
 
 @pytest.mark.parametrize("argv,match", [
     (["--data-parallel"], "item 17"),
-    (["-m", "configs/Qwen_tiny.yml"], "item 15"),
+    # F10: the Qwen engine with use_visual (the JAX branch calls a function it never defines)
+    (["-m", "configs/Qwen_tiny.yml", "use_visual=true"], "build_qwen_vision_config"),
 ])
 def test_eval_cli_refuses_what_is_not_ported(argv, match):
     from rag_docvqa_tpu_torch import eval as p_eval

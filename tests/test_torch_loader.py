@@ -392,7 +392,8 @@ def test_port_checkpoint_through_load_params_for(tmp_path):
         assert torch.equal(a, b), ("init_params", name)
     with pytest.raises(FileNotFoundError):
         p_loader.load_checkpoint_params(str(tmp_path / "missing"), like())
-    with pytest.raises(NotImplementedError, match="item 15"):
+    # the qwen kind reads a Hugging Face directory now (tests/test_torch_causal_lm.py); a missing one says so
+    with pytest.raises(FileNotFoundError, match="checkpoint path not found"):
         p_loader.load_params_for("qwen", str(tmp_path / "none"), cfg)
 
 

@@ -212,8 +212,9 @@ def test_build_reranker_and_engine_from_config(world):
     assert rr.params.has_head and rr.params.word_emb.shape == (VOCAB, 32)
     again = p_config.build_reranker(c, world["ptok"], seed=3, device="cpu")
     assert torch.equal(rr.params.layers[0].fc1_w, again.params.layers[0].fc1_w)  # weights from the seed
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-        p_config.build_reranker(dict(c, reranker_weights="BAAI/bge-reranker-v2-gemma"), world["ptok"])
+    # a "gemma" weight name selects the LLM pair reranker (tests/test_torch_llm_reranker.py holds it to JAX)
+    llm = p_config.build_reranker(dict(c, reranker_weights="BAAI/bge-reranker-v2-gemma"), world["ptok"], device="cpu")
+    assert isinstance(llm, p_rr.FlagLLMReranker) and llm.lm_cfg.arch == "gemma"
 
     params = p_vt5.init_vt5_params(torch.Generator().manual_seed(0), p_config.build_vt5_config(c, VOCAB))
     engine = p_config.build_engine(c, params, world["ptok"])
@@ -221,8 +222,16 @@ def test_build_reranker_and_engine_from_config(world):
     out = engine.inference(world["pb_np"], world["paux"])
     assert len(out["pred_answers"]) == 3 and all(1 <= len(p) <= 4 for p in out["pred_answer_pages"])
     assert p_config.build_engine(dict(c, rerank=False), params, world["ptok"]).reranker is None
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-        p_config.build_engine(dict(c, model_name="Qwen"), params, world["ptok"])
+    # model_name Qwen builds the causal-LM engine on causal-LM weights (tests/test_torch_rag_qwen.py holds it to JAX)
+    from rag_docvqa_tpu_torch.engine.rag_qwen import RAGQwenEngine
+    from rag_docvqa_tpu_torch.models import causal_lm as p_clm
+
+    lm = p_config.build_qwen_config(c, VOCAB)
+    qwen = p_config.build_engine(dict(c, model_name="Qwen"), p_clm.init_causal_lm_params(torch.Generator(), lm),
+                                 world["ptok"])
+    assert isinstance(qwen, RAGQwenEngine) and qwen.lm_cfg == lm
+    with pytest.raises(NotImplementedError, match="RAG-Qwen"):
+        p_config.build_engine(dict(c, model_name="LayoutLMv3"), params, world["ptok"])
 
 
 def test_build_reranker_defaults_to_the_card(world, monkeypatch):
