@@ -2,13 +2,13 @@
 """Drive the PyTorch port's RAG-VT5 serving and training paths, its corpus
 index, its BERT family, its visual paths (the DiT branch of RAG-VT5,
 RAG-Pix2Struct), Hi-VT5, the VT5 family's other training forms, the
-documents from local files, the layout detectors and the apps once on one
-CUDA card.
+documents from local files, the layout detectors, the apps, the causal-LM
+family and the multi-device layer once on one CUDA card.
 
     python3 chip_smoke.py            # every phase, the report and the result line
-    python3 chip_smoke.py 12         # phases 1-2 and the named ones (3-12) alone, for work on them: no report
+    python3 chip_smoke.py 12         # phases 1-2 and the named ones (3-14) alone, for work on them: no report
 
-Twelve phases; any failure raises and the script exits non-zero:
+Fourteen phases; any failure raises and the script exits non-zero:
 
   1. a CUDA device is required; prints the card's name and power limit and
      turns TF32 off, so f32 products are full f32;
@@ -324,6 +324,34 @@ Twelve phases; any failure raises and the script exits non-zero:
      f. K2, K6 and K3 in f32 at the answer-quality model's d_kv 16 (B 8 H 4
         T 128 with the shared bias; Te 128), timed on the device beside SDPA
         in f32 (the backward through autograd).
+ 13. the causal-LM family: Qwen2.5-VL-7B RAG serving, the Gemma LLM
+     reranker on K2's dh-256 form, the Qwen2.5-VL tower, LoRA SFT on K2/K6
+     and their CLIs (the phase's log lines say what each part checks);
+ 14. the multi-device layer (`parallel/mesh.py`), on its own generator:
+     a. a world-size-1 NCCL process group (a FileStore rendezvous) and its
+        (1, 1) (data, model) and (1,) data meshes: 7b's index (524,288 x
+        768, B 256 and B 8, k 10) in f32, bf16, int8, int4 and refined int4
+        built with `mesh=` against the n_shards=1 form (ids and validity
+        equal, values within 1e-4, resident bytes, queries per second of
+        both A B B A); sharded MaxSim at 9f's indexed shape (512 patch sets
+        of 128 x 768, a 128-token query, k 10) against late_interaction and
+        a stable top-k (rows equal, values within 1e-4, and the plain scores
+        at them); data-parallel `evaluate` on phase 5's batch of 32 (t5-base
+        bf16, int8 cross cache, K3) against the plain `evaluate` (answers and
+        metrics equal; ms of both, the object gather's ms);
+        `greedy_decode_sharded` at phase 5's decode (B 32, Te 512, int8
+        cross cache, K3) with the split leaves as slices against
+        `greedy_decode` (ids and confidences equal); the sharded VT5
+        step at 6d's shapes and the Hi-VT5 step at 10d's (bf16 compute, f32
+        masters, the split leaves stored as slices) against the unsharded
+        step from the same weights (loss and grad norm within 1e-6 relative
+        at every step; ms per step of both, in turns). The merge's
+        all-gather alone, by CUDA events.
+        Each group path's launches counted, its kernels required;
+     b. `python -m rag_docvqa_tpu_torch.dryrun 2 --device cuda`: two ranks
+        sharing the card through gloo (CUDA tensors staged through the
+        host), every check of the dry run, each rank's sharded paths
+        launching K1's parts, K2, K3, K4, K6-K8 and K15.
 
 The line before the last is a JSON object with every kernel's launches in
 its path's run (phase 5 for serving, 6d for training, 7b-c for the index,
@@ -336,7 +364,9 @@ steps as "train_nac", phase 10's paths as "hivt5_serve",
 "hivt5_page_images", "p2s_page_images" and "answer_quality_<model>", phase
 12's as "dit_detector", "yolo_detector", "precompute_layouts_<detector>",
 "eval_layouts_vt5", "serve_layouts", "p2s_layouts", "transfer_evaluate",
-"demo_ask" and "noise_experiment"),
+"demo_ask" and "noise_experiment"; phase 14's as "group_index", "group_maxsim",
+"group_evaluate", "group_decode", "group_train", "group_hivt5_train", "dryrun_rank0" and
+"dryrun_rank1", and per kernel under "group_launches"),
 its worst error over its own checks, and, at its path's shape, its time,
 the plain version's, the time of one PyTorch call that computes the same
 function where there is one ("library_ms", else null; timed here, used
@@ -354,7 +384,8 @@ splits and eval summary under "strategies" and its NAC steps under
 "nac_train_step", phase 10's batches, train steps, attention maps and
 CLIs under "hivt5", phase 11's gradients, steps, remat runs, local-file
 runs and answer quality under "train_forms", phase 12's detectors,
-layout-guided runs, transfer and apps under "layouts". "t5_layer_nobias" (K1 without a
+layout-guided runs, transfer and apps under "layouts", phase 14's under
+"multichip". "t5_layer_nobias" (K1 without a
 bias) and "t5_layer_qtiled" (K13) are whole layers outside the kernel list,
 each with its error, its times and the launches of its parts (t5_rms_norm,
 t5_gemm and flash_fwd); that each served tower ran exactly those is
@@ -370,6 +401,7 @@ metrics (metrics/) and image patch math (ops/patches.py).
 from __future__ import annotations
 
 import contextlib
+import copy
 import functools
 import itertools
 import json
@@ -4815,18 +4847,26 @@ def dit_base(g: torch.Generator):
     return cfg, params
 
 
-def host_ms(fn, n: int = 3) -> float:
-    """Median host-clock ms of `n` calls of `fn`, each ended by a synchronize."""
+def host_ms(fn, n: int = 3, calls: int = 1):
+    """Host-clock ms a call of `fn`: the median over `n` turns of `calls`
+    calls, each turn ended by a synchronize. With {form: fn} of two forms
+    the turns go A B B A, `n` times over, and each form's median comes back
+    in a dict."""
     import statistics
 
-    times = []
+    forms = fn if isinstance(fn, dict) else {None: fn}
+    order = [*forms, *reversed(forms)] if len(forms) == 2 else list(forms)
+    times = {name: [] for name in forms}
     for _ in range(n):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times)
+        for name in order:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                forms[name]()
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) / calls * 1e3)
+    ms = {name: statistics.median(v) for name, v in times.items()}
+    return ms if isinstance(fn, dict) else ms[None]
 
 
 def check_dit(checks: Checks, g: torch.Generator) -> tuple:
@@ -6073,6 +6113,331 @@ def qwen_clis() -> dict:
             "train_lora_launches": lora_launches}
 
 
+# --------------------------------------------------------------------------- #
+# phase 14: the multi-device layer through process groups
+# --------------------------------------------------------------------------- #
+# 9f's indexed shape for the sharded MaxSim: 32 documents x 16 patch sets of 128 patches, D 768, a 128-token query
+MS_N, MS_TP, MS_TQ, MS_D = 512, 128, 128, 768
+# loss and grad norm of a world-size-1 group against the unsharded step, at every step: the same kernels on the
+# same rows, the collectives over one rank, the norm summed in the leaves' order (bf16 copies of f32 masters
+# amplify any difference: a norm summed in another order, 2 ulps off at the second step, put the fourth step's
+# grad norm 5e-4 off on the H100)
+GROUP_RTOL = 1e-6
+# the kernels the dry run's sharded paths launch in each rank: the train steps, the index at B 8 (K4), MaxSim,
+# the decode of evaluate and of the split rows (K3)
+DRYRUN_KERNELS = TRAIN_KERNELS + ("decode_cross_attention", "topk_fused", "maxsim")
+
+
+def group_index(g: torch.Generator, mesh) -> tuple:
+    """14a: 7b's index through the data group (one shard on this rank)
+    against the n_shards=1 form, every precision: ids equal, values within
+    F32_TOL, resident bytes, queries per second at B 256 of both."""
+    from rag_docvqa_tpu_torch import kernels
+    from rag_docvqa_tpu_torch.parallel import ShardedIndex
+
+    dev = g.device
+    N, D, B, k = INDEX_N, INDEX_D, INDEX_B, INDEX_K
+    emb = torch.randn((N, D), generator=g, device=dev)
+    queries = torch.randn((B, D), generator=g, device=dev)
+    launches, out = {}, {}
+    for dtype, refine in (("f32", False), ("bf16", False), ("int8", False), ("int4", False), ("int4", True)):
+        name = dtype + ("_refine" if refine else "")
+        kw = dict(dtype=dtype, refine=refine, kernel="auto")
+        one = ShardedIndex.build(emb, n_shards=1, **kw)
+        grp = kernels.counted(launches, ShardedIndex.build, emb, mesh=mesh, **kw)
+        got = [kernels.counted(launches, grp.query, q, k) for q in (queries, queries[:8])]  # B 8: the fused kernel K4
+        want = [one.query(q, k) for q in (queries, queries[:8])]
+        for (gv, gi, gok), (wv, wi, wok), b in zip(got, want, (B, 8)):
+            gv, gi, wv, wi = (torch.as_tensor(x).to(dev) for x in (gv, gi, wv, wi))
+            err = (gv - wv).abs().max().item()
+            if not (torch.equal(gi.long(), wi.long()) and torch.equal(torch.as_tensor(gok), torch.as_tensor(wok))
+                    and err <= F32_TOL):
+                raise AssertionError(f"group index {name} B{b}: ids or validity differ, or values by {err}")
+        forms = {"ranges": lambda: one.query(queries, k), "group": lambda: grp.query(queries, k)}
+        ms = host_ms(forms, n=1, calls=20)
+        log(f"  {name} B{B} query, host ms: {ms}")
+        events = {f: time_ms(fn, iters=20) for f, fn in forms.items()} if not refine else None
+        out[name] = {"resident_bytes_group": grp.resident_bytes, "resident_bytes_ranges": one.resident_bytes,
+                     "query_ms_b256": ms, "queries_per_s_b256": {f: B / t * 1e3 for f, t in ms.items()},
+                     "query_event_ms_b256": events}
+        if grp.resident_bytes != one.resident_bytes:  # one rank: the whole padded index
+            raise AssertionError(f"group index {name}: {grp.resident_bytes} resident bytes, ranges {one.resident_bytes}")
+        log(f"  {name:12s} through the group: ids equal to the n_shards=1 form at B {B} and 8, resident "
+            f"{grp.resident_bytes / 1e6:.1f} MB; B{B} {B / ms['group'] * 1e3:.0f} queries/s (n_shards=1 form "
+            f"{B / ms['ranges'] * 1e3:.0f}); by CUDA events {events}")
+        del one, grp
+    check_launched(launches, INDEX_KERNELS, "group index")
+    # the merge's collective alone: one all-gather of the (B, 2k) values and ids as f64
+    packed = torch.randn((B, 2 * k), generator=g, device=dev, dtype=torch.float64)
+    gather = lambda: mesh.all_gather(packed, "data")
+    out["merge_all_gather_ms"] = {"events": time_ms(gather, iters=50), "host": host_ms(gather, n=2, calls=50)}
+    log(f"  the merge's all-gather of ({B}, {2 * k}) f64 values and ids alone: {out['merge_all_gather_ms']} ms")
+    return launches, out
+
+
+def group_maxsim(g: torch.Generator, mesh) -> tuple:
+    """14a: sharded MaxSim through the data group at 9f's indexed shape
+    against late_interaction and a stable top-k over the whole index."""
+    from rag_docvqa_tpu_torch import kernels
+    from rag_docvqa_tpu_torch.ops import late_interaction as li
+    from rag_docvqa_tpu_torch.parallel import sharded_maxsim_topk
+
+    dev = g.device
+    patches = torch.randn((MS_N, MS_TP, MS_D), generator=g, device=dev)
+    pmask = torch.rand((MS_N, MS_TP), generator=g, device=dev) < 0.9
+    q = torch.randn((MS_TQ, MS_D), generator=g, device=dev)
+    n_valid, k, launches = MS_N - 5, 10, {}
+    vals, idx, ok = kernels.counted(launches, sharded_maxsim_topk, patches, pmask, q, mesh=mesh, n_valid=n_valid,
+                                    k=k)
+
+    def whole():
+        scores = li.late_interaction(q, patches, patch_mask=pmask)
+        scores = torch.where(torch.arange(MS_N, device=dev) < n_valid, scores, float("-inf"))
+        return torch.sort(scores, descending=True, stable=True)
+
+    wv, wi = whole()
+    plain = li.late_interaction_reference(q, patches, patch_mask=pmask)
+    err, at_rows = (vals - wv[:k]).abs().max().item(), (plain[idx] - vals).abs().max().item()
+    if not (torch.equal(idx, wi[:k]) and bool(ok.all()) and err <= F32_TOL and at_rows <= F32_TOL):
+        raise AssertionError(f"group MaxSim: rows {idx.tolist()} against {wi[:k].tolist()}, {err}, {at_rows}")
+    forms = {"whole": whole, "group": lambda: sharded_maxsim_topk(patches, pmask, q, mesh=mesh, n_valid=n_valid, k=k)}
+    ms = host_ms(forms, n=1, calls=20)
+    events = {f: time_ms(fn, iters=20) for f, fn in forms.items()}
+    log(f"  MaxSim N{MS_N} Tp{MS_TP} Tq{MS_TQ} D{MS_D}, host ms: {ms}; by CUDA events: {events}")
+    check_launched(launches, ("maxsim",), "group MaxSim")
+    log(f"  sharded MaxSim through the group: rows equal to the whole index's top-{k}, values within {err:.1e}, "
+        f"the plain scores at the rows within {at_rows:.1e}")
+    return launches, {"ms": ms, "event_ms": events, "max_abs_err": max(err, at_rows),
+                      "case": f"N{MS_N} Tp{MS_TP} Tq{MS_TQ} D{MS_D} f32"}
+
+
+def group_evaluate(g: torch.Generator, mesh) -> tuple:
+    """14a: data-parallel `evaluate` through the data group on phase 5's
+    batch of 32 (t5-base bf16, int8 cross cache, K3 on) against the plain
+    `evaluate`: answers and metrics equal; ms of each, and the object
+    gather's share."""
+    from rag_docvqa_tpu_torch import kernels
+    from rag_docvqa_tpu_torch.data.contract import Caps
+    from rag_docvqa_tpu_torch.data.ingest import DocVQAIngestor
+    from rag_docvqa_tpu_torch.data.synthetic import make_corpus
+    from rag_docvqa_tpu_torch.data.tokenizer import HashTokenizer
+    from rag_docvqa_tpu_torch.engine.evaluate import evaluate
+    from rag_docvqa_tpu_torch.engine.rag_vt5 import RAGConfig, RAGVT5Engine
+    from rag_docvqa_tpu_torch.models import t5 as t5m
+    from rag_docvqa_tpu_torch.models import vt5 as vt5m
+    from rag_docvqa_tpu_torch.ops.chunking import ChunkSpec
+
+    tok = HashTokenizer(32128)
+    ingestor = DocVQAIngestor(tok, ChunkSpec(chunk_size=60, overlap=10), Caps())
+    docs = make_corpus(32, n_pages=8, words_per_page=120, seed=SEED)
+    ingestor.caps = ingestor.plan_caps(docs)
+    vt5_cfg = vt5m.VT5Config(t5=t5m.T5Config(decode_kv_int8=True, fused_decode_attn=True))
+    params = vt5m.init_vt5_params(g, vt5_cfg).to(torch.bfloat16)
+    engine = RAGVT5Engine(RAGConfig(page_retrieval="concat", chunk_num=10, include_surroundings=0,
+                                    max_source_length=512, max_new_tokens=16), vt5_cfg, params, tok)
+    gather_ms = []
+    inner = mesh.all_gather_object
+
+    def timed_gather(obj, axis):
+        t0 = time.perf_counter()
+        out = inner(obj, axis)
+        gather_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    mesh.all_gather_object = timed_gather
+    run = lambda m: evaluate(engine, docs, ingestor, batch_size=32, mesh=m)
+    plain = run(None)  # warmup
+    launches = {}
+    grp = kernels.counted(launches, run, mesh)
+    plain = run(None)
+    if grp["pred_answers"] != plain["pred_answers"] or grp["n_samples"] != 32:
+        raise AssertionError("group evaluate: answers differ from the plain evaluate")
+    for key in ("accuracy", "anls", "retrieval_precision", "chunk_score"):
+        if not abs(grp[key] - plain[key]) <= 1e-6:
+            raise AssertionError(f"group evaluate: {key} {grp[key]} against {plain[key]}")
+    gather_ms.clear()
+    ms = host_ms({"plain": lambda: run(None), "group": lambda: run(mesh)}, n=1, calls=2)
+    log(f"  evaluate, 32 documents, host ms: {ms}")
+    del mesh.all_gather_object
+    check_launched(launches, SERVE_KERNELS, "group evaluate")
+    log(f"  group evaluate: answers and metrics equal to the plain evaluate; the object gather "
+        f"{sum(gather_ms) / 4:.2f} ms an evaluate (four group runs: {gather_ms})")
+    return launches, {"ms": ms, "object_gather_ms": sum(gather_ms) / 4,
+                      "case": "t5-base bf16, int8 cross cache, K3 on, 32 documents of 8 pages, batch 32"}
+
+
+def group_decode(g: torch.Generator, mesh) -> tuple:
+    """14a: `greedy_decode_sharded` through the (1, 1) group at phase 5's
+    decode (t5-base bf16, B 32, Te 512, int8 cross cache, K3 on, 16 steps),
+    the split leaves stored as slices, against `greedy_decode` on the whole
+    weights: ids and confidences equal."""
+    from rag_docvqa_tpu_torch import kernels
+    from rag_docvqa_tpu_torch.models import t5 as t5m
+    from rag_docvqa_tpu_torch.ops.decode import greedy_decode, greedy_decode_sharded
+    from rag_docvqa_tpu_torch.parallel.mesh import shard_params
+    from rag_docvqa_tpu_torch.training.train_step import vt5_param_spec
+
+    dev, B, Te, T = g.device, 32, 512, 16
+    cfg = t5m.T5Config(decode_kv_int8=True, fused_decode_attn=True)
+    whole = t5m.init_t5_params(g, cfg).to(torch.bfloat16)
+    spec = vt5_param_spec(whole)
+    sliced = shard_params(copy.deepcopy(whole), spec, mesh)  # the same weights, held as this rank's slices
+    enc = torch.randn((B, Te, cfg.d_model), generator=g, device=dev).bfloat16()
+    mask = torch.arange(Te, device=dev)[None, :] < torch.randint(1, Te + 1, (B, 1), generator=g, device=dev)
+    launches = {}
+    toks, conf = kernels.counted(launches, greedy_decode_sharded, sliced, cfg, enc, mask, T, mesh=mesh, spec=spec)
+    want_t, want_c = greedy_decode(whole, cfg, enc, mask, T)
+    if not (torch.equal(toks, want_t) and torch.equal(conf, want_c)):
+        raise AssertionError("group decode: ids or confidences differ from the replicated decode")
+    ms = host_ms({"whole": lambda: greedy_decode(whole, cfg, enc, mask, T),
+                  "group": lambda: greedy_decode_sharded(sliced, cfg, enc, mask, T, mesh=mesh, spec=spec)}, n=1)
+    log(f"  greedy decode B{B} Te{Te} int8 cache, {T} steps, host ms: {ms}")
+    check_launched(launches, ("decode_cross_attention",), "group decode")
+    log(f"  greedy_decode_sharded through the group: ids and confidences equal to the replicated decode")
+    return launches, {"ms": ms, "case": f"t5-base bf16 B{B} Te{Te} int8 cross cache, K3, {T} steps"}
+
+
+def group_train(mesh, kind: str) -> tuple:
+    """14a: the sharded train step through a (1, 1) group against the
+    unsharded one from the same weights: 6d's VT5 step (t5-base, B 8) or
+    10d's Hi-VT5 step (B 16 x 8 page slots), bf16 compute on f32 masters;
+    loss and grad norm within GROUP_RTOL at every step; ms per step of
+    each."""
+    from rag_docvqa_tpu_torch import kernels
+    from rag_docvqa_tpu_torch.data.contract import Caps, to_device
+    from rag_docvqa_tpu_torch.data.ingest import DocVQAIngestor
+    from rag_docvqa_tpu_torch.data.synthetic import make_corpus
+    from rag_docvqa_tpu_torch.data.tokenizer import HashTokenizer
+    from rag_docvqa_tpu_torch.engine.rag_vt5 import RAGConfig
+    from rag_docvqa_tpu_torch.models import hivt5 as hm
+    from rag_docvqa_tpu_torch.models import vt5 as vt5m
+    from rag_docvqa_tpu_torch.ops.chunking import ChunkSpec
+    from rag_docvqa_tpu_torch.parallel.mesh import shard_params
+    from rag_docvqa_tpu_torch.training.optimizer import build_optimizer, trainable_mask
+    from rag_docvqa_tpu_torch.training.train_step import (TrainState, make_hivt5_train_step, make_train_step,
+                                                         vt5_param_spec)
+
+    dev = mesh.device
+    if kind == "vt5":
+        ingestor = DocVQAIngestor(HashTokenizer(32128), ChunkSpec(chunk_size=60, overlap=10), Caps())
+        docs = make_corpus(8, n_pages=8, words_per_page=120, seed=SEED)
+        ingestor.caps = ingestor.plan_caps(docs)
+        cfg, init = vt5m.VT5Config(), vt5m.init_vt5_params
+        roots, opt_kw, steps, max_len = ("t5", "spatial"), dict(lr=2e-4, warmup_steps=2, total_steps=80), 6, 32
+        rag = RAGConfig(page_retrieval="concat", chunk_num=10, include_surroundings=0, max_source_length=512)
+        make = lambda opt, m: make_train_step(cfg, rag, opt, bf16_compute=True, mesh=m)
+    else:
+        ingestor = DocVQAIngestor(HashTokenizer(32128), ChunkSpec(chunk_size=60, overlap=10), Caps(max_pages=HI_P))
+        docs = hivt5_documents(SEED + 12)
+        cfg, init = hm.HiVT5Config(max_doc_pages=HI_P, page_tokens=HI_K, page_seq_len=HI_T), hm.init_hivt5_params
+        roots, opt_kw, steps, max_len = ("t5", "spatial", "page_emb", "page_head"), dict(
+            lr=1e-4, warmup_steps=10, total_steps=1000), 4, 16
+        make = lambda opt, m: make_hivt5_train_step(cfg, opt, bf16_compute=True, mesh=m)
+    batch, aux = ingestor.ingest(docs)
+    labels = torch.from_numpy(ingestor.answer_labels(aux["answers"], max_len=max_len, seed=SEED)).to(dev)
+    batch = to_device(batch, dev)
+    rows, launches, runs = {"plain": [], "group": []}, {}, {}
+    for form in ("plain", "group"):
+        params = init(torch.Generator(device=dev).manual_seed(SEED + 14), cfg)  # f32 masters, the same in both
+        if form == "group":
+            shard_params(params, vt5_param_spec(params), mesh)
+        opt = build_optimizer(**opt_kw, mask=trainable_mask(params, roots))
+        runs[form] = [TrainState.create(params, opt), make(opt, mesh if form == "group" else None)]
+    for i in range(steps):  # the two in turns, plain first on even steps
+        for form in ("plain", "group") if i % 2 == 0 else ("group", "plain"):
+            state, step = runs[form]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if form == "group":
+                state, m = kernels.counted(launches, step, state, batch, labels)
+            else:
+                state, m = step(state, batch, labels)
+            torch.cuda.synchronize()
+            runs[form][0] = state
+            rows[form].append({"loss": m["loss"].item(), "grad_norm": m["grad_norm"].item(),
+                               "ms": (time.perf_counter() - t0) * 1e3})
+    del runs, state
+    torch.cuda.empty_cache()
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(rows["plain"], rows["group"])):
+        log(f"  {kind} step {i}: unsharded {a}, group {b}")
+        for key in ("loss", "grad_norm"):
+            rel = abs(b[key] - a[key]) / abs(a[key])
+            worst = max(worst, rel)
+            if not rel <= GROUP_RTOL:
+                raise AssertionError(f"group {kind} step {i}: {key} {b[key]} against the unsharded {a[key]}")
+    check_launched(launches, TRAIN_KERNELS, f"group {kind} training")
+    ms = {f: sum(r["ms"] for r in v[1:]) / (len(v) - 1) for f, v in rows.items()}
+    log(f"  {kind} step through the group: loss and grad norm within {worst:.2e} of the unsharded step (limit "
+        f"{GROUP_RTOL}); ms per step after the first: {ms}")
+    return launches, {"ms": ms, "steps": rows, "max_rel_diff": worst}
+
+
+def dryrun_on_one_card() -> tuple:
+    """14b: `python -m rag_docvqa_tpu_torch.dryrun 2 --device cuda`, two
+    ranks sharing the card through gloo; each rank's launches."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "rag_docvqa_tpu_torch.dryrun", "2", "--device", "cuda"], cwd=REPO,
+                          capture_output=True, text=True, timeout=400)
+    if proc.returncode != 0:
+        raise AssertionError(f"dryrun 2 --device cuda failed ({proc.returncode}):\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-4000:]}")
+    lines = proc.stdout.strip().splitlines()
+    ranks = [json.loads(l) for l in lines if l.startswith('{"rank"')]
+    if len(ranks) != 2 or not lines[-1].startswith("dryrun_multichip(2) OK:"):
+        raise AssertionError(f"dryrun 2 --device cuda: unexpected output {lines[-4:]}")
+    for r in ranks:
+        if not (r["device"] == "cuda:0" and r["backend"] == "gloo"):
+            raise AssertionError(f"dry run rank {r['rank']} on {r['device']} with {r['backend']}")
+        check_launched(r["launches"], DRYRUN_KERNELS, f"dry run rank {r['rank']}")
+    log(f"  {lines[0]}; {lines[-1]}; {time.perf_counter() - t0:.1f} s with its imports")
+    return {f"dryrun_rank{r['rank']}": r["launches"] for r in ranks}, {"line": lines[-1],
+                                                                       "s": time.perf_counter() - t0}
+
+
+def multichip(card: str) -> tuple:
+    """Phase 14: the group paths in a world-size-1 NCCL group (14a), then the
+    dry run on two ranks sharing the card (14b)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from rag_docvqa_tpu_torch.parallel.mesh import create_mesh, init_with_store
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 14)  # its own data: the other phases' stay
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")  # the rendezvous is a file; no interface to look for
+    launches, summary = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.set_device(0)
+        init_with_store(os.path.join(tmp, "store"), 0, 1, "nccl", timeout_s=300)
+        try:
+            mesh = create_mesh((1, 1), ("data", "model"), device="cuda:0")
+            data = create_mesh((1,), ("data",), device="cuda:0")
+            log(f"phase 14a: the group paths through a world-size-1 {dist.get_backend()} group; card and power "
+                f"limit: {card}")
+            with torch.inference_mode():
+                launches["group_index"], summary["index"] = group_index(g, data)
+                torch.cuda.empty_cache()
+                launches["group_maxsim"], summary["maxsim"] = group_maxsim(g, data)
+                torch.cuda.empty_cache()
+                launches["group_evaluate"], summary["evaluate"] = group_evaluate(g, data)
+                torch.cuda.empty_cache()
+                launches["group_decode"], summary["decode"] = group_decode(g, mesh)
+                torch.cuda.empty_cache()
+            launches["group_train"], summary["train"] = group_train(mesh, "vt5")
+            launches["group_hivt5_train"], summary["hivt5_train"] = group_train(mesh, "hivt5")
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    log(f"phase 14b: the dry run, two ranks sharing the card (gloo); card and power limit: {card}")
+    dry_launches, summary["dryrun"] = dryrun_on_one_card()
+    launches.update(dry_launches)
+    summary["s"] = time.perf_counter() - t0
+    log(f"  phase 14: {summary['s']:.1f} s; card and power limit: {card}")
+    return launches, summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -6097,8 +6462,8 @@ def main() -> int:
     g = torch.Generator(device="cuda").manual_seed(SEED)
     checks = Checks()
     only = set(sys.argv[1:])  # e.g. `chip_smoke.py 8`: that phase alone, for work on it; no report
-    if only - {"3", "4", "5", "6", "7", "8", "9", "10", "11", "12", "13"}:
-        raise SystemExit(f"usage: chip_smoke.py [phase ...], phases 3-13; got {sorted(only)}")
+    if only - {"3", "4", "5", "6", "7", "8", "9", "10", "11", "12", "13", "14"}:
+        raise SystemExit(f"usage: chip_smoke.py [phase ...], phases 3-14; got {sorted(only)}")
     want = lambda phase: not only or phase in only
     launches, path_launches = {}, {}
     if want("3") or want("4") or want("5"):
@@ -6324,6 +6689,10 @@ def main() -> int:
         causal["clis"] = qwen_clis()
         path_launches.update(lora_sft=lora_launches, llm_rerank_serve=llm_rerank_launches, **qwen_launches)
         torch.cuda.empty_cache()
+    if want("14"):
+        group_launches, multichip_summary = multichip(card)
+        path_launches.update(group_launches)
+        torch.cuda.empty_cache()
     if only:
         print(json.dumps({"ok": True, "phases": sorted(only), "card": card}), flush=True)
         return 0
@@ -6337,7 +6706,9 @@ def main() -> int:
         "kernels": [
             {"name": name, "route": "cuda", "source": src, "replaces": rep, "launches": launches[name],
              "max_abs_err": checks.err[name], **times(name, case), "case": case,
-             "cases": checks.times[name]}
+             "cases": checks.times[name],
+             # phase 14: its launches in each group path, per rank of the dry run
+             "group_launches": {path: n[name] for path, n in group_launches.items() if n.get(name, 0) > 0}}
             for name, (src, rep, _, case) in KERNELS.items()],
         # the whole layer K1 composes from rms_norm, gemm and flash_fwd
         "t5_layer": {"max_abs_err": checks.err["t5_layer"], **times("t5_layer", "B32 T512 t5-base bf16"),
@@ -6390,6 +6761,8 @@ def main() -> int:
         # phase 13: the causal-LM family: f32 stacks and the LoRA gradient, Qwen2.5-VL-7B serving, the visual path,
         # generate (bf16, int8), LoRA SFT, the Gemma LLM reranker, the CLIs
         "causal_lm": causal,
+        # phase 14: the group paths (world-size-1 NCCL group) against their unsharded forms, the two-rank dry run
+        "multichip": multichip_summary,
         # every kernel's launches in each path's run, counts set to 0 just before it
         "launches_by_path": path_launches,
         "card": card,

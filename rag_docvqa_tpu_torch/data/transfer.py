@@ -1,7 +1,9 @@
 """Host -> device batch transfer with narrow token ids.
 
-Counterpart of `rag_docvqa_tpu/data/transfer.py` (single device; the sharded
-form waits for ROADMAP Queue 1 item 17). The token-id arrays of a
+Counterpart of `rag_docvqa_tpu/data/transfer.py`. Its `sharding=` form, the
+data-parallel eval's, has no argument here: under a mesh `engine/evaluate.py`
+picks each rank's rows before the copy, and each rank copies its own rows to
+its own device with these functions. The token-id arrays of a
 `ChunkedBatch` (`TOKEN_FIELDS`) are most of its bytes, and their ids fit
 int16 whenever the tokenizer's vocabulary is below 2**15 (T5's 32128 does,
 Qwen's 151936 does not). `device_put_batch` narrows them to int16 when the

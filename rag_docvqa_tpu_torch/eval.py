@@ -27,8 +27,16 @@ page_retrieval, wall_time), and `--save-path` writes the per-sample scores
 list-valued keys into the cross product of configs.
 
 `--device` takes the place of `--platform`; the default is cuda, and without
-a CUDA device the CLI raises unless `--device cpu` is given. Not ported yet,
-and raising: data-parallel evaluation (ROADMAP Queue 1 item 17).
+a CUDA device the CLI raises unless `--device cpu` is given.
+
+`--data-parallel` under `torchrun` (`torchrun --nproc_per_node N -m
+rag_docvqa_tpu_torch.eval --data-parallel ...`) joins the launcher's process
+group (NCCL on cuda:LOCAL_RANK, gloo with `--device cpu`) and evaluates
+over a mesh of every rank on the data axis (`engine/evaluate.py`, `mesh=`):
+each rank answers its rows of every batch, and the first rank prints the
+summary and writes `--save-path`. Without `torchrun` it is the plain run on
+one device, as the root CLI's flag is with one device; with several cards
+and no `torchrun` it raises, naming the launcher.
 """
 
 from __future__ import annotations
@@ -50,15 +58,13 @@ def main(argv=None):
     parser.add_argument("--hf-weights", default=None, help="local Hugging Face checkpoint directory (converted on load)")
     parser.add_argument("--save-path", default=None)
     parser.add_argument("--sweep", action="store_true", help="expand list-valued config keys into a sweep")
-    parser.add_argument("--data-parallel", action="store_true", help="not ported yet")
+    parser.add_argument("--data-parallel", action="store_true",
+                        help="under torchrun: shard every batch over the ranks (data axis)")
     parser.add_argument("--ingest-workers", type=int, default=0,
                         help="shard host ingest over N worker processes (data/ingest_mp.py); 0 = in-process")
     parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     parser.add_argument("overrides", nargs="*", help="key=value config overrides")
     args = parser.parse_args(argv)
-
-    if args.data_parallel:
-        raise NotImplementedError("data-parallel evaluation waits for ROADMAP Queue 1 item 17")
 
     from rag_docvqa_tpu_torch.config import (QWEN_MODELS, build_caps, build_chunk_spec, build_engine,
                                              build_hivt5_config, build_p2s_config, build_qwen_config,
@@ -70,6 +76,9 @@ def main(argv=None):
                                             resolve_device)
 
     device = resolve_device(args.device)
+    mesh = data_parallel_mesh(device) if args.data_parallel else None
+    if mesh is not None:
+        device = mesh.device
     overrides = parse_overrides(args.overrides)
     overrides.update(ckpt=args.ckpt, hf_weights=args.hf_weights)
     base = load_config(model=args.model, dataset=args.dataset, overrides=overrides)
@@ -108,7 +117,7 @@ def main(argv=None):
         try:
             out = evaluate(engine, docs, ingestor, Evaluator(), batch_size=config.get("batch_size", 8),
                            save_path=save_path, save_continuously=config.get("save_continuously", False),
-                           compute_stats=config.get("compute_stats", False))
+                           compute_stats=config.get("compute_stats", False), mesh=mesh)
         finally:
             if hasattr(ingestor, "close"):  # MPIngestor: shut the worker pool down
                 ingestor.close()
@@ -117,9 +126,29 @@ def main(argv=None):
             summary["mmlongbench"] = out["mmlongbench"]
         summary["page_retrieval"] = str(config["page_retrieval"])
         summary["wall_time"] = round(time.time() - t0, 2)
-        print(json.dumps(summary))
+        if mesh is None or mesh.first:
+            print(json.dumps(summary))
         results.append(summary)
+    if mesh is not None:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
     return results
+
+
+def data_parallel_mesh(device):
+    """The mesh of `--data-parallel`: every rank of the `torchrun` group on
+    the data axis; None (the plain run) for one process on one device."""
+    import torch
+
+    from rag_docvqa_tpu_torch.parallel.mesh import mesh_from_env, under_torchrun
+
+    if under_torchrun():
+        return mesh_from_env(device)
+    if device.type == "cuda" and torch.cuda.device_count() > 1:
+        raise SystemExit("--data-parallel over several cards runs under torchrun: "
+                         "torchrun --nproc_per_node <cards> -m rag_docvqa_tpu_torch.eval --data-parallel ...")
+    return None
 
 
 if __name__ == "__main__":

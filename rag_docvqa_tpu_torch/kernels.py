@@ -107,6 +107,17 @@ def reset_launch_counts() -> None:
             counts[name] = 0
 
 
+def counted(launches: dict, fn, *args, **kw):
+    """fn(*args, **kw), its kernel launches (LAUNCHES) added to `launches`:
+    the counts of the calls passed through here alone, not of the runs they
+    are held to. Resets the counts first."""
+    reset_launch_counts()
+    out = fn(*args, **kw)
+    for name, n in LAUNCHES.items():
+        launches[name] = launches.get(name, 0) + n
+    return out
+
+
 def _sources():
     return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
 

@@ -165,21 +165,26 @@ def predict_page(cfg: HiVT5Config, batch: ChunkedBatch, ret_logits: torch.Tensor
 
 
 def forward_train(params: HiVT5Params, cfg: HiVT5Config, batch: ChunkedBatch, labels: torch.Tensor,
-                  page_visual: Optional[torch.Tensor] = None, page_visual_valid: Optional[torch.Tensor] = None
+                  page_visual: Optional[torch.Tensor] = None, page_visual_valid: Optional[torch.Tensor] = None,
+                  denominators: Optional[Dict[str, torch.Tensor]] = None
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(total loss, {"lm_loss", "ret_loss", "ret_logits"}): the mean LM
     cross-entropy over the labels that are not -100, plus
-    retrieval_loss_weight times the mean page cross-entropy over the valid
-    pages. Dropout is off."""
+    retrieval_loss_weight times the mean page cross-entropy over the
+    documents. Dropout is off. `denominators` {"lm", "docs"}, when given,
+    divide the two sums instead of this batch's label and document counts
+    (a data-parallel step's global counts)."""
+    denominators = denominators or {}
     doc_emb, doc_mask = encode_document(params, cfg, batch, page_visual, page_visual_valid, train=True)
     dec_in = t5m.shift_tokens_right(labels, cfg.t5.pad_id, cfg.t5.decoder_start_token_id)
     logits = t5m.decode_train(params.t5, cfg.t5, dec_in, doc_emb, doc_mask)
-    lm_loss = masked_cross_entropy(logits, labels, labels != -100)
+    lm_loss = masked_cross_entropy(logits, labels, labels != -100, denominators.get("lm"))
 
     ret_logits = page_retrieval_logits(params, cfg, doc_emb)
     masked = torch.where(_page_valid(cfg, batch), ret_logits, t5m.MASKED)
     ret_nll = -torch.gather(torch.log_softmax(masked, dim=-1), 1, batch.answer_page[:, None].long())[:, 0]
-    ret_loss = ret_nll.mean() * cfg.retrieval_loss_weight
+    docs = denominators.get("docs")
+    ret_loss = (ret_nll.mean() if docs is None else ret_nll.sum() / docs) * cfg.retrieval_loss_weight
     return lm_loss + ret_loss, {"lm_loss": lm_loss, "ret_loss": ret_loss, "ret_logits": ret_logits}
 
 

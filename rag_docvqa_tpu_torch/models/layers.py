@@ -57,12 +57,16 @@ def mlp_relu_stack(layers, x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, valid: torch.Tensor,
+                         denom: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean cross-entropy in f32 over the `valid` positions (a zero loss when
-    none is): the teacher-forced losses' `sum(nll * valid) / max(sum(valid), 1)`."""
+    none is): the teacher-forced losses' `sum(nll * valid) / max(sum(valid), 1)`.
+    `denom`, when given, takes the place of max(sum(valid), 1): a data-parallel
+    step passes the count over every rank's rows, so that the ranks' losses
+    sum to the global batch's mean."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, torch.where(valid, labels, 0)[..., None])[..., 0]
-    return (nll * valid).sum() / valid.sum().clamp(min=1)
+    return (nll * valid).sum() / (valid.sum().clamp(min=1) if denom is None else denom)
 
 
 def normal_init(generator: torch.Generator, shape, stddev: float) -> torch.Tensor:

@@ -27,7 +27,7 @@ output. The head is plain torch, as it is plain XLA in JAX.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -147,24 +147,27 @@ def generate(params: VT5Params, cfg: VT5Config, gen: GeneratorInputs, visual: Op
 
 
 def forward_train(params: VT5Params, cfg: VT5Config, gen: GeneratorInputs, labels: torch.Tensor,
-                  visual: Optional[torch.Tensor] = None,
-                  visual_mask: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+                  visual: Optional[torch.Tensor] = None, visual_mask: Optional[torch.Tensor] = None,
+                  denominators: Optional[Dict[str, torch.Tensor]] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """labels (B, Td) with -100 where ignored -> (scalar mean CE over the
     other positions, plus the LayoutT5 loss where the parameters carry its
     head; (B, Td, V) logits). `visual` (B, Tv, D) precomputed visual tokens
     and `visual_mask` as `input_embeds` takes them. Dropout is off, as in the
-    JAX step, which passes no rng."""
+    JAX step, which passes no rng. `denominators` {"lm", "layout"}, when
+    given, divide each CE's sum instead of its own count (the counts over a
+    data-parallel step's global batch)."""
+    denominators = denominators or {}
     embeds, mask = input_embeds(params, cfg, gen, visual, visual_mask)
     enc = t5m.encode(params.t5, cfg.t5, embeds, mask, train=True)
     dec_in = t5m.shift_tokens_right(labels, cfg.t5.pad_id, cfg.t5.decoder_start_token_id)
     logits = t5m.decode_train(params.t5, cfg.t5, dec_in, enc, mask)
-    loss = masked_cross_entropy(logits, labels, labels != -100)
+    loss = masked_cross_entropy(logits, labels, labels != -100, denominators.get("lm"))
     if params.layout_head is not None:
         # the per-token layout CE over the encoder's text positions
         h, S = params.layout_head, gen.input_ids.shape[1]
         lay_logits = dense(layer_norm(enc[:, :S], h.ln_w, h.ln_b, 1e-12), h.weight, h.bias)
         lay_labels = gen.input_labels[:, :S].clamp(0, cfg.n_layout_classes - 1)
-        loss = loss + cfg.layout_loss_weight * masked_cross_entropy(lay_logits, lay_labels,
-                                                                    gen.attention_mask[:, :S])
+        loss = loss + cfg.layout_loss_weight * masked_cross_entropy(lay_logits, lay_labels, gen.attention_mask[:, :S],
+                                                                    denominators.get("layout"))
     return loss, logits
 

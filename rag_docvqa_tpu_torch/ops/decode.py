@@ -10,16 +10,25 @@ the step is a Python int, the done flags and the confidence stay on the
 device, and the decoder's rel-pos bias for every step is built once before
 the loop. The JAX package's split dispatch (`greedy_decode_split`) works
 around XLA relayouting an in-program cache; eager PyTorch has no such
-program boundary, so the port has the one function.
+program boundary, so the port has one function for it.
+
+`greedy_decode_sharded` is the decode of the JAX dry run's split-dispatch
+case under the `(data, model)` layout (`parallel/mesh.py`): the encoder rows
+are this rank's share of the data axis, the parameters this rank's slices
+as `training/train_step.py::vt5_param_spec` splits them; the split leaves
+are gathered whole over the model axis, the rank decodes its rows (K3 where
+the config asks for it), and the tokens and confidences are all-gathered in
+rank order, so every rank returns the replicated decode's ids.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from rag_docvqa_tpu_torch.models import t5 as t5_mod
+from rag_docvqa_tpu_torch.parallel.mesh import Mesh, gathered_params
 
 
 def greedy_decode(
@@ -50,3 +59,21 @@ def greedy_decode(
         token = emitted
         tokens.append(emitted)
     return torch.stack(tokens, dim=1), conf
+
+
+@torch.no_grad()
+def greedy_decode_sharded(
+    params: "t5_mod.T5Params",  # this rank's slices, split as `spec` says
+    cfg: "t5_mod.T5Config",
+    encoder_hidden: torch.Tensor,  # (B / data, Te, D): this rank's rows
+    encoder_mask: torch.Tensor,  # (B / data, Te) bool
+    max_new_tokens: int,
+    *,
+    mesh: Mesh,
+    spec: Dict[str, Optional[int]],  # parameter name -> model-axis dimension or None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`greedy_decode` of the whole batch: (tokens (B, T), confidence (B,)),
+    the same on every rank."""
+    whole = gathered_params(params, spec, mesh)
+    tokens, conf = greedy_decode(whole, cfg, encoder_hidden, encoder_mask, max_new_tokens)
+    return torch.cat(mesh.all_gather(tokens, "data")), torch.cat(mesh.all_gather(conf, "data"))

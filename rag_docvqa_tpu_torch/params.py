@@ -409,7 +409,7 @@ def bert_to_jax(p: BertParams) -> Tree:
 # --------------------------------------------------------------------------- #
 def index_from_numpy(embeddings, scales=None, *, n_valid: int, dtype: str = "f32", n_shards: int = 1,
                      tile_n: int = 512, packed: Optional[bool] = None, host_rows=None, refine_kprime: int = 48,
-                     use_kernel: bool = True, kernel: str = "merge", device="cpu") -> ShardedIndex:
+                     use_kernel: bool = True, kernel: str = "merge", device="cpu", mesh=None) -> ShardedIndex:
     """The arrays of a built JAX `ShardedIndex`, as numpy, -> the port's.
 
     `embeddings` is its padded (N_pad, D) matrix (already normalized; int8
@@ -417,21 +417,30 @@ def index_from_numpy(embeddings, scales=None, *, n_valid: int, dtype: str = "f32
     (N_pad, 1) f32 array), `host_rows` its normalized host copy when it was
     built with `refine=True`. bf16 rows may come as f32 numpy (numpy has no
     bf16): `dtype="bf16"` casts them back, which is exact. Nothing is
-    quantized again, so both packages query one and the same index."""
+    quantized again, so both packages query one and the same index. With a
+    `mesh` (`parallel/mesh.py`), this rank keeps only its shard of the rows,
+    one shard a rank of the data axis, on the mesh's device."""
     if dtype not in ("f32", "bf16", "int8", "int4"):
         raise ValueError(f"unknown index dtype {dtype!r}")
+    form = dict(n_valid=int(n_valid), n_shards=n_shards, tile_n=tile_n)
+    if mesh is not None:
+        from rag_docvqa_tpu_torch.parallel.mesh import local_rows
+
+        rows = local_rows(len(embeddings), mesh)
+        embeddings, scales = embeddings[rows], None if scales is None else scales[rows]
+        form.update(n_shards=mesh.size("data"), mesh=mesh)
+        device = mesh.device
     emb = torch.from_numpy(np.ascontiguousarray(embeddings)).to(device)
     if dtype in ("int8", "int4"):
         if scales is None or emb.dtype != torch.int8:
             raise ValueError(f"a {dtype} index needs int8 rows and their scales")
         sc = torch.from_numpy(np.ascontiguousarray(scales, dtype=np.float32)).to(device)
-        return ShardedIndex(embeddings=emb, scales=sc, n_valid=int(n_valid), n_shards=n_shards, tile_n=tile_n,
-                            use_kernel=False, packed=dtype == "int4" if packed is None else packed,
+        return ShardedIndex(embeddings=emb, scales=sc, use_kernel=False,
+                            packed=dtype == "int4" if packed is None else packed,
                             host_rows=None if host_rows is None else np.asarray(host_rows),
-                            refine_kprime=refine_kprime)
+                            refine_kprime=refine_kprime, **form)
     emb = emb.to(torch.bfloat16 if dtype == "bf16" else torch.float32)
-    return ShardedIndex(embeddings=emb, n_valid=int(n_valid), n_shards=n_shards, tile_n=tile_n,
-                        use_kernel=use_kernel, kernel=kernel)
+    return ShardedIndex(embeddings=emb, use_kernel=use_kernel, kernel=kernel, **form)
 
 
 # --------------------------------------------------------------------------- #

@@ -21,7 +21,14 @@ CLI raises unless `--device cpu` is given. `index` embeds every chunk with
 the VT5 table embedder and writes an `.npz` with that CLI's keys
 (`embeddings`, `meta`), so either CLI reads the other's file. `query` keeps
 the index resident on the device in the chosen precision
-(`parallel/index.py`) and prints one JSON line per rank. `layouts` runs the
+(`parallel/index.py`) and prints one JSON line per rank. Under `torchrun`
+(`torchrun --nproc_per_node N -m rag_docvqa_tpu_torch.precompute index|query
+...`) both run on a mesh of every process on the data axis (NCCL on
+cuda:LOCAL_RANK, gloo with `--device cpu`): `index` embeds every N-th batch
+on each rank and the first rank writes the file the single process writes;
+`query` keeps each rank's shard of the index on its device
+(`ShardedIndex.build(..., mesh=)`) and the first rank prints the ranking.
+`layouts` runs the
 DiT segmentation detector (`models/layout_seg.py`, its backbone through K14)
 or the YOLO detector (`models/yolo.py`) over every page image of the split,
 sized by the config keys of the root CLI (`layout_d_model`,
@@ -51,16 +58,16 @@ import time
 LAYOUT_BATCH = 16  # pages a detector forward
 
 
-def _setup(args, dataset=None):
+def _setup(args, dataset=None, device=None):
     """config, tokenizer, VT5 config and random-weight parameters from the
-    config's seed, on the CLI's device."""
+    config's seed, on `device` (default: the CLI's)."""
     import torch
 
     from rag_docvqa_tpu_torch.config import build_vt5_config, load_config, load_tokenizer
     from rag_docvqa_tpu_torch.models import vt5 as vt5m
     from rag_docvqa_tpu_torch.train import parse_overrides, resolve_device
 
-    device = resolve_device(args.device)
+    device = device or resolve_device(args.device)
     config = load_config(model=args.model, dataset=dataset, overrides=parse_overrides(args.overrides))
     tokenizer = load_tokenizer(config.get("tokenizer"))
     vt5_cfg = build_vt5_config(config, tokenizer.vocab_size)
@@ -90,9 +97,12 @@ def cmd_index(args):
     from rag_docvqa_tpu_torch.config import build_caps, build_chunk_spec
     from rag_docvqa_tpu_torch.data.ingest import DocVQAIngestor
     from rag_docvqa_tpu_torch.models.embedder import vt5_table_embed
-    from rag_docvqa_tpu_torch.train import build_docs
+    from rag_docvqa_tpu_torch.parallel.mesh import mesh_from_env
+    from rag_docvqa_tpu_torch.train import build_docs, resolve_device
 
-    device, config, tokenizer, vt5_cfg, params = _setup(args, dataset=args.dataset)
+    mesh = mesh_from_env(resolve_device(args.device))
+    device, config, tokenizer, vt5_cfg, params = _setup(args, dataset=args.dataset,
+                                                        device=None if mesh is None else mesh.device)
     ingestor = DocVQAIngestor(tokenizer, build_chunk_spec(config), build_caps(config))
     shared = params.t5.shared
     docs = build_docs(config, args.split)
@@ -100,7 +110,10 @@ def cmd_index(args):
     all_emb, meta = [], []
     t0 = time.time()
     bs = config.get("batch_size", 8)
-    for start in range(0, len(docs), bs):
+    starts = list(range(0, len(docs), bs))
+    if mesh is not None:  # every data-size-th batch on this rank
+        starts = starts[mesh.index("data")::mesh.size("data")]
+    for start in starts:
         chunk_docs = docs[start: start + bs]
         batch, aux = ingestor.ingest(chunk_docs)
         with torch.inference_mode():
@@ -118,8 +131,17 @@ def cmd_index(args):
                     "page": int(pages[b, c]),
                     "text": aux["chunk_texts"][b][c] if c < len(aux["chunk_texts"][b]) else "",
                 })
+    if mesh is not None:  # the ranks' chunks in document order
+        parts = mesh.all_gather_object(list(zip(all_emb, meta)), "data")
+        rows = sorted((r for part in parts for r in part), key=lambda r: r[1]["doc_idx"])
+        all_emb, meta = [e for e, _ in rows], [m for _, m in rows]
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
     embeddings = np.stack(all_emb) if all_emb else np.zeros((0, vt5_cfg.t5.d_model), np.float32)
     build_time = time.time() - t0
+    if mesh is not None and not mesh.first:
+        return
     np.savez_compressed(args.out, embeddings=embeddings, meta=json.dumps(meta))
     print(json.dumps({
         "n_chunks": len(embeddings),
@@ -223,19 +245,28 @@ def cmd_query(args):
     import torch
 
     from rag_docvqa_tpu_torch.parallel import ShardedIndex
+    from rag_docvqa_tpu_torch.parallel.mesh import mesh_from_env
+    from rag_docvqa_tpu_torch.train import resolve_device
 
     data = np.load(args.index, allow_pickle=True)
     embeddings = data["embeddings"]
     meta = json.loads(str(data["meta"]))
 
-    device, config, tokenizer, vt5_cfg, params = _setup(args)
+    mesh = mesh_from_env(resolve_device(args.device))
+    device, config, tokenizer, vt5_cfg, params = _setup(args, device=None if mesh is None else mesh.device)
     index = ShardedIndex.build(embeddings, tile_n=args.tile_n, use_kernel=device.type == "cuda",
-                               dtype=args.index_dtype, device=device,
+                               dtype=args.index_dtype, device=device, mesh=mesh,
                                refine=args.refine and args.index_dtype in ("int8", "int4"))
 
     with torch.inference_mode():
         q_emb = embed_question(params.t5.shared, tokenizer, args.question, device)
         vals, idx, valid = index.query(q_emb, args.k)
+    if mesh is not None:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+        if not mesh.first:
+            return
     to_np = lambda x: x.cpu().numpy() if isinstance(x, torch.Tensor) else x
     for rank, (v, i, ok) in enumerate(zip(to_np(vals)[0], to_np(idx)[0], to_np(valid)[0])):
         if not ok:

@@ -55,9 +55,21 @@ def trainable_mask(params: nn.Module, trainable_roots: Sequence[str]) -> Dict[st
     return {name: name.split(".")[0] in trainable_roots for name, _ in params.named_parameters()}
 
 
-def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every element, in f32."""
-    return torch.sqrt(sum((t.float() * t.float()).sum() for t in tensors))
+def global_norm(tensors: Sequence[torch.Tensor], split: Optional[Sequence[bool]] = None,
+                mesh=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every element, in f32. With a `mesh`
+    (`parallel/mesh.py`), `split` marks the tensors that are this rank's
+    slices over the model axis: their squares are summed over the axis, the
+    whole tensors' counted once, so every rank reads the norm of the whole
+    gradient. The leaves are added in their order either way, so a mesh
+    whose model axis has one rank gives the unsharded norm bit for bit."""
+    squares = [(t.float() * t.float()).sum() for t in tensors]
+    sliced = [i for i, s in enumerate(split or ()) if s]
+    if mesh is not None and sliced:  # one collective; the sum below keeps the leaves' order
+        total = mesh.all_reduce(torch.stack([squares[i] for i in sliced]), "model")
+        for j, i in enumerate(sliced):
+            squares[i] = total[j]
+    return torch.sqrt(sum(squares))
 
 
 @dataclass
@@ -91,15 +103,18 @@ class Optimizer:
                 "nu": {n: torch.zeros_like(p) for n, p in train.items()}}
 
     @torch.no_grad()
-    def update(self, params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor], state: dict) -> None:
+    def update(self, params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor], state: dict,
+               norm: Optional[torch.Tensor] = None) -> None:
         """One step on `params` (the trainable ones, by name) with their f32
-        `grads`; parameters and state change in place."""
+        `grads`; parameters and state change in place. `norm`, when given, is
+        the gradients' global norm the clip reads (a sharded step's, over
+        every rank's slices), else it is computed here."""
         names = list(state["mu"])
         p = [params[n] for n in names]
         g = [grads[n] for n in names]
         if self.clip_norm is not None:
             # optax: where(norm < max_norm, g, (g / norm) * max_norm), no host sync
-            norm = global_norm(g)
+            norm = global_norm(g) if norm is None else norm
             clipped = norm >= self.clip_norm
             g = torch._foreach_mul(torch._foreach_div(g, torch.where(clipped, norm, 1.0)),
                                    torch.where(clipped, self.clip_norm, 1.0))

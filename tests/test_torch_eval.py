@@ -226,7 +226,6 @@ def test_config_sweep_and_rag_keys_match_jax():
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--data-parallel"], "item 17"),
     # F10: the Qwen engine with use_visual (the JAX branch calls a function it never defines)
     (["-m", "configs/Qwen_tiny.yml", "use_visual=true"], "build_qwen_vision_config"),
 ])
@@ -236,6 +235,24 @@ def test_eval_cli_refuses_what_is_not_ported(argv, match):
     base = ["-m", MODEL, "-d", DATA, "--device", "cpu"]
     with pytest.raises(NotImplementedError, match=match):
         p_eval.main(base + argv)
+
+
+def test_eval_cli_data_parallel_without_torchrun_is_the_plain_run(monkeypatch, capsys):
+    """`--data-parallel` in one CPU process with no torchrun: the plain run's
+    summary (the root CLI's flag with one device), no process group."""
+    import torch.distributed as dist
+
+    from rag_docvqa_tpu_torch import eval as p_eval
+
+    for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
+        monkeypatch.delenv(var, raising=False)
+    base = ["-m", MODEL, "-d", DATA, "--device", "cpu", "compute_stats=true"]
+    plain, dp = p_eval.main(base)[0], p_eval.main(base + ["--data-parallel"])[0]
+    assert not dist.is_initialized()
+    for k in p_eval.SUMMARY_KEYS + ("page_retrieval",):
+        assert dp[k] == plain[k], k
+    lines = [json.loads(l) for l in capsys.readouterr().out.splitlines() if l.startswith("{")]
+    assert len(lines) == 2
 
 
 def test_eval_cli_runs_on_the_card_unless_asked(monkeypatch):
