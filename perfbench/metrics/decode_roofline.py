@@ -1,0 +1,9 @@
+"""The decode stage's least time (work.py, from the valid encoder positions
+and each row's steps up to its EOS) over the summed device time of the
+operations the stage launched, in the traced calls, in percent."""
+
+from perfbench.stage_roofline import roofline
+
+
+def read(run):
+    return roofline(run, "decode")
