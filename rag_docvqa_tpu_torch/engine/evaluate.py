@@ -25,11 +25,17 @@ gathered in rank order (`all_gather_object`), the padding is dropped, and
 the metrics and statistics are computed from the gathered samples, so every
 rank returns the unsharded run's result. Stage times are the slowest
 rank's. Only the mesh's first rank writes `save_path`.
+
+Each batch's loop is three spans of `profiling.py` (off unless enabled):
+`evaluate.wait` (the prefetched batch and its copy), `evaluate.inference`
+and `evaluate.score`; on the prefetch thread, `ingest.batch` with the child
+`ingest.transfer` (the queued copy).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import os
 import time
@@ -43,6 +49,7 @@ from rag_docvqa_tpu_torch.data.ingest import DocVQAIngestor
 from rag_docvqa_tpu_torch.data.prefetch import map_prefetch
 from rag_docvqa_tpu_torch.data.transfer import device_put_batch_async
 from rag_docvqa_tpu_torch.parallel.mesh import Mesh, local_rows
+from rag_docvqa_tpu_torch.profiling import span
 from rag_docvqa_tpu_torch.utils_stats import StatsCollector, collect_ingest_stats
 
 
@@ -81,73 +88,85 @@ def evaluate(
             padded = chunk + [chunk[-1]] * (-len(chunk) % size)
             rows = local_rows(len(padded), mesh)
             mine, n_mine = padded[rows], max(0, min(rows.stop, len(chunk)) - rows.start)
-        t0 = time.time()
-        batch, aux = ingestor.ingest(mine)
-        batch_stats = collect_ingest_stats(*_real_rows(batch, aux, n_mine)) if compute_stats else None
-        return chunk, device_put_batch_async(batch, vocab, engine.device), aux, time.time() - t0, batch_stats
+        with span("ingest.batch", start // batch_size):
+            t0 = time.time()
+            batch, aux = ingestor.ingest(mine)
+            batch_stats = collect_ingest_stats(*_real_rows(batch, aux, n_mine)) if compute_stats else None
+            with span("ingest.transfer"):
+                pending = device_put_batch_async(batch, vocab, engine.device)
+            return chunk, pending, aux, time.time() - t0, batch_stats
 
-    for chunk, pending, aux, ingest_t, batch_stats in map_prefetch(_ingest_one, range(0, len(docs), batch_size),
-                                                                   depth=prefetch_depth):
-        batch = pending.wait()
-        load_time += ingest_t
-        t0 = time.time()
-        out = engine.inference(batch, aux)
-        step_total = time.time() - t0
-        r = out.get("retrieval", {}) or {}
-        ret_t = r.get("retrieval_time", 0.0)
-        gen_t = r.get("generation_time", step_total - ret_t)
-        if mesh is not None:
-            out, aux, (ret_t, gen_t), batch_stats = _gather_rows(mesh, out, aux, ret_t, gen_t, batch_stats, len(chunk))
-        if stats is not None:
-            for part in batch_stats if mesh is not None else [batch_stats]:
-                stats.merge(part)
-        retrieval_time += ret_t
-        generation_time += gen_t
+    batches = map_prefetch(_ingest_one, range(0, len(docs), batch_size), depth=prefetch_depth)
+    for index in itertools.count():
+        with span("evaluate.wait", index):
+            ingested = next(batches, None)
+            if ingested is None:
+                break
+            chunk, pending, aux, ingest_t, batch_stats = ingested
+            batch = pending.wait()
+        with span("evaluate.inference", index):
+            load_time += ingest_t
+            t0 = time.time()
+            out = engine.inference(batch, aux)
+            step_total = time.time() - t0
+        with span("evaluate.score", index):
+            r = out.get("retrieval", {}) or {}
+            ret_t = r.get("retrieval_time", 0.0)
+            gen_t = r.get("generation_time", step_total - ret_t)
+            if mesh is not None:
+                out, aux, (ret_t, gen_t), batch_stats = _gather_rows(mesh, out, aux, ret_t, gen_t, batch_stats,
+                                                                     len(chunk))
+            if stats is not None:
+                for part in batch_stats if mesh is not None else [batch_stats]:
+                    stats.merge(part)
+            retrieval_time += ret_t
+            generation_time += gen_t
 
-        metrics = evaluator.get_metrics(aux["answers"], out["pred_answers"], aux.get("answer_types"))
-        ret_prec = evaluator.get_retrieval_metric([d.answer_page_idx for d in chunk], out["pred_answer_pages"])
-        ret_eval = evaluator.eval_retrieval(aux["answers"], out["retrieval"].get("text"))
+            metrics = evaluator.get_metrics(aux["answers"], out["pred_answers"], aux.get("answer_types"))
+            ret_prec = evaluator.get_retrieval_metric([d.answer_page_idx for d in chunk], out["pred_answer_pages"])
+            ret_eval = evaluator.eval_retrieval(aux["answers"], out["retrieval"].get("text"))
 
-        total_acc.extend(metrics["accuracy"])
-        total_anls.extend(metrics["anls"])
-        total_ret_prec.extend(ret_prec)
-        total_chunk_score.extend(ret_eval["chunk_score"])
-        all_answers.extend(out["pred_answers"])
+            total_acc.extend(metrics["accuracy"])
+            total_anls.extend(metrics["anls"])
+            total_ret_prec.extend(ret_prec)
+            total_chunk_score.extend(ret_eval["chunk_score"])
+            all_answers.extend(out["pred_answers"])
 
-        if mmlb:
-            from rag_docvqa_tpu_torch.metrics.mmlongbench import eval_score, extract_answer
+            if mmlb:
+                from rag_docvqa_tpu_torch.metrics.mmlongbench import eval_score, extract_answer
+
+                for i, d in enumerate(chunk):
+                    fmt = d.extra.get("answer_format", "Str")
+                    gt = d.answers[0] if d.answers else ""
+                    preds = out["pred_answers"][i]
+                    preds = preds if isinstance(preds, list) else [preds]
+                    score = max((eval_score(gt, extract_answer(d.question, p or ""), fmt) for p in preds),
+                                default=0.0)
+                    mmlb_samples.append({
+                        "question": d.question, "answer": gt, "pred": (preds[0] or "") if preds else "",
+                        "score": score, "answer_format": fmt,
+                        "evidence_pages": d.extra.get("evidence_pages", []),
+                        "evidence_sources": d.extra.get("evidence_sources", []),
+                        "doc_type": d.extra.get("doc_type", "unknown"),
+                    })
 
             for i, d in enumerate(chunk):
-                fmt = d.extra.get("answer_format", "Str")
-                gt = d.answers[0] if d.answers else ""
-                preds = out["pred_answers"][i]
-                preds = preds if isinstance(preds, list) else [preds]
-                score = max((eval_score(gt, extract_answer(d.question, p or ""), fmt) for p in preds), default=0.0)
-                mmlb_samples.append({
-                    "question": d.question, "answer": gt, "pred": (preds[0] or "") if preds else "",
-                    "score": score, "answer_format": fmt,
-                    "evidence_pages": d.extra.get("evidence_pages", []),
-                    "evidence_sources": d.extra.get("evidence_sources", []),
-                    "doc_type": d.extra.get("doc_type", "unknown"),
-                })
+                scores_by_samples[d.question_id] = {
+                    "question": d.question,
+                    "gt_answer": d.answers,
+                    "pred_answer": out["pred_answers"][i],
+                    "pred_answer_conf": out["confidences"][i],
+                    "pred_answer_pages": out["pred_answer_pages"][i],
+                    "gt_answer_page": d.answer_page_idx,
+                    "accuracy": metrics["accuracy"][i],
+                    "anls": metrics["anls"][i],
+                    "retrieval_precision": ret_prec[i],
+                    "chunk_score": ret_eval["chunk_score"][i],
+                }
 
-        for i, d in enumerate(chunk):
-            scores_by_samples[d.question_id] = {
-                "question": d.question,
-                "gt_answer": d.answers,
-                "pred_answer": out["pred_answers"][i],
-                "pred_answer_conf": out["confidences"][i],
-                "pred_answer_pages": out["pred_answer_pages"][i],
-                "gt_answer_page": d.answer_page_idx,
-                "accuracy": metrics["accuracy"][i],
-                "anls": metrics["anls"][i],
-                "retrieval_precision": ret_prec[i],
-                "chunk_score": ret_eval["chunk_score"][i],
-            }
-
-        if save_continuously and save_path:
-            _save(save_path, total_acc, total_anls, total_ret_prec, total_chunk_score,
-                  scores_by_samples, load_time, retrieval_time, generation_time)
+            if save_continuously and save_path:
+                _save(save_path, total_acc, total_anls, total_ret_prec, total_chunk_score,
+                      scores_by_samples, load_time, retrieval_time, generation_time)
 
     result = _summary(total_acc, total_anls, total_ret_prec, total_chunk_score,
                       load_time, retrieval_time, generation_time)

@@ -23,6 +23,7 @@ from rag_docvqa_tpu_torch.data.contract import ChunkedBatch, to_device
 from rag_docvqa_tpu_torch.engine.rag_vt5 import _sync, decode_answers
 from rag_docvqa_tpu_torch.models import hivt5 as hivt5m
 from rag_docvqa_tpu_torch.ops.patches import resize_image
+from rag_docvqa_tpu_torch.profiling import span
 
 
 class HiVT5Engine:
@@ -82,17 +83,24 @@ class HiVT5Engine:
             _sync(self.device)
             marks[stage] = time.perf_counter()
 
-        page_visual, page_visual_valid = self._page_visual(batch, aux, mark)
-        mark("visual")
+        # a stage's spans: the visual branch and `generate`'s encode are
+        # `engine.encode`; `generate`'s decode and the copy of its tokens,
+        # `engine.decode`
+        with span("engine.encode"):
+            page_visual, page_visual_valid = self._page_visual(batch, aux, mark)
+            mark("visual")
         tokens, conf, pred_page = hivt5m.generate(self.params, self.cfg, batch, self.max_new_tokens, page_visual,
                                                   page_visual_valid, mark=mark)
-        tokens_np = tokens.cpu().numpy()  # waits for the decode
+        with span("engine.decode"):
+            tokens_np = tokens.cpu().numpy()  # waits for the decode
         t2 = time.perf_counter()
-        pages = [int(p) for p in pred_page.cpu()]
-        answers = decode_answers(self.tokenizer, self.cfg.t5, tokens_np)
+        with span("engine.answers"):
+            pages = [int(p) for p in pred_page.cpu()]
+            answers = decode_answers(self.tokenizer, self.cfg.t5, tokens_np)
+            confidences = conf.cpu().tolist()
         return {
             "pred_answers": answers,
-            "confidences": conf.cpu().tolist(),
+            "confidences": confidences,
             "pred_answer_pages": pages,
             "retrieval": {"page_indices": pages, "retrieval_time": 0.0,
                           "generation_time": time.perf_counter() - t0},

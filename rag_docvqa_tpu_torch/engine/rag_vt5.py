@@ -72,6 +72,7 @@ from rag_docvqa_tpu_torch.ops.gather import (
 )
 from rag_docvqa_tpu_torch.ops.patches import concatenate_patches_grid, crop_box, resize_image
 from rag_docvqa_tpu_torch.ops.topk import NEG_INF, masked_topk
+from rag_docvqa_tpu_torch.profiling import count, device_count, span
 
 STRATEGIES = (
     "oracle", "concat", "maxconf", "anyconf", "maxconfpage", "anyconfpage",
@@ -204,12 +205,16 @@ class RAGVT5Engine:
 
     def _generate(self, gen, visual=None):
         """Encode, then decode: (tokens, confidences, t_encoded, t_decoded)."""
-        embeds, mask = vt5m.input_embeds(self.params, self.vt5_cfg, gen, visual)
-        enc = t5m.encode(self.params.t5, self.vt5_cfg.t5, embeds, mask)
-        _sync(self.device)
+        with span("engine.encode"):
+            embeds, mask = vt5m.input_embeds(self.params, self.vt5_cfg, gen, visual)
+            device_count("encode.tokens_valid", mask)
+            count("encode.positions", mask.numel())
+            enc = t5m.encode(self.params.t5, self.vt5_cfg.t5, embeds, mask)
+            _sync(self.device)
         t_enc = time.perf_counter()
-        tokens, conf = greedy_decode(self.params.t5, self.vt5_cfg.t5, enc, mask, self.cfg.max_new_tokens)
-        tokens_np = tokens.cpu().numpy()  # waits for the decode
+        with span("engine.decode"):
+            tokens, conf = greedy_decode(self.params.t5, self.vt5_cfg.t5, enc, mask, self.cfg.max_new_tokens)
+            tokens_np = tokens.cpu().numpy()  # waits for the decode
         return tokens_np, conf, t_enc, time.perf_counter()
 
     @torch.inference_mode()
@@ -223,77 +228,80 @@ class RAGVT5Engine:
         B = batch.batch_size
         t0 = time.perf_counter()
         if strategy == "none":
-            gen = _assemble_full_doc(batch, cfg.assemble())
-            _sync(dev)
+            with span("engine.assemble"):
+                gen = _assemble_full_doc(batch, cfg.assemble())
+                _sync(dev)
             t1 = time.perf_counter()
             tokens, conf, t2, t3 = self._generate(gen)
-            result = self._result(self._decode(tokens), conf.cpu().tolist(), [[0] for _ in range(B)], None, batch,
-                                  aux)
+            with span("engine.answers"):
+                result = self._result(self._decode(tokens), conf.cpu().tolist(), [[0] for _ in range(B)], None,
+                                      batch, aux)
             result["timings"] = {"retrieve_assemble_s": t1 - t0, "encode_s": t2 - t1, "decode_s": t3 - t2}
             return result
 
         oracle = strategy == "oracle"
-        ret = retrieve(self.params.t5.shared, batch, k=cfg.chunk_num, oracle=oracle)
-        rerank_s = 0.0
-        if self.reranker is not None and not oracle:
+        with span("engine.retrieve"):
+            ret = retrieve(self.params.t5.shared, batch, k=cfg.chunk_num, oracle=oracle)
+            rerank_s = 0.0
+            if self.reranker is not None and not oracle:
+                _sync(dev)
+                tr = time.perf_counter()
+                ret = self.reranker(batch, ret)
+                _sync(dev)
+                rerank_s = time.perf_counter() - tr
+            if cfg.reorder_chunks and not oracle:
+                ret = reading_order(ret, batch)
             _sync(dev)
-            tr = time.perf_counter()
-            ret = self.reranker(batch, ret)
-            _sync(dev)
-            rerank_s = time.perf_counter() - tr
-        if cfg.reorder_chunks and not oracle:
-            ret = reading_order(ret, batch)
-        _sync(dev)
         tr1 = time.perf_counter()  # retrieval ends here; the assembly counts as generation
         K = ret.top_k_idx.shape[1]
         acfg = cfg.assemble()
         visual = nac_probs = major = None
-        if strategy in ("oracle", "concat"):
-            gen, owner = assemble_concat(batch, ret.top_k_idx, ret.top_k_valid, acfg)
-            row_valid = None
-        elif strategy in ("maxconf", "anyconf", "anyconforacle"):
-            gen, owner, row_valid = assemble_per_chunk(batch, ret.top_k_idx, ret.top_k_valid, acfg,
-                                                       seq_len=cfg.per_chunk_seq_len)
-        elif strategy in ("maxconfpage", "anyconfpage"):
-            gen = assemble_page_rows(batch, ret.top_k_page, ret.top_k_valid,
-                                     AssembleConfig(max_source_length=cfg.max_source_length))
-            owner = compute_ownership(batch, ret.top_k_idx, ret.top_k_valid, cfg.include_surroundings)
-            row_valid = ret.top_k_valid
-        else:  # majorpage, weightmajorpage
-            major = majority_page(ret, strategy == "weightmajorpage", batch.page_slot_start.shape[1])
-            gen = assemble_page_rows(batch, major[:, None], torch.ones((B, 1), dtype=torch.bool, device=dev),
-                                     AssembleConfig(max_source_length=cfg.max_source_length))
-            owner = compute_ownership(batch, ret.top_k_idx, ret.top_k_valid, cfg.include_surroundings)
-            row_valid = None
-        _sync(dev)
+        with span("engine.assemble"):
+            if strategy in ("oracle", "concat"):
+                gen, owner = assemble_concat(batch, ret.top_k_idx, ret.top_k_valid, acfg)
+                row_valid = None
+            elif strategy in ("maxconf", "anyconf", "anyconforacle"):
+                gen, owner, row_valid = assemble_per_chunk(batch, ret.top_k_idx, ret.top_k_valid, acfg,
+                                                           seq_len=cfg.per_chunk_seq_len)
+            elif strategy in ("maxconfpage", "anyconfpage"):
+                gen = assemble_page_rows(batch, ret.top_k_page, ret.top_k_valid,
+                                         AssembleConfig(max_source_length=cfg.max_source_length))
+                owner = compute_ownership(batch, ret.top_k_idx, ret.top_k_valid, cfg.include_surroundings)
+                row_valid = ret.top_k_valid
+            else:  # majorpage, weightmajorpage
+                major = majority_page(ret, strategy == "weightmajorpage", batch.page_slot_start.shape[1])
+                gen = assemble_page_rows(batch, major[:, None], torch.ones((B, 1), dtype=torch.bool, device=dev),
+                                         AssembleConfig(max_source_length=cfg.max_source_length))
+                owner = compute_ownership(batch, ret.top_k_idx, ret.top_k_valid, cfg.include_surroundings)
+                row_valid = None
+            _sync(dev)
         t1 = time.perf_counter()
         if strategy in ("oracle", "concat"):
             visual = self._visual(batch, aux, owner, ret)
-            if visual is not None:
-                _sync(dev)
         tv = time.perf_counter()
         tokens, conf, t2, t3 = self._generate(gen, visual)
 
-        if row_valid is None:
-            answers, confs = self._decode(tokens), conf.cpu().tolist()
-            if self.nac is not None and strategy in ("oracle", "concat"):
-                answers, confs, nac_probs = self._apply_nac(gen, answers, confs)
-        else:
-            answers, confs = self._select_rows(tokens, conf, row_valid, B, K, strategy.startswith("any"))
+        with span("engine.answers"):
+            if row_valid is None:
+                answers, confs = self._decode(tokens), conf.cpu().tolist()
+                if self.nac is not None and strategy in ("oracle", "concat"):
+                    answers, confs, nac_probs = self._apply_nac(gen, answers, confs)
+            else:
+                answers, confs = self._select_rows(tokens, conf, row_valid, B, K, strategy.startswith("any"))
 
-        # predicted pages: the GT page for the oracle modes, the vote's winner
-        # for the majority modes, else the top-k pages
-        valid_np = ret.top_k_valid.cpu().numpy()
-        if oracle:
-            pages = [[int(p)] for p in batch.answer_page.cpu().tolist()]
-        elif strategy == "anyconforacle":
-            pages = [[int(p)] * int(valid_np[b].sum()) for b, p in enumerate(batch.answer_page.cpu().tolist())]
-        elif major is not None:
-            pages = [int(p) for p in major.cpu().tolist()]
-        else:
-            pages_np = ret.top_k_page.cpu().numpy()
-            pages = [pages_np[b][valid_np[b]].tolist() for b in range(B)]
-        result = self._result(answers, confs, pages, ret, batch, aux, owner, nac_probs)
+            # predicted pages: the GT page for the oracle modes, the vote's winner
+            # for the majority modes, else the top-k pages
+            valid_np = ret.top_k_valid.cpu().numpy()
+            if oracle:
+                pages = [[int(p)] for p in batch.answer_page.cpu().tolist()]
+            elif strategy == "anyconforacle":
+                pages = [[int(p)] * int(valid_np[b].sum()) for b, p in enumerate(batch.answer_page.cpu().tolist())]
+            elif major is not None:
+                pages = [int(p) for p in major.cpu().tolist()]
+            else:
+                pages_np = ret.top_k_page.cpu().numpy()
+                pages = [pages_np[b][valid_np[b]].tolist() for b in range(B)]
+            result = self._result(answers, confs, pages, ret, batch, aux, owner, nac_probs)
         result["retrieval"]["retrieval_time"] = tr1 - t0
         result["retrieval"]["generation_time"] = t3 - tr1
         if self.reranker is not None:
@@ -313,6 +321,10 @@ class RAGVT5Engine:
             return None
         if aux is None or not aux.get("images") or aux["images"][0] is None:
             return None
+        with span("engine.encode"):  # a part of the encode stage, ended by a synchronize as it is
+            return self._visual_tokens(batch, aux, owner, ret)
+
+    def _visual_tokens(self, batch, aux, owner, ret) -> torch.Tensor:
         boxes = group_boxes(batch, owner, ret.top_k_idx.shape[1]).cpu().numpy()
         pages = ret.top_k_page.cpu().numpy()
         valid = ret.top_k_valid.cpu().numpy()
@@ -332,7 +344,9 @@ class RAGVT5Engine:
             img = resize_image(concatenate_patches_grid(crops), size, size) / 255.0
             images.append((img - 0.5) / 0.5)
         pixels = torch.from_numpy(np.stack(images).astype(np.float32)).to(self.device)
-        return vt5m.visual_features(self.params, self.vt5_cfg, pixels)
+        visual = vt5m.visual_features(self.params, self.vt5_cfg, pixels)
+        _sync(self.device)
+        return visual
 
     def _apply_nac(self, gen, answers: List[str], confs: List[float]):
         """Not-answerable gating: the NAC sees the generator's input

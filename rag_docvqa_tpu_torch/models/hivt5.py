@@ -46,6 +46,7 @@ from rag_docvqa_tpu_torch.models.vit import ViTConfig, init_vit_params, vit_enco
 from rag_docvqa_tpu_torch.models.vt5 import VisualParams
 from rag_docvqa_tpu_torch.ops.decode import greedy_decode
 from rag_docvqa_tpu_torch.ops.gather import AssembleConfig, assemble_page_rows
+from rag_docvqa_tpu_torch.profiling import count, device_count, span
 
 @dataclass(frozen=True)
 class HiVT5Config:
@@ -144,6 +145,8 @@ def encode_document(params: HiVT5Params, cfg: HiVT5Config, batch: ChunkedBatch,
                      else torch.ones((B * P, 1), dtype=torch.bool, device=x.device))
         mask = torch.cat([mask, vis_valid.expand(B * P, Tv)], dim=1)
     mask = mask & page_valid.reshape(B * P, 1)
+    device_count("encode.tokens_valid", mask)
+    count("encode.positions", mask.numel())
 
     hidden = t5m.encode(params.t5, cfg.t5, x, mask, train=train)  # one pass, pages in the batch
     doc_emb = hidden[:, :K, :].reshape(B, P * K, -1)  # the page summary tokens
@@ -213,9 +216,13 @@ def generate(params: HiVT5Params, cfg: HiVT5Config, batch: ChunkedBatch, max_new
     (B,), pred_page (B,)), the page from the retrieval head. `mark`, when
     given, is called with "encode" once the encode and the page head are
     queued, before the decode (the engine's stage split)."""
-    doc_emb, doc_mask = encode_document(params, cfg, batch, page_visual, page_visual_valid)
-    pred_page = predict_page(cfg, batch, page_retrieval_logits(params, cfg, doc_emb))
-    if mark is not None:
-        mark("encode")
-    tokens, conf = greedy_decode(params.t5, cfg.t5, doc_emb, doc_mask, max_new_tokens)
+    with span("engine.encode"):
+        with span("hivt5.pages"):
+            doc_emb, doc_mask = encode_document(params, cfg, batch, page_visual, page_visual_valid)
+        with span("hivt5.page_head"):
+            pred_page = predict_page(cfg, batch, page_retrieval_logits(params, cfg, doc_emb))
+        if mark is not None:
+            mark("encode")
+    with span("engine.decode"):
+        tokens, conf = greedy_decode(params.t5, cfg.t5, doc_emb, doc_mask, max_new_tokens)
     return tokens, conf, pred_page

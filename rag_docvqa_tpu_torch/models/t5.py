@@ -41,6 +41,7 @@ from torch import nn
 from rag_docvqa_tpu_torch.models.layers import dense, frozen, normal_init, rms_norm
 from rag_docvqa_tpu_torch.ops.decode_attention import fused_cross_attention, pack_decode_kv
 from rag_docvqa_tpu_torch.ops.fused_encoder import fuse_t5_blocks, fused_t5_layer_parts, t5_layer_train
+from rag_docvqa_tpu_torch.profiling import span
 
 MASKED = -1e9  # masked attention score of `_attend` and `_attend_one`, as in JAX
 
@@ -429,36 +430,40 @@ def decode_step(params: T5Params, cfg: T5Config, cache: DecodeCache, token: torc
 
     for i, layer in enumerate(dec.layers):
         sa, ca = layer.self_attn, layer.cross_attn
-        h = rms_norm(x, layer.ln0, cfg.layer_norm_eps)
-        q = split(h, sa.q)
-        sk, sv = cache.self_k[i], cache.self_v[i]
-        sk[:, :, step] = split(h, sa.k)
-        sv[:, :, step] = split(h, sa.v)
-        x = x + dense(_attend_one(q, sk, sv, self_bias, self_mask), sa.o)
-        h = rms_norm(x, layer.ln1, cfg.layer_norm_eps)
-        q = split(h, ca.q)
-        ck, cv = cache.cross_k[i], cache.cross_v[i]
-        if use_fused:
-            a = fused_cross_attention(
-                q, ck, cv, encoder_mask,
-                k_scale=cache.cross_k_scale[i][:, :, 0, :] if int8_kv else None,
-                v_scale=cache.cross_v_scale[i][:, :, 0, :] if int8_kv else None,
-                out_dtype=q.dtype,
-            )
-        elif int8_kv:
-            # channel scales fold into the query (scores) and the output (p@V)
-            qs = q.float() * cache.cross_k_scale[i][:, :, 0, :]
-            scores = torch.einsum("bhd,bhtd->bht", qs, ck.float())
-            probs = torch.softmax(torch.where(cross_mask, scores, MASKED), dim=-1)
-            out = torch.einsum("bht,bhtd->bhd", probs, cv.float()) * cache.cross_v_scale[i][:, :, 0, :]
-            a = out.to(q.dtype).reshape(B, -1)
-        else:
-            a = _attend_one(q, ck, cv, None, cross_mask)
-        x = x + dense(a, ca.o)
-        h = rms_norm(x, layer.ln2, cfg.layer_norm_eps)
-        x = x + _ffn(layer.ffn, cfg, h)
-    x = rms_norm(x, dec.final_ln, cfg.layer_norm_eps)
-    return lm_logits(params, cfg, x[:, None, :])[:, 0, :], cache
+        with span("decode.self_attn"):
+            h = rms_norm(x, layer.ln0, cfg.layer_norm_eps)
+            q = split(h, sa.q)
+            sk, sv = cache.self_k[i], cache.self_v[i]
+            sk[:, :, step] = split(h, sa.k)
+            sv[:, :, step] = split(h, sa.v)
+            x = x + dense(_attend_one(q, sk, sv, self_bias, self_mask), sa.o)
+        with span("decode.cross_attn"):
+            h = rms_norm(x, layer.ln1, cfg.layer_norm_eps)
+            q = split(h, ca.q)
+            ck, cv = cache.cross_k[i], cache.cross_v[i]
+            if use_fused:
+                a = fused_cross_attention(
+                    q, ck, cv, encoder_mask,
+                    k_scale=cache.cross_k_scale[i][:, :, 0, :] if int8_kv else None,
+                    v_scale=cache.cross_v_scale[i][:, :, 0, :] if int8_kv else None,
+                    out_dtype=q.dtype,
+                )
+            elif int8_kv:
+                # channel scales fold into the query (scores) and the output (p@V)
+                qs = q.float() * cache.cross_k_scale[i][:, :, 0, :]
+                scores = torch.einsum("bhd,bhtd->bht", qs, ck.float())
+                probs = torch.softmax(torch.where(cross_mask, scores, MASKED), dim=-1)
+                out = torch.einsum("bht,bhtd->bhd", probs, cv.float()) * cache.cross_v_scale[i][:, :, 0, :]
+                a = out.to(q.dtype).reshape(B, -1)
+            else:
+                a = _attend_one(q, ck, cv, None, cross_mask)
+            x = x + dense(a, ca.o)
+        with span("decode.ffn"):
+            h = rms_norm(x, layer.ln2, cfg.layer_norm_eps)
+            x = x + _ffn(layer.ffn, cfg, h)
+    with span("decode.head"):
+        x = rms_norm(x, dec.final_ln, cfg.layer_norm_eps)
+        return lm_logits(params, cfg, x[:, None, :])[:, 0, :], cache
 
 
 def decoder_self_bias(params: T5Params, cfg: T5Config, max_decode_len: int) -> torch.Tensor:

@@ -29,6 +29,7 @@ import torch
 
 from rag_docvqa_tpu_torch.models import t5 as t5_mod
 from rag_docvqa_tpu_torch.parallel.mesh import Mesh, gathered_params
+from rag_docvqa_tpu_torch.profiling import span
 
 
 def greedy_decode(
@@ -48,16 +49,18 @@ def greedy_decode(
     conf = torch.ones((B,), dtype=torch.float32, device=dev)
     tokens = []
     for t in range(max_new_tokens):
-        logits, cache = t5_mod.decode_step(params, cfg, cache, token, t, encoder_mask,
-                                           self_bias=bias[:, :, t, :])
-        next_tok = logits.argmax(dim=-1)  # first max, as jnp.argmax
-        emitted = torch.where(done, cfg.pad_id, next_tok)
-        if t < max_new_tokens - 1:  # the last step is left out of the confidence
-            max_prob = torch.softmax(logits.float(), dim=-1).amax(dim=-1)
-            conf = conf * torch.where(done, 1.0, max_prob)
-        done = done | (emitted == cfg.eos_id)
-        token = emitted
-        tokens.append(emitted)
+        with span("decode.step"):
+            logits, cache = t5_mod.decode_step(params, cfg, cache, token, t, encoder_mask,
+                                               self_bias=bias[:, :, t, :])
+            with span("decode.head"):
+                next_tok = logits.argmax(dim=-1)  # first max, as jnp.argmax
+                emitted = torch.where(done, cfg.pad_id, next_tok)
+                if t < max_new_tokens - 1:  # the last step is left out of the confidence
+                    max_prob = torch.softmax(logits.float(), dim=-1).amax(dim=-1)
+                    conf = conf * torch.where(done, 1.0, max_prob)
+                done = done | (emitted == cfg.eos_id)
+                token = emitted
+                tokens.append(emitted)
     return torch.stack(tokens, dim=1), conf
 
 

@@ -5,7 +5,7 @@ same weights (the root CLI's own seeded init, with a bf16-exact encoder
 rel-pos table, carried to the port as a checkpoint of its trainer and read
 back with `--ckpt`); `evaluate(compute_stats=True)` against the JAX one; the
 sweep expansion and the RAG config keys against the JAX config; what the CLI
-refuses; and the port's own `utils_stats` and `profiling`."""
+refuses; and the port's own `utils_stats`."""
 
 import json
 
@@ -264,9 +264,8 @@ def test_eval_cli_runs_on_the_card_unless_asked(monkeypatch):
 
 
 def test_utils_stats_and_stage_timer():
-    """StatsCollector's counting and bounded examples, merged; StageTimer
-    counts a stage and lets an exception inside one through uncounted."""
-    from rag_docvqa_tpu_torch.profiling import StageTimer, annotate, trace
+    """StatsCollector's counting and bounded examples, merged (the tracer
+    that replaced the stage timer has `tests/test_torch_profiling.py`)."""
     from rag_docvqa_tpu_torch.utils_stats import StatsCollector
 
     a, b = StatsCollector(compute_examples=True, n_examples=2), StatsCollector(compute_examples=True, n_examples=2)
@@ -279,13 +278,3 @@ def test_utils_stats_and_stage_timer():
     off = StatsCollector(compute_stats=False)
     off.add("s", 1)
     assert off.summary() == {}
-
-    timer = StageTimer()
-    with trace(None), timer.stage("work", sync=torch.zeros(2)):
-        with annotate("inner"):
-            torch.ones(4).sum()
-    with pytest.raises(ValueError):
-        with timer.stage("fails"):
-            raise ValueError("propagates")
-    s = timer.summary()
-    assert set(s) == {"work"} and s["work"]["pct"] == 100.0 and timer.counts["work"] == 1
