@@ -33,7 +33,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -362,9 +362,12 @@ def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def init_decode_cache(params: T5Params, cfg: T5Config, encoder_hidden: torch.Tensor,
-                      max_decode_len: int) -> DecodeCache:
+                      max_decode_len: int, out: Optional[DecodeCache] = None) -> DecodeCache:
     """Cross-attention K/V of every decoder layer, computed once; zeroed
-    self K/V for `max_decode_len` positions."""
+    self K/V for `max_decode_len` positions. With `out`, a cache of the same
+    shapes and dtypes, they are written into its tensors, which keep their
+    addresses (a captured decode graph reads them there), and `out` is
+    returned."""
     B, Te, _ = encoder_hidden.shape
     H, dk = cfg.num_heads, cfg.d_kv
     ks, vs, kss, vss = [], [], [], []
@@ -380,6 +383,14 @@ def init_decode_cache(params: T5Params, cfg: T5Config, encoder_hidden: torch.Ten
             k, v = pack_decode_kv(k, v)
         ks.append(k.contiguous())
         vs.append(v.contiguous())
+    if out is not None:
+        for parts, into in ((ks, out.cross_k), (vs, out.cross_v), (kss, out.cross_k_scale),
+                            (vss, out.cross_v_scale)):
+            if parts:
+                torch.stack(parts, out=into)
+        out.self_k.zero_()
+        out.self_v.zero_()
+        return out
     L = len(ks)
     self_shape = (L, B, H, max_decode_len, dk)
     return DecodeCache(
@@ -405,25 +416,36 @@ def _attend_one(q, k, v, bias, mask):
 
 
 def decode_step(params: T5Params, cfg: T5Config, cache: DecodeCache, token: torch.Tensor,
-                step: int, encoder_mask: torch.Tensor,
+                step: Union[int, torch.Tensor], encoder_mask: torch.Tensor,
                 self_bias: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, DecodeCache]:
-    """One greedy step at position `step` (a Python int: no host sync).
-    Returns ((B, V) logits, cache); the self K/V of `step` is written into
-    the cache in place, where JAX returns an updated copy. `self_bias`
-    (1, H, Tmax) is this step's row of the decoder rel-pos bias; when None
-    it is computed here."""
+    """One greedy step at position `step`: a Python int, or a 0-d int64
+    tensor on the cache's device, which every use reads there (the form a
+    captured CUDA graph replays). Neither syncs with the host. Returns
+    ((B, V) logits, cache); the self K/V of `step` is written into the cache
+    in place, where JAX returns an updated copy. `self_bias` (1, H, Tmax) is
+    this step's row of the decoder rel-pos bias; when None it is computed
+    here."""
     dec = params.decoder
     B = token.shape[0]
     H, dk = cfg.num_heads, cfg.d_kv
     Tmax = cache.self_k.shape[3]
     x = params.shared[token]
-    if self_bias is None:
+    on_device = isinstance(step, torch.Tensor)
+    if self_bias is None and on_device:
+        self_bias = decoder_self_bias(params, cfg, Tmax).index_select(2, step.view(1))[:, :, 0, :]
+    elif self_bias is None:
         self_bias = relative_bias(dec.rel_bias, torch.tensor([step]), torch.arange(Tmax),
                                   bidirectional=False, cfg=cfg)[:, :, 0, :]
     self_mask = (torch.arange(Tmax, device=x.device) <= step)[None, None, :]
     cross_mask = encoder_mask[:, None, :]
     int8_kv = cache.cross_k_scale is not None
     use_fused = cache.cross_k.dim() == 4
+
+    def write(buf, value):  # buf[:, :, step] = value (B, H, dk), cast to the cache's dtype
+        if on_device:
+            buf.index_copy_(2, step.view(1), value[:, :, None].to(buf.dtype))
+        else:
+            buf[:, :, step] = value
 
     def split(h, w):
         return dense(h, w).view(B, H, dk)
@@ -434,8 +456,8 @@ def decode_step(params: T5Params, cfg: T5Config, cache: DecodeCache, token: torc
             h = rms_norm(x, layer.ln0, cfg.layer_norm_eps)
             q = split(h, sa.q)
             sk, sv = cache.self_k[i], cache.self_v[i]
-            sk[:, :, step] = split(h, sa.k)
-            sv[:, :, step] = split(h, sa.v)
+            write(sk, split(h, sa.k))
+            write(sv, split(h, sa.v))
             x = x + dense(_attend_one(q, sk, sv, self_bias, self_mask), sa.o)
         with span("decode.cross_attn"):
             h = rms_norm(x, layer.ln1, cfg.layer_norm_eps)

@@ -34,9 +34,14 @@ call is the sum of its spans there. `decode.step`, one a step, with
 `decode.self_attn`, `decode.cross_attn` and `decode.ffn` one each a layer,
 and `decode.head` (the final norm and LM head in `models/t5.py::decode_step`,
 then the argmax, confidence and done flags in
-`ops/decode.py::greedy_decode`), twice a step. The counters
+`ops/decode.py::greedy_decode`), twice a step; where the step is a
+replayed CUDA graph, `decode.step` is one replay and its children fire only
+while the step is warmed up and captured. The counters
 `encode.tokens_valid` (device) and `encode.positions` (host): the valid and
-all positions of the rows each engine hands to the encoder. The benchmark's
+all positions of the rows each engine hands to the encoder; the decode's
+`decode.graph_captures`, `decode.graph_replays` and `decode.eager_steps`
+(host): the graphs captured, the steps replayed and the steps run eagerly.
+The benchmark's
 `perfbench/spans.py` and its readers in `perfbench/metrics/` read them.
 """
 

@@ -1,8 +1,12 @@
 """Port parity, the T5 stack: encode (through K1) against the JAX encode
 on each of its paths (whole-layer kernel, plain blocks, flash), decode steps,
-and greedy decoding with f32 and int8 cross caches, K3 on and off."""
+greedy decoding with f32 and int8 cross caches, K3 on and off, the step
+index as a device tensor, and the graph path's state, key and cache through
+a stand-in for the CUDA capture (the capture itself runs on the card:
+tests/test_torch_decode_graph.py)."""
 
 import dataclasses
+from collections import OrderedDict
 
 import jax
 import jax.numpy as jnp
@@ -12,8 +16,10 @@ import torch
 
 from rag_docvqa_tpu.models import t5 as j_t5
 from rag_docvqa_tpu.ops.decode import greedy_decode as j_greedy
+from rag_docvqa_tpu_torch import kernels, profiling
 from rag_docvqa_tpu_torch import params as p_params
 from rag_docvqa_tpu_torch.models import t5 as p_t5
+from rag_docvqa_tpu_torch.ops import decode as p_decode
 from rag_docvqa_tpu_torch.ops.decode import greedy_decode as p_greedy
 
 torch.set_num_threads(2)
@@ -174,3 +180,175 @@ def test_greedy_decode_pads_after_eos():
         hits = np.where(row == J_CFG.eos_id)[0]
         if len(hits):
             assert (row[hits[0] + 1:] == J_CFG.pad_id).all()
+
+
+# --------------------------------------------------------------------------- #
+# the step index on the device, and the graph path's state and cache
+# --------------------------------------------------------------------------- #
+def _eos_early_setup(cache):
+    """bf16 weights with a bf16 (or int8) cross cache and a bf16 encoder
+    output, the tied table reweighted so that some rows emit EOS early."""
+    jcfg = j_t5.T5Config(vocab_size=128, d_model=32, d_kv=32, num_heads=4, d_ff=64, num_encoder_layers=2,
+                         num_decoder_layers=2, dropout_rate=0.0, decode_kv_int8=cache == "int8")
+    tree = jax.tree.map(np.asarray, j_t5.init_t5_params(jax.random.PRNGKey(3), jcfg))
+    tree["shared"] = tree["shared"].copy()
+    tree["shared"][0] *= 0.1
+    tree["shared"][1] *= 4.0
+    jp, pp = _bf16_tree(jax.tree.map(jnp.asarray, tree), p_params.from_jax(tree))
+    rng = np.random.RandomState(4)
+    enc = rng.randn(4, 24, 32).astype(np.float32)
+    emask = np.arange(24)[None, :] < np.array([24, 17, 9, 3])[:, None]
+    return jcfg, jp, pp, jnp.asarray(enc).astype(jnp.bfloat16), _t(enc).bfloat16(), emask
+
+
+def _int_step_greedy(params, cfg, enc, mask, T):
+    """The decode loop with a Python int step: tokens gathered in a list, the
+    last step left out of the confidence by a host branch."""
+    B = enc.shape[0]
+    cache = p_t5.init_decode_cache(params, cfg, enc, T)
+    bias = p_t5.decoder_self_bias(params, cfg, T)
+    token = torch.full((B,), cfg.decoder_start_token_id, dtype=torch.int64)
+    done = torch.zeros((B,), dtype=torch.bool)
+    conf = torch.ones((B,), dtype=torch.float32)
+    tokens = []
+    for t in range(T):
+        logits, cache = p_t5.decode_step(params, cfg, cache, token, t, mask, self_bias=bias[:, :, t, :])
+        emitted = torch.where(done, cfg.pad_id, logits.argmax(dim=-1))
+        if t < T - 1:
+            conf = conf * torch.where(done, 1.0, torch.softmax(logits.float(), dim=-1).amax(dim=-1))
+        done = done | (emitted == cfg.eos_id)
+        token = emitted
+        tokens.append(emitted)
+    return torch.stack(tokens, dim=1), conf
+
+
+@pytest.mark.parametrize("cache", ["bf16", "int8", "f32_weights"])
+def test_decode_step_tensor_step_equals_int_step(cache):
+    """`decode_step` with the step as a 0-d int64 tensor gives the int step's
+    logits and writes the same self K/V, bit for bit, with the bias row given
+    and computed inside; "f32_weights": f32 weights over the bf16 encoder
+    output, so the f32 K/V are cast into the bf16 self cache."""
+    jcfg, _, pp, _, p_enc, emask = _eos_early_setup("int8" if cache == "int8" else "bf16")
+    if cache == "f32_weights":
+        pp = pp.float()
+    cfg = port_cfg(jcfg)
+    mask = _t(emask)
+    caches = [p_t5.init_decode_cache(pp, cfg, p_enc, 5) for _ in range(3)]
+    bias = p_t5.decoder_self_bias(pp, cfg, 5)
+    tok = torch.zeros(4, dtype=torch.int64)
+    for t in range(5):
+        step = torch.tensor(t)
+        want, _ = p_t5.decode_step(pp, cfg, caches[0], tok, t, mask, self_bias=bias[:, :, t, :])
+        given, _ = p_t5.decode_step(pp, cfg, caches[1], tok, step, mask,
+                                    self_bias=bias.index_select(2, step.view(1))[:, :, 0, :])
+        inside, _ = p_t5.decode_step(pp, cfg, caches[2], tok, step, mask)
+        for got in (given, inside):
+            assert torch.equal(got, want)
+        tok = want.argmax(-1)
+    for c in caches[1:]:
+        assert torch.equal(c.self_k, caches[0].self_k) and torch.equal(c.self_v, caches[0].self_v)
+
+
+@pytest.mark.parametrize("T", [1, 8])
+@pytest.mark.parametrize("cache", ["bf16", "int8"])
+def test_tensor_step_greedy_matches_int_step_and_jax(cache, T):
+    """`greedy_decode` (the step, token, flags, confidence and tokens on the
+    device) against the int-step loop: tokens exact, confidences bit-equal
+    (the last step's factor is exactly 1); against JAX's `greedy_decode` run
+    op by op: tokens exact, confidences to 1e-6. Rows hit EOS early."""
+    jcfg, jp, pp, j_enc, p_enc, emask = _eos_early_setup(cache)
+    cfg = port_cfg(jcfg)
+    toks, conf = p_greedy(pp, cfg, p_enc, _t(emask), max_new_tokens=T)
+    want_t, want_c = _int_step_greedy(pp, cfg, p_enc, _t(emask), T)
+    assert torch.equal(toks, want_t) and torch.equal(conf, want_c)
+    with jax.disable_jit():
+        jt, jc = j_greedy(jp, jcfg, j_enc, jnp.asarray(emask), max_new_tokens=T)
+    np.testing.assert_array_equal(toks.numpy(), np.asarray(jt))
+    np.testing.assert_allclose(conf.numpy(), np.asarray(jc), rtol=1e-6, atol=1e-6)
+    if T == 8:
+        hit = (toks == cfg.eos_id).any(dim=1)
+        assert hit.any() and not hit.all()
+
+
+@pytest.fixture
+def stand_in(monkeypatch):
+    """The graph path on the CPU: `_capture` replaced by a stand-in that runs
+    the warm-up steps (they dirty the state, as on the card) and then
+    "replays" the step eagerly; it counts its captures and reports 3
+    `t5_gemm` launches a step. A fresh graph cache for the test."""
+    captured = []
+
+    def capture(run_step, reset):
+        for _ in range(p_decode._WARMUP_STEPS):
+            reset()
+            run_step()
+        captured.append(run_step)
+        return run_step, [{"t5_gemm": 3}, {}]
+
+    monkeypatch.setattr(p_decode, "_capture", capture)
+    monkeypatch.setattr(p_decode, "_graphs", OrderedDict())
+    return captured
+
+
+@pytest.mark.parametrize("cache", ["bf16", "int8"])
+def test_graph_path_state_matches_eager_on_a_stand_in(cache, stand_in):
+    """Two calls of one key with different encoder states: each returns the
+    eager decode's tokens and confidences bit for bit (no stale cross K/V,
+    self K/V, mask, token, flag or step), the first call's outputs survive
+    the second (copies, not the static buffers); one capture, T replays a
+    call, T x 3 launches a call added to `kernels.LAUNCHES`."""
+    jcfg, _, pp, _, p_enc, emask = _eos_early_setup(cache)
+    cfg = port_cfg(jcfg)
+    T = 8
+    other_enc = torch.flip(p_enc, dims=[1]) * 1.5
+    other_mask = _t(emask[::-1].copy())
+    profiling.reset()
+    profiling.enable()
+    try:
+        gemm0 = kernels.LAUNCHES["t5_gemm"]
+        first = p_decode._replayed(pp, cfg, p_enc, _t(emask), T)
+        kept = [x.clone() for x in first]
+        second = p_decode._replayed(pp, cfg, other_enc, other_mask, T)
+        launched = kernels.LAUNCHES["t5_gemm"] - gemm0
+        counts = profiling.read().counts
+    finally:
+        profiling.disable()
+        profiling.reset()
+    for got, (enc, mask) in ((first, (p_enc, _t(emask))), (second, (other_enc, other_mask))):
+        want = p_greedy(pp, cfg, enc, mask, max_new_tokens=T)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert not torch.equal(first[0], second[0])
+    assert all(torch.equal(a, b) for a, b in zip(first, kept))
+    assert len(stand_in) == 1 and launched == 2 * T * 3
+    assert profiling.total(counts, "decode.graph_captures") == 1
+    assert profiling.total(counts, "decode.graph_replays") == 2 * T
+    assert profiling.total(counts, "decode.eager_steps") == 0
+
+
+def test_graph_key_and_lru_eviction(stand_in):
+    """A capture for each new batch size, encoder length, step count, dtype,
+    config, inference mode or parameter address, none for a key seen before;
+    the cache keeps `_GRAPH_ENTRIES`, dropping the least recently used."""
+    _, pp, = _setup()
+    cfg = port_cfg(J_CFG)
+    x, mask = _enc_inputs(B=3, T=20)
+    enc, m = _t(x), _t(mask)
+
+    def graph(params=pp, c=cfg, e=enc, mk=m, T=4):
+        return p_decode._graph_for(params, c, e, mk, T)
+
+    a = graph()
+    assert graph() is a and len(stand_in) == 1
+    variants = [lambda: graph(e=enc[:2], mk=m[:2]), lambda: graph(e=enc[:, :9], mk=m[:, :9]), lambda: graph(T=5),
+                lambda: graph(e=enc.bfloat16()), lambda: graph(c=dataclasses.replace(cfg, decode_kv_int8=True)),
+                lambda: graph(params=p_params.from_jax(jax.tree.map(np.asarray, _setup()[0])))]
+    for i, make in enumerate(variants):
+        graph()  # `a` the most recently used before each new key
+        assert make() is not a and len(stand_in) == 2 + i
+        assert len(p_decode._graphs) == min(2 + i, p_decode._GRAPH_ENTRIES)
+    assert graph() is a and len(stand_in) == 1 + len(variants)
+    with torch.inference_mode():
+        assert graph() is not a
+    evicted = len(stand_in)
+    variants[0]()  # the oldest key: dropped, so captured again
+    assert len(stand_in) == evicted + 1
