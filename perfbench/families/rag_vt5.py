@@ -27,6 +27,7 @@ from perfbench import check as chk
 from perfbench import work
 from perfbench.reference import text
 from perfbench.reference.model import VT5
+from perfbench.weights import t5_leaf_init as leaf_init  # noqa: F401  (the family's weight rule)
 
 
 def structure(c: Dict, vocab: int, device):

@@ -7,6 +7,13 @@ config dict, its family, its tokenizer, its stages and the limits of its
 check), its traffic in `traffic/<traffic>.json`, the family's code in
 `families/<family>.py` and each metric's reader in `metrics/<name>.py`.
 
+A family module gives `leaf_init(name, shape, c)` (its weights' rule, for
+`weights.make_weights`), `structure(c, vocab, device)` (the program's
+parameter tree, which may be on the `meta` device), `install(engine,
+recorder)` (what it records from the timed path), `call_work(c, vocab,
+record)` (a call's work by stage, and "model") and `check(ctx, control)`
+(the numbers compared with the configuration's limits).
+
 The window drives the eval CLI's own loop, `engine/evaluate.py::evaluate`,
 with the engine `config.build_engine` builds from the configuration's dict
 and a `DocVQAIngestor` whose caps `plan_caps` sized in set-up: one call over
@@ -113,6 +120,7 @@ class CheckInput:
     device: Any
     sample: list
     block: int = 8
+    stream: Any = None  # the window's stream.DocStream, which makes its page images again
 
 
 class Window:
@@ -209,8 +217,8 @@ def run(sp: Spec, seed: int, seconds: float, trace: bool, device: str = "cuda", 
     # every block of the stream has the same sizes, so one block's caps are the stream's
     ingestor.caps = ingestor.plan_caps(pool.docs[:traffic["block_docs"]])
     params = fam.structure(c, tok.vocab_size, dev)
-    weights = make_weights([(n, p.shape) for n, p in params.named_parameters()], seed, dev, c["d_model"], c["d_kv"],
-                           getattr(torch, cfg["dtype"]))
+    weights = make_weights([(n, p.shape) for n, p in params.named_parameters()], seed, dev,
+                           lambda name, shape: fam.leaf_init(name, shape, c), getattr(torch, cfg["dtype"]))
     load_into(params, weights)
     engine = build_engine(c, params, tok)
     del params
@@ -221,7 +229,9 @@ def run(sp: Spec, seed: int, seconds: float, trace: bool, device: str = "cuda", 
     recorder = Recorder()
     tap, itap, evaluator = EngineTap(engine, recorder), IngestTap(ingestor), Evaluator()
 
+    images = "page_images" in traffic
     with fam.install(engine, recorder):
+        itap.paint = warm.with_images if images else None
         evaluate(tap, warm.take(traffic["warmup_batches"] * B), itap, evaluator, batch_size=B)
         if cuda:
             torch.cuda.synchronize(dev)
@@ -236,6 +246,7 @@ def run(sp: Spec, seed: int, seconds: float, trace: bool, device: str = "cuda", 
         end = start + seconds
         window = Window(tap, end, traffic["trace_batches"] if trace else 0)
         tap.before, tap.after = window.before, window.after
+        itap.paint = pool.stream.with_images if images else None
         try:
             evaluate(tap, pool, itap, evaluator, batch_size=B)
         except Stop:
@@ -265,7 +276,8 @@ def run(sp: Spec, seed: int, seconds: float, trace: bool, device: str = "cuda", 
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
-    ctx = CheckInput(cfg, vocab, weights, dev, chk.sample(calls, pool.by_id, cfg["check_docs"], seed))
+    ctx = CheckInput(cfg, vocab, weights, dev, chk.sample(calls, pool.by_id, cfg["check_docs"], seed),
+                     stream=pool.stream)
     numbers = fam.check(ctx)
     correct, checks = chk.verdict(numbers, cfg["limits"])
 

@@ -81,15 +81,21 @@ class EngineTap:
 
 
 class IngestTap:
-    """Stands in for the ingestor in `evaluate` (on its prefetch thread)."""
+    """Stands in for the ingestor in `evaluate` (on its prefetch thread).
+    `paint`, when set, is called with each batch's documents and gives them
+    their page images before the ingestor sees them (`DocStream.with_images`):
+    where a deployment decodes its image files, inside the ingest's span."""
 
     def __init__(self, ingestor):
         self.ingestor = ingestor
         self.tokenizer = ingestor.tokenizer
         self.spans: List[tuple] = []
+        self.paint: Optional[Callable[[list], list]] = None
 
     def ingest(self, docs):
         t0 = clock()
+        if self.paint is not None:
+            docs = self.paint(docs)
         out = self.ingestor.ingest(docs)
         self.spans.append((t0, clock()))
         return out

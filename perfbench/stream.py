@@ -20,10 +20,21 @@ extensions:
 Document i of a stream depends only on (seed, stream id, i): the window's
 stream and the warm-up's are distinct, and a stream extends without
 repeating a document.
+
+Page images, only where the traffic file has `page_images` ({"width": W,
+"height": H}): one H x W x 3 uint8 array a page, a light page with each
+word's box filled in a dark shade of its own, so that a crop of a chunk's
+box holds that chunk's words. The pixels depend only on (seed, stream id,
+question id, page). The documents hold none: `with_images` gives copies
+that do, which the harness makes on the prefetch thread (`IngestTap`), where
+a deployment decodes its image files, and a family's check makes the same
+pixels again with `page_image`. Without the key nothing of this runs and the
+documents carry no images.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import string
 import sys
@@ -152,6 +163,28 @@ class DocStream:
         return RawDocument(question=" ".join(["what", "is", "the", key, *extra]), words=words,
                            boxes=[self._boxes(n) for n in shape.pages], answers=[value], answer_page_idx=answer_page,
                            question_id=i)
+
+    def page_image(self, doc: RawDocument, p: int) -> np.ndarray:
+        """Page p of `doc`, a document of this stream, at the traffic's
+        `page_images` size: a page of a light shade, each word's box filled
+        with a dark shade drawn for that word (later words over earlier)."""
+        size = self.t["page_images"]
+        W, H = int(size["width"]), int(size["height"])
+        boxes = np.asarray(doc.boxes[p], np.float32).reshape(-1, 4)
+        rng = np.random.default_rng([self.seed, self.stream, doc.question_id, p, 2])
+        img = np.full((H, W, 3), 224 + int(rng.integers(32)), np.uint8)
+        shade = rng.integers(0, 128, len(boxes)).astype(np.uint8)
+        c0, r0 = (boxes[:, 0] * W).astype(np.int64), (boxes[:, 1] * H).astype(np.int64)
+        c1 = np.maximum(np.ceil(boxes[:, 2] * W).astype(np.int64), c0 + 1)
+        r1 = np.maximum(np.ceil(boxes[:, 3] * H).astype(np.int64), r0 + 1)
+        for k in range(len(boxes)):
+            img[r0[k]:r1[k], c0[k]:c1[k]] = shade[k]
+        return img
+
+    def with_images(self, docs: List[RawDocument]) -> List[RawDocument]:
+        """Copies of `docs`, documents of this stream, that carry their page
+        images; `docs` themselves stay without."""
+        return [dataclasses.replace(d, images=[self.page_image(d, p) for p in range(len(d.words))]) for d in docs]
 
     def take(self, n: int) -> List[RawDocument]:
         docs = [self.document(i) for i in range(self.next, self.next + n)]

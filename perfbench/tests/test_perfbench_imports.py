@@ -22,6 +22,10 @@ for cell in ("vt5-concat-mpdocvqa", "hivt5-mpdocvqa"):
         for m in sp.metrics[kind]:
             harness.reader(m["name"])
     harness.run(sp, 1, 0.05, False, device="cpu", log=lambda *a: None)
+from perfbench.tests import qwen_probe
+from perfbench.tests.test_perfbench_family import probe
+qwen_probe.register()
+harness.run(probe(), 1, 0.05, False, device="cpu", log=lambda *a: None)
 print(" ".join(harness.forbidden_modules()))
 """
 
