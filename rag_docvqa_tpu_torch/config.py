@@ -6,6 +6,7 @@ model config, its `training_parameters` and the CLI overrides in that order,
 as there, and the `build_*` helpers map the flat dict onto `RAGConfig`,
 `VT5Config` (with the `use_visual` and `visual_*` keys of the DiT tower),
 `HiVT5Config`, `Pix2StructConfig`, `CausalLMConfig` (`build_qwen_config`),
+`Qwen25VisionConfig` (`build_qwen25_vision_config`),
 `ChunkSpec` and `Caps`; `expand_sweep` expands list-valued keys into the
 cross product of runs; `build_reranker` is the JAX one, the BERT
 cross-encoder and the "gemma" LLM pair reranker (random weights, or a local
@@ -278,8 +279,10 @@ QWEN_MODELS = ("qwen", "qwen2", "qwen2.5-vl", "ragqwen")
 
 def build_qwen_config(c: Dict[str, Any], vocab_size: int):
     """The Qwen engine's causal LM from the JAX keys (`d_model`,
-    `num_layers`, `num_heads`, `num_kv_heads`, `d_ff`); the rest at the
-    CausalLMConfig defaults (tied head, rope theta 1e6)."""
+    `num_layers`, `num_heads`, `num_kv_heads`, `d_ff`) and the port's
+    `mrope_section` (Qwen2.5-VL's M-RoPE sections; unset, 1-D RoPE as in
+    JAX); the rest at the CausalLMConfig defaults (tied head, rope theta
+    1e6)."""
     from rag_docvqa_tpu_torch.models.causal_lm import CausalLMConfig
 
     return CausalLMConfig(
@@ -289,14 +292,28 @@ def build_qwen_config(c: Dict[str, Any], vocab_size: int):
         num_heads=c.get("num_heads", 16),
         num_kv_heads=c.get("num_kv_heads", 4),
         d_ff=c.get("d_ff", 2816),
+        mrope_section=tuple(c.get("mrope_section", ())),
     )
+
+
+def build_qwen25_vision_config(c: Dict[str, Any], out_hidden_size: int):
+    """The Qwen2.5-VL tower of a Qwen config: `Qwen25VisionConfig`'s fields
+    from the engine dict's `vision` dict (its defaults, Qwen2.5-VL-7B's
+    tower, where a field is absent; `image_size` the crop size the engine
+    feeds), `out_hidden_size` the language model's width."""
+    from rag_docvqa_tpu_torch.models.qwen25_vision import Qwen25VisionConfig
+
+    kw = {k: tuple(v) if isinstance(v, list) else v for k, v in (c.get("vision") or {}).items()}
+    return Qwen25VisionConfig(**dict(kw, out_hidden_size=out_hidden_size))
 
 
 def build_engine(c: Dict[str, Any], params, tokenizer):
     """The engine of a config: Hi-VT5 for `model_name: Hi-VT5` (params a
     `HiVT5Params`), RAG-Pix2Struct for `model_name: Pix2Struct` (params a
     `P2SParams`), RAG-Qwen for `model_name: Qwen` (params a `CausalLMParams`;
-    `use_visual` raises, see below), else RAG-VT5 (params a `VT5Params`), with the
+    with `use_visual` it carries the Qwen2.5-VL tower under `vision`, as
+    JAX's tree does under `params["vision"]`, and the tower's config is
+    `build_qwen25_vision_config`'s), else RAG-VT5 (params a `VT5Params`), with the
     rerank stage when `rerank` is set (its weights on the parameters' device,
     in their dtype) and the not-answerable classifier when
     `use_not_answerable_classifier` is: the parameters' own `nac`, else one
@@ -326,12 +343,17 @@ def build_engine(c: Dict[str, Any], params, tokenizer):
         from rag_docvqa_tpu_torch.engine.rag_qwen import QwenRAGConfig, RAGQwenEngine
 
         use_visual = bool(c.get("use_visual", False))
+        # the head is tied or not as the parameters are (an untied tree carries `lm_head`)
+        lm_cfg = dataclasses.replace(build_qwen_config(c, tokenizer.vocab_size),
+                                     tie_word_embeddings=params.lm_head is None)
+        vision_cfg = vision_params = None
         if use_visual:
             # F10 (ROADMAP Queue 3): the JAX branch calls build_qwen_vision_config, which the JAX package
-            # defines nowhere, so it raises NameError there; RAGQwenEngine takes a tower's config directly
-            raise NotImplementedError("use_visual for the Qwen engine: the JAX build_engine calls "
-                                      "build_qwen_vision_config, which is defined nowhere (F10); pass the tower's "
-                                      "config and weights to RAGQwenEngine directly")
+            # defines nowhere (NameError there); the port builds the Qwen2.5-VL tower's config itself
+            vision_params = getattr(params, "vision", None)
+            if vision_params is None:
+                raise ValueError("use_visual for the Qwen engine: the parameter tree carries no `vision` tower")
+            vision_cfg = build_qwen25_vision_config(c, lm_cfg.d_model)
         return RAGQwenEngine(
             QwenRAGConfig(
                 chunk_num=c.get("chunk_num", 10),
@@ -341,9 +363,7 @@ def build_engine(c: Dict[str, Any], params, tokenizer):
                 use_visual=use_visual,
                 max_crops=c.get("max_crops", 4),
             ),
-            # the head is tied or not as the parameters are (an untied tree carries `lm_head`)
-            dataclasses.replace(build_qwen_config(c, tokenizer.vocab_size), tie_word_embeddings=params.lm_head is None),
-            params, tokenizer)
+            lm_cfg, params, tokenizer, vision_cfg=vision_cfg, vision_params=vision_params)
     if name not in ("vt5", "ragvt5", "rag-vt5"):
         raise NotImplementedError(f"engine {name!r}: the port has RAG-VT5, Hi-VT5, RAG-Pix2Struct and RAG-Qwen")
     shared = params.t5.shared

@@ -11,15 +11,30 @@ retrieved crop when the visual path is on); models/causal_lm.py generates
 16 new tokens greedily; "assistant:" echoes are stripped. SFT batches put
 the answer after the prompt with labels -100 on the prompt and padding.
 
-The visual path crops the top-k chunk boxes from their page images and runs
-either tower: the Qwen2.5-VL tower (models/qwen25_vision.py, a config with
+The visual path cuts the top-k chunk boxes from their page images on the
+host (slices), resizes them on the device (`ops/resize.py`, the host
+resize's weights) and runs the valid crops through either tower: the
+Qwen2.5-VL tower (models/qwen25_vision.py, a config with
 `fullatt_block_indexes`) or the stand-in (models/qwen_vision.py, through
 K14). The crop embeddings stay on the device; the prompt assembly gathers
-them into the placeholder positions.
+them into the placeholder positions. With a causal LM whose config sets
+`mrope_section` (Qwen2.5-VL's M-RoPE), the prompt's (3, B, T) positions go
+to `generate` with it: HF's `get_rope_index` for one image a span, each
+image token at (t 0, h row, w column) of its merged grid plus the running
+index, the text after a span from the span's largest index + 1, text tokens
+equal on all three; padding 1.
 
 `inference` returns the JAX engine's keys and "timings", the stage split of
-the wall time (each stage ended by a device synchronize): "retrieve_s",
-"crops_s" (host crops and the tower), "assemble_s", "prefill_s", "decode_s".
+the wall time: "retrieve_s", "crops_s" (host cuts, the upload, the device
+resize and the tower), "assemble_s", "prefill_s", "decode_s", each ended by
+a device synchronize (the retrieve stage on the visual path only, so that
+the crops have a stage of their own). With the tracer on (`profiling.py`):
+the spans `engine.retrieve`, `engine.crops`, `engine.assemble`,
+`engine.prefill`, `engine.decode` (a `decode.step` a step, both in
+`causal_lm.generate`) and `engine.answers`; the host counters
+`vision.crops` and `vision.tokens` (valid crops and their merged tokens) and
+`prefill.positions` (the prompt's B x T), the device counters
+`prefill.tokens_valid` and `prefill.image_tokens`.
 """
 
 from __future__ import annotations
@@ -31,6 +46,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from rag_docvqa_tpu_torch import profiling
 from rag_docvqa_tpu_torch.data.contract import ChunkedBatch, to_device
 from rag_docvqa_tpu_torch.engine.rag_vt5 import _sync, retrieve
 from rag_docvqa_tpu_torch.models import causal_lm as clm
@@ -114,62 +130,82 @@ class RAGQwenEngine:
         return texts, pages
 
     # ------------------------------------------------------------------ #
+    def _visual(self) -> bool:
+        return self.cfg.use_visual and self.vision_cfg is not None and self.vision_params is not None
+
+    def _grid(self) -> int:
+        """The side of a crop's square grid of merged tokens."""
+        v = self.vision_cfg
+        if hasattr(v, "fullatt_block_indexes"):
+            return v.image_size // v.patch_size // v.spatial_merge_size
+        return v.vit.image_size // v.vit.patch_size // v.merge_size
+
     def _encode_crops(self, batch: ChunkedBatch, aux: Dict[str, Any], ret):
-        """The top-k chunk boxes cropped from their pages, resized, normalised
-        to [-1, 1] and run through the tower: ((B, max_crops, Tv, D) on the
-        device, zero rows for missing crops; (B, max_crops) crop validity),
-        or (None, None) when the visual path is off or there are no images."""
-        if not (self.cfg.use_visual and self.vision_cfg is not None and self.vision_params is not None):
+        """The top-k chunk boxes cut from their pages, resized on the device,
+        normalised to [-1, 1], the valid ones run through the tower: ((B,
+        max_crops, Tv, D) on the device, zero rows for missing crops; (B,
+        max_crops) crop validity), or (None, None) when the visual path is
+        off or there are no images."""
+        if not self._visual():
             return None, None
         if not aux.get("images") or all(imgs is None for imgs in aux["images"]):
             return None, None
-        from rag_docvqa_tpu_torch.ops.patches import crop_box, resize_image
+        from rag_docvqa_tpu_torch.ops.patches import crop_box
+        from rag_docvqa_tpu_torch.ops.resize import resize_crops
 
-        qwen25 = hasattr(self.vision_cfg, "fullatt_block_indexes")
-        size = self.vision_cfg.image_size if qwen25 else self.vision_cfg.vit.image_size
-        B, M = batch.batch_size, self.cfg.max_crops
-        boxes = ret.top_k_box.cpu().numpy()
-        pages = ret.top_k_page.cpu().numpy()
-        valid = ret.top_k_valid.cpu().numpy()
-        pixels = np.zeros((B * M, size, size, 3), np.float32)
-        crop_valid = np.zeros((B, M), bool)
-        for b in range(B):
-            page_imgs = aux["images"][b]
-            if page_imgs is None:
-                continue
-            m = 0
-            for r in range(boxes.shape[1]):
-                if m >= M or not valid[b, r]:
+        with profiling.span("engine.crops"):
+            qwen25 = hasattr(self.vision_cfg, "fullatt_block_indexes")
+            size = self.vision_cfg.image_size if qwen25 else self.vision_cfg.vit.image_size
+            B, M = batch.batch_size, self.cfg.max_crops
+            boxes = ret.top_k_box.cpu().numpy()
+            pages = ret.top_k_page.cpu().numpy()
+            valid = ret.top_k_valid.cpu().numpy()
+            crops, slots = [], []
+            crop_valid = np.zeros((B, M), bool)
+            for b in range(B):
+                page_imgs = aux["images"][b]
+                if page_imgs is None:
                     continue
-                img = page_imgs[pages[b, r]]
-                if img is None:
-                    continue
-                crop = crop_box(np.asarray(img), boxes[b, r])
-                if crop.size == 0:
-                    continue
-                pix = resize_image(crop, size, size) / 255.0
-                pixels[b * M + m] = (pix - 0.5) / 0.5
-                crop_valid[b, m] = True
-                m += 1
-        px = torch.from_numpy(pixels).to(self.device)
-        if qwen25:
-            from rag_docvqa_tpu_torch.models.qwen25_vision import encode_image
-
-            embeds = encode_image(self.vision_params, self.vision_cfg, px)
-        else:
-            from rag_docvqa_tpu_torch.models.qwen_vision import encode_images
-
-            embeds = encode_images(self.vision_params, self.vision_cfg, px)
-        return embeds.reshape(B, M, embeds.shape[1], -1), crop_valid
+                m = 0
+                for r in range(boxes.shape[1]):
+                    if m >= M or not valid[b, r]:
+                        continue
+                    img = page_imgs[pages[b, r]]
+                    if img is None:
+                        continue
+                    crop = crop_box(np.asarray(img), boxes[b, r])
+                    if crop.size == 0:
+                        continue
+                    crops.append(crop)
+                    slots.append(b * M + m)
+                    crop_valid[b, m] = True
+                    m += 1
+            if qwen25:
+                from rag_docvqa_tpu_torch.models.qwen25_vision import encode_image as encode
+            else:
+                from rag_docvqa_tpu_torch.models.qwen_vision import encode_images as encode
+            Tv = self._grid() ** 2
+            profiling.count("vision.crops", len(crops))
+            profiling.count("vision.tokens", len(crops) * Tv)
+            if crops:
+                px = (resize_crops(crops, size, size, self.device) / 255.0 - 0.5) / 0.5
+                got = encode(self.vision_params, self.vision_cfg, px)
+                embeds = got.new_zeros((B * M,) + tuple(got.shape[1:]))
+                embeds[torch.tensor(slots, device=got.device)] = got
+            else:
+                embeds = torch.zeros((B * M, Tv, self.lm_cfg.d_model), device=self.device)
+            return embeds.reshape(B, M, Tv, -1), crop_valid
 
     def _assemble_prompts(self, questions: List[str], texts: List[List[str]],
                           crop_embeds: Optional[torch.Tensor], crop_valid: Optional[np.ndarray] = None,
                           total_len: Optional[int] = None):
         """ChatML prompt ids with <|image_pad|> spans after the text: (ids,
-        mask, lens) as numpy (B, T), (B, T), (B,), and (visual_embeds (B, T,
-        D) on the device, visual_mask (B, T) numpy), or (None, None) without
-        crops. A span is clipped to the truncated prompt, so crop embeddings
-        never land on answer tokens of an SFT layout."""
+        mask, visual_embeds (B, T, D) on the device, visual_mask (B, T)
+        numpy, lens (B,), positions (3, B, T) int64), with (None, None) in
+        place of the visual pair without crops; ids, mask and the positions
+        (M-RoPE's, module docstring) as numpy. A span is clipped to the
+        truncated prompt, so crop embeddings never land on answer tokens of
+        an SFT layout."""
         tk = self.tokenizer
         B = len(questions)
         T = total_len or self.cfg.max_prompt_tokens
@@ -178,10 +214,14 @@ class RAGQwenEngine:
         vmask = np.zeros((B, T), bool)
         src = np.zeros((B, T), np.int64)  # each visual position's row of the (M * Tv) crop embeddings
         lens = np.zeros((B,), np.int32)
+        positions = np.ones((3, B, T), np.int64)
         open_ids = tk.encode(CHATML_SYSTEM + CHATML_USER_OPEN)
         vopen, vclose = tk.encode(CHATML_VISION_OPEN), tk.encode(CHATML_VISION_CLOSE)
         close_ids = tk.encode(CHATML_USER_CLOSE)
         Tv = crop_embeds.shape[2] if crop_embeds is not None else 0
+        if Tv:
+            g = self._grid()
+            cell = np.stack([np.zeros(Tv, np.int64), np.arange(Tv) // g, np.arange(Tv) % g])  # (t, h, w)
         for b in range(B):
             seq: List[int] = list(open_ids)
             spans: List[Tuple[int, int]] = []  # (start position, crop index)
@@ -199,20 +239,27 @@ class RAGQwenEngine:
             ids[b, : len(seq)] = seq
             mask[b, : len(seq)] = True
             lens[b] = len(seq)
+            at = nxt = 0  # the next text position and its index
             for start, m in spans:
                 end = min(start + Tv, len(seq))
                 if end <= start:
                     continue
                 vmask[b, start:end] = True
                 src[b, start:end] = m * Tv + np.arange(end - start)
+                positions[:, b, at:start] = nxt + np.arange(start - at)
+                nxt += start - at
+                positions[:, b, start:end] = nxt + cell[:, :end - start]
+                nxt = int(positions[:, b, start:end].max()) + 1
+                at = end
+            positions[:, b, at:len(seq)] = nxt + np.arange(len(seq) - at)
         if crop_embeds is None:
-            return ids, mask, None, None, lens
+            return ids, mask, None, None, lens, positions
         flat = crop_embeds.reshape(B, -1, crop_embeds.shape[-1])
         idx = torch.from_numpy(src).to(flat.device)[..., None].expand(B, T, flat.shape[-1])
         vm = torch.from_numpy(vmask).to(flat.device)
         vemb = torch.where(vm[..., None], torch.gather(flat, 1, idx), torch.zeros((), dtype=flat.dtype,
                                                                                    device=flat.device))
-        return ids, mask, vemb, vmask, lens
+        return ids, mask, vemb, vmask, lens, positions
 
     def _answers(self, tokens: np.ndarray) -> List[str]:
         answers = []
@@ -232,23 +279,35 @@ class RAGQwenEngine:
         dev = self.device
         batch = self._on_device(batch)
         t0 = time.perf_counter()
-        ret, texts, pages = self._retrieve(batch, aux)
+        with profiling.span("engine.retrieve"):
+            ret, texts, pages = self._retrieve(batch, aux)
+            if self._visual():
+                _sync(dev)
         t1 = time.perf_counter()
         crop_embeds, crop_valid = self._encode_crops(batch, aux, ret)
         _sync(dev)
         t2 = time.perf_counter()
-        ids, mask, vemb, vmask, _ = self._assemble_prompts(aux["questions"], texts, crop_embeds, crop_valid)
-        ids_t, mask_t = torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev)
-        vmask_t = torch.from_numpy(vmask).to(dev) if vemb is not None else None
-        _sync(dev)
+        with profiling.span("engine.assemble"):
+            ids, mask, vemb, vmask, _, positions = self._assemble_prompts(aux["questions"], texts, crop_embeds,
+                                                                          crop_valid)
+            ids_t, mask_t = torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev)
+            vmask_t = torch.from_numpy(vmask).to(dev) if vemb is not None else None
+            pos_t = torch.from_numpy(positions).to(dev) if self.lm_cfg.mrope_section else None
+            profiling.count("prefill.positions", ids.size)
+            profiling.device_count("prefill.tokens_valid", mask_t)
+            if vmask_t is not None:
+                profiling.device_count("prefill.image_tokens", vmask_t)
+            _sync(dev)
         t3 = time.perf_counter()
         timings = {}
         tokens, conf = clm.generate(self.params, self.lm_cfg, ids_t, mask_t, self.cfg.max_new_tokens,
-                                    visual_embeds=vemb, visual_mask=vmask_t, timings=timings)
-        answers = self._answers(tokens.cpu().numpy())
+                                    visual_embeds=vemb, visual_mask=vmask_t, timings=timings, positions=pos_t)
+        with profiling.span("engine.answers"):
+            answers = self._answers(tokens.cpu().numpy())
+            confidences = conf.cpu().tolist()
         return {
             "pred_answers": answers,
-            "confidences": conf.cpu().tolist(),
+            "confidences": confidences,
             "pred_answer_pages": pages,
             "retrieval": {"page_indices": pages, "text": texts},
             "timings": {"retrieve_s": t1 - t0, "crops_s": t2 - t1, "assemble_s": t3 - t2, **timings},
@@ -265,8 +324,10 @@ class RAGQwenEngine:
         crop_embeds, crop_valid = self._encode_crops(batch, aux, ret)
         T = self.cfg.max_prompt_tokens + self.cfg.answer_max_tokens
         B = batch.batch_size
-        ids, mask, vemb, vmask, lens = self._assemble_prompts(aux["questions"], texts, crop_embeds, crop_valid,
-                                                              total_len=T)
+        ids, mask, vemb, vmask, lens, _ = self._assemble_prompts(aux["questions"], texts, crop_embeds, crop_valid,
+                                                                 total_len=T)
+        if vemb is not None and self.lm_cfg.mrope_section:
+            raise NotImplementedError("SFT batches with crops under M-RoPE: the loss takes no (3, B, T) positions")
         labels = np.full((B, T), -100, np.int32)
         for b in range(B):
             plen = min(int(lens[b]), self.cfg.max_prompt_tokens)

@@ -16,6 +16,15 @@ scale, RMSNorm with (1 + w) weights, the tanh-GELU gated MLP, no QKV bias
 and an explicit head_dim (MQA through num_kv_heads=1). Visual inputs enter
 as embeddings spliced into the token sequence where `visual_mask` is set.
 
+Qwen2.5-VL's multimodal RoPE (M-RoPE) is on when `mrope_section` is set (the
+JAX config has no such field; its causal LM gives every token 1-D RoPE):
+`prefill` and `generate` then take (3, B, T) (t, h, w) positions, and the
+rotary frequencies are split into the three sections in order, each section
+rotated by its own index (HF's `apply_multimodal_rotary_pos_emb`). A text
+token's three indices are equal, so its angles are the 1-D ones; the cached
+decode continues each row at its prompt's largest index + 1. Unset, or with
+no positions given, every path is the 1-D one it was.
+
 Parameters are `nn.Module`s holding per-layer tensors, projections (out,
 in), created frozen; `Proj` holds either a weight or its int8 form (`q8`
 (out, in) int8 and a per-output-channel `scale`). A projection given a
@@ -51,6 +60,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from rag_docvqa_tpu_torch import profiling
 from rag_docvqa_tpu_torch.models.layers import dense, frozen, masked_cross_entropy, normal_init, rms_norm
 from rag_docvqa_tpu_torch.ops.flash_attention import flash_attention
 
@@ -74,6 +84,7 @@ class CausalLMConfig:
     arch: str = "qwen2"  # "qwen2" | "gemma"
     head_dim_override: int = 0  # gemma sets head_dim independent of d_model
     flash_prefill: bool = False  # JAX's TPU gate; the port always runs K2 (see the module docstring)
+    mrope_section: Tuple[int, ...] = ()  # M-RoPE's (t, h, w) frequency counts, summing to head_dim / 2; () is off
 
     @property
     def head_dim(self) -> int:
@@ -115,15 +126,18 @@ PROJ_NAMES = ("q", "k", "v", "o", "gate", "up", "down")
 
 class CausalLMParams(nn.Module):
     """embed (V, d) (int8 with `embed_scale` (V,) per row), the layers,
-    final_ln (d,), and lm_head (V, d) (int8 with `lm_head_scale` (V,)) when
-    the head is untied."""
+    final_ln (d,), lm_head (V, d) (int8 with `lm_head_scale` (V,)) when
+    the head is untied, and `vision`, a vision tower's parameters where the
+    tree carries one (JAX's `params["vision"]`)."""
 
-    def __init__(self, embed, layers, final_ln, lm_head=None, embed_scale=None, lm_head_scale=None):
+    def __init__(self, embed, layers, final_ln, lm_head=None, embed_scale=None, lm_head_scale=None,
+                 vision: Optional[nn.Module] = None):
         super().__init__()
         self.embed, self.embed_scale = _hold(embed), _hold(embed_scale)
         self.layers = nn.ModuleList(layers)
         self.final_ln = _hold(final_ln)
         self.lm_head, self.lm_head_scale = _hold(lm_head), _hold(lm_head_scale)
+        self.vision = vision
 
     @property
     def device(self) -> torch.device:
@@ -238,6 +252,18 @@ def rope_frequencies(cfg: CausalLMConfig, positions: torch.Tensor) -> Tuple[torc
     return torch.cos(angles), torch.sin(angles)
 
 
+def mrope_frequencies(cfg: CausalLMConfig, positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """M-RoPE: positions (3, ...) of (t, h, w) -> (cos, sin) of shape (...,
+    head_dim / 2), f32, frequency j taking the index of its section of
+    `cfg.mrope_section`."""
+    cos, sin = rope_frequencies(cfg, positions)  # (3, ..., hd/2)
+    if sum(cfg.mrope_section) != cos.shape[-1] or positions.shape[0] != 3:
+        raise ValueError(f"mrope_section {cfg.mrope_section} over (3, ...) positions for head_dim {cfg.head_dim}")
+    bounds = np.cumsum((0,) + tuple(cfg.mrope_section))
+    pick = lambda t: torch.cat([t[i, ..., bounds[i]:bounds[i + 1]] for i in range(3)], dim=-1)
+    return pick(cos), pick(sin)
+
+
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
     """x (..., T, H, hd); cos/sin (..., T, hd/2) -> rotated in f32 (HF's
     rotate_half convention), cast to x's dtype."""
@@ -313,12 +339,16 @@ def _attend_causal(cfg: CausalLMConfig, q, k, v, key_mask):
 
 
 def _stack(params: CausalLMParams, cfg: CausalLMConfig, input_ids, attention_mask, visual_embeds, visual_mask,
-           cache_len: int = 0):
+           cache_len: int = 0, positions: Optional[torch.Tensor] = None):
     """The embedding and every layer; with `cache_len`, also each layer's
-    K and V in cache layout (B, Hkv, cache_len, hd)."""
+    K and V in cache layout (B, Hkv, cache_len, hd). `positions` (3, B, T)
+    are M-RoPE's; without them the positions are 0 .. T-1."""
     B, T = input_ids.shape
     x = _splice(_embed_tokens(params, cfg, input_ids), visual_embeds, visual_mask)
-    cos, sin = rope_frequencies(cfg, torch.arange(T, device=x.device))
+    if positions is None:
+        cos, sin = rope_frequencies(cfg, torch.arange(T, device=x.device))
+    else:
+        cos, sin = mrope_frequencies(cfg, positions.to(x.device))
     mask = attention_mask.bool()
     ks, vs = [], []
     for layer in params.layers:
@@ -367,11 +397,14 @@ class LMCache:
 
 def prefill(params: CausalLMParams, cfg: CausalLMConfig, input_ids: torch.Tensor, attention_mask: torch.Tensor,
             max_len: int, visual_embeds: Optional[torch.Tensor] = None,
-            visual_mask: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, LMCache]:
+            visual_mask: Optional[torch.Tensor] = None,
+            positions: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, LMCache]:
     """Runs the prompt and fills the KV cache: (logits at each row's last
-    valid position (B, V), the cache with max_len slots)."""
+    valid position (B, V), the cache with max_len slots). `positions`: the
+    (3, B, T) M-RoPE positions, or None for 0 .. T-1."""
     B = input_ids.shape[0]
-    x, ks, vs = _stack(params, cfg, input_ids, attention_mask, visual_embeds, visual_mask, cache_len=max_len)
+    x, ks, vs = _stack(params, cfg, input_ids, attention_mask, visual_embeds, visual_mask, cache_len=max_len,
+                       positions=positions)
     last = x[torch.arange(B, device=x.device), attention_mask.long().sum(dim=1) - 1]
     return _lm_logits(params, cfg, last), LMCache(k=torch.stack(ks), v=torch.stack(vs))
 
@@ -421,45 +454,58 @@ def decode_step(params: CausalLMParams, cfg: CausalLMConfig, cache: LMCache, tok
 @torch.no_grad()
 def generate(params: CausalLMParams, cfg: CausalLMConfig, input_ids: torch.Tensor, attention_mask: torch.Tensor,
              max_new_tokens: int = 16, visual_embeds: Optional[torch.Tensor] = None,
-             visual_mask: Optional[torch.Tensor] = None, timings: Optional[dict] = None
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
+             visual_mask: Optional[torch.Tensor] = None, timings: Optional[dict] = None,
+             positions: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Greedy decode: (tokens (B, max_new_tokens), confidence (B,)). The
     confidence is the product of each emitted token's max softmax
     probability, the prefill's first, then each step's until the row is done;
     the last step's is not counted (`t >= max_new_tokens - 2`, as in JAX).
-    `timings`, when given, gets "prefill_s" and "decode_s", each ended by a
-    device synchronize."""
+    `positions`: the prompt's (3, B, Tp) M-RoPE positions, after which row b
+    decodes from its largest valid index + 1 (HF's rope deltas); None for
+    0 .. Tp-1. `timings`, when given, gets "prefill_s" and "decode_s", each
+    ended by a device synchronize; with the tracer on, the spans
+    `engine.prefill`, `engine.decode` and a `decode.step` a step."""
     B, Tp = input_ids.shape
     max_len = Tp + max_new_tokens
     t0 = time.perf_counter()
-    logits0, cache = prefill(params, cfg, input_ids, attention_mask, max_len, visual_embeds, visual_mask)
+    with profiling.span("engine.prefill"):
+        logits0, cache = prefill(params, cfg, input_ids, attention_mask, max_len, visual_embeds, visual_mask,
+                                 positions)
+        if timings is not None:
+            _sync(input_ids.device)
     if timings is not None:
-        _sync(input_ids.device)
         t1 = time.perf_counter()
     prompt_len = attention_mask.long().sum(dim=1)
+    if positions is None:
+        next_pos = prompt_len
+    else:
+        next_pos = positions.to(input_ids.device).masked_fill(~attention_mask.bool()[None], -1).amax(dim=(0, 2)) + 1
     tok0 = logits0.argmax(dim=-1)
     conf = torch.softmax(logits0.float(), dim=-1).amax(dim=-1)
     done = tok0 == cfg.eos_id
     token = torch.where(done, cfg.pad_id, tok0)
     tokens = [token]
     k_pos = torch.arange(max_len, device=input_ids.device)[None, :]
-    for t in range(max_new_tokens - 1):
-        # generated token t sits at cache slot Tp + t and rotary position
-        # prompt_len + t: ragged right-padded prompts decode as an unpadded batch
-        slot = Tp + t
-        mask = (k_pos < prompt_len[:, None]) | ((k_pos >= Tp) & (k_pos <= slot))
-        logits, cache = decode_step(params, cfg, cache, token, slot, mask, rope_pos=prompt_len + t)
-        next_tok = logits.argmax(dim=-1)
-        max_prob = torch.softmax(logits.float(), dim=-1).amax(dim=-1)
-        emitted = torch.where(done, cfg.pad_id, next_tok)
-        if t < max_new_tokens - 2:
-            conf = conf * torch.where(done, 1.0, max_prob)
-        done = done | (emitted == cfg.eos_id)
-        token = emitted
-        tokens.append(emitted)
-    tokens = torch.stack(tokens, dim=1).to(torch.int32)
+    with profiling.span("engine.decode"):
+        for t in range(max_new_tokens - 1):
+            # generated token t sits at cache slot Tp + t and rotary position
+            # next_pos + t: ragged right-padded prompts decode as an unpadded batch
+            with profiling.span("decode.step"):
+                slot = Tp + t
+                mask = (k_pos < prompt_len[:, None]) | ((k_pos >= Tp) & (k_pos <= slot))
+                logits, cache = decode_step(params, cfg, cache, token, slot, mask, rope_pos=next_pos + t)
+                next_tok = logits.argmax(dim=-1)
+                max_prob = torch.softmax(logits.float(), dim=-1).amax(dim=-1)
+                emitted = torch.where(done, cfg.pad_id, next_tok)
+                if t < max_new_tokens - 2:
+                    conf = conf * torch.where(done, 1.0, max_prob)
+                done = done | (emitted == cfg.eos_id)
+                token = emitted
+                tokens.append(emitted)
+        tokens = torch.stack(tokens, dim=1).to(torch.int32)
+        if timings is not None:
+            _sync(input_ids.device)
     if timings is not None:
-        _sync(input_ids.device)
         timings.update(prefill_s=t1 - t0, decode_s=time.perf_counter() - t1)
     return tokens, conf
 

@@ -10,31 +10,41 @@ over).
 
 The architecture: the Conv3d patch embedding as one projection (temporal 2
 x 14 x 14 patches, the frame duplicated), the 2-D rotary embedding over the
-(h, w) patch indices, window attention (the block-diagonal window mask at
--1e9) with full attention at `fullatt_block_indexes`, RMSNorm blocks, the
-gated-SiLU MLP with biases, then the merger: RMSNorm, groups of merge^2
-cells, a two-layer MLP with exact GELU, and the window permutation undone.
-The crops are fixed-size, so the permutation, the rotary tables and the
-window mask are fixed per grid, as in JAX.
+(h, w) patch indices, window attention with full attention at
+`fullatt_block_indexes`, RMSNorm blocks, the gated-SiLU MLP with biases,
+then the merger: RMSNorm, groups of merge^2 cells, a two-layer MLP with
+exact GELU, and the window permutation undone. The crops are fixed-size,
+so the permutation, the rotary tables and the window layout are fixed per
+grid; they are made once a grid and device and kept there.
 
-All of it is plain torch: it is plain XLA in JAX too (einsum, softmax at
--1e9). The tower computes in the pixels' dtype, f32, with the weights cast
-to it, as JAX's `dense` casts its kernel to x's dtype.
+The tower computes in its weights' dtype (bfloat16 when served; the pixels
+are cast to it), the rotary in f32 then cast back. Attention is PyTorch's
+fused `scaled_dot_product_attention`, which never forms the (seq, seq)
+scores: a windowed layer attends with one batch row per window where the
+grid's windows are all of one size (at 448 px, 16 windows of 64 patches a
+crop), and under the block-diagonal window mask where they are not (a grid
+that a window does not divide); a full layer attends over the whole crop.
+JAX computes the same in f32 with the window mask at -1e9 (einsum,
+softmax); a masked key gets no weight in either.
+
+With the tracer on (`profiling.py`), `encode_features` opens
+`vision.tower`, and in it one `vision.window_layer` or `vision.full_layer`
+a layer.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from rag_docvqa_tpu_torch import profiling
 from rag_docvqa_tpu_torch.models.layers import dense, frozen, normal_init, rms_norm
-
-MASKED = -1e9
 
 
 @dataclass(frozen=True)
@@ -180,46 +190,83 @@ def _rotate_half(x):
     return torch.cat([-x[..., h:], x[..., :h]], dim=-1)
 
 
+@dataclass(frozen=True)
+class _Grid:
+    """A grid's fixed tensors on one device: the merged-cell window
+    permutation and its inverse, the rotary tables in permuted order (1,
+    seq, 1, head_dim), f32, and the windows: `windows` equal windows of
+    contiguous patches (0 where they are unequal, then `mask` (seq, seq) is
+    the block-diagonal window mask)."""
+
+    perm: torch.Tensor
+    unperm: torch.Tensor
+    cos: torch.Tensor
+    sin: torch.Tensor
+    windows: int
+    mask: Optional[torch.Tensor]
+
+
+@functools.lru_cache(maxsize=32)
+def _grid(h: int, w: int, cfg: Qwen25VisionConfig, device: torch.device) -> _Grid:
+    s2 = cfg.spatial_merge_size**2
+    seq = h * w
+    win_perm, win_id = _window_index(h, w, cfg)
+    cos, sin = _rotary_tables(h, w, cfg)
+    table = lambda t: torch.from_numpy(t.reshape(seq // s2, s2, -1)[win_perm].reshape(seq, -1)).to(device)[
+        None, :, None, :]
+    sizes = np.bincount(win_id)
+    equal = bool((sizes == sizes[0]).all())
+    mask = None
+    if not equal:
+        patch_win = np.repeat(win_id, s2)
+        mask = torch.from_numpy(patch_win[:, None] == patch_win[None, :]).to(device)
+    return _Grid(torch.from_numpy(win_perm).to(device), torch.from_numpy(np.argsort(win_perm)).to(device),
+                 table(cos), table(sin), len(sizes) if equal else 0, mask)
+
+
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, windows: int,
+            mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """(B, seq, H, hd) q, k, v -> (B, seq, H * hd): one batch row per window
+    when `windows` > 0, else over the whole sequence under `mask` (None for
+    full attention)."""
+    B, seq, H, hd = q.shape
+    rows, n = (B * windows, seq // windows) if windows else (B, seq)
+    q, k, v = (t.reshape(rows, n, H, hd).transpose(1, 2) for t in (q, k, v))
+    out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=hd**-0.5)
+    return out.transpose(1, 2).reshape(B, seq, H * hd)
+
+
 def encode_features(params: Qwen25VisionParams, cfg: Qwen25VisionConfig, feats: torch.Tensor,
                     grid: Tuple[int, int]) -> torch.Tensor:
     """(B, seq, patch_dim) merge-order patches of an (h, w) patch grid ->
     (B, seq / merge^2, out_hidden_size) merged visual tokens, row-major
-    merged cells."""
+    merged cells, in the weights' dtype."""
     h, w = grid
     B, seq, _ = feats.shape
     s2 = cfg.spatial_merge_size**2
     H, hd = cfg.num_heads, cfg.head_dim
-    dev = feats.device
-    win_perm, win_id = _window_index(h, w, cfg)
-    cos, sin = _rotary_tables(h, w, cfg)
-    x = dense(feats, params.patch_w)
-    perm = torch.from_numpy(win_perm).to(dev)
-    x = x.reshape(B, seq // s2, s2, -1)[:, perm].reshape(B, seq, -1)
-    cos = torch.from_numpy(cos.reshape(seq // s2, s2, -1)[win_perm].reshape(seq, -1)).to(dev)[None, :, None, :]
-    sin = torch.from_numpy(sin.reshape(seq // s2, s2, -1)[win_perm].reshape(seq, -1)).to(dev)[None, :, None, :]
-    patch_win = np.repeat(win_id, s2)
-    window_mask = torch.from_numpy(patch_win[:, None] == patch_win[None, :]).to(dev)
+    g = _grid(h, w, cfg, feats.device)
     full = set(cfg.fullatt_block_indexes)
-    for i, layer in enumerate(params.layers):
-        hn = rms_norm(x, layer.ln1, cfg.rms_eps)
-        q, k, v = dense(hn, layer.qkv_w, layer.qkv_b).chunk(3, dim=-1)
-        q, k, v = (t.reshape(B, seq, H, hd) for t in (q, k, v))
-        qf, kf = q.float(), k.float()
-        q = (qf * cos + _rotate_half(qf) * sin).to(x.dtype)
-        k = (kf * cos + _rotate_half(kf) * sin).to(x.dtype)
-        scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * hd**-0.5
-        if i not in full:  # full-attention layers: every key
-            scores = torch.where(window_mask[None, None], scores, MASKED)
-        probs = torch.softmax(scores, dim=-1).to(x.dtype)
-        a = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(B, seq, -1)
-        x = x + dense(a, layer.proj_w, layer.proj_b)
-        hn = rms_norm(x, layer.ln2, cfg.rms_eps)
-        gu = F.silu(dense(hn, layer.gate_w, layer.gate_b)) * dense(hn, layer.up_w, layer.up_b)
-        x = x + dense(gu, layer.down_w, layer.down_b)
-    x = rms_norm(x, params.ln_q, cfg.rms_eps).reshape(B, seq // s2, -1)
-    x = F.gelu(dense(x, params.fc1_w, params.fc1_b))
-    x = dense(x, params.fc2_w, params.fc2_b)
-    return x[:, torch.from_numpy(np.argsort(win_perm)).to(dev)]
+    with profiling.span("vision.tower"):
+        x = dense(feats.to(params.patch_w.dtype), params.patch_w)
+        x = x.reshape(B, seq // s2, s2, -1)[:, g.perm].reshape(B, seq, -1)
+        for i, layer in enumerate(params.layers):
+            with profiling.span("vision.full_layer" if i in full else "vision.window_layer"):
+                hn = rms_norm(x, layer.ln1, cfg.rms_eps)
+                q, k, v = dense(hn, layer.qkv_w, layer.qkv_b).chunk(3, dim=-1)
+                q, k, v = (t.reshape(B, seq, H, hd) for t in (q, k, v))
+                qf, kf = q.float(), k.float()
+                q = (qf * g.cos + _rotate_half(qf) * g.sin).to(x.dtype)
+                k = (kf * g.cos + _rotate_half(kf) * g.sin).to(x.dtype)
+                a = _attend(q, k, v, 0, None) if i in full else _attend(q, k, v, g.windows, g.mask)
+                x = x + dense(a, layer.proj_w, layer.proj_b)
+                hn = rms_norm(x, layer.ln2, cfg.rms_eps)
+                gu = F.silu(dense(hn, layer.gate_w, layer.gate_b)) * dense(hn, layer.up_w, layer.up_b)
+                x = x + dense(gu, layer.down_w, layer.down_b)
+        x = rms_norm(x, params.ln_q, cfg.rms_eps).reshape(B, seq // s2, -1)
+        x = F.gelu(dense(x, params.fc1_w, params.fc1_b))
+        x = dense(x, params.fc2_w, params.fc2_b)
+        return x[:, g.unperm]
 
 
 def encode_image(params: Qwen25VisionParams, cfg: Qwen25VisionConfig, pixels: torch.Tensor) -> torch.Tensor:

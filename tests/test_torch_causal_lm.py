@@ -62,6 +62,13 @@ def _inputs():
     return ids, mask
 
 
+def _jax_fields(cfg) -> dict:
+    """The port's config as JAX's has it: the fields JAX has, the port's one
+    more (`mrope_section`, M-RoPE's sections) at its default, off."""
+    assert cfg.mrope_section == ()
+    return {k: v for k, v in vars(cfg).items() if k != "mrope_section"}
+
+
 def _close(got, want, rel, where=None):
     got = got.detach().float().numpy() if isinstance(got, torch.Tensor) else np.asarray(got, np.float32)
     want = np.asarray(want, np.float32)
@@ -196,7 +203,7 @@ def test_init_int8_tree_shape_and_scales():
     for name, t in p8.state_dict().items():
         if t.dtype == torch.int8:
             assert bool((t.abs().amax(dim=1) == 127).all()), name
-    jtree = J.init_causal_lm_params_int8(jax.random.PRNGKey(0), J.CausalLMConfig(**vars(cfg)))
+    jtree = J.init_causal_lm_params_int8(jax.random.PRNGKey(0), J.CausalLMConfig(**_jax_fields(cfg)))
     back = P.causal_lm_to_jax(p8)
     assert jax.tree.structure(back) == jax.tree.structure(jax.tree.map(np.asarray, jtree))
     assert [np.shape(a) for a in jax.tree.leaves(back)] == [np.shape(b) for b in jax.tree.leaves(jtree)]
@@ -277,7 +284,7 @@ def test_gemma_converter_and_config_against_jax_and_hugging_face():
     torch.manual_seed(0)
     hf = transformers.GemmaForCausalLM(hf_cfg).eval()
     cfg = C.gemma_config_from_hf(hf_cfg)
-    assert vars(cfg) == vars(J.gemma_config_from_hf(hf_cfg))
+    assert _jax_fields(cfg) == vars(J.gemma_config_from_hf(hf_cfg))
     assert C.gemma_config_from_hf(hf_cfg.to_dict(), num_layers=1).num_layers == 1
     sd = {k: v.detach().numpy() for k, v in hf.state_dict().items()}
     tree = C.convert_gemma_state_dict(sd, cfg)

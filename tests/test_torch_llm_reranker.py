@@ -107,6 +107,13 @@ def test_yes_logits_and_rerank_match_jax(world, hd):
     assert int(pout.top_k_valid.sum(dim=1).max()) <= 3
 
 
+def _same_lm_cfg(port, jax_cfg):
+    """Field for field on the fields JAX's config has; the port's one more,
+    `mrope_section`, at its default (off)."""
+    want = vars(jax_cfg)
+    assert {k: v for k, v in vars(port).items() if k in want} == want and port.mrope_section == ()
+
+
 def test_build_reranker_gemma_branch_matches_jax(tmp_path):
     """The "gemma" weight name: random weights of the `reranker_*` widths
     (the JAX config), and a local
@@ -118,7 +125,7 @@ def test_build_reranker_gemma_branch_matches_jax(tmp_path):
     rr = p_config.build_reranker(c, HashTokenizer(VOCAB), seed=3, device="cpu")
     jrr = j_config.build_reranker(c, JHashTokenizer(VOCAB), seed=3)
     assert isinstance(rr, p_rr.FlagLLMReranker) and vars(rr.cfg) == vars(jrr.cfg)
-    assert vars(rr.lm_cfg) == vars(jrr.lm_cfg)
+    _same_lm_cfg(rr.lm_cfg, jrr.lm_cfg)
     transformers = pytest.importorskip("transformers", reason="the local-directory case writes an HF Gemma")
     hf_cfg = transformers.GemmaConfig(vocab_size=VOCAB, hidden_size=32, intermediate_size=64, num_hidden_layers=2,
                                       num_attention_heads=4, num_key_value_heads=1, head_dim=16, rope_theta=10000.0)
@@ -128,6 +135,6 @@ def test_build_reranker_gemma_branch_matches_jax(tmp_path):
     c = dict(c, reranker_weights=str(directory))
     rr = p_config.build_reranker(c, HashTokenizer(VOCAB), device="cpu")
     jrr = j_config.build_reranker(c, JHashTokenizer(VOCAB))
-    assert vars(rr.lm_cfg) == vars(jrr.lm_cfg)
+    _same_lm_cfg(rr.lm_cfg, jrr.lm_cfg)
     for a, b in zip(jax.tree.leaves(p_params.causal_lm_to_jax(rr.params)), jax.tree.leaves(jrr.params)):
         np.testing.assert_array_equal(a, np.asarray(b))

@@ -9,7 +9,8 @@ Within 1e-5 relative: confidences (f32 products of softmax maxima; XLA and
 torch sum in other orders); the spliced crop embeddings within 2e-5 of their
 largest value (the towers' f32 sums). Also: `build_engine`'s Qwen branch
 against JAX's config, F10 (JAX's `use_visual` branch calls a function it
-never defines: NameError there, NotImplementedError naming it here), and
+never defines: NameError there; the port builds the Qwen2.5-VL engine from
+a tree that carries the tower under `vision` and runs it), and
 the eval CLI on configs/Qwen_tiny.yml against root `eval.py --platform cpu`
 from the same weights."""
 
@@ -176,10 +177,13 @@ def test_visual_sft_spans_clipped_at_prompt_truncation():
 
 def test_build_engine_qwen_branch_and_f10():
     """`build_engine` with model_name Qwen: JAX's QwenRAGConfig and causal-LM
-    config (the port's two extra keys at their defaults). F10: with
-    use_visual, JAX's branch calls build_qwen_vision_config, which its
-    package never defines (NameError); the port raises NotImplementedError
-    naming it."""
+    config (on the fields JAX has; the port's `mrope_section` at its
+    default). F10: with use_visual, JAX's branch calls
+    build_qwen_vision_config, which its package never defines (NameError);
+    the port builds the Qwen2.5-VL engine from the tree's `vision` tower and
+    the engine dict's `vision` fields, with M-RoPE where `mrope_section` is
+    set, and it answers a batch with page images; a tree without a tower
+    raises."""
     c = dict(model_name="Qwen", d_model=32, num_layers=2, num_heads=4, num_kv_heads=2, d_ff=64, chunk_num=3,
              max_source_length=96, max_new_tokens=4, include_surroundings=[1], max_crops=3)
     pl = clm.CausalLMConfig(**LM_KW)
@@ -188,15 +192,27 @@ def test_build_engine_qwen_branch_and_f10():
     jtree = j_clm.init_causal_lm_params(jax.random.PRNGKey(0), j_clm.CausalLMConfig(**LM_KW))
     jeng = j_config.build_engine(c, jtree, JHashTokenizer(2048))
     assert isinstance(eng, Q.RAGQwenEngine) and vars(eng.cfg) == vars(jeng.cfg)
-    assert vars(eng.lm_cfg) == vars(jeng.lm_cfg) == vars(p_config.build_qwen_config(c, 2048))
+    want = vars(jeng.lm_cfg)
+    for got in (eng.lm_cfg, p_config.build_qwen_config(c, 2048)):
+        assert {k: v for k, v in vars(got).items() if k in want} == want and got.mrope_section == ()
     # an untied tree (Qwen2.5-7B's head) gives an untied engine, with no config key for it
     untied = clm.init_causal_lm_params(torch.Generator().manual_seed(0),
                                        clm.CausalLMConfig(**dict(LM_KW, tie_word_embeddings=False)))
     assert p_config.build_engine(c, untied, HashTokenizer(2048)).lm_cfg.tie_word_embeddings is False
     with pytest.raises(NameError, match="build_qwen_vision_config"):
         j_config.build_engine(dict(c, use_visual=True), jtree, JHashTokenizer(2048))
-    with pytest.raises(NotImplementedError, match="build_qwen_vision_config"):
-        p_config.build_engine(dict(c, use_visual=True), params, HashTokenizer(2048))
+    tower = {k: list(v) if isinstance(v, tuple) else v for k, v in Q25_KW.items() if k != "out_hidden_size"}
+    visual = dict(c, use_visual=True, vision=tower, max_source_length=256, max_crops=2, mrope_section=[2, 1, 1])
+    with pytest.raises(ValueError, match="no `vision` tower"):
+        p_config.build_engine(visual, params, HashTokenizer(2048))
+    params.vision = q25.init_qwen25_vision_params(torch.Generator().manual_seed(1), q25.Qwen25VisionConfig(**Q25_KW))
+    eng = p_config.build_engine(visual, params, HashTokenizer(2048))
+    assert eng.vision_cfg == q25.Qwen25VisionConfig(**Q25_KW) and eng.vision_params is params.vision
+    assert eng.lm_cfg.mrope_section == (2, 1, 1) and eng.cfg.use_visual
+    _, (_, pb, paux) = _batches(images=True)
+    out = eng.inference(pb, paux)
+    assert len(out["pred_answers"]) == 2 and out["timings"]["crops_s"] > 0
+    assert p_config.build_engine(dict(visual, use_visual=False), params, HashTokenizer(2048)).vision_cfg is None
 
 
 def test_eval_cli_qwen_matches_root_eval(tmp_path, monkeypatch, capsys):
