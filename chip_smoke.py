@@ -473,6 +473,13 @@ KERNELS = {
     # K2's 256-wide form (its launches are also counted under flash_fwd): the Gemma LLM reranker's attention
     "flash_fwd_dh256": ("rag_docvqa_tpu_torch/csrc/flash_fwd.cu", "rag_docvqa_tpu/ops/flash_attention.py:277",
                         "llm_rerank_serve", "Gemma reranker B320 H8 Hkv1 T192 dh256 causal ragged bf16"),
+    # the causal LM's glue between its GEMMs (ops/lm_glue.py): no TPU kernel, XLA fuses it in the JAX package
+    "lm_add_rms_norm": ("rag_docvqa_tpu_torch/csrc/lm_glue.cu", "none (XLA fusion)", "qwen_serve",
+                        "Qwen2.5-VL-7B prefill 73728x3584 residual bf16"),
+    "lm_bias_rope": ("rag_docvqa_tpu_torch/csrc/lm_glue.cu", "none (XLA fusion)", "qwen_serve",
+                     "Qwen2.5-VL-7B prefill B32 T2304 H28 Hkv4 hd128 M-RoPE biases bf16"),
+    "lm_glu": ("rag_docvqa_tpu_torch/csrc/lm_glue.cu", "none (XLA fusion)", "qwen_serve",
+               "Qwen2.5-VL-7B prefill 73728x18944 SwiGLU bf16"),
 }
 # the kernels each path launches
 SERVE_KERNELS = ("t5_rms_norm", "t5_gemm", "flash_fwd", "decode_cross_attention")
@@ -5537,7 +5544,8 @@ GEMMA_RERANK = {"reranker_weights": "BAAI/bge-reranker-v2-gemma", "reranker_d_mo
 GEMMA_VOCAB = 256000
 QW_B, QW_DOCS_PAGES, QW_WORDS = 8, 8, 120  # bench.py:779-787's documents
 LORA_B, LORA_T = 4, 512 + 24  # max_prompt_tokens + answer_max_tokens
-CAUSAL_LM_KERNELS = ("flash_fwd",)
+GLUE_KERNELS = ("lm_add_rms_norm", "lm_bias_rope", "lm_glu")
+CAUSAL_LM_KERNELS = ("flash_fwd",) + GLUE_KERNELS
 LORA_KERNELS = ("flash_fwd", "flash_bwd")
 QWEN_CLI_CONF_RTOL = 1e-4  # 13g: a confidence on the card against the CPU's, f32 on both
 
@@ -5653,6 +5661,52 @@ def check_causal_kernels(checks: Checks, g: torch.Generator) -> None:
     causal_flash_bwd_case(checks, g, 2, LORA_T, 28, 4, 128, f32, lora_lens[:2],
                           f"LoRA B2 H28 Hkv4 T{LORA_T} dh128 causal ragged f32")
     torch.cuda.empty_cache()
+
+
+def check_lm_glue(checks: Checks, g: torch.Generator) -> None:
+    """13a, the glue: residual add + RMSNorm, q/k/v biases + M-RoPE, and the
+    SwiGLU product at the Qwen2.5-VL-7B cell's prefill (B 32 x T 2304) and
+    decode (B 32 x T 1) shapes against their plain versions, the rotary and
+    the product bit for bit, the norm within an ulp of its largest value;
+    timed beside the plain ops, with the device times."""
+    from rag_docvqa_tpu_torch.models import causal_lm as clm
+    from rag_docvqa_tpu_torch.ops import lm_glue as lg
+
+    dev, bf = g.device, torch.bfloat16
+    randn = lambda *s, scale=1.0: (scale * torch.randn(s, generator=g, device=dev)).to(bf)
+    cfg = clm.CausalLMConfig(**QWEN7B, mrope_section=(16, 24, 24))  # Qwen2.5-VL-7B's LM
+    for B, T in ((32, 2304), (32, 1)):
+        rows, tag = B * T, "prefill" if T > 1 else "decode"
+        x, dx, w = randn(rows, 3584, scale=4.0), randn(rows, 3584, scale=2.0), 1.0 + randn(3584, scale=0.2)
+        got, want = lg.add_rms_norm(x, dx, w, 1e-6), lg.add_rms_norm_reference(x, dx, w, 1e-6)
+        checks.compare("lm_add_rms_norm", f"{tag} {rows}x3584 residual sum", got[0], want[0], 0.0)
+        checks.compare("lm_add_rms_norm", f"{tag} {rows}x3584 norm", got[1], want[1],
+                       want[1].float().abs().max().item() * 2.0**-7)
+        checks.timed("lm_add_rms_norm", f"Qwen2.5-VL-7B {tag} {rows}x3584 residual bf16",
+                     lambda: lg.add_rms_norm(x, dx, w, 1e-6), lambda: lg.add_rms_norm_reference(x, dx, w, 1e-6),
+                     io_bytes=nbytes(x, dx, x, x, w), device=True)
+        del x, dx, got, want
+        q, k, v = randn(B, T, 28, 128, scale=3.0), randn(B, T, 4, 128, scale=3.0), randn(B, T, 4, 128, scale=3.0)
+        biases = [randn(n * 128) for n in (28, 4, 4)]
+        pos = torch.arange(T, device=dev).repeat(3, B, 1) + (2304 if T == 1 else 0)
+        pos[1:] += torch.randint(0, 16, (2, B, T), generator=g, device=dev)  # (t, h, w) apart, as on crop tokens
+        cos, sin = clm.mrope_frequencies(cfg, pos)
+        want = lg.bias_rope_reference(q, k, v, *biases, cos, sin)
+        lg.bias_rope_(q, k, v, *biases, cos, sin)
+        for name, a, b in zip("qkv", (q, k, v), want):
+            checks.compare("lm_bias_rope", f"{tag} B{B} T{T} {name}", a, b, 0.0)
+        checks.timed("lm_bias_rope", f"Qwen2.5-VL-7B {tag} B{B} T{T} H28 Hkv4 hd128 M-RoPE biases bf16",
+                     lambda: lg.bias_rope_(q, k, v, *biases, cos, sin),
+                     lambda: lg.bias_rope_reference(q, k, v, *biases, cos, sin),
+                     io_bytes=2 * nbytes(q, k, v) + nbytes(*biases, cos, sin), device=True)
+        del q, k, v, want
+        gate, up = randn(rows, 18944, scale=3.0), randn(rows, 18944)
+        checks.compare("lm_glu", f"{tag} {rows}x18944 silu", lg.glu(gate, up, "silu"),
+                       lg.glu_reference(gate, up, "silu"), 0.0)
+        checks.timed("lm_glu", f"Qwen2.5-VL-7B {tag} {rows}x18944 SwiGLU bf16", lambda: lg.glu(gate, up, "silu"),
+                     lambda: lg.glu_reference(gate, up, "silu"), io_bytes=3 * nbytes(gate), device=True)
+        del gate, up
+        torch.cuda.empty_cache()
 
 
 class plain_attention:
@@ -6666,14 +6720,17 @@ def main() -> int:
         g13 = torch.Generator(device="cuda").manual_seed(SEED + 13)  # its own data: the other phases' stay
         causal = {}
         log("phase 13a: K2 causal GQA at the Qwen2.5-7B prefill shape, K2 at dh 256 (the Gemma reranker; bf16, f32, "
-            f"tile edges), K6 causal GQA at the LoRA shape, against their plain versions; card and power limit: {card}")
+            "tile edges), K6 causal GQA at the LoRA shape, the causal LM's glue kernels at the Qwen2.5-VL-7B cell's "
+            f"shapes, against their plain versions; card and power limit: {card}")
         check_causal_kernels(checks, g13)
+        check_lm_glue(checks, g13)
         log("phase 13b: full-width f32 forward_hidden (7B widths 4 layers, Gemma-2b widths 2 layers) through K2 against "
             "the plain attention; the f32 LoRA gradient through K2/K6 against autograd through the plain attention")
         causal["stack_f32"] = check_causal_stack(g13)
         log(f"phase 13c: RAGQwenEngine.inference from build_engine at Qwen2.5-VL-7B's language-model widths, bf16, B "
             f"{QW_B} x {QW_DOCS_PAGES} pages; generate B 32; 13d: the visual path; card and power limit: {card}")
         qwen_launches, causal["qwen"], q7, q7_tok, q7_ingestor = serve_qwen(g13)
+        launches.update({k: qwen_launches["qwen_serve"][k] for k in GLUE_KERNELS})
         log(f"phase 13f: LoRA SFT at the 7B widths, bf16 base, r 8 on q and v, B {LORA_B} x T {LORA_T}, 8 steps; card "
             f"and power limit: {card}")
         lora_launches, causal["lora_sft"] = lora_sft(g13, q7, q7_tok, q7_ingestor)

@@ -56,6 +56,9 @@ LAUNCHES: Dict[str, int] = {
     "vit_gemm": 0,         # K14 products, csrc/vit_layer.cu
     "vit_attention": 0,    # K14 attention, csrc/vit_layer.cu
     "maxsim": 0,           # K15, csrc/maxsim.cu
+    "lm_add_rms_norm": 0,  # causal-LM glue: residual add + RMSNorm, csrc/lm_glue.cu
+    "lm_bias_rope": 0,     # causal-LM glue: q/k/v biases + rotary, csrc/lm_glue.cu
+    "lm_glu": 0,           # causal-LM glue: the gated MLP's product, csrc/lm_glue.cu
 }
 # launches of one form of a kernel, counted besides the kernel's own count
 FORM_LAUNCHES: Dict[str, int] = {
@@ -89,6 +92,9 @@ _SIGNATURES = {
     "vit_gemm": [_P] * 6 + [_I] * 5 + [_P],
     "vit_attention": [_P] * 4 + [_I] * 5 + [_F, _I, _P],
     "maxsim": [_P] * 6 + [_I] * 6 + [_P],
+    "lm_add_rms_norm": [_P] * 5 + [_I, _I, _F, _I, _I, _P],
+    "lm_bias_rope": [_P] * 8 + [_I] * 5 + [_LL, _LL, _I, _P],
+    "lm_glu": [_P] * 3 + [_LL, _I, _I, _P],
 }
 # occupancy queries (no launch, no counter): the blocks of a kernel an SM
 # holds at once, into the last pointer; asked through `resident`

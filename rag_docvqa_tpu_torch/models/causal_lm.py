@@ -1,8 +1,8 @@
 """Decoder-only causal LM (the Qwen2 and Gemma families, HF weight compatible).
 
 Counterpart of `rag_docvqa_tpu/models/causal_lm.py`: `CausalLMConfig` (the
-same fields), `init_causal_lm_params`, `rope_frequencies`, `apply_rope`,
-`_proj` (with int8 weights), `_embed_tokens`, `_lm_logits`,
+same fields), `init_causal_lm_params`, `rope_frequencies` (`apply_rope` is
+`ops/lm_glue.py`'s), `_proj` (with int8 weights), `_embed_tokens`, `_lm_logits`,
 `forward_hidden`, `forward`, `sft_loss`, `LMCache`, `prefill`,
 `_attend_gqa_one`, `decode_step`, `generate`, `quantize_weights_int8`,
 `init_causal_lm_params_int8` and the converters `convert_qwen2_state_dict`,
@@ -42,6 +42,15 @@ gives a uniform row; with right padding every row has key 0, and a padded
 row never reaches a valid one. The decode step's single-query GQA attention
 (`_attend_gqa_one`) is plain torch, as it is plain XLA in JAX.
 
+The elementwise glue between a layer's GEMMs (the residual add with the
+next RMSNorm, the q/k/v biases with the rotary, the gated MLP's product)
+runs on the hand-written kernels of `ops/lm_glue.py` where its tensors are
+on CUDA and no autograd graph is recorded (`generate`, the engines, the
+reranker: `_glue_fused`), and as the plain ops otherwise (the CPU, LoRA's
+`sft_loss`); the two round alike. With the tracer on, each layer of each
+pass (the stack, a decode step) counts one `lm.glue_fused` or
+`lm.glue_plain`.
+
 Cast points follow JAX's rounding: the rotary tables in f32 from an f32
 `arange / head_dim`, the rotation in f32 then cast to x's dtype, Gemma's
 input scale rounded to x's dtype, Gemma's norm weight 1 + w formed in the
@@ -61,7 +70,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from rag_docvqa_tpu_torch import profiling
-from rag_docvqa_tpu_torch.models.layers import dense, frozen, masked_cross_entropy, normal_init, rms_norm
+from rag_docvqa_tpu_torch.models.layers import dense, frozen, masked_cross_entropy, normal_init
+from rag_docvqa_tpu_torch.ops import lm_glue
 from rag_docvqa_tpu_torch.ops.flash_attention import flash_attention
 
 MASKED = -1e9  # masked score of the decode step's attention, as in JAX
@@ -264,24 +274,15 @@ def mrope_frequencies(cfg: CausalLMConfig, positions: torch.Tensor) -> Tuple[tor
     return pick(cos), pick(sin)
 
 
-def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """x (..., T, H, hd); cos/sin (..., T, hd/2) -> rotated in f32 (HF's
-    rotate_half convention), cast to x's dtype."""
-    hd = x.shape[-1]
-    xf = x.float()
-    x1, x2 = xf[..., : hd // 2], xf[..., hd // 2:]
-    cos, sin = cos[..., None, :], sin[..., None, :]
-    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
-
-
 # --------------------------------------------------------------------------- #
 # the pieces
 # --------------------------------------------------------------------------- #
-def _proj(x: torch.Tensor, p: Proj) -> torch.Tensor:
+def _proj(x: torch.Tensor, p: Proj, bias: bool = True) -> torch.Tensor:
+    """x @ p^T, then p's bias unless `bias` is False (the glue kernel adds it)."""
     if p.q8 is not None:  # int8: the product in x's dtype, then the per-channel scale, then the bias
         y = torch.matmul(x, p.q8.to(x.dtype).t()) * p.scale.to(x.dtype)
-        return y + p.bias.to(x.dtype) if p.bias is not None else y
-    return dense(x, p.weight, p.bias)
+        return y + p.bias.to(x.dtype) if bias and p.bias is not None else y
+    return dense(x, p.weight, p.bias if bias else None)
 
 
 def _embed_tokens(params: CausalLMParams, cfg: CausalLMConfig, ids: torch.Tensor) -> torch.Tensor:
@@ -305,16 +306,50 @@ def _lm_logits(params: CausalLMParams, cfg: CausalLMConfig, x: torch.Tensor) -> 
     return y * scale.to(x.dtype) if scale is not None else y
 
 
-def _ln(x: torch.Tensor, w: torch.Tensor, cfg: CausalLMConfig) -> torch.Tensor:
-    return rms_norm(x, 1 + w if cfg.arch == "gemma" else w, cfg.rms_eps)  # Gemma: (1 + w) in w's dtype
+def _records_graph(*held) -> bool:
+    """Whether autograd records ops on `held` (tensors, None, or layers, all
+    of whose tensors count): grad mode on and one of them requires a
+    gradient."""
+    if not torch.is_grad_enabled():
+        return False
+    for t in held:
+        if isinstance(t, CausalLMLayer):
+            ts = [t.ln0, t.ln1] + [getattr(getattr(t, n), a) for n in PROJ_NAMES
+                                   for a in ("weight", "bias", "q8", "scale")]
+            if any(u is not None and u.requires_grad for u in ts):
+                return True
+        elif t is not None and t.requires_grad:
+            return True
+    return False
 
 
-def _act(x: torch.Tensor, cfg: CausalLMConfig) -> torch.Tensor:
-    return F.gelu(x, approximate="tanh") if cfg.arch == "gemma" else F.silu(x)
+def _glue_fused(x: torch.Tensor, *held) -> bool:
+    """Whether the glue over x (and `held`, as `_records_graph` reads it)
+    takes its kernels (ops/lm_glue.py): x on CUDA and no autograd graph
+    recorded. Otherwise the plain ops run, as on the CPU."""
+    return x.is_cuda and not _records_graph(x, *held)
 
 
-def _mlp(h: torch.Tensor, layer: CausalLMLayer, cfg: CausalLMConfig) -> torch.Tensor:
-    return _proj(_act(_proj(h, layer.gate), cfg) * _proj(h, layer.up), layer.down)
+def _count_glue(fused: bool) -> None:
+    profiling.count("lm.glue_fused" if fused else "lm.glue_plain", 1)
+
+
+def _add_ln(x: torch.Tensor, d: Optional[torch.Tensor], w: torch.Tensor, cfg: CausalLMConfig,
+            fused: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(x + d, its RMSNorm); d None: (x, the norm of x)."""
+    w = 1 + w if cfg.arch == "gemma" else w  # Gemma: (1 + w) in w's dtype
+    if fused:
+        return lm_glue.add_rms_norm(x, d, w, cfg.rms_eps)
+    return lm_glue.add_rms_norm_reference(x, d, w, cfg.rms_eps)
+
+
+def _act_name(cfg: CausalLMConfig) -> str:
+    return "gelu_tanh" if cfg.arch == "gemma" else "silu"
+
+
+def _mlp(h: torch.Tensor, layer: CausalLMLayer, cfg: CausalLMConfig, fused: bool) -> torch.Tensor:
+    glu = lm_glue.glu if fused else lm_glue.glu_reference  # gate and up are freed before the down product
+    return _proj(glu(_proj(h, layer.gate), _proj(h, layer.up), _act_name(cfg)), layer.down)
 
 
 def _splice(x, visual_embeds, visual_mask):
@@ -323,12 +358,17 @@ def _splice(x, visual_embeds, visual_mask):
     return x
 
 
-def _qkv(h, layer: CausalLMLayer, cfg: CausalLMConfig, cos, sin):
+def _qkv(h, layer: CausalLMLayer, cfg: CausalLMConfig, cos, sin, fused: bool):
+    """q (B, T, H, hd), k and v (B, T, Hkv, hd) of h (B, T, d): biased, q and
+    k rotated."""
     B, T = h.shape[:2]
-    q = apply_rope(_proj(h, layer.q).reshape(B, T, cfg.num_heads, -1), cos, sin)
-    k = apply_rope(_proj(h, layer.k).reshape(B, T, cfg.num_kv_heads, -1), cos, sin)
-    v = _proj(h, layer.v).reshape(B, T, cfg.num_kv_heads, -1)
-    return q, k, v
+    q, k, v = (_proj(h, p, bias=False).reshape(B, T, n, -1)
+               for p, n in ((layer.q, cfg.num_heads), (layer.k, cfg.num_kv_heads), (layer.v, cfg.num_kv_heads)))
+    biases = (layer.q.bias, layer.k.bias, layer.v.bias)
+    if fused:
+        lm_glue.bias_rope_(q, k, v, *biases, cos, sin)
+        return q, k, v
+    return lm_glue.bias_rope_reference(q, k, v, *biases, cos, sin)
 
 
 def _attend_causal(cfg: CausalLMConfig, q, k, v, key_mask):
@@ -351,15 +391,19 @@ def _stack(params: CausalLMParams, cfg: CausalLMConfig, input_ids, attention_mas
         cos, sin = mrope_frequencies(cfg, positions.to(x.device))
     mask = attention_mask.bool()
     ks, vs = [], []
+    d = None  # the last sublayer's output, added to x by the next norm
     for layer in params.layers:
-        h = _ln(x, layer.ln0, cfg)
-        q, k, v = _qkv(h, layer, cfg, cos, sin)
-        x = x + _proj(_attend_causal(cfg, q, k, v, mask), layer.o)
-        x = x + _mlp(_ln(x, layer.ln1, cfg), layer, cfg)
+        fused = _glue_fused(x, d, layer)
+        _count_glue(fused)
+        x, h = _add_ln(x, d, layer.ln0, cfg, fused)
+        d = None  # not held through the layer
+        q, k, v = _qkv(h, layer, cfg, cos, sin, fused)
+        x, h = _add_ln(x, _proj(_attend_causal(cfg, q, k, v, mask), layer.o), layer.ln1, cfg, fused)
+        d = _mlp(h, layer, cfg, fused)
         if cache_len:
             ks.append(F.pad(k.transpose(1, 2), (0, 0, 0, cache_len - T)))
             vs.append(F.pad(v.transpose(1, 2), (0, 0, 0, cache_len - T)))
-    return _ln(x, params.final_ln, cfg), ks, vs
+    return _add_ln(x, d, params.final_ln, cfg, _glue_fused(x, d, params.final_ln))[1], ks, vs
 
 
 def forward_hidden(params: CausalLMParams, cfg: CausalLMConfig, input_ids: torch.Tensor,
@@ -431,7 +475,6 @@ def decode_step(params: CausalLMParams, cfg: CausalLMConfig, cache: LMCache, tok
     place) and returns (logits (B, V), the cache). With right-padded ragged
     prompts the slot (Tp + t) and the rotary position (prompt_len + t, per
     row: `rope_pos`) differ; `step` is the position when rope_pos is None."""
-    B = token.shape[0]
     hd = cfg.head_dim
     x = _embed_tokens(params, cfg, token)
     if rope_pos is None:
@@ -439,16 +482,20 @@ def decode_step(params: CausalLMParams, cfg: CausalLMConfig, cache: LMCache, tok
     else:
         cos, sin = rope_frequencies(cfg, rope_pos[:, None])  # (B, 1, hd/2)
     mask = attn_len_mask[:, None, None, :]
+    d = None
     for l, layer in enumerate(params.layers):
-        h = _ln(x, layer.ln0, cfg)
-        q = apply_rope(_proj(h, layer.q).reshape(B, 1, cfg.num_heads, hd), cos, sin)[:, 0]
-        k_new = apply_rope(_proj(h, layer.k).reshape(B, 1, cfg.num_kv_heads, hd), cos, sin)
-        v_new = _proj(h, layer.v).reshape(B, 1, cfg.num_kv_heads, hd)
+        fused = _glue_fused(x, d, layer)
+        _count_glue(fused)
+        x, h = _add_ln(x, d, layer.ln0, cfg, fused)
+        d = None
+        q, k_new, v_new = _qkv(h[:, None], layer, cfg, cos, sin, fused)
         cache.k[l, :, :, step] = k_new[:, 0]
         cache.v[l, :, :, step] = v_new[:, 0]
-        x = x + _proj(_attend_gqa_one(q, cache.k[l], cache.v[l], mask, hd), layer.o)
-        x = x + _mlp(_ln(x, layer.ln1, cfg), layer, cfg)
-    return _lm_logits(params, cfg, _ln(x, params.final_ln, cfg)), cache
+        x, h = _add_ln(x, _proj(_attend_gqa_one(q[:, 0], cache.k[l], cache.v[l], mask, hd), layer.o), layer.ln1,
+                       cfg, fused)
+        d = _mlp(h, layer, cfg, fused)
+    h = _add_ln(x, d, params.final_ln, cfg, _glue_fused(x, d, params.final_ln))[1]
+    return _lm_logits(params, cfg, h), cache
 
 
 @torch.no_grad()

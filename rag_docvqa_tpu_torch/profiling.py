@@ -40,7 +40,10 @@ while the step is warmed up and captured. The counters
 `encode.tokens_valid` (device) and `encode.positions` (host): the valid and
 all positions of the rows each engine hands to the encoder; the decode's
 `decode.graph_captures`, `decode.graph_replays` and `decode.eager_steps`
-(host): the graphs captured, the steps replayed and the steps run eagerly.
+(host): the graphs captured, the steps replayed and the steps run eagerly;
+the causal LM's `lm.glue_fused` and `lm.glue_plain` (host,
+`models/causal_lm.py`): one a layer of each pass over the layers (the stack,
+a decode step), by whether that layer's elementwise glue took its kernels.
 The benchmark's
 `perfbench/spans.py` and its readers in `perfbench/metrics/` read them.
 """
