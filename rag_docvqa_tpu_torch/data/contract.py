@@ -117,6 +117,14 @@ def to_device(batch: ChunkedBatch, device) -> ChunkedBatch:
     return ChunkedBatch(**out)
 
 
+def on_device(batch: ChunkedBatch, device) -> ChunkedBatch:
+    """`batch` already of tensors as it is, wherever they live; a numpy
+    `batch` through `to_device`."""
+    import torch
+
+    return batch if isinstance(batch.chunk_mask, torch.Tensor) else to_device(batch, device)
+
+
 @dataclass
 class GeneratorInputs:
     """Assembled generator inputs (tensors)."""

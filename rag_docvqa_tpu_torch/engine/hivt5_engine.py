@@ -8,19 +8,19 @@ runs K1's parts with K2 inside, so there is no flag to set. Encode and the
 page head, then the greedy decode, run as eager calls on the parameters'
 device through `models/hivt5.py::generate`; the result carries the JAX
 engine's keys and, beside them, the stage split of the wall time under
-"timings".
+"timings", ended on the call's clock (`engine/stages.py`).
 """
 
 from __future__ import annotations
 
-import time
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
 
-from rag_docvqa_tpu_torch.data.contract import ChunkedBatch, to_device
-from rag_docvqa_tpu_torch.engine.rag_vt5 import _sync, decode_answers
+from rag_docvqa_tpu_torch.data.contract import ChunkedBatch, on_device
+from rag_docvqa_tpu_torch.engine import stages
+from rag_docvqa_tpu_torch.engine.rag_vt5 import decode_answers
 from rag_docvqa_tpu_torch.models import hivt5 as hivt5m
 from rag_docvqa_tpu_torch.ops.patches import resize_image
 from rag_docvqa_tpu_torch.profiling import span
@@ -35,14 +35,14 @@ class HiVT5Engine:
         self.device = params.t5.shared.device
 
     def _page_visual(self, batch: ChunkedBatch, aux: Optional[Dict[str, Any]],
-                     mark: Optional[Callable[[str], None]] = None):
+                     end_stage: Optional[Callable[[str], None]] = None):
         """Per-page visual tokens: ((B, P, Tv, D), (B, P) validity), or (None,
         None) when the visual branch is off or the batch carries no image.
         Every page render is resized and normalised on the host as the ViT
         feature extractor does, then the tower, the matcher and the
         visual-box spatial embedding run on the device; pages without a
-        render are masked. `mark("visual_host")`, when given, is called
-        between the two halves."""
+        render are masked. `end_stage("visual_host")`, when given, is
+        called between the two halves."""
         pixels = None
         if self.cfg.use_visual and self.params.visual is not None and aux is not None and aux.get("images") \
                 and any(imgs is not None for imgs in aux["images"]):
@@ -58,8 +58,8 @@ class HiVT5Engine:
                     img = resize_image(np.asarray(page_imgs[p]), size, size) / 255.0
                     pixels[b * P + p] = (img - 0.5) / 0.5
                     valid[b, p] = True
-        if mark is not None:
-            mark("visual_host")
+        if end_stage is not None:
+            end_stage("visual_host")
         if pixels is None:
             return None, None
         vis = hivt5m.page_visual_features(self.params, self.cfg, torch.from_numpy(pixels).to(self.device))
@@ -74,36 +74,31 @@ class HiVT5Engine:
         copy to the device and the host resize of the renders), "visual_s"
         (those and the tower), "encode_s" (all of that, the encode and the
         page head) and "decode_s"."""
-        t0 = time.perf_counter()
-        if not isinstance(batch.chunk_mask, torch.Tensor):
-            batch = to_device(batch, self.device)
-        marks = {}
-
-        def mark(stage: str) -> None:
-            _sync(self.device)
-            marks[stage] = time.perf_counter()
-
+        clock = stages.StageClock(self.device)
+        batch = on_device(batch, self.device)
         # a stage's spans: the visual branch and `generate`'s encode are
         # `engine.encode`; `generate`'s decode and the copy of its tokens,
         # `engine.decode`
         with span("engine.encode"):
-            page_visual, page_visual_valid = self._page_visual(batch, aux, mark)
-            mark("visual")
+            page_visual, page_visual_valid = self._page_visual(batch, aux, clock.end)
+            clock.end("visual")
         tokens, conf, pred_page = hivt5m.generate(self.params, self.cfg, batch, self.max_new_tokens, page_visual,
-                                                  page_visual_valid, mark=mark)
+                                                  page_visual_valid, end_stage=clock.end)
         with span("engine.decode"):
             tokens_np = tokens.cpu().numpy()  # waits for the decode
-        t2 = time.perf_counter()
+        clock.note("decode")
         with span("engine.answers"):
             pages = [int(p) for p in pred_page.cpu()]
-            answers = decode_answers(self.tokenizer, self.cfg.t5, tokens_np)
+            answers = decode_answers(self.tokenizer, tokens_np, self.cfg.t5.eos_id, self.cfg.t5.pad_id)
             confidences = conf.cpu().tolist()
+        clock.note("answers")
+        t = clock.times
         return {
             "pred_answers": answers,
             "confidences": confidences,
             "pred_answer_pages": pages,
             "retrieval": {"page_indices": pages, "retrieval_time": 0.0,
-                          "generation_time": time.perf_counter() - t0},
-            "timings": {"visual_host_s": marks["visual_host"] - t0, "visual_s": marks["visual"] - t0,
-                        "encode_s": marks["encode"] - t0, "decode_s": t2 - marks["encode"]},
+                          "generation_time": t["answers"] - t["start"]},
+            "timings": {"visual_host_s": t["visual_host"] - t["start"], "visual_s": t["visual"] - t["start"],
+                        "encode_s": t["encode"] - t["start"], "decode_s": t["decode"] - t["encode"]},
         }

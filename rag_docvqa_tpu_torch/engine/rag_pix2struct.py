@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from rag_docvqa_tpu_torch.data.contract import RawDocument
+from rag_docvqa_tpu_torch.engine.rag_vt5 import decode_answers
 from rag_docvqa_tpu_torch.models import pix2struct as p2s
 from rag_docvqa_tpu_torch.ops.late_interaction import late_interaction
 from rag_docvqa_tpu_torch.ops.patches import (
@@ -453,16 +454,7 @@ class RAGPix2StructEngine:
 
     def _decode(self, tokens: torch.Tensor) -> List[str]:
         text = self.p2s_cfg.text
-        out = []
-        for row in tokens.cpu().numpy():
-            ids = []
-            for t in row:
-                if t == text.eos_id:
-                    break
-                if t != text.pad_id:
-                    ids.append(int(t))
-            out.append(self.tokenizer.decode(ids))
-        return out
+        return decode_answers(self.tokenizer, tokens.cpu().numpy(), text.eos_id, text.pad_id)
 
 
 # --------------------------------------------------------------------------- #

@@ -26,9 +26,9 @@ equal on all three; padding 1.
 
 `inference` returns the JAX engine's keys and "timings", the stage split of
 the wall time: "retrieve_s", "crops_s" (host cuts, the upload, the device
-resize and the tower), "assemble_s", "prefill_s", "decode_s", each ended by
-a device synchronize (the retrieve stage on the visual path only, so that
-the crops have a stage of their own). With the tracer on (`profiling.py`):
+resize and the tower), "assemble_s", "prefill_s", "decode_s", each ended on
+the call's clock (`engine/stages.py`; the retrieve stage on the visual path
+only, so that the crops have a stage of their own). With the tracer on (`profiling.py`):
 the spans `engine.retrieve`, `engine.crops`, `engine.assemble`,
 `engine.prefill`, `engine.decode` (a `decode.step` a step, both in
 `causal_lm.generate`) and `engine.answers`; the host counters
@@ -39,17 +39,18 @@ the spans `engine.retrieve`, `engine.crops`, `engine.assemble`,
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from rag_docvqa_tpu_torch import profiling
-from rag_docvqa_tpu_torch.data.contract import ChunkedBatch, to_device
-from rag_docvqa_tpu_torch.engine.rag_vt5 import _sync, retrieve
+from rag_docvqa_tpu_torch.data.contract import ChunkedBatch, on_device
+from rag_docvqa_tpu_torch.engine import stages
+from rag_docvqa_tpu_torch.engine.rag_vt5 import decode_answers, retrieve, topk_texts
 from rag_docvqa_tpu_torch.models import causal_lm as clm
+from rag_docvqa_tpu_torch.models import qwen25_vision, qwen_vision
 from rag_docvqa_tpu_torch.ops.gather import compute_ownership
 
 
@@ -85,6 +86,14 @@ def build_prompt(question: str, context_chunks: Sequence[str]) -> str:
             + CHATML_USER_CLOSE)
 
 
+def _tower(v) -> Tuple[Callable, int, int]:
+    """(encode, crop side in pixels, side of the square grid of merged
+    tokens) of either tower's config."""
+    if isinstance(v, qwen25_vision.Qwen25VisionConfig):
+        return qwen25_vision.encode_image, v.image_size, v.image_size // v.patch_size // v.spatial_merge_size
+    return qwen_vision.encode_images, v.vit.image_size, v.vit.image_size // v.vit.patch_size // v.merge_size
+
+
 class RAGQwenEngine:
     def __init__(self, cfg: QwenRAGConfig, lm_cfg: clm.CausalLMConfig, params: clm.CausalLMParams, tokenizer,
                  embed_shared: Optional[torch.Tensor] = None, vision_cfg=None, vision_params=None):
@@ -98,6 +107,8 @@ class RAGQwenEngine:
         self.tokenizer = tokenizer
         self.vision_cfg = vision_cfg
         self.vision_params = vision_params
+        tower = _tower(vision_cfg) if vision_cfg is not None else (None, 0, 0)
+        self._encode_tower, self._crop_side, self._grid_side = tower
         self.embed_shared = embed_shared if embed_shared is not None else params.embed
         self.image_pad_id = tokenizer.encode(CHATML_IMAGE_PAD)[0]
         self.device = params.device
@@ -105,40 +116,18 @@ class RAGQwenEngine:
     # ------------------------------------------------------------------ #
     def _retrieve(self, batch: ChunkedBatch, aux: Dict[str, Any]):
         ret = retrieve(self.embed_shared, batch, k=self.cfg.chunk_num)
-        owner = compute_ownership(batch, ret.top_k_idx, ret.top_k_valid, self.cfg.include_surroundings)
-        owner = owner.cpu().numpy()
+        owner = compute_ownership(batch, ret.top_k_idx, ret.top_k_valid, self.cfg.include_surroundings).cpu().numpy()
         valid = ret.top_k_valid.cpu().numpy()
         pages = ret.top_k_page.cpu().numpy()
-        texts, page_lists = [], []
-        for b in range(batch.batch_size):
-            words_b = aux["slot_words"][b]
-            rows = []
-            for r in range(self.cfg.chunk_num):
-                if not valid[b, r]:
-                    continue
-                slots = np.where(owner[b] == r)[0]
-                rows.append(" ".join(words_b[g] for g in slots if g < len(words_b)))
-            texts.append(rows)
-            page_lists.append(pages[b][valid[b]].tolist())
-        return ret, texts, page_lists
-
-    def _on_device(self, batch: ChunkedBatch) -> ChunkedBatch:
-        return batch if isinstance(batch.chunk_mask, torch.Tensor) else to_device(batch, self.device)
+        return ret, topk_texts(owner, aux, valid), [pages[b][valid[b]].tolist() for b in range(batch.batch_size)]
 
     def retrieve_texts(self, batch: ChunkedBatch, aux: Dict[str, Any]) -> Tuple[List[List[str]], List[List[int]]]:
-        _, texts, pages = self._retrieve(self._on_device(batch), aux)
+        _, texts, pages = self._retrieve(on_device(batch, self.device), aux)
         return texts, pages
 
     # ------------------------------------------------------------------ #
     def _visual(self) -> bool:
         return self.cfg.use_visual and self.vision_cfg is not None and self.vision_params is not None
-
-    def _grid(self) -> int:
-        """The side of a crop's square grid of merged tokens."""
-        v = self.vision_cfg
-        if hasattr(v, "fullatt_block_indexes"):
-            return v.image_size // v.patch_size // v.spatial_merge_size
-        return v.vit.image_size // v.vit.patch_size // v.merge_size
 
     def _encode_crops(self, batch: ChunkedBatch, aux: Dict[str, Any], ret):
         """The top-k chunk boxes cut from their pages, resized on the device,
@@ -150,12 +139,10 @@ class RAGQwenEngine:
             return None, None
         if not aux.get("images") or all(imgs is None for imgs in aux["images"]):
             return None, None
-        from rag_docvqa_tpu_torch.ops.patches import crop_box
+        from rag_docvqa_tpu_torch.ops.patches import crop_box  # looked up at the call: the benchmark's tests wrap it
         from rag_docvqa_tpu_torch.ops.resize import resize_crops
 
         with profiling.span("engine.crops"):
-            qwen25 = hasattr(self.vision_cfg, "fullatt_block_indexes")
-            size = self.vision_cfg.image_size if qwen25 else self.vision_cfg.vit.image_size
             B, M = batch.batch_size, self.cfg.max_crops
             boxes = ret.top_k_box.cpu().numpy()
             pages = ret.top_k_page.cpu().numpy()
@@ -180,16 +167,12 @@ class RAGQwenEngine:
                     slots.append(b * M + m)
                     crop_valid[b, m] = True
                     m += 1
-            if qwen25:
-                from rag_docvqa_tpu_torch.models.qwen25_vision import encode_image as encode
-            else:
-                from rag_docvqa_tpu_torch.models.qwen_vision import encode_images as encode
-            Tv = self._grid() ** 2
+            Tv = self._grid_side ** 2
             profiling.count("vision.crops", len(crops))
             profiling.count("vision.tokens", len(crops) * Tv)
             if crops:
-                px = (resize_crops(crops, size, size, self.device) / 255.0 - 0.5) / 0.5
-                got = encode(self.vision_params, self.vision_cfg, px)
+                px = (resize_crops(crops, self._crop_side, self._crop_side, self.device) / 255.0 - 0.5) / 0.5
+                got = self._encode_tower(self.vision_params, self.vision_cfg, px)
                 embeds = got.new_zeros((B * M,) + tuple(got.shape[1:]))
                 embeds[torch.tensor(slots, device=got.device)] = got
             else:
@@ -220,7 +203,7 @@ class RAGQwenEngine:
         close_ids = tk.encode(CHATML_USER_CLOSE)
         Tv = crop_embeds.shape[2] if crop_embeds is not None else 0
         if Tv:
-            g = self._grid()
+            g = self._grid_side
             cell = np.stack([np.zeros(Tv, np.int64), np.arange(Tv) // g, np.arange(Tv) % g])  # (t, h, w)
         for b in range(B):
             seq: List[int] = list(open_ids)
@@ -262,31 +245,19 @@ class RAGQwenEngine:
         return ids, mask, vemb, vmask, lens, positions
 
     def _answers(self, tokens: np.ndarray) -> List[str]:
-        answers = []
-        for row in tokens:
-            out_ids = []
-            for t in row:
-                if t == self.lm_cfg.eos_id:
-                    break
-                if t != self.lm_cfg.pad_id:
-                    out_ids.append(int(t))
-            text = self.tokenizer.decode(out_ids).split("assistant:")[-1]  # chat-template echoes
-            answers.append(text.replace("<|im_end|>", "").strip())
-        return answers
+        texts = decode_answers(self.tokenizer, tokens, self.lm_cfg.eos_id, self.lm_cfg.pad_id)
+        return [t.split("assistant:")[-1].replace("<|im_end|>", "").strip() for t in texts]  # chat-template echoes
 
     @torch.inference_mode()
     def inference(self, batch: ChunkedBatch, aux: Dict[str, Any]) -> Dict[str, Any]:
         dev = self.device
-        batch = self._on_device(batch)
-        t0 = time.perf_counter()
+        batch = on_device(batch, dev)
+        clock = stages.StageClock(dev)
         with profiling.span("engine.retrieve"):
             ret, texts, pages = self._retrieve(batch, aux)
-            if self._visual():
-                _sync(dev)
-        t1 = time.perf_counter()
+            (clock.end if self._visual() else clock.note)("retrieve")  # a stage of its own before crops only
         crop_embeds, crop_valid = self._encode_crops(batch, aux, ret)
-        _sync(dev)
-        t2 = time.perf_counter()
+        clock.end("crops")
         with profiling.span("engine.assemble"):
             ids, mask, vemb, vmask, _, positions = self._assemble_prompts(aux["questions"], texts, crop_embeds,
                                                                           crop_valid)
@@ -297,20 +268,21 @@ class RAGQwenEngine:
             profiling.device_count("prefill.tokens_valid", mask_t)
             if vmask_t is not None:
                 profiling.device_count("prefill.image_tokens", vmask_t)
-            _sync(dev)
-        t3 = time.perf_counter()
-        timings = {}
+            clock.end("assemble")
         tokens, conf = clm.generate(self.params, self.lm_cfg, ids_t, mask_t, self.cfg.max_new_tokens,
-                                    visual_embeds=vemb, visual_mask=vmask_t, timings=timings, positions=pos_t)
+                                    visual_embeds=vemb, visual_mask=vmask_t, end_stage=clock.end, positions=pos_t)
         with profiling.span("engine.answers"):
             answers = self._answers(tokens.cpu().numpy())
             confidences = conf.cpu().tolist()
+        t = clock.times
         return {
             "pred_answers": answers,
             "confidences": confidences,
             "pred_answer_pages": pages,
             "retrieval": {"page_indices": pages, "text": texts},
-            "timings": {"retrieve_s": t1 - t0, "crops_s": t2 - t1, "assemble_s": t3 - t2, **timings},
+            "timings": {"retrieve_s": t["retrieve"] - t["start"], "crops_s": t["crops"] - t["retrieve"],
+                        "assemble_s": t["assemble"] - t["crops"], "prefill_s": t["prefill"] - t["assemble"],
+                        "decode_s": t["decode"] - t["prefill"]},
         }
 
     # ------------------------------------------------------------------ #
@@ -319,7 +291,7 @@ class RAGQwenEngine:
         labels -100 on the prompt: each sample's answer (one of its answers,
         drawn by numpy's RandomState(seed)), then EOS, after its prompt."""
         rng = np.random.RandomState(seed)
-        batch = self._on_device(batch)
+        batch = on_device(batch, self.device)
         ret, texts, _ = self._retrieve(batch, aux)
         crop_embeds, crop_valid = self._encode_crops(batch, aux, ret)
         T = self.cfg.max_prompt_tokens + self.cfg.answer_max_tokens

@@ -33,28 +33,28 @@ which adds "not_answerable_probs" under "retrieval").
 Everything from retrieval to the decoded ids runs on the parameters'
 device; the host tokenizes at ingest and detokenizes the answers. The
 result carries the stage split of the wall time under "timings", each stage
-ended by a device synchronize. "retrieval_time" under "retrieval" ends after
-retrieve, rerank and reorder, before the assembly, as the JAX engine's does,
-and "generation_time" covers the assembly, the visual branch, encode and
-decode; "retrieve_assemble_s" under "timings" includes the assembly (for
-`none`, which retrieves nothing and, as the JAX engine, reports no
-"retrieval_time", it is the full-document assembly alone). With a
-reranker, "rerank_time" under
-"retrieval" is the reranker call alone between two synchronizes (it is part
-of "retrieve_assemble_s"); with the visual branch, "visual_s" is the host
-crops and grid plus the tower (it is part of "encode_s").
+but the decode ended on the call's clock (`engine/stages.py`), the decode at
+the tokens' copy. "retrieval_time" under "retrieval" ends after retrieve,
+rerank and reorder, before the assembly, as the JAX engine's does, and
+"generation_time" covers the assembly, the visual branch, encode and decode;
+"retrieve_assemble_s" under "timings" includes the assembly (for `none`,
+which retrieves nothing and, as the JAX engine, reports no "retrieval_time",
+it is the full-document assembly alone). With a reranker, "rerank_time" under
+"retrieval" is the reranker call alone, between the clock's ends "topk" and
+"rerank" (part of "retrieve_assemble_s"); with the visual branch, "visual_s"
+is the host crops and grid plus the tower, ended as "visual" (part of "encode_s").
 """
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
-from rag_docvqa_tpu_torch.data.contract import ChunkedBatch, RetrievalResult, to_device
+from rag_docvqa_tpu_torch.data.contract import ChunkedBatch, RetrievalResult, on_device
+from rag_docvqa_tpu_torch.engine import stages
 from rag_docvqa_tpu_torch.models import t5 as t5m
 from rag_docvqa_tpu_torch.models import vt5 as vt5m
 from rag_docvqa_tpu_torch.models.embedder import vt5_table_embed
@@ -170,23 +170,43 @@ def _assemble_full_doc(batch: ChunkedBatch, cfg: AssembleConfig):
                            batch.prompt_tokens, batch.prompt_len, cfg)
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
-def decode_answers(tokenizer, t5_cfg, tokens: np.ndarray) -> List[str]:
+def decode_answers(tokenizer, tokens: np.ndarray, eos_id: int, pad_id: int) -> List[str]:
     """(N, T) decoded ids -> N answer strings: each row up to its EOS,
     pads dropped."""
     out = []
     for row in tokens:
         ids = []
         for t in row:
-            if t == t5_cfg.eos_id:
+            if t == eos_id:
                 break
-            if t != t5_cfg.pad_id:
+            if t != pad_id:
                 ids.append(int(t))
         out.append(tokenizer.decode(ids))
+    return out
+
+
+def topk_texts(owner: np.ndarray, aux: Dict[str, Any], valid: np.ndarray) -> List[List[str]]:
+    """Compacted top-k chunk texts including surroundings: each sample's
+    valid rows, the words its `owner` slots hold."""
+    texts: List[List[str]] = []
+    for b in range(valid.shape[0]):
+        words_b = aux["slot_words"][b]
+        rows = []
+        for r in range(valid.shape[1]):
+            if not valid[b, r]:
+                continue
+            slots = np.where(owner[b] == r)[0]
+            rows.append(" ".join(words_b[g] for g in slots if g < len(words_b)))
+        texts.append(rows)
+    return texts
+
+
+def _timings(t: Dict[str, float]) -> Dict[str, float]:
+    """The stage split from a call's clock times; "visual_s" with the visual branch."""
+    out = {"retrieve_assemble_s": t["assemble"] - t["start"], "encode_s": t["encode"] - t["assemble"],
+           "decode_s": t["decode"] - t["encode"]}
+    if "visual" in t:
+        out["visual_s"] = t["visual"] - t["assemble"]  # host crops and grid + the tower; part of encode_s
     return out
 
 
@@ -204,18 +224,19 @@ class RAGVT5Engine:
         self.device = params.t5.shared.device
 
     def _generate(self, gen, visual=None):
-        """Encode, then decode: (tokens, confidences, t_encoded, t_decoded)."""
+        """Encode, then decode: (tokens, confidences). Ends the call's encode
+        stage and notes the decode's end at the tokens' copy."""
         with span("engine.encode"):
             embeds, mask = vt5m.input_embeds(self.params, self.vt5_cfg, gen, visual)
             device_count("encode.tokens_valid", mask)
             count("encode.positions", mask.numel())
             enc = t5m.encode(self.params.t5, self.vt5_cfg.t5, embeds, mask)
-            _sync(self.device)
-        t_enc = time.perf_counter()
+            self._clock.end("encode")
         with span("engine.decode"):
             tokens, conf = greedy_decode(self.params.t5, self.vt5_cfg.t5, enc, mask, self.cfg.max_new_tokens)
             tokens_np = tokens.cpu().numpy()  # waits for the decode
-        return tokens_np, conf, t_enc, time.perf_counter()
+        self._clock.note("decode")
+        return tokens_np, conf
 
     @torch.inference_mode()
     def inference(self, batch: ChunkedBatch, aux: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
@@ -223,36 +244,30 @@ class RAGVT5Engine:
         device. Returns answers, confidences, pages and retrieval details."""
         cfg, dev = self.cfg, self.device
         strategy = cfg.page_retrieval
-        if not isinstance(batch.chunk_mask, torch.Tensor):
-            batch = to_device(batch, dev)
+        batch = on_device(batch, dev)
         B = batch.batch_size
-        t0 = time.perf_counter()
+        clock = self._clock = stages.StageClock(dev)  # on the engine for `_generate`, whose signature stays
         if strategy == "none":
             with span("engine.assemble"):
                 gen = _assemble_full_doc(batch, cfg.assemble())
-                _sync(dev)
-            t1 = time.perf_counter()
-            tokens, conf, t2, t3 = self._generate(gen)
+                clock.end("assemble")
+            tokens, conf = self._generate(gen)
             with span("engine.answers"):
                 result = self._result(self._decode(tokens), conf.cpu().tolist(), [[0] for _ in range(B)], None,
                                       batch, aux)
-            result["timings"] = {"retrieve_assemble_s": t1 - t0, "encode_s": t2 - t1, "decode_s": t3 - t2}
+            result["timings"] = _timings(clock.times)
             return result
 
         oracle = strategy == "oracle"
         with span("engine.retrieve"):
             ret = retrieve(self.params.t5.shared, batch, k=cfg.chunk_num, oracle=oracle)
-            rerank_s = 0.0
             if self.reranker is not None and not oracle:
-                _sync(dev)
-                tr = time.perf_counter()
+                clock.end("topk")
                 ret = self.reranker(batch, ret)
-                _sync(dev)
-                rerank_s = time.perf_counter() - tr
+                clock.end("rerank")
             if cfg.reorder_chunks and not oracle:
                 ret = reading_order(ret, batch)
-            _sync(dev)
-        tr1 = time.perf_counter()  # retrieval ends here; the assembly counts as generation
+            clock.end("retrieve")  # retrieval ends here; the assembly counts as generation
         K = ret.top_k_idx.shape[1]
         acfg = cfg.assemble()
         visual = nac_probs = major = None
@@ -274,12 +289,10 @@ class RAGVT5Engine:
                                          AssembleConfig(max_source_length=cfg.max_source_length))
                 owner = compute_ownership(batch, ret.top_k_idx, ret.top_k_valid, cfg.include_surroundings)
                 row_valid = None
-            _sync(dev)
-        t1 = time.perf_counter()
+            clock.end("assemble")
         if strategy in ("oracle", "concat"):
             visual = self._visual(batch, aux, owner, ret)
-        tv = time.perf_counter()
-        tokens, conf, t2, t3 = self._generate(gen, visual)
+        tokens, conf = self._generate(gen, visual)
 
         with span("engine.answers"):
             if row_valid is None:
@@ -302,13 +315,12 @@ class RAGVT5Engine:
                 pages_np = ret.top_k_page.cpu().numpy()
                 pages = [pages_np[b][valid_np[b]].tolist() for b in range(B)]
             result = self._result(answers, confs, pages, ret, batch, aux, owner, nac_probs)
-        result["retrieval"]["retrieval_time"] = tr1 - t0
-        result["retrieval"]["generation_time"] = t3 - tr1
+        t = clock.times
+        result["retrieval"]["retrieval_time"] = t["retrieve"] - t["start"]
+        result["retrieval"]["generation_time"] = t["decode"] - t["retrieve"]
         if self.reranker is not None:
-            result["retrieval"]["rerank_time"] = rerank_s
-        result["timings"] = {"retrieve_assemble_s": t1 - t0, "encode_s": t2 - t1, "decode_s": t3 - t2}
-        if visual is not None:
-            result["timings"]["visual_s"] = tv - t1  # host crops and grid + the tower; part of encode_s
+            result["retrieval"]["rerank_time"] = t["rerank"] - t["topk"] if "rerank" in t else 0.0
+        result["timings"] = _timings(t)
         return result
 
     def _visual(self, batch, aux, owner, ret) -> Optional[torch.Tensor]:
@@ -321,32 +333,29 @@ class RAGVT5Engine:
             return None
         if aux is None or not aux.get("images") or aux["images"][0] is None:
             return None
-        with span("engine.encode"):  # a part of the encode stage, ended by a synchronize as it is
-            return self._visual_tokens(batch, aux, owner, ret)
-
-    def _visual_tokens(self, batch, aux, owner, ret) -> torch.Tensor:
-        boxes = group_boxes(batch, owner, ret.top_k_idx.shape[1]).cpu().numpy()
-        pages = ret.top_k_page.cpu().numpy()
-        valid = ret.top_k_valid.cpu().numpy()
-        size = self.vt5_cfg.vit.image_size
-        images = []
-        for b in range(batch.batch_size):
-            page_imgs = aux["images"][b]
-            crops = []
-            for r in range(boxes.shape[1]):
-                if not valid[b, r] or page_imgs is None:
-                    continue
-                img = page_imgs[pages[b, r]]
-                if img is None:
-                    continue
-                crops.append(crop_box(np.asarray(img), boxes[b, r]))
-            # the DiT feature extractor's normalisation: (x / 255 - 0.5) / 0.5
-            img = resize_image(concatenate_patches_grid(crops), size, size) / 255.0
-            images.append((img - 0.5) / 0.5)
-        pixels = torch.from_numpy(np.stack(images).astype(np.float32)).to(self.device)
-        visual = vt5m.visual_features(self.params, self.vt5_cfg, pixels)
-        _sync(self.device)
-        return visual
+        with span("engine.encode"):  # a part of the encode stage, with an end of its own inside it
+            boxes = group_boxes(batch, owner, ret.top_k_idx.shape[1]).cpu().numpy()
+            pages = ret.top_k_page.cpu().numpy()
+            valid = ret.top_k_valid.cpu().numpy()
+            size = self.vt5_cfg.vit.image_size
+            images = []
+            for b in range(batch.batch_size):
+                page_imgs = aux["images"][b]
+                crops = []
+                for r in range(boxes.shape[1]):
+                    if not valid[b, r] or page_imgs is None:
+                        continue
+                    img = page_imgs[pages[b, r]]
+                    if img is None:
+                        continue
+                    crops.append(crop_box(np.asarray(img), boxes[b, r]))
+                # the DiT feature extractor's normalisation: (x / 255 - 0.5) / 0.5
+                img = resize_image(concatenate_patches_grid(crops), size, size) / 255.0
+                images.append((img - 0.5) / 0.5)
+            pixels = torch.from_numpy(np.stack(images).astype(np.float32)).to(self.device)
+            visual = vt5m.visual_features(self.params, self.vt5_cfg, pixels)
+            self._clock.end("visual")
+            return visual
 
     def _apply_nac(self, gen, answers: List[str], confs: List[float]):
         """Not-answerable gating: the NAC sees the generator's input
@@ -368,7 +377,7 @@ class RAGVT5Engine:
         return update_results(probs.float().cpu().numpy(), answers, confs, threshold)
 
     def _decode(self, tokens: np.ndarray) -> List[str]:
-        return decode_answers(self.tokenizer, self.vt5_cfg.t5, tokens)
+        return decode_answers(self.tokenizer, tokens, self.vt5_cfg.t5.eos_id, self.vt5_cfg.t5.pad_id)
 
     def _select_rows(self, tokens: np.ndarray, conf: torch.Tensor, row_valid: torch.Tensor, B: int, K: int,
                      keep_all: bool):
@@ -403,25 +412,10 @@ class RAGVT5Engine:
             retrieval["top_k_layout_labels"] = ret.top_k_label.cpu().tolist()
             retrieval["boxes"] = group_boxes(batch, owner, K).cpu().numpy()
             if aux is not None and "slot_words" in aux:
-                retrieval["text"] = self._topk_texts(owner.cpu().numpy(), aux, ret.top_k_valid.cpu().numpy())
+                retrieval["text"] = topk_texts(owner.cpu().numpy(), aux, ret.top_k_valid.cpu().numpy())
         return {
             "pred_answers": answers,
             "confidences": confidences,
             "pred_answer_pages": pred_answer_pages,
             "retrieval": retrieval,
         }
-
-    @staticmethod
-    def _topk_texts(owner: np.ndarray, aux: Dict[str, Any], valid: np.ndarray) -> List[List[str]]:
-        """Compacted top-k chunk texts including surroundings."""
-        texts: List[List[str]] = []
-        for b in range(valid.shape[0]):
-            words_b = aux["slot_words"][b]
-            rows = []
-            for r in range(valid.shape[1]):
-                if not valid[b, r]:
-                    continue
-                slots = np.where(owner[b] == r)[0]
-                rows.append(" ".join(words_b[g] for g in slots if g < len(words_b)))
-            texts.append(rows)
-        return texts

@@ -60,9 +60,8 @@ dtype, then the bias.
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -501,7 +500,7 @@ def decode_step(params: CausalLMParams, cfg: CausalLMConfig, cache: LMCache, tok
 @torch.no_grad()
 def generate(params: CausalLMParams, cfg: CausalLMConfig, input_ids: torch.Tensor, attention_mask: torch.Tensor,
              max_new_tokens: int = 16, visual_embeds: Optional[torch.Tensor] = None,
-             visual_mask: Optional[torch.Tensor] = None, timings: Optional[dict] = None,
+             visual_mask: Optional[torch.Tensor] = None, end_stage: Optional[Callable[[str], None]] = None,
              positions: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Greedy decode: (tokens (B, max_new_tokens), confidence (B,)). The
     confidence is the product of each emitted token's max softmax
@@ -509,19 +508,16 @@ def generate(params: CausalLMParams, cfg: CausalLMConfig, input_ids: torch.Tenso
     the last step's is not counted (`t >= max_new_tokens - 2`, as in JAX).
     `positions`: the prompt's (3, B, Tp) M-RoPE positions, after which row b
     decodes from its largest valid index + 1 (HF's rope deltas); None for
-    0 .. Tp-1. `timings`, when given, gets "prefill_s" and "decode_s", each
-    ended by a device synchronize; with the tracer on, the spans
+    0 .. Tp-1. `end_stage`, when given, ends the engine's stages "prefill"
+    and "decode" (`engine/stages.py`); with the tracer on, the spans
     `engine.prefill`, `engine.decode` and a `decode.step` a step."""
     B, Tp = input_ids.shape
     max_len = Tp + max_new_tokens
-    t0 = time.perf_counter()
     with profiling.span("engine.prefill"):
         logits0, cache = prefill(params, cfg, input_ids, attention_mask, max_len, visual_embeds, visual_mask,
                                  positions)
-        if timings is not None:
-            _sync(input_ids.device)
-    if timings is not None:
-        t1 = time.perf_counter()
+        if end_stage is not None:
+            end_stage("prefill")
     prompt_len = attention_mask.long().sum(dim=1)
     if positions is None:
         next_pos = prompt_len
@@ -550,16 +546,9 @@ def generate(params: CausalLMParams, cfg: CausalLMConfig, input_ids: torch.Tenso
                 token = emitted
                 tokens.append(emitted)
         tokens = torch.stack(tokens, dim=1).to(torch.int32)
-        if timings is not None:
-            _sync(input_ids.device)
-    if timings is not None:
-        timings.update(prefill_s=t1 - t0, decode_s=time.perf_counter() - t1)
+        if end_stage is not None:
+            end_stage("decode")
     return tokens, conf
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 # --------------------------------------------------------------------------- #

@@ -211,18 +211,18 @@ def attention_viz(params: HiVT5Params, cfg: HiVT5Config, batch: ChunkedBatch, la
 
 def generate(params: HiVT5Params, cfg: HiVT5Config, batch: ChunkedBatch, max_new_tokens: int = 100,
              page_visual: Optional[torch.Tensor] = None, page_visual_valid: Optional[torch.Tensor] = None,
-             mark: Optional[Callable[[str], None]] = None):
+             end_stage: Optional[Callable[[str], None]] = None):
     """Greedy decode over the document embedding: (tokens (B, T), confidence
-    (B,), pred_page (B,)), the page from the retrieval head. `mark`, when
-    given, is called with "encode" once the encode and the page head are
-    queued, before the decode (the engine's stage split)."""
+    (B,), pred_page (B,)), the page from the retrieval head. `end_stage`,
+    when given, ends the engine's stage "encode" once the encode and the
+    page head are queued, before the decode (`engine/stages.py`)."""
     with span("engine.encode"):
         with span("hivt5.pages"):
             doc_emb, doc_mask = encode_document(params, cfg, batch, page_visual, page_visual_valid)
         with span("hivt5.page_head"):
             pred_page = predict_page(cfg, batch, page_retrieval_logits(params, cfg, doc_emb))
-        if mark is not None:
-            mark("encode")
+        if end_stage is not None:
+            end_stage("encode")
     with span("engine.decode"):
         tokens, conf = greedy_decode(params.t5, cfg.t5, doc_emb, doc_mask, max_new_tokens)
     return tokens, conf, pred_page

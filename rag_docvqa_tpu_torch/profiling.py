@@ -18,10 +18,11 @@
 
 The rules that keep it out of the timed path: when off (the default),
 `span` returns one shared no-op context and reads no clock, and the
-counters return at once; when on, no span or counter synchronizes a device,
-reads a device value on the host or copies one back: a device count is one
-reduction launched beside the work it counts. The module imports no torch,
-so the data layer's worker processes import it freely.
+counters return at once; when on, no span or counter synchronizes a device
+(the engines end their stages on `engine/stages.py`'s clock, inside the
+stage's spans), reads a device value on the host or copies one back: a
+device count is one reduction launched beside the work it counts. The
+module imports no torch, so the data layer's worker processes import it freely.
 
 The spans and counters of the serving path, by layer: `evaluate.wait`,
 `evaluate.inference`, `evaluate.score` (`engine/evaluate.py`), `ingest.batch`

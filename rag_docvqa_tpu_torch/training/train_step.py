@@ -63,7 +63,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 from torch import nn
 
-from rag_docvqa_tpu_torch.data.contract import ChunkedBatch, to_device
+from rag_docvqa_tpu_torch.data.contract import ChunkedBatch, on_device
 from rag_docvqa_tpu_torch.engine.rag_vt5 import RAGConfig, retrieve
 from rag_docvqa_tpu_torch.models import hivt5 as hivt5m
 from rag_docvqa_tpu_torch.models import vt5 as vt5m
@@ -187,8 +187,7 @@ def make_train_step(vt5_cfg: vt5m.VT5Config, rag_cfg: RAGConfig, opt: Optimizer,
             spec = vt5_param_spec(params)
             batch, (labels, nac_labels) = local_batch(batch, mesh, labels, nac_labels)
             share = 1.0 / mesh.size("data")
-        if not isinstance(batch.chunk_mask, torch.Tensor):
-            batch = to_device(batch, dev)
+        batch = on_device(batch, dev)
         labels = torch.as_tensor(labels, device=dev).long()
         trainable = opt.trainable(params)
         p = _working_params(params, mesh, spec, bf16_compute)
@@ -311,8 +310,7 @@ def make_hivt5_train_step(hivt5_cfg, opt: Optimizer, remat=False, bf16_compute: 
             spec = vt5_param_spec(params)
             n_docs = batch.batch_size
             batch, (labels,) = local_batch(batch, mesh, labels)
-        if not isinstance(batch.chunk_mask, torch.Tensor):
-            batch = to_device(batch, dev)
+        batch = on_device(batch, dev)
         labels = torch.as_tensor(labels, device=dev).long()
         if mesh is not None:
             denominators = _global_counts(mesh, {"lm": (labels != -100).sum()})

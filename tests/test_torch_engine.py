@@ -84,10 +84,10 @@ def _capture_rows(monkeypatch):
     p_inner = RAGVT5Engine._generate
 
     def p_wrapped(self, gen, visual=None):
-        tokens, conf, t_enc, t_dec = p_inner(self, gen, visual)
+        tokens, conf = p_inner(self, gen, visual)
         pseen.append(dict(gen={k: np.asarray(v) for k, v in vars(gen).items()}, tokens=tokens,
                           conf=conf.cpu().numpy()))
-        return tokens, conf, t_enc, t_dec
+        return tokens, conf
 
     monkeypatch.setattr(j_rag, "generate_device", j_wrapped)
     monkeypatch.setattr(RAGVT5Engine, "_generate", p_wrapped)

@@ -15,7 +15,7 @@ from rag_docvqa_tpu_torch.data.contract import Caps, to_device
 from rag_docvqa_tpu_torch.data.ingest import DocVQAIngestor
 from rag_docvqa_tpu_torch.data.synthetic import make_corpus
 from rag_docvqa_tpu_torch.data.tokenizer import HashTokenizer
-from rag_docvqa_tpu_torch.engine import hivt5_engine, rag_vt5
+from rag_docvqa_tpu_torch.engine import hivt5_engine, rag_vt5, stages
 from rag_docvqa_tpu_torch.engine.evaluate import evaluate
 from rag_docvqa_tpu_torch.models import hivt5, t5, vt5
 from rag_docvqa_tpu_torch.models.embeddings import SpatialConfig
@@ -154,15 +154,14 @@ def _serve(make, monkeypatch):
     (off, on, synchronizes off, synchronizes on, the trace, the valid
     positions the encoder was handed)."""
     engine, ingestor = make()
-    module = rag_vt5 if isinstance(engine, rag_vt5.RAGVT5Engine) else hivt5_engine
     syncs = [0]
-    original = module._sync
+    original = stages.synchronize
 
     def counted(device):
         syncs[0] += 1
         original(device)
 
-    monkeypatch.setattr(module, "_sync", counted)
+    monkeypatch.setattr(stages, "synchronize", counted)
     masks, encode = [], t5.encode
 
     def recorded(params, cfg, x, mask, **kwargs):
@@ -190,7 +189,7 @@ def test_tracing_changes_no_answer_and_no_synchronize(family, monkeypatch):
     off, on, syncs_off, syncs_on, trace, valid = _serve({"vt5": _vt5, "hivt5": _hivt5}[family], monkeypatch)
     assert on["pred_answers"] == off["pred_answers"] and on["pred_answer_pages"] == off["pred_answer_pages"]
     assert on["confidences"] == off["confidences"]
-    assert syncs_on == syncs_off > 0
+    assert syncs_on == syncs_off == 3  # vt5: retrieve, assemble, encode; hivt5: visual_host, visual, encode
     names = {s.name for s in trace.spans}
     assert ENGINE_SPANS[family] | DECODE_SPANS <= names
     steps = by_name(trace.spans, "decode.step")

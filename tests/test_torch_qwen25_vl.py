@@ -28,7 +28,8 @@ import torch
 
 from rag_docvqa_tpu_torch import profiling
 from rag_docvqa_tpu_torch.data.tokenizer import HashTokenizer
-from rag_docvqa_tpu_torch.engine import rag_qwen
+from rag_docvqa_tpu_torch.data.contract import on_device
+from rag_docvqa_tpu_torch.engine import rag_qwen, stages
 from rag_docvqa_tpu_torch.models import causal_lm as clm
 from rag_docvqa_tpu_torch.models import qwen25_vision as q25
 from rag_docvqa_tpu_torch.ops.patches import _resize_bilinear, _resize_weight_mat
@@ -238,14 +239,13 @@ def test_spans_and_counters_fire_on_and_change_nothing(monkeypatch):
 
     eng = _engine()
     syncs = [0]
-    for module in (rag_qwen, clm):
-        original = module._sync
+    original = stages.synchronize
 
-        def counted(device, original=original):
-            syncs[0] += 1
-            original(device)
+    def counted(device):
+        syncs[0] += 1
+        original(device)
 
-        monkeypatch.setattr(module, "_sync", counted)
+    monkeypatch.setattr(stages, "synchronize", counted)
     docs = make_corpus(2, n_pages=2, words_per_page=30, seed=21)
     rng = np.random.RandomState(0)
     for d in docs:
@@ -273,7 +273,7 @@ def test_spans_and_counters_fire_on_and_change_nothing(monkeypatch):
     crops = {s.id for s in trace.spans if s.name == "engine.crops"}
     assert all(s.parent in tower for s in trace.spans if s.name.startswith("vision.") and s.name != "vision.tower")
     assert all(s.parent in crops for s in trace.spans if s.name == "vision.tower")
-    dev_batch = eng._on_device(batch)
+    dev_batch = on_device(batch, eng.device)
     ret, texts, _ = eng._retrieve(dev_batch, aux)
     ids, mask, vemb, vmask, lens, pos = eng._assemble_prompts(aux["questions"], texts,
                                                               *eng._encode_crops(dev_batch, aux, ret))

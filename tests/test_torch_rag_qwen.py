@@ -33,7 +33,7 @@ from rag_docvqa_tpu.models.vit import ViTConfig as JViTConfig
 from rag_docvqa_tpu.ops.chunking import ChunkSpec
 from rag_docvqa_tpu_torch import config as p_config
 from rag_docvqa_tpu_torch import params as p_params
-from rag_docvqa_tpu_torch.data.contract import Caps
+from rag_docvqa_tpu_torch.data.contract import Caps, on_device
 from rag_docvqa_tpu_torch.data.ingest import DocVQAIngestor
 from rag_docvqa_tpu_torch.data.synthetic import make_corpus
 from rag_docvqa_tpu_torch.data.tokenizer import HashTokenizer
@@ -160,7 +160,7 @@ def test_visual_path_matches_jax(tower):
     ids, vmask = ids.numpy(), vmask.numpy()
     assert vmask.sum() > 0 and (ids[vmask] == peng.image_pad_id).all()
     assert vmask[0].sum() % peng.vision_cfg.tokens_per_image == 0
-    crops, _ = peng._encode_crops(peng._on_device(pb), paux, peng._retrieve(peng._on_device(pb), paux)[0])
+    crops, _ = peng._encode_crops(on_device(pb, peng.device), paux, peng._retrieve(on_device(pb, peng.device), paux)[0])
     assert crops.shape[1:3] == (2, peng.vision_cfg.tokens_per_image)
 
 
