@@ -27,14 +27,26 @@ that a window does not divide); a full layer attends over the whole crop.
 JAX computes the same in f32 with the window mask at -1e9 (einsum,
 softmax); a masked key gets no weight in either.
 
+The feed-forward's intermediate width I (3420 in the published tower) is
+no multiple of 8, so a bf16 row of it is not 16-byte aligned and cuBLAS
+falls back to slow unaligned GEMM kernels. Where I % 8 != 0 and no autograd
+graph is recorded through it, the layer loop runs gate, up and down on a
+copy padded to the next multiple of 8 (`_ffn_weights`): zero rows of
+`gate_w` and `up_w`, zero entries of their biases, zero columns of
+`down_w`. The padded columns are silu(0) * 0 = 0 and add nothing through
+`down`, so the result is the same sums. The copy is kept beside the layer,
+never as a parameter, and made again when the layer's tensors are replaced.
+
 With the tracer on (`profiling.py`), `encode_features` opens
 `vision.tower`, and in it one `vision.window_layer` or `vision.full_layer`
-a layer.
+a layer; each layer counts `vision.mlp_padded` or `vision.mlp_plain` (host)
+by which weights its feed-forward read.
 """
 
 from __future__ import annotations
 
 import functools
+import weakref
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
@@ -80,6 +92,8 @@ class Qwen25VisionConfig:
 
 LAYER_FIELDS = ("ln1", "ln2", "qkv_w", "qkv_b", "proj_w", "proj_b", "gate_w", "gate_b", "up_w", "up_b",
                 "down_w", "down_b")
+FFN_FIELDS = ("gate_w", "gate_b", "up_w", "up_b", "down_w")  # the tensors that hold the intermediate width
+FFN_ALIGN = 8  # intermediate widths padded to a multiple of this: a bf16 row then fills whole 16-byte words
 
 
 class Qwen25VisionLayer(nn.Module):
@@ -236,6 +250,34 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, windows: int,
     return out.transpose(1, 2).reshape(B, seq, H * hd)
 
 
+# layer -> (weak references to its FFN_FIELDS tensors, their (data_ptr, _version), the padded copy)
+_padded_ffn: "weakref.WeakKeyDictionary[Qwen25VisionLayer, tuple]" = weakref.WeakKeyDictionary()
+
+
+def _ffn_weights(layer: Qwen25VisionLayer, x: torch.Tensor) -> Tuple[Tuple[torch.Tensor, ...], bool]:
+    """(gate_w, gate_b, up_w, up_b, down_w) for the layer's feed-forward over
+    x and whether they are the padded copy: the layer's own tensors where I %
+    8 == 0 or autograd would record a graph through x or them, else their
+    copy padded to the next multiple of 8, made once (no grad; the weights'
+    dtype and device) and again when a tensor is replaced or changed in
+    place."""
+    own = tuple(getattr(layer, n) for n in FFN_FIELDS)
+    width = own[0].shape[0]
+    if width % FFN_ALIGN == 0 or (torch.is_grad_enabled() and any(t.requires_grad for t in (x, *own))):
+        return own, False
+    state = tuple((t.data_ptr(), t._version) for t in own)
+    kept = _padded_ffn.get(layer)
+    if kept is not None and kept[1] == state and all(r() is t for r, t in zip(kept[0], own)):
+        return kept[2], True
+    pad = -width % FFN_ALIGN
+    with torch.no_grad():
+        gate_w, gate_b, up_w, up_b, down_w = own
+        copy = (F.pad(gate_w, (0, 0, 0, pad)), F.pad(gate_b, (0, pad)), F.pad(up_w, (0, 0, 0, pad)),
+                F.pad(up_b, (0, pad)), F.pad(down_w, (0, pad)))
+    _padded_ffn[layer] = (tuple(weakref.ref(t) for t in own), state, copy)
+    return copy, True
+
+
 def encode_features(params: Qwen25VisionParams, cfg: Qwen25VisionConfig, feats: torch.Tensor,
                     grid: Tuple[int, int]) -> torch.Tensor:
     """(B, seq, patch_dim) merge-order patches of an (h, w) patch grid ->
@@ -261,8 +303,10 @@ def encode_features(params: Qwen25VisionParams, cfg: Qwen25VisionConfig, feats: 
                 a = _attend(q, k, v, 0, None) if i in full else _attend(q, k, v, g.windows, g.mask)
                 x = x + dense(a, layer.proj_w, layer.proj_b)
                 hn = rms_norm(x, layer.ln2, cfg.rms_eps)
-                gu = F.silu(dense(hn, layer.gate_w, layer.gate_b)) * dense(hn, layer.up_w, layer.up_b)
-                x = x + dense(gu, layer.down_w, layer.down_b)
+                (gate_w, gate_b, up_w, up_b, down_w), padded = _ffn_weights(layer, hn)
+                profiling.count("vision.mlp_padded" if padded else "vision.mlp_plain", 1)
+                gu = F.silu(dense(hn, gate_w, gate_b)) * dense(hn, up_w, up_b)
+                x = x + dense(gu, down_w, layer.down_b)
         x = rms_norm(x, params.ln_q, cfg.rms_eps).reshape(B, seq // s2, -1)
         x = F.gelu(dense(x, params.fc1_w, params.fc1_b))
         x = dense(x, params.fc2_w, params.fc2_b)

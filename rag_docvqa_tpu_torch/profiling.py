@@ -44,7 +44,10 @@ all positions of the rows each engine hands to the encoder; the decode's
 (host): the graphs captured, the steps replayed and the steps run eagerly;
 the causal LM's `lm.glue_fused` and `lm.glue_plain` (host,
 `models/causal_lm.py`): one a layer of each pass over the layers (the stack,
-a decode step), by whether that layer's elementwise glue took its kernels.
+a decode step), by whether that layer's elementwise glue took its kernels;
+the Qwen2.5-VL tower's `vision.mlp_padded` and `vision.mlp_plain` (host,
+`models/qwen25_vision.py`): one a layer a tower call, by whether that
+layer's feed-forward read the copy padded to an 8-aligned intermediate.
 The benchmark's
 `perfbench/spans.py` and its readers in `perfbench/metrics/` read them.
 """
