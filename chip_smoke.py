@@ -327,6 +327,13 @@ Fourteen phases; any failure raises and the script exits non-zero:
  13. the causal-LM family: Qwen2.5-VL-7B RAG serving, the Gemma LLM
      reranker on K2's dh-256 form, the Qwen2.5-VL tower, LoRA SFT on K2/K6
      and their CLIs (the phase's log lines say what each part checks);
+ 15. the expert layer of Uni-MoE-2.0-Omni's language model (`models/moe.py`)
+     at the benchmark cell's widths and shapes: `lm_glu` over the live
+     [gate | up] rows (`glu_rows`) bit for bit against its plain version and
+     timed with its bound, the grouped GEMMs against a loop of one product an
+     expert, the whole layer kernels against plain; then a two-layer stack at
+     those widths (vocabulary 1,024) through `generate` at the cell's B 32 x
+     T 1,280 and 16 new tokens, its launches counted ("unimoe_serve");
  14. the multi-device layer (`parallel/mesh.py`), on its own generator:
      a. a world-size-1 NCCL process group (a FileStore rendezvous) and its
         (1, 1) (data, model) and (1,) data meshes: 7b's index (524,288 x
@@ -364,7 +371,7 @@ steps as "train_nac", phase 10's paths as "hivt5_serve",
 "hivt5_page_images", "p2s_page_images" and "answer_quality_<model>", phase
 12's as "dit_detector", "yolo_detector", "precompute_layouts_<detector>",
 "eval_layouts_vt5", "serve_layouts", "p2s_layouts", "transfer_evaluate",
-"demo_ask" and "noise_experiment"; phase 14's as "group_index", "group_maxsim",
+"demo_ask" and "noise_experiment"; phase 15's as "unimoe_serve"; phase 14's as "group_index", "group_maxsim",
 "group_evaluate", "group_decode", "group_train", "group_hivt5_train", "dryrun_rank0" and
 "dryrun_rank1", and per kernel under "group_launches"),
 its worst error over its own checks, and, at its path's shape, its time,
@@ -426,6 +433,8 @@ BF16_REL_TOL = 2e-2
 PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
 PEAK_BYTES_PER_S = 3.35e12
 
+MOE_GLU_CASE = "Uni-MoE-2.0-Omni %s live [gate | up] rows x 18944 SwiGLU bf16"
+
 # kernel -> (source, TPU kernel it replaces, the path it runs in, the timed
 # case whose times the report's "ms"/"plain_ms" give: the shape and dtype
 # that path runs it at)
@@ -480,6 +489,9 @@ KERNELS = {
                      "Qwen2.5-VL-7B prefill B32 T2304 H28 Hkv4 hd128 M-RoPE biases bf16"),
     "lm_glu": ("rag_docvqa_tpu_torch/csrc/lm_glue.cu", "none (XLA fusion)", "qwen_serve",
                "Qwen2.5-VL-7B prefill 73728x18944 SwiGLU bf16"),
+    # lm_glu's form over an expert layer's [gate | up] rows (its launches also counted under lm_glu)
+    "lm_glu_rows": ("rag_docvqa_tpu_torch/csrc/lm_glue.cu", "none (XLA fusion)", "unimoe_serve",
+                    MOE_GLU_CASE % "prefill"),
 }
 # the kernels each path launches
 SERVE_KERNELS = ("t5_rms_norm", "t5_gemm", "flash_fwd", "decode_cross_attention")
@@ -6502,6 +6514,138 @@ def multichip(card: str) -> tuple:
     return launches, summary
 
 
+UNIMOE2 = dict(vocab_size=1024, d_model=3584, num_layers=1, num_heads=28, num_kv_heads=4, d_ff=18944, moe_experts=4,
+               moe_null_experts=1, moe_top_k=2, moe_top_p=0.7, moe_d_ff=18944, moe_shared_experts=2,
+               moe_shared_d_ff=2368)  # one layer of Uni-MoE-2.0-Omni's language model
+
+
+def check_moe(checks: Checks, g: torch.Generator):
+    """15, the expert layer of `models/moe.py` at Uni-MoE-2.0-Omni's widths in
+    bf16, at the benchmark cell's prefill (B 32 x T 1,280, the rows' valid
+    lengths 1,280 down to 1,187) and decode (B 32) shapes: `glu_rows` over
+    the live rows against its plain version (bit for bit on those rows),
+    timed with its bound; the whole layer, kernels and plain, by events and
+    by device time; the two grouped GEMMs (`torch._grouped_mm` over the
+    device's offsets) against a loop of one product an expert over the same
+    sorted rows (its offsets read on the host); the routing shares of the
+    seeded router on random states. Then `serve_unimoe`. Returns (its
+    launches by path, the summary)."""
+    from rag_docvqa_tpu_torch import profiling
+    from rag_docvqa_tpu_torch.models import causal_lm as clm
+    from rag_docvqa_tpu_torch.models import moe
+    from rag_docvqa_tpu_torch.ops import lm_glue as lg
+
+    dev, bf = g.device, torch.bfloat16
+    cfg = clm.CausalLMConfig(**UNIMOE2)
+    block = moe.init_moe_block(lambda shape, std, dt: (torch.randn(shape, generator=g, device=dev) * std).to(dt), cfg,
+                               bf)
+    E, k, d = cfg.moe_experts, cfg.moe_top_k, cfg.d_model
+    width = cfg.moe_d_ff
+    plain_rows = lambda gu: lg.glu_reference(gu[:, :width], gu[:, width:], "silu")
+    out = {}
+    for B, T in ((32, 1280), (32, 1)):
+        tag = "prefill" if T > 1 else "decode"
+        h = torch.randn(B, T, d, generator=g, device=dev).to(bf)
+        valid = (torch.arange(T, device=dev)[None] < (T - 3 * torch.arange(B, device=dev))[:, None]) if T > 1 else None
+        x = h.reshape(-1, d)
+        experts, probs = moe.route(x, block.router, cfg)
+        kept = (experts >= 0) & (experts < E)
+        if valid is not None:
+            kept = kept & valid.reshape(-1, 1)
+        ids, order = torch.sort(torch.where(kept, experts, E).reshape(-1), stable=True)
+        offs = torch.searchsorted(ids, torch.arange(E, device=dev), right=True).to(torch.int32)
+        rows = x[torch.div(order, k, rounding_mode="floor")]
+        gu = moe._grouped(rows, block.gate_up, offs)
+        live = int(offs[-1])
+        got, want = lg.glu_rows(gu, "silu", offs[E - 1:]), plain_rows(gu)
+        checks.compare("lm_glu_rows", f"{tag} {live} live of {gu.shape[0]} rows x {width}", got[:live], want[:live],
+                       0.0)
+        checks.timed("lm_glu_rows", MOE_GLU_CASE % tag, lambda: lg.glu_rows(gu, "silu", offs[E - 1:]),
+                     lambda: plain_rows(gu), io_bytes=live * 3 * width * gu.element_size())
+        # the device time without `timed`'s profiler trace, after which this phase's run on the card never ended
+        checks.times["lm_glu_rows"][MOE_GLU_CASE % tag]["device_ms"] = device_ms(
+            lambda: lg.glu_rows(gu, "silu", offs[E - 1:]))
+        row = {"tokens": int(B * T if valid is None else valid.sum()), "pairs": live,
+               "one_pick": float(((experts[:, 1] < 0) & (valid.reshape(-1) if valid is not None else True)).sum()
+                                 / (B * T if valid is None else valid.sum())),
+               "null_picks": int(((experts >= E) & (valid.reshape(-1, 1) if valid is not None else True)).sum()),
+               "glu_rows": checks.times["lm_glu_rows"][MOE_GLU_CASE % tag]}
+        bounds = offs.tolist()
+
+        def grouped():
+            a = moe._grouped(rows, block.gate_up, offs)
+            return moe._grouped(lg.glu_rows(a, "silu", offs[E - 1:]), block.down, offs)
+
+        def looped():
+            outs, lo = [], 0
+            for e, hi in enumerate(bounds):
+                a = rows[lo:hi] @ block.gate_up[e].t()
+                outs.append(lg.glu_rows(a, "silu") @ block.down[e].t())
+                lo = hi
+            return torch.cat(outs)
+
+        same_products = (grouped()[:live].float() - looped().float()).abs().max().item()
+        with torch.no_grad():
+            fused = moe.expert_layer(h, block, cfg, True, valid)
+            plain = moe.expert_layer(h, block, cfg, False, valid)
+        keep = torch.ones(B * T, dtype=torch.bool, device=dev) if valid is None else valid.reshape(-1)
+        diff = (fused.reshape(-1, d)[keep].float() - plain.reshape(-1, d)[keep].float()).abs().max().item()
+        flops = 2.0 * live * 3 * d * width
+        weights = sum(1 for e in range(E) if (bounds[e] - (bounds[e - 1] if e else 0)) > 0) * 3 * d * width * 2
+        row.update(grouped_ms=device_ms(grouped), looped_ms=device_ms(looped), products_max_abs_diff=same_products,
+                   products_bound_ms=1e3 * max(flops / 989e12, weights / 3.35e12),
+                   layer_ms=time_ms(lambda: moe.expert_layer(h, block, cfg, True, valid)),
+                   layer_device_ms=device_ms(lambda: moe.expert_layer(h, block, cfg, True, valid)),
+                   layer_plain_ms=device_ms(lambda: moe.expert_layer(h, block, cfg, False, valid)),
+                   layer_fused_vs_plain_max_abs=diff, layer_max_abs=plain.float().abs().max().item())
+        out[tag] = row
+        log(f"phase 15 {tag}: {json.dumps(row)}")
+        del h, x, rows, gu, got, want, fused, plain
+        torch.cuda.empty_cache()
+    profiling.reset()
+    del block
+    torch.cuda.empty_cache()
+    launches, out["serve"] = serve_unimoe(g)
+    return launches, out
+
+
+def serve_unimoe(g: torch.Generator):
+    """15, a two-layer stack at Uni-MoE-2.0-Omni's widths (a vocabulary of
+    1,024, bf16, seeded) through `generate` at the cell's B 32 x T 1,280
+    (valid lengths 1,280 down to 1,187) and 16 new tokens, after a warm-up
+    call: every launch of the second call counted ("unimoe_serve"), the
+    gated product's rows form 2 a layer a pass (routed and shared experts),
+    none of the dense one's."""
+    from rag_docvqa_tpu_torch import kernels
+    from rag_docvqa_tpu_torch.models import causal_lm as clm
+
+    dev, L, B, T, new = g.device, 2, 32, 1280, 16
+    cfg = clm.CausalLMConfig(**dict(UNIMOE2, num_layers=L))
+    params = clm.init_causal_lm_params(g, cfg, torch.bfloat16)
+    ids = torch.randint(3, cfg.vocab_size, (B, T), generator=g, device=dev)
+    mask = torch.arange(T, device=dev)[None] < (T - 3 * torch.arange(B, device=dev))[:, None]
+    clm.generate(params, cfg, ids, mask, new)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    tokens, _ = clm.generate(params, cfg, ids, mask, new)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES, lm_glu_rows=kernels.FORM_LAUNCHES["lm_glu_rows"])
+    passes = 1 + new - 1
+    if launches["lm_glu_rows"] != 2 * L * passes or launches["lm_glu"] != launches["lm_glu_rows"]:
+        raise AssertionError(f"Uni-MoE serving launched lm_glu {launches['lm_glu']} times, its rows form "
+                             f"{launches['lm_glu_rows']}, not 2 x {L} layers x {passes} passes")
+    check_launched(launches, ("flash_fwd", "lm_add_rms_norm", "lm_bias_rope", "lm_glu", "lm_glu_rows"),
+                   "Uni-MoE serving")
+    summary = {"layers": L, "batch": B, "prompt": T, "new_tokens": new, "wall_ms": wall * 1e3,
+               "tokens_shape": list(tokens.shape), "launches": {k: n for k, n in launches.items() if n}}
+    log(f"phase 15 serve: {json.dumps(summary)}")
+    del params
+    torch.cuda.empty_cache()
+    return {"unimoe_serve": launches}, summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -6526,8 +6670,8 @@ def main() -> int:
     g = torch.Generator(device="cuda").manual_seed(SEED)
     checks = Checks()
     only = set(sys.argv[1:])  # e.g. `chip_smoke.py 8`: that phase alone, for work on it; no report
-    if only - {"3", "4", "5", "6", "7", "8", "9", "10", "11", "12", "13", "14"}:
-        raise SystemExit(f"usage: chip_smoke.py [phase ...], phases 3-14; got {sorted(only)}")
+    if only - {"3", "4", "5", "6", "7", "8", "9", "10", "11", "12", "13", "14", "15"}:
+        raise SystemExit(f"usage: chip_smoke.py [phase ...], phases 3-15; got {sorted(only)}")
     want = lambda phase: not only or phase in only
     launches, path_launches = {}, {}
     if want("3") or want("4") or want("5"):
@@ -6756,12 +6900,22 @@ def main() -> int:
         causal["clis"] = qwen_clis()
         path_launches.update(lora_sft=lora_launches, llm_rerank_serve=llm_rerank_launches, **qwen_launches)
         torch.cuda.empty_cache()
+    moe_summary = {}
+    if want("15"):
+        log(f"phase 15: the expert layer of Uni-MoE-2.0-Omni's language model at the cell's shapes; card and power "
+            f"limit: {card}")
+        with torch.inference_mode():
+            moe_launches, moe_summary = check_moe(checks, torch.Generator(device="cuda").manual_seed(SEED + 15))
+        launches["lm_glu_rows"] = moe_launches["unimoe_serve"]["lm_glu_rows"]
+        path_launches.update(moe_launches)
+        torch.cuda.empty_cache()
     if want("14"):
         group_launches, multichip_summary = multichip(card)
         path_launches.update(group_launches)
         torch.cuda.empty_cache()
     if only:
-        print(json.dumps({"ok": True, "phases": sorted(only), "card": card}), flush=True)
+        print(json.dumps({"ok": True, "phases": sorted(only), "card": card, "launches_by_path": path_launches}),
+              flush=True)
         return 0
 
     def times(unit: str, case: str) -> dict:
@@ -6830,6 +6984,8 @@ def main() -> int:
         "causal_lm": causal,
         # phase 14: the group paths (world-size-1 NCCL group) against their unsharded forms, the two-rank dry run
         "multichip": multichip_summary,
+        # phase 15: the expert layer at Uni-MoE-2.0-Omni's widths, grouped GEMMs against a loop an expert
+        "moe": moe_summary,
         # every kernel's launches in each path's run, counts set to 0 just before it
         "launches_by_path": path_launches,
         "card": card,

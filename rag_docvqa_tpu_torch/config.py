@@ -277,14 +277,26 @@ def build_reranker(c: Dict[str, Any], tokenizer, seed: int = 0, device="cuda"):
 QWEN_MODELS = ("qwen", "qwen2", "qwen2.5-vl", "ragqwen")
 
 
+MOE_KEYS = ("moe_experts", "moe_null_experts", "moe_top_k", "moe_top_p", "moe_d_ff", "moe_shared_experts",
+            "moe_shared_d_ff")
+
+
 def build_qwen_config(c: Dict[str, Any], vocab_size: int):
     """The Qwen engine's causal LM from the JAX keys (`d_model`,
-    `num_layers`, `num_heads`, `num_kv_heads`, `d_ff`) and the port's
+    `num_layers`, `num_heads`, `num_kv_heads`, `d_ff`), the port's
     `mrope_section` (Qwen2.5-VL's M-RoPE sections; unset, 1-D RoPE as in
-    JAX); the rest at the CausalLMConfig defaults (tied head, rope theta
-    1e6)."""
+    JAX) and the port's expert layer (`MOE_KEYS`, CausalLMConfig's fields of
+    the same names: Uni-MoE-2.0-Omni's routed, null and shared experts, top-k
+    and top-p; unset, every layer dense); the rest at the CausalLMConfig
+    defaults (tied head, rope theta 1e6). An expert layer without its widths
+    raises rather than run dense."""
     from rag_docvqa_tpu_torch.models.causal_lm import CausalLMConfig
 
+    experts = {k: c[k] for k in MOE_KEYS if k in c}
+    if experts.get("moe_experts") and not experts.get("moe_d_ff"):
+        raise ValueError("moe_experts without moe_d_ff: an expert layer needs its experts' width")
+    if experts.get("moe_shared_experts") and not experts.get("moe_shared_d_ff"):
+        raise ValueError("moe_shared_experts without moe_shared_d_ff")
     return CausalLMConfig(
         vocab_size=vocab_size,
         d_model=c.get("d_model", 1024),
@@ -293,6 +305,7 @@ def build_qwen_config(c: Dict[str, Any], vocab_size: int):
         num_kv_heads=c.get("num_kv_heads", 4),
         d_ff=c.get("d_ff", 2816),
         mrope_section=tuple(c.get("mrope_section", ())),
+        **experts,
     )
 
 
@@ -313,7 +326,9 @@ def build_engine(c: Dict[str, Any], params, tokenizer):
     `P2SParams`), RAG-Qwen for `model_name: Qwen` (params a `CausalLMParams`;
     with `use_visual` it carries the Qwen2.5-VL tower under `vision`, as
     JAX's tree does under `params["vision"]`, and the tower's config is
-    `build_qwen25_vision_config`'s), else RAG-VT5 (params a `VT5Params`), with the
+    `build_qwen25_vision_config`'s; with the `MOE_KEYS` every layer of the
+    tree holds an expert block, whose router it holds in float32 from then
+    on), else RAG-VT5 (params a `VT5Params`), with the
     rerank stage when `rerank` is set (its weights on the parameters' device,
     in their dtype) and the not-answerable classifier when
     `use_not_answerable_classifier` is: the parameters' own `nac`, else one
@@ -346,6 +361,12 @@ def build_engine(c: Dict[str, Any], params, tokenizer):
         # the head is tied or not as the parameters are (an untied tree carries `lm_head`)
         lm_cfg = dataclasses.replace(build_qwen_config(c, tokenizer.vocab_size),
                                      tie_word_embeddings=params.lm_head is None)
+        if any((layer.moe is not None) != bool(lm_cfg.moe_experts) for layer in params.layers):
+            raise ValueError(f"moe_experts {lm_cfg.moe_experts}: the parameter tree's layers do not match")
+        if lm_cfg.moe_experts:
+            from rag_docvqa_tpu_torch.models.moe import routers_to_float32
+
+            routers_to_float32(params)  # Uni-MoE-2.0-Omni's fp32_gate
         vision_cfg = vision_params = None
         if use_visual:
             # F10 (ROADMAP Queue 3): the JAX branch calls build_qwen_vision_config, which the JAX package

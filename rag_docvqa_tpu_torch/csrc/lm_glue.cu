@@ -3,7 +3,9 @@
 //
 //   lm_add_rms_norm  x' = x + d, h = rms(x') * w         (d may be absent: h = rms(x) * w)
 //   lm_bias_rope     q, k, v += their biases; q, k rotated by per-row cos/sin tables, in place
-//   lm_glu           out = act(g) * u, act SiLU (SwiGLU) or tanh-GELU (Gemma's gated MLP)
+//   lm_glu           out = act(g) * u, act SiLU (SwiGLU) or tanh-GELU (Gemma's gated MLP); also over
+//                    rows that hold their gate and then their up side by side (the one product of a
+//                    mixture-of-experts layer's gate and up), the rows to compute counted on the device
 //
 // Replaces no TPU kernel: the JAX package leaves this glue to XLA, which
 // fuses it into its neighbours. Run as plain PyTorch on the card, each op is
@@ -340,24 +342,41 @@ __device__ __forceinline__ float act(float x) {
   }
 }
 
-// N elements a thread a step over the flat (rows * width) tensors, GLU_UNROLL
-// steps a grid stride apart loaded before any is computed, so that each
-// thread keeps that many 16-byte loads of g and of u in flight
+// The gated product out = act(g) * u over `rows` rows of `width` elements,
+// out packed (rows, width), row r of g and of u starting at r * ld. The dense
+// MLP passes its whole gate and up as one row (ld = width); a mixture-of-experts
+// layer's rows hold a gate and then its up (u = g + width, ld = 2 * width), and
+// the rows it computes are known only on the device (the routed pairs sorted
+// by expert, a product's offsets), so `live`, when given, points at that count:
+// the rows past it are left as they are and no host read is needed. N elements
+// a thread a step over the packed output, GLU_UNROLL steps a grid stride apart
+// loaded before any is computed, so that each thread keeps that many 16-byte
+// loads of g and of u in flight; N divides width and ld.
 constexpr int GLU_UNROLL = 2;  // device ms at the Qwen2.5-VL-7B prefill on an H100: 1: 2.98, 2: 2.88, 4: 3.60
 
 template <typename T, int ACT, int N>
 __global__ void __launch_bounds__(256) glu_kernel(const T* __restrict__ g, const T* __restrict__ u,
-                                                  T* __restrict__ out, long long n) {
+                                                  T* __restrict__ out, long long rows, long long width, long long ld,
+                                                  const int* __restrict__ live) {
+  long long used = rows;
+  if (live != nullptr) {
+    const long long v = *live;
+    used = v < 0 ? 0 : (v < rows ? v : rows);
+  }
+  const long long n = used * width;
   const long long stride = (long long)gridDim.x * blockDim.x * N;
   for (long long base = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * N; base < n;
        base += stride * GLU_UNROLL) {
     float a[GLU_UNROLL][N], b[GLU_UNROLL][N];
 #pragma unroll
-    for (int r = 0; r < GLU_UNROLL; ++r)
-      if (base + r * stride < n) {
-        load_n<T, N, true>(g + base + r * stride, a[r]);
-        load_n<T, N, true>(u + base + r * stride, b[r]);
+    for (int r = 0; r < GLU_UNROLL; ++r) {
+      const long long at = base + r * stride;
+      if (at < n) {
+        const long long from = ld == width ? at : at + at / width * (ld - width);  // row * ld + column
+        load_n<T, N, true>(g + from, a[r]);
+        load_n<T, N, true>(u + from, b[r]);
       }
+    }
 #pragma unroll
     for (int r = 0; r < GLU_UNROLL; ++r)
       if (base + r * stride < n) {
@@ -369,11 +388,13 @@ __global__ void __launch_bounds__(256) glu_kernel(const T* __restrict__ g, const
 }
 
 template <typename T, int ACT>
-cudaError_t glu(const void* g, const void* u, void* out, long long n, cudaStream_t s) {
-  if (n <= 0) return cudaSuccess;
+cudaError_t glu(const void* g, const void* u, void* out, long long rows, long long width, long long ld,
+                const int* live, cudaStream_t s) {
+  if (rows <= 0 || width <= 0) return cudaSuccess;
+  if (ld < width) return cudaErrorInvalidValue;
   constexpr int VW = Vec16<T>::N;
-  const bool vec = n % VW == 0 && aligned16(g) && aligned16(u) && aligned16(out);
-  const long long items = vec ? n / VW : n;
+  const bool vec = width % VW == 0 && ld % VW == 0 && aligned16(g) && aligned16(u) && aligned16(out);
+  const long long items = vec ? rows * width / VW : rows * width;
   const long long need = (items + 256 * GLU_UNROLL - 1) / (256 * GLU_UNROLL);
   const T* gp = static_cast<const T*>(g);
   const T* up = static_cast<const T*>(u);
@@ -382,19 +403,20 @@ cudaError_t glu(const void* g, const void* u, void* out, long long n, cudaStream
   if (vec) {
     static const int per_sm = resident_blocks(glu_kernel<T, ACT, VW>, 256);
     glu_kernel<T, ACT, VW><<<(int)(need < (long long)sms * per_sm ? need : (long long)sms * per_sm), 256, 0, s>>>(
-        gp, up, op, n);
+        gp, up, op, rows, width, ld, live);
   } else {
     static const int per_sm = resident_blocks(glu_kernel<T, ACT, 1>, 256);
     glu_kernel<T, ACT, 1><<<(int)(need < (long long)sms * per_sm ? need : (long long)sms * per_sm), 256, 0, s>>>(
-        gp, up, op, n);
+        gp, up, op, rows, width, ld, live);
   }
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t glu_act(const void* g, const void* u, void* out, long long n, int act_code, cudaStream_t s) {
-  if (act_code == ACT_SILU) return glu<T, ACT_SILU>(g, u, out, n, s);
-  if (act_code == ACT_GELU_TANH) return glu<T, ACT_GELU_TANH>(g, u, out, n, s);
+cudaError_t glu_act(const void* g, const void* u, void* out, long long rows, long long width, long long ld,
+                    const int* live, int act_code, cudaStream_t s) {
+  if (act_code == ACT_SILU) return glu<T, ACT_SILU>(g, u, out, rows, width, ld, live, s);
+  if (act_code == ACT_GELU_TANH) return glu<T, ACT_GELU_TANH>(g, u, out, rows, width, ld, live, s);
   return cudaErrorInvalidValue;
 }
 
@@ -429,10 +451,14 @@ extern "C" int lm_bias_rope(void* q, void* k, void* v, const void* bq, const voi
   return (int)cudaErrorInvalidValue;
 }
 
-// g, u, out: n elements each in `dtype`; out = act(g) * u, act 0 SiLU, 1 tanh-GELU.
-extern "C" int lm_glu(const void* g, const void* u, void* out, long long n, int act_code, int dtype, void* stream) {
+// out (rows, width) = act(g) * u in `dtype`, act 0 SiLU, 1 tanh-GELU; row r of g and of u starts at r * ld
+// elements (the dense MLP: one row of n; the expert layer's [gate | up] rows: u = g + width, ld 2 * width).
+// `live`, when not null, is a device int: only the first min(*live, rows) rows are computed.
+extern "C" int lm_glu(const void* g, const void* u, void* out, long long rows, long long width, long long ld,
+                      const void* live, int act_code, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == DT_BF16) return (int)glu_act<__nv_bfloat16>(g, u, out, n, act_code, s);
-  if (dtype == DT_F32) return (int)glu_act<float>(g, u, out, n, act_code, s);
+  const int* lp = static_cast<const int*>(live);
+  if (dtype == DT_BF16) return (int)glu_act<__nv_bfloat16>(g, u, out, rows, width, ld, lp, act_code, s);
+  if (dtype == DT_F32) return (int)glu_act<float>(g, u, out, rows, width, ld, lp, act_code, s);
   return (int)cudaErrorInvalidValue;
 }

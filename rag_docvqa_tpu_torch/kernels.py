@@ -11,7 +11,8 @@ launch and `check` raises on anything but 0.
 `LAUNCHES` counts, per kernel, the launches made through the wrappers in
 `ops/`: each wrapper adds one where it launches, and nowhere else;
 `FORM_LAUNCHES` counts, at the same places, the launches of a kernel's
-form that a path must be shown to reach (K2 at dh 256). They, the loaded
+form that a path must be shown to reach (K2 at dh 256, the gated product
+over an expert layer's rows). They, the loaded
 library and the answers `resident` keeps are this package's only
 module-level state.
 """
@@ -63,6 +64,7 @@ LAUNCHES: Dict[str, int] = {
 # launches of one form of a kernel, counted besides the kernel's own count
 FORM_LAUNCHES: Dict[str, int] = {
     "flash_fwd_dh256": 0,  # K2 at a head dim above 128 (the 256-wide instantiation)
+    "lm_glu_rows": 0,      # lm_glu over the expert layer's [gate | up] rows, a live count on the device
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -94,7 +96,7 @@ _SIGNATURES = {
     "maxsim": [_P] * 6 + [_I] * 6 + [_P],
     "lm_add_rms_norm": [_P] * 5 + [_I, _I, _F, _I, _I, _P],
     "lm_bias_rope": [_P] * 8 + [_I] * 5 + [_LL, _LL, _I, _P],
-    "lm_glu": [_P] * 3 + [_LL, _I, _I, _P],
+    "lm_glu": [_P] * 3 + [_LL] * 3 + [_P, _I, _I, _P],
 }
 # occupancy queries (no launch, no counter): the blocks of a kernel an SM
 # holds at once, into the last pointer; asked through `resident`

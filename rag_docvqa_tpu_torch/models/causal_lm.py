@@ -51,6 +51,16 @@ reranker: `_glue_fused`), and as the plain ops otherwise (the CPU, LoRA's
 pass (the stack, a decode step) counts one `lm.glue_fused` or
 `lm.glue_plain`.
 
+A config with `moe_experts` set replaces every layer's dense feed-forward by
+the dynamic-capacity expert layer of `models/moe.py` (routed experts chosen
+by top-p under a top-k cap, null experts, shared experts; Uni-MoE-2.0-Omni's
+language model): the layer then holds a `MoEBlock` under `moe` and no
+gate/up/down projections, and `_stack` and `decode_step` call
+`moe.expert_layer` where `_mlp` runs for a dense layer (the prefill's padding
+takes no expert). Unset, every layer is dense and runs as before, bit for
+bit. The JAX package has no such layer; the int8 forms and the JAX and HF
+converters are dense only.
+
 Cast points follow JAX's rounding: the rotary tables in f32 from an f32
 `arange / head_dim`, the rotation in f32 then cast to x's dtype, Gemma's
 input scale rounded to x's dtype, Gemma's norm weight 1 + w formed in the
@@ -69,6 +79,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from rag_docvqa_tpu_torch import profiling
+from rag_docvqa_tpu_torch.models import moe
 from rag_docvqa_tpu_torch.models.layers import dense, frozen, masked_cross_entropy, normal_init
 from rag_docvqa_tpu_torch.ops import lm_glue
 from rag_docvqa_tpu_torch.ops.flash_attention import flash_attention
@@ -94,6 +105,14 @@ class CausalLMConfig:
     head_dim_override: int = 0  # gemma sets head_dim independent of d_model
     flash_prefill: bool = False  # JAX's TPU gate; the port always runs K2 (see the module docstring)
     mrope_section: Tuple[int, ...] = ()  # M-RoPE's (t, h, w) frequency counts, summing to head_dim / 2; () is off
+    # the expert layer (models/moe.py); moe_experts 0: every layer dense
+    moe_experts: int = 0  # routed experts a layer
+    moe_null_experts: int = 0  # experts that compute nothing, routed to like the others
+    moe_top_k: int = 2  # the most experts a token takes
+    moe_top_p: float = 1.0  # a token takes experts, most probable first, until their probabilities reach this
+    moe_d_ff: int = 0  # a routed expert's SwiGLU width
+    moe_shared_experts: int = 0  # experts every token takes, summed without a gate
+    moe_shared_d_ff: int = 0  # a shared expert's SwiGLU width
 
     @property
     def head_dim(self) -> int:
@@ -121,13 +140,16 @@ class Proj(nn.Module):
 
 
 class CausalLMLayer(nn.Module):
-    """ln0, the q/k/v/o projections, ln1, the gate/up/down projections."""
+    """ln0, the q/k/v/o projections, ln1, the gate/up/down projections; or,
+    for an expert layer, `moe` (a `moe.MoEBlock`) and no gate/up/down."""
 
-    def __init__(self, ln0, q: Proj, k: Proj, v: Proj, o: Proj, ln1, gate: Proj, up: Proj, down: Proj):
+    def __init__(self, ln0, q: Proj, k: Proj, v: Proj, o: Proj, ln1, gate: Optional[Proj] = None,
+                 up: Optional[Proj] = None, down: Optional[Proj] = None, moe: Optional[nn.Module] = None):
         super().__init__()
         self.ln0, self.ln1 = _hold(ln0), _hold(ln1)
         self.q, self.k, self.v, self.o = q, k, v, o
         self.gate, self.up, self.down = gate, up, down
+        self.moe = moe
 
 
 PROJ_NAMES = ("q", "k", "v", "o", "gate", "up", "down")
@@ -159,7 +181,8 @@ def init_causal_lm_params(generator: torch.Generator, cfg: CausalLMConfig,
     distributions: N(0, 1/din) projections, N(0, 0.02^2) embeddings, an
     untied head N(0, 1/d), zero biases, unit norms. Each tensor is drawn in
     f32 and cast to `dtype` before the next is drawn, so the transient f32
-    memory is one tensor."""
+    memory is one tensor. An expert layer's tensors: `moe.init_moe_block`
+    (the router in f32)."""
     g, d, dev = generator, cfg.d_model, generator.device
     hd = cfg.head_dim
     q_dim, kv_dim = cfg.num_heads * hd, cfg.num_kv_heads * hd
@@ -168,11 +191,15 @@ def init_causal_lm_params(generator: torch.Generator, cfg: CausalLMConfig,
     def lin(din, dout, bias):
         return Proj(draw((dout, din), din**-0.5), torch.zeros(dout, dtype=dtype, device=dev) if bias else None)
 
+    def ffn():
+        if cfg.moe_experts:
+            return dict(moe=moe.init_moe_block(lambda shape, std, dt: normal_init(g, shape, std).to(dt), cfg, dtype))
+        return dict(gate=lin(d, cfg.d_ff, False), up=lin(d, cfg.d_ff, False), down=lin(cfg.d_ff, d, False))
+
     embed = draw((cfg.vocab_size, d), 0.02)
     layers = [CausalLMLayer(torch.ones(d, dtype=dtype, device=dev), lin(d, q_dim, cfg.qkv_bias),
                             lin(d, kv_dim, cfg.qkv_bias), lin(d, kv_dim, cfg.qkv_bias), lin(q_dim, d, False),
-                            torch.ones(d, dtype=dtype, device=dev), lin(d, cfg.d_ff, False), lin(d, cfg.d_ff, False),
-                            lin(cfg.d_ff, d, False))
+                            torch.ones(d, dtype=dtype, device=dev), **ffn())
               for _ in range(cfg.num_layers)]
     head = None if cfg.tie_word_embeddings else draw((cfg.vocab_size, d), d**-0.5)
     return CausalLMParams(embed, layers, torch.ones(d, dtype=dtype, device=dev), head)
@@ -198,7 +225,10 @@ def quantize_weights_int8(params: CausalLMParams) -> CausalLMParams:
     """Symmetric per-output-channel int8 of every projection, the embedding
     table (a scale per row) and an untied head; norms and biases stay as
     they are. The JAX function's tree: its per-input-dim reduction of an
-    (in, out) kernel is the per-row one of the (out, in) weight here."""
+    (in, out) kernel is the per-row one of the (out, in) weight here. Dense
+    layers only."""
+    if any(l.moe is not None for l in params.layers):
+        raise NotImplementedError("int8 weights of an expert layer: the port quantizes dense layers only")
     layers = [CausalLMLayer(l.ln0, *(_quant_proj(getattr(l, n)) for n in ("q", "k", "v", "o")), l.ln1,
                             *(_quant_proj(getattr(l, n)) for n in ("gate", "up", "down")))
               for l in params.layers]
@@ -224,7 +254,9 @@ def init_causal_lm_params_int8(generator: torch.Generator, cfg: CausalLMConfig,
     embedding table and an untied head one vocabulary block at a time (the
     largest divisor of V up to 16 blocks), as JAX's `lax.map` does; the f32
     transient is one slice. Norms and biases are made in `dtype`. Same
-    distributions as `init_causal_lm_params`, other values."""
+    distributions as `init_causal_lm_params`, other values. Dense only."""
+    if cfg.moe_experts:
+        raise NotImplementedError("int8 weights of an expert layer: the port quantizes dense layers only")
     g, d, dev = generator, cfg.d_model, generator.device
     hd = cfg.head_dim
     q_dim, kv_dim = cfg.num_heads * hd, cfg.num_kv_heads * hd
@@ -313,8 +345,9 @@ def _records_graph(*held) -> bool:
         return False
     for t in held:
         if isinstance(t, CausalLMLayer):
-            ts = [t.ln0, t.ln1] + [getattr(getattr(t, n), a) for n in PROJ_NAMES
+            ts = [t.ln0, t.ln1] + [getattr(getattr(t, n), a) for n in PROJ_NAMES if getattr(t, n) is not None
                                    for a in ("weight", "bias", "q8", "scale")]
+            ts += list(t.moe.tensors()) if t.moe is not None else []
             if any(u is not None and u.requires_grad for u in ts):
                 return True
         elif t is not None and t.requires_grad:
@@ -349,6 +382,17 @@ def _act_name(cfg: CausalLMConfig) -> str:
 def _mlp(h: torch.Tensor, layer: CausalLMLayer, cfg: CausalLMConfig, fused: bool) -> torch.Tensor:
     glu = lm_glue.glu if fused else lm_glue.glu_reference  # gate and up are freed before the down product
     return _proj(glu(_proj(h, layer.gate), _proj(h, layer.up), _act_name(cfg)), layer.down)
+
+
+def _ffn(h: torch.Tensor, layer: CausalLMLayer, cfg: CausalLMConfig, fused: bool,
+         valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The layer's feed-forward: the expert layer (`moe.expert_layer`, the
+    positions outside `valid` taking no expert) where the layer holds one,
+    else the dense `_mlp` (`config.build_engine` holds the tree to the
+    config)."""
+    if layer.moe is not None:
+        return moe.expert_layer(h, layer.moe, cfg, fused, valid)
+    return _mlp(h, layer, cfg, fused)
 
 
 def _splice(x, visual_embeds, visual_mask):
@@ -398,7 +442,7 @@ def _stack(params: CausalLMParams, cfg: CausalLMConfig, input_ids, attention_mas
         d = None  # not held through the layer
         q, k, v = _qkv(h, layer, cfg, cos, sin, fused)
         x, h = _add_ln(x, _proj(_attend_causal(cfg, q, k, v, mask), layer.o), layer.ln1, cfg, fused)
-        d = _mlp(h, layer, cfg, fused)
+        d = _ffn(h, layer, cfg, fused, mask)
         if cache_len:
             ks.append(F.pad(k.transpose(1, 2), (0, 0, 0, cache_len - T)))
             vs.append(F.pad(v.transpose(1, 2), (0, 0, 0, cache_len - T)))
@@ -492,7 +536,7 @@ def decode_step(params: CausalLMParams, cfg: CausalLMConfig, cache: LMCache, tok
         cache.v[l, :, :, step] = v_new[:, 0]
         x, h = _add_ln(x, _proj(_attend_gqa_one(q[:, 0], cache.k[l], cache.v[l], mask, hd), layer.o), layer.ln1,
                        cfg, fused)
-        d = _mlp(h, layer, cfg, fused)
+        d = _ffn(h, layer, cfg, fused)
     h = _add_ln(x, d, params.final_ln, cfg, _glue_fused(x, d, params.final_ln))[1]
     return _lm_logits(params, cfg, h), cache
 

@@ -44,7 +44,7 @@ def init_lora(generator: torch.Generator, params: CausalLMParams, targets: Seque
         pairs = {}
         for name in targets:
             p = getattr(layer, name)
-            if p.weight is None:
+            if p is None or p.weight is None:  # an expert layer has no dense gate/up/down
                 continue
             dout, din = p.weight.shape
             pairs[name] = LoRAPair(normal_init(generator, (din, rank), rank**-0.5),
@@ -67,7 +67,7 @@ def merge_lora(params: CausalLMParams, lora: LoRAParams, scale: float = 2.0) -> 
                 p = Proj(p.weight + delta.t().to(p.weight.dtype), p.bias)
             projs[name] = p
         layers.append(CausalLMLayer(layer.ln0, projs["q"], projs["k"], projs["v"], projs["o"], layer.ln1,
-                                    projs["gate"], projs["up"], projs["down"]))
+                                    projs["gate"], projs["up"], projs["down"], moe=layer.moe))
     return CausalLMParams(params.embed, layers, params.final_ln, params.lm_head, params.embed_scale,
                           params.lm_head_scale)
 

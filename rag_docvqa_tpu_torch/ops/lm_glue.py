@@ -7,13 +7,17 @@ layer's GEMMs on the card.
                   projections' outputs (the port may update in place where
                   that saves a copy: nothing else holds them);
   `glu`           the gated MLP's act(gate) * up, SiLU (Qwen2) or tanh-GELU
-                  (Gemma).
+                  (Gemma);
+  `glu_rows`      the same kernel over rows that hold the gate and then the
+                  up side by side (one product of both, as the expert layer of
+                  `models/moe.py` makes it), computing only the rows that a
+                  device count says are live.
 
 No TPU kernel is replaced: the JAX package leaves this glue to XLA. Each
 wrapper launches its kernel on CUDA tensors and runs its plain version on
 CPU tensors (`add_rms_norm_reference`, `bias_rope_reference`,
-`glu_reference`); the plain versions are the arithmetic `causal_lm` runs
-where the kernels are not taken, and round where it rounds, so the rotary
+`glu_reference`, over the two halves of a row for `glu_rows`); the plain
+versions are the arithmetic `causal_lm` runs where the kernels are not taken, and round where it rounds, so the rotary
 and the gated product give the same bits and the norm the same up to one ulp
 of the working dtype (its sum of squares is taken in another order).
 """
@@ -125,15 +129,40 @@ def bias_rope_(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bq: Optional[t
     kernels.LAUNCHES["lm_bias_rope"] += 1
 
 
+def _glu(g: torch.Tensor, u: torch.Tensor, rows: int, width: int, ld: int, live: Optional[torch.Tensor],
+         act_name: str) -> torch.Tensor:
+    out = torch.empty(rows, width, dtype=g.dtype, device=g.device)
+    err = kernels.library().lm_glu(g.data_ptr(), u.data_ptr(), out.data_ptr(), rows, width, ld,
+                                   None if live is None else live.data_ptr(), ACTS[act_name],
+                                   kernels.dtype_code(g, _FLOATS), kernels.stream_ptr(g))
+    kernels.check("lm_glu", err)
+    kernels.LAUNCHES["lm_glu"] += 1
+    return out
+
+
 def glu(g: torch.Tensor, u: torch.Tensor, act_name: str) -> torch.Tensor:
     """act(g) * u (`ACTS`), each rounded to g's dtype as the plain ops round."""
     if not kernels.on_cuda(g, u):
         return glu_reference(g, u, act_name)
     kernels.require(g.shape == u.shape and g.dtype == u.dtype and g.is_contiguous() and u.is_contiguous(),
                     "glu: need contiguous gate and up of one shape and dtype")
-    out = torch.empty_like(g)
-    err = kernels.library().lm_glu(g.data_ptr(), u.data_ptr(), out.data_ptr(), g.numel(), ACTS[act_name],
-                                   kernels.dtype_code(g, _FLOATS), kernels.stream_ptr(g))
-    kernels.check("lm_glu", err)
-    kernels.LAUNCHES["lm_glu"] += 1
+    return _glu(g, u, 1, g.numel(), g.numel(), None, act_name).view(g.shape)
+
+
+def glu_rows(gu: torch.Tensor, act_name: str, live: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """gu (rows, 2 * width), each row its gate then its up -> act(gate) * up
+    (rows, width), rounded as `glu` rounds, through `glu`'s kernel (counted
+    besides under `kernels.FORM_LAUNCHES["lm_glu_rows"]`). `live`, a
+    one-element int32 tensor on gu's device, counts the leading rows to
+    compute: the rows after it are left unset, and nothing is read back to
+    the host."""
+    width = gu.shape[-1] // 2
+    if not kernels.on_cuda(gu, live):
+        return glu_reference(gu[..., :width], gu[..., width:], act_name)
+    kernels.require(gu.dim() == 2 and gu.shape[1] % 2 == 0 and gu.is_contiguous(),
+                    f"glu_rows: need contiguous (rows, 2 * width) rows, got {tuple(gu.shape)}")
+    kernels.require(live is None or (live.dtype == torch.int32 and live.numel() == 1),
+                    "glu_rows: the live row count is one int32")
+    out = _glu(gu, gu[:, width:], gu.shape[0], width, 2 * width, live, act_name)
+    kernels.FORM_LAUNCHES["lm_glu_rows"] += 1
     return out

@@ -47,8 +47,11 @@ the causal LM's `lm.glue_fused` and `lm.glue_plain` (host,
 a decode step), by whether that layer's elementwise glue took its kernels;
 the Qwen2.5-VL tower's `vision.mlp_padded` and `vision.mlp_plain` (host,
 `models/qwen25_vision.py`): one a layer a tower call, by whether that
-layer's feed-forward read the copy padded to an 8-aligned intermediate.
-The benchmark's
+layer's feed-forward read the copy padded to an 8-aligned intermediate;
+the expert layer's (`models/moe.py`) span `moe.layer` with its children
+`moe.route`, `moe.experts` and `moe.shared`, the host counter `moe.layers`
+(one a layer a pass) and the device counters `moe.tokens`,
+`moe.routed_pairs`, `moe.null_picks` and `moe.one_pick`. The benchmark's
 `perfbench/spans.py` and its readers in `perfbench/metrics/` read them.
 """
 
@@ -142,6 +145,12 @@ def device_count(name: str, t) -> None:
     """Keeps `t.sum()` (a mask or integer tensor), left on `t`'s device."""
     if _on:
         _counts.append((name, time.perf_counter_ns(), t.sum()))
+
+
+def enabled() -> bool:
+    """Whether the tracer is on: a caller that must launch work to count
+    (a mask made only for a device count) asks first."""
+    return _on
 
 
 def enable() -> None:

@@ -63,10 +63,13 @@ def _inputs():
 
 
 def _jax_fields(cfg) -> dict:
-    """The port's config as JAX's has it: the fields JAX has, the port's one
-    more (`mrope_section`, M-RoPE's sections) at its default, off."""
-    assert cfg.mrope_section == ()
-    return {k: v for k, v in vars(cfg).items() if k != "mrope_section"}
+    """The port's config as JAX's has it: the fields JAX has, the port's
+    others (`mrope_section`, M-RoPE's sections; the expert layer's `moe_*`)
+    at their defaults, off."""
+    default = C.CausalLMConfig()
+    own = [k for k in vars(cfg) if k == "mrope_section" or k.startswith("moe_")]
+    assert all(getattr(cfg, k) == getattr(default, k) for k in own)
+    return {k: v for k, v in vars(cfg).items() if k not in own}
 
 
 def _close(got, want, rel, where=None):

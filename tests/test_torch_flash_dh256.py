@@ -69,4 +69,4 @@ def test_head_dim_limits_of_the_two_kernels():
     text = (kernels.CSRC / "flash_fwd.cu").read_text()
     assert "if (dh <= 256) return launch<float, BT, 256>" in text
     assert "if (dh <= 256) return vec ? launch_wgmma<BT, 256, true>" in text
-    assert kernels.FORM_LAUNCHES == {"flash_fwd_dh256": 0}
+    assert kernels.FORM_LAUNCHES == {"flash_fwd_dh256": 0, "lm_glu_rows": 0}

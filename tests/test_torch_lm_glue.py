@@ -237,7 +237,8 @@ def test_glu_arguments(recorder, act):
     out = G.glu(g, u, act)
     (name, args), = recorder.calls
     assert name == "lm_glu" and len(args) == len(kernels._SIGNATURES[name])
-    assert args == (g.data_ptr(), u.data_ptr(), out.data_ptr(), 120, G.ACTS[act], 0, 7)
+    assert args == (g.data_ptr(), u.data_ptr(), out.data_ptr(), 1, 120, 120, None, G.ACTS[act], 0, 7)
+    assert out.shape == g.shape and kernels.FORM_LAUNCHES["lm_glu_rows"] == 0
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(recorder):
